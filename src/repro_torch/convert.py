@@ -1,0 +1,43 @@
+"""Carry weights across from the JAX package, as numpy arrays.
+
+The JAX package's parameter and adapter pytrees are nested dicts; turn each
+leaf into numpy (``jax.tree.map(np.asarray, tree)``) and hand the tree here.
+numpy has no bfloat16 of its own: a bf16 leaf arrives either as an
+``ml_dtypes`` bfloat16 array or as float32, and goes through float32 into a
+torch bfloat16 tensor.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.utils import canonical_dtype, resolve_device
+
+
+def _leaf(a, float_dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    is_float = a.dtype.kind == "f" or a.dtype.name == "bfloat16"
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    t = torch.from_numpy(np.array(a))   # a writable, contiguous copy
+    return t.to(device=device, dtype=float_dtype if is_float else t.dtype)
+
+
+def _tree(tree, float_dtype: torch.dtype, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, float_dtype, device) for k, v in tree.items()}
+    return _leaf(tree, float_dtype, device)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+    """The JAX parameter pytree (numpy leaves) -> the port's parameters. Float
+    leaves take ``cfg.param_dtype``, the dtype JAX's ``init`` gives them."""
+    return _tree(tree, canonical_dtype(cfg.param_dtype), resolve_device(device))
+
+
+def bank_from_numpy(tree: dict, device="cuda", dtype="float32") -> dict:
+    """One user's adapter pytree {tap: {"A": (L, d, r), "B": (L, r, d_out)}}
+    (numpy leaves) -> torch tensors in ``dtype`` (f32, as JAX initialises
+    adapters and as the f32 bank stores them)."""
+    return _tree(tree, canonical_dtype(dtype), resolve_device(device))

@@ -1,0 +1,75 @@
+"""Tap machinery: the named Dense sites ``y = x @ W`` where ColA may
+
+  (1) apply an adapter:   y += scale * g_w(x)
+  (2) inject a delta:     y += delta
+  (3) record the hidden input x.
+
+``ColaSpec`` is static (hashable). The matching vars are
+{"adapters": {tap: w}, "deltas": {tap: tensor}}. Taps inside the layer stack
+are named ``layers.<site>`` and their vars carry a leading (L,) axis, which
+the model's layer loop slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import torch
+
+from repro_torch.core import adapters as adapters_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class TapSite:
+    """Static description of one tappable Dense site."""
+    name: str          # e.g. "layers.attn.q"
+    d_in: int
+    d_out: int
+    stacked: int = 0   # number of stacked layers (0 = unstacked)
+
+
+@dataclasses.dataclass(frozen=True)
+class ColaSpec:
+    """Static ColA call configuration."""
+    families: tuple[tuple[str, str], ...] = ()  # (tap_name, family)
+    collect: tuple[str, ...] = ()               # taps whose hidden input to record
+    inject: tuple[str, ...] = ()                # taps with delta injection
+    scale: float = 1.0
+
+    @property
+    def family_map(self) -> dict[str, str]:
+        return dict(self.families)
+
+
+def make_spec(*, family: str | None = None,
+              families: Mapping[str, str] | None = None,
+              taps: tuple[str, ...] = (), collect: tuple[str, ...] = (),
+              inject: tuple[str, ...] = (), scale: float = 1.0) -> ColaSpec:
+    fam: dict[str, str] = dict(families or {})
+    if family is not None:
+        for t in taps:
+            fam.setdefault(t, family)
+    return ColaSpec(families=tuple(sorted(fam.items())), collect=tuple(collect),
+                    inject=tuple(inject), scale=scale)
+
+
+def apply_tap(spec: ColaSpec | None, name: str, x: torch.Tensor,
+              y: torch.Tensor, adapters: Mapping[str, Any] | None = None,
+              deltas: Mapping[str, Any] | None = None
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Apply adapter/injection at a tap; returns (y', collected_aux).
+    ``adapters``/``deltas`` hold the per-call (already layer-sliced) vars."""
+    if spec is None:
+        return y, {}
+    aux: dict[str, torch.Tensor] = {}
+    if name in spec.collect:
+        aux[name] = x
+    fam = spec.family_map.get(name)
+    if fam is not None and adapters and name in adapters:
+        g = adapters_lib.apply(fam, adapters[name], x)
+        # the scale is rounded to y's dtype first, as jnp.asarray(scale, dt)
+        s = float(torch.tensor(spec.scale, dtype=y.dtype))
+        y = y + s * g.to(y.dtype)
+    if deltas and name in deltas and name in spec.inject:
+        y = y + deltas[name].to(y.dtype)
+    return y, aux

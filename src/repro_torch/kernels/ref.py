@@ -1,0 +1,128 @@
+"""Plain PyTorch versions of the kernels on the serving path.
+
+These are the semantics of the kernels (ported from the JAX package's
+``kernels/ref.py``): the CPU path of every wrapper, and the yardstick each
+CUDA kernel is held against on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# scaled dot-product attention (flash_attention oracle)
+# ---------------------------------------------------------------------------
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         q_positions: torch.Tensor, kv_positions: torch.Tensor,
+         causal: bool = True, window: int | None = None,
+         softcap: float | None = None, scale: float | None = None,
+         q_block: int = 512, with_lse: bool = False):
+    """Reference GQA attention. Runs query blocks one at a time when Sq is
+    large, so the full (Sq, Sk) score matrix is never materialised.
+
+    q: (B, Sq, H, Dh); k, v: (B, Sk, K, Dh) with H = K * G.
+    q_positions: (B, Sq) or (1, Sq); kv_positions: (B, Sk) or (1, Sk).
+    Masking: causal -> kv_pos <= q_pos; window -> kv_pos > q_pos - window.
+    ``with_lse`` also returns the per-row log-sum-exp (B, H, Sq) in f32
+    (NEG_INF for a fully masked row), as the flash kernel does.
+    """
+    B, Sq = q.shape[0], q.shape[1]
+    if Sq > 2 * q_block and Sq % q_block == 0:
+        qp = q_positions.expand(B, Sq)
+        outs = [_sdpa_dense(q[:, i:i + q_block], k, v,
+                            q_positions=qp[:, i:i + q_block],
+                            kv_positions=kv_positions, causal=causal,
+                            window=window, softcap=softcap, scale=scale,
+                            with_lse=with_lse)
+                for i in range(0, Sq, q_block)]
+        if with_lse:
+            return (torch.cat([o for o, _ in outs], dim=1),
+                    torch.cat([l for _, l in outs], dim=2))
+        return torch.cat(outs, dim=1)
+    return _sdpa_dense(q, k, v, q_positions=q_positions,
+                       kv_positions=kv_positions, causal=causal, window=window,
+                       softcap=softcap, scale=scale, with_lse=with_lse)
+
+
+def _sdpa_dense(q, k, v, *, q_positions, kv_positions, causal=True,
+                window=None, softcap=None, scale=None, with_lse=False):
+    B, Sq, H, Dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    if scale is None:
+        scale = Dh ** -0.5
+    f32 = torch.float32
+    qp = q_positions.to(torch.int32)[:, None, :, None]    # (B,1,Sq,1)
+    kp = kv_positions.to(torch.int32)[:, None, None, :]   # (B,1,1,Sk)
+    mask = torch.ones((1, 1, Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None and window > 0:
+        mask = mask & (kp > qp - window)
+    mask = mask.expand(B, 1, Sq, Sk)
+
+    # Grouped form: q heads (K, G) against the K kv heads, so KV is never
+    # repeated in memory. Products accumulate in f32 like the MXU's.
+    qg = q.reshape(B, Sq, K, G, Dh).to(f32)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(f32)) * scale
+    s = s.reshape(B, H, Sq, Sk)
+    if softcap is not None and softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    # rows with no valid key (fully masked) produce uniform p; zero them out.
+    any_valid = mask.any(dim=-1, keepdim=True)
+    p = torch.where(any_valid, p, torch.zeros_like(p))
+    pg = p.to(q.dtype).to(f32).reshape(B, K, G, Sq, Sk)
+    o = torch.einsum("bkgqs,bskd->bqkgd", pg, v.to(f32)).reshape(B, Sq, H, Dh)
+    o = o.to(q.dtype)
+    if not with_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)
+    lse = torch.where(any_valid[..., 0], lse, torch.full_like(lse, NEG_INF))
+    return o, lse
+
+
+def sdpa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                positions: torch.Tensor, *, live: torch.Tensor | None = None,
+                window: int | None = None, softcap: float | None = None,
+                scale: float | None = None) -> torch.Tensor:
+    """Incremental attention against a slot KV cache (fused-kernel oracle).
+    q: (B, Sq, H, Dh); caches: (B, Smax, K, Dh); positions: (B,) each row's
+    first query position (query i sits at positions + i; the cache is valid at
+    kv_pos <= that query's position). ``live``: (B,) bool; non-live slots
+    return zeros.
+    """
+    B, Sq = q.shape[0], q.shape[1]
+    Smax = k_cache.shape[1]
+    ar_q = torch.arange(Sq, dtype=torch.int32, device=q.device)
+    q_pos = positions.to(torch.int32)[:, None] + ar_q[None]
+    kv_pos = torch.arange(Smax, dtype=torch.int32, device=q.device)[None]
+    o = sdpa(q, k_cache, v_cache, q_positions=q_pos, kv_positions=kv_pos,
+             causal=True, window=window, softcap=softcap, scale=scale)
+    if live is not None:
+        o = torch.where(live[:, None, None, None], o, torch.zeros_like(o))
+    return o
+
+
+# ---------------------------------------------------------------------------
+# multi_lora oracle: per-token adapter-indexed low-rank apply (FTaaS serving)
+# ---------------------------------------------------------------------------
+
+def multi_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+               idx: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """y[t] = scale * (x[t] @ A[idx[t]]) @ B[idx[t]].
+
+    x: (T, d_in); A: (U, d_in, r); B: (U, r, d_out); idx: (T,) int in [0, U).
+    Rows with idx < 0 are padding and contribute exactly zero.
+    """
+    safe = idx.long().clamp(0, A.shape[0] - 1)
+    a = A[safe].to(torch.float32)                  # (T, d_in, r)
+    b = B[safe].to(torch.float32)                  # (T, r, d_out)
+    xa = torch.einsum("td,tdr->tr", x.to(torch.float32), a)
+    y = torch.einsum("tr,tro->to", xa, b)
+    y = torch.where((idx >= 0)[:, None], y, torch.zeros_like(y))
+    return (scale * y).to(x.dtype)

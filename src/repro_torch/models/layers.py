@@ -1,0 +1,74 @@
+"""Primitive layers: plain functions over dicts of tensors.
+
+- Dense weights are stored as (d_in, d_out) in ``param_dtype``; compute
+  happens in the activation dtype.
+- Every Dense call may carry a *tap name* (see ``core.taps``). ``tap_ctx`` is
+  the 4-tuple ``(spec, adapters, deltas, aux)`` threaded by the model; ``aux``
+  is a dict the caller owns.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import taps as taps_lib
+
+
+def dense(params: dict, x: torch.Tensor, *, tap: str | None = None,
+          tap_ctx: tuple | None = None) -> torch.Tensor:
+    """y = x @ W (+ ColA tap application)."""
+    y = x @ params["w"].to(x.dtype)
+    if tap is not None and tap_ctx is not None:
+        spec, adapters, deltas, aux = tap_ctx
+        y, collected = taps_lib.apply_tap(spec, tap, x, y, adapters, deltas)
+        aux.update(collected)
+    return y
+
+
+def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
+    return params["emb"][ids.long()]
+
+
+def rmsnorm(params: dict, x: torch.Tensor, *, eps: float = 1e-5
+            ) -> torch.Tensor:
+    """RMSNorm in f32, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"].to(torch.float32)).to(dt)
+
+
+def rope_freqs(d_head: int, theta: float, device) -> torch.Tensor:
+    exponent = torch.arange(0, d_head, 2, dtype=torch.float32,
+                            device=device) / d_head
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S). Rotates the
+    split halves of Dh (not interleaved pairs), as the JAX package does."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (Dh/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs  # (..., S, Dh/2)
+    cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, Dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp(params: dict, x: torch.Tensor, *, act: str = "silu",
+        tap_prefix: str | None = None, tap_ctx: tuple | None = None
+        ) -> torch.Tensor:
+    """Gated MLP (SwiGLU / GeGLU)."""
+    t = (lambda s: f"{tap_prefix}.{s}") if tap_prefix else (lambda s: None)
+    g = dense(params["gate"], x, tap=t("gate"), tap_ctx=tap_ctx)
+    u = dense(params["up"], x, tap=t("up"), tap_ctx=tap_ctx)
+    if act == "silu":
+        h = F.silu(g) * u
+    elif act == "gelu":
+        h = F.gelu(g, approximate="tanh") * u
+    else:
+        raise ValueError(act)
+    return dense(params["down"], h, tap=t("down"), tap_ctx=tap_ctx)

@@ -1,0 +1,291 @@
+"""LM assembly for the uniform-attention layer plan (the dense family, e.g.
+``smollm-135m``): embedding -> a Python loop over the stacked pre-norm blocks
+(where JAX has ``lax.scan``) -> final norm -> tied head.
+
+Parameters are the JAX package's pytree as nested dicts of tensors, layer
+leaves stacked on a leading (L,) axis. The other layer plans (``pairs``,
+``hybrid``, SSM) are still to be ported (ROADMAP.md).
+
+Entry points: init, prefill, decode_step, init_cache, scatter_prefill_cache,
+tap_sites.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.taps import ColaSpec, TapSite
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.utils import canonical_dtype, resolve_device
+
+
+# ---------------------------------------------------------------------------
+# layer plan
+# ---------------------------------------------------------------------------
+
+def layer_plan(cfg: ModelConfig):
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        starts = list(range(0, cfg.n_layers, every))
+        segs = [(s, min(s + every, cfg.n_layers) - s) for s in starts]
+        return ("hybrid", segs)
+    if cfg.family == "dense" and cfg.attn_pattern == "local_global":
+        return ("pairs", cfg.n_layers // 2)
+    kind = "ssm" if cfg.family == "ssm" else "attn"
+    return ("uniform", kind)
+
+
+def _require_uniform_attn(cfg: ModelConfig) -> None:
+    """The port runs the llama-style uniform-attention plan; every other plan
+    and architecture feature raises instead of running half-supported."""
+    plan = layer_plan(cfg)
+    if plan[0] != "uniform" or plan[1] != "attn":
+        raise NotImplementedError(f"{cfg.name}: layer plan {plan[0]}/{plan[1]} "
+                                  "is not ported yet (see ROADMAP.md)")
+    extras = [f for f in ("n_codebooks", "embed_input", "qk_norm", "post_norm",
+                          "norm_plus_one", "embed_scale", "final_softcap",
+                          "attn_softcap") if getattr(cfg, f)]
+    if extras or not cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.name}: {extras or 'untied head'} "
+                                  "not ported yet (see ROADMAP.md)")
+
+
+def _layer(tree, i: int):
+    """Layer i of a pytree whose leaves carry a leading (L,) axis (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _subvars(d: dict | None, prefix: str) -> dict:
+    if not d:
+        return {}
+    return {k: v for k, v in d.items() if k.startswith(prefix + ".")}
+
+
+# ---------------------------------------------------------------------------
+# tap sites
+# ---------------------------------------------------------------------------
+
+def tap_sites(cfg: ModelConfig) -> dict[str, TapSite]:
+    _require_uniform_attn(cfg)
+    sites = {}
+    n = cfg.n_layers
+    for nm, din, dout in [
+        ("attn.q", cfg.d_model, cfg.n_heads * cfg.d_head),
+        ("attn.k", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
+        ("attn.v", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
+        ("attn.o", cfg.n_heads * cfg.d_head, cfg.d_model),
+        ("mlp.gate", cfg.d_model, cfg.d_ff),
+        ("mlp.up", cfg.d_model, cfg.d_ff),
+        ("mlp.down", cfg.d_ff, cfg.d_model),
+    ]:
+        sites[f"layers.{nm}"] = TapSite(f"layers.{nm}", din, dout, n)
+    return sites
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
+    """Random parameters with the JAX package's shapes, scales and dtypes,
+    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
+    numbers differ from ``jax.random``'s; tests carry JAX weights across with
+    ``convert.params_from_numpy`` instead)."""
+    _require_uniform_attn(cfg)
+    dev = resolve_device(device)
+    dt = canonical_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, std):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (w * std).to(dt)
+
+    def dense(d_in, d_out):
+        return {"w": normal((cfg.n_layers, d_in, d_out), d_in ** -0.5)}
+
+    def ones(*shape):
+        return {"scale": torch.ones(shape, dtype=dt, device=dev)}
+
+    d, n = cfg.d_model, cfg.n_layers
+    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    return {
+        "embed": {"emb": normal((cfg.vocab_size, d), 0.02)},
+        "layers": {
+            "ln1": ones(n, d),
+            "attn": {"q": dense(d, hq), "k": dense(d, hkv),
+                     "v": dense(d, hkv), "o": dense(hq, d)},
+            "ln2": ones(n, d),
+            "mlp": {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
+                    "down": dense(cfg.d_ff, d)},
+        },
+        "final_norm": ones(d),
+    }
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    _require_uniform_attn(cfg)
+    return L.embed(params["embed"], batch["tokens"]).to(
+        canonical_dtype(cfg.compute_dtype))
+
+
+def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Tied head: h (..., d) -> logits (..., V), in h's dtype (so bf16 at
+    full width)."""
+    return h @ params["embed"]["emb"].to(h.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# full sequence
+# ---------------------------------------------------------------------------
+
+def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
+                  spec: ColaSpec | None = None, cola_vars: dict | None = None,
+                  *, collect_kv: bool = False):
+    """Embedding + all layers + final norm. Returns (h, aux); with
+    ``collect_kv`` aux["stacked"] holds every layer's k, v (L, B, S, K, Dh).
+    (The per-tap hidden inputs that training collects come with the training
+    slice, ROADMAP.md.)"""
+    ad = _subvars((cola_vars or {}).get("adapters", {}), "layers")
+    de = _subvars((cola_vars or {}).get("deltas", {}), "layers")
+    x = embed_tokens(cfg, params, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None, :]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        tap_ctx = (spec, _layer(ad, i), _layer(de, i), {})
+        x, (k, v) = B.attn_block(cfg, _layer(params["layers"], i), x,
+                                 positions, window=None, tap_prefix="layers",
+                                 tap_ctx=tap_ctx)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    aux: dict[str, Any] = {}
+    if collect_kv:
+        aux["stacked"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps), aux
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict,
+            spec: ColaSpec | None = None, cola_vars: dict | None = None,
+            *, lengths: torch.Tensor | None = None):
+    """Full-sequence prefill; returns (logits (B, 1, V), cache) with the
+    cache holding every layer's K/V of the processed sequence.
+
+    ``lengths``: optional (B,) valid prompt lengths of a right-padded batch;
+    logits are then taken at position ``lengths - 1`` of each row. Causal
+    masking makes every position < lengths[b] independent of the padding.
+    """
+    h, aux = hidden_states(cfg, params, batch, spec, cola_vars,
+                           collect_kv=True)
+    if lengths is None:
+        h_last = h[:, -1:]
+    else:
+        idx = (lengths.to(device=h.device, dtype=torch.long) - 1).clamp(min=0)
+        h_last = h[torch.arange(h.shape[0], device=h.device), idx][:, None]
+    logits = head_logits(cfg, params, h_last)
+    return logits, {"layers": aux["stacked"]}
+
+
+# ---------------------------------------------------------------------------
+# caches / decode
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, *,
+                kv_layout: str = "dense") -> dict:
+    """Decode-cache leaf (shape, dtype): every layer gets a dense
+    (L, batch, max_len, K, Dh) slot cache. The paged layout is still to be
+    ported (ROADMAP.md)."""
+    _require_uniform_attn(cfg)
+    if kv_layout != "dense":
+        raise NotImplementedError(f"kv_layout={kv_layout!r} is not ported yet "
+                                  "(see ROADMAP.md)")
+    cdt = canonical_dtype(cfg.compute_dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"layers": {"k": (shape, cdt), "v": (shape, cdt)}}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               kv_layout: str = "dense", device="cuda") -> dict:
+    dev = resolve_device(device)
+    specs = cache_specs(cfg, batch, max_len, kv_layout=kv_layout)
+    return {stack: {n: torch.zeros(shape, dtype=dt, device=dev)
+                    for n, (shape, dt) in leaves.items()}
+            for stack, leaves in specs.items()}
+
+
+def _mask_cache_rows(live, new, old):
+    """Slot-mask invariant: rows where ``live`` is False keep their old cache.
+    ``new``/``old`` are pytrees whose leaves carry the slot axis first."""
+    if live is None:
+        return new
+    if isinstance(new, dict):
+        return {k: _mask_cache_rows(live, new[k], old[k]) for k in new}
+    return torch.where(live.reshape((new.shape[0],) + (1,) * (new.ndim - 1)),
+                       new, old)
+
+
+def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
+                spec: ColaSpec | None = None, cola_vars: dict | None = None,
+                *, live: torch.Tensor | None = None,
+                block_table: torch.Tensor | None = None):
+    """One decode tick. batch: {"tokens": (B, 1), "positions": (B,)}.
+    Returns (logits (B, 1, V), cache).
+
+    The cache is updated in place and returned (the JAX version returns a new
+    cache). ``live``: optional (B,) bool mask; the cache rows of non-live
+    slots are left as they were (their logits carry no meaning).
+    """
+    if block_table is not None:
+        raise NotImplementedError("the paged KV layout is not ported yet "
+                                  "(see ROADMAP.md)")
+    ad = _subvars((cola_vars or {}).get("adapters", {}), "layers")
+    de = _subvars((cola_vars or {}).get("deltas", {}), "layers")
+    positions = batch["positions"]
+    x = embed_tokens(cfg, params, batch)
+    rows = torch.arange(x.shape[0], device=x.device)
+    pos = positions.long().clamp(0, cache["layers"]["k"].shape[2] - 1)
+    for i in range(cfg.n_layers):
+        kc, vc = cache["layers"]["k"][i], cache["layers"]["v"][i]
+        old = {"k": kc[rows, pos], "v": vc[rows, pos]}
+        tap_ctx = (spec, _layer(ad, i), _layer(de, i), {})
+        x = B.attn_block_decode(cfg, _layer(params["layers"], i), x, kc, vc,
+                                positions, window=None, tap_prefix="layers",
+                                tap_ctx=tap_ctx, live=live)
+        if live is not None:
+            # the block wrote every row at its position; restore dead rows
+            kept = _mask_cache_rows(live, {"k": kc[rows, pos],
+                                           "v": vc[rows, pos]}, old)
+            kc[rows, pos] = kept["k"]
+            vc[rows, pos] = kept["v"]
+    x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+    return head_logits(cfg, params, x), cache
+
+
+def scatter_prefill_cache(cache: dict, pre: dict, slot_ids) -> dict:
+    """Write a prefill cache (rows 0..J-1, sequence length P) into slot
+    positions [0, P) of a serving slot cache, in place; returns ``cache``.
+
+    ``slot_ids`` (J,) maps prefill row j -> slot. Out-of-range ids are
+    dropped (the JAX ``mode="drop"``), which is how padding rows of a
+    bucketed prefill batch are discarded: they are removed before the
+    ``index_copy_``. Positions >= a row's true prompt length receive pad-token
+    KV, which is safe: decode at position p writes the real KV at p before
+    attending, and causal masking hides positions > p.
+    """
+    ids = torch.as_tensor(slot_ids).cpu().long()   # host-side filtering
+    for stack, leaves in cache.items():
+        for name, c in leaves.items():
+            p = pre[stack][name]
+            keep = ((ids >= 0) & (ids < c.shape[1])).nonzero().squeeze(1)
+            c.narrow(2, 0, p.shape[2]).index_copy_(
+                1, ids[keep].to(c.device), p.index_select(1, keep.to(p.device)))
+    return cache

@@ -1,0 +1,95 @@
+"""Where the serving path's time goes on the card.
+
+Runs the ``chip_smoke.py`` serving setup (full-width smollm-135m, bf16, 4
+users' rank-8 ``qv`` adapters, 16 slots, max_len 1024), fills all 16 slots
+with one batched prefill, then profiles that prefill and a window of decode
+ticks with ``torch.profiler``. Prints, per phase, the host wall time, the
+device busy time (sum of kernel times), the idle share, and the top device
+kernels and host ops.
+
+Run on a machine with a CUDA card, from the repo root:
+``PYTHONPATH=src python -m repro_torch.profile_serve``
+"""
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+
+def _summary(prof, wall_s: float, label: str, top: int = 12) -> None:
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    idle = 1.0 - busy_us / 1e6 / wall_s if wall_s else float("nan")
+    print(f"[{label}] host wall {wall_s * 1e3:.2f} ms, device busy "
+          f"{busy_us / 1e3:.2f} ms, device idle share {idle:.3f}")
+    print(f"[{label}] top device kernels (total ms, calls):")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} {e.count:6d}  {e.key[:90]}")
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    print(f"[{label}] top host ops by self CPU (total ms, calls):")
+    for e in sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:top]:
+        print(f"    {e.self_cpu_time_total / 1e3:9.3f} {e.count:6d}  {e.key[:90]}")
+
+
+def main(ticks: int = 8) -> int:
+    if not torch.cuda.is_available():
+        print("profile_serve: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import registry
+    from repro_torch.core import gl
+    from repro_torch.models import model
+    from repro_torch.runtime.serve_loop import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = registry.get_config("smollm-135m")
+    params = model.init(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    sites = model.tap_sites(cfg)
+    banks = [{t: {"A": torch.randn((sites[t].stacked, sites[t].d_in, 8),
+                                   generator=gen).to(dev) / 8 ** 0.5,
+                  "B": torch.randn((sites[t].stacked, 8, sites[t].d_out),
+                                   generator=gen).to(dev) * 0.05}
+              for t in gl.select_taps(cfg, "qv")} for _ in range(4)]
+    rng = np.random.default_rng(0)
+
+    def engine_with_requests():
+        eng = ServeEngine(cfg, params, slots=16, max_len=1024,
+                          user_adapters=banks, device=dev)
+        for i, n in enumerate(rng.integers(32, 513, 16)):
+            eng.submit(Request(rid=i, user=i % 4, max_new=ticks + 8,
+                               prompt=rng.integers(0, cfg.vocab_size, n)))
+        return eng
+
+    warm = engine_with_requests()          # library handles, allocator
+    warm.tick()
+    warm.tick()
+    torch.cuda.synchronize()
+
+    eng = engine_with_requests()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng._admit()                        # one batched prefill of 16 prompts
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _summary(prof, wall, "prefill")
+    eng.tick()                              # one tick outside the window
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _summary(prof, wall, f"decode x{ticks}")
+    print(f"[decode] {wall / ticks * 1e3:.2f} ms per tick (profiled)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

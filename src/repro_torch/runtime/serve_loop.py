@@ -1,0 +1,455 @@
+"""Batched serving engine with continuous batching and multi-user adapters:
+the inference half of FTaaS. One base model, K users' adapters applied per
+request inside one batch (multi-LoRA, the ``multi_lora`` kernel's job).
+
+Fixed decode slots. Each slot holds (request, user, position). Admission
+drains up to ``admit_batch`` waiting requests per tick into free slots and
+prefills them as one right-padded batch through ``model.prefill`` (per-row
+user-id adapter routing), scattering each row's KV into its slot
+(``model.scatter_prefill_cache``). The first generated token comes from the
+prompt's own logits. Every tick then decodes one token for all live slots,
+with a (slots,) ``live`` mask so that no step touches another slot's KV.
+
+``prefill_mode="reference"`` feeds prompts token by token through the
+live-masked decode step; it is the oracle of the batched path.
+
+Ported from the JAX package's ``runtime/serve_loop.py``: the jitted steps
+become plain methods, and the ``lax.scan`` burst a host loop that emits the
+same tokens. int8 banks, the tiered adapter store (``resident_slots``),
+chunked prefill, the paged KV layout and telemetry are still to be ported
+(ROADMAP.md).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import gl
+from repro_torch.core import taps as taps_lib
+from repro_torch.models import model as model_lib
+from repro_torch.utils import resolve_device
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    user: int
+    prompt: np.ndarray          # (P,) int32
+    max_new: int = 16
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    # "queued" -> "done" | "rejected: <reason>"
+    status: str = "queued"
+    # lifecycle timestamps (perf_counter seconds), filled by the engine
+    t_submit: float | None = None
+    t_admit: float | None = None
+    t_first: float | None = None
+    t_done: float | None = None
+
+    @property
+    def ttft(self) -> float | None:
+        """Time to first token, from submission."""
+        if self.t_submit is None or self.t_first is None:
+            return None
+        return self.t_first - self.t_submit
+
+    @property
+    def latency(self) -> float | None:
+        if self.t_submit is None or self.t_done is None:
+            return None
+        return self.t_done - self.t_submit
+
+
+def percentiles(xs, qs=(50, 95, 99)) -> dict | None:
+    """Tail summary of a sample list: count/mean/max plus p50/p95/p99, or
+    None for an empty sample."""
+    xs = list(xs)
+    if not xs:
+        return None
+    a = np.asarray(xs, np.float64)
+    out = {"count": int(a.size), "mean": float(a.mean()), "max": float(a.max())}
+    for q in qs:
+        out[f"p{q}"] = float(np.percentile(a, q))
+    return out
+
+
+def stack_user_adapters(adapter_list: list[dict]) -> dict:
+    """K per-user adapter pytrees {tap: {"A": (L?, d, r), "B": ...}} -> multi
+    bank {tap: {"A": (L?, U, d, r), ...}} (user axis after any layer axis)."""
+    if not adapter_list:
+        raise ValueError("stack_user_adapters: need at least one per-user "
+                         "adapter pytree, got an empty list")
+
+    def _struct(a: dict) -> dict:
+        return {tap: {n: tuple(l.shape) for n, l in sorted(leaves.items())}
+                for tap, leaves in a.items()}
+
+    want = _struct(adapter_list[0])
+    for u, a in enumerate(adapter_list[1:], start=1):
+        got = _struct(a)
+        if got != want:
+            raise ValueError(
+                f"stack_user_adapters: user {u} adapter structure {got} does "
+                f"not match user 0 structure {want} (all users must share the "
+                "same tap set and leaf shapes)")
+    out: dict[str, Any] = {}
+    for tap in adapter_list[0]:
+        leaves = {}
+        for name in adapter_list[0][tap]:
+            stacked = torch.stack([a[tap][name] for a in adapter_list], dim=0)
+            if adapter_list[0][tap][name].dim() > 2:   # (L, d, r) -> (L, U, d, r)
+                stacked = stacked.movedim(0, 1).contiguous()
+            leaves[name] = stacked
+        out[tap] = leaves
+    return out
+
+
+def _bucket(n: int, floor: int = 8) -> int:
+    """Round up to a power of two (>= floor), so prefill batches come in few
+    shapes."""
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params: dict, *, slots: int = 8,
+                 max_len: int = 512, user_adapters: list[dict] | None = None,
+                 taps: str = "qv", scale: float = 1.0,
+                 prefill_mode: str = "batched", admit_batch: int | None = None,
+                 bank_store: str = "f32", decode_burst: int = 1,
+                 resident_slots: int | None = None,
+                 prefill_chunk: int | None = None, kv_layout: str = "dense",
+                 max_prompt: int | None = None, telemetry=None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        if prefill_mode not in ("batched", "reference"):
+            raise ValueError(f"prefill_mode={prefill_mode!r}")
+        for name, value, default in (("bank_store", bank_store, "f32"),
+                                     ("resident_slots", resident_slots, None),
+                                     ("prefill_chunk", prefill_chunk, None),
+                                     ("kv_layout", kv_layout, "dense"),
+                                     ("telemetry", telemetry, None)):
+            if value != default:
+                raise NotImplementedError(
+                    f"ServeEngine({name}={value!r}) is not ported yet "
+                    "(see ROADMAP.md)")
+        if params["embed"]["emb"].device != self.device:
+            raise ValueError(f"params live on {params['embed']['emb'].device}, "
+                             f"the engine runs on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.prefill_mode = prefill_mode
+        # a prompt occupies [0, P) and one decode position must remain below
+        # the horizon, so max_prompt can never exceed max_len - 1
+        self.max_prompt = (int(max_prompt) if max_prompt is not None
+                           else max_len - 1)
+        if not 1 <= self.max_prompt <= max_len - 1:
+            raise ValueError(f"max_prompt={self.max_prompt} with max_len={max_len}")
+        self.admit_batch = admit_batch if admit_batch is not None else slots
+        # Burst decoding: up to ``decode_burst`` chained decode ticks per host
+        # round trip. Bursts only run when no live slot could complete inside
+        # one, so tokens are identical to decode_burst=1.
+        self.decode_burst = max(1, int(decode_burst))
+        self.queue: list[Request] = []
+        self.finished: list[Request] = []
+        self.active: list[Request | None] = [None] * slots
+        self.positions = np.zeros(slots, np.int32)
+        self.users = np.zeros(slots, np.int32)
+        self.cache = model_lib.init_cache(cfg, slots, max_len, device=self.device)
+        self.spec = None
+        self.bank = None
+        self.n_users = 0
+        if user_adapters:
+            self.spec = taps_lib.make_spec(family="multi_lowrank",
+                                           taps=gl.select_taps(cfg, taps),
+                                           scale=scale)
+            self.n_users = len(user_adapters)
+            self.bank = {tap: {n: leaf.to(self.device) for n, leaf in e.items()}
+                         for tap, e in stack_user_adapters(user_adapters).items()}
+        self._decode_tick_s: collections.deque = collections.deque(maxlen=4096)
+        self._prefill_s: collections.deque = collections.deque(maxlen=4096)
+        self.stats = {"ticks": 0, "tokens": 0, "decode_tokens": 0,
+                      "completed": 0, "admitted": 0,
+                      "prefill_calls": 0, "prefill_tokens": 0,
+                      "decode_time": 0.0, "prefill_time": 0.0, "rejected": 0}
+
+    # -- device steps --------------------------------------------------------
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _cola_vars(self, users: torch.Tensor) -> dict | None:
+        if self.bank is None:
+            return None
+        vars_ = {}
+        for tap, leaves in self.bank.items():
+            entry = dict(leaves)
+            a = leaves["A"]
+            # stacked (L, U, d, r): idx carries the layer axis too
+            entry["idx"] = (users.expand(a.shape[0], -1) if a.dim() == 4
+                            else users)
+            vars_[tap] = entry
+        return {"adapters": vars_}
+
+    def _decode(self, tokens, positions, users, live) -> torch.Tensor:
+        """One decode tick for every slot; returns each slot's argmax token
+        (on the device) and updates the slot cache in place."""
+        batch = {"tokens": tokens, "positions": positions}
+        logits, self.cache = model_lib.decode_step(
+            self.cfg, self.params, batch, self.cache, self.spec,
+            self._cola_vars(users), live=live)
+        return logits[:, -1].argmax(dim=-1).to(torch.int32)
+
+    def _decode_burst(self, tokens, positions, users, live, n: int
+                      ) -> torch.Tensor:
+        """``n`` chained decode ticks: each feeds its argmax token back as the
+        next input and advances live rows' positions. Dead rows keep their
+        token and position. Returns the (n, slots) token trace."""
+        trace = []
+        for _ in range(n):
+            nxt = self._decode(tokens, positions, users, live)
+            tokens = torch.where(live, nxt, tokens[:, 0])[:, None]
+            positions = positions + live.to(positions.dtype)
+            trace.append(nxt)
+        return torch.stack(trace)
+
+    def _prefill(self, tokens, users, slot_ids: np.ndarray, lengths
+                 ) -> torch.Tensor:
+        """A padded (J, P) prompt batch through full-sequence prefill; each
+        row's KV goes to its slot and its first token (argmax at its true last
+        position) is returned. Padding rows carry slot id == slots and are
+        dropped by the scatter."""
+        logits, pre = model_lib.prefill(self.cfg, self.params,
+                                        {"tokens": tokens}, self.spec,
+                                        self._cola_vars(users), lengths=lengths)
+        model_lib.scatter_prefill_cache(self.cache, pre, slot_ids)
+        return logits[:, -1].argmax(dim=-1).to(torch.int32)
+
+    # -- engine ------------------------------------------------------------
+    def _validate(self, req: Request) -> str | None:
+        if len(req.prompt) == 0:
+            return "empty prompt"
+        if len(req.prompt) > self.max_prompt:
+            return (f"prompt length {len(req.prompt)} > max_prompt "
+                    f"{self.max_prompt} (horizon max_len={self.max_len})")
+        if req.max_new <= 0:
+            return f"max_new must be positive, got {req.max_new}"
+        if self.bank is not None and not 0 <= req.user < self.n_users:
+            return f"unknown user {req.user} (bank has {self.n_users})"
+        return None
+
+    def submit(self, req: Request) -> None:
+        """Queue a request, or reject it with a terminal status (a bad
+        request never crashes a tick or occupies a slot)."""
+        req.t_submit = time.perf_counter()
+        reason = self._validate(req)
+        if reason is not None:
+            req.status = f"rejected: {reason}"
+            req.done = True
+            req.t_done = req.t_submit
+            self.stats["rejected"] += 1
+            self.finished.append(req)
+            return
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        """Admit up to ``admit_batch`` waiting requests into free slots and
+        prefill them (one padded batch, or token by token in reference mode).
+        Each request's first token comes from its prompt's own logits."""
+        admitted: list[int] = []
+        now = time.perf_counter()
+        for i in range(self.slots):
+            if len(admitted) >= self.admit_batch or not self.queue:
+                break
+            if self.active[i] is not None:
+                continue
+            req = self.queue.pop(0)
+            req.t_admit = now
+            self.active[i] = req
+            self.users[i] = req.user
+            self.positions[i] = 0
+            admitted.append(i)
+        if not admitted:
+            return
+        self.stats["admitted"] += len(admitted)
+        rows = [(i, np.asarray(self.active[i].prompt, np.int32))
+                for i in admitted]
+        t0 = time.perf_counter()
+        if self.prefill_mode == "reference":
+            for i, feed in rows:
+                nxt = 0
+                for t, tok in enumerate(feed):
+                    nxt = self._feed(i, int(tok), t)
+                self._first_token(i, nxt, time.perf_counter())
+        else:
+            self._prefill_batch(rows)
+        dt = time.perf_counter() - t0
+        self.stats["prefill_time"] += dt
+        self._prefill_s.append(dt)
+        self.stats["prefill_calls"] += 1
+        self.stats["prefill_tokens"] += sum(len(f) for _, f in rows)
+        now = time.perf_counter()
+        for i, _ in rows:
+            if self.active[i] is not None:
+                self._maybe_finish(i, now)
+
+    def _prefill_batch(self, rows: list[tuple[int, np.ndarray]]) -> None:
+        # Pad-token KV beyond a row's true length is safe (decode overwrites
+        # position p before attending; causality hides > p), so shapes are
+        # bucketed to powers of two. The bucket never exceeds max_len.
+        pmax = min(_bucket(max(len(feed) for _, feed in rows)), self.max_len)
+        j = _bucket(len(rows), floor=1)
+        toks = np.zeros((j, pmax), np.int32)
+        users = np.zeros((j,), np.int32)
+        lengths = np.ones((j,), np.int32)
+        slot_ids = np.full((j,), self.slots, np.int32)   # padding -> dropped
+        for r, (i, feed) in enumerate(rows):
+            toks[r, :len(feed)] = feed
+            users[r] = self.users[i]
+            slot_ids[r] = i
+            lengths[r] = len(feed)
+        nxt = self._prefill(self._tensor(toks), self._tensor(users), slot_ids,
+                            self._tensor(lengths)).cpu().numpy()
+        now = time.perf_counter()
+        for r, (i, _) in enumerate(rows):
+            self._first_token(i, int(nxt[r]), now)
+
+    def _feed(self, slot: int, token: int, pos: int) -> int:
+        """Reference single-row prefill step: decode one prompt token into one
+        slot's cache (the live mask confines the write to ``slot``) and return
+        the argmax token."""
+        toks = np.zeros((self.slots, 1), np.int32)
+        toks[slot, 0] = token
+        positions = np.zeros((self.slots,), np.int32)
+        positions[slot] = pos
+        live = np.zeros((self.slots,), bool)
+        live[slot] = True
+        nxt = self._decode(self._tensor(toks), self._tensor(positions),
+                           self._tensor(self.users), self._tensor(live))
+        return int(nxt[slot])
+
+    def _first_token(self, i: int, tok: int, now: float) -> None:
+        """Record a request's first generated token and arm the slot for
+        decode: the next tick feeds this token at position P."""
+        req = self.active[i]
+        req.t_first = now
+        req.out.append(tok)
+        req._last = tok
+        self.positions[i] = len(req.prompt)
+        self.stats["tokens"] += 1
+
+    def _maybe_finish(self, i: int, now: float) -> None:
+        req = self.active[i]
+        if (len(req.out) >= req.max_new
+                or self.positions[i] >= self.max_len - 1):
+            self._retire(i, now)
+
+    def _retire(self, i: int, now: float) -> None:
+        req = self.active[i]
+        req.done = True
+        req.status = "done"
+        req.t_done = now
+        self.stats["completed"] += 1
+        self.finished.append(req)
+        self.active[i] = None
+        self.positions[i] = 0
+
+    def _burst_len(self, live_idx: list[int]) -> int:
+        """Largest safe burst: no live slot may complete inside a burst.
+        Powers of two."""
+        if self.decode_burst <= 1:
+            return 1
+        bound = self.decode_burst
+        for i in live_idx:
+            req = self.active[i]
+            remaining = min(req.max_new - len(req.out),
+                            self.max_len - 1 - int(self.positions[i]))
+            bound = min(bound, remaining)
+        if bound <= 1:
+            return 1
+        n = 1
+        while n * 2 <= bound:
+            n *= 2
+        return n
+
+    def tick(self) -> int:
+        """One engine iteration: admit, then decode one token (or a burst)
+        for every live slot. Returns the number of tokens decoded."""
+        if self.queue:
+            self._admit()
+        live_idx = [i for i, r in enumerate(self.active) if r is not None]
+        if not live_idx:
+            return 0
+        toks = np.zeros((self.slots, 1), np.int32)
+        live = np.zeros((self.slots,), bool)
+        for i in live_idx:
+            toks[i, 0] = self.active[i]._last
+            live[i] = True
+        n = self._burst_len(live_idx)
+        args = (self._tensor(toks), self._tensor(self.positions),
+                self._tensor(self.users), self._tensor(live))
+        t0 = time.perf_counter()
+        if n <= 1:
+            trace = self._decode(*args)[None]
+        else:
+            trace = self._decode_burst(*args, n=n)
+        trace = trace.cpu().numpy()                          # (n, slots)
+        now = time.perf_counter()
+        self.stats["decode_time"] += now - t0
+        self._decode_tick_s.append((now - t0) / trace.shape[0])
+        for step in range(trace.shape[0]):
+            for i in live_idx:
+                req = self.active[i]
+                tok = int(trace[step, i])
+                req.out.append(tok)
+                req._last = tok
+                self.positions[i] += 1
+        for i in live_idx:
+            self._maybe_finish(i, now)
+        self.stats["ticks"] += trace.shape[0]
+        self.stats["tokens"] += trace.shape[0] * len(live_idx)
+        self.stats["decode_tokens"] += trace.shape[0] * len(live_idx)
+        return trace.shape[0] * len(live_idx)
+
+    def run_until_idle(self, max_ticks: int = 10_000) -> None:
+        for _ in range(max_ticks):
+            if not self.queue and all(r is None for r in self.active):
+                break
+            self.tick()
+
+    # -- stats -------------------------------------------------------------
+    def request_stats(self) -> list[dict]:
+        """Per-completed-request latency metrics (seconds)."""
+        return [{"rid": r.rid, "user": r.user, "prompt_len": len(r.prompt),
+                 "new_tokens": len(r.out), "ttft": r.ttft,
+                 "latency": r.latency} for r in self.finished]
+
+    def throughput(self) -> dict:
+        """Aggregate throughput (decode tokens/s excludes prefill) with tail
+        percentiles of TTFT, latency and per-dispatch durations."""
+        dt = self.stats["decode_time"]
+        pt = self.stats["prefill_time"]
+        reqs = self.request_stats()
+        ttfts = [r["ttft"] for r in reqs if r["ttft"] is not None]
+        lats = [r["latency"] for r in reqs if r["latency"] is not None]
+        return {
+            "decode_tok_per_s": (self.stats["decode_tokens"] / dt
+                                 if dt else 0.0),
+            "prefill_tok_per_s": (self.stats["prefill_tokens"] / pt
+                                  if pt else 0.0),
+            "mean_ttft": float(np.mean(ttfts)) if ttfts else None,
+            "ttft": percentiles(ttfts),
+            "latency": percentiles(lats),
+            "decode_tick": percentiles(self._decode_tick_s),
+            "prefill": percentiles(self._prefill_s),
+            "completed": self.stats["completed"],
+        }

@@ -1,0 +1,40 @@
+"""Shared utilities: dtype names, shape math and device checks."""
+from __future__ import annotations
+
+import torch
+
+_DTYPES = {
+    "bf16": torch.bfloat16,
+    "bfloat16": torch.bfloat16,
+    "f32": torch.float32,
+    "float32": torch.float32,
+    "f16": torch.float16,
+}
+
+
+def canonical_dtype(name: str | torch.dtype) -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    return _DTYPES[name]
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return cdiv(a, b) * b
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device an entry point runs on. ``cuda`` (the default everywhere)
+    raises when no GPU is present: the port never drops quietly to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain PyTorch path")
+        if device.index is None:   # "cuda" -> "cuda:<current>", comparable
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device

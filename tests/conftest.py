@@ -23,3 +23,8 @@ def make_batch(cfg, B, S, key, with_users=0):
     if with_users:
         batch["user_id"] = jax.random.randint(ku, (B,), 0, with_users)
     return batch
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skipped without one)")

@@ -1,0 +1,66 @@
+"""The port stands alone: no module of ``repro_torch`` pulls in JAX or the
+JAX package, the card is the default device (entry points raise without one)
+and ``chip_smoke.py`` fails without a card and prints no result."""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith(("jax.", "jaxlib")) or n == "repro"
+             or n.startswith("repro."))
+print(len([n for n in sys.modules if n.startswith("repro_torch")]), bad)
+"""
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": str(SRC)}
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
+                         capture_output=True, text=True, timeout=120, check=True)
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20, out.stdout
+    assert bad == "[]", out.stdout
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.runtime.serve_loop import ServeEngine
+    cfg = registry.reduced_config("smollm-135m").replace(n_layers=1)
+    params = model.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init(cfg)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(alone, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs for real")
+    script = ROOT / "chip_smoke.py"
+    if alone:   # a directory that holds chip_smoke.py and nothing else
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    out = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                         env={**os.environ, "PYTHONPATH": ""},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

@@ -1,0 +1,129 @@
+"""The port's kernel plain versions (what the CUDA kernels are held to on the
+card) against the JAX Pallas kernels run in interpret mode, on the same numpy
+inputs. Tolerance: f32, rtol = atol = 1e-5 (two f32 implementations of one
+formula, summing in different orders)."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import decode_attention as jda  # noqa: E402
+from repro.kernels import flash_attention as jfa  # noqa: E402
+from repro.kernels import multi_lora as jml  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import multi_lora as ml  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("H,K,window,softcap", [
+    (3, 3, None, None),      # G = 1
+    (6, 2, None, None),      # G = 3
+    (6, 2, 48, None),        # local window
+    (6, 2, None, 20.0),      # tanh softcap
+    (6, 2, 48, 20.0),
+])
+def test_flash_forward_matches_pallas(H, K, window, softcap):
+    rng = np.random.default_rng(0)
+    B, S, D = 2, 128, 64
+    q, k, v = (_normal(rng, B, S, n, D) for n in (H, K, K))
+    o_j, lse_j = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          scale=D ** -0.5, causal=True, window=window,
+                          softcap=softcap, q_offset=0, interpret=True)
+    launches = fa.flash_attention.launches
+    o_t, lse_t = fa.flash_attention(_t(q), _t(k), _t(v), window=window,
+                                    softcap=softcap)
+    assert fa.flash_attention.launches == launches   # CPU: plain version
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), **TOL)
+
+
+def test_flash_forward_takes_non_uniform_positions():
+    """The port's attention is exact for per-row positions (the TPU kernel
+    assumed q starts at 0 and kv at 0); held to the JAX oracle."""
+    rng = np.random.default_rng(1)
+    B, S, H, K, D = 2, 40, 6, 2, 64
+    q, k, v = (_normal(rng, B, S, n, D) for n in (H, K, K))
+    qp = np.stack([np.arange(S) + 7, rng.permutation(S)]).astype(np.int32)
+    kp = np.stack([np.arange(S), np.arange(S) * 2]).astype(np.int32)
+    want = jref.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     q_positions=jnp.asarray(qp), kv_positions=jnp.asarray(kp))
+    got = ops.sdpa(_t(q), _t(k), _t(v), q_positions=_t(qp), kv_positions=_t(kp))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("positions,live", [
+    ([5, 77, 0, 127], [True, False, True, True]),   # live mask + position 0
+    ([127, 127, 126, 0], None),                     # full cache
+])
+@pytest.mark.parametrize("window,softcap", [(None, None), (32, 20.0)])
+def test_decode_attention_matches_pallas(positions, live, window, softcap):
+    rng = np.random.default_rng(2)
+    B, Smax, H, K, D = 4, 128, 6, 2, 64
+    q = _normal(rng, B, 1, H, D)
+    kc, vc = _normal(rng, B, Smax, K, D), _normal(rng, B, Smax, K, D)
+    pos = np.asarray(positions, np.int32)
+    lv = None if live is None else np.asarray(live)
+    o_j = jda.decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                               jnp.asarray(pos),
+                               live=None if lv is None else jnp.asarray(lv),
+                               window=window, softcap=softcap, interpret=True)
+    o_t = da.decode_attention(_t(q), _t(kc), _t(vc), _t(pos),
+                              live=None if lv is None else _t(lv),
+                              window=window, softcap=softcap)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TOL)
+    if lv is not None:
+        assert np.all(o_t.numpy()[~lv] == 0.0)
+
+
+@pytest.mark.parametrize("T,U", [(64, 3), (8, 20)])   # U > T: the decode case
+def test_multi_lora_matches_pallas(T, U):
+    rng = np.random.default_rng(3)
+    din, r, dout = 96, 8, 48
+    x = _normal(rng, T, din)
+    A, B = _normal(rng, U, din, r), _normal(rng, U, r, dout)
+    idx = rng.integers(0, U, T).astype(np.int32)
+    idx[::5] = -1                                     # padding rows
+    y_j = jml.multi_lora(jnp.asarray(x), jnp.asarray(A), jnp.asarray(B),
+                         jnp.asarray(idx), scale=0.5, interpret=True)
+    y_t = ml.multi_lora(_t(x), _t(A), _t(B), _t(idx), scale=0.5)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=1e-5,
+                               atol=1e-4)
+    assert np.all(y_t.numpy()[idx < 0] == 0.0)
+
+
+def test_multi_lora_rows_depend_only_on_their_adapter():
+    """Each output row is a function of its own x row and its own adapter:
+    serving from a bank that holds only the used adapters gives equal bits."""
+    rng = np.random.default_rng(4)
+    T, U, din, r, dout = 16, 10, 32, 4, 24
+    x = _t(_normal(rng, T, din))
+    A, B = _t(_normal(rng, U, din, r)), _t(_normal(rng, U, r, dout))
+    idx = _t(rng.choice([2, 7], T).astype(np.int32))
+    full = ml.multi_lora(x, A, B, idx)
+    sub = torch.tensor([2, 7])
+    remap = torch.where(idx == 2, 0, 1).to(torch.int32)
+    part = ml.multi_lora(x, A[sub], B[sub], remap)
+    assert torch.equal(full, part)
+
+
+def test_wrappers_raise_for_tensors_they_cannot_launch():
+    """Only CPU tensors take the plain version: any other tensor goes to the
+    kernel's checks, which raise rather than fall back (meta tensors stand in
+    for what the kernel does not take)."""
+    q = torch.empty(1, 8, 2, 64, device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
