@@ -4,20 +4,30 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-four phases, exiting non-zero on any failure:
+six phases, exiting non-zero on any failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
-   full-width smollm-135m shapes of the serving path, in bf16 and f32:
-   max error, and median times of the kernel, the plain version and the
-   library call (``F.scaled_dot_product_attention`` for the two attention
-   kernels; none for multi_lora), with each kernel's bound on this card.
+   full-width smollm-135m shapes of the serving and training paths, in bf16
+   and f32 (cola_fit in f32, the only dtype the fit runs in): max error, and
+   median times of the kernel, the plain version and the library call
+   (``F.scaled_dot_product_attention`` for the attention kernels, its
+   backward for the flash backward kernels, the ``torch.matmul`` chain for
+   cola_fit; none for multi_lora), with each kernel's bound on this card.
 2. Serving at full width: ``ServeEngine`` on smollm-135m (30 layers, bf16)
    with 4 users' rank-8 ``qv`` adapters, 16 slots, max_len 1024 and 32
    requests (prompts 32-512 tokens, 32 new tokens each), run to completion
    with every kernel's launch count reset just before and read just after.
 3. Engine against the plain path: a full-width f32 engine on the card and
    the same engine on the CPU (plain versions) must emit equal greedy tokens.
-4. The last lines: the card's name and power limit, one JSON line with every
+4. Training at full width: ``ColaSession`` Mode A on smollm-135m (30 layers,
+   bf16, remat "full"), merged rank-8 ``qv`` adapters, interval 2, AdamW at
+   TrainConfig's lr and weight decay, SyntheticLM batches of 32 x 128: a
+   warm-up step, then 6 measured steps (3 fits) with the launch counts reset
+   just before and read just after.
+5. Training against the plain path: one f32 full-width ``server_step_a`` +
+   ``fit_grads`` on the card and on the CPU (plain versions) must agree, and
+   on the card Mode A's fit gradients must equal Mode B's (Prop 1).
+6. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -99,10 +109,13 @@ def nbytes(*ts) -> int:
 # ---------------------------------------------------------------------------
 
 def kernel_cases(cfg, dtype, dev, gen):
-    """Inputs of each kernel at the shapes phase 2's serving path gives it.
-    Yields (name, kernel fn, plain fn, library fn | None, nbytes, flops)."""
+    """Inputs of each kernel at the shapes the serving (phase 2) and training
+    (phase 4) paths give it. Yields dicts: name, fn (the kernel), plain, lib
+    (one library call, or a pair (call, part) whose time difference is the
+    library time, or None), nbytes and flops (for the bound)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cola_fit as cf
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import multi_lora as ml
@@ -118,13 +131,66 @@ def kernel_cases(cfg, dtype, dev, gen):
     pos = torch.arange(P, dtype=torch.int32, device=dev)[None]
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = int((pos[0][None, :] <= pos[0][:, None]).sum())
-    yield ("flash_attention",
-           lambda: fa.flash_attention(q, k, v, q_positions=pos, kv_positions=pos),
-           lambda: fa.plain(q, k, v, q_positions=pos, kv_positions=pos),
-           lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True),
-           nbytes(q, k, v, q) + J * H * P * 4 + 2 * P * 4,
-           4 * D * pairs * J * H)
+    yield dict(
+        name="flash_attention",
+        fn=lambda: fa.flash_attention(q, k, v, q_positions=pos, kv_positions=pos),
+        plain=lambda: fa.plain(q, k, v, q_positions=pos, kv_positions=pos),
+        lib=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True),
+        nbytes=nbytes(q, k, v, q) + J * H * P * 4 + 2 * P * 4,
+        flops=4 * D * pairs * J * H)
+
+    # training: the flash backward at TrainConfig's batch 32 x seq 128
+    Bt, S = 32, 128
+    q, k, v, do = rnd(Bt, S, H, D), rnd(Bt, S, K, D), rnd(Bt, S, K, D), \
+        rnd(Bt, S, H, D)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    o, lse = fa.flash_attention(q, k, v, q_positions=pos, kv_positions=pos)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    kw = dict(q_positions=pos, kv_positions=pos)
+    pairs = int((pos[0][None, :] <= pos[0][:, None]).sum()) * Bt * H
+    stats = 2 * nbytes(lse) + 2 * S * 4    # lse, delta, positions
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), dot)
+
+    yield dict(
+        name="flash_attention_bwd_dq",
+        fn=lambda: fa.bwd_dq(q, k, v, do, lse, delta, **kw),
+        plain=lambda: fa.plain_bwd(q, k, v, o, lse, do, **kw)[0],
+        lib=(sdpa_fwd_bwd, sdpa_fwd),
+        nbytes=nbytes(q, k, v, do, q) + stats, flops=6 * D * pairs)
+    yield dict(
+        name="flash_attention_bwd_dkv",
+        fn=lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **kw),
+        plain=lambda: fa.plain_bwd(q, k, v, o, lse, do, **kw)[1:],
+        lib=(sdpa_fwd_bwd, sdpa_fwd),
+        nbytes=nbytes(q, k, v, do, k, v) + stats, flops=8 * D * pairs)
+
+    # the fit (f32 only): 30 layers, T = interval 2 x 32 x 128 rows, rank 8
+    if dtype == torch.float32:
+        Lf, T, r, d = cfg.n_layers, 2 * Bt * S, 8, cfg.d_model
+        for tap, d_out in (("", H * D), ("[attn.v]", K * D)):
+            x, g = rnd(Lf, T, d), rnd(Lf, T, d_out)
+            A, Bm = rnd(Lf, d, r) / r ** 0.5, rnd(Lf, r, d_out) * 0.05
+            yield dict(
+                name="cola_fit" + tap,
+                fn=lambda x=x, g=g, A=A, Bm=Bm: cf.cola_fit_lowrank(x, g, A, Bm),
+                plain=lambda x=x, g=g, A=A, Bm=Bm: cf.plain(x, g, A, Bm),
+                lib=lambda x=x, g=g, A=A, Bm=Bm: (
+                    torch.matmul((x @ A).transpose(1, 2), g),
+                    torch.matmul(x.transpose(1, 2), g @ Bm.transpose(1, 2))),
+                nbytes=nbytes(x, g, A, Bm, A, Bm),
+                flops=4 * r * (d + d_out) * T * Lf)
 
     # decode tick: 16 slots against a 1024-position cache
     B, Smax = 16, 1024
@@ -136,13 +202,14 @@ def kernel_cases(cfg, dtype, dev, gen):
     n_kv = int((posd.clamp(max=Smax - 1) + 1).sum())
     mask = (torch.arange(Smax, device=dev)[None, :] <= posd[:, None])[:, None, None]
     qdt, kct, vct = (t.transpose(1, 2).contiguous() for t in (qd, kc, vc))
-    yield ("decode_attention",
-           lambda: da.decode_attention(qd, kc, vc, posd, live=live),
-           lambda: da.plain(qd, kc, vc, posd, live=live),
-           lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=mask,
-                                                  enable_gqa=True),
-           2 * nbytes(qd) + 2 * n_kv * K * D * qd.element_size() + B * 5,
-           4 * D * H * n_kv)
+    yield dict(
+        name="decode_attention",
+        fn=lambda: da.decode_attention(qd, kc, vc, posd, live=live),
+        plain=lambda: da.plain(qd, kc, vc, posd, live=live),
+        lib=lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=mask,
+                                                   enable_gqa=True),
+        nbytes=2 * nbytes(qd) + 2 * n_kv * K * D * qd.element_size() + B * 5,
+        flops=4 * D * H * n_kv)
 
     # adapted tap q at prefill: 8192 token rows, 4 users, rank 8
     U, r, d = 4, 8, cfg.d_model
@@ -150,43 +217,68 @@ def kernel_cases(cfg, dtype, dev, gen):
     A = rnd(U, d, r, dt=torch.float32) / r ** 0.5
     Bm = rnd(U, r, H * D, dt=torch.float32) * 0.05
     idx = (torch.arange(J, device=dev, dtype=torch.int32) % U).repeat_interleave(P)
-    yield ("multi_lora",
-           lambda: ml.multi_lora(x, A, Bm, idx),
-           lambda: ml.plain(x, A, Bm, idx),
-           None,
-           nbytes(x, idx, A, Bm) + J * P * H * D * x.element_size(),
-           2 * J * P * (d * r + r * H * D))
+    yield dict(
+        name="multi_lora",
+        fn=lambda: ml.multi_lora(x, A, Bm, idx),
+        plain=lambda: ml.plain(x, A, Bm, idx),
+        lib=None,
+        nbytes=nbytes(x, idx, A, Bm) + J * P * H * D * x.element_size(),
+        flops=2 * J * P * (d * r + r * H * D))
+
+
+def max_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, max |want|) over a tensor or a tuple of them."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    return err, max(float(w.float().abs().max()) for w in want)
 
 
 def phase_kernels(cfg, dev) -> dict:
+    """Rows of the JSON line, in the dtype each kernel runs in on its path:
+    bf16, and f32 for cola_fit."""
     timer = Timer(dev)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        for name, fn, plain, lib, nb, flops in kernel_cases(cfg, dtype, dev, gen):
-            got, want = fn(), plain()
-            if isinstance(got, tuple):   # flash: (o, lse)
-                err = max(float((g.float() - w.float()).abs().max())
-                          for g, w in zip(got, want))
-                scale = float(want[0].float().abs().max())
+        for c in kernel_cases(cfg, dtype, dev, gen):
+            name = c["name"]
+            got, want = c["fn"](), c["plain"]()
+            if name == "flash_attention":   # (o, lse): scale by o's values
+                err = max(max_err(g, w)[0] for g, w in zip(got, want))
+                scale = max_err(got[0], want[0])[1]
             else:
-                err = float((got.float() - want.float()).abs().max())
-                scale = float(want.float().abs().max())
+                err, scale = max_err(got, want)
             torch.cuda.synchronize()
             tol = TOL[dtype] * (1 + scale)
             check(err <= tol, f"{name} {dtype}: max |kernel - plain| = {err:.3g}"
                   f" > {tol:.3g}")
-            ms, plain_ms = timer.median_ms(fn), timer.median_ms(plain, iters=5)
-            lib_ms = timer.median_ms(lib) if lib is not None else None
-            b_ms, b_by = bound(nb, flops, dtype)
+            ms = timer.median_ms(c["fn"])
+            plain_ms = timer.median_ms(c["plain"], iters=5)
+            lib = c["lib"]
+            if isinstance(lib, tuple):   # (call, part): library time of the rest
+                lib_ms = timer.median_ms(lib[0]) - timer.median_ms(lib[1])
+            else:
+                lib_ms = timer.median_ms(lib) if lib is not None else None
+            b_ms, b_by = bound(c["nbytes"], c["flops"], dtype)
             dt = str(dtype).replace("torch.", "")
-            print(f"[kernels] {name:16s} {dt:8s} max_abs_err {err:.3e} "
+            print(f"[kernels] {name:24s} {dt:8s} max_abs_err {err:.3e} "
                   f"(tol {tol:.2e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
                   f"  library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
                   f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
-            if dtype == torch.bfloat16:   # the serving path's dtype
+            if dtype == torch.bfloat16 or name not in rows:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    # a second launch of the flash backward and cola_fit gives the same bits
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for c in kernel_cases(cfg, torch.float32, dev, gen):
+        if c["name"].startswith(("flash_attention_bwd", "cola_fit")):
+            a, b = c["fn"](), c["fn"]()
+            a, b = (a,) if isinstance(a, torch.Tensor) else a, \
+                (b,) if isinstance(b, torch.Tensor) else b
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{c['name']}: two launches on the same inputs differ")
     return rows
 
 
@@ -229,14 +321,8 @@ def serve(cfg, params, banks, prompts, device, *, slots, max_len, max_new):
 
 
 def phase_serving(cfg, dev) -> dict:
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import multi_lora as ml
     from repro_torch.models import model
 
-    wrappers = {"flash_attention": fa.flash_attention,
-                "decode_attention": da.decode_attention,
-                "multi_lora": ml.multi_lora}
     params = model.init(cfg, seed=SEED, device=dev)
     banks = user_banks(cfg, 4, dev, SEED)
     rng = np.random.default_rng(SEED)
@@ -247,19 +333,21 @@ def phase_serving(cfg, dev) -> dict:
           max_new=2)
     torch.cuda.synchronize()
 
-    for w in wrappers.values():
+    ws = wrappers()
+    for w in ws.values():
         w.launches = 0
     eng, reqs = serve(cfg, params, banks, prompts, dev, slots=16,
                       max_len=1024, max_new=32)
     torch.cuda.synchronize()
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = {n: w.launches for n, w in ws.items()}
 
     check(all(r.status == "done" and len(r.out) == 32 for r in reqs),
           "not every request finished with 32 tokens")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
           "a token outside the vocabulary")
-    for n, c in launches.items():
-        check(c > 0, f"kernel {n} was never launched on the serving path")
+    for n in ("flash_attention", "decode_attention", "multi_lora"):
+        check(launches[n] > 0, f"kernel {n} was never launched on the serving "
+              "path")
     tp = eng.throughput()
     print(f"[serve] smollm-135m bf16, 30 layers, 16 slots, 4 users: "
           f"{tp['completed']} requests, decode {tp['decode_tok_per_s']:.1f} tok/s,"
@@ -301,6 +389,168 @@ def phase_engine_vs_plain(cfg, dev) -> None:
           f"greedy tokens differ: cpu {outs['cpu']} card {outs[str(dev)]}")
 
 
+def wrappers() -> dict:
+    """Every kernel wrapper of the port, by the kernel's name; each counts
+    its own launches."""
+    from repro_torch.kernels import cola_fit as cf
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import multi_lora as ml
+
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd_dq": fa.bwd_dq,
+            "flash_attention_bwd_dkv": fa.bwd_dkv,
+            "cola_fit": cf.cola_fit_lowrank,
+            "decode_attention": da.decode_attention,
+            "multi_lora": ml.multi_lora}
+
+
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "cola_fit")
+
+
+def phase_training(cfg, dev) -> dict:
+    """Six Mode A steps of ColaSession at full width; returns the launch
+    counts of the measured steps."""
+    from repro_torch.configs.base import ColaConfig, TrainConfig
+    from repro_torch.core.session import ColaSession
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model
+    from repro_torch.optim import optimizers
+    from repro_torch.utils import tree_leaves
+
+    tc = TrainConfig()
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8, merged=True, interval=2)
+    check(cfg.remat == "full" and cfg.param_dtype == "bfloat16",
+          f"training config {cfg.remat}/{cfg.param_dtype}")
+    sess = ColaSession(cfg, cc, model.init(cfg, seed=SEED, device=dev),
+                       seed=SEED, device=dev, optimizer=optimizers.adamw(
+                           tc.lr, b1=tc.b1, b2=tc.b2, eps=tc.eps,
+                           weight_decay=tc.weight_decay))
+    data = SyntheticLM(cfg, batch=tc.batch, seq=tc.seq, seed=SEED, device=dev)
+    batches = [data.batch_at(i) for i in range(7)]
+
+    off = sess.offloader
+    fit_ms: list[float] = []
+    inner = off.maybe_fit
+
+    def timed_fit():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner()
+        torch.cuda.synchronize()
+        fit_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    off.maybe_fit = timed_fit
+    sess.step(batches[0])     # warm-up; its launches are not counted
+    torch.cuda.synchronize()
+    fit_ms.clear()
+
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, server_ms, losses = [], [], []
+    for b in batches[1:]:
+        before = [t.clone() for t in tree_leaves(sess.adapters)]
+        n_fits = len(fit_ms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(sess.step(b))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        server_ms.append(step_ms[-1] - sum(fit_ms[n_fits:]))
+        if len(fit_ms) > n_fits:
+            check(any(not torch.equal(a, t) for a, t
+                      in zip(before, tree_leaves(sess.adapters))),
+                  f"step {sess.step_count}: the fit left the adapters as they were")
+    launches = {n: w.launches for n, w in ws.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(len(fit_ms) == 3 and off.stats["fits"] == 3,
+          f"{len(fit_ms)} fits in the measured steps, {off.stats['fits']} in all")
+    check(sess.offload_stats == {"rejected_payloads": 0, "rollbacks": 0},
+          f"offload rounds failed: {sess.offload_stats}")
+    for n in TRAIN_KERNELS:
+        check(launches[n] > 0, f"kernel {n} was never launched in training")
+    n_steps = len(step_ms)
+    tokens = n_steps * tc.batch * tc.seq
+    print(f"[train] smollm-135m bf16, 30 layers, remat full, Mode A merged "
+          f"rank-8 qv, interval 2, batch {tc.batch} x {tc.seq}: losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"[train] step ms {[round(t, 2) for t in step_ms]}; server step p50 "
+          f"{statistics.median(server_ms):.2f} ms; fit ms "
+          f"{[round(t, 2) for t in fit_ms]} (p50 {statistics.median(fit_ms):.2f});"
+          f" {tokens / (sum(step_ms) / 1e3):.1f} training tokens/s; peak "
+          f"memory {peak / 2**30:.3f} GiB", flush=True)
+    print(f"[train] launches in {n_steps} steps: {launches}; per step "
+          f"{ {n: c / n_steps for n, c in launches.items()} }", flush=True)
+    return launches
+
+
+def phase_training_vs_plain(cfg, dev) -> None:
+    """f32 full width, batch 2 x 128: the card's Mode A server step and fit
+    against the CPU's (plain versions), and on the card Mode A == Mode B."""
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.core import gl
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model
+
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8)
+    spec_a = gl.make_spec(cfg32, cc)
+    spec_b = gl.make_spec(cfg32, ColaConfig(mode="fused_fit", family="lowrank",
+                                            taps="qv", rank=8))
+    params = model.init(cfg32, seed=SEED + 2, device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    adapters = gl.init_adapters(cfg32, cc, gen, device="cpu")
+    for w in adapters.values():   # B != 0, so dA carries information
+        w["B"] = torch.randn(w["B"].shape, generator=gen) * 0.02
+    batch = SyntheticLM(cfg32, batch=2, seq=128, seed=SEED + 2,
+                        device="cpu").batch_at(0)
+    out = {}
+    for device in ("cpu", dev):
+        p, ad, b = (_to(t, device) for t in (params, adapters, batch))
+        loss, data, _ = gl.server_step_a(cfg32, spec_a, p, ad, b)
+        out[str(device)] = (float(loss), gl.fit_grads(spec_a, ad, data))
+    loss_cpu, g_cpu = out["cpu"]
+    loss_gpu, g_gpu = out[str(dev)]
+    # f32 sums in other orders through 30 layers and a 49152-way softmax
+    loss_diff = abs(loss_gpu - loss_cpu)
+    check(loss_diff <= 1e-5 * abs(loss_cpu),
+          f"loss card {loss_gpu} vs CPU {loss_cpu}")
+    worst = 0.0
+    for tap, w in g_cpu.items():
+        for leaf, a in w.items():
+            err, scale = max_err(g_gpu[tap][leaf].cpu(), a)
+            worst = max(worst, err / scale)
+            check(err <= 1e-3 * scale, f"fit grad {tap}.{leaf}: card vs CPU "
+                  f"max |diff| {err:.3g} > 1e-3 x {scale:.3g}")
+    # Prop 1 on the card, at test_gl_equivalence.py's tolerance
+    ad = _to(adapters, dev)
+    loss_b, g_b, _ = gl.train_step_b(cfg32, spec_b, _to(params, dev), ad,
+                                     _to(batch, dev))
+    prop1 = 0.0   # max |A - B| / (atol + rtol |B|): allclose when <= 1
+    for tap, w in g_b.items():
+        for leaf, b in w.items():
+            a = g_gpu[tap][leaf]
+            ratio = float(((a - b).abs() / (1e-6 + 2e-4 * b.abs())).max())
+            prop1 = max(prop1, ratio)
+            check(ratio <= 1, f"Prop 1 on the card: {tap}.{leaf} Mode A vs "
+                  f"Mode B beyond rtol 2e-4, atol 1e-6 ({ratio:.3g} x)")
+    check(abs(float(loss_b) - loss_gpu) <= 1e-6 * abs(loss_gpu),
+          f"Mode B loss {float(loss_b)} vs Mode A {loss_gpu}")
+    print(f"[train-vs-plain] f32 full width, batch 2 x 128: loss card "
+          f"{loss_gpu:.7f} CPU {loss_cpu:.7f} (|diff| {loss_diff:.3e}); fit "
+          f"grads max |card - CPU| / max |CPU| {worst:.3e} (tol 1e-3); Prop 1 on "
+          f"the card: max |A - B| / (1e-6 + 2e-4 |B|) = {prop1:.3f} (<= 1)",
+          flush=True)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -339,15 +589,30 @@ def main() -> int:
     phase_engine_vs_plain(cfg, dev)
     print(f"[engine-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    train = phase_training(cfg, dev)
+    print(f"[train] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_training_vs_plain(cfg, dev)
+    print(f"[train-vs-plain] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
+        "flash_attention_bwd_dq": "src/repro/kernels/flash_attention.py:152",
+        "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention.py:200",
+        "cola_fit": "src/repro/kernels/cola_fit.py:40",
         "decode_attention": "src/repro/kernels/decode_attention.py:62",
         "multi_lora": "src/repro/kernels/multi_lora.py:64",
     }
+    sources = {"flash_attention_bwd_dq": "flash_attention_bwd",
+               "flash_attention_bwd_dkv": "flash_attention_bwd"}
+    # launches: the serving run's plus the training run's (flash_attention
+    # runs on both paths; every other kernel on one)
     kernels = [dict(name=n, route="cuda",
-                    source=f"src/repro_torch/kernels/csrc/{n}.cu",
-                    replaces=replaces[n], launches=launches[n], **rows[n])
+                    source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
+                    replaces=replaces[n], launches=launches[n] + train[n],
+                    **rows[n])
                for n in replaces]
     print(card)
     print(json.dumps({"kernels": kernels}))

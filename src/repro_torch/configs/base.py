@@ -1,6 +1,7 @@
-"""ModelConfig: the architecture description (a frozen dataclass, so it is
-hashable). A copy of the JAX package's ``configs/base.py:ModelConfig``; the
-port keeps its own so that it imports nothing of the JAX package.
+"""ModelConfig (the architecture), ColaConfig (how ColA attaches to it) and
+TrainConfig (optimizer and batch): frozen dataclasses, so they are hashable.
+Copies of the JAX package's ``configs/base.py``; the port keeps its own so
+that it imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -68,3 +69,36 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ColaConfig:
+    """How ColA is attached to a model (static)."""
+    mode: str = "fused_fit"        # "faithful_offload" (Mode A) | "fused_fit" (Mode B)
+                                   # | "lora" (classic PEFT baseline) | "ft" | "frozen"
+    family: str = "lowrank"        # adapter family for all taps ("lowrank"|"linear"|"mlp")
+    taps: str = "qv"               # "qv" | "all_attn" | "mlp" | "all" | "ssm"
+    rank: int = 8
+    hidden: int = 128
+    scale: float = 1.0
+    merged: bool = False           # parameter merging during training (Alg.1 l.3/8)
+    interval: int = 1              # adaptation interval I
+    users: int = 1                 # K collaborative users
+    compress: str = "none"         # "none" | "int8" (offload compression)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch: int = 32
+    seq: int = 128
+    lr: float = 3e-4
+    weight_decay: float = 5e-4
+    warmup: float = 0.05
+    steps: int = 100
+    optimizer: str = "adamw"
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "linear"       # "linear" | "cosine" | "const"
+    seed: int = 0

@@ -36,8 +36,9 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     return _tree(tree, canonical_dtype(cfg.param_dtype), resolve_device(device))
 
 
-def bank_from_numpy(tree: dict, device="cuda", dtype="float32") -> dict:
-    """One user's adapter pytree {tap: {"A": (L, d, r), "B": (L, r, d_out)}}
-    (numpy leaves) -> torch tensors in ``dtype`` (f32, as JAX initialises
-    adapters and as the f32 bank stores them)."""
+def adapters_from_numpy(tree: dict, device="cuda", dtype="float32") -> dict:
+    """An adapter pytree {tap: {leaf: array}} of any family (lowrank
+    {"A", "B"}, linear {"W"}, mlp {"W1", "b1", "W2"}; stacked leaves keep
+    their leading (L,) axis), numpy leaves -> torch tensors in ``dtype``
+    (f32, as JAX initialises adapters and as the f32 bank stores them)."""
     return _tree(tree, canonical_dtype(dtype), resolve_device(device))

@@ -1,11 +1,16 @@
-"""Auxiliary models g_w (the paper's adapters), as far as serving needs them.
+"""Auxiliary models g_w (the paper's model-agnostic adapters).
 
-- ``lowrank``       : g(x) = (x @ A) @ B  (== LoRA)
+Families
+--------
+- ``lowrank``       : g(x) = (x @ A) @ B            (== LoRA; mergeable, Prop 2)
+- ``linear``        : g(x) = x @ W                  (== full delta-W; mergeable)
+- ``mlp``           : g(x) = relu(x @ W1 + b1) @ W2  (not mergeable: nonlinear in x)
 - ``multi_lowrank`` : FTaaS serving, one adapter per request inside one batch
   (multi-LoRA through ``kernels.ops.multi_lora``).
 
-The other families of the JAX package (``linear``, ``mlp``) and int8-stored
-banks are still to be ported (ROADMAP.md).
+Adapters are dicts of tensors. Stacked taps carry a leading (L,) axis on every
+leaf; ``apply`` takes one layer's slice. int8-stored banks are still to be
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -13,11 +18,48 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 
+MERGEABLE = {"lowrank": True, "linear": True, "mlp": False,
+             "multi_lowrank": False}
+FAMILIES = tuple(MERGEABLE)
+
+
+def init(family: str, gen: torch.Generator, d_in: int, d_out: int, *,
+         rank: int = 8, hidden: int = 128, dtype=torch.float32,
+         lead: tuple[int, ...] = (), device=None) -> dict:
+    """Adapter params with g(x) == 0 at t = 0 (paper Alg. 1 init), drawn from
+    ``gen`` on its own device and moved to ``device`` (default: the
+    generator's). ``lead`` prepends axes (the layer axis of a stacked tap) to
+    every leaf. The draws differ from ``jax.random``'s; tests carry JAX
+    adapters across with ``convert.adapters_from_numpy``."""
+    device = gen.device if device is None else device
+
+    def normal(*shape, fan):
+        w = torch.randn(lead + shape, generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        return (w / fan ** 0.5).to(device=device, dtype=dtype)
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    if family == "lowrank":
+        return {"A": normal(d_in, rank, fan=rank), "B": zeros(rank, d_out)}
+    if family == "linear":
+        return {"W": zeros(d_in, d_out)}
+    if family == "mlp":
+        return {"W1": normal(d_in, hidden, fan=d_in), "b1": zeros(hidden),
+                "W2": zeros(hidden, d_out)}
+    raise ValueError(f"unknown adapter family: {family!r}")
+
 
 def apply(family: str, w: dict, x: torch.Tensor) -> torch.Tensor:
     """g_w(x). x: (..., d_in) -> (..., d_out). Computes in x.dtype."""
     if family == "lowrank":
         return (x @ w["A"].to(x.dtype)) @ w["B"].to(x.dtype)
+    if family == "linear":
+        return x @ w["W"].to(x.dtype)
+    if family == "mlp":
+        h = torch.relu(x @ w["W1"].to(x.dtype) + w["b1"].to(x.dtype))
+        return h @ w["W2"].to(x.dtype)
     if family == "multi_lowrank":
         # w: {"A": (U, d_in, r), "B": (U, r, d_out), "idx": (B,)}; x: (B, S, d)
         if "A_q" in w:
@@ -28,5 +70,30 @@ def apply(family: str, w: dict, x: torch.Tensor) -> torch.Tensor:
         idx = w["idx"].to(torch.int32).repeat_interleave(S)
         y = kernel_ops.multi_lora(flat, w["A"], w["B"], idx)
         return y.reshape(Bz, S, -1)
-    raise NotImplementedError(f"adapter family {family!r} is not ported yet "
-                              "(see ROADMAP.md)")
+    raise ValueError(f"unknown adapter family: {family!r}")
+
+
+def merge_delta(family: str, w: dict, scale: float) -> torch.Tensor:
+    """The delta-W with base_W + delta == merged weights (Prop 2). Only for
+    families linear in x; keeps stacked leading layer axes."""
+    if family == "lowrank":
+        return scale * (w["A"] @ w["B"])
+    if family == "linear":
+        return scale * w["W"]
+    raise ValueError(f"adapter family {family!r} is not mergeable (Prop 2: "
+                     "merging requires g linear in its input)")
+
+
+def is_mergeable(family: str) -> bool:
+    return MERGEABLE[family]
+
+
+def shapes(family: str, d_in: int, d_out: int, *, rank: int = 8,
+           hidden: int = 128) -> dict[str, tuple[int, ...]]:
+    if family == "lowrank":
+        return {"A": (d_in, rank), "B": (rank, d_out)}
+    if family == "linear":
+        return {"W": (d_in, d_out)}
+    if family == "mlp":
+        return {"W1": (d_in, hidden), "b1": (hidden,), "W2": (hidden, d_out)}
+    raise ValueError(family)

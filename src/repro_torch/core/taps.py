@@ -35,22 +35,65 @@ class ColaSpec:
     collect: tuple[str, ...] = ()               # taps whose hidden input to record
     inject: tuple[str, ...] = ()                # taps with delta injection
     scale: float = 1.0
+    rank: int = 8
+    hidden: int = 128
 
     @property
     def family_map(self) -> dict[str, str]:
         return dict(self.families)
 
+    def tap_names(self) -> tuple[str, ...]:
+        seen = dict.fromkeys([n for n, _ in self.families])
+        for n in self.collect + self.inject:
+            seen.setdefault(n)
+        return tuple(seen)
+
+    def with_adapters_only(self) -> "ColaSpec":
+        return dataclasses.replace(self, collect=(), inject=())
+
 
 def make_spec(*, family: str | None = None,
               families: Mapping[str, str] | None = None,
               taps: tuple[str, ...] = (), collect: tuple[str, ...] = (),
-              inject: tuple[str, ...] = (), scale: float = 1.0) -> ColaSpec:
+              inject: tuple[str, ...] = (), scale: float = 1.0, rank: int = 8,
+              hidden: int = 128) -> ColaSpec:
     fam: dict[str, str] = dict(families or {})
     if family is not None:
         for t in taps:
             fam.setdefault(t, family)
     return ColaSpec(families=tuple(sorted(fam.items())), collect=tuple(collect),
-                    inject=tuple(inject), scale=scale)
+                    inject=tuple(inject), scale=scale, rank=rank, hidden=hidden)
+
+
+def init_adapter_vars(spec: ColaSpec, sites: Mapping[str, TapSite],
+                      gen: torch.Generator, dtype=torch.float32,
+                      device=None) -> dict:
+    """{tap: w} for every adapted tap of ``spec``, drawn from ``gen`` in the
+    order of ``spec.families``. Stacked sites get a leading (L,) axis on
+    every adapter leaf."""
+    out: dict[str, Any] = {}
+    for name, family in spec.families:
+        site = sites[name]
+        lead = (site.stacked,) if site.stacked else ()
+        out[name] = adapters_lib.init(family, gen, site.d_in, site.d_out,
+                                      rank=spec.rank, hidden=spec.hidden,
+                                      dtype=dtype, lead=lead, device=device)
+    return out
+
+
+def zero_delta_vars(spec: ColaSpec, sites: Mapping[str, TapSite],
+                    batch_shape: tuple[int, ...], dtype=torch.float32,
+                    device="cuda") -> dict:
+    """Zero deltas {tap: (L?, *batch_shape, d_out)} for grad extraction
+    (Mode A)."""
+    out = {}
+    for name in spec.inject:
+        site = sites[name]
+        shape = batch_shape + (site.d_out,)
+        if site.stacked:
+            shape = (site.stacked,) + shape
+        out[name] = torch.zeros(shape, dtype=dtype, device=device)
+    return out
 
 
 def apply_tap(spec: ColaSpec | None, name: str, x: torch.Tensor,

@@ -1,0 +1,65 @@
+"""Data: the JAX package's ``SyntheticLM`` stream (``data/pipeline.py``),
+with the same numpy generator, so a seed gives the same tokens in both
+packages. ``batch_at(step)`` is a pure function of the step index and the
+seed; batches are tensors on the caller's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.utils import resolve_device
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    """Seeded synthetic LM stream with learnable structure: a fixed random
+    bigram table (8 likely successors per token, 10 % noise) generates the
+    tokens, so a model can reduce its loss."""
+    cfg: ModelConfig
+    batch: int
+    seq: int
+    seed: int = 0
+    users: int = 1
+    host_id: int = 0
+    n_hosts: int = 1
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        if self.cfg.n_codebooks or self.cfg.embed_input:
+            raise NotImplementedError("codebook and embedding inputs are not "
+                                      "ported yet (see ROADMAP.md)")
+        self.device = resolve_device(self.device)
+        rng = np.random.default_rng(self.seed)
+        self._succ = rng.integers(0, self.cfg.vocab_size, size=(
+            self.cfg.vocab_size, 8), dtype=np.int32)
+
+    def _gen_tokens(self, rng: np.random.Generator, b: int, s: int) -> np.ndarray:
+        v = self.cfg.vocab_size
+        toks = np.empty((b, s + 1), np.int32)
+        toks[:, 0] = rng.integers(0, v, size=b)
+        choice = rng.integers(0, 8, size=(b, s))
+        noise = rng.random((b, s)) < 0.1
+        rand = rng.integers(0, v, size=(b, s), dtype=np.int32)
+        for t in range(s):
+            nxt = self._succ[toks[:, t], choice[:, t]]
+            toks[:, t + 1] = np.where(noise[:, t], rand[:, t], nxt)
+        return toks
+
+    def numpy_batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + step) * 7919 + self.host_id)
+        b = self.batch // self.n_hosts
+        toks = self._gen_tokens(rng, b, self.seq)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if self.users > 1:
+            batch["user_id"] = rng.integers(0, self.users, size=(b,),
+                                            dtype=np.int32)
+        return batch
+
+    def batch_at(self, step: int) -> dict:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in self.numpy_batch_at(step).items()}

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("flash_attention", "decode_attention", "multi_lora")
+KERNELS = ("flash_attention", "flash_attention_bwd", "cola_fit",
+           "decode_attention", "multi_lora")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -112,3 +113,12 @@ def check_launch(rc: int, kernel: str) -> None:
 def require(cond: bool, kernel: str, what: str) -> None:
     if not cond:
         raise ValueError(f"{kernel}: {what}")
+
+
+def require_no_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise for a kernel that has no backward when autograd would need one:
+    a kernel's output carries no ``grad_fn``, so gradients would stop there
+    without a word."""
+    require(not (torch.is_grad_enabled()
+                 and any(t.requires_grad for t in tensors)), kernel,
+            "has no backward: called on inputs that require grad")

@@ -58,6 +58,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         what=f"shapes q {tuple(q.shape)} cache {tuple(k_cache.shape)}")
     req(q.is_contiguous() and k_cache.is_contiguous()
         and v_cache.is_contiguous(), what="q and caches must be contiguous")
+    _build.require_no_grad(name, q, k_cache, v_cache)
     req(positions.shape == (B,), what=f"positions shape {tuple(positions.shape)}")
     pos = positions.to(device=q.device, dtype=torch.int32).contiguous()
     if live is not None:

@@ -53,6 +53,7 @@ def multi_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         f"B {tuple(B.shape)} idx {tuple(idx.shape)}")
     req(x.is_contiguous() and A.is_contiguous() and B.is_contiguous(),
         what="x, A, B must be contiguous")
+    _build.require_no_grad(name, x, A, B)
 
     y = torch.empty((T, d_out), dtype=x.dtype, device=x.device)
     if T == 0:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving and training paths.
 
 These are the semantics of the kernels (ported from the JAX package's
 ``kernels/ref.py``): the CPU path of every wrapper, and the yardstick each
@@ -86,6 +86,56 @@ def _sdpa_dense(q, k, v, *, q_positions, kv_positions, causal=True,
     return o, lse
 
 
+def sdpa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+             q_positions: torch.Tensor, kv_positions: torch.Tensor,
+             causal: bool = True, window: int | None = None,
+             softcap: float | None = None, scale: float | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of attention from the forward's o and lse
+    (B, H, Sq) f32, the math of the JAX package's ``flash_attention._bwd``:
+    delta = rowsum(do * o), p = exp(s - lse) under the mask,
+    ds = p * (dp - delta) (times 1 - tanh^2 under softcap); dk and dv are
+    summed over the G q-heads of each kv head. f32 math; each gradient in
+    its input's dtype. Shapes and masking as ``sdpa``.
+    """
+    B, Sq, H, Dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    if scale is None:
+        scale = Dh ** -0.5
+    f32 = torch.float32
+    qp = q_positions.to(torch.int32)[:, None, None, :, None]    # (B,1,1,Sq,1)
+    kp = kv_positions.to(torch.int32)[:, None, None, None, :]   # (B,1,1,1,Sk)
+    mask = torch.ones((1, 1, 1, Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None and window > 0:
+        mask = mask & (kp > qp - window)
+
+    qg = q.reshape(B, Sq, K, G, Dh).to(f32)
+    dog = do.reshape(B, Sq, K, G, Dh).to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    delta = (dog * o.reshape(B, Sq, K, G, Dh).to(f32)).sum(-1)   # (B,Sq,K,G)
+    delta = delta.permute(0, 2, 3, 1)[..., None]                 # (B,K,G,Sq,1)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+    dcap = None
+    if softcap is not None and softcap > 0:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+        dcap = 1.0 - t * t
+    lse_g = lse.to(f32).reshape(B, K, G, Sq)[..., None]
+    p = torch.where(mask, torch.exp(s - lse_g), torch.zeros_like(s))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+    ds = p * (dp - delta)
+    if dcap is not None:
+        ds = ds * dcap
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(B, Sq, H, Dh) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def sdpa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 positions: torch.Tensor, *, live: torch.Tensor | None = None,
                 window: int | None = None, softcap: float | None = None,
@@ -106,6 +156,30 @@ def sdpa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if live is not None:
         o = torch.where(live[:, None, None, None], o, torch.zeros_like(o))
     return o
+
+
+# ---------------------------------------------------------------------------
+# cola_fit oracle: fused low-rank adapter fit gradient (the offloaded GL step)
+# ---------------------------------------------------------------------------
+
+def cola_fit_lowrank(x: torch.Tensor, grad_h: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, scale: float = 1.0
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradient of the paper's quadratic fit loss (Eq. 6) at w = w_t for the
+    low-rank family; by Prop 1 it equals the true loss gradient.
+
+      dB = scale * (x A)^T grad_h        dA = scale * x^T (grad_h B^T)
+
+    x: (..., T, d_in); grad_h: (..., T, d_out); A: (..., d_in, r);
+    B: (..., r, d_out), with any leading (layer) axes shared by all four.
+    f32 math; returns (dA, dB) in f32.
+    """
+    f32 = torch.float32
+    xf, gf, Af, Bf = (t.to(f32) for t in (x, grad_h, A, B))
+    xa = xf @ Af                                       # (..., T, r)
+    dB = scale * (xa.transpose(-1, -2) @ gf)           # (..., r, d_out)
+    dA = scale * (xf.transpose(-1, -2) @ (gf @ Bf.transpose(-1, -2)))
+    return dA, dB
 
 
 # ---------------------------------------------------------------------------

@@ -6,20 +6,22 @@ Parameters are the JAX package's pytree as nested dicts of tensors, layer
 leaves stacked on a leading (L,) axis. The other layer plans (``pairs``,
 ``hybrid``, SSM) are still to be ported (ROADMAP.md).
 
-Entry points: init, prefill, decode_step, init_cache, scatter_prefill_cache,
-tap_sites.
+Entry points: init, forward, loss_fn, prefill, decode_step, init_cache,
+scatter_prefill_cache, tap_sites, delta_shape.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.taps import ColaSpec, TapSite
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.utils import canonical_dtype, resolve_device
+from repro_torch.utils import canonical_dtype, resolve_device, tree_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -66,9 +68,29 @@ def _subvars(d: dict | None, prefix: str) -> dict:
     return {k: v for k, v in d.items() if k.startswith(prefix + ".")}
 
 
+def _checkpointed(cfg: ModelConfig, fn, needs_grad: bool):
+    """``cfg.remat`` for one layer: "full" recomputes the layer in the
+    backward (``torch.utils.checkpoint``, non-reentrant), "none" keeps its
+    activations. Without autograd there is nothing to recompute."""
+    if not needs_grad or cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return partial(checkpoint, fn, use_reentrant=False)
+    raise NotImplementedError(f"remat={cfg.remat!r} is not ported (no config "
+                              "uses it)")
+
+
 # ---------------------------------------------------------------------------
 # tap sites
 # ---------------------------------------------------------------------------
+
+def delta_shape(cfg: ModelConfig, site: TapSite, batch: int, seq: int
+                ) -> tuple:
+    """Shape of the Mode-A injected delta of one tap; stacked sites carry the
+    layer axis."""
+    base = (batch, seq, site.d_out)
+    return (site.stacked,) + base if site.stacked else base
+
 
 def tap_sites(cfg: ModelConfig) -> dict[str, TapSite]:
     _require_uniform_attn(cfg)
@@ -147,31 +169,90 @@ def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor
 # full sequence
 # ---------------------------------------------------------------------------
 
+def _block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+           positions: torch.Tensor, spec, ad_l: dict, de_l: dict):
+    """One layer; returns (x, (k, v), {tap: hidden input x} collected)."""
+    aux: dict = {}
+    x, kv = B.attn_block(cfg, lp, x, positions, window=None,
+                         tap_prefix="layers", tap_ctx=(spec, ad_l, de_l, aux))
+    return x, kv, aux
+
+
 def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
                   spec: ColaSpec | None = None, cola_vars: dict | None = None,
                   *, collect_kv: bool = False):
-    """Embedding + all layers + final norm. Returns (h, aux); with
-    ``collect_kv`` aux["stacked"] holds every layer's k, v (L, B, S, K, Dh).
-    (The per-tap hidden inputs that training collects come with the training
-    slice, ROADMAP.md.)"""
+    """Embedding + all layers + final norm. Returns (h, aux):
+    aux["collected"] holds each collected tap's hidden inputs stacked per
+    layer, {tap: (L, B, S, d_in)}; with ``collect_kv`` aux["stacked"] holds
+    every layer's k, v (L, B, S, K, Dh)."""
     ad = _subvars((cola_vars or {}).get("adapters", {}), "layers")
     de = _subvars((cola_vars or {}).get("deltas", {}), "layers")
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves([params, cola_vars or {}]))
+    layer = _checkpointed(cfg, _block, needs_grad)
     x = embed_tokens(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
     ks, vs = [], []
+    collected: dict[str, list] = {}
     for i in range(cfg.n_layers):
-        tap_ctx = (spec, _layer(ad, i), _layer(de, i), {})
-        x, (k, v) = B.attn_block(cfg, _layer(params["layers"], i), x,
-                                 positions, window=None, tap_prefix="layers",
-                                 tap_ctx=tap_ctx)
+        x, (k, v), got = layer(cfg, _layer(params["layers"], i), x, positions,
+                               spec, _layer(ad, i), _layer(de, i))
+        for tap, xin in got.items():
+            collected.setdefault(tap, []).append(xin)
         if collect_kv:
             ks.append(k)
             vs.append(v)
-    aux: dict[str, Any] = {}
+    aux: dict[str, Any] = {"collected": {t: torch.stack(xs) for t, xs
+                                         in collected.items()}}
     if collect_kv:
         aux["stacked"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps), aux
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict,
+            spec: ColaSpec | None = None, cola_vars: dict | None = None):
+    h, aux = hidden_states(cfg, params, batch, spec, cola_vars)
+    return head_logits(cfg, params, h), aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sum of CE and count over valid (label >= 0) positions. f32 math."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+    valid = labels >= 0
+    ce = torch.where(valid, lse - ll, torch.zeros_like(lse))
+    return ce.sum(), valid.sum().to(torch.float32)
+
+
+def lm_loss(cfg: ModelConfig, params: dict, h: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """CE from hidden states; with ``cfg.loss_chunk`` the sequence is taken
+    in chunks, so the full (B, S, V) logits tensor never exists at once."""
+    S = h.shape[1]
+    c = cfg.loss_chunk
+    if c and S % c == 0 and S > c:
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, S, c):
+            s, n = _ce(head_logits(cfg, params, h[:, i:i + c]),
+                       labels[:, i:i + c])
+            tot, cnt = tot + s, cnt + n
+        return tot / cnt.clamp(min=1.0)
+    s, n = _ce(head_logits(cfg, params, h), labels)
+    return s / n.clamp(min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            spec: ColaSpec | None = None, cola_vars: dict | None = None):
+    """(mean next-token CE, aux) of one batch {"tokens", "labels"}."""
+    h, aux = hidden_states(cfg, params, batch, spec, cola_vars)
+    return lm_loss(cfg, params, h, batch["labels"]), aux
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict,

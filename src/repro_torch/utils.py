@@ -1,4 +1,5 @@
-"""Shared utilities: dtype names, shape math and device checks."""
+"""Shared utilities: dtype names, shape math, device checks and maps over
+nested dicts of tensors (the port's pytrees)."""
 from __future__ import annotations
 
 import torch
@@ -38,3 +39,20 @@ def resolve_device(device: str | torch.device) -> torch.device:
         if device.index is None:   # "cuda" -> "cuda:<current>", comparable
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts that share one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, tuples and lists, in order."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [l for v in tree for l in tree_leaves(v)]
+    return [tree]

@@ -50,6 +50,17 @@ def test_entry_points_default_to_the_card():
         ServeEngine(cfg, params)
     with pytest.raises(RuntimeError, match="cuda"):
         model.init(cfg)
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.core.offload import Offloader
+    from repro_torch.core.session import ColaSession
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import optimizers
+    with pytest.raises(RuntimeError, match="cuda"):
+        Offloader(None, {}, optimizers.sgd(0.1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ColaSession(cfg, ColaConfig(), params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SyntheticLM(cfg, batch=1, seq=4)
 
 
 @pytest.mark.parametrize("alone", [False, True])

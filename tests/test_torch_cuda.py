@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain versions on the card, over the shapes
 and options the full-width run of ``chip_smoke.py`` does not reach: every
 head dim the kernels take, ragged lengths, non-uniform per-row positions,
-window and softcap, dead slots, padding rows, ranks up to 256.
+window and softcap, dead slots, padding rows, ranks up to 256; the flash
+backward and cola_fit kernels; gradients through ``ops.sdpa`` on the card
+against the plain path's; kernels without a backward refusing inputs that
+require grad.
 
 Marked ``cuda``; skipped without a card. On the H100 (whose Python has no
 JAX, which the tests' conftest imports):
@@ -126,3 +129,151 @@ def test_wrappers_raise_for_what_the_kernels_do_not_take(dev):
     A, B = torch.zeros(1, 8, 2, device=dev), torch.zeros(1, 2, 8, device=dev)
     with pytest.raises(ValueError, match="dtype"):
         ml.multi_lora(x, A, B, torch.zeros(4, dtype=torch.int32, device=dev))
+
+
+# -- the training path: flash backward, cola_fit, gradients through ops ------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,K,D,window,softcap", [
+    (32, 128, 9, 3, 64, None, None),    # the training path's shape
+    (2, 100, 4, 2, 64, None, None),     # ragged last q / kv tile
+    (1, 130, 4, 1, 32, 16, 30.0),       # MQA, window + softcap
+    (1, 64, 2, 2, 16, None, None),      # G = 1
+    (1, 200, 4, 2, 128, 50, None),
+])
+def test_flash_backward_kernels(dev, dtype, B, S, H, K, D, window, softcap):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, do = (_rnd(gen, dev, dtype, B, S, n, D) for n in (H, K, K, H))
+    kw = dict(q_positions=torch.arange(S, dtype=torch.int32, device=dev)[None],
+              kv_positions=torch.arange(S, dtype=torch.int32, device=dev)[None],
+              window=window, softcap=softcap)
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    launches = (fa.bwd_dq.launches, fa.bwd_dkv.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert (fa.bwd_dq.launches, fa.bwd_dkv.launches) == (launches[0] + 1,
+                                                         launches[1] + 1)
+    for g, w in zip(got, fa.plain_bwd(q, k, v, o, lse, do, **kw)):
+        assert g.dtype == dtype
+        _close(g, w, dtype)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_backward_kernels_per_row_positions(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, S, H, K, D = 2, 150, 6, 2, 64
+    q, k, v, do = (_rnd(gen, dev, dtype, B, S, n, D) for n in (H, K, K, H))
+    qp = torch.stack([torch.arange(S) + 7,
+                      torch.randperm(S, generator=torch.Generator().manual_seed(0))
+                      - 5]).to(dev, torch.int32)
+    kp = torch.stack([torch.arange(S), torch.arange(S) * 2]).to(dev, torch.int32)
+    for window in (None, 20):
+        kw = dict(q_positions=qp, kv_positions=kp, window=window)
+        o, lse = fa.flash_attention(q, k, v, **kw)
+        for g, w in zip(fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                        fa.plain_bwd(q, k, v, o, lse, do, **kw)):
+            _close(g, w, dtype)
+
+
+def test_gradients_flow_through_ops_sdpa_on_the_card(dev):
+    """The card's autograd through ops.sdpa (FlashAttention: the forward and
+    the two backward kernels) equals the plain path's on the CPU."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(6)
+    B, S, H, K, D = 2, 96, 6, 2, 64
+    qkv = [torch.randn(B, S, n, D, generator=gen) for n in (H, K, K)]
+    do = torch.randn(B, S, H, D, generator=gen)
+    pos = torch.arange(S, dtype=torch.int32)[None]
+    grads = {}
+    for d in ("cpu", dev):
+        ins = [t.detach().to(d).requires_grad_() for t in qkv]
+        before = fa.flash_attention.launches
+        o = ops.sdpa(*ins, q_positions=pos.to(d), kv_positions=pos.to(d))
+        assert o.grad_fn is not None
+        o.backward(do.to(d))
+        grads[str(d)] = [t.grad.cpu() for t in ins]
+        assert (fa.flash_attention.launches > before) == (d != "cpu")
+    for a, b in zip(grads["cpu"], grads[str(dev)]):
+        _close(b, a, torch.float32)
+
+
+def test_server_step_recomputes_through_the_kernels(dev):
+    """Mode A's server step on the card with remat "full": the forward kernel
+    runs twice per layer (the recompute), each backward kernel once, and the
+    result equals the CPU's."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.core import gl
+    from repro_torch.models import model
+    from repro_torch.utils import tree_map
+
+    cfg = registry.reduced_config("smollm-135m").replace(
+        n_layers=2, d_head=64, remat="full")
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=4)
+    spec = gl.make_spec(cfg, cc)
+    params = model.init(cfg, seed=0, device="cpu")
+    ad = gl.init_adapters(cfg, cc, torch.Generator().manual_seed(1))
+    tok = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator()
+                        .manual_seed(2))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    out = {}
+    for d in ("cpu", dev):
+        counts = (fa.flash_attention.launches, fa.bwd_dq.launches,
+                  fa.bwd_dkv.launches)
+        loss, data, _ = gl.server_step_a(
+            cfg, spec, *(tree_map(lambda a: a.to(d), t) for t in (params, ad,
+                                                                  batch)))
+        out[str(d)] = (loss.cpu(), {t: (x.cpu(), g.cpu())
+                                    for t, (x, g) in data.items()})
+        if d != "cpu":
+            assert (fa.flash_attention.launches - counts[0],
+                    fa.bwd_dq.launches - counts[1],
+                    fa.bwd_dkv.launches - counts[2]) == (4, 2, 2)
+    _close(out[str(dev)][0], out["cpu"][0], torch.float32)
+    for tap, (x, g) in out["cpu"][1].items():
+        _close(out[str(dev)][1][tap][0], x, torch.float32)
+        _close(out[str(dev)][1][tap][1], g, torch.float32)
+
+
+@pytest.mark.parametrize("L,T,din,dout,r", [(30, 8192, 576, 576, 8),
+                                            (30, 8192, 576, 192, 8),
+                                            (1, 7, 16, 12, 4),
+                                            (3, 300, 96, 48, 8),
+                                            (2, 1000, 1536, 576, 8),
+                                            (1, 64, 576, 1536, 16)])
+def test_cola_fit_kernel(dev, L, T, din, dout, r):
+    from repro_torch.kernels import cola_fit as cf
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, g = (_rnd(gen, dev, torch.float32, L, T, d) for d in (din, dout))
+    A = _rnd(gen, dev, torch.float32, L, din, r)
+    Bm = _rnd(gen, dev, torch.float32, L, r, dout)
+    before = cf.cola_fit_lowrank.launches
+    got = cf.cola_fit_lowrank(x, g, A, Bm, scale=0.5)
+    assert cf.cola_fit_lowrank.launches == before + 1
+    for a, w in zip(got, cf.plain(x, g, A, Bm, scale=0.5)):
+        _close(a, w, torch.float32)
+    again = cf.cola_fit_lowrank(x, g, A, Bm, scale=0.5)   # refits: same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    one = cf.cola_fit_lowrank(x[0], g[0], A[0], Bm[0], scale=0.5)
+    _close(one[0], got[0][0], torch.float32)
+
+
+def test_kernels_without_backward_raise_on_inputs_that_require_grad(dev):
+    q = torch.zeros(2, 1, 4, 32, device=dev, requires_grad=True)
+    kc = torch.zeros(2, 16, 2, 32, device=dev)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="no backward"):
+        da.decode_attention(q, kc, kc, pos)
+    x = torch.zeros(4, 8, device=dev, requires_grad=True)
+    A, B = torch.zeros(1, 8, 2, device=dev), torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="no backward"):
+        ml.multi_lora(x, A, B, torch.zeros(4, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="no backward"):
+        fa.flash_attention(torch.zeros(1, 8, 2, 32, device=dev,
+                                       requires_grad=True),
+                           torch.zeros(1, 8, 2, 32, device=dev),
+                           torch.zeros(1, 8, 2, 32, device=dev))
+    with torch.no_grad():   # without autograd the kernels take them
+        da.decode_attention(q, kc, kc, pos)

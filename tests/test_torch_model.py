@@ -52,7 +52,7 @@ def _bank(cfg, users=2):
 
 def _cola(bank_list, users, *, torch_side):
     if torch_side:
-        bank = stack_user_adapters([convert.bank_from_numpy(
+        bank = stack_user_adapters([convert.adapters_from_numpy(
             jax.tree.map(np.asarray, b), device="cpu") for b in bank_list])
         u = torch.as_tensor(users)
         return {"adapters": {t: {**e, "idx": u.expand(e["A"].shape[0], -1)}

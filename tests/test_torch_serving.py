@@ -34,7 +34,7 @@ def _setup(**over):
             jax.random.fold_in(key, 10 + u), a.shape), ad))
     tparams = convert.params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
                                         device="cpu")
-    tbanks = [convert.bank_from_numpy(jax.tree.map(np.asarray, b), device="cpu")
+    tbanks = [convert.adapters_from_numpy(jax.tree.map(np.asarray, b), device="cpu")
               for b in banks]
     return (cfg, params, banks), (tcfg, tparams, tbanks)
 
