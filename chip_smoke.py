@@ -4,15 +4,21 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-six phases, exiting non-zero on any failure:
+eight phases, exiting non-zero on any failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
    full-width smollm-135m shapes of the serving and training paths, in bf16
-   and f32 (cola_fit in f32, the only dtype the fit runs in): max error, and
+   and f32 (cola_fit in f32, the only dtype the fit runs in), the flash
+   forward also at the chunk-round shape through ``ops.sdpa_decode`` and
+   ``ops.sdpa_decode_paged`` (16 rows of 128 queries at chunk starts inside
+   the prompts, dead rows, a shuffled table): max error, and
    median times of the kernel, the plain version and the library call
-   (``F.scaled_dot_product_attention`` for the attention kernels, its
-   backward for the flash backward kernels, the ``torch.matmul`` chain for
-   cola_fit; none for multi_lora), with each kernel's bound on this card.
+   (``F.scaled_dot_product_attention`` for the attention kernels, over the
+   gathered dense view for paged decode; its backward for the flash backward
+   kernels; the ``torch.matmul`` chain for cola_fit; the gather (+
+   dequantise) + two ``torch.bmm`` chain for multi_lora and multi_lora_q8),
+   with each kernel's bound on this card. Paged decode also runs with window,
+   softcap and dead rows; multi_lora_q8 at the decode and chunk shapes.
 2. Serving at full width: ``ServeEngine`` on smollm-135m (30 layers, bf16)
    with 4 users' rank-8 ``qv`` adapters, 16 slots, max_len 1024 and 32
    requests (prompts 32-512 tokens, 32 new tokens each), run to completion
@@ -27,7 +33,17 @@ six phases, exiting non-zero on any failure:
 5. Training against the plain path: one f32 full-width ``server_step_a`` +
    ``fit_grads`` on the card and on the CPU (plain versions) must agree, and
    on the card Mode A's fit gradients must equal Mode B's (Prop 1).
-6. The last lines: the card's name and power limit, one JSON line with every
+6. Serving at scale: phase 2's requests and adapters through
+   ``ServeEngine(kv_layout="paged", kv_block=16, prefill_chunk=128,
+   bank_store="int8")``, with the launch counts reset just before and read
+   just after: paged decode, int8 multi-LoRA and the flash forward (the
+   chunk rounds) must run, the dense decode and f32 multi-LoRA kernels must
+   not, and the block pool must be whole again at the end.
+7. Serving at scale against the plain path, f32 full width, 8 requests: the
+   card's paged + chunked + int8 engine against the CPU's (equal greedy
+   tokens), and on the card paged == dense and int8 == the f32 engine on the
+   explicitly dequantised bank (equal tokens); the largest logit gap of each.
+8. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -119,6 +135,7 @@ def kernel_cases(cfg, dtype, dev, gen):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import multi_lora as ml
+    from repro_torch.kernels import ops, ref
 
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
@@ -211,6 +228,83 @@ def kernel_cases(cfg, dtype, dev, gen):
         nbytes=2 * nbytes(qd) + 2 * n_kv * K * D * qd.element_size() + B * 5,
         flops=4 * D * H * n_kv)
 
+    # the same decode tick on the paged layout: a pool of 16 x 64 blocks of
+    # 16 positions, each row's blocks drawn from a shuffled pool
+    bs = 16
+    nb = Smax // bs
+    perm = torch.randperm(B * nb, generator=torch.Generator().manual_seed(SEED))
+    table = torch.zeros(B, nb, dtype=torch.int32)
+    kp, vp = rnd(B * nb, bs, K, D), rnd(B * nb, bs, K, D)
+    it = iter(perm.tolist())
+    for b, p in enumerate(posd.tolist()):
+        for j in range(p // bs + 1):
+            table[b, j] = next(it)
+    table = table.to(dev)
+    kg, vg = (t[table.long()].flatten(1, 2).transpose(1, 2).contiguous()
+              for t in (kp, vp))
+    n_tab = int((posd // bs + 1).sum())
+    for tag, kw in (("", {}), ("[window 256, softcap 30, dead rows]",
+                               dict(window=256, softcap=30.0,
+                                    live=torch.arange(B, device=dev) % 4 != 3))):
+        wmask = mask if not kw else mask & (
+            torch.arange(Smax, device=dev)[None, :]
+            > posd[:, None] - 256)[:, None, None]
+        n_read = n_kv if not kw else int(
+            (kw["live"] * (posd.clamp(max=255) + 1)).sum())
+        yield dict(
+            name="decode_attention_paged" + tag,
+            fn=lambda kw=kw: da.decode_attention_paged(qd, kp, vp, posd, table,
+                                                       **kw),
+            plain=lambda kw=kw: da.plain_paged(qd, kp, vp, posd, table, **kw),
+            lib=lambda wmask=wmask: F.scaled_dot_product_attention(
+                qdt, kg, vg, attn_mask=wmask, enable_gqa=True),
+            nbytes=(2 * nbytes(qd) + 2 * n_read * K * D * qd.element_size()
+                    + n_tab * 4 + B * 5),
+            flops=4 * D * H * n_read)
+
+    # a chunk round as the engine's ops calls run it (the flash forward
+    # kernel; for paged, after a gather of the rows' blocks): 16 rows of 128
+    # queries at chunk starts inside the prompts, a quarter of the rows dead,
+    # against the dense cache and against the pool through a shuffled table
+    C = 128
+    qc = rnd(B, C, H, D)
+    posc = C * torch.randint(0, 4, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    livec = torch.arange(B, device=dev) % 4 != 3
+    tablec = torch.zeros(B, nb, dtype=torch.int32)
+    it = iter(perm.tolist())
+    for b, p in enumerate(posc.tolist()):
+        for j in range((p + C - 1) // bs + 1):
+            tablec[b, j] = next(it)
+    tablec = tablec.to(dev)
+    qpos = posc[:, None] + torch.arange(C, device=dev)[None]
+    cmask = (torch.arange(Smax, device=dev)[None, None, :]
+             <= qpos[:, :, None])[:, None]
+    qct = qc.transpose(1, 2).contiguous()
+    kgc, vgc = (t[tablec.long()].flatten(1, 2).transpose(1, 2).contiguous()
+                for t in (kp, vp))
+    n_read = int((livec * (posc + C)).sum())
+    pairs = int((livec[:, None] * (qpos + 1)).sum())
+    n_tabc = int((livec * ((posc + C - 1) // bs + 1)).sum())
+    for tag, fn, plain, kk, vv, tab_bytes in (
+            ("[chunk 16 x 128, dense]",
+             lambda: ops.sdpa_decode(qc, kc, vc, posc, live=livec),
+             lambda: ref.sdpa_decode(qc, kc, vc, posc, live=livec),
+             kct, vct, 0),
+            ("[chunk 16 x 128, paged]",
+             lambda: ops.sdpa_decode_paged(qc, kp, vp, posc, tablec,
+                                           live=livec),
+             lambda: ref.sdpa_decode_paged(qc, kp, vp, posc, tablec,
+                                           live=livec),
+             kgc, vgc, n_tabc * 4)):
+        yield dict(
+            name="flash_attention" + tag, fn=fn, plain=plain,
+            lib=lambda kk=kk, vv=vv: F.scaled_dot_product_attention(
+                qct, kk, vv, attn_mask=cmask, enable_gqa=True),
+            nbytes=(2 * nbytes(qc) + 2 * n_read * K * D * qc.element_size()
+                    + tab_bytes + B * 5),
+            flops=4 * D * H * pairs)
+
     # adapted tap q at prefill: 8192 token rows, 4 users, rank 8
     U, r, d = 4, 8, cfg.d_model
     x = rnd(J * P, d)
@@ -221,9 +315,31 @@ def kernel_cases(cfg, dtype, dev, gen):
         name="multi_lora",
         fn=lambda: ml.multi_lora(x, A, Bm, idx),
         plain=lambda: ml.plain(x, A, Bm, idx),
-        lib=None,
+        lib=lambda: torch.bmm(torch.bmm(x.float()[:, None], A[idx.long()]),
+                              Bm[idx.long()]),
         nbytes=nbytes(x, idx, A, Bm) + J * P * H * D * x.element_size(),
         flops=2 * J * P * (d * r + r * H * D))
+
+    # the int8 bank: a decode tick (16 slots) and a chunk round (16 x 128)
+    for tag, T, d_out in (("", B, H * D), ("[576 -> 192]", B, K * D),
+                          ("[T 2048]", B * 128, H * D)):
+        x = rnd(T, d)
+        Aq, As = ml.quant_rows(rnd(U, d, r, dt=torch.float32) / r ** 0.5)
+        Bq, Bs = ml.quant_rows(rnd(U, r, d_out, dt=torch.float32) * 0.05)
+        ix = (torch.arange(B, device=dev, dtype=torch.int32) % U
+              ).repeat_interleave(T // B)
+        yield dict(
+            name="multi_lora_q8" + tag,
+            fn=lambda x=x, Aq=Aq, As=As, Bq=Bq, Bs=Bs, ix=ix:
+                ml.multi_lora_q8(x, Aq, As, Bq, Bs, ix),
+            plain=lambda x=x, Aq=Aq, As=As, Bq=Bq, Bs=Bs, ix=ix:
+                ml.plain_q8(x, Aq, As, Bq, Bs, ix),
+            lib=lambda x=x, Aq=Aq, As=As, Bq=Bq, Bs=Bs, ix=ix: torch.bmm(
+                torch.bmm(x.float()[:, None],
+                          Aq[ix.long()].float() * As[ix.long()]),
+                Bq[ix.long()].float() * Bs[ix.long()]),
+            nbytes=nbytes(x, ix, Aq, As, Bq, Bs) + T * d_out * x.element_size(),
+            flops=2 * T * (d * r + r * d_out))
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -266,14 +382,16 @@ def phase_kernels(cfg, dev) -> dict:
             print(f"[kernels] {name:24s} {dt:8s} max_abs_err {err:.3e} "
                   f"(tol {tol:.2e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
                   f"  library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
-                  f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
+                  f"  bound {b_ms:.4g} ms ({b_by})", flush=True)
             if dtype == torch.bfloat16 or name not in rows:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    # a second launch of the flash backward and cola_fit gives the same bits
+    # a second launch of the flash backward, cola_fit and the serving-at-scale
+    # kernels gives the same bits
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     for c in kernel_cases(cfg, torch.float32, dev, gen):
-        if c["name"].startswith(("flash_attention_bwd", "cola_fit")):
+        if c["name"].startswith(("flash_attention_bwd", "cola_fit",
+                                 "decode_attention_paged", "multi_lora_q8")):
             a, b = c["fn"](), c["fn"]()
             a, b = (a,) if isinstance(a, torch.Tensor) else a, \
                 (b,) if isinstance(b, torch.Tensor) else b
@@ -307,20 +425,30 @@ def user_banks(cfg, n_users: int, device, seed: int) -> list[dict]:
     return out
 
 
-def serve(cfg, params, banks, prompts, device, *, slots, max_len, max_new):
+def serve(cfg, params, banks, prompts, device, *, slots, max_len, max_new,
+          engine=None, **options):
+    """Serve ``prompts`` to completion (user i % len(banks) for request i);
+    ``options`` go to ``ServeEngine``. Returns (engine, requests, the largest
+    ``kv_cache_bytes()`` seen after a tick)."""
     from repro_torch.runtime.serve_loop import Request, ServeEngine
 
-    eng = ServeEngine(cfg, params, slots=slots, max_len=max_len,
-                      user_adapters=banks, device=device)
+    eng = (engine or ServeEngine)(cfg, params, slots=slots, max_len=max_len,
+                                  user_adapters=banks, device=device, **options)
     reqs = [Request(rid=i, user=i % len(banks), prompt=p, max_new=max_new)
             for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
-    eng.run_until_idle()
-    return eng, reqs
+    peak_bytes = eng.kv_cache_bytes()
+    for _ in range(10_000):
+        if not eng.queue and all(r is None for r in eng.active):
+            break
+        eng.tick()
+        peak_bytes = max(peak_bytes, eng.kv_cache_bytes())
+    return eng, reqs, peak_bytes
 
 
-def phase_serving(cfg, dev) -> dict:
+def serving_setup(cfg, dev):
+    """Phase 2's weights, 4 users' adapters and 32 prompts of 32-512 tokens."""
     from repro_torch.models import model
 
     params = model.init(cfg, seed=SEED, device=dev)
@@ -328,6 +456,11 @@ def phase_serving(cfg, dev) -> dict:
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in rng.integers(32, 513, 32)]
+    return params, banks, prompts
+
+
+def phase_serving(cfg, dev, setup) -> dict:
+    params, banks, prompts = setup
     # warm-up (library handles, allocator); its launches are not counted
     serve(cfg, params, banks, prompts[:2], dev, slots=16, max_len=1024,
           max_new=2)
@@ -336,8 +469,8 @@ def phase_serving(cfg, dev) -> dict:
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
-    eng, reqs = serve(cfg, params, banks, prompts, dev, slots=16,
-                      max_len=1024, max_new=32)
+    eng, reqs, _ = serve(cfg, params, banks, prompts, dev, slots=16,
+                         max_len=1024, max_new=32)
     torch.cuda.synchronize()
     launches = {n: w.launches for n, w in ws.items()}
 
@@ -371,8 +504,8 @@ def phase_engine_vs_plain(cfg, dev) -> None:
     outs, logits = {}, {}
     for device, params in (("cpu", params_cpu), (dev, params_gpu)):
         banks = user_banks(cfg32, 4, device, SEED + 1)
-        eng, reqs = serve(cfg32, params, banks, prompts, device, slots=4,
-                          max_len=128, max_new=8)
+        eng, reqs, _ = serve(cfg32, params, banks, prompts, device, slots=4,
+                             max_len=128, max_new=8)
         outs[str(device)] = [r.out for r in reqs]
         users = torch.arange(4, dtype=torch.int32, device=device)
         lg, _ = model.prefill(cfg32, params,
@@ -389,6 +522,141 @@ def phase_engine_vs_plain(cfg, dev) -> None:
           f"greedy tokens differ: cpu {outs['cpu']} card {outs[str(dev)]}")
 
 
+SCALE = dict(kv_layout="paged", kv_block=16, prefill_chunk=128,
+             bank_store="int8")
+
+
+def phase_serving_at_scale(cfg, dev, setup) -> dict:
+    """Phase 2's requests through paged KV, chunked prefill and an int8 bank;
+    returns the launch counts of the measured run."""
+    from repro_torch.models import model
+
+    params, banks, prompts = setup
+    # warm-up with the same options; its launches are not counted
+    serve(cfg, params, banks, prompts[:2], dev, slots=16, max_len=1024,
+          max_new=2, **SCALE)
+    torch.cuda.synchronize()
+
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    eng, reqs, peak_bytes = serve(cfg, params, banks, prompts, dev, slots=16,
+                                  max_len=1024, max_new=32, **SCALE)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in ws.items()}
+
+    check(all(r.status == "done" and len(r.out) == 32 for r in reqs),
+          "serving at scale: not every request finished with 32 tokens")
+    for n in ("decode_attention_paged", "multi_lora_q8", "flash_attention"):
+        check(launches[n] > 0, f"kernel {n} was never launched serving at scale")
+    for n in ("decode_attention", "multi_lora"):
+        check(launches[n] == 0, f"kernel {n} ran {launches[n]} times serving at "
+              "scale (paged KV and an int8 bank must not reach it)")
+    for tap, leaves in eng.bank.items():
+        check(sorted(leaves) == ["A_q", "A_scale", "B_q", "B_scale"]
+              and all(leaves[n].dtype == torch.int8 for n in ("A_q", "B_q"))
+              and all(leaves[n].dtype == torch.float32
+                      for n in ("A_scale", "B_scale"))
+              and all(t.is_cuda for t in leaves.values()),
+              f"bank {tap}: {[(n, t.dtype, t.device) for n, t in leaves.items()]}")
+    st = eng.stats
+    check(st["kv_allocs"] == st["kv_frees"] > 0,
+          f"kv allocs {st['kv_allocs']} != frees {st['kv_frees']}")
+    eng.pager.assert_empty()
+
+    dense_bytes = sum(int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+                      for leaves in model.cache_specs(cfg, 16, 1024).values()
+                      for shape, dt in leaves.values())
+    pool_bytes = sum(leaf.numel() * leaf.element_size()
+                     for stack in eng.cache.values() for leaf in stack.values())
+    tp = eng.throughput()
+    decode_calls = tp["decode_tick"]["count"]   # one sample per decode call
+    print(f"[scale] smollm-135m bf16, 30 layers, 16 slots, 4 users, paged KV "
+          f"(blocks of 16), chunks of 128, int8 bank: {tp['completed']} "
+          f"requests, decode {tp['decode_tok_per_s']:.1f} tok/s, prefill "
+          f"{tp['prefill_tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{tp['ttft']['p50'] * 1e3:.1f} ms p99 {tp['ttft']['p99'] * 1e3:.1f} ms,"
+          f" decode tick p50 {tp['decode_tick']['p50'] * 1e3:.2f} ms, chunk "
+          f"round p50 {tp['prefill']['p50'] * 1e3:.2f} ms", flush=True)
+    print(f"[scale] kv_blocks_peak {st['kv_blocks_peak']} of "
+          f"{eng.pager.n_blocks}; kv_cache_bytes at peak {peak_bytes} against "
+          f"the dense engine's {dense_bytes} ({peak_bytes / dense_bytes:.3f}: "
+          f"the share the traffic used); pool allocated {pool_bytes} bytes "
+          f"({pool_bytes / dense_bytes:.3f} of dense); "
+          f"ticks {st['ticks']}, chunk rounds {st['chunk_rounds']}, decode "
+          f"calls {decode_calls}", flush=True)
+    print(f"[scale] launches: {launches}; per chunk round: flash "
+          f"{launches['flash_attention'] / st['chunk_rounds']:.1f}; per decode "
+          f"call: decode_attention_paged "
+          f"{launches['decode_attention_paged'] / decode_calls:.1f}; "
+          f"multi_lora_q8 per call (chunk rounds + decode calls) "
+          f"{launches['multi_lora_q8'] / (st['chunk_rounds'] + decode_calls):.1f}",
+          flush=True)
+    return launches
+
+
+def phase_scale_vs_plain(cfg, dev) -> None:
+    """f32 full width, 8 requests: the card's paged + chunked + int8 engine
+    against the CPU's, paged against dense and int8 against the dequantised
+    f32 bank on the card. Equal greedy tokens; prints the largest gap of the
+    next-token logits of live rows across each pair's steps."""
+    from repro_torch.kernels import multi_lora as ml
+    from repro_torch.models import model
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    class Recording(ServeEngine):
+        """Keeps every step's next-token logits of the rows it ran for."""
+
+        def _step_logits(self, tokens, positions, users, live, lens=None):
+            out = super()._step_logits(tokens, positions, users, live, lens)
+            self.logits.append(out[live].float().cpu())
+            return out
+
+        def __init__(self, *a, **kw):
+            self.logits = []
+            super().__init__(*a, **kw)
+
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    params_cpu = model.init(cfg32, seed=SEED + 1, device="cpu")
+    params_gpu = _to(params_cpu, dev)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(20, 151, 8)]
+    kw = dict(slots=4, max_len=256, max_new=8, engine=Recording,
+              prefill_chunk=32, bank_store="int8")
+    banks_cpu = user_banks(cfg32, 4, "cpu", SEED + 1)
+    banks_gpu = [_to(b, dev) for b in banks_cpu]
+    deq = [{t: {n: ml.dequant_rows(*ml.quant_rows(a)).to(dev)
+                for n, a in e.items()} for t, e in b.items()} for b in banks_cpu]
+    runs = {
+        "card": (params_gpu, banks_gpu, dev, dict(kw, kv_layout="paged")),
+        "cpu": (params_cpu, banks_cpu, "cpu", dict(kw, kv_layout="paged")),
+        "card dense": (params_gpu, banks_gpu, dev, kw),
+        "card f32 dequantised": (params_gpu, deq, dev,
+                                 dict(kw, kv_layout="paged", bank_store="f32")),
+    }
+    out = {}
+    for name, (params, banks, device, opts) in runs.items():
+        eng, reqs, _ = serve(cfg32, params, banks, prompts, device, **opts)
+        check(all(r.status == "done" and len(r.out) == 8 for r in reqs),
+              f"{name}: not every request finished")
+        if eng.pager is not None:
+            eng.pager.assert_empty()
+        out[name] = ([r.out for r in reqs], eng.logits)
+    for other in ("cpu", "card dense", "card f32 dequantised"):
+        (toks, lg), (toks_o, lg_o) = out["card"], out[other]
+        check(len(lg) == len(lg_o), f"card vs {other}: {len(lg)} steps vs "
+              f"{len(lg_o)}")
+        gap = max(float((a - b).abs().max()) for a, b in zip(lg, lg_o))
+        top = max(float(a.abs().max()) for a in lg)
+        print(f"[scale-vs-plain] f32 full width, paged + chunked + int8 on the "
+              f"card vs {other}: tokens equal {toks == toks_o}; largest "
+              f"next-token logit gap {gap:.3e} (max |logit| {top:.3f}) over "
+              f"{len(lg)} steps", flush=True)
+        check(toks == toks_o, f"greedy tokens differ, card vs {other}: "
+              f"{toks} vs {toks_o}")
+
+
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by the kernel's name; each counts
     its own launches."""
@@ -402,7 +670,9 @@ def wrappers() -> dict:
             "flash_attention_bwd_dkv": fa.bwd_dkv,
             "cola_fit": cf.cola_fit_lowrank,
             "decode_attention": da.decode_attention,
-            "multi_lora": ml.multi_lora}
+            "decode_attention_paged": da.decode_attention_paged,
+            "multi_lora": ml.multi_lora,
+            "multi_lora_q8": ml.multi_lora_q8}
 
 
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
@@ -583,7 +853,8 @@ def main() -> int:
     rows = phase_kernels(cfg, dev)
     print(f"[kernels] done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches = phase_serving(cfg, dev)
+    setup = serving_setup(cfg, dev)
+    launches = phase_serving(cfg, dev, setup)
     print(f"[serve] done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_engine_vs_plain(cfg, dev)
@@ -596,6 +867,14 @@ def main() -> int:
     phase_training_vs_plain(cfg, dev)
     print(f"[train-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    scale = phase_serving_at_scale(cfg, dev, setup)
+    print(f"[scale] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    del setup
+    t0 = time.perf_counter()
+    phase_scale_vs_plain(cfg, dev)
+    print(f"[scale-vs-plain] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
@@ -603,16 +882,20 @@ def main() -> int:
         "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention.py:200",
         "cola_fit": "src/repro/kernels/cola_fit.py:40",
         "decode_attention": "src/repro/kernels/decode_attention.py:62",
+        "decode_attention_paged": "src/repro/kernels/decode_attention.py:157",
         "multi_lora": "src/repro/kernels/multi_lora.py:64",
+        "multi_lora_q8": "src/repro/kernels/multi_lora.py:176",
     }
     sources = {"flash_attention_bwd_dq": "flash_attention_bwd",
-               "flash_attention_bwd_dkv": "flash_attention_bwd"}
-    # launches: the serving run's plus the training run's (flash_attention
-    # runs on both paths; every other kernel on one)
+               "flash_attention_bwd_dkv": "flash_attention_bwd",
+               "decode_attention_paged": "decode_attention",
+               "multi_lora_q8": "multi_lora"}
+    # launches: the serving, training and serving-at-scale runs' together
+    # (flash_attention runs on all three paths; each other kernel on one)
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
-                    replaces=replaces[n], launches=launches[n] + train[n],
-                    **rows[n])
+                    replaces=replaces[n],
+                    launches=launches[n] + train[n] + scale[n], **rows[n])
                for n in replaces]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,8 +9,7 @@ Families
   (multi-LoRA through ``kernels.ops.multi_lora``).
 
 Adapters are dicts of tensors. Stacked taps carry a leading (L,) axis on every
-leaf; ``apply`` takes one layer's slice. int8-stored banks are still to be
-ported (ROADMAP.md).
+leaf; ``apply`` takes one layer's slice.
 """
 from __future__ import annotations
 
@@ -61,14 +60,17 @@ def apply(family: str, w: dict, x: torch.Tensor) -> torch.Tensor:
         h = torch.relu(x @ w["W1"].to(x.dtype) + w["b1"].to(x.dtype))
         return h @ w["W2"].to(x.dtype)
     if family == "multi_lowrank":
-        # w: {"A": (U, d_in, r), "B": (U, r, d_out), "idx": (B,)}; x: (B, S, d)
-        if "A_q" in w:
-            raise NotImplementedError("int8-stored adapter banks are not "
-                                      "ported yet (see ROADMAP.md)")
+        # w: {"A": (U, d_in, r), "B": (U, r, d_out), "idx": (B,)}; x: (B, S, d).
+        # int8-stored banks carry {"A_q", "A_scale", "B_q", "B_scale"}
+        # instead and dequantise on load (never a f32 copy of the bank).
         Bz, S = x.shape[0], x.shape[1]
         flat = x.reshape(Bz * S, x.shape[-1])
         idx = w["idx"].to(torch.int32).repeat_interleave(S)
-        y = kernel_ops.multi_lora(flat, w["A"], w["B"], idx)
+        if "A_q" in w:
+            y = kernel_ops.multi_lora_q8(flat, w["A_q"], w["A_scale"],
+                                         w["B_q"], w["B_scale"], idx)
+        else:
+            y = kernel_ops.multi_lora(flat, w["A"], w["B"], idx)
         return y.reshape(Bz, S, -1)
     raise ValueError(f"unknown adapter family: {family!r}")
 

@@ -1,11 +1,22 @@
-// Single-query GQA decode attention against a dense slot KV cache, for Hopper
-// (sm_90a).
+// Single-query GQA decode attention for Hopper (sm_90a), against a dense slot
+// KV cache or a paged block pool.
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attention.py:_kernel
-// (entry decode_attention): every slot attends its one new query against its
-// cache row, with per-slot positions and live bits. KV positions above the
-// slot's position (or at/below position - window) are never read; a dead
-// slot writes exact zeros.
+// Replaces the TPU kernels src/repro/kernels/decode_attention.py:_kernel
+// (entry decode_attention) and :_kernel_paged (entry decode_attention_paged):
+// every slot attends its one new query against its cache, with per-slot
+// positions and live bits. KV positions above the slot's position (or
+// at/below position - window) are never read; a dead slot writes exact zeros.
+//
+// Paged layout: the cache is a pool (n_blocks, bs, K, Dh) shared by all
+// slots, and position t of slot b lives in pool row table[b, t / bs] at
+// offset t % bs. The kernel walks positions in order exactly as the dense
+// one does and reads each position's K/V row straight from the pool through
+// the table; no dense copy of a slot's cache is ever made. Only the table
+// entries that cover [window floor, position] are read, so unallocated
+// entries (which point at block 0) are never touched. One shared-memory tile
+// of TK positions spans TK / bs table entries (bs is a multiple of 8); the
+// tile's row offsets are resolved once per position into shared memory, so
+// the staging loop does no table read or division per element.
 //
 // What bounds it on this card: one decode tick reads each live slot's K/V
 // prefix once and does 4 * Dh FLOPs per (head, position), i.e. about G / 2
@@ -34,12 +45,15 @@ size_t smem_bytes(int G) {
   return sizeof(float) * (2 * G * DH + TK * (DH + 1) + TK * DH + G * TK + 3 * G);
 }
 
+// table == nullptr: dense caches (B, Smax, K, DH). Otherwise pools
+// (n_blocks, bs, K, DH) read through table (B, Smax / bs), Smax = the
+// table's width in positions.
 template <typename T, int DH>
 __global__ void __launch_bounds__(NT) decode_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
     const int* __restrict__ pos, const uint8_t* __restrict__ live,
-    T* __restrict__ o, int Smax, int H, int KH, float scale, int window,
-    float softcap) {
+    const int* __restrict__ table, int bs, T* __restrict__ o, int Smax, int H,
+    int KH, float scale, int window, float softcap) {
   extern __shared__ float smem[];
   const int G = H / KH;
   float* q_s = smem;                 // G x DH
@@ -50,6 +64,7 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
   float* m_s = s_s + G * TK;         // G
   float* l_s = m_s + G;              // G
   float* c_s = l_s + G;              // G
+  __shared__ size_t off_s[TK];       // the tile's cache-row offsets
 
   const int kh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -58,6 +73,7 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
   const int p = pos[b];
   const int hi = min(p, Smax - 1);
   const int lo = window > 0 ? max(0, p - window + 1) : 0;
+  const int* trow = table == nullptr ? nullptr : table + (size_t)b * (Smax / bs);
   if ((live != nullptr && live[b] == 0) || hi < lo) {
     for (int f = tid; f < G * DH; f += NT) o[base + f] = from_f32<T>(0.f);
     return;
@@ -74,13 +90,21 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
 
   for (int t0 = lo; t0 <= hi; t0 += TK) {
     const int n = min(TK, hi - t0 + 1);
+    // each position's cache row is resolved once (one table read), then
+    // every (position, dim) element of the tile is staged from it
+    for (int j = tid; j < n; j += NT) {
+      const int t = t0 + j;
+      const size_t row = trow == nullptr ? (size_t)b * Smax + t
+                                         : (size_t)__ldg(&trow[t / bs]) * bs + t % bs;
+      off_s[j] = (row * KH + kh) * DH;
+    }
+    __syncthreads();
     for (int f = tid; f < TK * DH; f += NT) {
       const int j = f / DH, d = f % DH;
       float kv = 0.f, vv = 0.f;
       if (j < n) {
-        const size_t off = (((size_t)b * Smax + t0 + j) * KH + kh) * DH + d;
-        kv = to_f32(kc[off]);
-        vv = to_f32(vc[off]);
+        kv = to_f32(kc[off_s[j] + d]);
+        vv = to_f32(vc[off_s[j] + d]);
       }
       k_s[j * (DH + 1) + d] = kv;
       v_s[j * DH + d] = vv;
@@ -140,8 +164,9 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const int* pos,
-           const uint8_t* live, void* o, int B, int Smax, int H, int KH,
-           float scale, int window, float softcap, cudaStream_t stream) {
+           const uint8_t* live, const int* table, int bs, void* o, int B,
+           int Smax, int H, int KH, float scale, int window, float softcap,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<DH>(H / KH);
   cudaError_t err = cudaFuncSetAttribute(
       decode_attn_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -149,21 +174,39 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
   dim3 grid(KH, B);
   decode_attn_kernel<T, DH><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      pos, live, static_cast<T*>(o), Smax, H, KH, scale, window, softcap);
+      pos, live, table, bs, static_cast<T*>(o), Smax, H, KH, scale, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_dh(int DH, const void* q, const void* k, const void* v, const int* pos,
-                const uint8_t* live, void* o, int B, int Smax, int H, int KH,
-                float scale, int window, float softcap, cudaStream_t s) {
+                const uint8_t* live, const int* table, int bs, void* o, int B,
+                int Smax, int H, int KH, float scale, int window, float softcap,
+                cudaStream_t s) {
   switch (DH) {
-    case 16: return launch<T, 16>(q, k, v, pos, live, o, B, Smax, H, KH, scale, window, softcap, s);
-    case 32: return launch<T, 32>(q, k, v, pos, live, o, B, Smax, H, KH, scale, window, softcap, s);
-    case 64: return launch<T, 64>(q, k, v, pos, live, o, B, Smax, H, KH, scale, window, softcap, s);
-    case 128: return launch<T, 128>(q, k, v, pos, live, o, B, Smax, H, KH, scale, window, softcap, s);
+    case 16: return launch<T, 16>(q, k, v, pos, live, table, bs, o, B, Smax, H, KH, scale, window, softcap, s);
+    case 32: return launch<T, 32>(q, k, v, pos, live, table, bs, o, B, Smax, H, KH, scale, window, softcap, s);
+    case 64: return launch<T, 64>(q, k, v, pos, live, table, bs, o, B, Smax, H, KH, scale, window, softcap, s);
+    case 128: return launch<T, 128>(q, k, v, pos, live, table, bs, o, B, Smax, H, KH, scale, window, softcap, s);
     default: return -1;
   }
+}
+
+int dispatch(int dtype, int DH, const void* q, const void* k, const void* v,
+             const void* positions, const void* live, const void* table, int bs,
+             void* o, int B, int Smax, int H, int KH, float scale, int window,
+             float softcap, void* stream) {
+  const int* pos = static_cast<const int*>(positions);
+  const uint8_t* lv = static_cast<const uint8_t*>(live);
+  const int* tb = static_cast<const int*>(table);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32)
+    return dispatch_dh<float>(DH, q, k, v, pos, lv, tb, bs, o, B, Smax, H, KH, scale,
+                              window, softcap, s);
+  if (dtype == DT_BF16)
+    return dispatch_dh<__nv_bfloat16>(DH, q, k, v, pos, lv, tb, bs, o, B, Smax, H, KH,
+                                      scale, window, softcap, s);
+  return -1;
 }
 
 }  // namespace
@@ -175,14 +218,20 @@ extern "C" int decode_attention(const void* q, const void* k_cache,
                                 const void* live, void* o, int B, int Smax, int H,
                                 int KH, int DH, int dtype, float scale, int window,
                                 float softcap, void* stream) {
-  const int* pos = static_cast<const int*>(positions);
-  const uint8_t* lv = static_cast<const uint8_t*>(live);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return dispatch_dh<float>(DH, q, k_cache, v_cache, pos, lv, o, B, Smax, H, KH,
-                              scale, window, softcap, s);
-  if (dtype == DT_BF16)
-    return dispatch_dh<__nv_bfloat16>(DH, q, k_cache, v_cache, pos, lv, o, B, Smax, H,
-                                      KH, scale, window, softcap, s);
-  return -1;
+  return dispatch(dtype, DH, q, k_cache, v_cache, positions, live, nullptr, 1, o, B,
+                  Smax, H, KH, scale, window, softcap, stream);
+}
+
+// The paged layout: pools (n_blocks, bs, KH, DH), block_table (B, max_blocks)
+// int32 whose entries must index the pool. Same returns as above, and -1 for
+// a block size that is not a positive multiple of 8.
+extern "C" int decode_attention_paged(const void* q, const void* k_pool,
+                                      const void* v_pool, const void* positions,
+                                      const void* live, const void* block_table,
+                                      void* o, int B, int max_blocks, int bs, int H,
+                                      int KH, int DH, int dtype, float scale,
+                                      int window, float softcap, void* stream) {
+  if (bs < 8 || bs % 8 != 0 || block_table == nullptr) return -1;
+  return dispatch(dtype, DH, q, k_pool, v_pool, positions, live, block_table, bs, o,
+                  B, max_blocks * bs, H, KH, scale, window, softcap, stream);
 }

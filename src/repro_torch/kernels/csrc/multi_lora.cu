@@ -17,6 +17,16 @@
 // each output row a function of its own x row and its own adapter only, so
 // serving from any subset of resident adapters gives identical bits.
 //
+// int8 banks (replaces src/repro/kernels/multi_lora.py:_q8_kernel, entry
+// multi_lora_q8): A and B are stored as int8 codes with one f32 scale per row
+// (A_q (U, d_in, r) with A_scale (U, d_in, 1); B_q (U, r, d_out) with B_scale
+// (U, r, 1)). The same kernel reads the codes and their row scales and
+// dequantises each value in registers as it is used (code * scale, the plain
+// version's product), so no f32 copy of the bank or of a user's rows is ever
+// written to device memory, and the bank crosses the memory bus at a quarter
+// of its f32 size. Unlike the TPU kernel, whose grid ran over all U adapters
+// with a mask, each row still gathers only its own adapter.
+//
 // Rows with idx < 0 are padding and write exact zeros; idx >= U reads the
 // last adapter, as the plain version's clamp does. Sums run in a fixed order
 // with no atomics, so repeated runs give identical bits.
@@ -26,11 +36,36 @@ namespace {
 
 constexpr int NT = 256;
 
-template <typename T>
+// One adapter's (A, B) as the kernel reads them: f32 values, or int8 codes
+// with per-row f32 scales dequantised on load.
+struct BankF32 {
+  const float* A;
+  const float* B;
+  __device__ float a(size_t u, int d, int j, int d_in, int r) const {
+    return __ldg(&A[(u * d_in + d) * r + j]);
+  }
+  __device__ float b(size_t u, int j, int c, int r, int d_out) const {
+    return __ldg(&B[(u * r + j) * d_out + c]);
+  }
+};
+
+struct BankQ8 {
+  const int8_t* A;
+  const float* A_scale;
+  const int8_t* B;
+  const float* B_scale;
+  __device__ float a(size_t u, int d, int j, int d_in, int r) const {
+    return (float)__ldg(&A[(u * d_in + d) * r + j]) * __ldg(&A_scale[u * d_in + d]);
+  }
+  __device__ float b(size_t u, int j, int c, int r, int d_out) const {
+    return (float)__ldg(&B[(u * r + j) * d_out + c]) * __ldg(&B_scale[u * r + j]);
+  }
+};
+
+template <typename T, typename Bank>
 __global__ void __launch_bounds__(NT) multi_lora_kernel(
-    const T* __restrict__ x, const float* __restrict__ A, const float* __restrict__ Bm,
-    const int* __restrict__ idx, T* __restrict__ y, int U, int d_in, int r,
-    int d_out, float scale) {
+    const T* __restrict__ x, const Bank bank, const int* __restrict__ idx,
+    T* __restrict__ y, int U, int d_in, int r, int d_out, float scale) {
   extern __shared__ float smem[];
   float* x_s = smem;          // d_in
   float* part = x_s + d_in;   // NT partial sums of the shrink step
@@ -43,9 +78,7 @@ __global__ void __launch_bounds__(NT) multi_lora_kernel(
     for (int c = tid; c < d_out; c += NT) yt[c] = from_f32<T>(0.f);
     return;
   }
-  const int uu = min(u, U - 1);
-  const float* a = A + (size_t)uu * d_in * r;
-  const float* bm = Bm + (size_t)uu * r * d_out;
+  const size_t uu = (size_t)min(u, U - 1);
   for (int i = tid; i < d_in; i += NT) x_s[i] = to_f32(x[(size_t)t * d_in + i]);
   __syncthreads();
 
@@ -55,7 +88,7 @@ __global__ void __launch_bounds__(NT) multi_lora_kernel(
   float s = 0.f;
   if (tid < nrep * r) {
     const int j = tid % r, rep = tid / r;
-    for (int d = rep; d < d_in; d += nrep) s += x_s[d] * a[(size_t)d * r + j];
+    for (int d = rep; d < d_in; d += nrep) s += x_s[d] * bank.a(uu, d, j, d_in, r);
   }
   part[tid] = s;
   __syncthreads();
@@ -69,22 +102,34 @@ __global__ void __launch_bounds__(NT) multi_lora_kernel(
   // expand: each thread owns output columns c = tid, tid + NT, ...
   for (int c = tid; c < d_out; c += NT) {
     float v = 0.f;
-    for (int j = 0; j < r; ++j) v += xa[j] * bm[(size_t)j * d_out + c];
+    for (int j = 0; j < r; ++j) v += xa[j] * bank.b(uu, j, c, r, d_out);
     yt[c] = from_f32<T>(scale * v);
   }
 }
 
-template <typename T>
-int launch(const void* x, const float* A, const float* Bm, const int* idx, void* y,
-           int T_rows, int U, int d_in, int r, int d_out, float scale,
-           cudaStream_t stream) {
+template <typename T, typename Bank>
+int launch(const void* x, const Bank& bank, const int* idx, void* y, int T_rows,
+           int U, int d_in, int r, int d_out, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (d_in + NT + r);
   cudaError_t err = cudaFuncSetAttribute(
-      multi_lora_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      multi_lora_kernel<T, Bank>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  multi_lora_kernel<T><<<T_rows, NT, smem, stream>>>(
-      static_cast<const T*>(x), A, Bm, idx, static_cast<T*>(y), U, d_in, r, d_out, scale);
+  multi_lora_kernel<T, Bank><<<T_rows, NT, smem, stream>>>(
+      static_cast<const T*>(x), bank, idx, static_cast<T*>(y), U, d_in, r, d_out, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename Bank>
+int dispatch(int dtype, const void* x, const Bank& bank, const void* idx, void* y,
+             int T_rows, int U, int d_in, int r, int d_out, float scale, void* stream) {
+  if (r < 1 || r > NT || T_rows < 1) return -1;
+  const int* ix = static_cast<const int*>(idx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32)
+    return launch<float>(x, bank, ix, y, T_rows, U, d_in, r, d_out, scale, s);
+  if (dtype == DT_BF16)
+    return launch<__nv_bfloat16>(x, bank, ix, y, T_rows, U, d_in, r, d_out, scale, s);
+  return -1;
 }
 
 }  // namespace
@@ -94,14 +139,17 @@ int launch(const void* x, const float* A, const float* Bm, const int* idx, void*
 extern "C" int multi_lora(const void* x, const void* A, const void* B, const void* idx,
                           void* y, int T_rows, int U, int d_in, int r, int d_out,
                           int dtype, float scale, void* stream) {
-  if (r < 1 || r > NT || T_rows < 1) return -1;
-  const float* a = static_cast<const float*>(A);
-  const float* b = static_cast<const float*>(B);
-  const int* ix = static_cast<const int*>(idx);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return launch<float>(x, a, b, ix, y, T_rows, U, d_in, r, d_out, scale, s);
-  if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(x, a, b, ix, y, T_rows, U, d_in, r, d_out, scale, s);
-  return -1;
+  const BankF32 bank{static_cast<const float*>(A), static_cast<const float*>(B)};
+  return dispatch(dtype, x, bank, idx, y, T_rows, U, d_in, r, d_out, scale, stream);
+}
+
+// The int8 bank: A_q, B_q int8 codes, A_scale (U, d_in), B_scale (U, r) f32.
+// Same returns as multi_lora.
+extern "C" int multi_lora_q8(const void* x, const void* A_q, const void* A_scale,
+                             const void* B_q, const void* B_scale, const void* idx,
+                             void* y, int T_rows, int U, int d_in, int r, int d_out,
+                             int dtype, float scale, void* stream) {
+  const BankQ8 bank{static_cast<const int8_t*>(A_q), static_cast<const float*>(A_scale),
+                    static_cast<const int8_t*>(B_q), static_cast<const float*>(B_scale)};
+  return dispatch(dtype, x, bank, idx, y, T_rows, U, d_in, r, d_out, scale, stream);
 }

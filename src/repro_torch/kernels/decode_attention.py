@@ -1,9 +1,10 @@
-"""Single-query decode attention: the CUDA kernel ``csrc/decode_attention.cu``
-and its plain PyTorch version.
+"""Single-query decode attention: the CUDA kernels ``csrc/decode_attention.cu``
+(a dense slot cache, and a paged block pool read through a block table) and
+their plain PyTorch versions.
 
-Replaces the TPU kernel ``src/repro/kernels/decode_attention.py:_kernel``
-(entry ``decode_attention``). The paged variant (``_kernel_paged``) is still
-to be ported (ROADMAP.md).
+Replaces the TPU kernels ``src/repro/kernels/decode_attention.py:_kernel``
+(entry ``decode_attention``) and ``_kernel_paged`` (entry
+``decode_attention_paged``).
 """
 from __future__ import annotations
 
@@ -17,15 +18,44 @@ from repro_torch.kernels import _build, ref
 HEAD_DIMS = (16, 32, 64, 128)
 
 plain = ref.sdpa_decode
+plain_paged = ref.sdpa_decode_paged
 
 
-def _fn():
-    fn = _build.load("decode_attention").decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+def _fn(name: str = "decode_attention"):
+    fn = getattr(_build.load("decode_attention"), name)
+    n = 7 if name.endswith("_paged") else 6   # + block_table; + bs
+    fn.argtypes = ([ctypes.c_void_p] * n + [ctypes.c_int] * n
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_common(name: str, q, k, v, positions, live):
+    """Checks shared by the dense and paged wrappers; returns the positions
+    as int32 and ``live`` on the card (or None)."""
+    B, Sq, H, Dh = q.shape
+    K = k.shape[2]
+    req = partial(_build.require, kernel=name)
+    req(q.is_cuda and k.device == q.device and v.device == q.device,
+        what="q and caches must be CUDA tensors on one device")
+    req(q.dtype in _build.DTYPE_CODES and k.dtype == q.dtype
+        and v.dtype == q.dtype, what=f"dtype {q.dtype}/{k.dtype}/{v.dtype}")
+    req(Sq == 1, what=f"one query per slot, got Sq={Sq}")
+    req(Dh in HEAD_DIMS, what=f"head dim {Dh} not in {HEAD_DIMS}")
+    req(k.shape == v.shape and k.dim() == 4 and k.shape[3] == Dh
+        and H % K == 0,
+        what=f"shapes q {tuple(q.shape)} cache {tuple(k.shape)}")
+    req(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
+        what="q and caches must be contiguous")
+    _build.require_no_grad(name, q, k, v)
+    req(positions.shape == (B,), what=f"positions shape {tuple(positions.shape)}")
+    pos = positions.to(device=q.device, dtype=torch.int32).contiguous()
+    if live is not None:
+        req(live.shape == (B,) and live.dtype == torch.bool
+            and live.device == q.device, what="live must be a (B,) bool CUDA tensor")
+        live = live.contiguous()
+    return pos, live
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -39,32 +69,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, positions, live=live, window=window,
                      softcap=softcap, scale=scale)
-    B, Sq, H, Dh = q.shape
+    B, _, H, Dh = q.shape
     Smax, K = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
         scale = Dh ** -0.5
-
     name = "decode_attention"
-    req = partial(_build.require, kernel=name)
-    req(q.is_cuda and k_cache.device == q.device and v_cache.device == q.device,
-        what="q and caches must be CUDA tensors on one device")
-    req(q.dtype in _build.DTYPE_CODES and k_cache.dtype == q.dtype
-        and v_cache.dtype == q.dtype,
-        what=f"dtype {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
-    req(Sq == 1, what=f"one query per slot, got Sq={Sq}")
-    req(Dh in HEAD_DIMS, what=f"head dim {Dh} not in {HEAD_DIMS}")
-    req(k_cache.shape == v_cache.shape and k_cache.shape[0] == B
-        and k_cache.shape[3] == Dh and H % K == 0,
-        what=f"shapes q {tuple(q.shape)} cache {tuple(k_cache.shape)}")
-    req(q.is_contiguous() and k_cache.is_contiguous()
-        and v_cache.is_contiguous(), what="q and caches must be contiguous")
-    _build.require_no_grad(name, q, k_cache, v_cache)
-    req(positions.shape == (B,), what=f"positions shape {tuple(positions.shape)}")
-    pos = positions.to(device=q.device, dtype=torch.int32).contiguous()
-    if live is not None:
-        req(live.shape == (B,) and live.dtype == torch.bool
-            and live.device == q.device, what="live must be a (B,) bool CUDA tensor")
-        live = live.contiguous()
+    pos, live = _check_common(name, q, k_cache, v_cache, positions, live)
+    _build.require(k_cache.shape[0] == B, name,
+                   f"cache batch {k_cache.shape[0]} != {B}")
 
     o = torch.empty_like(q)
     rc = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -78,3 +90,50 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, positions: torch.Tensor,
+                           block_table: torch.Tensor, *,
+                           live: torch.Tensor | None = None,
+                           window: int | None = None,
+                           softcap: float | None = None,
+                           scale: float | None = None) -> torch.Tensor:
+    """q: (B, 1, H, Dh); pools: (n_blocks, bs, K, Dh) shared by all slots;
+    block_table: (B, max_blocks) int32, position p of slot b at pool row
+    ``block_table[b, p // bs]``, offset ``p % bs`` (every entry must index the
+    pool; unallocated entries point at block 0); positions: (B,) int; live:
+    (B,) bool or None. bs must be a multiple of 8. Returns (B, 1, H, Dh). CPU
+    tensors take the plain version (a gather into a dense view); CUDA tensors
+    launch the kernel, which reads the pool through the table, or raise."""
+    if q.device.type == "cpu":
+        return plain_paged(q, k_pool, v_pool, positions, block_table,
+                           live=live, window=window, softcap=softcap,
+                           scale=scale)
+    B, _, H, Dh = q.shape
+    bs, K = k_pool.shape[1], k_pool.shape[2]
+    if scale is None:
+        scale = Dh ** -0.5
+    name = "decode_attention_paged"
+    pos, live = _check_common(name, q, k_pool, v_pool, positions, live)
+    req = partial(_build.require, kernel=name)
+    req(bs % 8 == 0, what=f"block size {bs} is not a multiple of 8")
+    req(block_table.dim() == 2 and block_table.shape[0] == B
+        and block_table.dtype == torch.int32
+        and block_table.device == q.device and block_table.is_contiguous(),
+        what=f"block_table must be a contiguous (B, max_blocks) int32 CUDA "
+        f"tensor, got {tuple(block_table.shape)} {block_table.dtype}")
+
+    o = torch.empty_like(q)
+    rc = _fn(name)(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                   pos.data_ptr(), None if live is None else live.data_ptr(),
+                   block_table.data_ptr(), o.data_ptr(), B,
+                   block_table.shape[1], bs, H, K, Dh,
+                   _build.DTYPE_CODES[q.dtype], float(scale), int(window or 0),
+                   float(softcap or 0.0), _build.stream_ptr(q.device))
+    _build.check_launch(rc, name)
+    decode_attention_paged.launches += 1
+    return o
+
+
+decode_attention_paged.launches = 0

@@ -45,10 +45,57 @@ def sdpa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 window: int | None = None, softcap: float | None = None,
                 scale: float | None = None) -> torch.Tensor:
     """Incremental attention against a dense slot KV cache (see
-    ref.sdpa_decode). On the card only the single-query decode tick has a
-    kernel; multi-token chunks belong to chunked prefill (ROADMAP.md)."""
-    return da.decode_attention(q, k_cache, v_cache, positions, live=live,
+    ref.sdpa_decode): Sq == 1 is the decode tick (the decode kernel), Sq > 1
+    one chunk of a chunked prefill, which on the card runs the flash forward
+    kernel (the JAX package has no Pallas kernel for chunks)."""
+    if q.shape[1] == 1:
+        return da.decode_attention(q, k_cache, v_cache, positions, live=live,
+                                   window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return ref.sdpa_decode(q, k_cache, v_cache, positions, live=live,
                                window=window, softcap=softcap, scale=scale)
+    return _chunk_attention(q, k_cache, v_cache, positions, live=live,
+                            window=window, softcap=softcap, scale=scale)
+
+
+def sdpa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, positions: torch.Tensor,
+                      block_table: torch.Tensor, *,
+                      live: torch.Tensor | None = None,
+                      window: int | None = None, softcap: float | None = None,
+                      scale: float | None = None) -> torch.Tensor:
+    """Incremental attention against a paged KV pool (see
+    ref.sdpa_decode_paged): Sq == 1 is the paged decode kernel, which reads
+    the pool through the table; a chunk (Sq > 1) gathers the rows' blocks
+    into a dense view, as JAX does for chunks on every backend, and on the
+    card runs the flash forward kernel over it."""
+    if q.shape[1] == 1:
+        return da.decode_attention_paged(q, k_pool, v_pool, positions,
+                                         block_table, live=live, window=window,
+                                         softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return ref.sdpa_decode_paged(q, k_pool, v_pool, positions, block_table,
+                                     live=live, window=window, softcap=softcap,
+                                     scale=scale)
+    table = block_table.long()
+    return _chunk_attention(q, k_pool[table].flatten(1, 2),
+                            v_pool[table].flatten(1, 2), positions, live=live,
+                            window=window, softcap=softcap, scale=scale)
+
+
+def _chunk_attention(q, k, v, positions, *, live, window, softcap, scale):
+    """A chunk of c queries per row at positions + arange(c) against a dense
+    (B, Smax, K, Dh) cache at positions arange(Smax), causal, through the
+    flash forward kernel; dead rows give zeros."""
+    ar = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+    q_pos = positions.to(torch.int32)[:, None] + ar[None]
+    kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)[None]
+    o, _ = fa.flash_attention(q.contiguous(), k, v, q_positions=q_pos,
+                              kv_positions=kv_pos, causal=True, window=window,
+                              softcap=softcap, scale=scale)
+    if live is not None:
+        o = o.masked_fill(~live[:, None, None, None], 0)
+    return o
 
 
 def cola_fit_lowrank(x: torch.Tensor, grad_h: torch.Tensor, A: torch.Tensor,
@@ -63,3 +110,11 @@ def multi_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                idx: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """Per-token adapter-indexed low-rank apply (see ref.multi_lora)."""
     return ml.multi_lora(x, A, B, idx, scale=scale)
+
+
+def multi_lora_q8(x: torch.Tensor, A_q: torch.Tensor, A_scale: torch.Tensor,
+                  B_q: torch.Tensor, B_scale: torch.Tensor, idx: torch.Tensor,
+                  scale: float = 1.0) -> torch.Tensor:
+    """Multi-LoRA apply from an int8 bank, dequantised on load (see
+    ref.multi_lora_q8)."""
+    return ml.multi_lora_q8(x, A_q, A_scale, B_q, B_scale, idx, scale=scale)

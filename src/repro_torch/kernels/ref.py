@@ -158,6 +158,27 @@ def sdpa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return o
 
 
+def sdpa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, positions: torch.Tensor,
+                      block_table: torch.Tensor, *,
+                      live: torch.Tensor | None = None,
+                      window: int | None = None, softcap: float | None = None,
+                      scale: float | None = None) -> torch.Tensor:
+    """Paged-KV incremental attention (the paged kernel's oracle).
+    q: (B, Sq, H, Dh); pools: (n_blocks, bs, K, Dh) shared by all slots;
+    block_table: (B, max_blocks) int, position p of row b lives in pool block
+    ``block_table[b, p // bs]`` at offset ``p % bs``. Gathers each row's
+    blocks into a dense (B, max_blocks * bs, K, Dh) view and defers to
+    ``sdpa_decode``; unallocated entries point at block 0, whose foreign
+    contents sit at positions beyond the row's allocated prefix and are
+    masked by position.
+    """
+    kd = k_pool[block_table.long()].flatten(1, 2)   # (B, nb * bs, K, Dh)
+    vd = v_pool[block_table.long()].flatten(1, 2)
+    return sdpa_decode(q, kd, vd, positions, live=live, window=window,
+                       softcap=softcap, scale=scale)
+
+
 # ---------------------------------------------------------------------------
 # cola_fit oracle: fused low-rank adapter fit gradient (the offloaded GL step)
 # ---------------------------------------------------------------------------
@@ -196,6 +217,22 @@ def multi_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     safe = idx.long().clamp(0, A.shape[0] - 1)
     a = A[safe].to(torch.float32)                  # (T, d_in, r)
     b = B[safe].to(torch.float32)                  # (T, r, d_out)
+    xa = torch.einsum("td,tdr->tr", x.to(torch.float32), a)
+    y = torch.einsum("tr,tro->to", xa, b)
+    y = torch.where((idx >= 0)[:, None], y, torch.zeros_like(y))
+    return (scale * y).to(x.dtype)
+
+
+def multi_lora_q8(x: torch.Tensor, A_q: torch.Tensor, A_scale: torch.Tensor,
+                  B_q: torch.Tensor, B_scale: torch.Tensor, idx: torch.Tensor,
+                  scale: float = 1.0) -> torch.Tensor:
+    """``multi_lora`` from an int8 bank: A_q (U, d_in, r) int8 with per-row
+    scales A_scale (U, d_in, 1), likewise B. Dequantises only the T gathered
+    per-token adapters, never a f32 copy of the whole bank. Rows with
+    idx < 0 are padding and contribute exactly zero."""
+    safe = idx.long().clamp(0, A_q.shape[0] - 1)
+    a = A_q[safe].to(torch.float32) * A_scale[safe].to(torch.float32)
+    b = B_q[safe].to(torch.float32) * B_scale[safe].to(torch.float32)
     xa = torch.einsum("td,tdr->tr", x.to(torch.float32), a)
     y = torch.einsum("tr,tro->to", xa, b)
     y = torch.where((idx >= 0)[:, None], y, torch.zeros_like(y))

@@ -1,7 +1,9 @@
 """GQA attention with RoPE (window and logit softcap reach the kernels).
-Two modes: prefill (full causal, returns K/V for the cache) and decode (one
-new token against a dense slot cache). The inner attention goes through
-``kernels.ops`` so the CUDA kernels replace the plain versions on the card.
+Two modes: prefill (full causal, returns K/V for the cache) and decode (c new
+tokens per row against a dense slot cache or a paged block pool: c == 1 is
+the decode tick, c > 1 a chunk of a chunked prefill). The inner attention
+goes through ``kernels.ops`` so the CUDA kernels replace the plain versions
+on the card.
 """
 from __future__ import annotations
 
@@ -45,35 +47,84 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     return y, k, v
 
 
+def kv_write_plan(positions: torch.Tensor, c: int,
+                  live: torch.Tensor | None, *, smax: int | None = None,
+                  block_table: torch.Tensor | None = None,
+                  block: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where the K/V of a step's c new tokens per row go: (src, dst), flat
+    indices into the (B * c) new rows and into the cache viewed as rows of
+    (K, Dh). Only kept writes are listed. One plan serves every layer of a
+    step, so it is computed once per step.
+
+    - dense (``smax``): cache (B, Smax, K, Dh); row b's token i goes to
+      position positions[b] + i. A single token (c == 1) is clamped into the
+      cache like JAX's ``dynamic_update_slice``; a chunk's tail at or past
+      Smax is dropped, never clamped back over real KV.
+    - paged (``block_table`` (B, max_blocks), ``block``): pool
+      (n_blocks, block, K, Dh); position p goes to pool row
+      ``block_table[b, p // block]``, offset ``p % block``; positions at or
+      past max_blocks * block are dropped.
+
+    Dead rows' writes (``live`` False) are dropped in both layouts. Torch has
+    no scatter with ``mode="drop"``, so dropped writes are filtered out here
+    rather than sent to a clamped in-range row, where two rows could race.
+    """
+    B = positions.shape[0]
+    dev = positions.device
+    pos = positions.long()[:, None] + torch.arange(c, device=dev)[None]
+    if block_table is None:
+        if c == 1:
+            pos = pos.clamp(0, smax - 1)
+        ok = pos < smax
+        dst = torch.arange(B, device=dev)[:, None] * smax + pos
+    else:
+        nb = block_table.shape[1]
+        ok = pos < nb * block
+        blk = block_table.long().gather(1, (pos // block).clamp(max=nb - 1))
+        dst = blk * block + pos % block
+    if live is not None:
+        ok = ok & live[:, None]
+    src = ok.flatten().nonzero().squeeze(1)
+    return src, dst.flatten()[src]
+
+
 def attention_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, positions: torch.Tensor, *,
                      n_heads: int, n_kv: int, d_head: int,
                      rope_theta: float = 1e4, window: int | None = None,
                      softcap: float | None = None, tap_prefix: str = "attn",
                      tap_ctx: tuple | None = None,
-                     live: torch.Tensor | None = None) -> torch.Tensor:
-    """Decode tick on the dense layout: write the new token's K/V into the
-    slot cache (B, Smax, K, Dh) at ``positions`` (B,), then attend causally
-    against everything written so far. x: (B, 1, d_model).
+                     kv_write: tuple[torch.Tensor, torch.Tensor],
+                     live: torch.Tensor | None = None,
+                     block_table: torch.Tensor | None = None) -> torch.Tensor:
+    """Incremental step: write c new tokens per row into the cache, then
+    attend causally against everything written so far. x: (B, c, d_model);
+    positions: (B,) each row's first position (tokens already in its cache).
+    c == 1 is the decode tick; c > 1 one chunk of a chunked prefill.
 
-    The cache is updated in place (the JAX version returns a new cache); the
-    caller (``model.decode_step``) restores the rows of non-live slots.
-    Multi-token chunks (chunked prefill) and the paged / ring layouts are
-    still to be ported (ROADMAP.md).
+    Layouts: dense, k/v_cache (B, Smax, K, Dh); paged (``block_table``
+    (B, max_blocks) given), k/v_cache the shared pool (n_blocks, bs, K, Dh).
+    ``kv_write`` is the step's ``kv_write_plan``: dead rows' writes and
+    out-of-range chunk tails are dropped. The cache is updated in place (the
+    JAX version returns a new cache); dead rows' attention output is zero.
     """
     B, c, _ = x.shape
-    if c != 1:
-        raise NotImplementedError("multi-token decode chunks (chunked "
-                                  "prefill) are not ported yet (see ROADMAP.md)")
-    q, k, v = _project_qkv(params, x, positions[:, None], n_heads=n_heads,
-                           n_kv=n_kv, d_head=d_head, rope_theta=rope_theta,
+    pos2d = positions[:, None] + torch.arange(c, dtype=positions.dtype,
+                                              device=x.device)[None]
+    q, k, v = _project_qkv(params, x, pos2d, n_heads=n_heads, n_kv=n_kv,
+                           d_head=d_head, rope_theta=rope_theta,
                            tap_prefix=tap_prefix, tap_ctx=tap_ctx)
-    # clamped into the cache like the JAX dynamic_update_slice
-    rows = torch.arange(B, device=x.device)
-    pos = positions.long().clamp(0, k_cache.shape[1] - 1)
-    k_cache[rows, pos] = k[:, 0]
-    v_cache[rows, pos] = v[:, 0]
-    o = kernel_ops.sdpa_decode(q, k_cache, v_cache, positions, live=live,
-                               window=window, softcap=softcap)
+    src, dst = kv_write
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        cache.view(-1, n_kv, d_head).index_copy_(
+            0, dst, new.reshape(B * c, n_kv, d_head).index_select(0, src))
+    if block_table is None:
+        o = kernel_ops.sdpa_decode(q, k_cache, v_cache, positions, live=live,
+                                   window=window, softcap=softcap)
+    else:
+        o = kernel_ops.sdpa_decode_paged(q, k_cache, v_cache, positions,
+                                         block_table, live=live, window=window,
+                                         softcap=softcap)
     o = o.reshape(B, c, n_heads * d_head)
     return L.dense(params["o"], o, tap=f"{tap_prefix}.o", tap_ctx=tap_ctx)

@@ -52,10 +52,14 @@ def attn_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
                       positions: torch.Tensor, *, window: int | None,
                       tap_prefix: str, tap_ctx: tuple | None,
-                      live: torch.Tensor | None = None) -> torch.Tensor:
-    """Decode-tick block; writes this token's K/V into the caches in place."""
+                      kv_write: tuple[torch.Tensor, torch.Tensor],
+                      live: torch.Tensor | None = None,
+                      block_table: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode-tick (or prefill-chunk) block; writes the new tokens' K/V into
+    the caches in place (see attention.attention_decode)."""
     _require_mlp(cfg)
     h = A.attention_decode(params["attn"], _norm(cfg, params["ln1"], x),
                            k_cache, v_cache, positions, live=live,
+                           block_table=block_table, kv_write=kv_write,
                            **_attn_kwargs(cfg, window, tap_prefix, tap_ctx))
     return _mlp_half(cfg, params, x, h, tap_prefix=tap_prefix, tap_ctx=tap_ctx)

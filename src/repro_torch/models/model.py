@@ -19,9 +19,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.taps import ColaSpec, TapSite
+from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.utils import canonical_dtype, resolve_device, tree_leaves
+from repro_torch.utils import (canonical_dtype, cdiv, resolve_device,
+                               tree_leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -281,72 +283,78 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int, *,
-                kv_layout: str = "dense") -> dict:
-    """Decode-cache leaf (shape, dtype): every layer gets a dense
-    (L, batch, max_len, K, Dh) slot cache. The paged layout is still to be
-    ported (ROADMAP.md)."""
+                kv_layout: str = "dense", kv_blocks: int | None = None,
+                kv_block: int = 16) -> dict:
+    """Decode-cache leaf (shape, dtype).
+
+    ``kv_layout="dense"``: every layer gets a (L, batch, max_len, K, Dh) slot
+    cache; memory scales with the horizon.
+
+    ``kv_layout="paged"``: KV lives in a shared block pool
+    (L, kv_blocks, kv_block, K, Dh) addressed through a per-slot block table
+    (owned by the engine's ``runtime.kv_pager.BlockPager`` and passed to
+    ``decode_step(block_table=)``); memory scales with kv_blocks and
+    ``max_len`` only sizes the table. ``kv_blocks`` defaults to the
+    dense-equivalent pool. The pairs plan's ring caches for its local layers
+    are still to be ported (ROADMAP.md).
+    """
     _require_uniform_attn(cfg)
-    if kv_layout != "dense":
-        raise NotImplementedError(f"kv_layout={kv_layout!r} is not ported yet "
-                                  "(see ROADMAP.md)")
+    if kv_layout not in ("dense", "paged"):
+        raise ValueError(f"kv_layout={kv_layout!r}")
     cdt = canonical_dtype(cfg.compute_dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    if kv_layout == "paged":
+        if kv_blocks is None:
+            kv_blocks = batch * cdiv(max_len, kv_block)
+        shape = (cfg.n_layers, kv_blocks, kv_block, cfg.n_kv_heads, cfg.d_head)
+    else:
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {"layers": {"k": (shape, cdt), "v": (shape, cdt)}}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               kv_layout: str = "dense", device="cuda") -> dict:
+               kv_layout: str = "dense", kv_blocks: int | None = None,
+               kv_block: int = 16, device="cuda") -> dict:
     dev = resolve_device(device)
-    specs = cache_specs(cfg, batch, max_len, kv_layout=kv_layout)
+    specs = cache_specs(cfg, batch, max_len, kv_layout=kv_layout,
+                        kv_blocks=kv_blocks, kv_block=kv_block)
     return {stack: {n: torch.zeros(shape, dtype=dt, device=dev)
                     for n, (shape, dt) in leaves.items()}
             for stack, leaves in specs.items()}
-
-
-def _mask_cache_rows(live, new, old):
-    """Slot-mask invariant: rows where ``live`` is False keep their old cache.
-    ``new``/``old`` are pytrees whose leaves carry the slot axis first."""
-    if live is None:
-        return new
-    if isinstance(new, dict):
-        return {k: _mask_cache_rows(live, new[k], old[k]) for k in new}
-    return torch.where(live.reshape((new.shape[0],) + (1,) * (new.ndim - 1)),
-                       new, old)
 
 
 def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
                 spec: ColaSpec | None = None, cola_vars: dict | None = None,
                 *, live: torch.Tensor | None = None,
                 block_table: torch.Tensor | None = None):
-    """One decode tick. batch: {"tokens": (B, 1), "positions": (B,)}.
-    Returns (logits (B, 1, V), cache).
+    """One incremental step. batch: {"tokens": (B, c), "positions": (B,)}:
+    c == 1 is the decode tick, c > 1 one chunk of a chunked prefill (the
+    chunk attends to every earlier chunk through the cache). Returns
+    (logits (B, c, V), cache).
 
     The cache is updated in place and returned (the JAX version returns a new
-    cache). ``live``: optional (B,) bool mask; the cache rows of non-live
-    slots are left as they were (their logits carry no meaning).
+    cache). ``live``: optional (B,) bool mask; non-live slots' cache writes
+    are dropped (their logits carry no meaning). ``block_table``:
+    (B, max_blocks) int32 selects the paged layout (the cache must come from
+    ``init_cache(kv_layout="paged")``).
     """
-    if block_table is not None:
-        raise NotImplementedError("the paged KV layout is not ported yet "
-                                  "(see ROADMAP.md)")
     ad = _subvars((cola_vars or {}).get("adapters", {}), "layers")
     de = _subvars((cola_vars or {}).get("deltas", {}), "layers")
     positions = batch["positions"]
     x = embed_tokens(cfg, params, batch)
-    rows = torch.arange(x.shape[0], device=x.device)
-    pos = positions.long().clamp(0, cache["layers"]["k"].shape[2] - 1)
+    kc, vc = cache["layers"]["k"], cache["layers"]["v"]
+    # one write plan for every layer: the kept (row, position) pairs
+    if block_table is None:
+        write = A.kv_write_plan(positions, x.shape[1], live, smax=kc.shape[2])
+    else:
+        write = A.kv_write_plan(positions, x.shape[1], live,
+                                block_table=block_table, block=kc.shape[2])
     for i in range(cfg.n_layers):
-        kc, vc = cache["layers"]["k"][i], cache["layers"]["v"][i]
-        old = {"k": kc[rows, pos], "v": vc[rows, pos]}
         tap_ctx = (spec, _layer(ad, i), _layer(de, i), {})
-        x = B.attn_block_decode(cfg, _layer(params["layers"], i), x, kc, vc,
-                                positions, window=None, tap_prefix="layers",
-                                tap_ctx=tap_ctx, live=live)
-        if live is not None:
-            # the block wrote every row at its position; restore dead rows
-            kept = _mask_cache_rows(live, {"k": kc[rows, pos],
-                                           "v": vc[rows, pos]}, old)
-            kc[rows, pos] = kept["k"]
-            vc[rows, pos] = kept["v"]
+        x = B.attn_block_decode(cfg, _layer(params["layers"], i), x, kc[i],
+                                vc[i], positions, window=None,
+                                tap_prefix="layers", tap_ctx=tap_ctx,
+                                live=live, block_table=block_table,
+                                kv_write=write)
     x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     return head_logits(cfg, params, x), cache
 

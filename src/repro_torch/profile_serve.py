@@ -2,16 +2,22 @@
 
 Runs the ``chip_smoke.py`` serving setup (full-width smollm-135m, bf16, 4
 users' rank-8 ``qv`` adapters, 16 slots, max_len 1024), fills all 16 slots
-with one batched prefill, then profiles that prefill and a window of decode
-ticks with ``torch.profiler``. Prints, per phase, the host wall time, the
-device busy time (sum of kernel times), the idle share, and the top device
-kernels and host ops.
+and profiles the prefill, then a window of decode ticks, with
+``torch.profiler``. Unchunked, the prefill is one batched prefill call; with
+``--prefill-chunk C`` it is the first chunk round (one C-token chunk of all
+16 prompts), and the decode window starts once every prompt is in cache.
+``--kv-layout paged`` (blocks of ``--kv-block``; needs ``--prefill-chunk``)
+and ``--bank-store int8`` select the serving-at-scale paths. Prints, per
+phase, the host wall time, the device busy time (sum of kernel times), the
+idle share, and the top device kernels and host ops.
 
 Run on a machine with a CUDA card, from the repo root:
-``PYTHONPATH=src python -m repro_torch.profile_serve``
+``PYTHONPATH=src python -m repro_torch.profile_serve [--prefill-chunk 128
+--kv-layout paged --bank-store int8]``
 """
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
@@ -36,7 +42,15 @@ def _summary(prof, wall_s: float, label: str, top: int = 12) -> None:
         print(f"    {e.self_cpu_time_total / 1e3:9.3f} {e.count:6d}  {e.key[:90]}")
 
 
-def main(ticks: int = 8) -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ticks", type=int, default=8)
+    ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--kv-layout", choices=("dense", "paged"), default="dense")
+    ap.add_argument("--kv-block", type=int, default=16)
+    ap.add_argument("--bank-store", choices=("f32", "int8"), default="f32")
+    args = ap.parse_args(argv)
+    ticks = args.ticks
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 1
@@ -59,7 +73,10 @@ def main(ticks: int = 8) -> int:
 
     def engine_with_requests():
         eng = ServeEngine(cfg, params, slots=16, max_len=1024,
-                          user_adapters=banks, device=dev)
+                          user_adapters=banks, device=dev,
+                          prefill_chunk=args.prefill_chunk,
+                          kv_layout=args.kv_layout, kv_block=args.kv_block,
+                          bank_store=args.bank_store)
         for i, n in enumerate(rng.integers(32, 513, 16)):
             eng.submit(Request(rid=i, user=i % 4, max_new=ticks + 8,
                                prompt=rng.integers(0, cfg.vocab_size, n)))
@@ -74,11 +91,17 @@ def main(ticks: int = 8) -> int:
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng._admit()                        # one batched prefill of 16 prompts
+        eng._admit()      # unchunked: one batched prefill of 16 prompts
+        if args.prefill_chunk is not None:
+            eng._chunk_round()              # the first chunk round
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _summary(prof, wall, "prefill")
+    _summary(prof, wall, "prefill" if args.prefill_chunk is None
+             else "chunk round")
     eng.tick()                              # one tick outside the window
+    while any(r is not None and r._consumed < len(r.prompt)
+              for r in eng.active):         # the rest of the chunk rounds
+        eng.tick()
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()

@@ -13,11 +13,27 @@ with a (slots,) ``live`` mask so that no step touches another slot's KV.
 ``prefill_mode="reference"`` feeds prompts token by token through the
 live-masked decode step; it is the oracle of the batched path.
 
+Serving at scale:
+
+- ``prefill_chunk=C``: admission only assigns slots; prompts then stream in
+  one C-token chunk round per tick, interleaved with decode (Sarathi-style),
+  through the multi-token decode step. A request's first token comes from
+  its last chunk's logits, and decode bursts are capped at 1 while any slot
+  is prefilling.
+- ``kv_layout="paged"`` (requires ``prefill_chunk``): KV lives in a shared
+  pool of ``kv_blocks`` blocks of ``kv_block`` positions, addressed through
+  the ``BlockPager``'s per-slot block table. Admission reserves a request's
+  worst case (or waits, FIFO), ``ensure`` allocates before each device call,
+  and retirement releases the slot's blocks. ``max_len`` becomes a virtual
+  horizon.
+- ``bank_store="int8"``: the adapter bank is held as int8 codes with per-row
+  f32 scales (``quantize_bank``) and dequantised on load in the kernel.
+
 Ported from the JAX package's ``runtime/serve_loop.py``: the jitted steps
 become plain methods, and the ``lax.scan`` burst a host loop that emits the
-same tokens. int8 banks, the tiered adapter store (``resident_slots``),
-chunked prefill, the paged KV layout and telemetry are still to be ported
-(ROADMAP.md).
+same tokens. The tiered adapter store (``resident_slots``),
+``install_adapters`` / ``publish_banks`` and telemetry are still to be
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -32,7 +48,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import gl
 from repro_torch.core import taps as taps_lib
+from repro_torch.kernels import multi_lora as ml
 from repro_torch.models import model as model_lib
+from repro_torch.runtime.kv_pager import BlockPager, PagerError
 from repro_torch.utils import resolve_device
 
 
@@ -110,6 +128,22 @@ def stack_user_adapters(adapter_list: list[dict]) -> dict:
     return out
 
 
+def quantize_bank(bank: dict) -> dict:
+    """f32 multi-user bank -> int8-stored bank: every leaf ``name`` becomes
+    ``name_q`` (int8 codes) + ``name_scale`` (per-row f32 scales). The serve
+    path then dequantises on load in the kernel (``multi_lora_q8``) and never
+    holds a f32 copy of the bank: a quarter of the f32 bank's memory."""
+    out: dict[str, Any] = {}
+    for tap, leaves in bank.items():
+        entry = {}
+        for name, leaf in leaves.items():
+            q, scale = ml.quant_rows(leaf)
+            entry[f"{name}_q"] = q
+            entry[f"{name}_scale"] = scale
+        out[tap] = entry
+    return out
+
+
 def _bucket(n: int, floor: int = 8) -> int:
     """Round up to a power of two (>= floor), so prefill batches come in few
     shapes."""
@@ -127,20 +161,33 @@ class ServeEngine:
                  bank_store: str = "f32", decode_burst: int = 1,
                  resident_slots: int | None = None,
                  prefill_chunk: int | None = None, kv_layout: str = "dense",
+                 kv_block: int = 16, kv_blocks: int | None = None,
                  max_prompt: int | None = None, telemetry=None,
                  device="cuda"):
         self.device = resolve_device(device)
         if prefill_mode not in ("batched", "reference"):
             raise ValueError(f"prefill_mode={prefill_mode!r}")
-        for name, value, default in (("bank_store", bank_store, "f32"),
-                                     ("resident_slots", resident_slots, None),
-                                     ("prefill_chunk", prefill_chunk, None),
-                                     ("kv_layout", kv_layout, "dense"),
-                                     ("telemetry", telemetry, None)):
-            if value != default:
+        if bank_store not in ("f32", "int8"):
+            raise ValueError(f"bank_store={bank_store!r}")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout={kv_layout!r}")
+        for name, value in (("resident_slots", resident_slots),
+                            ("telemetry", telemetry)):
+            if value is not None:
                 raise NotImplementedError(
                     f"ServeEngine({name}={value!r}) is not ported yet "
                     "(see ROADMAP.md)")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk={prefill_chunk}")
+            if prefill_mode != "batched":
+                raise ValueError("chunked prefill requires prefill_mode="
+                                 "'batched' (the reference mode exists to "
+                                 "oracle the unchunked path)")
+        if kv_layout == "paged" and prefill_chunk is None:
+            raise ValueError("kv_layout='paged' requires prefill_chunk: the "
+                             "unchunked prefill scatters a dense cache, only "
+                             "the chunk path writes through the block table")
         if params["embed"]["emb"].device != self.device:
             raise ValueError(f"params live on {params['embed']['emb'].device}, "
                              f"the engine runs on {self.device}")
@@ -149,6 +196,7 @@ class ServeEngine:
         self.slots = slots
         self.max_len = max_len
         self.prefill_mode = prefill_mode
+        self.prefill_chunk = prefill_chunk
         # a prompt occupies [0, P) and one decode position must remain below
         # the horizon, so max_prompt can never exceed max_len - 1
         self.max_prompt = (int(max_prompt) if max_prompt is not None
@@ -165,7 +213,17 @@ class ServeEngine:
         self.active: list[Request | None] = [None] * slots
         self.positions = np.zeros(slots, np.int32)
         self.users = np.zeros(slots, np.int32)
-        self.cache = model_lib.init_cache(cfg, slots, max_len, device=self.device)
+        self.cache = model_lib.init_cache(cfg, slots, max_len,
+                                          kv_layout=kv_layout,
+                                          kv_blocks=kv_blocks,
+                                          kv_block=kv_block, device=self.device)
+        self.pager: BlockPager | None = None
+        if kv_layout == "paged":   # as many blocks as the pool holds
+            self.pager = BlockPager(self.cache["layers"]["k"].shape[1],
+                                    kv_block, slots, max_len)
+        # the block table on the card, copied again only when it changes
+        self._table_host: np.ndarray | None = None
+        self._table_dev: torch.Tensor | None = None
         self.spec = None
         self.bank = None
         self.n_users = 0
@@ -174,14 +232,20 @@ class ServeEngine:
                                            taps=gl.select_taps(cfg, taps),
                                            scale=scale)
             self.n_users = len(user_adapters)
+            bank = stack_user_adapters(user_adapters)
+            if bank_store == "int8":
+                bank = quantize_bank(bank)
             self.bank = {tap: {n: leaf.to(self.device) for n, leaf in e.items()}
-                         for tap, e in stack_user_adapters(user_adapters).items()}
+                         for tap, e in bank.items()}
         self._decode_tick_s: collections.deque = collections.deque(maxlen=4096)
         self._prefill_s: collections.deque = collections.deque(maxlen=4096)
         self.stats = {"ticks": 0, "tokens": 0, "decode_tokens": 0,
                       "completed": 0, "admitted": 0,
                       "prefill_calls": 0, "prefill_tokens": 0,
-                      "decode_time": 0.0, "prefill_time": 0.0, "rejected": 0}
+                      "prefill_chunks": 0, "chunk_rounds": 0,
+                      "decode_time": 0.0, "prefill_time": 0.0, "rejected": 0,
+                      "kv_blocks_in_use": 0, "kv_blocks_peak": 0,
+                      "kv_allocs": 0, "kv_frees": 0, "kv_reserve_failures": 0}
 
     # -- device steps --------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -193,21 +257,53 @@ class ServeEngine:
         vars_ = {}
         for tap, leaves in self.bank.items():
             entry = dict(leaves)
-            a = leaves["A"]
+            a = leaves["A"] if "A" in leaves else leaves["A_q"]   # int8: A_q
             # stacked (L, U, d, r): idx carries the layer axis too
             entry["idx"] = (users.expand(a.shape[0], -1) if a.dim() == 4
                             else users)
             vars_[tap] = entry
         return {"adapters": vars_}
 
-    def _decode(self, tokens, positions, users, live) -> torch.Tensor:
-        """One decode tick for every slot; returns each slot's argmax token
-        (on the device) and updates the slot cache in place."""
+    def _table(self) -> torch.Tensor | None:
+        """The pager's block table on the card; copied only when it changed
+        since the last copy (at most once per device call, never per layer)."""
+        if self.pager is None:
+            return None
+        if (self._table_host is None
+                or not np.array_equal(self._table_host, self.pager.table)):
+            self._table_host = self.pager.table.copy()
+            self._table_dev = self._tensor(self._table_host)
+        return self._table_dev
+
+    def _step_logits(self, tokens, positions, users, live, lens=None
+                     ) -> torch.Tensor:
+        """One multi-token decode step for every slot (c == 1: a decode tick;
+        c > 1: a chunk round), updating the cache in place. Returns each
+        slot's next-token logits (slots, V): at its last position, or with
+        ``lens`` at its last real chunk position ``lens - 1``."""
         batch = {"tokens": tokens, "positions": positions}
         logits, self.cache = model_lib.decode_step(
             self.cfg, self.params, batch, self.cache, self.spec,
-            self._cola_vars(users), live=live)
-        return logits[:, -1].argmax(dim=-1).to(torch.int32)
+            self._cola_vars(users), live=live, block_table=self._table())
+        if lens is None:
+            return logits[:, -1]
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        return logits[rows, (lens.long() - 1).clamp(min=0)]
+
+    def _decode(self, tokens, positions, users, live) -> torch.Tensor:
+        """One decode tick for every slot; returns each slot's argmax token
+        (on the device) and updates the slot cache in place."""
+        return self._step_logits(tokens, positions, users, live).argmax(
+            dim=-1).to(torch.int32)
+
+    def _chunk(self, tokens, positions, users, live, lens) -> torch.Tensor:
+        """One prefill chunk round: a (slots, C) token batch through the
+        multi-token decode step. ``lens[i]`` is row i's real chunk length
+        (the rest is padding, whose cache writes are dropped or later
+        overwritten); returns each row's argmax at its last real position,
+        which is the request's first token when its prompt just completed."""
+        return self._step_logits(tokens, positions, users, live,
+                                 lens).argmax(dim=-1).to(torch.int32)
 
     def _decode_burst(self, tokens, positions, users, live, n: int
                       ) -> torch.Tensor:
@@ -272,8 +368,15 @@ class ServeEngine:
                 break
             if self.active[i] is not None:
                 continue
-            req = self.queue.pop(0)
+            req = self.queue[0]
+            if (self.pager is not None
+                    and not self.pager.reserve(i, self._reserve_len(req))):
+                # pool pressure: admission waits (FIFO) until retirements
+                # return enough blocks to back this request's worst case
+                break
+            self.queue.pop(0)
             req.t_admit = now
+            req._consumed = 0
             self.active[i] = req
             self.users[i] = req.user
             self.positions[i] = 0
@@ -281,6 +384,8 @@ class ServeEngine:
         if not admitted:
             return
         self.stats["admitted"] += len(admitted)
+        if self.prefill_chunk is not None:
+            return   # chunk rounds (one per tick) do the prefill work
         rows = [(i, np.asarray(self.active[i].prompt, np.int32))
                 for i in admitted]
         t0 = time.perf_counter()
@@ -344,6 +449,7 @@ class ServeEngine:
         req.t_first = now
         req.out.append(tok)
         req._last = tok
+        req._consumed = len(req.prompt)   # prompt fully in cache: decode-live
         self.positions[i] = len(req.prompt)
         self.stats["tokens"] += 1
 
@@ -362,6 +468,63 @@ class ServeEngine:
         self.finished.append(req)
         self.active[i] = None
         self.positions[i] = 0
+        if self.pager is not None:
+            self.pager.release(i)
+
+    def _reserve_len(self, req: Request) -> int:
+        """Worst-case positions ``req`` can ever write on its slot: the
+        chunk-padded prompt (chunk rounds write width-C tails) or the decode
+        horizon, whichever is larger, clipped to max_len. Reserving this at
+        admission means a mid-flight ``ensure`` never fails."""
+        P = len(req.prompt)
+        C = self.prefill_chunk or P
+        padded = -(-P // C) * C
+        return min(self.max_len, max(padded, P + req.max_new))
+
+    def _chunk_round(self) -> list[int]:
+        """Advance every mid-prefill slot by one chunk, as one width-C padded
+        group (exactly one round per tick, so a long prompt costs each decode
+        tick at most one chunk of extra model work). Returns the slots that
+        were mid-prefill at entry."""
+        pend = [i for i, r in enumerate(self.active)
+                if r is not None and r._consumed < len(r.prompt)]
+        if not pend:
+            return pend
+        C = self.prefill_chunk
+        t0 = time.perf_counter()
+        toks = np.zeros((self.slots, C), np.int32)
+        lens = np.ones((self.slots,), np.int32)
+        live = np.zeros((self.slots,), bool)
+        pos = np.zeros((self.slots,), np.int32)
+        for i in pend:
+            req = self.active[i]
+            c = min(C, len(req.prompt) - req._consumed)
+            toks[i, :c] = req.prompt[req._consumed:req._consumed + c]
+            lens[i] = c
+            live[i] = True
+            pos[i] = req._consumed
+            if self.pager is not None and not self.pager.ensure(
+                    i, min(req._consumed + C - 1, self.max_len - 1)):
+                raise PagerError(f"slot {i}: its admission reservation does "
+                                 "not cover its prompt")
+        nxt = self._chunk(self._tensor(toks), self._tensor(pos),
+                          self._tensor(self.users), self._tensor(live),
+                          self._tensor(lens)).cpu().numpy()
+        now = time.perf_counter()
+        for i in pend:
+            req = self.active[i]
+            c = min(C, len(req.prompt) - req._consumed)
+            req._consumed += c
+            self.stats["prefill_tokens"] += c
+            if req._consumed >= len(req.prompt):
+                self._first_token(i, int(nxt[i]), now)
+                self._maybe_finish(i, now)
+        self.stats["prefill_chunks"] += len(pend)
+        self.stats["chunk_rounds"] += 1
+        dt = time.perf_counter() - t0
+        self.stats["prefill_time"] += dt
+        self._prefill_s.append(dt)
+        return pend
 
     def _burst_len(self, live_idx: list[int]) -> int:
         """Largest safe burst: no live slot may complete inside a burst.
@@ -382,19 +545,33 @@ class ServeEngine:
         return n
 
     def tick(self) -> int:
-        """One engine iteration: admit, then decode one token (or a burst)
-        for every live slot. Returns the number of tokens decoded."""
+        """One engine iteration: admit, advance mid-prefill slots by one chunk
+        (chunked mode), then decode one token (or a burst) for every slot
+        whose prompt is fully in cache; bursts are capped at 1 while any slot
+        is prefilling. Returns the number of tokens decoded."""
         if self.queue:
             self._admit()
-        live_idx = [i for i, r in enumerate(self.active) if r is not None]
+        prefilling: list[int] = []
+        if self.prefill_chunk is not None:
+            prefilling = self._chunk_round()
+        live_idx = [i for i, r in enumerate(self.active)
+                    if r is not None and r._consumed >= len(r.prompt)]
         if not live_idx:
+            if prefilling:
+                self.stats["ticks"] += 1
+            self._sync_pager_stats()
             return 0
         toks = np.zeros((self.slots, 1), np.int32)
         live = np.zeros((self.slots,), bool)
         for i in live_idx:
             toks[i, 0] = self.active[i]._last
             live[i] = True
-        n = self._burst_len(live_idx)
+        n = 1 if prefilling else self._burst_len(live_idx)
+        for i in live_idx if self.pager is not None else ():
+            if not self.pager.ensure(
+                    i, min(int(self.positions[i]) + n - 1, self.max_len - 1)):
+                raise PagerError(f"slot {i}: its admission reservation does "
+                                 "not cover its decode horizon")
         args = (self._tensor(toks), self._tensor(self.positions),
                 self._tensor(self.users), self._tensor(live))
         t0 = time.perf_counter()
@@ -418,6 +595,7 @@ class ServeEngine:
         self.stats["ticks"] += trace.shape[0]
         self.stats["tokens"] += trace.shape[0] * len(live_idx)
         self.stats["decode_tokens"] += trace.shape[0] * len(live_idx)
+        self._sync_pager_stats()
         return trace.shape[0] * len(live_idx)
 
     def run_until_idle(self, max_ticks: int = 10_000) -> None:
@@ -427,6 +605,30 @@ class ServeEngine:
             self.tick()
 
     # -- stats -------------------------------------------------------------
+    def _sync_pager_stats(self) -> None:
+        """Mirror the KV block pool's counters into ``engine.stats``."""
+        if self.pager is None:
+            return
+        p = self.pager.stats
+        self.stats["kv_blocks_in_use"] = p["in_use"]
+        self.stats["kv_blocks_peak"] = p["peak_in_use"]
+        self.stats["kv_allocs"] = p["allocs"]
+        self.stats["kv_frees"] = p["frees"]
+        self.stats["kv_reserve_failures"] = p["reserve_failures"]
+
+    def kv_cache_bytes(self) -> int:
+        """Decode-cache bytes attributable to current load. Dense: every leaf
+        in full (the slot cache is the footprint, occupied or not). Paged:
+        the pools (every leaf of the uniform plan) are charged per block in
+        use, plus the block table; the pools themselves are allocated in
+        full at construction."""
+        total = sum(leaf.numel() * leaf.element_size()
+                    for stack in self.cache.values() for leaf in stack.values())
+        if self.pager is None:
+            return total
+        per_block = total // self.pager.n_blocks
+        return per_block * self.pager.blocks_in_use() + self.pager.table.nbytes
+
     def request_stats(self) -> list[dict]:
         """Per-completed-request latency metrics (seconds)."""
         return [{"rid": r.rid, "user": r.user, "prompt_len": len(r.prompt),

@@ -4,7 +4,10 @@ head dim the kernels take, ragged lengths, non-uniform per-row positions,
 window and softcap, dead slots, padding rows, ranks up to 256; the flash
 backward and cola_fit kernels; gradients through ``ops.sdpa`` on the card
 against the plain path's; kernels without a backward refusing inputs that
-require grad.
+require grad; the paged decode kernel over block sizes and shuffled tables
+(and that it reads only the blocks the table names), the int8 multi-LoRA
+kernel at the decode and chunk shapes, ``quant_rows`` on the card against
+the CPU's, and chunk rounds through the flash forward kernel.
 
 Marked ``cuda``; skipped without a card. On the H100 (whose Python has no
 JAX, which the tests' conftest imports):
@@ -277,3 +280,167 @@ def test_kernels_without_backward_raise_on_inputs_that_require_grad(dev):
                            torch.zeros(1, 8, 2, 32, device=dev))
     with torch.no_grad():   # without autograd the kernels take them
         da.decode_attention(q, kc, kc, pos)
+
+
+# -- serving at scale: the paged decode kernel, the int8 multi-LoRA kernel,
+# -- chunk rounds through the flash forward kernel ---------------------------
+
+def _paged_case(gen, dev, dtype, B, H, K, D, bs, max_len, n_blocks):
+    """q, pools, a shuffled block table covering each row's [0, position],
+    positions (including 0 and the last position of the table)."""
+    q = _rnd(gen, dev, dtype, B, 1, H, D)
+    kp, vp = (_rnd(gen, dev, dtype, n_blocks, bs, K, D) for _ in range(2))
+    nb = max_len // bs
+    pos = torch.randint(0, max_len, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0], pos[-1] = 0, max_len - 1
+    perm = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(B))
+    table = torch.zeros(B, nb, dtype=torch.int32)
+    it = iter(perm.tolist())
+    for b, p in enumerate(pos.tolist()):
+        for j in range(p // bs + 1):
+            table[b, j] = next(it)
+    return q, kp, vp, pos, table.to(dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,K,D,bs,max_len", [
+    (16, 9, 3, 64, 16, 1024),     # the serving shape
+    (4, 4, 2, 32, 8, 128),
+    (3, 6, 1, 128, 32, 256),      # MQA
+    (5, 8, 8, 16, 8, 64),         # G = 1
+    (4, 4, 2, 64, 24, 96),        # a block size that is no power of two
+])
+def test_decode_attention_paged_kernel(dev, dtype, B, H, K, D, bs, max_len):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n_blocks = B * (max_len // bs) + 3
+    q, kp, vp, pos, table = _paged_case(gen, dev, dtype, B, H, K, D, bs,
+                                        max_len, n_blocks)
+    live = torch.arange(B, device=dev) % 3 != 1
+    for kw in (dict(live=live), dict(window=40, softcap=20.0), {},
+               dict(live=live, window=7)):
+        before = da.decode_attention_paged.launches
+        o = da.decode_attention_paged(q, kp, vp, pos, table, **kw)
+        assert da.decode_attention_paged.launches == before + 1
+        _close(o, da.plain_paged(q, kp, vp, pos, table, **kw), dtype)
+    o = da.decode_attention_paged(q, kp, vp, pos, table, live=live)
+    assert bool((o[~live] == 0).all())
+    assert torch.equal(o, da.decode_attention_paged(q, kp, vp, pos, table,
+                                                    live=live))
+
+
+def test_decode_attention_paged_reads_only_the_tables_blocks(dev):
+    """Poisoning every pool block that no row's table names up to its
+    position (block 0 included) changes nothing: the kernel reads through
+    the table, position by position, and never past a row's position."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, H, K, D, bs, max_len = 6, 4, 2, 64, 16, 256
+    n_blocks = B * (max_len // bs) + 1
+    q, kp, vp, pos, table = _paged_case(gen, dev, torch.float32, B, H, K, D,
+                                        bs, max_len, n_blocks)
+    used = {int(table[b, j]) for b, p in enumerate(pos.tolist())
+            for j in range(p // bs + 1)}
+    o = da.decode_attention_paged(q, kp, vp, pos, table)
+    for blk in set(range(n_blocks)) - used:
+        kp[blk] = float("nan")
+        vp[blk] = float("nan")
+    assert torch.equal(da.decode_attention_paged(q, kp, vp, pos, table), o)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,U,din,dout,r", [(16, 4, 576, 576, 8),     # decode
+                                            (16, 4, 576, 192, 8),
+                                            (2048, 4, 576, 576, 8),   # chunk
+                                            (37, 3, 64, 96, 12),
+                                            (5, 2, 300, 20, 256)])
+def test_multi_lora_q8_kernel(dev, dtype, T, U, din, dout, r):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = _rnd(gen, dev, dtype, T, din)
+    Aq, As = ml.quant_rows(_rnd(gen, dev, torch.float32, U, din, r))
+    Bq, Bs = ml.quant_rows(_rnd(gen, dev, torch.float32, U, r, dout))
+    idx = torch.randint(-1, U + 1, (T,), generator=gen, device=dev,
+                        dtype=torch.int32)          # -1 pads, U clamps
+    before = ml.multi_lora_q8.launches
+    y = ml.multi_lora_q8(x, Aq, As, Bq, Bs, idx, 0.5)
+    assert ml.multi_lora_q8.launches == before + 1
+    _close(y, ml.plain_q8(x, Aq, As, Bq, Bs, idx, 0.5), dtype)
+    assert bool((y[idx < 0] == 0).all())
+    assert torch.equal(y, ml.multi_lora_q8(x, Aq, As, Bq, Bs, idx, 0.5))
+    # the f32 kernel on the dequantised bank computes the same products
+    _close(y, ml.multi_lora(x, ml.dequant_rows(Aq, As), ml.dequant_rows(Bq, Bs),
+                            idx, 0.5), dtype)
+
+
+def test_quant_rows_on_the_card_equals_the_cpu(dev):
+    """The int8 bank the card's engine quantises is the CPU's (and JAX's) to
+    the bit: codes and scales."""
+    w = torch.randn(30, 4, 576, 8, generator=torch.Generator().manual_seed(12))
+    for got, want in zip(ml.quant_rows(w.to(dev)), ml.quant_rows(w)):
+        assert torch.equal(got.cpu(), want)
+
+
+def test_paged_and_q8_wrappers_raise(dev):
+    q = torch.zeros(2, 1, 4, 32, device=dev)
+    pool = torch.zeros(8, 16, 2, 32, device=dev)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    table = torch.zeros(2, 4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="no backward"):
+        da.decode_attention_paged(q.clone().requires_grad_(), pool, pool, pos,
+                                  table)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        da.decode_attention_paged(q, pool[:, :12].contiguous(),
+                                  pool[:, :12].contiguous(), pos, table)
+    with pytest.raises(ValueError, match="block_table"):
+        da.decode_attention_paged(q, pool, pool, pos, table.long())
+    with pytest.raises(ValueError, match="one query"):
+        da.decode_attention_paged(torch.zeros(2, 3, 4, 32, device=dev), pool,
+                                  pool, pos, table)
+    x = torch.zeros(4, 8, device=dev)
+    Aq = torch.zeros(1, 8, 2, dtype=torch.int8, device=dev)
+    Bq = torch.zeros(1, 2, 8, dtype=torch.int8, device=dev)
+    As, Bs = torch.ones(1, 8, 1, device=dev), torch.ones(1, 2, 1, device=dev)
+    idx = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="no backward"):
+        ml.multi_lora_q8(x.clone().requires_grad_(), Aq, As, Bq, Bs, idx)
+    with pytest.raises(ValueError, match="int8"):
+        ml.multi_lora_q8(x, Aq.float(), As, Bq, Bs, idx)
+    with pytest.raises(ValueError, match="scales"):
+        ml.multi_lora_q8(x, Aq, As[:, :4], Bq, Bs, idx)
+    with pytest.raises(ValueError, match="dtype"):
+        ml.multi_lora_q8(x.half(), Aq, As, Bq, Bs, idx)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,c,max_len,starts,window", [
+    (4, 16, 128, (0, 40, 100, 112), 24),
+    # the serving chunk round: 16 rows of 128 queries at chunk starts
+    (16, 128, 1024, (0, 128, 256, 384) * 4, None),
+])
+@pytest.mark.parametrize("paged", [False, True])
+def test_chunk_rounds_run_the_flash_kernel(dev, paged, dtype, B, c, max_len,
+                                           starts, window):
+    """ops.sdpa_decode(_paged) with Sq > 1 on the card: the flash forward
+    kernel (one launch, no decode kernel), equal to the plain version, dead
+    rows zero."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(11)
+    H, K, D, bs = 9, 3, 64, 16
+    q = _rnd(gen, dev, dtype, B, c, H, D)
+    pos = torch.tensor(starts, dtype=torch.int32, device=dev)
+    live = torch.arange(B, device=dev) % 4 != 2
+    if paged:
+        _, kp, vp, _, table = _paged_case(gen, dev, dtype, B, H, K, D, bs,
+                                          max_len, B * max_len // bs)
+        args, fn, plain = (kp, vp, pos, table), ops.sdpa_decode_paged, \
+            ref.sdpa_decode_paged
+    else:
+        kc, vc = (_rnd(gen, dev, dtype, B, max_len, K, D) for _ in range(2))
+        args, fn, plain = (kc, vc, pos), ops.sdpa_decode, ref.sdpa_decode
+    counts = (fa.flash_attention.launches, da.decode_attention.launches,
+              da.decode_attention_paged.launches)
+    o = fn(q, *args, live=live, window=window)
+    assert (fa.flash_attention.launches - counts[0],
+            da.decode_attention.launches - counts[1],
+            da.decode_attention_paged.launches - counts[2]) == (1, 0, 0)
+    _close(o, plain(q, *args, live=live, window=window), dtype)
+    assert bool((o[~live] == 0).all())

@@ -113,9 +113,7 @@ def test_submit_rejects_bad_requests_and_reports_stats():
 
 def test_unported_options_raise():
     _, (tcfg, tparams, tbanks) = _setup()
-    for kw in (dict(bank_store="int8"), dict(resident_slots=2),
-               dict(prefill_chunk=4), dict(kv_layout="paged"),
-               dict(telemetry=object())):
+    for kw in (dict(resident_slots=2), dict(telemetry=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.ServeEngine(tcfg, tparams, user_adapters=tbanks,
                                device="cpu", **kw)
