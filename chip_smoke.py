@@ -9,10 +9,14 @@ eight phases, exiting non-zero on any failure:
 1. Kernels against their plain PyTorch versions, on the card, at the
    full-width smollm-135m shapes of the serving and training paths, in bf16
    and f32 (cola_fit in f32, the only dtype the fit runs in), the flash
-   forward also at the chunk-round shape through ``ops.sdpa_decode`` and
-   ``ops.sdpa_decode_paged`` (16 rows of 128 queries at chunk starts inside
-   the prompts, dead rows, a shuffled table): max error, and
-   median times of the kernel, the plain version and the library call
+   forward at the prefill shape (16 x 512), at the training shape (32 x 128,
+   run 60 times a training step) and at the chunk-round shape through
+   ``ops.sdpa_decode`` and ``ops.sdpa_decode_paged`` (16 rows of 128 queries
+   at chunk starts inside the prompts, dead rows, a shuffled table); the
+   bf16 flash forward is the tensor-core kernel, whose registers and spills
+   per head dim the build line before reports from ptxas: max error, and
+   median device times (L2 flushed, the host run ahead behind a device
+   sleep) of the kernel, the plain version and the library call
    (``F.scaled_dot_product_attention`` for the attention kernels, over the
    gathered dense view for paged decode; its backward for the flash backward
    kernels; the ``torch.matmul`` chain for cola_fit; the gather (+
@@ -52,6 +56,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -89,7 +94,13 @@ def card_line() -> str:
 
 class Timer:
     """Median device time of single calls, L2 flushed before each (the
-    serving path finds every layer's operands cold)."""
+    serving path finds every layer's operands cold). A device-side sleep
+    after the flush lets the host enqueue the call before the start event
+    runs, so the time is the device's alone: without it, a wrapper's host
+    work (checks, allocation, the ctypes call) longer than the flush reads
+    as device time."""
+
+    SLEEP_CYCLES = 2_000_000   # ~1 ms at the H100's clocks
 
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
@@ -100,6 +111,7 @@ class Timer:
         times = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SLEEP_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -108,6 +120,24 @@ class Timer:
             e.synchronize()
             times.append(s.elapsed_time(e))
         return statistics.median(times)
+
+
+def ptxas_report(name: str, kernel: str) -> list[str]:
+    """Registers and spills of each head-dim instantiation of ``kernel``, from
+    the ``-Xptxas -v`` log of ``csrc/<name>.cu``."""
+    from repro_torch.kernels import _build
+
+    out, dh, spills = [], None, ""
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(rf"{kernel}ILi(\d+)E", line)
+            dh = m.group(1) if m else None
+        elif dh and "spill stores" in line:
+            spills = line.strip()
+        elif dh and (m := re.search(r"Used (\d+) registers", line)):
+            out.append(f"{kernel}<{dh}>: {m.group(1)} registers; {spills}")
+            dh = None
+    return out
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -128,7 +158,8 @@ def kernel_cases(cfg, dtype, dev, gen):
     """Inputs of each kernel at the shapes the serving (phase 2) and training
     (phase 4) paths give it. Yields dicts: name, fn (the kernel), plain, lib
     (one library call, or a pair (call, part) whose time difference is the
-    library time, or None), nbytes and flops (for the bound)."""
+    library time, or None), nbytes and flops (for the bound), and with_lse
+    for a flash forward that returns (o, lse)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cola_fit as cf
@@ -149,7 +180,7 @@ def kernel_cases(cfg, dtype, dev, gen):
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = int((pos[0][None, :] <= pos[0][:, None]).sum())
     yield dict(
-        name="flash_attention",
+        name="flash_attention", with_lse=True,
         fn=lambda: fa.flash_attention(q, k, v, q_positions=pos, kv_positions=pos),
         plain=lambda: fa.plain(q, k, v, q_positions=pos, kv_positions=pos),
         lib=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -179,6 +210,15 @@ def kernel_cases(cfg, dtype, dev, gen):
     def sdpa_fwd_bwd():
         return torch.autograd.grad(F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), dot)
+
+    # the forward at the training shape: 60 launches a step with remat "full"
+    yield dict(
+        name="flash_attention[train 32 x 128]", with_lse=True,
+        fn=lambda: fa.flash_attention(q, k, v, **kw),
+        plain=lambda: fa.plain(q, k, v, **kw),
+        lib=sdpa_fwd,
+        nbytes=nbytes(q, k, v, q) + nbytes(lse) + 2 * S * 4,
+        flops=4 * D * pairs)
 
     yield dict(
         name="flash_attention_bwd_dq",
@@ -361,7 +401,7 @@ def phase_kernels(cfg, dev) -> dict:
         for c in kernel_cases(cfg, dtype, dev, gen):
             name = c["name"]
             got, want = c["fn"](), c["plain"]()
-            if name == "flash_attention":   # (o, lse): scale by o's values
+            if c.get("with_lse"):   # (o, lse): scale by o's values
                 err = max(max_err(g, w)[0] for g, w in zip(got, want))
                 scale = max_err(got[0], want[0])[1]
             else:
@@ -847,6 +887,10 @@ def main() -> int:
     built = _build.build_all()
     print(f"[build] {sorted(built)} built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    report = ptxas_report("flash_attention", "flash_fwd_tc_kernel")
+    check(len(report) == 4, f"no ptxas report of the bf16 flash forward: {report}")
+    for line in report:
+        print(f"[build] {line}", flush=True)
 
     cfg = registry.get_config("smollm-135m")
     t0 = time.perf_counter()

@@ -80,8 +80,14 @@ def build_all(names=KERNELS) -> dict[str, str]:
     for n, job in jobs.items():
         if job is not None:
             _finish(n, job)
-            logs[n] = _lib_path(n).with_suffix(".log").read_text()
+            logs[n] = build_log(n)
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (``-Xptxas -v``: registers, spills) for the
+    current build of one kernel's source."""
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

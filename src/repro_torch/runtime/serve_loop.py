@@ -31,8 +31,8 @@ Serving at scale:
 
 Ported from the JAX package's ``runtime/serve_loop.py``: the jitted steps
 become plain methods, and the ``lax.scan`` burst a host loop that emits the
-same tokens. The tiered adapter store (``resident_slots``),
-``install_adapters`` / ``publish_banks`` and telemetry are still to be
+same tokens. The tiered adapter store (``resident_slots``,
+``cluster_threshold``, ``cluster_mode``), ``install_adapters`` / ``publish_banks`` and telemetry are still to be
 ported (ROADMAP.md).
 """
 from __future__ import annotations
@@ -160,6 +160,8 @@ class ServeEngine:
                  prefill_mode: str = "batched", admit_batch: int | None = None,
                  bank_store: str = "f32", decode_burst: int = 1,
                  resident_slots: int | None = None,
+                 cluster_threshold: float | None = None,
+                 cluster_mode: str = "shared",
                  prefill_chunk: int | None = None, kv_layout: str = "dense",
                  kv_block: int = 16, kv_blocks: int | None = None,
                  max_prompt: int | None = None, telemetry=None,
@@ -171,9 +173,12 @@ class ServeEngine:
             raise ValueError(f"bank_store={bank_store!r}")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout={kv_layout!r}")
-        for name, value in (("resident_slots", resident_slots),
-                            ("telemetry", telemetry)):
-            if value is not None:
+        for name, value, default in (
+                ("resident_slots", resident_slots, None),
+                ("cluster_threshold", cluster_threshold, None),
+                ("cluster_mode", cluster_mode, "shared"),
+                ("telemetry", telemetry, None)):
+            if value != default:
                 raise NotImplementedError(
                     f"ServeEngine({name}={value!r}) is not ported yet "
                     "(see ROADMAP.md)")
@@ -643,7 +648,8 @@ class ServeEngine:
         reqs = self.request_stats()
         ttfts = [r["ttft"] for r in reqs if r["ttft"] is not None]
         lats = [r["latency"] for r in reqs if r["latency"] is not None]
-        return {
+        self._sync_pager_stats()
+        out = {
             "decode_tok_per_s": (self.stats["decode_tokens"] / dt
                                  if dt else 0.0),
             "prefill_tok_per_s": (self.stats["prefill_tokens"] / pt
@@ -655,3 +661,7 @@ class ServeEngine:
             "prefill": percentiles(self._prefill_s),
             "completed": self.stats["completed"],
         }
+        if self.pager is not None:
+            out["kv_blocks_in_use"] = self.pager.blocks_in_use()
+            out["kv_blocks_peak"] = self.pager.stats["peak_in_use"]
+        return out

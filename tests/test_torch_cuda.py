@@ -2,6 +2,9 @@
 and options the full-width run of ``chip_smoke.py`` does not reach: every
 head dim the kernels take, ragged lengths, non-uniform per-row positions,
 window and softcap, dead slots, padding rows, ranks up to 256; the flash
+forward at the tile edges of its bf16 tensor-core kernel (lengths 1, 15,
+17, 65, 257, Sq != Sk, chunk-round positions with a dead row, G 1 / 3 / 4,
+every head dim) and its determinism; the flash
 backward and cola_fit kernels; gradients through ``ops.sdpa`` on the card
 against the plain path's; kernels without a backward refusing inputs that
 require grad; the paged decode kernel over block sizes and shuffled tables
@@ -13,7 +16,9 @@ Marked ``cuda``; skipped without a card. On the H100 (whose Python has no
 JAX, which the tests' conftest imports):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerances: f32 1e-5 and bf16 2^-7, each times (1 + max |plain|), as in
-``chip_smoke.py``.
+``chip_smoke.py``. The bf16 flash forward runs on the tensor cores and
+rounds P to bf16 before P V, which adds at most ~2^-9 max |v| to o: inside
+the bf16 tolerance, which stays as it is.
 """
 import pytest
 
@@ -52,6 +57,14 @@ def _rnd(gen, dev, dtype, *shape):
     (1, 64, 2, 2, 16, None, None),
     (1, 200, 4, 2, 128, 50, None),
     (3, 257, 9, 3, 64, None, None),     # the smollm head layout
+    # tile edges of the bf16 tensor-core kernel (16-row warp slabs, 64-row
+    # q and kv tiles), over G 1 / 3 / 4 and every head dim
+    (1, 1, 4, 2, 64, None, None),
+    (2, 15, 4, 4, 32, None, None),      # G = 1
+    (1, 17, 6, 2, 16, None, None),      # G = 3
+    (2, 65, 8, 2, 128, None, None),     # G = 4
+    (1, 257, 3, 3, 32, 40, 20.0),       # window + softcap, G = 1
+    (2, 257, 12, 3, 128, 100, 30.0),    # window + softcap, G = 4
 ])
 def test_flash_forward_kernel(dev, dtype, B, S, H, K, D, window, softcap):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -64,6 +77,56 @@ def test_flash_forward_kernel(dev, dtype, B, S, H, K, D, window, softcap):
                         window=window, softcap=softcap)
     _close(o, o2, dtype)
     _close(lse, lse2, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Sq,Sk", [(1, 257), (15, 65), (17, 1), (65, 17),
+                                   (257, 15), (100, 64)])
+def test_flash_forward_kernel_ragged_lengths(dev, dtype, Sq, Sk):
+    """Sq != Sk at the tile edges: the queries sit at the end of the keys
+    (positions Sk - Sq + arange(Sq)) when Sq < Sk, at arange(Sq) otherwise."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    B, H, K, D = 2, 6, 2, 64
+    q = _rnd(gen, dev, dtype, B, Sq, H, D)
+    k, v = (_rnd(gen, dev, dtype, B, Sk, K, D) for _ in range(2))
+    qp = (max(0, Sk - Sq) + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
+    kp = torch.arange(Sk, device=dev, dtype=torch.int32)[None]
+    o, lse = fa.flash_attention(q, k, v, q_positions=qp, kv_positions=kp)
+    o2, lse2 = fa.plain(q, k, v, q_positions=qp, kv_positions=kp)
+    _close(o, o2, dtype)
+    _close(lse, lse2, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window,softcap", [(None, None), (256, 30.0)])
+def test_flash_forward_kernel_chunk_positions(dev, dtype, window, softcap):
+    """A chunk round's shape: per-row q positions offset into a 1,024-position
+    kv range (starts 0, 300 and 924, a ragged 100 queries), and a dead row
+    whose positions see no key (o 0, lse -1e30)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B, Sq, Sk, H, K, D = 4, 100, 1024, 9, 3, 64
+    q = _rnd(gen, dev, dtype, B, Sq, H, D)
+    k, v = (_rnd(gen, dev, dtype, B, Sk, K, D) for _ in range(2))
+    starts = torch.tensor([0, 300, 924, -500], device=dev, dtype=torch.int32)
+    qp = starts[:, None] + torch.arange(Sq, device=dev, dtype=torch.int32)[None]
+    kp = torch.arange(Sk, device=dev, dtype=torch.int32)[None]
+    kw = dict(q_positions=qp, kv_positions=kp, window=window, softcap=softcap)
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    o2, lse2 = fa.plain(q, k, v, **kw)
+    _close(o, o2, dtype)
+    _close(lse, lse2, torch.float32)
+    assert bool((o[3] == 0).all()) and bool((lse[3] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_forward_kernel_is_deterministic(dev, dtype):
+    """Two launches on the same inputs give the same bits (no atomics, a
+    fixed order of tiles and sums)."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    B, S, H, K, D = 2, 512, 9, 3, 64
+    q, k, v = (_rnd(gen, dev, dtype, B, S, n, D) for n in (H, K, K))
+    a, b = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -150,7 +213,9 @@ def test_flash_backward_kernels(dev, dtype, B, S, H, K, D, window, softcap):
     kw = dict(q_positions=torch.arange(S, dtype=torch.int32, device=dev)[None],
               kv_positions=torch.arange(S, dtype=torch.int32, device=dev)[None],
               window=window, softcap=softcap)
-    o, lse = fa.flash_attention(q, k, v, **kw)
+    before = fa.flash_attention.launches
+    o, lse = fa.flash_attention(q, k, v, **kw)   # bf16: the tensor-core kernel
+    assert fa.flash_attention.launches == before + 1
     launches = (fa.bwd_dq.launches, fa.bwd_dkv.launches)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     assert (fa.bwd_dq.launches, fa.bwd_dkv.launches) == (launches[0] + 1,

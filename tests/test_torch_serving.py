@@ -3,6 +3,8 @@ smollm-135m (2 layers): same weights (carried by ``repro_torch.convert``),
 same requests, two users' adapter banks with nonzero B. Greedy tokens must be
 equal. One case runs the JAX side under ``ops.set_backend("pallas_interpret")``
 at d_head = 64, so the slice is held against the Pallas kernels themselves."""
+import inspect
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -113,12 +115,26 @@ def test_submit_rejects_bad_requests_and_reports_stats():
 
 def test_unported_options_raise():
     _, (tcfg, tparams, tbanks) = _setup()
-    for kw in (dict(resident_slots=2), dict(telemetry=object())):
+    for kw in (dict(resident_slots=2), dict(telemetry=object()),
+               dict(cluster_threshold=0.9), dict(cluster_mode="merged")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.ServeEngine(tcfg, tparams, user_adapters=tbanks,
                                device="cpu", **kw)
     with pytest.raises(ValueError):
         tserve.stack_user_adapters([])
+
+
+def test_store_options_take_jax_defaults():
+    """``cluster_threshold`` and ``cluster_mode`` exist with JAX's defaults,
+    and the defaults, passed explicitly, construct an engine."""
+    _, (tcfg, tparams, tbanks) = _setup()
+    sigs = [inspect.signature(lib.ServeEngine.__init__).parameters
+            for lib in (jserve, tserve)]
+    for name in ("resident_slots", "cluster_threshold", "cluster_mode"):
+        assert sigs[0][name].default == sigs[1][name].default, name
+    eng = tserve.ServeEngine(tcfg, tparams, user_adapters=tbanks, device="cpu",
+                             cluster_threshold=None, cluster_mode="shared")
+    assert eng.pager is None and eng.bank
 
 
 @pytest.mark.parametrize("n,floor,want", [(1, 8, 8), (9, 8, 16), (3, 1, 4),

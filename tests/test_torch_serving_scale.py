@@ -308,6 +308,39 @@ def test_engine_options_match_jax(setup, opts):
         assert eng.stats["kv_allocs"] == eng.stats["kv_frees"] > 0
 
 
+@pytest.mark.parametrize("opts", ["paged", "all"])
+def test_paged_throughput_reports_blocks_as_jax(setup, opts):
+    """Under ``kv_layout="paged"``, ``throughput()`` carries
+    ``kv_blocks_in_use`` and ``kv_blocks_peak`` equal to the JAX engine's
+    after every tick (blocks held mid-flight, all freed at the end); the
+    dense engine's carries neither key, as JAX's."""
+    (cfg, params, banks), (tcfg, tparams, tbanks) = setup
+    prompts = _prompts(cfg.vocab_size, (1, 5, 11, 9, 21, 6), seed=6)
+    kw = dict(slots=4, max_len=48, **ENGINE_OPTIONS[opts])
+    engs = [jserve.ServeEngine(cfg, params, user_adapters=banks, **kw),
+            tserve.ServeEngine(tcfg, tparams, user_adapters=tbanks,
+                               device="cpu", **kw)]
+    for lib, eng in zip((jserve, tserve), engs):
+        for i, p in enumerate(prompts):
+            eng.submit(lib.Request(rid=i, user=i % 2, prompt=p, max_new=6))
+    keys = ("kv_blocks_in_use", "kv_blocks_peak")
+    seen = []
+    while engs[0].queue or any(r is not None for r in engs[0].active):
+        for eng in engs:
+            eng.tick()
+        got = [{k: e.throughput()[k] for k in keys} for e in engs]
+        assert got[1] == got[0]
+        seen.append(got[1]["kv_blocks_in_use"])
+    assert max(seen) > 0 and seen[-1] == 0
+    assert got[1]["kv_blocks_peak"] >= max(seen) > 0   # peaks inside a tick
+    dense = [lib.ServeEngine(c, p, user_adapters=b, slots=4, max_len=48,
+                             **extra).throughput()
+             for lib, c, p, b, extra in ((jserve, cfg, params, banks, {}),
+                                         (tserve, tcfg, tparams, tbanks,
+                                          dict(device="cpu")))]
+    assert not any(k in tp for tp in dense for k in keys)
+
+
 # ---------------------------------------------------------------------------
 # the port's own invariants
 # ---------------------------------------------------------------------------
