@@ -13,16 +13,21 @@ eight phases, exiting non-zero on any failure:
    run 60 times a training step) and at the chunk-round shape through
    ``ops.sdpa_decode`` and ``ops.sdpa_decode_paged`` (16 rows of 128 queries
    at chunk starts inside the prompts, dead rows, a shuffled table); the
-   bf16 flash forward is the tensor-core kernel, whose registers and spills
-   per head dim the build line before reports from ptxas: max error, and
-   median device times (L2 flushed, the host run ahead behind a device
-   sleep) of the kernel, the plain version and the library call
+   bf16 flash forward and backward (dq; dk/dv) are tensor-core kernels,
+   whose registers and spills per head dim the build lines before report
+   from ptxas (no spill at the path's d_head 64): max error, and median
+   device times (L2 flushed, the host run ahead behind a device sleep) of
+   the kernel, the plain version and the library call
    (``F.scaled_dot_product_attention`` for the attention kernels, over the
    gathered dense view for paged decode; its backward for the flash backward
-   kernels; the ``torch.matmul`` chain for cola_fit; the gather (+
-   dequantise) + two ``torch.bmm`` chain for multi_lora and multi_lora_q8),
-   with each kernel's bound on this card. Paged decode also runs with window,
-   softcap and dead rows; multi_lora_q8 at the decode and chunk shapes.
+   kernels, also timed as a pair, ``flash_attention_bwd[pair]``, against
+   that one backward with the summed bound; the ``torch.matmul`` chain for
+   cola_fit; the gather (+ dequantise) + two ``torch.bmm`` chain for
+   multi_lora and multi_lora_q8), with each kernel's bound on this card.
+   Paged decode also runs with window, softcap and dead rows; multi_lora_q8
+   at the decode and chunk shapes. A second launch of the flash backward
+   (bf16 and f32), cola_fit, paged decode and multi_lora_q8 must give the
+   same bits.
 2. Serving at full width: ``ServeEngine`` on smollm-135m (30 layers, bf16)
    with 4 users' rank-8 ``qv`` adapters, 16 slots, max_len 1024 and 32
    requests (prompts 32-512 tokens, 32 new tokens each), run to completion
@@ -105,21 +110,31 @@ class Timer:
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
 
+    def once_ms(self, fn) -> float:
+        self.flush.zero_()
+        torch.cuda._sleep(self.SLEEP_CYCLES)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e)
+
     def median_ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(warmup):
             fn()
-        times = []
-        for _ in range(iters):
-            self.flush.zero_()
-            torch.cuda._sleep(self.SLEEP_CYCLES)
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
+        return statistics.median(self.once_ms(fn) for _ in range(iters))
+
+    def median_diff_ms(self, fn, part, iters: int = 20, warmup: int = 3) -> float:
+        """Median over iterations of fn's time less part's, the two timed in
+        turns in each iteration: two separate medians drift apart by more
+        than the difference itself now and then."""
+        for _ in range(warmup):
             fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        return statistics.median(times)
+            part()
+        return statistics.median(self.once_ms(fn) - self.once_ms(part)
+                                 for _ in range(iters))
 
 
 def ptxas_report(name: str, kernel: str) -> list[str]:
@@ -232,6 +247,16 @@ def kernel_cases(cfg, dtype, dev, gen):
         plain=lambda: fa.plain_bwd(q, k, v, o, lse, do, **kw)[1:],
         lib=(sdpa_fwd_bwd, sdpa_fwd),
         nbytes=nbytes(q, k, v, do, k, v) + stats, flops=8 * D * pairs)
+    # the pair in one window against the library's whole backward, with the
+    # summed bound: the like-for-like comparison
+    yield dict(
+        name="flash_attention_bwd[pair]",
+        fn=lambda: (fa.bwd_dq(q, k, v, do, lse, delta, **kw),
+                    *fa.bwd_dkv(q, k, v, do, lse, delta, **kw)),
+        plain=lambda: fa.plain_bwd(q, k, v, o, lse, do, **kw),
+        lib=(sdpa_fwd_bwd, sdpa_fwd),
+        nbytes=nbytes(q, k, v, do, q) + nbytes(q, k, v, do, k, v) + 2 * stats,
+        flops=14 * D * pairs)
 
     # the fit (f32 only): 30 layers, T = interval 2 x 32 x 128 rows, rank 8
     if dtype == torch.float32:
@@ -414,7 +439,7 @@ def phase_kernels(cfg, dev) -> dict:
             plain_ms = timer.median_ms(c["plain"], iters=5)
             lib = c["lib"]
             if isinstance(lib, tuple):   # (call, part): library time of the rest
-                lib_ms = timer.median_ms(lib[0]) - timer.median_ms(lib[1])
+                lib_ms = timer.median_diff_ms(*lib)
             else:
                 lib_ms = timer.median_ms(lib) if lib is not None else None
             b_ms, b_by = bound(c["nbytes"], c["flops"], dtype)
@@ -426,17 +451,21 @@ def phase_kernels(cfg, dev) -> dict:
             if dtype == torch.bfloat16 or name not in rows:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    # a second launch of the flash backward, cola_fit and the serving-at-scale
-    # kernels gives the same bits
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    for c in kernel_cases(cfg, torch.float32, dev, gen):
-        if c["name"].startswith(("flash_attention_bwd", "cola_fit",
-                                 "decode_attention_paged", "multi_lora_q8")):
-            a, b = c["fn"](), c["fn"]()
-            a, b = (a,) if isinstance(a, torch.Tensor) else a, \
-                (b,) if isinstance(b, torch.Tensor) else b
-            check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                  f"{c['name']}: two launches on the same inputs differ")
+    # a second launch of the flash backward (bf16 and f32), cola_fit and the
+    # serving-at-scale kernels gives the same bits
+    for dtype, names in ((torch.float32, ("flash_attention_bwd", "cola_fit",
+                                          "decode_attention_paged",
+                                          "multi_lora_q8")),
+                         (torch.bfloat16, ("flash_attention_bwd",))):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        for c in kernel_cases(cfg, dtype, dev, gen):
+            if c["name"].startswith(names):
+                a, b = c["fn"](), c["fn"]()
+                a, b = (a,) if isinstance(a, torch.Tensor) else a, \
+                    (b,) if isinstance(b, torch.Tensor) else b
+                check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                      f"{c['name']} {dtype}: two launches on the same inputs "
+                      "differ")
     return rows
 
 
@@ -887,10 +916,19 @@ def main() -> int:
     built = _build.build_all()
     print(f"[build] {sorted(built)} built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    report = ptxas_report("flash_attention", "flash_fwd_tc_kernel")
-    check(len(report) == 4, f"no ptxas report of the bf16 flash forward: {report}")
-    for line in report:
-        print(f"[build] {line}", flush=True)
+    # the tensor-core kernels' registers and spills at every head dim; at the
+    # path's d_head 64 they must not spill
+    for name, kernel in (("flash_attention", "flash_fwd_tc_kernel"),
+                         ("flash_attention_bwd", "flash_bwd_dq_tc_kernel"),
+                         ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel")):
+        report = ptxas_report(name, kernel)
+        check(len(report) == 4, f"no ptxas report of {kernel}: {report}")
+        for line in report:
+            print(f"[build] {line}", flush=True)
+        at64 = [x for x in report if x.startswith(f"{kernel}<64>:")]
+        check(len(at64) == 1 and "0 bytes spill stores" in at64[0]
+              and "0 bytes spill loads" in at64[0],
+              f"{kernel} spills at d_head 64: {at64}")
 
     cfg = registry.get_config("smollm-135m")
     t0 = time.perf_counter()

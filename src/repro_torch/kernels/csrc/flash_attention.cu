@@ -58,6 +58,7 @@
 #include <climits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -70,83 +71,6 @@ constexpr unsigned FULL = 0xffffffffu;
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled (nothing read) when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(full ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this thread are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// c += a b for one m16n8k16 tile: a row-major 16x16, b 16x8 (col), c 16x8 f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 -> one register of two bf16, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ int warp_min_i(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_max_i(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// 2^x in one MUFU instruction (ex2.approx.ftz: relative error ~2^-22; -inf
-// and arguments below -126 give 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int DH>
 struct TcTile {
@@ -170,7 +94,6 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc_kernel(
   constexpr int NS = BK / 8;       // n-tiles of S (8 kv columns each)
   constexpr int NO = DH / 8;       // n-tiles of O
   constexpr int NW = NT / 32;      // warps
-  constexpr int UNROLL = 4;        // tiles a warp ranges at once (loads in flight together)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + SIZE;          // stage st at k_s + st * SIZE
@@ -226,24 +149,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc_kernel(
   const int qa = q0 + lane < Sq ? qp[q0 + lane] : INT_MAX;
   const int qb = q0 + lane + 32 < Sq ? qp[q0 + lane + 32] : INT_MAX;
 
-  // each tile's kv position range, once, by one warp (two positions a lane,
-  // then shuffles), UNROLL tiles at a time
-  for (int t0 = warp; t0 < n_tiles; t0 += NW * UNROLL) {
-    int lo[UNROLL], hi[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int t = t0 + u * NW, j = t * BK + lane, end = min(Sk, (t + 1) * BK);
-      const int p0 = j < end ? kvp[j] : INT_MAX, p1 = j + 32 < end ? kvp[j + 32] : INT_MAX;
-      lo[u] = min(p0, p1);
-      hi[u] = max(j < end ? p0 : INT_MIN, j + 32 < end ? p1 : INT_MIN);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      lo[u] = warp_min_i(lo[u]);
-      hi[u] = warp_max_i(hi[u]);
-      if (lane == 0 && t0 + u * NW < n_tiles) range_s[t0 + u * NW] = make_int2(lo[u], hi[u]);
-    }
-  }
+  // each tile's kv position range, once, by one warp
+  tile_ranges<NW>(kvp, Sk, range_s, warp, lane);
   const int qmin = warp_min_i(min(qa, qb));
   const int qmax = warp_max_i(max(qa == INT_MAX ? INT_MIN : qa, qb == INT_MAX ? INT_MIN : qb));
   cp_async_wait<1>();   // the q tile has landed
@@ -275,9 +182,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc_kernel(
   // (columns 0-7 | 8-15) of each 16-wide k-step
   uint32_t qf[KS][4];
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldmatrix_x4(qf[kk], q_s + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                            kk * 16 + (lane >> 4) * 8);
+  for (int kk = 0; kk < KS; ++kk) ld_a(qf[kk], q_s + warp * 16 * LD + kk * 16, LD, lane);
 
   // p = 2^(x c - m c), one FFMA and one ex2 an element: x is the raw score
   // (c = scale log2(e)) or, with a softcap, the softcapped scaled score
@@ -311,8 +216,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc_kernel(
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t kf[4];
-        ldmatrix_x4(kf, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
+        ld_b_nk(kf, ks + np * 16 * LD + kk * 16, LD, lane);
         mma_bf16(sc[2 * np], qf[kk], kf[0], kf[1]);
         mma_bf16(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
       }
@@ -384,15 +288,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc_kernel(
     const bf16* vs = v_s + st * SIZE;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+      uint32_t pa[4];
+      acc_to_a(pa, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
         uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                                  np * 16 + (lane >> 4) * 8);
+        ld_b_kn(vf, vs + kk * 16 * LD + np * 16, LD, lane);
         mma_bf16(acc[2 * np], pa, vf[0], vf[1]);
         mma_bf16(acc[2 * np + 1], pa, vf[2], vf[3]);
       }

@@ -55,7 +55,7 @@ def main() -> int:
             sess.step(b)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        _summary(prof, wall, label, top=16)
+        _summary(prof, wall, label, top=20)
     return 0
 
 

@@ -2,10 +2,10 @@
 and options the full-width run of ``chip_smoke.py`` does not reach: every
 head dim the kernels take, ragged lengths, non-uniform per-row positions,
 window and softcap, dead slots, padding rows, ranks up to 256; the flash
-forward at the tile edges of its bf16 tensor-core kernel (lengths 1, 15,
-17, 65, 257, Sq != Sk, chunk-round positions with a dead row, G 1 / 3 / 4,
-every head dim) and its determinism; the flash
-backward and cola_fit kernels; gradients through ``ops.sdpa`` on the card
+forward and the flash backward (dq; dk/dv) at the tile edges of their bf16
+tensor-core kernels (lengths 1, 15, 17, 65, 257, Sq != Sk, chunk-round
+positions with a dead row, G 1 / 3 / 4 at every head dim, window + softcap)
+and their determinism; cola_fit; gradients through ``ops.sdpa`` on the card
 against the plain path's; kernels without a backward refusing inputs that
 require grad; the paged decode kernel over block sizes and shuffled tables
 (and that it reads only the blocks the table names), the int8 multi-LoRA
@@ -16,9 +16,14 @@ Marked ``cuda``; skipped without a card. On the H100 (whose Python has no
 JAX, which the tests' conftest imports):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerances: f32 1e-5 and bf16 2^-7, each times (1 + max |plain|), as in
-``chip_smoke.py``. The bf16 flash forward runs on the tensor cores and
-rounds P to bf16 before P V, which adds at most ~2^-9 max |v| to o: inside
-the bf16 tolerance, which stays as it is.
+``chip_smoke.py``. The bf16 flash kernels run on the tensor cores: the
+forward rounds P to bf16 before P V, which adds at most ~2^-9 max |v| to o;
+the backward rounds P and dS to bf16 before dV += P^T dO, dK += dS^T Q and
+dQ += dS K, a relative 2^-9 on each term before the sums (about half of
+the tolerance with both sides' output rounding on top;
+``tests/test_torch_training.py::
+test_bf16_rounding_of_p_and_ds_fits_the_card_tolerance`` sizes it on the
+CPU). Both stay inside the bf16 tolerance, which stays as it is.
 """
 import pytest
 
@@ -206,6 +211,19 @@ def test_wrappers_raise_for_what_the_kernels_do_not_take(dev):
     (1, 130, 4, 1, 32, 16, 30.0),       # MQA, window + softcap
     (1, 64, 2, 2, 16, None, None),      # G = 1
     (1, 200, 4, 2, 128, 50, None),
+    # tile edges of the bf16 tensor-core kernels (16-row warp slabs, 64-row
+    # q and kv tiles, dk/dv's 32-column q halves at d_head 128)
+    (1, 1, 4, 2, 64, None, None),
+    (2, 15, 4, 4, 32, None, None),      # G = 1
+    (1, 17, 6, 2, 16, None, None),      # G = 3
+    (2, 65, 8, 2, 128, None, None),     # G = 4
+    (1, 257, 3, 3, 32, 40, 20.0),       # window + softcap, G = 1
+    (2, 257, 12, 3, 128, 100, 30.0),    # window + softcap, G = 4
+    (2, 512, 9, 3, 64, None, None),     # dk/dv walks 3 heads x 8 q tiles
+    # dk/dv summed over G = 1, 3, 4 q heads at every head dim, a ragged
+    # third tile
+    *[(2, 150, 2 * G, 2, D, None, None) for G in (1, 3, 4)
+      for D in (16, 32, 64, 128)],
 ])
 def test_flash_backward_kernels(dev, dtype, B, S, H, K, D, window, softcap):
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -242,6 +260,49 @@ def test_flash_backward_kernels_per_row_positions(dev, dtype):
         for g, w in zip(fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
                         fa.plain_bwd(q, k, v, o, lse, do, **kw)):
             _close(g, w, dtype)
+
+
+def _bwd_close(dtype, q, k, v, do, **kw):
+    """The backward kernels against the plain version; returns (dq, dk, dv)."""
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, fa.plain_bwd(q, k, v, o, lse, do, **kw)):
+        assert g.dtype == dtype
+        _close(g, w, dtype)
+    return got
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Sq,Sk", [(1, 257), (15, 65), (17, 1), (65, 17),
+                                   (257, 15), (100, 64)])
+def test_flash_backward_kernels_ragged_lengths(dev, dtype, Sq, Sk):
+    """Sq != Sk at the tile edges, positions as in the forward's test."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    B, H, K, D = 2, 6, 2, 64
+    q, do = (_rnd(gen, dev, dtype, B, Sq, H, D) for _ in range(2))
+    k, v = (_rnd(gen, dev, dtype, B, Sk, K, D) for _ in range(2))
+    qp = (max(0, Sk - Sq) + torch.arange(Sq, device=dev, dtype=torch.int32))[None]
+    kp = torch.arange(Sk, device=dev, dtype=torch.int32)[None]
+    _bwd_close(dtype, q, k, v, do, q_positions=qp, kv_positions=kp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window,softcap", [(None, None), (256, 30.0)])
+def test_flash_backward_kernels_chunk_positions(dev, dtype, window, softcap):
+    """Per-row q positions offset into a 1,024-position kv range (a chunk
+    round's shape, a ragged 100 queries) and a dead row, whose queries see
+    no key: its dq is exactly 0 and it adds nothing to dk and dv."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    B, Sq, Sk, H, K, D = 4, 100, 1024, 9, 3, 64
+    q, do = (_rnd(gen, dev, dtype, B, Sq, H, D) for _ in range(2))
+    k, v = (_rnd(gen, dev, dtype, B, Sk, K, D) for _ in range(2))
+    starts = torch.tensor([0, 300, 924, -500], device=dev, dtype=torch.int32)
+    qp = starts[:, None] + torch.arange(Sq, device=dev, dtype=torch.int32)[None]
+    kp = torch.arange(Sk, device=dev, dtype=torch.int32)[None]
+    dq, dk, dv = _bwd_close(dtype, q, k, v, do, q_positions=qp,
+                            kv_positions=kp, window=window, softcap=softcap)
+    assert bool((dq[3] == 0).all())
+    assert bool((dk[3] == 0).all()) and bool((dv[3] == 0).all())
 
 
 def test_gradients_flow_through_ops_sdpa_on_the_card(dev):

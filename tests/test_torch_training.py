@@ -136,6 +136,67 @@ def test_flash_backward_takes_non_uniform_positions():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **KTOL)
 
 
+def _sdpa_bwd_rounding_p_ds(q, k, v, o, lse, do, *, q_positions, kv_positions,
+                            window, softcap, round_to=None):
+    """``ref.sdpa_bwd``'s math in f32 (causal, default scale), with P and dS
+    cast to ``round_to`` (and back) before the products they feed, as the
+    bf16 tensor-core backward kernels round them."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    G, scale = H // K, D ** -0.5
+    rnd = (lambda t: t) if round_to is None else (
+        lambda t: t.to(round_to).float())
+    qp = q_positions[:, None, None, :, None]
+    kp = kv_positions[:, None, None, None, :]
+    mask = kp <= qp
+    if window:
+        mask = mask & (kp > qp - window)
+    qg, dog = q.reshape(B, Sq, K, G, D), do.reshape(B, Sq, K, G, D)
+    delta = (dog * o.reshape(B, Sq, K, G, D)).sum(-1).permute(0, 2, 3, 1)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * scale
+    dcap = 1.0
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s, dcap = t * softcap, 1.0 - t * t
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, K, G, Sq)[..., None]),
+                    torch.zeros_like(s))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", rnd(p), dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v)
+    ds = rnd(p * (dp - delta[..., None]) * dcap)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k).reshape(B, Sq, H, D) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (48, 20.0)])
+def test_bf16_rounding_of_p_and_ds_fits_the_card_tolerance(window, softcap):
+    """The bf16 backward kernels round P and dS to bf16 before their
+    products. On bf16-valued inputs with a ragged tile (S 100), that
+    rounding moves each gradient by less than the bf16 tolerance the card's
+    checks use, 2^-7 (1 + max |plain|), with room left for both sides'
+    rounding of the output to bf16 (2^-9 max |plain| each)."""
+    rng = np.random.default_rng(7)
+    B, S, H, K, D = 2, 100, 6, 2, 64
+    q, k, v, do = (_t(rng.standard_normal((B, S, n, D)).astype(np.float32)
+                      ).to(torch.bfloat16).float() for n in (H, K, K, H))
+    pos = torch.arange(S, dtype=torch.int32)[None]
+    kw = dict(q_positions=pos, kv_positions=pos, window=window,
+              softcap=softcap)
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    o = o.to(torch.bfloat16).float()     # the bf16 forward's o feeds delta
+    exact = _sdpa_bwd_rounding_p_ds(q, k, v, o, lse, do, **kw)
+    for a, b in zip(exact, ref.sdpa_bwd(q, k, v, o, lse, do, **kw)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **KTOL)
+    rounded = _sdpa_bwd_rounding_p_ds(q, k, v, o, lse, do, **kw,
+                                      round_to=torch.bfloat16)
+    for name, r, e in zip(("dq", "dk", "dv"), rounded, exact):
+        top = float(e.abs().max())
+        gap = float((r - e).abs().max())
+        assert 0.0 < gap, name                       # the rounding is seen
+        assert gap + 2 * 2.0 ** -9 * top <= 2.0 ** -7 * (1 + top), (
+            name, gap, top)
+
+
 @pytest.mark.parametrize("L", [0, 3])
 def test_cola_fit_matches_pallas(L):
     """Port cola_fit_lowrank (plain version on the CPU) against the Pallas
