@@ -15,7 +15,9 @@ eight phases, exiting non-zero on any failure:
    at chunk starts inside the prompts, dead rows, a shuffled table); the
    bf16 flash forward and backward (dq; dk/dv) are tensor-core kernels,
    whose registers and spills per head dim the build lines before report
-   from ptxas (no spill at the path's d_head 64): max error, and median
+   from ptxas (no spill at the path's d_head 64), as they do for the
+   split-KV decode kernel per dtype and head dim (no spill in bf16 at
+   d_head 64): max error, and median
    device times (L2 flushed, the host run ahead behind a device sleep) of
    the kernel, the plain version and the library call
    (``F.scaled_dot_product_attention`` for the attention kernels, over the
@@ -24,10 +26,12 @@ eight phases, exiting non-zero on any failure:
    that one backward with the summed bound; the ``torch.matmul`` chain for
    cola_fit; the gather (+ dequantise) + two ``torch.bmm`` chain for
    multi_lora and multi_lora_q8), with each kernel's bound on this card.
-   Paged decode also runs with window, softcap and dead rows; multi_lora_q8
-   at the decode and chunk shapes. A second launch of the flash backward
-   (bf16 and f32), cola_fit, paged decode and multi_lora_q8 must give the
-   same bits.
+   Paged decode also runs with window, softcap and dead rows, and dense
+   decode with all 16 slots at position 1023, the engine's horizon
+   (``decode_attention[full 1024]``, every split of every slot live);
+   multi_lora_q8 at the decode and chunk shapes. A second launch of the
+   flash backward (bf16 and f32), cola_fit, dense and paged decode (bf16
+   and f32) and multi_lora_q8 must give the same bits.
 2. Serving at full width: ``ServeEngine`` on smollm-135m (30 layers, bf16)
    with 4 users' rank-8 ``qv`` adapters, 16 slots, max_len 1024 and 32
    requests (prompts 32-512 tokens, 32 new tokens each), run to completion
@@ -138,20 +142,23 @@ class Timer:
 
 
 def ptxas_report(name: str, kernel: str) -> list[str]:
-    """Registers and spills of each head-dim instantiation of ``kernel``, from
-    the ``-Xptxas -v`` log of ``csrc/<name>.cu``."""
+    """Registers and spills of each instantiation of ``kernel`` (by head dim,
+    and by element type where the kernel is templated on it: ``<bf16,64>``),
+    from the ``-Xptxas -v`` log of ``csrc/<name>.cu``."""
     from repro_torch.kernels import _build
 
-    out, dh, spills = [], None, ""
+    types = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    out, tag, spills = [], None, ""
     for line in _build.build_log(name).splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"{kernel}ILi(\d+)E", line)
-            dh = m.group(1) if m else None
-        elif dh and "spill stores" in line:
+            m = re.search(rf"{kernel}I(f|13__nv_bfloat16)?Li(\d+)E", line)
+            tag = m and (f"{types[m.group(1)]},{m.group(2)}" if m.group(1)
+                         else m.group(2))
+        elif tag and "spill stores" in line:
             spills = line.strip()
-        elif dh and (m := re.search(r"Used (\d+) registers", line)):
-            out.append(f"{kernel}<{dh}>: {m.group(1)} registers; {spills}")
-            dh = None
+        elif tag and (m := re.search(r"Used (\d+) registers", line)):
+            out.append(f"{kernel}<{tag}>: {m.group(1)} registers; {spills}")
+            tag = None
     return out
 
 
@@ -281,17 +288,22 @@ def kernel_cases(cfg, dtype, dev, gen):
     posd = torch.randint(32, 545, (B,), generator=gen, device=dev,
                          dtype=torch.int32)
     live = torch.ones(B, dtype=torch.bool, device=dev)
-    n_kv = int((posd.clamp(max=Smax - 1) + 1).sum())
     mask = (torch.arange(Smax, device=dev)[None, :] <= posd[:, None])[:, None, None]
     qdt, kct, vct = (t.transpose(1, 2).contiguous() for t in (qd, kc, vc))
-    yield dict(
-        name="decode_attention",
-        fn=lambda: da.decode_attention(qd, kc, vc, posd, live=live),
-        plain=lambda: da.plain(qd, kc, vc, posd, live=live),
-        lib=lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=mask,
-                                                   enable_gqa=True),
-        nbytes=2 * nbytes(qd) + 2 * n_kv * K * D * qd.element_size() + B * 5,
-        flops=4 * D * H * n_kv)
+    # the tick, and every slot at the horizon (position 1023: all splits live)
+    full = torch.full((B,), Smax - 1, dtype=torch.int32, device=dev)
+    for tag, p in (("", posd), ("[full 1024]", full)):
+        n_kv = int((p.clamp(max=Smax - 1) + 1).sum())
+        pmask = (torch.arange(Smax, device=dev)[None, :] <= p[:, None])[:, None, None]
+        yield dict(
+            name="decode_attention" + tag,
+            fn=lambda p=p: da.decode_attention(qd, kc, vc, p, live=live),
+            plain=lambda p=p: da.plain(qd, kc, vc, p, live=live),
+            lib=lambda pmask=pmask: F.scaled_dot_product_attention(
+                qdt, kct, vct, attn_mask=pmask, enable_gqa=True),
+            nbytes=2 * nbytes(qd) + 2 * n_kv * K * D * qd.element_size() + B * 5,
+            flops=4 * D * H * n_kv)
+    n_kv = int((posd.clamp(max=Smax - 1) + 1).sum())
 
     # the same decode tick on the paged layout: a pool of 16 x 64 blocks of
     # 16 positions, each row's blocks drawn from a shuffled pool
@@ -451,12 +463,13 @@ def phase_kernels(cfg, dev) -> dict:
             if dtype == torch.bfloat16 or name not in rows:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    # a second launch of the flash backward (bf16 and f32), cola_fit and the
-    # serving-at-scale kernels gives the same bits
+    # a second launch of the flash backward, cola_fit, dense and paged decode
+    # (all their rows) and multi_lora_q8 gives the same bits
     for dtype, names in ((torch.float32, ("flash_attention_bwd", "cola_fit",
-                                          "decode_attention_paged",
+                                          "decode_attention",
                                           "multi_lora_q8")),
-                         (torch.bfloat16, ("flash_attention_bwd",))):
+                         (torch.bfloat16, ("flash_attention_bwd",
+                                           "decode_attention"))):
         gen = torch.Generator(device=dev).manual_seed(SEED + 3)
         for c in kernel_cases(cfg, dtype, dev, gen):
             if c["name"].startswith(names):
@@ -916,16 +929,19 @@ def main() -> int:
     built = _build.build_all()
     print(f"[build] {sorted(built)} built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    # the tensor-core kernels' registers and spills at every head dim; at the
-    # path's d_head 64 they must not spill
-    for name, kernel in (("flash_attention", "flash_fwd_tc_kernel"),
-                         ("flash_attention_bwd", "flash_bwd_dq_tc_kernel"),
-                         ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel")):
+    # the tensor-core kernels' registers and spills at every head dim, and
+    # the decode kernel's per dtype too; at the path's d_head 64 (bf16) they
+    # must not spill
+    for name, kernel, n, path in (
+            ("flash_attention", "flash_fwd_tc_kernel", 4, "64"),
+            ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 4, "64"),
+            ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 4, "64"),
+            ("decode_attention", "decode_split_kernel", 8, "bf16,64")):
         report = ptxas_report(name, kernel)
-        check(len(report) == 4, f"no ptxas report of {kernel}: {report}")
+        check(len(report) == n, f"no ptxas report of {kernel}: {report}")
         for line in report:
             print(f"[build] {line}", flush=True)
-        at64 = [x for x in report if x.startswith(f"{kernel}<64>:")]
+        at64 = [x for x in report if x.startswith(f"{kernel}<{path}>:")]
         check(len(at64) == 1 and "0 bytes spill stores" in at64[0]
               and "0 bytes spill loads" in at64[0],
               f"{kernel} spills at d_head 64: {at64}")

@@ -1,237 +1,432 @@
 // Single-query GQA decode attention for Hopper (sm_90a), against a dense slot
-// KV cache or a paged block pool.
+// KV cache or a paged block pool: flash-decoding, with the KV walk split
+// across blocks and the splits merged in the same launch.
 //
 // Replaces the TPU kernels src/repro/kernels/decode_attention.py:_kernel
 // (entry decode_attention) and :_kernel_paged (entry decode_attention_paged):
 // every slot attends its one new query against its cache, with per-slot
-// positions and live bits. KV positions above the slot's position (or
-// at/below position - window) are never read; a dead slot writes exact zeros.
+// positions and live bits. Slot b's query at position p attends
+// [lo, hi] = [max(0, p - window + 1), min(p, Smax - 1)] (lo = 0 without a
+// window); no other position is read. A dead slot, or one with hi < lo,
+// writes exact zeros.
 //
 // Paged layout: the cache is a pool (n_blocks, bs, K, Dh) shared by all
 // slots, and position t of slot b lives in pool row table[b, t / bs] at
-// offset t % bs. The kernel walks positions in order exactly as the dense
-// one does and reads each position's K/V row straight from the pool through
-// the table; no dense copy of a slot's cache is ever made. Only the table
-// entries that cover [window floor, position] are read, so unallocated
-// entries (which point at block 0) are never touched. One shared-memory tile
-// of TK positions spans TK / bs table entries (bs is a multiple of 8); the
-// tile's row offsets are resolved once per position into shared memory, so
-// the staging loop does no table read or division per element.
+// offset t % bs (bs any positive multiple of 8). Each cache row's pool offset
+// comes from one table read; no dense copy of a slot's cache is ever made,
+// and only the table entries that cover [lo, hi] are read, so unallocated
+// entries (which point at block 0) are never touched.
 //
-// What bounds it on this card: one decode tick reads each live slot's K/V
-// prefix once and does 4 * Dh FLOPs per (head, position), i.e. about G / 2
-// FLOPs per byte of bf16 cache -- far below the ~295 FLOP/byte ridge, so it
-// is bound by memory. What the design does about that: one block per
-// (slot, kv head) stages each K/V tile in shared memory once and all G query
-// heads of the group (any G, not only powers of two) read it there, so the
-// cache is streamed exactly once per tick and never repeated per q-head; the
-// walk starts at the window floor and stops at the slot's position. With
-// 16 slots x 3 kv heads the grid is 48 blocks, fewer than the 132 SMs, so
-// the simple kernel cannot reach the card's bandwidth; splitting the KV
-// walk across blocks (flash-decoding) is a later PR's work.
+// What bounds it on this card: a decode call reads each live slot's K/V
+// prefix once and does 4 * Dh FLOPs per (head, position), about G / 2 FLOPs
+// per byte of bf16 cache -- far below the ~295 FLOP/byte ridge, so memory
+// bandwidth bounds it, and at the serving shape (16 slots x 3 kv heads,
+// positions up to ~550, ~3 MB) the latency of a few dependent loads bounds
+// it long before the bandwidth does. What the design does about that:
+//  - the grid is (n_split, KH, B): the walk over each (slot, kv head)'s cache
+//    is cut into splits of SPLIT positions, one block of NW warps each, so
+//    the ~130 live splits of a serving tick (8 warps each) spread over the
+//    132 SMs instead of 48 blocks of 4 warps walking 9 tiles in turn.
+//    n_split = ceil(Smax / SPLIT) is fixed by the shapes (the host never
+//    reads the positions, which would be a sync in the tick); a block whose
+//    split holds no position of [lo, hi] returns at once.
+//  - each warp takes SPLIT / NW positions. A cache row is read by
+//    Dh * sizeof(T) / 16 lanes with one 16-byte read-only load each (bf16 at
+//    d_head 64: 8 lanes, so a warp reads 4 rows per load), and all of a
+//    chunk's K and V loads (up to 8 per lane) are issued before the first
+//    use, the first chunk's before q is staged, so they overlap.
+//  - q is staged once in shared memory as f32; each lane's partial dot over
+//    its dims is reduced by shuffles over the lanes of its row, for each of
+//    the G heads of the group (any G), so every K/V row is read once for all
+//    G heads and every dependent chain is short.
+//  - each warp keeps a running max and sum for each head, and its share of
+//    the f32 accumulator in shared memory; the NW warps are merged in warp
+//    order, which gives the split's partial (m, l, acc).
+//  - merge in the same launch (the last-block pattern of CUDA's
+//    threadFenceReduction sample): a slot with one live split writes o
+//    directly. Otherwise each block writes its partial to an f32 workspace,
+//    fences, and one thread adds 1 to the (slot, kv head)'s int32 counter;
+//    the block that sees n_live - 1 merges every live split in split order,
+//    o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, writes o, and sets
+//    the counter back to 0, so every launch leaves the counters at zero.
+//    Every block computes n_live the same way, from pos[b], window and
+//    SPLIT. This holds for launches on one stream (all the port has): two
+//    launches that share the counters must not run at once.
+// What is left at the serving tick is latency, not bytes: a launch whose
+// blocks all exit at once, one split, and the merge's chain (fence, counter,
+// the partials read back from L2) each cost microseconds (PERF.md).
 //
-// The online softmax is f32; every sum runs in a fixed order and there are
-// no atomics, so repeated runs give identical bits.
+// The online softmax is f32; every sum runs in a fixed order, and the only
+// atomic is the integer counter, whose order of arrival changes nothing:
+// two launches give the same bits.
 #include "common.cuh"
+
+// positions per split (one block) and warps per block. SPLIT 128 with 8
+// warps (16 positions a warp) was the fastest at the serving tick of the
+// lengths and warp counts measured (PERF.md); the wrappers pass their SPLIT,
+// and a launch with another value is refused.
+#ifndef DECODE_SPLIT
+#define DECODE_SPLIT 128
+#endif
+#ifndef DECODE_WARPS
+#define DECODE_WARPS 8
+#endif
 
 namespace {
 
-constexpr int TK = 64;    // kv positions per shared-memory tile
-constexpr int NT = 128;
-constexpr int NW = NT / 32;
+constexpr int SPLIT = DECODE_SPLIT;
+constexpr int NW = DECODE_WARPS;
+constexpr int NT = NW * 32;
+constexpr int PW = SPLIT / NW;    // positions per warp
+static_assert(SPLIT % NW == 0, "a split must divide among the warps");
 
-template <int DH>
-size_t smem_bytes(int G) {
-  return sizeof(float) * (2 * G * DH + TK * (DH + 1) + TK * DH + G * TK + 3 * G);
+// one 16-byte load: 8 bf16 or 4 f32 elements, unpacked to f32
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// how a warp walks its PW positions: LPR lanes a row, RPW rows a load step,
+// NSTEP steps, taken NB steps (one chunk of registers) at a time
+template <typename T, int DH>
+struct Walk {
+  static constexpr int EPL = Vec<T>::N;
+  static constexpr int LPR = DH / EPL;
+  static constexpr int RPW = 32 / LPR;
+  static constexpr int NSTEP = (PW + RPW - 1) / RPW;
+  static constexpr int NB = NSTEP < 8 ? NSTEP : 8;
+  static_assert(LPR >= 1 && LPR <= 32 && NSTEP % NB == 0, "walk shape");
+};
+
+size_t smem_bytes(int G, int DH) {
+  // q (G x DH), each warp's acc (NW x G x DH), m and l (NW x G each)
+  return sizeof(float) * ((size_t)(1 + NW) * G * DH + 2 * NW * G);
+}
+
+// Issue one chunk's K and V loads (rows outside [t_first, t_last] read
+// nothing and stay zero).
+template <typename T, int DH>
+__device__ __forceinline__ void load_chunk(
+    uint4 (&kr)[Walk<T, DH>::NB], uint4 (&vr)[Walk<T, DH>::NB],
+    const T* __restrict__ kc, const T* __restrict__ vc,
+    const int* __restrict__ trow, int bs, int b, int Smax, int KH, int kh,
+    int t0, int r, int c, int t_first, int t_last) {
+  using W = Walk<T, DH>;
+#pragma unroll
+  for (int i = 0; i < W::NB; ++i) {
+    const int t = t0 + i * W::RPW + r;
+    if (t >= t_first && t <= t_last) {
+      const size_t row = trow == nullptr ? (size_t)b * Smax + t
+                                         : (size_t)__ldg(&trow[t / bs]) * bs + t % bs;
+      const size_t off = (row * KH + kh) * DH + c * W::EPL;
+      kr[i] = __ldg(reinterpret_cast<const uint4*>(kc + off));
+      vr[i] = __ldg(reinterpret_cast<const uint4*>(vc + off));
+    } else {
+      kr[i] = make_uint4(0u, 0u, 0u, 0u);
+      vr[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 }
 
 // table == nullptr: dense caches (B, Smax, K, DH). Otherwise pools
 // (n_blocks, bs, K, DH) read through table (B, Smax / bs), Smax = the
-// table's width in positions.
+// table's width in positions. ws: (B, KH, n_split, G * (DH + 2)) f32
+// partials; counters: (B * KH) int32, zero before and after the launch.
 template <typename T, int DH>
-__global__ void __launch_bounds__(NT) decode_attn_kernel(
+__global__ void __launch_bounds__(NT) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
     const int* __restrict__ pos, const uint8_t* __restrict__ live,
-    const int* __restrict__ table, int bs, T* __restrict__ o, int Smax, int H,
-    int KH, float scale, int window, float softcap) {
-  extern __shared__ float smem[];
+    const int* __restrict__ table, int bs, T* __restrict__ o, float* ws,
+    int* counters, int Smax, int H, int KH, float scale, int window,
+    float softcap) {
+  using W = Walk<T, DH>;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int last_s;
   const int G = H / KH;
-  float* q_s = smem;                 // G x DH
-  float* acc_s = q_s + G * DH;       // G x DH
-  float* k_s = acc_s + G * DH;       // TK x (DH+1)
-  float* v_s = k_s + TK * (DH + 1);  // TK x DH
-  float* s_s = v_s + TK * DH;        // G x TK
-  float* m_s = s_s + G * TK;         // G
-  float* l_s = m_s + G;              // G
-  float* c_s = l_s + G;              // G
-  __shared__ size_t off_s[TK];       // the tile's cache-row offsets
-
-  const int kh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // q and o are (B, 1, H, DH): the group's G heads are contiguous
   const size_t base = ((size_t)b * H + (size_t)kh * G) * DH;
   const int p = pos[b];
   const int hi = min(p, Smax - 1);
   const int lo = window > 0 ? max(0, p - window + 1) : 0;
-  const int* trow = table == nullptr ? nullptr : table + (size_t)b * (Smax / bs);
   if ((live != nullptr && live[b] == 0) || hi < lo) {
-    for (int f = tid; f < G * DH; f += NT) o[base + f] = from_f32<T>(0.f);
+    if (split == 0)
+      for (int f = tid; f < G * DH; f += NT) o[base + f] = from_f32<T>(0.f);
     return;
   }
-  for (int f = tid; f < G * DH; f += NT) {
-    q_s[f] = to_f32(q[base + f]);
-    acc_s[f] = 0.f;
-  }
-  for (int g = tid; g < G; g += NT) {
-    m_s[g] = NEG_INF_F;
-    l_s[g] = 0.f;
+  // the live splits: every block of the slot computes the same range
+  const int s_lo = lo / SPLIT, s_hi = hi / SPLIT;
+  if (split < s_lo || split > s_hi) return;
+  const int n_live = s_hi - s_lo + 1;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+
+  float* q_s = smem;                   // G x DH
+  float* acc_s = q_s + G * DH;         // NW x G x DH
+  float* m_s = acc_s + NW * G * DH;    // NW x G
+  float* l_s = m_s + NW * G;           // NW x G
+
+  // this warp's positions [w0, w0 + PW), of which [t_first, t_last] are valid
+  const int w0 = split * SPLIT + warp * PW;
+  const int t_first = max(lo, w0), t_last = min(hi, w0 + PW - 1);
+  const int r = lane / W::LPR, c = lane % W::LPR;   // row in a step, 16-byte column
+  const int* trow = table == nullptr ? nullptr : table + (size_t)b * (Smax / bs);
+
+  // the first chunk's loads go out before q is staged
+  uint4 kr[W::NB], vr[W::NB];
+  if (t_first <= t_last)
+    load_chunk<T, DH>(kr, vr, kc, vc, trow, bs, b, Smax, KH, kh, w0, r, c,
+                      t_first, t_last);
+  for (int f = tid; f < G * DH; f += NT) q_s[f] = to_f32(q[base + f]);
+  for (int f = tid; f < NW * G * DH; f += NT) acc_s[f] = 0.f;
+  for (int f = tid; f < NW * G; f += NT) {
+    m_s[f] = NEG_INF_F;
+    l_s[f] = 0.f;
   }
   __syncthreads();
 
-  for (int t0 = lo; t0 <= hi; t0 += TK) {
-    const int n = min(TK, hi - t0 + 1);
-    // each position's cache row is resolved once (one table read), then
-    // every (position, dim) element of the tile is staged from it
-    for (int j = tid; j < n; j += NT) {
-      const int t = t0 + j;
-      const size_t row = trow == nullptr ? (size_t)b * Smax + t
-                                         : (size_t)__ldg(&trow[t / bs]) * bs + t % bs;
-      off_s[j] = (row * KH + kh) * DH;
+  for (int i0 = 0; i0 < W::NSTEP && t_first <= t_last; i0 += W::NB) {
+    const int t0 = w0 + i0 * W::RPW;   // the chunk's rows: [t0, t0 + NB * RPW)
+    if (t0 > t_last) break;
+    if (t0 + W::NB * W::RPW <= t_first) continue;
+    if (i0 > 0)
+      load_chunk<T, DH>(kr, vr, kc, vc, trow, bs, b, Smax, KH, kh, t0, r, c,
+                        t_first, t_last);
+    bool valid[W::NB];
+#pragma unroll
+    for (int i = 0; i < W::NB; ++i) {
+      const int t = t0 + i * W::RPW + r;
+      valid[i] = t >= t_first && t <= t_last;
     }
-    __syncthreads();
-    for (int f = tid; f < TK * DH; f += NT) {
-      const int j = f / DH, d = f % DH;
-      float kv = 0.f, vv = 0.f;
-      if (j < n) {
-        kv = to_f32(kc[off_s[j] + d]);
-        vv = to_f32(vc[off_s[j] + d]);
+#pragma unroll 1
+    for (int g = 0; g < G; ++g) {
+      float qf[W::EPL];
+      const float4* q4 = reinterpret_cast<const float4*>(q_s + g * DH + c * W::EPL);
+#pragma unroll
+      for (int e = 0; e < W::EPL / 4; ++e) {
+        const float4 x = q4[e];
+        qf[4 * e] = x.x; qf[4 * e + 1] = x.y; qf[4 * e + 2] = x.z; qf[4 * e + 3] = x.w;
       }
-      k_s[j * (DH + 1) + d] = kv;
-      v_s[j * DH + d] = vv;
-    }
-    __syncthreads();
-    for (int f = tid; f < G * TK; f += NT) {
-      const int g = f / TK, j = f % TK;
-      float s = NEG_INF_F;
-      if (j < n) {
-        const float* qg = q_s + g * DH;
-        const float* kj = k_s + j * (DH + 1);
-        float a = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < DH; ++d) a += qg[d] * kj[d];
-        s = a * scale;
-        if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-      }
-      s_s[f] = s;
-    }
-    __syncthreads();
-    // every position in [t0, t0 + n) is valid, so the tile max is finite
-    for (int g = warp; g < G; g += NW) {
+      // scores of the chunk's rows: a partial dot per lane, summed over the
+      // LPR lanes of the row (every lane of the row ends with the same bits)
+      float sc[W::NB];
       float mx = NEG_INF_F;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, s_s[g * TK + j]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < TK; j += 32) {
-        const float e = j < n ? expf(s_s[g * TK + j] - m_new) : 0.f;
-        s_s[g * TK + j] = e;
-        sum += e;
+#pragma unroll
+      for (int i = 0; i < W::NB; ++i) {
+        float kf[W::EPL];
+        Vec<T>::unpack(kr[i], kf);
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < W::EPL; ++e) a = fmaf(qf[e], kf[e], a);
+#pragma unroll
+        for (int off = W::LPR / 2; off > 0; off >>= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, off);
+        float s = a * scale;
+        if (softcap > 0.f) s = tanhf(s * inv_cap) * softcap;
+        sc[i] = valid[i] ? s : NEG_INF_F;
+        mx = fmaxf(mx, sc[i]);
       }
-      sum = warp_sum(sum);
+#pragma unroll
+      for (int off = W::LPR; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const int slot = warp * G + g;
+      const float m_old = m_s[slot], l_old = l_s[slot];
+      const float m_new = fmaxf(m_old, mx);   // finite: the chunk holds a valid row
+      const float corr = expf(m_old - m_new);
+      float psum = 0.f, pv[W::EPL];
+#pragma unroll
+      for (int e = 0; e < W::EPL; ++e) pv[e] = 0.f;
+#pragma unroll
+      for (int i = 0; i < W::NB; ++i) {
+        const float pr = valid[i] ? expf(sc[i] - m_new) : 0.f;
+        psum += pr;
+        float vf[W::EPL];
+        Vec<T>::unpack(vr[i], vf);
+#pragma unroll
+        for (int e = 0; e < W::EPL; ++e) pv[e] = fmaf(pr, vf[e], pv[e]);
+      }
+      // sum over the warp's rows (the lanes of one column hold its dims)
+#pragma unroll
+      for (int off = W::LPR; off < 32; off <<= 1) {
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+#pragma unroll
+        for (int e = 0; e < W::EPL; ++e)
+          pv[e] += __shfl_xor_sync(0xffffffffu, pv[e], off);
+      }
+      __syncwarp();
+      if (r == 0) {
+        float* ag = acc_s + (size_t)slot * DH + c * W::EPL;
+#pragma unroll
+        for (int e = 0; e < W::EPL; ++e) ag[e] = fmaf(ag[e], corr, pv[e]);
+      }
       if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
+        m_s[slot] = m_new;
+        l_s[slot] = fmaf(l_old, corr, psum);
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // the split's partial: the warps merged in warp order (a warp that had no
+  // valid row has m = -1e30 and adds exact zeros)
+  const int n_split = gridDim.x;
+  const int stride = G * (DH + 2);
+  float* part = ws + ((size_t)(b * KH + kh) * n_split + split) * stride;
+  for (int f = tid; f < G * DH; f += NT) {
+    const int g = f / DH;
+    float M = NEG_INF_F;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, m_s[w * G + g]);
+    float a = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float e = expf(m_s[w * G + g] - M);
+      a = fmaf(e, acc_s[(size_t)(w * G + g) * DH + f % DH], a);
+      l = fmaf(e, l_s[w * G + g], l);
+    }
+    if (n_live == 1) {
+      o[base + f] = from_f32<T>(a / l);
+    } else {
+      part[f] = a;
+      if (f % DH == 0) {
+        part[G * DH + g] = M;
+        part[G * DH + G + g] = l;
       }
     }
-    __syncthreads();
-    for (int f = tid; f < G * DH; f += NT) {
-      const int g = f / DH, d = f % DH;
-      const float* pg = s_s + g * TK;
-      float a = acc_s[f] * c_s[g];
-      for (int j = 0; j < n; ++j) a += pg[j] * v_s[j * DH + d];
-      acc_s[f] = a;
-    }
-    __syncthreads();
   }
+  if (n_live == 1) return;
+
+  // the last of the slot's n_live blocks to arrive merges them all
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counters + b * KH + kh;
+    const int arrived = atomicAdd(cnt, 1);
+    last_s = arrived == n_live - 1;
+    if (last_s) atomicExch(cnt, 0);
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  const float* parts = ws + (size_t)(b * KH + kh) * n_split * stride;
   for (int f = tid; f < G * DH; f += NT) {
-    const float l = l_s[f / DH];
-    o[base + f] = from_f32<T>(acc_s[f] / (l > 0.f ? l : 1.f));
+    const int g = f / DH;
+    float M = NEG_INF_F;
+    for (int s = s_lo; s <= s_hi; ++s)
+      M = fmaxf(M, __ldcg(parts + (size_t)s * stride + G * DH + g));
+    float a = 0.f, l = 0.f;
+    for (int s = s_lo; s <= s_hi; ++s) {
+      const float* ps = parts + (size_t)s * stride;
+      const float e = expf(__ldcg(ps + G * DH + g) - M);
+      a = fmaf(e, __ldcg(ps + f), a);
+      l = fmaf(e, __ldcg(ps + G * DH + G + g), l);
+    }
+    o[base + f] = from_f32<T>(a / l);
   }
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const int* pos,
-           const uint8_t* live, const int* table, int bs, void* o, int B,
-           int Smax, int H, int KH, float scale, int window, float softcap,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes<DH>(H / KH);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_attn_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(KH, B);
-  decode_attn_kernel<T, DH><<<grid, NT, smem, stream>>>(
+           const uint8_t* live, const int* table, int bs, void* o, float* ws,
+           int* counters, int B, int Smax, int H, int KH, float scale,
+           int window, float softcap, cudaStream_t stream) {
+  const size_t smem = smem_bytes(H / KH, DH);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<T, DH>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((Smax + SPLIT - 1) / SPLIT, KH, B);
+  decode_split_kernel<T, DH><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      pos, live, table, bs, static_cast<T*>(o), Smax, H, KH, scale, window, softcap);
+      pos, live, table, bs, static_cast<T*>(o), ws, counters, Smax, H, KH, scale,
+      window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_dh(int DH, const void* q, const void* k, const void* v, const int* pos,
-                const uint8_t* live, const int* table, int bs, void* o, int B,
-                int Smax, int H, int KH, float scale, int window, float softcap,
-                cudaStream_t s) {
+                const uint8_t* live, const int* table, int bs, void* o, float* ws,
+                int* cnt, int B, int Smax, int H, int KH, float scale, int window,
+                float softcap, cudaStream_t s) {
   switch (DH) {
-    case 16: return launch<T, 16>(q, k, v, pos, live, table, bs, o, B, Smax, H, KH, scale, window, softcap, s);
-    case 32: return launch<T, 32>(q, k, v, pos, live, table, bs, o, B, Smax, H, KH, scale, window, softcap, s);
-    case 64: return launch<T, 64>(q, k, v, pos, live, table, bs, o, B, Smax, H, KH, scale, window, softcap, s);
-    case 128: return launch<T, 128>(q, k, v, pos, live, table, bs, o, B, Smax, H, KH, scale, window, softcap, s);
+    case 16: return launch<T, 16>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 32: return launch<T, 32>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 64: return launch<T, 64>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 128: return launch<T, 128>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
     default: return -1;
   }
 }
 
-int dispatch(int dtype, int DH, const void* q, const void* k, const void* v,
-             const void* positions, const void* live, const void* table, int bs,
-             void* o, int B, int Smax, int H, int KH, float scale, int window,
-             float softcap, void* stream) {
+int dispatch(int dtype, int DH, int split, const void* q, const void* k,
+             const void* v, const void* positions, const void* live,
+             const void* table, int bs, void* o, void* ws, void* counters, int B,
+             int Smax, int H, int KH, float scale, int window, float softcap,
+             void* stream) {
+  if (split != SPLIT || ws == nullptr || counters == nullptr) return -1;
   const int* pos = static_cast<const int*>(positions);
   const uint8_t* lv = static_cast<const uint8_t*>(live);
   const int* tb = static_cast<const int*>(table);
+  float* w = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return dispatch_dh<float>(DH, q, k, v, pos, lv, tb, bs, o, B, Smax, H, KH, scale,
-                              window, softcap, s);
+    return dispatch_dh<float>(DH, q, k, v, pos, lv, tb, bs, o, w, cnt, B, Smax, H,
+                              KH, scale, window, softcap, s);
   if (dtype == DT_BF16)
-    return dispatch_dh<__nv_bfloat16>(DH, q, k, v, pos, lv, tb, bs, o, B, Smax, H, KH,
-                                      scale, window, softcap, s);
+    return dispatch_dh<__nv_bfloat16>(DH, q, k, v, pos, lv, tb, bs, o, w, cnt, B,
+                                      Smax, H, KH, scale, window, softcap, s);
   return -1;
 }
 
 }  // namespace
 
-// live may be null (every slot live). Returns cudaGetLastError() after the
-// launch (0 on success), or -1 for a head dim / dtype the kernel does not take.
+// live may be null (every slot live). workspace: at least
+// B * KH * ceil(Smax / split) * (H / KH) * (DH + 2) floats; counters: B * KH
+// int32, all zero (every launch leaves them so). split must be the kernel's
+// SPLIT. Returns cudaGetLastError() after the launch (0 on success), or -1
+// for a head dim, dtype or split the kernel does not take.
 extern "C" int decode_attention(const void* q, const void* k_cache,
                                 const void* v_cache, const void* positions,
-                                const void* live, void* o, int B, int Smax, int H,
-                                int KH, int DH, int dtype, float scale, int window,
-                                float softcap, void* stream) {
-  return dispatch(dtype, DH, q, k_cache, v_cache, positions, live, nullptr, 1, o, B,
-                  Smax, H, KH, scale, window, softcap, stream);
+                                const void* live, void* o, void* workspace,
+                                void* counters, int B, int Smax, int H, int KH,
+                                int DH, int dtype, int split, float scale,
+                                int window, float softcap, void* stream) {
+  return dispatch(dtype, DH, split, q, k_cache, v_cache, positions, live, nullptr,
+                  1, o, workspace, counters, B, Smax, H, KH, scale, window,
+                  softcap, stream);
 }
 
 // The paged layout: pools (n_blocks, bs, KH, DH), block_table (B, max_blocks)
-// int32 whose entries must index the pool. Same returns as above, and -1 for
-// a block size that is not a positive multiple of 8.
+// int32 whose entries must index the pool; Smax = max_blocks * bs. Same
+// arguments and returns as above, and -1 for a block size that is not a
+// positive multiple of 8.
 extern "C" int decode_attention_paged(const void* q, const void* k_pool,
                                       const void* v_pool, const void* positions,
                                       const void* live, const void* block_table,
-                                      void* o, int B, int max_blocks, int bs, int H,
-                                      int KH, int DH, int dtype, float scale,
+                                      void* o, void* workspace, void* counters,
+                                      int B, int max_blocks, int bs, int H, int KH,
+                                      int DH, int dtype, int split, float scale,
                                       int window, float softcap, void* stream) {
   if (bs < 8 || bs % 8 != 0 || block_table == nullptr) return -1;
-  return dispatch(dtype, DH, q, k_pool, v_pool, positions, live, block_table, bs, o,
-                  B, max_blocks * bs, H, KH, scale, window, softcap, stream);
+  return dispatch(dtype, DH, split, q, k_pool, v_pool, positions, live,
+                  block_table, bs, o, workspace, counters, B, max_blocks * bs, H,
+                  KH, scale, window, softcap, stream);
 }

@@ -1,10 +1,18 @@
-"""Single-query decode attention: the CUDA kernels ``csrc/decode_attention.cu``
+"""Single-query decode attention: the CUDA kernel ``csrc/decode_attention.cu``
 (a dense slot cache, and a paged block pool read through a block table) and
-their plain PyTorch versions.
+its plain PyTorch versions.
 
 Replaces the TPU kernels ``src/repro/kernels/decode_attention.py:_kernel``
 (entry ``decode_attention``) and ``_kernel_paged`` (entry
 ``decode_attention_paged``).
+
+The kernel splits each (slot, kv head)'s walk over the cache into splits of
+``SPLIT`` positions, one block each, and merges the splits in the same launch:
+each block of a slot with more than one live split writes its partial
+(m, l, acc) to an f32 workspace that the wrapper allocates on every call, and
+the last block to arrive, told by an int32 counter per (slot, kv head), merges
+them in split order. The counters are kept per device, made zero once (anew
+when ``B * KH`` grows), and every launch leaves them at zero.
 """
 from __future__ import annotations
 
@@ -16,6 +24,9 @@ import torch
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 128)
+SPLIT = 128   # positions per block; csrc/decode_attention.cu's DECODE_SPLIT
+
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 plain = ref.sdpa_decode
 plain_paged = ref.sdpa_decode_paged
@@ -23,12 +34,27 @@ plain_paged = ref.sdpa_decode_paged
 
 def _fn(name: str = "decode_attention"):
     fn = getattr(_build.load("decode_attention"), name)
-    n = 7 if name.endswith("_paged") else 6   # + block_table; + bs
-    fn.argtypes = ([ctypes.c_void_p] * n + [ctypes.c_int] * n
+    paged = name.endswith("_paged")   # + block_table; + bs
+    fn.argtypes = ([ctypes.c_void_p] * (9 if paged else 8)
+                   + [ctypes.c_int] * (8 if paged else 7)
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _scratch(q: torch.Tensor, Smax: int, K: int):
+    """The launch's f32 workspace for the splits' partials (from the caching
+    allocator, no launch) and the device's zeroed (B * K,) int32 counters."""
+    B, _, H, Dh = q.shape
+    n_split = -(-Smax // SPLIT)
+    ws = torch.empty(B * H * n_split * (Dh + 2) if n_split > 1 else 1,
+                     dtype=torch.float32, device=q.device)
+    cnt = _COUNTERS.get(q.device)
+    if cnt is None or cnt.numel() < B * K:
+        cnt = _COUNTERS[q.device] = torch.zeros(B * K, dtype=torch.int32,
+                                                device=q.device)
+    return ws, cnt
 
 
 def _check_common(name: str, q, k, v, positions, live):
@@ -48,6 +74,8 @@ def _check_common(name: str, q, k, v, positions, live):
         what=f"shapes q {tuple(q.shape)} cache {tuple(k.shape)}")
     req(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
         what="q and caches must be contiguous")
+    req(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+        what="caches must be 16-byte aligned")
     _build.require_no_grad(name, q, k, v)
     req(positions.shape == (B,), what=f"positions shape {tuple(positions.shape)}")
     pos = positions.to(device=q.device, dtype=torch.int32).contiguous()
@@ -79,10 +107,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                    f"cache batch {k_cache.shape[0]} != {B}")
 
     o = torch.empty_like(q)
+    ws, cnt = _scratch(q, Smax, K)
     rc = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                pos.data_ptr(), None if live is None else live.data_ptr(),
-               o.data_ptr(), B, Smax, H, K, Dh, _build.DTYPE_CODES[q.dtype],
-               float(scale), int(window or 0), float(softcap or 0.0),
+               o.data_ptr(), ws.data_ptr(), cnt.data_ptr(), B, Smax, H, K, Dh,
+               _build.DTYPE_CODES[q.dtype], SPLIT, float(scale),
+               int(window or 0), float(softcap or 0.0),
                _build.stream_ptr(q.device))
     _build.check_launch(rc, name)
     decode_attention.launches += 1
@@ -125,12 +155,14 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
         f"tensor, got {tuple(block_table.shape)} {block_table.dtype}")
 
     o = torch.empty_like(q)
+    ws, cnt = _scratch(q, block_table.shape[1] * bs, K)
     rc = _fn(name)(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                    pos.data_ptr(), None if live is None else live.data_ptr(),
-                   block_table.data_ptr(), o.data_ptr(), B,
-                   block_table.shape[1], bs, H, K, Dh,
-                   _build.DTYPE_CODES[q.dtype], float(scale), int(window or 0),
-                   float(softcap or 0.0), _build.stream_ptr(q.device))
+                   block_table.data_ptr(), o.data_ptr(), ws.data_ptr(),
+                   cnt.data_ptr(), B, block_table.shape[1], bs, H, K, Dh,
+                   _build.DTYPE_CODES[q.dtype], SPLIT, float(scale),
+                   int(window or 0), float(softcap or 0.0),
+                   _build.stream_ptr(q.device))
     _build.check_launch(rc, name)
     decode_attention_paged.launches += 1
     return o

@@ -54,7 +54,9 @@ def _sdpa_dense(q, k, v, *, q_positions, kv_positions, causal=True,
     G = H // K
     if scale is None:
         scale = Dh ** -0.5
-    f32 = torch.float32
+    # f32 math for bf16 and f32 inputs; f64 inputs stay f64 (a reference for
+    # the f32 kernels' gradients)
+    ct = torch.promote_types(q.dtype, torch.float32)
     qp = q_positions.to(torch.int32)[:, None, :, None]    # (B,1,Sq,1)
     kp = kv_positions.to(torch.int32)[:, None, None, :]   # (B,1,1,Sk)
     mask = torch.ones((1, 1, Sq, Sk), dtype=torch.bool, device=q.device)
@@ -66,8 +68,8 @@ def _sdpa_dense(q, k, v, *, q_positions, kv_positions, causal=True,
 
     # Grouped form: q heads (K, G) against the K kv heads, so KV is never
     # repeated in memory. Products accumulate in f32 like the MXU's.
-    qg = q.reshape(B, Sq, K, G, Dh).to(f32)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(f32)) * scale
+    qg = q.reshape(B, Sq, K, G, Dh).to(ct)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(ct)) * scale
     s = s.reshape(B, H, Sq, Sk)
     if softcap is not None and softcap > 0:
         s = torch.tanh(s / softcap) * softcap
@@ -76,8 +78,8 @@ def _sdpa_dense(q, k, v, *, q_positions, kv_positions, causal=True,
     # rows with no valid key (fully masked) produce uniform p; zero them out.
     any_valid = mask.any(dim=-1, keepdim=True)
     p = torch.where(any_valid, p, torch.zeros_like(p))
-    pg = p.to(q.dtype).to(f32).reshape(B, K, G, Sq, Sk)
-    o = torch.einsum("bkgqs,bskd->bqkgd", pg, v.to(f32)).reshape(B, Sq, H, Dh)
+    pg = p.to(q.dtype).to(ct).reshape(B, K, G, Sq, Sk)
+    o = torch.einsum("bkgqs,bskd->bqkgd", pg, v.to(ct)).reshape(B, Sq, H, Dh)
     o = o.to(q.dtype)
     if not with_lse:
         return o

@@ -6,11 +6,17 @@ forward and the flash backward (dq; dk/dv) at the tile edges of their bf16
 tensor-core kernels (lengths 1, 15, 17, 65, 257, Sq != Sk, chunk-round
 positions with a dead row, G 1 / 3 / 4 at every head dim, window + softcap)
 and their determinism; cola_fit; gradients through ``ops.sdpa`` on the card
-against the plain path's; kernels without a backward refusing inputs that
-require grad; the paged decode kernel over block sizes and shuffled tables
-(and that it reads only the blocks the table names), the int8 multi-LoRA
-kernel at the decode and chunk shapes, ``quant_rows`` on the card against
-the CPU's, and chunk rounds through the flash forward kernel.
+against an f64 reference (the plain path in f64 on the CPU); kernels without
+a backward refusing inputs that require grad; the split-KV decode kernel,
+dense and paged, at the split edges (slots at 0, L - 1, L, L + 1, 2L - 1 and
+Smax - 1 of a cache that is no multiple of the split L, a window floor
+inside a later split, window 1, G 1 / 3 / 4 / 12 at every head dim, dead
+slots, two launches giving the same bits) and its merge counters (grown
+with B * KH, left at zero by every launch); the paged decode kernel over
+block sizes and shuffled tables (and that it reads only the blocks the table
+names), the int8 multi-LoRA kernel at the decode and chunk shapes,
+``quant_rows`` on the card against the CPU's, and chunk rounds through the
+flash forward kernel.
 
 Marked ``cuda``; skipped without a card. On the H100 (whose Python has no
 JAX, which the tests' conftest imports):
@@ -23,7 +29,9 @@ dQ += dS K, a relative 2^-9 on each term before the sums (about half of
 the tolerance with both sides' output rounding on top;
 ``tests/test_torch_training.py::
 test_bf16_rounding_of_p_and_ds_fits_the_card_tolerance`` sizes it on the
-CPU). Both stay inside the bf16 tolerance, which stays as it is.
+CPU). Both stay inside the bf16 tolerance, which stays as it is. The
+decode kernel merges its splits' f32 partials in another order than the
+plain version's one softmax, within the f32 tolerance.
 """
 import pytest
 
@@ -155,20 +163,49 @@ def test_flash_forward_kernel_per_row_positions(dev, dtype):
     assert (lse == -1e30).any()
 
 
+def _split_edges(pos, Smax):
+    """Put slots 1-4 at the split edges L - 1, L, L + 1 and 2L - 1 (below
+    Smax); slot 0 stays at 0 and the last slot at Smax - 1."""
+    L = da.SPLIT
+    for i, t in enumerate((L - 1, L, L + 1, 2 * L - 1)):
+        pos[1 + i] = min(t, Smax - 1)
+
+
+def _decode_options(live):
+    """The options every decode case runs with: live slots, window +
+    softcap, none, a window whose floor lies inside a later split for the
+    slots past 2L, and window 1."""
+    return (dict(live=live), dict(window=40, softcap=20.0), {},
+            dict(window=da.SPLIT // 2 + 3, live=live), dict(window=1))
+
+
+# split edges: 6 slots at 0, L - 1, L, L + 1, 2L - 1 and Smax - 1 of a cache
+# of 300 positions (not a multiple of the split), G 1 / 3 / 4 / 12 at every
+# head dim
+EDGE_ROWS = [(6, 300, 2 * G, 2, D, True) for G in (1, 3, 4, 12)
+             for D in (16, 32, 64, 128)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,Smax,H,K,D", [(16, 1024, 9, 3, 64), (4, 128, 4, 2, 32),
-                                          (3, 64, 6, 1, 128), (5, 100, 8, 8, 16)])
-def test_decode_attention_kernel(dev, dtype, B, Smax, H, K, D):
+@pytest.mark.parametrize("B,Smax,H,K,D,edges", [
+    (16, 1024, 9, 3, 64, False), (4, 128, 4, 2, 32, False),
+    (3, 64, 6, 1, 128, False), (5, 100, 8, 8, 16, False), *EDGE_ROWS])
+def test_decode_attention_kernel(dev, dtype, B, Smax, H, K, D, edges):
     gen = torch.Generator(device=dev).manual_seed(2)
     q = _rnd(gen, dev, dtype, B, 1, H, D)
     kc, vc = (_rnd(gen, dev, dtype, B, Smax, K, D) for _ in range(2))
     pos = torch.randint(0, Smax, (B,), generator=gen, device=dev,
                         dtype=torch.int32)
     pos[0], pos[-1] = 0, Smax - 1
+    if edges:
+        _split_edges(pos, Smax)
     live = torch.arange(B, device=dev) % 3 != 1
-    for kw in (dict(live=live), dict(window=40, softcap=20.0), {}):
+    for kw in _decode_options(live):
+        before = da.decode_attention.launches
         o = da.decode_attention(q, kc, vc, pos, **kw)
+        assert da.decode_attention.launches == before + 1
         _close(o, da.plain(q, kc, vc, pos, **kw), dtype)
+        assert torch.equal(o, da.decode_attention(q, kc, vc, pos, **kw))
     o = da.decode_attention(q, kc, vc, pos, live=live)
     assert bool((o[~live] == 0).all())
     assert torch.equal(o, da.decode_attention(q, kc, vc, pos, live=live))
@@ -306,14 +343,22 @@ def test_flash_backward_kernels_chunk_positions(dev, dtype, window, softcap):
 
 
 def test_gradients_flow_through_ops_sdpa_on_the_card(dev):
-    """The card's autograd through ops.sdpa (FlashAttention: the forward and
-    the two backward kernels) equals the plain path's on the CPU."""
-    from repro_torch.kernels import ops
+    """The card's f32 autograd through ops.sdpa (FlashAttention: the forward
+    and the two backward kernels) against an f64 reference: ``ref.sdpa`` on
+    the CPU under autograd, on the same inputs cast to f64. The CPU's own f32
+    path runs too and launches no kernel; it is held to the same reference
+    by ``test_torch_training.py::
+    test_plain_sdpa_gradients_match_an_f64_reference``, not here, because on
+    the machine with the card its f32 CPU matmuls were seen off by more than
+    f32 rounding now and then."""
+    from repro_torch.kernels import ops, ref
     gen = torch.Generator().manual_seed(6)
     B, S, H, K, D = 2, 96, 6, 2, 64
     qkv = [torch.randn(B, S, n, D, generator=gen) for n in (H, K, K)]
     do = torch.randn(B, S, H, D, generator=gen)
     pos = torch.arange(S, dtype=torch.int32)[None]
+    ins64 = [t.double().requires_grad_() for t in qkv]
+    ref.sdpa(*ins64, q_positions=pos, kv_positions=pos).backward(do.double())
     grads = {}
     for d in ("cpu", dev):
         ins = [t.detach().to(d).requires_grad_() for t in qkv]
@@ -323,8 +368,9 @@ def test_gradients_flow_through_ops_sdpa_on_the_card(dev):
         o.backward(do.to(d))
         grads[str(d)] = [t.grad.cpu() for t in ins]
         assert (fa.flash_attention.launches > before) == (d != "cpu")
-    for a, b in zip(grads["cpu"], grads[str(dev)]):
-        _close(b, a, torch.float32)
+    for got, want in zip(grads[str(dev)], ins64):
+        assert got.dtype == torch.float32
+        _close(got, want.grad, torch.float32)
 
 
 def test_server_step_recomputes_through_the_kernels(dev):
@@ -411,15 +457,19 @@ def test_kernels_without_backward_raise_on_inputs_that_require_grad(dev):
 # -- serving at scale: the paged decode kernel, the int8 multi-LoRA kernel,
 # -- chunk rounds through the flash forward kernel ---------------------------
 
-def _paged_case(gen, dev, dtype, B, H, K, D, bs, max_len, n_blocks):
+def _paged_case(gen, dev, dtype, B, H, K, D, bs, max_len, n_blocks,
+                edges=False):
     """q, pools, a shuffled block table covering each row's [0, position],
-    positions (including 0 and the last position of the table)."""
+    positions (including 0 and the last position of the table, and with
+    ``edges`` the split edges)."""
     q = _rnd(gen, dev, dtype, B, 1, H, D)
     kp, vp = (_rnd(gen, dev, dtype, n_blocks, bs, K, D) for _ in range(2))
     nb = max_len // bs
     pos = torch.randint(0, max_len, (B,), generator=gen, device=dev,
                         dtype=torch.int32)
     pos[0], pos[-1] = 0, max_len - 1
+    if edges:
+        _split_edges(pos, max_len)
     perm = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(B))
     table = torch.zeros(B, nb, dtype=torch.int32)
     it = iter(perm.tolist())
@@ -430,25 +480,33 @@ def _paged_case(gen, dev, dtype, B, H, K, D, bs, max_len, n_blocks):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,H,K,D,bs,max_len", [
-    (16, 9, 3, 64, 16, 1024),     # the serving shape
-    (4, 4, 2, 32, 8, 128),
-    (3, 6, 1, 128, 32, 256),      # MQA
-    (5, 8, 8, 16, 8, 64),         # G = 1
-    (4, 4, 2, 64, 24, 96),        # a block size that is no power of two
+@pytest.mark.parametrize("B,H,K,D,bs,max_len,edges", [
+    (16, 9, 3, 64, 16, 1024, False),     # the serving shape
+    (4, 4, 2, 32, 8, 128, False),
+    (3, 6, 1, 128, 32, 256, False),      # MQA
+    (5, 8, 8, 16, 8, 64, False),         # G = 1
+    (4, 4, 2, 64, 24, 96, False),        # a block size that is no power of two
+    # split edges (as the dense kernel's) over tables of about 300 positions
+    # in blocks of 8, 16, 24 and 32 (splits straddle table entries), G 1 /
+    # 3 / 4 / 12 at every head dim
+    *[(6, 2 * G, 2, D, bs, bs * -(-300 // bs), True)
+      for G, bs in ((1, 8), (3, 16), (4, 24), (12, 32))
+      for D in (16, 32, 64, 128)],
 ])
-def test_decode_attention_paged_kernel(dev, dtype, B, H, K, D, bs, max_len):
+def test_decode_attention_paged_kernel(dev, dtype, B, H, K, D, bs, max_len,
+                                       edges):
     gen = torch.Generator(device=dev).manual_seed(8)
     n_blocks = B * (max_len // bs) + 3
     q, kp, vp, pos, table = _paged_case(gen, dev, dtype, B, H, K, D, bs,
-                                        max_len, n_blocks)
+                                        max_len, n_blocks, edges)
     live = torch.arange(B, device=dev) % 3 != 1
-    for kw in (dict(live=live), dict(window=40, softcap=20.0), {},
-               dict(live=live, window=7)):
+    for kw in (*_decode_options(live), dict(live=live, window=7)):
         before = da.decode_attention_paged.launches
         o = da.decode_attention_paged(q, kp, vp, pos, table, **kw)
         assert da.decode_attention_paged.launches == before + 1
         _close(o, da.plain_paged(q, kp, vp, pos, table, **kw), dtype)
+        assert torch.equal(o, da.decode_attention_paged(q, kp, vp, pos, table,
+                                                        **kw))
     o = da.decode_attention_paged(q, kp, vp, pos, table, live=live)
     assert bool((o[~live] == 0).all())
     assert torch.equal(o, da.decode_attention_paged(q, kp, vp, pos, table,
@@ -471,6 +529,30 @@ def test_decode_attention_paged_reads_only_the_tables_blocks(dev):
         kp[blk] = float("nan")
         vp[blk] = float("nan")
     assert torch.equal(da.decode_attention_paged(q, kp, vp, pos, table), o)
+
+
+def test_decode_attention_counters_grow_and_are_left_at_zero(dev):
+    """Launches in a row with B * KH growing, then shrinking, on one device,
+    every slot over several splits: each matches the plain version, the
+    merge counters grow to the largest B * KH, and every launch, dense or
+    paged, leaves them at zero."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    Smax = 4 * 104     # the pool's 4 blocks of 104 a slot
+    da._COUNTERS.clear()
+    for B, K, want in ((2, 2, 4), (16, 3, 48), (3, 1, 48)):
+        q = _rnd(gen, dev, torch.float32, B, 1, 3 * K, 64)
+        kc, vc = (_rnd(gen, dev, torch.float32, B, Smax, K, 64)
+                  for _ in range(2))
+        pos = torch.full((B,), Smax - 1, dtype=torch.int32, device=dev)
+        _close(da.decode_attention(q, kc, vc, pos),
+               da.plain(q, kc, vc, pos), torch.float32)
+        table = torch.arange(B * 4, dtype=torch.int32, device=dev).view(B, 4)
+        pool_k, pool_v = (c.reshape(B * 4, 104, K, 64) for c in (kc, vc))
+        _close(da.decode_attention_paged(q, pool_k, pool_v, pos, table),
+               da.plain(q, kc, vc, pos), torch.float32)
+        torch.cuda.synchronize()
+        cnt = da._COUNTERS[q.device]
+        assert cnt.numel() == want and not bool(cnt.any())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

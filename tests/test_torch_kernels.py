@@ -127,3 +127,138 @@ def test_wrappers_raise_for_tensors_they_cannot_launch():
     q = torch.empty(1, 8, 2, 64, device="meta")
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+
+
+# -- the decode kernel's split walk, written out in plain torch f32 ----------
+
+def _split_walk(q, k, v, pos, live, window, softcap, table=None):
+    """The CUDA decode kernel's arithmetic: each (slot, kv head)'s positions
+    [lo, hi] cut into splits of ``da.SPLIT``; a block whose split holds no
+    position of [lo, hi] exits; each live split's partial (m, l, acc) in f32;
+    the partials merged in split order. ``table`` given: k and v are pools
+    (n_blocks, bs, K, Dh) read through it, else dense caches (B, Smax, K, Dh).
+    """
+    L = da.SPLIT
+    B, _, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    Smax = table.shape[1] * k.shape[1] if table is not None else k.shape[1]
+    n_split = -(-Smax // L)
+    o = torch.zeros(B, 1, H, D)
+    for b in range(B):
+        p = int(pos[b])
+        hi = min(p, Smax - 1)
+        lo = max(0, p - window + 1) if window else 0
+        if (live is not None and not live[b]) or hi < lo:
+            continue
+        s_lo, s_hi = lo // L, hi // L
+        n_live = s_hi - s_lo + 1
+        t_all = torch.arange(lo, hi + 1)
+        if table is None:
+            rows_k, rows_v = k[b, t_all], v[b, t_all]
+        else:
+            bs = k.shape[1]
+            blk = table[b, t_all // bs].long()
+            rows_k, rows_v = k[blk, t_all % bs], v[blk, t_all % bs]
+        for kh in range(K):
+            qg = q[b, 0, kh * G:(kh + 1) * G].float()            # (G, D)
+            parts = []
+            for s in range(n_split):
+                if s < s_lo or s > s_hi:      # the block exits at once
+                    continue
+                sel = (t_all >= max(lo, s * L)) & (t_all <= min(hi, s * L + L - 1))
+                assert sel.any()              # every live split holds a position
+                kk, vv = rows_k[sel, kh].float(), rows_v[sel, kh].float()
+                sc = (qg @ kk.T) * D ** -0.5
+                if softcap:
+                    sc = torch.tanh(sc / softcap) * softcap
+                m = sc.max(-1).values
+                e = torch.exp(sc - m[:, None])
+                parts.append((m, e.sum(-1), e @ vv))
+            assert len(parts) == n_live       # the merging block sees them all
+            M = torch.stack([m for m, _, _ in parts]).max(0).values
+            acc, l_sum = torch.zeros(G, D), torch.zeros(G)
+            for m, l_s, a_s in parts:         # split order
+                w = torch.exp(m - M)
+                acc = acc + w[:, None] * a_s
+                l_sum = l_sum + w * l_s
+            o[b, 0, kh * G:(kh + 1) * G] = acc / l_sum[:, None]
+    return o
+
+
+def _edge_positions(Smax):
+    """Slots at the split edges L - 1, L, L + 1, 2L - 1 and at Smax - 1, and
+    a dead slot (the last)."""
+    L = da.SPLIT
+    pos = np.asarray([L - 1, L, L + 1, 2 * L - 1, Smax - 1, 5], np.int32)
+    live = np.ones(len(pos), bool)
+    live[-1] = False
+    return pos, live
+
+
+def _split_window(Smax):
+    """A window whose floor for the slot at Smax - 1 is the split edge L."""
+    return Smax - 1 - da.SPLIT + 1
+
+
+@pytest.mark.parametrize("G", [1, 3, 4, 12])
+@pytest.mark.parametrize("variant", ["full", "window on a split edge",
+                                     "window 1"])
+def test_decode_split_walk_matches_pallas(G, variant):
+    """The split walk (the CUDA kernel's index arithmetic and merge) against
+    the TPU kernel in interpret mode and the plain version, at the split
+    edges, with Smax not a multiple of the split."""
+    rng = np.random.default_rng(20 + G)
+    L = da.SPLIT
+    Smax, K, D = 2 * L + L // 2, 2, 64
+    H = G * K
+    pos, lv = _edge_positions(Smax)
+    B = len(pos)
+    window, softcap = {"full": (None, None),
+                       "window on a split edge": (_split_window(Smax), 20.0),
+                       "window 1": (1, None)}[variant]
+    q = _normal(rng, B, 1, H, D)
+    kc, vc = _normal(rng, B, Smax, K, D), _normal(rng, B, Smax, K, D)
+    o_j = jda.decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                               jnp.asarray(pos), live=jnp.asarray(lv),
+                               window=window, softcap=softcap, interpret=True)
+    o_w = _split_walk(_t(q), _t(kc), _t(vc), pos, lv, window, softcap)
+    o_p = da.decode_attention(_t(q), _t(kc), _t(vc), _t(pos), live=_t(lv),
+                              window=window, softcap=softcap)
+    np.testing.assert_allclose(o_w.numpy(), np.asarray(o_j), **TOL)
+    np.testing.assert_allclose(o_w.numpy(), o_p.numpy(), **TOL)
+    assert np.all(o_w.numpy()[~lv] == 0.0)
+
+
+@pytest.mark.parametrize("G", [1, 3, 4, 12])
+@pytest.mark.parametrize("window", [None, "split edge"])
+def test_decode_split_walk_paged_matches_pallas(G, window):
+    """The same walk through a block table of blocks of 24: splits straddle
+    table entries; held to the paged TPU kernel in interpret mode and the
+    plain version. Unallocated entries point at block 0."""
+    rng = np.random.default_rng(40 + G)
+    L = da.SPLIT
+    bs, K, D = 24, 2, 64
+    nb = -(-(2 * L + L // 2) // bs)
+    Smax, H = bs * nb, G * K
+    pos, lv = _edge_positions(Smax)
+    B = len(pos)
+    window = _split_window(Smax) if window else None
+    n_blocks = B * nb + 1
+    q = _normal(rng, B, 1, H, D)
+    kp, vp = _normal(rng, n_blocks, bs, K, D), _normal(rng, n_blocks, bs, K, D)
+    perm = iter(rng.permutation(np.arange(1, n_blocks)).tolist())
+    table = np.zeros((B, nb), np.int32)
+    for b, p in enumerate(pos.tolist()):
+        for j in range(p // bs + 1):
+            table[b, j] = next(perm)
+    o_j = jda.decode_attention_paged(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pos),
+        jnp.asarray(table), live=jnp.asarray(lv), window=window, interpret=True)
+    o_w = _split_walk(_t(q), _t(kp), _t(vp), pos, lv, window, None,
+                      table=_t(table))
+    o_p = da.decode_attention_paged(_t(q), _t(kp), _t(vp), _t(pos), _t(table),
+                                    live=_t(lv), window=window)
+    np.testing.assert_allclose(o_w.numpy(), np.asarray(o_j), **TOL)
+    np.testing.assert_allclose(o_w.numpy(), o_p.numpy(), **TOL)
+    assert np.all(o_w.numpy()[~lv] == 0.0)

@@ -136,6 +136,28 @@ def test_flash_backward_takes_non_uniform_positions():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **KTOL)
 
 
+def test_plain_sdpa_gradients_match_an_f64_reference():
+    """The CPU's f32 gradients through ops.sdpa (the plain forward and
+    backward behind the autograd Function) against ``ref.sdpa`` in f64 under
+    autograd, at the f32 tolerance the card's gradients are held to,
+    1e-5 (1 + max |reference|), on the inputs of
+    ``test_torch_cuda.py::test_gradients_flow_through_ops_sdpa_on_the_card``."""
+    gen = torch.Generator().manual_seed(6)
+    B, S, H, K, D = 2, 96, 6, 2, 64
+    qkv = [torch.randn(B, S, n, D, generator=gen) for n in (H, K, K)]
+    do = torch.randn(B, S, H, D, generator=gen)
+    pos = torch.arange(S, dtype=torch.int32)[None]
+    ins64 = [t.double().requires_grad_() for t in qkv]
+    ref.sdpa(*ins64, q_positions=pos, kv_positions=pos).backward(do.double())
+    ins = [t.clone().requires_grad_() for t in qkv]
+    ops.sdpa(*ins, q_positions=pos, kv_positions=pos).backward(do)
+    for got, want in zip(ins, ins64):
+        assert got.grad.dtype == torch.float32
+        assert want.grad.dtype == torch.float64
+        err = float((got.grad.double() - want.grad).abs().max())
+        assert err <= 1e-5 * (1 + float(want.grad.abs().max())), err
+
+
 def _sdpa_bwd_rounding_p_ds(q, k, v, o, lse, do, *, q_positions, kv_positions,
                             window, softcap, round_to=None):
     """``ref.sdpa_bwd``'s math in f32 (causal, default scale), with P and dS
