@@ -29,7 +29,11 @@ eight phases, exiting non-zero on any failure:
    Paged decode also runs with window, softcap and dead rows, and dense
    decode with all 16 slots at position 1023, the engine's horizon
    (``decode_attention[full 1024]``, every split of every slot live);
-   multi_lora_q8 at the decode and chunk shapes. A second launch of the
+   multi_lora at the prefill and the decode-tick shape (``[tick 16]``),
+   multi_lora_q8 at the decode and chunk shapes; cola_fit at both taps of
+   the fit (q: 576 -> 576, ``[attn.v]``: 576 -> 192), whose registers and
+   spills per instantiation the build lines report too (no spill at the
+   path's rank 8). A second launch of the
    flash backward (bf16 and f32), cola_fit, dense and paged decode (bf16
    and f32) and multi_lora_q8 must give the same bits.
 2. Serving at full width: ``ServeEngine`` on smollm-135m (30 layers, bf16)
@@ -142,18 +146,18 @@ class Timer:
 
 
 def ptxas_report(name: str, kernel: str) -> list[str]:
-    """Registers and spills of each instantiation of ``kernel`` (by head dim,
-    and by element type where the kernel is templated on it: ``<bf16,64>``),
-    from the ``-Xptxas -v`` log of ``csrc/<name>.cu``."""
+    """Registers and spills of each instantiation of ``kernel`` by its
+    template arguments (``<64>``, ``<bf16,64>``, ``<8,3>``), from the
+    ``-Xptxas -v`` log of ``csrc/<name>.cu``."""
     from repro_torch.kernels import _build
 
-    types = {"f": "f32", "13__nv_bfloat16": "bf16"}
     out, tag, spills = [], None, ""
     for line in _build.build_log(name).splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"{kernel}I(f|13__nv_bfloat16)?Li(\d+)E", line)
-            tag = m and (f"{types[m.group(1)]},{m.group(2)}" if m.group(1)
-                         else m.group(2))
+            m = re.search(rf"{kernel}I((?:f|13__nv_bfloat16|Li\d+E)+)E", line)
+            tag = m and ",".join(
+                n or ("bf16" if bf else "f32") for n, bf in re.findall(
+                    r"Li(\d+)E|(13__nv_bfloat16)|f", m.group(1)))
         elif tag and "spill stores" in line:
             spills = line.strip()
         elif tag and (m := re.search(r"Used (\d+) registers", line)):
@@ -180,8 +184,10 @@ def kernel_cases(cfg, dtype, dev, gen):
     """Inputs of each kernel at the shapes the serving (phase 2) and training
     (phase 4) paths give it. Yields dicts: name, fn (the kernel), plain, lib
     (one library call, or a pair (call, part) whose time difference is the
-    library time, or None), nbytes and flops (for the bound), and with_lse
-    for a flash forward that returns (o, lse)."""
+    library time, or None), nbytes and flops (for the bound), with_lse for
+    a flash forward that returns (o, lse), and for a kernel bound by the
+    bytes it streams, stream (PyTorch reading the same inputs once: the rate
+    the card reaches, printed beside the bound)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cola_fit as cf
@@ -278,6 +284,8 @@ def kernel_cases(cfg, dtype, dev, gen):
                 lib=lambda x=x, g=g, A=A, Bm=Bm: (
                     torch.matmul((x @ A).transpose(1, 2), g),
                     torch.matmul(x.transpose(1, 2), g @ Bm.transpose(1, 2))),
+                # the rate the card streams x and g at: one reduction each
+                stream=lambda x=x, g=g: (x.sum(), g.sum()),
                 nbytes=nbytes(x, g, A, Bm, A, Bm),
                 flops=4 * r * (d + d_out) * T * Lf)
 
@@ -382,20 +390,23 @@ def kernel_cases(cfg, dtype, dev, gen):
                     + tab_bytes + B * 5),
             flops=4 * D * H * pairs)
 
-    # adapted tap q at prefill: 8192 token rows, 4 users, rank 8
+    # adapted tap q, 4 users, rank 8: at prefill (8192 token rows), and at a
+    # decode tick (16 slots, one row each), where it runs most often
     U, r, d = 4, 8, cfg.d_model
-    x = rnd(J * P, d)
     A = rnd(U, d, r, dt=torch.float32) / r ** 0.5
     Bm = rnd(U, r, H * D, dt=torch.float32) * 0.05
-    idx = (torch.arange(J, device=dev, dtype=torch.int32) % U).repeat_interleave(P)
-    yield dict(
-        name="multi_lora",
-        fn=lambda: ml.multi_lora(x, A, Bm, idx),
-        plain=lambda: ml.plain(x, A, Bm, idx),
-        lib=lambda: torch.bmm(torch.bmm(x.float()[:, None], A[idx.long()]),
-                              Bm[idx.long()]),
-        nbytes=nbytes(x, idx, A, Bm) + J * P * H * D * x.element_size(),
-        flops=2 * J * P * (d * r + r * H * D))
+    for tag, T, per_user in (("", J * P, P), ("[tick 16]", B, 1)):
+        x = rnd(T, d)
+        idx = (torch.arange(T // per_user, device=dev, dtype=torch.int32)
+               % U).repeat_interleave(per_user)
+        yield dict(
+            name="multi_lora" + tag,
+            fn=lambda x=x, idx=idx: ml.multi_lora(x, A, Bm, idx),
+            plain=lambda x=x, idx=idx: ml.plain(x, A, Bm, idx),
+            lib=lambda x=x, idx=idx: torch.bmm(
+                torch.bmm(x.float()[:, None], A[idx.long()]), Bm[idx.long()]),
+            nbytes=nbytes(x, idx, A, Bm) + T * H * D * x.element_size(),
+            flops=2 * T * (d * r + r * H * D))
 
     # the int8 bank: a decode tick (16 slots) and a chunk round (16 x 128)
     for tag, T, d_out in (("", B, H * D), ("[576 -> 192]", B, K * D),
@@ -456,10 +467,12 @@ def phase_kernels(cfg, dev) -> dict:
                 lib_ms = timer.median_ms(lib) if lib is not None else None
             b_ms, b_by = bound(c["nbytes"], c["flops"], dtype)
             dt = str(dtype).replace("torch.", "")
+            stream = (f"  stream {timer.median_ms(c['stream']):.4f} ms"
+                      if "stream" in c else "")
             print(f"[kernels] {name:24s} {dt:8s} max_abs_err {err:.3e} "
                   f"(tol {tol:.2e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
                   f"  library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
-                  f"  bound {b_ms:.4g} ms ({b_by})", flush=True)
+                  f"  bound {b_ms:.4g} ms ({b_by}){stream}", flush=True)
             if dtype == torch.bfloat16 or name not in rows:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
@@ -929,22 +942,27 @@ def main() -> int:
     built = _build.build_all()
     print(f"[build] {sorted(built)} built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    # the tensor-core kernels' registers and spills at every head dim, and
-    # the decode kernel's per dtype too; at the path's d_head 64 (bf16) they
-    # must not spill
+    # registers and spills of every instantiation: the tensor-core kernels
+    # at every head dim, the decode kernel per dtype too, cola_fit's by rank
+    # block, columns a thread and rows a tile; at the path's shapes (bf16
+    # d_head 64; the fit's rank 8, 3 columns a thread) they must not spill
     for name, kernel, n, path in (
             ("flash_attention", "flash_fwd_tc_kernel", 4, "64"),
             ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 4, "64"),
             ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 4, "64"),
-            ("decode_attention", "decode_split_kernel", 8, "bf16,64")):
+            ("decode_attention", "decode_split_kernel", 8, "bf16,64"),
+            ("cola_fit", "fit_reg_kernel", 4, "8,3,8"),
+            ("cola_fit", "fit_smem_kernel", 1, None)):
         report = ptxas_report(name, kernel)
         check(len(report) == n, f"no ptxas report of {kernel}: {report}")
         for line in report:
             print(f"[build] {line}", flush=True)
-        at64 = [x for x in report if x.startswith(f"{kernel}<{path}>:")]
-        check(len(at64) == 1 and "0 bytes spill stores" in at64[0]
-              and "0 bytes spill loads" in at64[0],
-              f"{kernel} spills at d_head 64: {at64}")
+        if path is None:
+            continue
+        at = [x for x in report if x.startswith(f"{kernel}<{path}>:")]
+        check(len(at) == 1 and "0 bytes spill stores" in at[0]
+              and "0 bytes spill loads" in at[0],
+              f"{kernel} spills at the path's <{path}>: {at}")
 
     cfg = registry.get_config("smollm-135m")
     t0 = time.perf_counter()
@@ -989,11 +1007,15 @@ def main() -> int:
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
     # launches: the serving, training and serving-at-scale runs' together
-    # (flash_attention runs on all three paths; each other kernel on one)
+    # (flash_attention runs on all three paths; each other kernel on one);
+    # the top-level numbers are the kernel's first row, "rows" holds every
+    # phase-1 row of the kernel (both cola_fit taps, multi_lora at a tick)
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
                     replaces=replaces[n],
-                    launches=launches[n] + train[n] + scale[n], **rows[n])
+                    launches=launches[n] + train[n] + scale[n], **rows[n],
+                    rows={k: v for k, v in rows.items()
+                          if k == n or k.startswith(n + "[")})
                for n in replaces]
     print(card)
     print(json.dumps({"kernels": kernels}))

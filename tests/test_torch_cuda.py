@@ -5,7 +5,9 @@ window and softcap, dead slots, padding rows, ranks up to 256; the flash
 forward and the flash backward (dq; dk/dv) at the tile edges of their bf16
 tensor-core kernels (lengths 1, 15, 17, 65, 257, Sq != Sk, chunk-round
 positions with a dead row, G 1 / 3 / 4 at every head dim, window + softcap)
-and their determinism; cola_fit; gradients through ``ops.sdpa`` on the card
+and their determinism; cola_fit over every instantiation (ranks 1-32,
+odd widths, unaligned bases, T of one row, more layers than one wave, the
+shared-memory accumulators with and without a column split); gradients through ``ops.sdpa`` on the card
 against an f64 reference (the plain path in f64 on the CPU); kernels without
 a backward refusing inputs that require grad; the split-KV decode kernel,
 dense and paged, at the split edges (slots at 0, L - 1, L, L + 1, 2L - 1 and
@@ -412,18 +414,10 @@ def test_server_step_recomputes_through_the_kernels(dev):
         _close(out[str(dev)][1][tap][1], g, torch.float32)
 
 
-@pytest.mark.parametrize("L,T,din,dout,r", [(30, 8192, 576, 576, 8),
-                                            (30, 8192, 576, 192, 8),
-                                            (1, 7, 16, 12, 4),
-                                            (3, 300, 96, 48, 8),
-                                            (2, 1000, 1536, 576, 8),
-                                            (1, 64, 576, 1536, 16)])
-def test_cola_fit_kernel(dev, L, T, din, dout, r):
+def _check_cola_fit(x, g, A, Bm):
+    """One launch a call, within the f32 tolerance of the plain version, the
+    same bits on a refit, and a 2-D call equal to its layer of the 3-D one."""
     from repro_torch.kernels import cola_fit as cf
-    gen = torch.Generator(device=dev).manual_seed(7)
-    x, g = (_rnd(gen, dev, torch.float32, L, T, d) for d in (din, dout))
-    A = _rnd(gen, dev, torch.float32, L, din, r)
-    Bm = _rnd(gen, dev, torch.float32, L, r, dout)
     before = cf.cola_fit_lowrank.launches
     got = cf.cola_fit_lowrank(x, g, A, Bm, scale=0.5)
     assert cf.cola_fit_lowrank.launches == before + 1
@@ -433,6 +427,41 @@ def test_cola_fit_kernel(dev, L, T, din, dout, r):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     one = cf.cola_fit_lowrank(x[0], g[0], A[0], Bm[0], scale=0.5)
     _close(one[0], got[0][0], torch.float32)
+
+
+@pytest.mark.parametrize("L,T,din,dout,r", [
+    (30, 8192, 576, 576, 8), (30, 8192, 576, 192, 8),   # the path's taps
+    (1, 7, 16, 12, 4), (3, 300, 96, 48, 8),
+    (2, 1000, 1536, 576, 8),           # 6 columns a thread, 3 stages
+    (1, 64, 576, 1536, 16),            # accumulators in shared memory
+    (2, 333, 99, 37, 8),               # odd widths: the scalar copies
+    (2, 300, 576, 576, 4), (2, 300, 576, 576, 16),
+    (2, 300, 576, 576, 6),             # a generic rank, padded to 8
+    (2, 300, 576, 576, 32),            # two rank blocks of 16
+    (3, 5, 64, 32, 8),                 # T below one tile
+    (3, 1, 576, 192, 8),               # T of one row
+    (300, 16, 64, 48, 8),              # L above one wave: chunks span layers
+    (1, 40, 9000, 5000, 1),            # shared memory, columns split in two
+    (2, 50, 2501, 301, 3)])            # shared memory, odd width, rank 3
+def test_cola_fit_kernel(dev, L, T, din, dout, r):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, g = (_rnd(gen, dev, torch.float32, L, T, d) for d in (din, dout))
+    A = _rnd(gen, dev, torch.float32, L, din, r)
+    Bm = _rnd(gen, dev, torch.float32, L, r, dout)
+    _check_cola_fit(x, g, A, Bm)
+
+
+@pytest.mark.parametrize("L,T,din,dout,r", [(2, 300, 576, 576, 8),
+                                            (2, 300, 576, 1536, 16)])
+def test_cola_fit_kernel_unaligned_bases(dev, L, T, din, dout, r):
+    """x and g one float past a 16-byte boundary take the scalar copies."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x, g = (_rnd(gen, dev, torch.float32, L * T * d + 1)[1:].view(L, T, d)
+            for d in (din, dout))
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    A = _rnd(gen, dev, torch.float32, L, din, r)
+    Bm = _rnd(gen, dev, torch.float32, L, r, dout)
+    _check_cola_fit(x, g, A, Bm)
 
 
 def test_kernels_without_backward_raise_on_inputs_that_require_grad(dev):

@@ -1,6 +1,8 @@
 """The port's training path against the JAX package on the CPU: the flash
 backward (plain version and the autograd Function) and the cola_fit plain
-version against the Pallas kernels in interpret mode, then the GL steps, the
+version against the Pallas kernels in interpret mode, the cola_fit kernel's
+launch plan (instantiation, chunks, reduction order) and its summation order
+written out in torch, then the GL steps, the
 optimizers and the data on the reduced f32 smollm-135m (2 layers), with
 JAX's weights and adapters carried across by ``repro_torch.convert`` and the
 same numpy batches fed to both (``ColaSession`` is in test_torch_session.py).
@@ -41,6 +43,7 @@ from repro_torch.core import gl as tgl  # noqa: E402
 from repro_torch.core import merge as tmerge  # noqa: E402
 from repro_torch.core import offload as toffload  # noqa: E402
 from repro_torch.data import pipeline as tpipeline  # noqa: E402
+from repro_torch.kernels import cola_fit as cf  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -239,6 +242,138 @@ def test_cola_fit_matches_pallas(L):
     got = ops.cola_fit_lowrank(_t(x), _t(g), _t(A), _t(B), scale=0.5)
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-4)
+
+
+# (L, T, tile, blocks a SM, SMs, blocks on the second grid axis): the path's
+# q tap (one block an SM) and v tap (two), ragged T, T below one tile, one
+# row, L above the card's resident blocks, rank blocks, a small card
+PLANS = [(30, 8192, 8, 1, 132, 1), (30, 8192, 8, 2, 132, 1),
+         (3, 1001, 8, 1, 132, 1), (2, 5, 8, 1, 132, 1), (4, 1, 8, 2, 132, 1),
+         (300, 16, 8, 1, 132, 1), (1000, 3, 4, 2, 132, 1),
+         (7, 300, 16, 1, 132, 2), (5, 77, 8, 1, 4, 3)]
+
+
+@pytest.mark.parametrize("L,T,tile,per_sm,sms,n_y", PLANS)
+def test_cola_fit_chunks_cover_every_row_once(L, T, tile, per_sm, sms, n_y):
+    """The kernel's chunks fill one wave, are equal within a tile, and cover
+    every layer's rows [0, T) exactly once; the reduction's closed form
+    (``layer_chunks``) names exactly the chunks that meet each layer, and the
+    partial slots chunk + layer never collide."""
+    G, n_tiles = cf.grid(L, T, tile, per_sm, sms, n_y)
+    work = L * n_tiles
+    assert n_tiles == -(-T // tile)
+    assert G == max(1, min(work, per_sm * sms // n_y))   # one wave, no idle
+    spans = [cf.chunk_tiles(b, L, n_tiles, G) for b in range(G)]
+    assert spans[0][0] == 0 and spans[-1][1] == work
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    sizes = {f1 - f0 for f0, f1 in spans}
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    slots = set()
+    for l in range(L):
+        rows = torch.zeros(T, dtype=torch.int64)
+        meets = []
+        for b, (f0, f1) in enumerate(spans):
+            lo, hi = max(f0, l * n_tiles), min(f1, (l + 1) * n_tiles)
+            if lo < hi:
+                meets.append(b)
+                t0, t1 = (lo - l * n_tiles) * tile, (hi - l * n_tiles) * tile
+                rows[t0:min(t1, T)] += 1
+                assert b + l not in slots
+                slots.add(b + l)
+        assert bool((rows == 1).all()), (l, rows)
+        b1, b2 = cf.layer_chunks(l, L, n_tiles, G)
+        assert meets == list(range(b1, b2 + 1))
+    assert max(slots) < G + L - 1
+
+
+@pytest.mark.parametrize("d_in,d_out,r,want", [
+    (576, 576, 8, (0, 8, 3, 384, 6, 8, 1, 1)),       # the path: q tap
+    (576, 192, 8, (0, 8, 3, 256, 6, 8, 1, 1)),       # v tap
+    (576, 576, 4, (0, 4, 6, 192, 3, 8, 1, 1)),
+    (576, 576, 16, (0, 16, 3, 384, 6, 8, 1, 1)),
+    (576, 576, 6, (0, 8, 3, 384, 6, 8, 1, 1)),       # padded to 8
+    (576, 576, 32, (0, 16, 3, 384, 6, 8, 2, 1)),     # two rank blocks
+    (99, 37, 8, (0, 8, 3, 96, 2, 8, 1, 1)),
+    (1536, 576, 8, (0, 8, 6, 352, 8, 4, 1, 1)),      # wider: 6 columns
+    (1800, 200, 4, (1, 8, 0, 256, 4, 16, 1, 1)),     # ring too large
+    (576, 1536, 16, (1, 8, 0, 256, 4, 16, 2, 1)),    # too many threads
+    (9000, 5000, 1, (1, 8, 0, 256, 4, 16, 1, 2)),    # and columns split
+])
+def test_cola_fit_config(d_in, d_out, r, want):
+    """Which instantiation a shape runs and its block shape; every config
+    fits a block's shared memory and covers the widths and the rank."""
+    c = cf.config(d_in, d_out, r)
+    assert (c.variant, c.rb, c.cpt, c.threads, c.wx, c.tt, c.n_rb,
+            c.n_split) == want
+    assert cf.takes(d_in, d_out, r) and c.smem <= cf.SMEM_LIMIT
+    assert c.n_rb * c.rb >= r and c.tt % (32 // c.rb) == 0
+    if c.variant == 0:
+        wg = c.threads // 32 - c.wx
+        most = {k[:2]: k[2] for k in cf.REG_KERNELS[c.rb]}[(c.cpt, c.tt)]
+        assert c.threads <= most
+        assert 32 * c.cpt * c.wx >= d_in and 32 * c.cpt * wg >= d_out
+    else:
+        assert c.n_split * c.slice >= d_in + d_out
+
+
+def test_cola_fit_takes_the_first_kernels_shapes():
+    """The kernel takes every shape whose accumulators and one row of x and
+    g fit one block's shared memory, and raises for the rest."""
+    assert cf.takes(6000, 450, 8) and not cf.takes(6000, 460, 8)
+    assert cf.takes(29000, 50, 1) and not cf.takes(29100, 10, 1)
+    assert cf.takes(100, 100, 256) and not cf.takes(200, 200, 256)
+    for d_in, d_out, r in ((6000, 450, 8), (29000, 50, 1), (100, 100, 256)):
+        assert cf.config(d_in, d_out, r).smem <= cf.SMEM_LIMIT
+
+
+def _chunk_order_fit(x, g, A, B, scale, tile, G):
+    """cola_fit in the kernel's summation order, in torch: each chunk's
+    partial adds its tiles in order; each layer's result adds the partials of
+    the chunks that meet it (``layer_chunks``) in chunk order, then scales."""
+    L, T, _ = x.shape
+    n_tiles = -(-T // tile)
+    parts = {}
+    for b in range(G):
+        f0, f1 = cf.chunk_tiles(b, L, n_tiles, G)
+        for f in range(f0, f1):
+            l, t = divmod(f, n_tiles)
+            xs, gs = x[l, t * tile:(t + 1) * tile], g[l, t * tile:(t + 1) * tile]
+            pa, pb = parts.get((b, l), (0.0, 0.0))
+            parts[(b, l)] = (pa + xs.T @ (gs @ B[l].T), pb + (xs @ A[l]).T @ gs)
+    out = []
+    for l in range(L):
+        b1, b2 = cf.layer_chunks(l, L, n_tiles, G)
+        sa, sb = parts[(b1, l)]
+        for b in range(b1 + 1, b2 + 1):
+            sa, sb = sa + parts[(b, l)][0], sb + parts[(b, l)][1]
+        out.append((scale * sa, scale * sb))
+    return torch.stack([a for a, _ in out]), torch.stack([b for _, b in out])
+
+
+@pytest.mark.parametrize("L,T,tile,G", [(3, 256, 8, 5), (3, 250, 8, 7),
+                                        (2, 5, 8, 1), (5, 40, 16, 4),
+                                        (4, 64, 8, 32)])
+def test_cola_fit_chunk_order_matches_ref_and_pallas(L, T, tile, G):
+    """The kernel's decomposition (chunks that span layer boundaries, ragged
+    last tiles, partials added in chunk order) against the plain version and
+    the Pallas kernel in interpret mode, at test_cola_fit_matches_pallas's
+    tolerance."""
+    rng = np.random.default_rng(3)
+    d_in, d_out, r = 96, 48, 8
+    x = rng.standard_normal((L, T, d_in)).astype(np.float32)
+    g = rng.standard_normal((L, T, d_out)).astype(np.float32)
+    A = rng.standard_normal((L, d_in, r)).astype(np.float32)
+    B = rng.standard_normal((L, r, d_out)).astype(np.float32)
+    G = min(G, L * -(-T // tile))
+    got = _chunk_order_fit(*map(_t, (x, g, A, B)), 0.5, tile, G)
+    want_ref = ref.cola_fit_lowrank(*map(_t, (x, g, A, B)), scale=0.5)
+    want_pallas = jax.vmap(functools.partial(
+        jcf.cola_fit_lowrank, scale=0.5, interpret=True))(
+            *map(jnp.asarray, (x, g, A, B)))
+    for a, w, p in zip(got, want_ref, want_pallas):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(a.numpy(), np.asarray(p), rtol=1e-5,
                                    atol=1e-4)
 
 
