@@ -25,17 +25,23 @@ eight phases, exiting non-zero on any failure:
    kernels, also timed as a pair, ``flash_attention_bwd[pair]``, against
    that one backward with the summed bound; the ``torch.matmul`` chain for
    cola_fit; the gather (+ dequantise) + two ``torch.bmm`` chain for
-   multi_lora and multi_lora_q8), with each kernel's bound on this card.
+   multi_lora and multi_lora_q8), with each kernel's bound on this card,
+   and for cola_fit and the multi-LoRA prefill and chunk rows the time
+   PyTorch takes to move the same bytes (``stream``).
    Paged decode also runs with window, softcap and dead rows, and dense
    decode with all 16 slots at position 1023, the engine's horizon
    (``decode_attention[full 1024]``, every split of every slot live);
-   multi_lora at the prefill and the decode-tick shape (``[tick 16]``),
-   multi_lora_q8 at the decode and chunk shapes; cola_fit at both taps of
-   the fit (q: 576 -> 576, ``[attn.v]``: 576 -> 192), whose registers and
-   spills per instantiation the build lines report too (no spill at the
-   path's rank 8). A second launch of the
-   flash backward (bf16 and f32), cola_fit, dense and paged decode (bf16
-   and f32) and multi_lora_q8 must give the same bits.
+   multi_lora at the prefill and the decode-tick shape (``[tick 16]``, the
+   q and the v tap) and at the tick with every row padding (``[tick 16,
+   padding]``: the launch floor of the tick's grid), multi_lora_q8 at the
+   decode and chunk shapes; cola_fit at both taps of the fit (q: 576 -> 576,
+   ``[attn.v]``: 576 -> 192); the build lines report the registers and
+   spills of each cola_fit and multi-LoRA instantiation too (no spill at the
+   path's rank 8). A second launch of the flash backward, cola_fit, dense and
+   paged decode and both multi-LoRA kernels (bf16 and f32) must give the
+   same bits; rows of the multi-LoRA prefill (T 8192) and chunk-round
+   (T 2048) calls must equal the same rows in a T 16 call, and int8 the f32
+   kernel on the dequantised bank, bit for bit.
 2. Serving at full width: ``ServeEngine`` on smollm-135m (30 layers, bf16)
    with 4 users' rank-8 ``qv`` adapters, 16 slots, max_len 1024 and 32
    requests (prompts 32-512 tokens, 32 new tokens each), run to completion
@@ -186,7 +192,7 @@ def kernel_cases(cfg, dtype, dev, gen):
     (one library call, or a pair (call, part) whose time difference is the
     library time, or None), nbytes and flops (for the bound), with_lse for
     a flash forward that returns (o, lse), and for a kernel bound by the
-    bytes it streams, stream (PyTorch reading the same inputs once: the rate
+    bytes it streams, stream (PyTorch moving the same bytes once: the rate
     the card reaches, printed beside the bound)."""
     import torch.nn.functional as F
 
@@ -390,23 +396,33 @@ def kernel_cases(cfg, dtype, dev, gen):
                     + tab_bytes + B * 5),
             flops=4 * D * H * pairs)
 
-    # adapted tap q, 4 users, rank 8: at prefill (8192 token rows), and at a
-    # decode tick (16 slots, one row each), where it runs most often
+    # adapted taps, 4 users, rank 8: q at prefill (8192 token rows), and at a
+    # decode tick (16 slots, one row each), where it runs most often, q and v;
+    # the tick with every row padding: the launch floor of the tick's grid
     U, r, d = 4, 8, cfg.d_model
     A = rnd(U, d, r, dt=torch.float32) / r ** 0.5
-    Bm = rnd(U, r, H * D, dt=torch.float32) * 0.05
-    for tag, T, per_user in (("", J * P, P), ("[tick 16]", B, 1)):
+    Bq = rnd(U, r, H * D, dt=torch.float32) * 0.05
+    Bv = rnd(U, r, K * D, dt=torch.float32) * 0.05
+    for tag, T, per_user, Bm in (("", J * P, P, Bq), ("[tick 16]", B, 1, Bq),
+                                 ("[tick 16, 576 -> 192]", B, 1, Bv),
+                                 ("[tick 16, padding]", B, 0, Bq)):
         x = rnd(T, d)
-        idx = (torch.arange(T // per_user, device=dev, dtype=torch.int32)
-               % U).repeat_interleave(per_user)
+        idx = ((torch.arange(T // per_user, device=dev, dtype=torch.int32)
+                % U).repeat_interleave(per_user) if per_user else
+               torch.full((T,), -1, dtype=torch.int32, device=dev))
+        d_out = Bm.shape[-1]
         yield dict(
             name="multi_lora" + tag,
-            fn=lambda x=x, idx=idx: ml.multi_lora(x, A, Bm, idx),
-            plain=lambda x=x, idx=idx: ml.plain(x, A, Bm, idx),
-            lib=lambda x=x, idx=idx: torch.bmm(
+            fn=lambda x=x, idx=idx, Bm=Bm: ml.multi_lora(x, A, Bm, idx),
+            plain=lambda x=x, idx=idx, Bm=Bm: ml.plain(x, A, Bm, idx),
+            lib=None if not per_user else lambda x=x, idx=idx, Bm=Bm: torch.bmm(
                 torch.bmm(x.float()[:, None], A[idx.long()]), Bm[idx.long()]),
-            nbytes=nbytes(x, idx, A, Bm) + T * H * D * x.element_size(),
-            flops=2 * T * (d * r + r * H * D))
+            # at prefill, the rate the card moves x into a y-sized tensor
+            **(dict(stream=lambda x=x, out=torch.empty_like(x): out.copy_(x))
+               if T > B else {}),
+            nbytes=(nbytes(x, idx, A, Bm) if per_user else nbytes(idx))
+            + T * d_out * x.element_size(),
+            flops=2 * T * (d * r + r * d_out) if per_user else 0)
 
     # the int8 bank: a decode tick (16 slots) and a chunk round (16 x 128)
     for tag, T, d_out in (("", B, H * D), ("[576 -> 192]", B, K * D),
@@ -418,6 +434,8 @@ def kernel_cases(cfg, dtype, dev, gen):
               ).repeat_interleave(T // B)
         yield dict(
             name="multi_lora_q8" + tag,
+            **(dict(stream=lambda x=x, out=torch.empty_like(x): out.copy_(x))
+               if T > B else {}),
             fn=lambda x=x, Aq=Aq, As=As, Bq=Bq, Bs=Bs, ix=ix:
                 ml.multi_lora_q8(x, Aq, As, Bq, Bs, ix),
             plain=lambda x=x, Aq=Aq, As=As, Bq=Bq, Bs=Bs, ix=ix:
@@ -477,12 +495,11 @@ def phase_kernels(cfg, dev) -> dict:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     # a second launch of the flash backward, cola_fit, dense and paged decode
-    # (all their rows) and multi_lora_q8 gives the same bits
+    # and both multi-LoRA kernels (all their rows) gives the same bits
     for dtype, names in ((torch.float32, ("flash_attention_bwd", "cola_fit",
-                                          "decode_attention",
-                                          "multi_lora_q8")),
+                                          "decode_attention", "multi_lora")),
                          (torch.bfloat16, ("flash_attention_bwd",
-                                           "decode_attention"))):
+                                           "decode_attention", "multi_lora"))):
         gen = torch.Generator(device=dev).manual_seed(SEED + 3)
         for c in kernel_cases(cfg, dtype, dev, gen):
             if c["name"].startswith(names):
@@ -492,7 +509,48 @@ def phase_kernels(cfg, dev) -> dict:
                 check(all(torch.equal(x, y) for x, y in zip(a, b)),
                       f"{c['name']} {dtype}: two launches on the same inputs "
                       "differ")
+    multi_lora_rows(cfg, dev)
     return rows
+
+
+def multi_lora_rows(cfg, dev) -> None:
+    """A row's bits do not depend on the launch: rows of the prefill call
+    (T 8192, tiles of 32 rows, f32 bank) and of the chunk-round call (T 2048,
+    int8 bank) equal the same rows computed in a tick-sized call of 16 rows
+    (one row a block, columns in slices), among other neighbours; and the int8
+    kernel equals the f32 kernel on the dequantised bank, in bf16 and f32."""
+    from repro_torch.kernels import multi_lora as ml
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    U, r, d, d_out = 4, 8, cfg.d_model, cfg.n_heads * cfg.d_head
+    A = torch.randn(U, d, r, generator=gen, device=dev) / r ** 0.5
+    Bm = torch.randn(U, r, d_out, generator=gen, device=dev) * 0.05
+    (Aq, As), (Bq, Bs) = ml.quant_rows(A), ml.quant_rows(Bm)
+    Ad, Bd = ml.dequant_rows(Aq, As), ml.dequant_rows(Bq, Bs)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, T, run, fn in (
+                ("multi_lora", 16 * 512, 512,
+                 lambda x, i: ml.multi_lora(x, A, Bm, i)),
+                ("multi_lora_q8", 16 * 128, 128,
+                 lambda x, i: ml.multi_lora_q8(x, Aq, As, Bq, Bs, i))):
+            x = torch.randn(T, d, generator=gen, device=dev).to(dtype)
+            idx = (torch.arange(T // run, device=dev, dtype=torch.int32) % U
+                   ).repeat_interleave(run)
+            idx[T // 3:T // 3 + 40] = -1
+            rows = torch.randperm(T, generator=gen, device=dev)[:16]
+            big = fn(x, idx)
+            small = fn(x[rows].contiguous(), idx[rows])
+            check(torch.equal(small, big[rows]),
+                  f"{name} {dtype}: rows of a T {T} call differ from the same "
+                  "rows in a T 16 call")
+            if name == "multi_lora_q8":
+                check(torch.equal(big, ml.multi_lora(x, Ad, Bd, idx)),
+                      f"{name} {dtype}: int8 differs from the f32 kernel on the "
+                      "dequantised bank")
+    torch.cuda.synchronize()
+    print("[kernels] multi_lora rows: T 8192 (f32 bank) and T 2048 (int8) "
+          "rows == the same rows in T 16 calls; int8 == f32 on the dequantised "
+          "bank (bf16, f32)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -944,25 +1002,29 @@ def main() -> int:
           flush=True)
     # registers and spills of every instantiation: the tensor-core kernels
     # at every head dim, the decode kernel per dtype too, cola_fit's by rank
-    # block, columns a thread and rows a tile; at the path's shapes (bf16
-    # d_head 64; the fit's rank 8, 3 columns a thread) they must not spill
-    for name, kernel, n, path in (
-            ("flash_attention", "flash_fwd_tc_kernel", 4, "64"),
-            ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 4, "64"),
-            ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 4, "64"),
-            ("decode_attention", "decode_split_kernel", 8, "bf16,64"),
-            ("cola_fit", "fit_reg_kernel", 4, "8,3,8"),
-            ("cola_fit", "fit_smem_kernel", 1, None)):
+    # block, columns a thread and rows a tile, multi-LoRA's by x dtype, bank
+    # (0 f32, 1 int8) and rank; at the path's shapes (bf16 d_head 64; the
+    # fit's rank 8, 3 columns a thread; multi-LoRA's rank 8) they must not
+    # spill
+    for name, kernel, n, paths in (
+            ("flash_attention", "flash_fwd_tc_kernel", 4, ("64",)),
+            ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 4, ("64",)),
+            ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 4, ("64",)),
+            ("decode_attention", "decode_split_kernel", 8, ("bf16,64",)),
+            ("cola_fit", "fit_reg_kernel", 4, ("8,3,8",)),
+            ("cola_fit", "fit_smem_kernel", 1, ()),
+            ("multi_lora", "multi_lora_vec_kernel", 12,
+             ("bf16,0,8", "bf16,1,8", "f32,0,8", "f32,1,8")),
+            ("multi_lora", "multi_lora_any_kernel", 4, ())):
         report = ptxas_report(name, kernel)
         check(len(report) == n, f"no ptxas report of {kernel}: {report}")
         for line in report:
             print(f"[build] {line}", flush=True)
-        if path is None:
-            continue
-        at = [x for x in report if x.startswith(f"{kernel}<{path}>:")]
-        check(len(at) == 1 and "0 bytes spill stores" in at[0]
-              and "0 bytes spill loads" in at[0],
-              f"{kernel} spills at the path's <{path}>: {at}")
+        for path in paths:
+            at = [x for x in report if x.startswith(f"{kernel}<{path}>:")]
+            check(len(at) == 1 and "0 bytes spill stores" in at[0]
+                  and "0 bytes spill loads" in at[0],
+                  f"{kernel} spills at the path's <{path}>: {at}")
 
     cfg = registry.get_config("smollm-135m")
     t0 = time.perf_counter()

@@ -1,7 +1,9 @@
 """Multi-LoRA apply: the CUDA kernels ``csrc/multi_lora.cu`` (BGMV: each token
 row gathers its own adapter, from a f32 bank or from an int8 bank dequantised
 on load) and their plain PyTorch versions, and the per-row int8 quantisation
-of adapter banks.
+of adapter banks. ``plan`` cuts a launch into tiles of rows and slices of
+output columns; the kernels sum in one order whatever the plan, so a row's
+bits do not depend on it.
 
 Replaces the TPU kernels ``src/repro/kernels/multi_lora.py:_kernel`` (entry
 ``multi_lora``) and ``_q8_kernel`` (entry ``multi_lora_q8``).
@@ -16,16 +18,51 @@ import torch
 from repro_torch.kernels import _build, ref
 
 MAX_RANK = 256
+MAX_WARPS = 8       # a row's shrink group: min(8, ceil(d_in / 128)) warps
+TILES = (32, 16, 8, 4, 2)   # rows a block takes, largest first
+BLOCKS = 256        # blocks a launch aims at: about two an SM of the H100's 132
+SLICE_QUADS = 32    # output quads (4 columns each) a block takes at a tick
+MAX_SMEM = 232448   # bytes of shared memory a block can have
 
 plain = ref.multi_lora
 plain_q8 = ref.multi_lora_q8
+
+
+def shrink_warps(d_in: int) -> int:
+    """Warps that take one row's shrink (``csrc/multi_lora.cu``): the d axis
+    in quads of 4, thread t owning quads t, t + 32 warps, ..."""
+    return min(MAX_WARPS, -(-d_in // 128))
+
+
+def smem_bytes(tile: int, d_in: int, r: int, x_bytes: int) -> int:
+    """Shared memory of a block of ``tile`` rows: a zero quad, the warps'
+    partial sums, xa and the adapter ids in f32 / int32 (16-byte aligned),
+    then the x tile with rows padded to quads."""
+    floats = -(-(4 + tile * ((shrink_warps(d_in) + 1) * r + 1)) // 4) * 4
+    return 4 * floats + tile * 4 * -(-d_in // 4) * x_bytes
+
+
+def plan(T: int, d_in: int, d_out: int, r: int, x_bytes: int) -> tuple[int, int]:
+    """(tile rows, slice quads) of one launch. A tile takes consecutive rows
+    and a slice takes consecutive output quads of 4 columns; the grid is
+    ceil(T / tile) x ceil(ceil(d_out / 4) / slice quads). The largest tile
+    that still gives ``BLOCKS`` blocks (and fits in shared memory) reads each
+    adapter run once a tile; with tiles of one row (a decode tick) the columns
+    are cut into slices of ``SLICE_QUADS`` quads, as many as it takes to reach
+    ``BLOCKS`` blocks, so a few rows still spread over the card."""
+    tile = next((t for t in TILES if -(-T // t) >= BLOCKS
+                 and smem_bytes(t, d_in, r, x_bytes) <= MAX_SMEM), 1)
+    nq = -(-d_out // 4)
+    slices = 1 if tile > 1 else max(1, min(-(-nq // SLICE_QUADS),
+                                           -(-BLOCKS // T)))
+    return tile, -(-nq // slices)
 
 
 def _fn(name: str = "multi_lora"):
     fn = getattr(_build.load("multi_lora"), name)
     n_ptr = 7 if name.endswith("_q8") else 5   # + the two scale arrays
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,7 +130,8 @@ def multi_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     ix = idx.to(torch.int32).contiguous()
     rc = _fn()(x.data_ptr(), A.data_ptr(), B.data_ptr(), ix.data_ptr(),
                y.data_ptr(), T, U, d_in, r, d_out, _build.DTYPE_CODES[x.dtype],
-               float(scale), _build.stream_ptr(x.device))
+               float(scale), *plan(T, d_in, d_out, r, x.element_size()),
+               _build.stream_ptr(x.device))
     _build.check_launch(rc, name)
     multi_lora.launches += 1
     return y
@@ -137,6 +175,7 @@ def multi_lora_q8(x: torch.Tensor, A_q: torch.Tensor, A_scale: torch.Tensor,
                    B_q.data_ptr(), B_scale.data_ptr(), ix.data_ptr(),
                    y.data_ptr(), T, U, d_in, r, d_out,
                    _build.DTYPE_CODES[x.dtype], float(scale),
+                   *plan(T, d_in, d_out, r, x.element_size()),
                    _build.stream_ptr(x.device))
     _build.check_launch(rc, name)
     multi_lora_q8.launches += 1

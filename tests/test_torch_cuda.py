@@ -16,7 +16,11 @@ inside a later split, window 1, G 1 / 3 / 4 / 12 at every head dim, dead
 slots, two launches giving the same bits) and its merge counters (grown
 with B * KH, left at zero by every launch); the paged decode kernel over
 block sizes and shuffled tables (and that it reads only the blocks the table
-names), the int8 multi-LoRA kernel at the decode and chunk shapes,
+names), the f32 and int8 multi-LoRA kernels at the decode and chunk shapes,
+over ranks 4 / 8 / 16 and generic ranks, odd widths, ragged row tiles and
+adapter runs with padding, with a row's bits independent of the launch (T,
+tile, slice, instantiation) and int8 equal to the f32 kernel on the
+dequantised bank,
 ``quant_rows`` on the card against the CPU's, and chunk rounds through the
 flash forward kernel.
 
@@ -225,10 +229,107 @@ def test_multi_lora_kernel(dev, dtype, T, U, din, dout, r):
     Bm = _rnd(gen, dev, torch.float32, U, r, dout)
     idx = torch.randint(-1, U + 1, (T,), generator=gen, device=dev,
                         dtype=torch.int32)          # -1 pads, U clamps
+    before = ml.multi_lora.launches
     y = ml.multi_lora(x, A, Bm, idx, 0.5)
+    assert ml.multi_lora.launches == before + 1
     _close(y, ml.plain(x, A, Bm, idx, 0.5), dtype)
     assert bool((y[idx < 0] == 0).all())
     assert torch.equal(y, ml.multi_lora(x, A, Bm, idx, 0.5))
+
+
+def _lora_bank(gen, dev, q8, U, din, r, dout):
+    """(kernel, plain) of one bank as functions of (x, idx): f32, or int8
+    codes of the same draw; for int8 also the f32 kernel on the dequantised
+    bank, which must give the same bits."""
+    A = _rnd(gen, dev, torch.float32, U, din, r) / r ** 0.5
+    Bm = _rnd(gen, dev, torch.float32, U, r, dout) * 0.05
+    if not q8:
+        return (lambda x, i: ml.multi_lora(x, A, Bm, i, 0.5),
+                lambda x, i: ml.plain(x, A, Bm, i, 0.5), None)
+    (Aq, As), (Bq, Bs) = ml.quant_rows(A), ml.quant_rows(Bm)
+    Ad, Bd = ml.dequant_rows(Aq, As), ml.dequant_rows(Bq, Bs)
+    return (lambda x, i: ml.multi_lora_q8(x, Aq, As, Bq, Bs, i, 0.5),
+            lambda x, i: ml.plain_q8(x, Aq, As, Bq, Bs, i, 0.5),
+            lambda x, i: ml.multi_lora(x, Ad, Bd, i, 0.5))
+
+
+def _runs(gen, dev, T, U, run):
+    """Adapter ids in runs of ``run`` rows (a prompt, a chunk) whose
+    boundaries fall inside the kernel's row tiles, every seventh run padding
+    (-1), and a few padding rows and clamped ids (U) inside runs."""
+    n = -(-T // run)
+    ids = torch.randint(0, U, (n,), generator=gen, device=dev, dtype=torch.int32)
+    ids[6::7] = -1
+    idx = ids.repeat_interleave(run)[:T].clone()
+    idx[3::97] = -1
+    idx[5::131] = U
+    return idx
+
+
+def _check_lora(kernel, plain, dequant, x, idx, dtype):
+    counter = ml.multi_lora_q8 if dequant is not None else ml.multi_lora
+    before = counter.launches
+    y = kernel(x, idx)
+    assert counter.launches == before + 1
+    _close(y, plain(x, idx), dtype)
+    assert bool((y[idx < 0] == 0).all())
+    assert torch.equal(y, kernel(x, idx))
+    if dequant is not None:
+        assert torch.equal(y, dequant(x, idx))
+    return y
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("T,U,din,dout,r,run", [
+    (16, 4, 576, 576, 4, 1), (16, 4, 576, 576, 16, 1),     # ranks 4, 16
+    (16, 4, 576, 192, 8, 1),                               # the v tap
+    (1, 3, 576, 576, 8, 1), (1, 2, 300, 20, 8, 1),         # one row
+    (5, 2, 300, 96, 12, 2), (37, 3, 300, 20, 5, 3),        # generic ranks
+    (2053, 4, 576, 576, 8, 128), (2053, 4, 576, 192, 4, 100),  # ragged tile
+    (517, 3, 300, 96, 16, 29), (8192 + 37, 4, 576, 576, 8, 512),
+    (300, 5, 1100, 96, 8, 7),                              # quads past 8 warps
+    (64, 2, 64, 20, 33, 5)])
+def test_multi_lora_kernels_ranks_widths_and_runs(dev, dtype, q8, T, U, din,
+                                                 dout, r, run):
+    """Both banks over ranks 4, 8, 16 and generic ranks, odd widths, T of one
+    row and T no multiple of the row tile, runs of one adapter whose edges
+    fall inside a tile with padding rows among them; int8 equals the f32
+    kernel on the dequantised bank, bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    kernel, plain, dequant = _lora_bank(gen, dev, q8, U, din, r, dout)
+    x = _rnd(gen, dev, dtype, T, din)
+    _check_lora(kernel, plain, dequant, x, _runs(gen, dev, T, U, run), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("T,din,dout,r", [(8192, 576, 576, 8),
+                                          (2048, 576, 192, 8),
+                                          (2048, 300, 20, 4),
+                                          (700, 64, 96, 12)])
+def test_multi_lora_rows_do_not_depend_on_the_launch(dev, dtype, q8, T, din,
+                                                    dout, r):
+    """A row's output is the same bits in a call of T rows (tiles of up to
+    32 rows) and in a tick-sized call of 16 rows (one row a block, columns in
+    slices), among other neighbours and at another offset in its tile; and in
+    the generic kernel (a misaligned x) as in the rank-specialised one."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    U = 4
+    kernel, plain, dequant = _lora_bank(gen, dev, q8, U, din, r, dout)
+    x = _rnd(gen, dev, dtype, T + 1, din)
+    idx = _runs(gen, dev, T, U, 128)
+    big = _check_lora(kernel, plain, dequant, x[:T], idx, dtype)
+    rows = torch.tensor([0, 1, 31, 32, 33, 127, 128, 200, 511, 512, 700 % T,
+                         T // 2 + 3, T - 33, T - 17, T - 2, T - 1], device=dev)
+    small = kernel(x[rows].contiguous(), idx[rows])
+    assert torch.equal(small, big[rows])
+    rev = rows.flip(0)
+    assert torch.equal(kernel(x[rev].contiguous(), idx[rev]), big[rev])
+    # x one element off 16-byte alignment: the generic instantiation
+    off = x.view(-1)[1:1 + T * din].view(T, din)
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(kernel(off, idx), kernel(off.clone(), idx))
 
 
 def test_wrappers_raise_for_what_the_kernels_do_not_take(dev):

@@ -262,3 +262,118 @@ def test_decode_split_walk_paged_matches_pallas(G, window):
     np.testing.assert_allclose(o_w.numpy(), np.asarray(o_j), **TOL)
     np.testing.assert_allclose(o_w.numpy(), o_p.numpy(), **TOL)
     assert np.all(o_w.numpy()[~lv] == 0.0)
+
+
+# -- the multi-LoRA kernels' summation order, written out in plain torch f32 --
+
+def _fma(a, b, c):
+    """fmaf in torch: the f32 product is exact in f64, and one rounding to
+    f32 follows (after the f64 sum's own, which a tolerance test tolerates)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _lora_order(x, A, B, idx, scale):
+    """The CUDA kernels' arithmetic (``csrc/multi_lora.cu``): a row's shrink
+    over ``shrink_warps(d_in)`` warps, the d axis in quads of 4, thread t
+    owning quads t, t + 32 warps, ... and chaining fmaf over its d in
+    ascending order; each warp's lanes combined by the butterfly with masks
+    16, 8, 4, 2, 1; the warps' sums added in warp order; the expand chaining
+    fmaf over j in ascending order, then the scale. Padding rows (idx < 0)
+    are exact zeros, idx >= U clamps."""
+    T, d_in = x.shape
+    U, _, r = A.shape
+    nw = ml.shrink_warps(d_in)
+    ns, nq = 32 * nw, -(-d_in // 4)
+    safe = idx.long().clamp(0, U - 1)
+    a, b = A[safe].float(), B[safe].float()             # (T, d_in, r), (T, r, d_out)
+    xf = x.float()
+    th = torch.arange(ns)
+    part = torch.zeros(T, ns, r)
+    for k in range(-(-nq // ns)):                       # a thread's quads, ascending
+        for e in range(4):
+            d = 4 * (th + ns * k) + e
+            ok = d < d_in
+            dd = d.clamp(max=d_in - 1)
+            step = _fma(xf[:, dd, None], a[:, dd], part)
+            part = torch.where(ok[None, :, None], step, part)
+    lanes = part.view(T, nw, 32, r)
+    lane = torch.arange(32)
+    for m in (16, 8, 4, 2, 1):                           # the warp's butterfly
+        lanes = lanes + lanes[:, :, lane ^ m]
+    xa = lanes[:, 0, 0]
+    for w in range(1, nw):                               # the warps in order
+        xa = xa + lanes[:, w, 0]
+    acc = torch.zeros(T, B.shape[-1])
+    for j in range(r):                                   # the expand, j ascending
+        acc = _fma(xa[:, j:j + 1], b[:, j], acc)
+    y = torch.where((idx >= 0)[:, None], scale * acc, torch.zeros_like(acc))
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("T,U,din,dout,r", [
+    (8, 3, 96, 48, 8),        # one warp a row
+    (6, 2, 576, 192, 8),      # the v tap: 5 warps, the last half idle
+    (5, 20, 576, 576, 16),    # U > T, rank 16
+    (7, 2, 300, 20, 5),       # a generic rank, d_in in quads
+    (4, 2, 1100, 24, 4)])     # d_in past 8 warps' quads: the quads wrap
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+def test_multi_lora_order_matches_ref_and_pallas(T, U, din, dout, r, q8):
+    """The kernels' summation order (``_lora_order``) against the plain
+    version and the TPU kernel in interpret mode, with padding rows, at the
+    tolerance of ``test_multi_lora_matches_pallas``; int8 through the same
+    order on the dequantised bank (``a = code * scale`` rounded once, as the
+    kernel does)."""
+    rng = np.random.default_rng(30 + T)
+    x = _normal(rng, T, din)
+    A, B = _normal(rng, U, din, r), _normal(rng, U, r, dout)
+    idx = rng.integers(0, U, T).astype(np.int32)
+    idx[1::3] = -1
+    if q8:
+        (Aq, As), (Bq, Bs) = jml.quant_rows(jnp.asarray(A)), jml.quant_rows(
+            jnp.asarray(B))
+        y_j = jml.multi_lora_q8(jnp.asarray(x), Aq, As, Bq, Bs,
+                                jnp.asarray(idx), scale=0.5, interpret=True)
+        bank = [_t(a) for a in (Aq, As, Bq, Bs)]
+        y_p = ml.multi_lora_q8(_t(x), *bank, _t(idx), scale=0.5)
+        At, Bt = ml.dequant_rows(*bank[:2]), ml.dequant_rows(*bank[2:])
+    else:
+        y_j = jml.multi_lora(jnp.asarray(x), jnp.asarray(A), jnp.asarray(B),
+                             jnp.asarray(idx), scale=0.5, interpret=True)
+        At, Bt = _t(A), _t(B)
+        y_p = ml.multi_lora(_t(x), At, Bt, _t(idx), scale=0.5)
+    y_o = _lora_order(_t(x), At, Bt, _t(idx), 0.5)
+    np.testing.assert_allclose(y_o.numpy(), np.asarray(y_j), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(y_o.numpy(), y_p.numpy(), rtol=1e-5, atol=1e-4)
+    assert np.all(y_o.numpy()[idx < 0] == 0.0)
+
+
+@pytest.mark.parametrize("T", [1, 5, 16, 37, 255, 256, 511, 512, 2048, 2053,
+                               8192, 8229, 20000])
+@pytest.mark.parametrize("din,dout,r,x_bytes", [
+    (576, 576, 8, 2), (576, 192, 8, 2), (576, 576, 8, 4), (300, 20, 5, 4),
+    (64, 96, 256, 2), (1100, 9000, 16, 4), (40000, 8, 256, 4)])
+def test_multi_lora_plan_covers_rows_and_columns_once(T, din, dout, r, x_bytes):
+    """The plan's row tiles cover [0, T) exactly once and its column slices
+    [0, d_out) exactly once, within the kernels' limits (tiles of 1-32 rows,
+    a block's shared memory, grid.y); a tick (T 16) at the path's widths
+    spreads over 80 blocks of up to 128 columns, a prefill (T 8192) takes
+    tiles of 32 rows and every column, a chunk round (T 2048) tiles of 8."""
+    tile, sq = ml.plan(T, din, dout, r, x_bytes)
+    assert 1 <= tile <= 32 and sq >= 1
+    assert ml.smem_bytes(tile, din, r, x_bytes) <= ml.MAX_SMEM
+    rows = torch.zeros(T, dtype=torch.int32)
+    for b in range(-(-T // tile)):
+        rows[b * tile:min(T, (b + 1) * tile)] += 1
+    assert bool((rows == 1).all())
+    nq = -(-dout // 4)
+    slices = -(-nq // sq)
+    assert slices <= 65535 and (slices - 1) * sq < nq
+    cols = torch.zeros(dout, dtype=torch.int32)
+    for s in range(slices):
+        cols[4 * s * sq:min(dout, 4 * (s + 1) * sq)] += 1
+    assert bool((cols == 1).all())
+    if (din, dout, r, x_bytes) == (576, 576, 8, 2):
+        want = {16: (1, 29), 8192: (32, 144), 2048: (8, 144)}
+        assert want.get(T, (tile, sq)) == (tile, sq)
+        if T == 16:
+            assert T * slices == 80
