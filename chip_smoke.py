@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-eight phases, exiting non-zero on any failure:
+nine phases, exiting non-zero on any failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
    full-width smollm-135m shapes of the serving and training paths, in bf16
@@ -66,7 +66,19 @@ eight phases, exiting non-zero on any failure:
    card's paged + chunked + int8 engine against the CPU's (equal greedy
    tokens), and on the card paged == dense and int8 == the f32 engine on the
    explicitly dequantised bank (equal tokens); the largest logit gap of each.
-8. The last lines: the card's name and power limit, one JSON line with every
+8. The tiered adapter store (``[store]``), phase 2's weights and prompts,
+   request i to user (5 i) mod 24, with the launch counts reset just before
+   and read just after: (a) 24 users through 8 resident rows
+   (``resident_slots=8``) and 16 slots, dense KV and an f32 bank, and
+   (b) the same with paged KV, chunks of 128 and an int8 bank, each against
+   the all-resident engine with the same options: equal tokens, rows
+   evicted, admission waiting on pins, every pin released, the resident
+   bank a third of the dense one; (c) clustering at threshold 0.95, shared
+   and merged: two near-identical users share one row and their tokens; an
+   ``install_adapters`` on one splits it off (copy-on-write), the other's
+   tokens stay, the split user's equal a one-user engine on the new bank,
+   and a merged member's a one-user engine on the members' mean.
+9. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -579,16 +591,28 @@ def user_banks(cfg, n_users: int, device, seed: int) -> list[dict]:
 
 
 def serve(cfg, params, banks, prompts, device, *, slots, max_len, max_new,
-          engine=None, **options):
-    """Serve ``prompts`` to completion (user i % len(banks) for request i);
-    ``options`` go to ``ServeEngine``. Returns (engine, requests, the largest
-    ``kv_cache_bytes()`` seen after a tick)."""
-    from repro_torch.runtime.serve_loop import Request, ServeEngine
+          engine=None, users=None, **options):
+    """Serve ``prompts`` to completion (user ``users[i]``, by default
+    i % len(banks), for request i); ``options`` go to ``ServeEngine``.
+    Returns (engine, requests, the largest ``kv_cache_bytes()`` seen after a
+    tick)."""
+    from repro_torch.runtime.serve_loop import ServeEngine
 
     eng = (engine or ServeEngine)(cfg, params, slots=slots, max_len=max_len,
                                   user_adapters=banks, device=device, **options)
-    reqs = [Request(rid=i, user=i % len(banks), prompt=p, max_new=max_new)
-            for i, p in enumerate(prompts)]
+    if users is None:
+        users = [i % len(banks) for i in range(len(prompts))]
+    return (eng, *drive(eng, prompts, users, max_new))
+
+
+def drive(eng, prompts, users, max_new) -> tuple[list, int]:
+    """Submit request i (``prompts[i]`` for ``users[i]``) to ``eng`` and tick
+    until it is idle. Returns (requests, the largest ``kv_cache_bytes()``
+    seen after a tick)."""
+    from repro_torch.runtime.serve_loop import Request
+
+    reqs = [Request(rid=i, user=u, prompt=p, max_new=max_new)
+            for i, (u, p) in enumerate(zip(users, prompts))]
     for r in reqs:
         eng.submit(r)
     peak_bytes = eng.kv_cache_bytes()
@@ -597,7 +621,7 @@ def serve(cfg, params, banks, prompts, device, *, slots, max_len, max_new,
             break
         eng.tick()
         peak_bytes = max(peak_bytes, eng.kv_cache_bytes())
-    return eng, reqs, peak_bytes
+    return reqs, peak_bytes
 
 
 def serving_setup(cfg, dev):
@@ -808,6 +832,152 @@ def phase_scale_vs_plain(cfg, dev) -> None:
               f"{len(lg)} steps", flush=True)
         check(toks == toks_o, f"greedy tokens differ, card vs {other}: "
               f"{toks} vs {toks_o}")
+
+
+STORE_USERS, STORE_ROWS = 24, 8
+
+
+def _bank_bytes(bank: dict) -> int:
+    return sum(l.numel() * l.element_size()
+               for leaves in bank.values() for l in leaves.values())
+
+
+def _store_vs_resident(cfg, params, prompts, banks, dev, tag, **options):
+    """Phase 2's requests, request i to user (5 i) mod 24 (users repeat),
+    through ``resident_slots=8`` and through the all-resident engine with the
+    same options: equal tokens, rows evicted, every pin released, the bank a
+    third of the dense one, admission waiting on pins. Prints the store's
+    counters and both engines' serving figures."""
+    users = [(5 * i) % STORE_USERS for i in range(len(prompts))]
+    kw = dict(slots=16, max_len=1024, max_new=32, users=users, **options)
+    store, s_reqs, _ = serve(cfg, params, banks, prompts, dev,
+                             resident_slots=STORE_ROWS, **kw)
+    full, f_reqs, _ = serve(cfg, params, banks, prompts, dev, **kw)
+    torch.cuda.synchronize()
+    for name, reqs in (("store", s_reqs), ("all-resident", f_reqs)):
+        check(all(r.status == "done" and len(r.out) == 32 for r in reqs),
+              f"[store] {tag} {name}: not every request finished")
+    same = [r.out for r in s_reqs] == [r.out for r in f_reqs]
+    st, m = store.stats, store.store.metrics()
+    dense = _bank_bytes(full.bank)
+    # the first 16 requests are 16 distinct users: all-resident admits them
+    # in one round, 8 rows pin at most 8 of them at a time
+    rounds = [len({r.t_admit for r in reqs[:16]}) for reqs in (s_reqs, f_reqs)]
+    tp = {n: e.throughput() for n, e in (("store", store), ("all", full))}
+    print(f"[store] {tag}: U {STORE_USERS}, R {STORE_ROWS}, 16 slots; tokens "
+          f"equal to the all-resident engine: {same}; admission rounds of the "
+          f"first 16 requests {rounds[0]} (all-resident {rounds[1]}); hits "
+          f"{m['hits']} misses {m['misses']} evictions {m['evictions']} "
+          f"fetches {m['fetches']}, fetch_time per fetch "
+          f"{m['fetch_time'] / max(m['fetches'], 1) * 1e3:.3f} ms (host time "
+          f"around the row copies, from pageable host memory: they return "
+          f"when done); resident bytes {st['store_resident_bytes']} (dense "
+          f"bank {dense}), host bytes {m['host_bytes']}; pinned at the end "
+          f"{st['store_pinned']}", flush=True)
+    print(f"[store] {tag}: store vs all-resident: decode tick p50 "
+          f"{tp['store']['decode_tick']['p50'] * 1e3:.2f} vs "
+          f"{tp['all']['decode_tick']['p50'] * 1e3:.2f} ms, TTFT p50 "
+          f"{tp['store']['ttft']['p50'] * 1e3:.1f} vs "
+          f"{tp['all']['ttft']['p50'] * 1e3:.1f} ms, decode "
+          f"{tp['store']['decode_tok_per_s']:.1f} vs "
+          f"{tp['all']['decode_tok_per_s']:.1f} tok/s; {card_line()}",
+          flush=True)
+    check(same, f"[store] {tag}: tokens differ from the all-resident engine")
+    check(st["store_evictions"] > 0, f"[store] {tag}: no row was evicted")
+    check(st["store_pinned"] == 0, f"[store] {tag}: {st['store_pinned']} "
+          "users still pinned")
+    check(st["store_resident_bytes"] == dense * STORE_ROWS // STORE_USERS,
+          f"[store] {tag}: resident bytes {st['store_resident_bytes']} != "
+          f"{dense} * {STORE_ROWS} // {STORE_USERS}")
+    check(rounds[0] > 1 and rounds[1] == 1, f"[store] {tag}: admission rounds "
+          f"{rounds}: admission never waited on pins")
+    for eng in (store, full):
+        if eng.pager is not None:
+            eng.pager.assert_empty()
+
+
+def _one_user(cfg, params, bank, prompts, dev) -> list:
+    eng, reqs, _ = serve(cfg, params, [bank], prompts, dev, slots=16,
+                         max_len=1024, max_new=32)
+    return [r.out for r in reqs]
+
+
+def _clustering(cfg, params, prompts, dev) -> None:
+    """Four users, 1 a near copy of 0 (cosine 1 >= 0.95), 2 and 3 their own:
+    0 and 1 share one resident row and serve the same tokens. ``shared``: an
+    install on 1 splits it off (copy-on-write); 0's tokens stay, 1's equal a
+    one-user engine on the new bank. ``merged``: a member's tokens equal a
+    one-user engine on the members' mean."""
+    from repro_torch.core.merge import merge_adapter_pytrees
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    b0, b2, b3 = user_banks(cfg, 3, dev, SEED + 2)
+    banks = [b0, {t: {n: a * 1.01 for n, a in e.items()}
+                  for t, e in b0.items()}, b2, b3]
+    new = user_banks(cfg, 1, dev, SEED + 3)[0]
+    for mode in ("shared", "merged"):
+        eng = ServeEngine(cfg, params, slots=16, max_len=1024,
+                          user_adapters=banks, resident_slots=3,
+                          cluster_threshold=0.95, cluster_mode=mode,
+                          device=dev)
+        st = eng.store
+        check(st.cluster_of(0) is not None
+              and st.cluster_of(0) == st.cluster_of(1)
+              and st.cluster_of(2) is None and st.cluster_of(3) is None,
+              f"[store] {mode}: clusters "
+              f"{[st.cluster_of(u) for u in range(4)]}")
+
+        def tokens(user):
+            reqs, _ = drive(eng, prompts, [user] * len(prompts), 32)
+            return [r.out for r in reqs]
+
+        t0, t1 = tokens(0), tokens(1)
+        check(t0 == t1 and st.resident_index(0) == st.resident_index(1),
+              f"[store] {mode}: the cluster's members differ")
+        if mode == "shared":
+            check(eng.install_adapters(1, new, version=1),
+                  "[store] shared: the install was rejected")
+            a0, a1 = tokens(0), tokens(1)
+            solo = _one_user(cfg, params, new, prompts, dev)
+            print(f"[store] shared: splits {st.counters['splits']}; after "
+                  f"the split 0's tokens unchanged {a0 == t0}, 1's changed "
+                  f"{a1 != t1} and equal to a one-user engine on the new bank "
+                  f"{a1 == solo}", flush=True)
+            check(st.counters["splits"] == 1 and st.cluster_of(1) is None,
+                  f"[store] shared: splits {st.counters['splits']}")
+            check(a0 == t0, "[store] shared: a split perturbed the cluster")
+            check(a1 != t1 and a1 == solo, "[store] shared: the split user "
+                  "does not serve the new bank")
+        else:
+            mean = merge_adapter_pytrees([_to(b, "cpu") for b in banks[:2]])
+            solo = _one_user(cfg, params, _to(mean, dev), prompts, dev)
+            print(f"[store] merged: a member's tokens equal a one-user engine "
+                  f"on the members' mean {t0 == solo}", flush=True)
+            check(t0 == solo, "[store] merged: tokens differ from the mean's")
+
+
+def phase_store(cfg, dev, setup) -> dict:
+    """The tiered adapter store at full width (phase 2's weights and
+    prompts): (a) dense KV and an f32 bank, (b) paged KV, chunks of 128 and
+    an int8 bank, each against the all-resident engine with the same
+    options, (c) clustering and the copy-on-write hot-swap. Returns the
+    launch counts of the phase."""
+    params, _, prompts = setup
+    banks = user_banks(cfg, STORE_USERS, dev, SEED)
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    _store_vs_resident(cfg, params, prompts, banks, dev, "(a) dense, f32")
+    _store_vs_resident(cfg, params, prompts, banks, dev,
+                       "(b) paged, chunks of 128, int8", **SCALE)
+    _clustering(cfg, params, prompts[:4], dev)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in ws.items()}
+    print(f"[store] launches: {launches}", flush=True)
+    for n in ("flash_attention", "decode_attention", "decode_attention_paged",
+              "multi_lora", "multi_lora_q8"):
+        check(launches[n] > 0, f"kernel {n} was never launched in [store]")
+    return launches
 
 
 def wrappers() -> dict:
@@ -1048,11 +1218,14 @@ def main() -> int:
     t0 = time.perf_counter()
     scale = phase_serving_at_scale(cfg, dev, setup)
     print(f"[scale] done in {time.perf_counter() - t0:.1f} s", flush=True)
-    del setup
     t0 = time.perf_counter()
     phase_scale_vs_plain(cfg, dev)
     print(f"[scale-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    store = phase_store(cfg, dev, setup)
+    del setup
+    print(f"[store] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
@@ -1068,14 +1241,15 @@ def main() -> int:
                "flash_attention_bwd_dkv": "flash_attention_bwd",
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
-    # launches: the serving, training and serving-at-scale runs' together
-    # (flash_attention runs on all three paths; each other kernel on one);
+    # launches: the serving, training, serving-at-scale and store runs'
+    # together (flash_attention runs on all four paths);
     # the top-level numbers are the kernel's first row, "rows" holds every
     # phase-1 row of the kernel (both cola_fit taps, multi_lora at a tick)
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
                     replaces=replaces[n],
-                    launches=launches[n] + train[n] + scale[n], **rows[n],
+                    launches=launches[n] + train[n] + scale[n] + store[n],
+                    **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})
                for n in replaces]

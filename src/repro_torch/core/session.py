@@ -29,13 +29,9 @@ from repro_torch.core import taps as taps_lib
 from repro_torch.core.offload import Offloader
 from repro_torch.models import model as model_lib
 from repro_torch.optim import optimizers as optim_lib
-from repro_torch.utils import resolve_device, tree_leaves, tree_map
+from repro_torch.utils import all_finite, resolve_device, tree_leaves, tree_map
 
 MAX_UPDATE_NORM = 1e4   # the JAX OffloadChannel's default max_update_norm
-
-
-def _finite(tree) -> bool:
-    return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree))
 
 
 def _update_norm(new: dict, old: dict) -> float:
@@ -49,12 +45,16 @@ class ColaSession:
     ``device`` (default the card); the offloader runs on ``offload_device``
     (default: ``device``). Adapters are drawn from a ``torch.Generator``
     seeded with ``seed``, on the CPU, so a seed gives the same adapters on
-    any device. ``telemetry`` is accepted and ignored (not ported yet)."""
+    any device. ``telemetry`` is not ported yet: any value but None raises
+    ``NotImplementedError`` (ROADMAP.md)."""
 
     def __init__(self, cfg: ModelConfig, cc: ColaConfig, params: dict,
                  seed: int = 0, optimizer=None, lr=1e-3, device="cuda",
                  offload_device=None, telemetry=None):
-        del telemetry
+        if telemetry is not None:
+            raise NotImplementedError(
+                f"ColaSession(telemetry={telemetry!r}) is not ported yet "
+                "(see ROADMAP.md)")
         self.cfg, self.cc = cfg, cc
         self.device = resolve_device(device)
         self.base_params = tree_map(lambda a: a.to(self.device), params)
@@ -107,7 +107,7 @@ class ColaSession:
             return None
         snap = (off.adapters, off.opt_state)
         new = off.maybe_fit()
-        if _finite(new) and _update_norm(new, self._last_good) <= MAX_UPDATE_NORM:
+        if all_finite(new) and _update_norm(new, self._last_good) <= MAX_UPDATE_NORM:
             self._last_good = new
             return new
         off.adapters, off.opt_state = snap
@@ -134,7 +134,7 @@ class ColaSession:
             loss, data, _ = gl.server_step_a(self.cfg, self.server_spec,
                                              self._effective_params(),
                                              adapters_in, batch)
-            if _finite(data):
+            if all_finite(data):
                 self.offloader.push(data)
             else:
                 self.offload_stats["rejected_payloads"] += 1

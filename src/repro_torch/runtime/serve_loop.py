@@ -28,12 +28,21 @@ Serving at scale:
   horizon.
 - ``bank_store="int8"``: the adapter bank is held as int8 codes with per-row
   f32 scales (``quantize_bank``) and dequantised on load in the kernel.
+- ``resident_slots=R``: the tiered adapter store (``runtime/adapter_store``)
+  holds every user on the host and R rows on the card. Admission pins the
+  request's user (or waits when R distinct users are pinned) and makes them
+  resident before any device call; every device call routes slots by
+  resident row (``_dispatch_bank`` / ``_dispatch_idx``), never by user id.
+  ``cluster_threshold`` / ``cluster_mode`` put similar users on one row.
+
+``install_adapters`` hot-swaps one user's adapters (a validated version
+bump): in place in the dense bank, or into the store's host tier with a
+copy-on-write split off the user's cluster; ``publish_banks`` installs every
+channel's newer bank.
 
 Ported from the JAX package's ``runtime/serve_loop.py``: the jitted steps
 become plain methods, and the ``lax.scan`` burst a host loop that emits the
-same tokens. The tiered adapter store (``resident_slots``,
-``cluster_threshold``, ``cluster_mode``), ``install_adapters`` / ``publish_banks`` and telemetry are still to be
-ported (ROADMAP.md).
+same tokens. Telemetry is still to be ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -50,8 +59,9 @@ from repro_torch.core import gl
 from repro_torch.core import taps as taps_lib
 from repro_torch.kernels import multi_lora as ml
 from repro_torch.models import model as model_lib
+from repro_torch.runtime.adapter_store import AdapterStore
 from repro_torch.runtime.kv_pager import BlockPager, PagerError
-from repro_torch.utils import resolve_device
+from repro_torch.utils import all_finite, resolve_device
 
 
 @dataclasses.dataclass
@@ -144,6 +154,34 @@ def quantize_bank(bank: dict) -> dict:
     return out
 
 
+def publish_banks(engine: "ServeEngine", channels) -> int:
+    """Install every channel's bank that carries a version bump into the
+    engine (the train -> serve hot-swap). A channel is anything with
+    ``.user``, ``.version`` and ``.adapters``. With an adapter store, a user
+    the engine has never seen is registered into the host tier; without
+    one, users outside the dense bank are skipped and counted in
+    ``stats["bank_unknown_user"]``. Returns the number of banks installed
+    (registrations included)."""
+    installed = 0
+    for ch in channels:
+        if engine.store is not None:
+            st = engine.store
+            if ((not st.knows(ch.user) or ch.version > st.version(ch.user))
+                    and engine.install_adapters(ch.user, ch.adapters,
+                                                ch.version)):
+                installed += 1
+            continue
+        if engine.bank_versions is None:
+            break
+        if not 0 <= ch.user < engine.n_users:
+            engine.stats["bank_unknown_user"] += 1
+            continue
+        if ch.version > int(engine.bank_versions[ch.user]):
+            if engine.install_adapters(ch.user, ch.adapters, ch.version):
+                installed += 1
+    return installed
+
+
 def _bucket(n: int, floor: int = 8) -> int:
     """Round up to a power of two (>= floor), so prefill batches come in few
     shapes."""
@@ -173,15 +211,10 @@ class ServeEngine:
             raise ValueError(f"bank_store={bank_store!r}")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout={kv_layout!r}")
-        for name, value, default in (
-                ("resident_slots", resident_slots, None),
-                ("cluster_threshold", cluster_threshold, None),
-                ("cluster_mode", cluster_mode, "shared"),
-                ("telemetry", telemetry, None)):
-            if value != default:
-                raise NotImplementedError(
-                    f"ServeEngine({name}={value!r}) is not ported yet "
-                    "(see ROADMAP.md)")
+        if telemetry is not None:
+            raise NotImplementedError(
+                f"ServeEngine(telemetry={telemetry!r}) is not ported yet "
+                "(see ROADMAP.md)")
         if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk={prefill_chunk}")
@@ -231,17 +264,34 @@ class ServeEngine:
         self._table_dev: torch.Tensor | None = None
         self.spec = None
         self.bank = None
+        self.store: AdapterStore | None = None
+        self.res_idx = np.zeros(slots, np.int32)   # per-slot resident row
         self.n_users = 0
+        self.bank_versions: np.ndarray | None = None
         if user_adapters:
             self.spec = taps_lib.make_spec(family="multi_lowrank",
                                            taps=gl.select_taps(cfg, taps),
                                            scale=scale)
             self.n_users = len(user_adapters)
-            bank = stack_user_adapters(user_adapters)
-            if bank_store == "int8":
-                bank = quantize_bank(bank)
-            self.bank = {tap: {n: leaf.to(self.device) for n, leaf in e.items()}
-                         for tap, e in bank.items()}
+            if resident_slots is not None:
+                # host tier of every user, R rows on the card
+                self.store = AdapterStore.from_users(
+                    user_adapters, resident=resident_slots, store=bank_store,
+                    device=self.device)
+                if cluster_threshold is not None:
+                    self.store.build_clusters(cluster_threshold,
+                                              mode=cluster_mode)
+            else:
+                bank = stack_user_adapters(user_adapters)
+                if bank_store == "int8":
+                    bank = quantize_bank(bank)
+                self.bank = {tap: {n: leaf.to(self.device).contiguous()
+                                   for n, leaf in e.items()}
+                             for tap, e in bank.items()}
+                self.bank_versions = np.zeros(self.n_users, np.int64)
+        elif resident_slots is not None:
+            raise ValueError("resident_slots requires user_adapters (the "
+                             "store template comes from the first user)")
         self._decode_tick_s: collections.deque = collections.deque(maxlen=4096)
         self._prefill_s: collections.deque = collections.deque(maxlen=4096)
         self.stats = {"ticks": 0, "tokens": 0, "decode_tokens": 0,
@@ -249,18 +299,26 @@ class ServeEngine:
                       "prefill_calls": 0, "prefill_tokens": 0,
                       "prefill_chunks": 0, "chunk_rounds": 0,
                       "decode_time": 0.0, "prefill_time": 0.0, "rejected": 0,
+                      "bank_installs": 0, "bank_rejected": 0,
+                      "bank_unknown_user": 0,
                       "kv_blocks_in_use": 0, "kv_blocks_peak": 0,
-                      "kv_allocs": 0, "kv_frees": 0, "kv_reserve_failures": 0}
+                      "kv_allocs": 0, "kv_frees": 0, "kv_reserve_failures": 0,
+                      "store_hits": 0, "store_misses": 0, "store_evictions": 0,
+                      "store_hit_rate": 0.0, "store_pinned": 0,
+                      "store_resident_bytes": 0, "store_fetch_time": 0.0}
 
     # -- device steps --------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
     def _cola_vars(self, users: torch.Tensor) -> dict | None:
-        if self.bank is None:
+        """The multi-LoRA variables of one device call: the dispatch bank and
+        ``users``, its row of each batch row."""
+        bank = self._dispatch_bank()
+        if bank is None:
             return None
         vars_ = {}
-        for tap, leaves in self.bank.items():
+        for tap, leaves in bank.items():
             entry = dict(leaves)
             a = leaves["A"] if "A" in leaves else leaves["A_q"]   # int8: A_q
             # stacked (L, U, d, r): idx carries the layer axis too
@@ -335,6 +393,29 @@ class ServeEngine:
         model_lib.scatter_prefill_cache(self.cache, pre, slot_ids)
         return logits[:, -1].argmax(dim=-1).to(torch.int32)
 
+    # -- dispatch routing --------------------------------------------------
+    # With a store, device calls get the R-row resident bank and resident
+    # rows; without one, the dense bank and user ids.
+    def _dispatch_bank(self) -> dict | None:
+        return self.store.bank if self.store is not None else self.bank
+
+    def _dispatch_idx(self) -> np.ndarray:
+        """Every slot's bank row, checked on the host (no device sync) to lie
+        inside the bank: the multi-LoRA kernels clamp a row past the end to
+        the last one and take a negative one as padding, so a wrong row
+        would serve another user's adapters, or none, without an error."""
+        if self.store is not None:
+            idx, rows = self.res_idx, self.store.resident
+        else:
+            idx, rows = self.users, self.n_users
+        if self._dispatch_bank() is not None:
+            bad = np.flatnonzero((idx < 0) | (idx >= rows))
+            if bad.size:
+                i = int(bad[0])
+                raise RuntimeError(f"slot {i}: bank row {int(idx[i])} is "
+                                   f"outside the bank's {rows} rows")
+        return idx
+
     # -- engine ------------------------------------------------------------
     def _validate(self, req: Request) -> str | None:
         if len(req.prompt) == 0:
@@ -344,7 +425,11 @@ class ServeEngine:
                     f"{self.max_prompt} (horizon max_len={self.max_len})")
         if req.max_new <= 0:
             return f"max_new must be positive, got {req.max_new}"
-        if self.bank is not None and not 0 <= req.user < self.n_users:
+        if self.store is not None:
+            if not self.store.knows(req.user):
+                return (f"unknown user {req.user} (store has "
+                        f"{len(self.store.users())})")
+        elif self.bank is not None and not 0 <= req.user < self.n_users:
             return f"unknown user {req.user} (bank has {self.n_users})"
         return None
 
@@ -361,6 +446,89 @@ class ServeEngine:
             self.finished.append(req)
             return
         self.queue.append(req)
+
+    # -- adapter bank lifecycle ---------------------------------------------
+    def install_adapters(self, user: int, adapters: dict, version: int) -> bool:
+        """Hot-swap one user's adapters into the serving bank. Takes only a
+        validated version bump: the version must exceed the user's installed
+        one, every leaf must be finite and the tree must have the bank's
+        taps, leaves and shapes; anything else is rejected and the user keeps
+        serving their last good adapters. Returns whether it was installed.
+
+        The dense bank's row is written in place (on the current stream, so
+        behind any step already enqueued). With a store, the commit lands in
+        the host tier (registering a user new to it); a clustered user is
+        split off their cluster (copy-on-write) without touching the other
+        members, and a resident user's row is refreshed in place."""
+        if self.store is not None:
+            return self._install_store(user, adapters, version)
+        if self.bank is None or not 0 <= user < self.n_users:
+            self.stats["bank_rejected"] += 1
+            return False
+        if version <= int(self.bank_versions[user]):
+            self.stats["bank_rejected"] += 1   # stale or replayed update
+            return False
+        if not all_finite(adapters) or set(adapters) != set(self.bank):
+            self.stats["bank_rejected"] += 1   # poisoned, or the wrong taps
+            return False
+        writes = []
+        for tap, entry in self.bank.items():
+            for name, leaf in adapters[tap].items():
+                leaf = leaf.detach()
+                if f"{name}_q" in entry:       # int8 bank: codes and scales
+                    q, scale = ml.quant_rows(leaf)
+                    pairs = ((f"{name}_q", q), (f"{name}_scale", scale))
+                else:
+                    pairs = ((name, leaf),)
+                for key, new in pairs:
+                    stacked = entry.get(key)
+                    row = (None if stacked is None else stacked[:, user]
+                           if stacked.dim() > 3 else stacked[user])
+                    if row is None or new.shape != row.shape:
+                        self.stats["bank_rejected"] += 1   # wrong leaves
+                        return False
+                    writes.append((row, new))
+        for row, new in writes:   # every leaf checked first: all or nothing
+            row.copy_(new)
+        self.bank_versions[user] = version
+        self.stats["bank_installs"] += 1
+        return True
+
+    def _install_store(self, user: int, adapters: dict, version: int) -> bool:
+        """The store's install: a host-tier commit and an in-place refresh of
+        the user's resident row. An unknown user is registered; a known user
+        needs a version bump. Every leaf must be finite."""
+        st = self.store
+        if not all_finite(adapters):
+            self.stats["bank_rejected"] += 1   # poisoned bank
+            return False
+        try:
+            if not st.knows(user):
+                st.register(user, adapters, version=version)
+            else:
+                if version <= st.version(user):
+                    self.stats["bank_rejected"] += 1   # stale or replayed
+                    return False
+                st.install(user, adapters, version)
+        except ValueError:   # the wrong taps or leaf shapes for this store
+            self.stats["bank_rejected"] += 1
+            return False
+        self.stats["bank_installs"] += 1
+        # A split moves the user onto a new host entry while their live slots
+        # still point at the cluster's row: re-resolve residency now if a row
+        # is free or evictable, else their requests in flight finish on the
+        # old adapters and residency is refreshed at the next admission.
+        live = [i for i, r in enumerate(self.active)
+                if r is not None and r.user == user]
+        if live:
+            try:
+                row = st.ensure_resident([user])[0]
+            except RuntimeError:
+                pass
+            else:
+                for i in live:
+                    self.res_idx[i] = row
+        return True
 
     def _admit(self) -> None:
         """Admit up to ``admit_batch`` waiting requests into free slots and
@@ -379,6 +547,12 @@ class ServeEngine:
                 # pool pressure: admission waits (FIFO) until retirements
                 # return enough blocks to back this request's worst case
                 break
+            if self.store is not None and not self.store.acquire(req.user):
+                # every resident row is pinned by a distinct live user:
+                # admission waits (FIFO) until a request completes
+                if self.pager is not None:
+                    self.pager.release(i)   # roll back the reservation
+                break
             self.queue.pop(0)
             req.t_admit = now
             req._consumed = 0
@@ -388,6 +562,11 @@ class ServeEngine:
             admitted.append(i)
         if not admitted:
             return
+        if self.store is not None:
+            # fetch on admission: resident before any device call reads it
+            rows = self.store.ensure_resident(
+                [self.active[i].user for i in admitted])
+            self.res_idx[admitted] = rows
         self.stats["admitted"] += len(admitted)
         if self.prefill_chunk is not None:
             return   # chunk rounds (one per tick) do the prefill work
@@ -422,9 +601,10 @@ class ServeEngine:
         users = np.zeros((j,), np.int32)
         lengths = np.ones((j,), np.int32)
         slot_ids = np.full((j,), self.slots, np.int32)   # padding -> dropped
+        idx = self._dispatch_idx()
         for r, (i, feed) in enumerate(rows):
             toks[r, :len(feed)] = feed
-            users[r] = self.users[i]
+            users[r] = idx[i]
             slot_ids[r] = i
             lengths[r] = len(feed)
         nxt = self._prefill(self._tensor(toks), self._tensor(users), slot_ids,
@@ -444,7 +624,8 @@ class ServeEngine:
         live = np.zeros((self.slots,), bool)
         live[slot] = True
         nxt = self._decode(self._tensor(toks), self._tensor(positions),
-                           self._tensor(self.users), self._tensor(live))
+                           self._tensor(self._dispatch_idx()),
+                           self._tensor(live))
         return int(nxt[slot])
 
     def _first_token(self, i: int, tok: int, now: float) -> None:
@@ -475,6 +656,8 @@ class ServeEngine:
         self.positions[i] = 0
         if self.pager is not None:
             self.pager.release(i)
+        if self.store is not None:
+            self.store.release(req.user)
 
     def _reserve_len(self, req: Request) -> int:
         """Worst-case positions ``req`` can ever write on its slot: the
@@ -513,8 +696,8 @@ class ServeEngine:
                 raise PagerError(f"slot {i}: its admission reservation does "
                                  "not cover its prompt")
         nxt = self._chunk(self._tensor(toks), self._tensor(pos),
-                          self._tensor(self.users), self._tensor(live),
-                          self._tensor(lens)).cpu().numpy()
+                          self._tensor(self._dispatch_idx()),
+                          self._tensor(live), self._tensor(lens)).cpu().numpy()
         now = time.perf_counter()
         for i in pend:
             req = self.active[i]
@@ -564,6 +747,7 @@ class ServeEngine:
         if not live_idx:
             if prefilling:
                 self.stats["ticks"] += 1
+            self._sync_store_stats()
             self._sync_pager_stats()
             return 0
         toks = np.zeros((self.slots, 1), np.int32)
@@ -578,7 +762,7 @@ class ServeEngine:
                 raise PagerError(f"slot {i}: its admission reservation does "
                                  "not cover its decode horizon")
         args = (self._tensor(toks), self._tensor(self.positions),
-                self._tensor(self.users), self._tensor(live))
+                self._tensor(self._dispatch_idx()), self._tensor(live))
         t0 = time.perf_counter()
         if n <= 1:
             trace = self._decode(*args)[None]
@@ -600,6 +784,7 @@ class ServeEngine:
         self.stats["ticks"] += trace.shape[0]
         self.stats["tokens"] += trace.shape[0] * len(live_idx)
         self.stats["decode_tokens"] += trace.shape[0] * len(live_idx)
+        self._sync_store_stats()
         self._sync_pager_stats()
         return trace.shape[0] * len(live_idx)
 
@@ -610,6 +795,19 @@ class ServeEngine:
             self.tick()
 
     # -- stats -------------------------------------------------------------
+    def _sync_store_stats(self) -> None:
+        """Mirror the adapter store's counters into ``engine.stats``."""
+        if self.store is None:
+            return
+        m = self.store.metrics()
+        self.stats["store_hits"] = m["hits"]
+        self.stats["store_misses"] = m["misses"]
+        self.stats["store_evictions"] = m["evictions"]
+        self.stats["store_hit_rate"] = m["hit_rate"]
+        self.stats["store_pinned"] = m["pinned"]
+        self.stats["store_resident_bytes"] = m["resident_bytes"]
+        self.stats["store_fetch_time"] = m["fetch_time"]
+
     def _sync_pager_stats(self) -> None:
         """Mirror the KV block pool's counters into ``engine.stats``."""
         if self.pager is None:
@@ -648,6 +846,7 @@ class ServeEngine:
         reqs = self.request_stats()
         ttfts = [r["ttft"] for r in reqs if r["ttft"] is not None]
         lats = [r["latency"] for r in reqs if r["latency"] is not None]
+        self._sync_store_stats()
         self._sync_pager_stats()
         out = {
             "decode_tok_per_s": (self.stats["decode_tokens"] / dt
@@ -661,6 +860,8 @@ class ServeEngine:
             "prefill": percentiles(self._prefill_s),
             "completed": self.stats["completed"],
         }
+        if self.store is not None:
+            out["store"] = self.store.metrics()
         if self.pager is not None:
             out["kv_blocks_in_use"] = self.pager.blocks_in_use()
             out["kv_blocks_peak"] = self.pager.stats["peak_in_use"]

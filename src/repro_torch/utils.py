@@ -49,6 +49,12 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def all_finite(tree) -> bool:
+    """Whether every tensor leaf of nested dicts is finite (one host sync a
+    leaf)."""
+    return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree))
+
+
 def tree_leaves(tree) -> list:
     """The leaves of nested dicts, tuples and lists, in order."""
     if isinstance(tree, dict):

@@ -21,8 +21,9 @@ over ranks 4 / 8 / 16 and generic ranks, odd widths, ragged row tiles and
 adapter runs with padding, with a row's bits independent of the launch (T,
 tile, slice, instantiation) and int8 equal to the f32 kernel on the
 dequantised bank,
-``quant_rows`` on the card against the CPU's, and chunk rounds through the
-flash forward kernel.
+``quant_rows`` on the card against the CPU's, chunk rounds through the
+flash forward kernel, and the adapter store's engine (R resident rows of 6
+users, f32 and int8 banks) against the all-resident engine on the card.
 
 Marked ``cuda``; skipped without a card. On the H100 (whose Python has no
 JAX, which the tests' conftest imports):
@@ -42,6 +43,8 @@ plain version's one softmax, within the f32 tolerance.
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
 
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -782,3 +785,50 @@ def test_chunk_rounds_run_the_flash_kernel(dev, paged, dtype, B, c, max_len,
             da.decode_attention_paged.launches - counts[2]) == (1, 0, 0)
     _close(o, plain(q, *args, live=live, window=window), dtype)
     assert bool((o[~live] == 0).all())
+
+
+@pytest.mark.parametrize("bank_store", ["f32", "int8"])
+def test_store_engine_matches_all_resident_on_the_card(dev, bank_store):
+    """6 users through R = 2 resident rows and 3 slots on the card (rows
+    evicted mid-flight, admission waiting on pins): tokens equal to the
+    all-resident card engine's, the multi-LoRA kernel of the bank launched,
+    every pin released and the bank R rows."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.runtime.serve_loop import Request, ServeEngine
+
+    cfg = registry.reduced_config("smollm-135m").replace(n_layers=2,
+                                                         d_head=64)
+    params = model.init(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(3)
+    sites = model.tap_sites(cfg)
+    banks = [{tap: {"A": torch.randn(s.stacked, s.d_in, 8, generator=gen),
+                    "B": 0.05 * torch.randn(s.stacked, 8, s.d_out,
+                                            generator=gen)}
+              for tap, s in ((t, sites[t]) for t in ("layers.attn.q",
+                                                    "layers.attn.v"))}
+             for _ in range(6)]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(3, 40, 12)]
+    users = [(5 * i) % 6 for i in range(12)]
+    kernel = ml.multi_lora_q8 if bank_store == "int8" else ml.multi_lora
+    outs = {}
+    for resident in (None, 2):
+        eng = ServeEngine(cfg, params, slots=3, max_len=64, device=dev,
+                          user_adapters=banks, bank_store=bank_store,
+                          resident_slots=resident)
+        reqs = [Request(rid=i, user=u, prompt=p, max_new=6)
+                for i, (u, p) in enumerate(zip(users, prompts))]
+        before = kernel.launches
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        assert kernel.launches > before
+        assert all(r.status == "done" for r in reqs)
+        outs[resident] = [r.out for r in reqs]
+    assert outs[2] == outs[None]
+    st = eng.stats
+    assert st["store_evictions"] > 0 and st["store_pinned"] == 0
+    assert all(leaf.is_cuda and leaf.is_contiguous() and leaf.shape[1] == 2
+               for e in eng.store.bank.values() for leaf in e.values())

@@ -115,13 +115,22 @@ def test_submit_rejects_bad_requests_and_reports_stats():
 
 def test_unported_options_raise():
     _, (tcfg, tparams, tbanks) = _setup()
-    for kw in (dict(resident_slots=2), dict(telemetry=object()),
-               dict(cluster_threshold=0.9), dict(cluster_mode="merged")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.ServeEngine(tcfg, tparams, user_adapters=tbanks,
-                               device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserve.ServeEngine(tcfg, tparams, user_adapters=tbanks, device="cpu",
+                           telemetry=object())
     with pytest.raises(ValueError):
         tserve.stack_user_adapters([])
+
+
+def test_session_telemetry_raises():
+    """``ColaSession(telemetry=...)`` raises until telemetry is ported, as
+    the engine does, rather than dropping the argument."""
+    from repro_torch.configs.base import ColaConfig as TColaConfig
+    from repro_torch.core.session import ColaSession
+    _, (tcfg, tparams, _) = _setup()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ColaSession(tcfg, TColaConfig(), tparams, device="cpu",
+                    telemetry=object())
 
 
 def test_store_options_take_jax_defaults():
