@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-nine phases, exiting non-zero on any failure:
+ten phases, exiting non-zero on any failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
    full-width smollm-135m shapes of the serving and training paths, in bf16
@@ -52,7 +52,9 @@ nine phases, exiting non-zero on any failure:
    bf16, remat "full"), merged rank-8 ``qv`` adapters, interval 2, AdamW at
    TrainConfig's lr and weight decay, SyntheticLM batches of 32 x 128: a
    warm-up step, then 6 measured steps (3 fits) with the launch counts reset
-   just before and read just after.
+   just before and read just after. The payloads and banks go through the
+   session's ``OffloadChannel``: 3 fits committed, no rollback, dead letter
+   or resend; the host time of the channel's checks a step is printed.
 5. Training against the plain path: one f32 full-width ``server_step_a`` +
    ``fit_grads`` on the card and on the CPU (plain versions) must agree, and
    on the card Mode A's fit gradients must equal Mode B's (Prop 1).
@@ -78,7 +80,30 @@ nine phases, exiting non-zero on any failure:
    ``install_adapters`` on one splits it off (copy-on-write), the other's
    tokens stay, the split user's equal a one-user engine on the new bank,
    and a merged member's a one-user engine on the members' mean.
-9. The last lines: the card's name and power limit, one JSON line with every
+9. The fault-tolerant training runtime (``[runtime]``), smollm-135m at full
+   width (30 layers, bf16, remat "full"), with the launch counts reset just
+   before and read just after (cola_fit, both flash backward kernels, the
+   flash forward, multi_lora and dense decode must run): a K = 4
+   ``CollabSession`` (merged Mode A, rank-8 ``qv``, interval 1, AdamW at
+   TrainConfig's settings, SyntheticLM 32 x 128 with 4 users, 6 steps,
+   ``RetryPolicy(max_attempts=6, timeout_ticks=2)`` without sleeps):
+   (a) two fault-free runs give equal banks and losses, bit for bit;
+   (b) drop / delay / duplicate on users 1 / 2 / 3 (injector seed 0) are all
+   recovered: banks and losses equal (a)'s and the counters equal the JAX
+   package's for the same map (12 drops, 4 delays, 8 duplicates injected;
+   12 resends, 4 late deliveries, 4 duplicates discarded); (c) with every
+   row to user 0 and user 1's returns NaN-poisoned, user 1 is quarantined
+   at version 0 (2 rollbacks, 12 rejected fits, 4 refused pushes, 2 dead
+   letters), the others reach version 6 and user 0 equals the fault-free
+   run bit for bit; ``publish_banks`` into a 16-slot engine on the initial
+   banks installs 3, and user 1 serves its initial bank (its tokens equal a
+   one-user engine's); (d) ``TrainLoop`` over a Mode A ``ColaSession``:
+   2 steps and a resume to 4 equal 4 uninterrupted steps (adapters and
+   AdamW state), the straggler hook checkpoints and lifts a quarantine, and
+   a fit on the worker thread (``timeout_s``) equals the same-thread fit.
+   Prints the collab step, the fit round, the channel's checks and the
+   checkpoint's save and restore times.
+10. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -896,9 +921,9 @@ def _store_vs_resident(cfg, params, prompts, banks, dev, tag, **options):
             eng.pager.assert_empty()
 
 
-def _one_user(cfg, params, bank, prompts, dev) -> list:
+def _one_user(cfg, params, bank, prompts, dev, max_new=32) -> list:
     eng, reqs, _ = serve(cfg, params, [bank], prompts, dev, slots=16,
-                         max_len=1024, max_new=32)
+                         max_len=1024, max_new=max_new)
     return [r.out for r in reqs]
 
 
@@ -1040,6 +1065,7 @@ def phase_training(cfg, dev) -> dict:
     sess.step(batches[0])     # warm-up; its launches are not counted
     torch.cuda.synchronize()
     fit_ms.clear()
+    check_ms, untimed = time_channel_checks()
 
     ws = wrappers()
     for w in ws.values():
@@ -1061,12 +1087,15 @@ def phase_training(cfg, dev) -> dict:
                   f"step {sess.step_count}: the fit left the adapters as they were")
     launches = {n: w.launches for n, w in ws.items()}
     peak = torch.cuda.max_memory_allocated(dev)
+    untimed()
 
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(len(fit_ms) == 3 and off.stats["fits"] == 3,
           f"{len(fit_ms)} fits in the measured steps, {off.stats['fits']} in all")
-    check(sess.offload_stats == {"rejected_payloads": 0, "rollbacks": 0},
-          f"offload rounds failed: {sess.offload_stats}")
+    health = sess.channel_health()[0]
+    check(health["fits_committed"] == 3 and all(
+        health[k] == 0 for k in ("rollbacks", "dead_letters", "send_retries")),
+        f"offload rounds failed: {health}")
     for n in TRAIN_KERNELS:
         check(launches[n] > 0, f"kernel {n} was never launched in training")
     n_steps = len(step_ms)
@@ -1077,8 +1106,9 @@ def phase_training(cfg, dev) -> dict:
     print(f"[train] step ms {[round(t, 2) for t in step_ms]}; server step p50 "
           f"{statistics.median(server_ms):.2f} ms; fit ms "
           f"{[round(t, 2) for t in fit_ms]} (p50 {statistics.median(fit_ms):.2f});"
-          f" {tokens / (sum(step_ms) / 1e3):.1f} training tokens/s; peak "
-          f"memory {peak / 2**30:.3f} GiB", flush=True)
+          f" {checks_line(check_ms, n_steps)}; "
+          f"{tokens / (sum(step_ms) / 1e3):.1f} training tokens/s; peak memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
     print(f"[train] launches in {n_steps} steps: {launches}; per step "
           f"{ {n: c / n_steps for n, c in launches.items()} }", flush=True)
     return launches
@@ -1142,6 +1172,339 @@ def phase_training_vs_plain(cfg, dev) -> None:
           f"grads max |card - CPU| / max |CPU| {worst:.3e} (tol 1e-3); Prop 1 on "
           f"the card: max |A - B| / (1e-6 + 2e-4 |B|) = {prop1:.3f} (<= 1)",
           flush=True)
+
+
+def time_channel_checks():
+    """Time every check of ``OffloadChannel`` (a payload's checksums and
+    finiteness, a returned bank's finiteness and update norm): host time
+    from a sync before the check to its result, so it reads the check alone
+    and not the device work queued before it. Returns (the times in ms by
+    kind, "payload" and "bank", a function that removes the timing)."""
+    from repro_torch.core import channel
+
+    ms: dict[str, list[float]] = {"payload": [], "bank": []}
+    originals = {"payload": channel._tree_stats, "bank": channel._bank_stats}
+
+    def timed(fn, into):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    channel._tree_stats = timed(originals["payload"], ms["payload"])
+    channel._bank_stats = timed(originals["bank"], ms["bank"])
+
+    def untimed():
+        channel._tree_stats = originals["payload"]
+        channel._bank_stats = originals["bank"]
+
+    return ms, untimed
+
+
+def checks_line(ms: dict, steps: int) -> str:
+    """The channel's checks: host ms a step, and each kind's p50 a check."""
+    total = sum(sum(v) for v in ms.values())
+    kinds = ", ".join(f"{k} p50 {statistics.median(v):.3f} ms x {len(v)}"
+                      for k, v in ms.items() if v)
+    return (f"channel checks {total / steps:.3f} ms of host time a step "
+            f"({kinds})")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the fault-tolerant training runtime
+# ---------------------------------------------------------------------------
+
+RUNTIME_STEPS = 6
+RUNTIME_ZERO = ("send_retries", "late_deliveries", "dup_discarded",
+                "rollbacks", "corrupt_rejected", "nan_rejected", "late_dropped",
+                "dead_letters", "fit_rejected", "refused_quarantined",
+                "fit_timeouts", "fit_errors")
+RUNTIME_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv", "cola_fit", "multi_lora",
+                   "decode_attention")
+
+
+def _adamw():
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import optimizers
+
+    tc = TrainConfig()
+    return optimizers.adamw(tc.lr, b1=tc.b1, b2=tc.b2, eps=tc.eps,
+                            weight_decay=tc.weight_decay)
+
+
+def _policy(**kw):
+    from repro_torch.runtime.faults import RetryPolicy
+
+    return RetryPolicy(**{"max_attempts": 6, "timeout_ticks": 2,
+                          "backoff_base": 0.0, "sleep": lambda s: None, **kw})
+
+
+def _collab_run(cfg, params, batches, dev, *, injector=None, user0=False,
+                fit_ms=None):
+    """Six steps of a K = 4 merged ``CollabSession`` (rank-8 ``qv``,
+    interval 1, AdamW at TrainConfig's settings). With ``fit_ms``, every fit
+    round is timed between syncs into it. Returns (session, losses, step
+    ms)."""
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.core.collab import CollabSession
+
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8, merged=True, interval=1, users=4)
+    sess = CollabSession(cfg, cc, params, seed=SEED, optimizer=_adamw(),
+                         injector=injector, policy=_policy(), device=dev)
+    if fit_ms is not None:
+        for ch in sess.channels:
+            def timed(fn=ch.fit_round):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                fit_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            ch.fit_round = timed
+    losses, step_ms = [], []
+    for b in batches:
+        b = dict(b)
+        uid = b.pop("user_id")
+        if user0:
+            uid = torch.zeros_like(uid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(sess.train_step(b, uid))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return sess, losses, step_ms
+
+
+def _bank_leaves(sess) -> list[list]:
+    from repro_torch.utils import sorted_leaves
+
+    return [[t.clone() for t in sorted_leaves(ch.adapters)]
+            for ch in sess.channels]
+
+
+def _equal(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _runtime_collab(cfg, params, dev) -> dict:
+    """(a) determinism, (b) recoverable faults, (c) a poisoned peer and its
+    banks served. Returns the figures to print."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.faults import (SINGLE_FAULTS, FaultInjector,
+                                            FaultProfile)
+    from repro_torch.runtime.serve_loop import ServeEngine, publish_banks
+
+    data = SyntheticLM(cfg, batch=32, seq=128, users=4, seed=SEED, device=dev)
+    batches = [data.batch_at(i) for i in range(RUNTIME_STEPS)]
+
+    # (a) two fault-free runs: equal bits; the second times its fit rounds
+    # and the channel's checks
+    ref, ref_losses, step_ms = _collab_run(cfg, params, batches, dev)
+    ref_banks = _bank_leaves(ref)
+    fit_ms: list[float] = []
+    check_ms, untimed = time_channel_checks()
+    try:
+        again, losses, _ = _collab_run(cfg, params, batches, dev,
+                                       fit_ms=fit_ms)
+    finally:
+        untimed()
+    check(losses == ref_losses, f"[runtime] (a) losses of two fault-free "
+          f"runs differ: {ref_losses} vs {losses}")
+    check(all(_equal(a, b) for a, b in zip(_bank_leaves(again), ref_banks)),
+          "[runtime] (a) banks of two fault-free runs differ")
+    check(ref.bank_versions() == [RUNTIME_STEPS] * 4,
+          f"[runtime] (a) versions {ref.bank_versions()}")
+    del again
+    print(f"[runtime] (a) K 4, {RUNTIME_STEPS} steps, batch 32 x 128: two "
+          f"fault-free runs equal bit for bit; losses "
+          f"{[round(x, 4) for x in ref_losses]}", flush=True)
+
+    # (b) drop, delay and duplicate: recovered, bit for bit, JAX's counters
+    inj = FaultInjector({1: SINGLE_FAULTS["drop"], 2: SINGLE_FAULTS["delay"],
+                         3: SINGLE_FAULTS["duplicate"]}, seed=0)
+    sess, losses, _ = _collab_run(cfg, params, batches, dev, injector=inj)
+    hs = sess.channel_health()
+    want = {1: {"send_retries": 12}, 2: {"late_deliveries": 4},
+            3: {"dup_discarded": 4}}
+    got = {k: {c: hs[k][c] for c in RUNTIME_ZERO if hs[k][c]} for k in hs}
+    check(inj.injected == {"drop": 12, "delay": 4, "duplicate": 8,
+                           "corrupt": 0, "nan": 0},
+          f"[runtime] (b) injected {inj.injected}")
+    check(got == {k: want.get(k, {}) for k in range(4)},
+          f"[runtime] (b) counters {got}")
+    check(sess.bank_versions() == [RUNTIME_STEPS] * 4,
+          f"[runtime] (b) versions {sess.bank_versions()}")
+    check(losses == ref_losses and all(
+        _equal(a, b) for a, b in zip(_bank_leaves(sess), ref_banks)),
+        "[runtime] (b) recovered faults changed the banks or losses")
+    print(f"[runtime] (b) drop/delay/duplicate on users 1/2/3: injected "
+          f"{inj.injected}; counters {got}; banks and losses equal (a)'s",
+          flush=True)
+    del sess
+
+    # (c) user 1's returns poisoned, every row to user 0
+    clean, clean_losses, _ = _collab_run(cfg, params, batches, dev, user0=True)
+    inj = FaultInjector({1: FaultProfile(nan=1.0, targets=("adapters",))},
+                        seed=0)
+    sess, losses, _ = _collab_run(cfg, params, batches, dev, injector=inj,
+                                  user0=True)
+    h1 = sess.channel_health()[1]
+    got1 = {c: h1[c] for c in RUNTIME_ZERO if h1[c]}
+    check(h1["quarantined"] and h1["version"] == 0 and got1 == {
+        "rollbacks": 2, "fit_rejected": 12, "refused_quarantined": 4,
+        "dead_letters": 2} and len(sess.channels[1].dead_letters) == 2,
+        f"[runtime] (c) user 1: {h1}")
+    check(sess.bank_versions() == [RUNTIME_STEPS, 0, RUNTIME_STEPS,
+                                   RUNTIME_STEPS],
+          f"[runtime] (c) versions {sess.bank_versions()}")
+    check(losses == clean_losses and _equal(_bank_leaves(sess)[0],
+                                            _bank_leaves(clean)[0]),
+          "[runtime] (c) the poisoned peer perturbed user 0")
+    del clean
+
+    # the committed banks into a 16-slot f32-bank engine on the initial ones
+    # (those of a session that has taken no step)
+    init = [off.adapters for off in _collab_run(cfg, params, [], dev)[0]
+            .offloaders]
+    eng = ServeEngine(cfg, params, slots=16, max_len=1024, user_adapters=init,
+                      device=dev)
+    installed = publish_banks(eng, sess.channels)
+    check(installed == 3 and eng.bank_versions.tolist() == [
+        RUNTIME_STEPS, 0, RUNTIME_STEPS, RUNTIME_STEPS],
+        f"[runtime] (c) installed {installed}, versions "
+        f"{eng.bank_versions.tolist()}")
+    for tap, e in eng.bank.items():
+        for name, leaf in e.items():
+            check(torch.equal(leaf[:, 1], init[1][tap][name]),
+                  f"[runtime] (c) user 1's row of {tap}.{name} changed")
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (24, 57, 130)]
+    tokens = {}
+    for u in range(4):
+        reqs, _ = drive(eng, prompts, [u] * len(prompts), 8)
+        check(all(r.status == "done" and len(r.out) == 8 for r in reqs),
+              f"[runtime] (c) user {u}'s requests did not finish")
+        tokens[u] = [r.out for r in reqs]
+    solo = _one_user(cfg, params, init[1], prompts, dev, max_new=8)
+    check(tokens[1] == solo, "[runtime] (c) user 1's tokens differ from a "
+          "one-user engine on its initial bank")
+    print(f"[runtime] (c) nan on user 1's returns, rows to user 0: user 1 "
+          f"quarantined at version 0, {got1}; user 0 equal to the fault-free "
+          f"run; publish_banks installed {installed}, bank_versions "
+          f"{eng.bank_versions.tolist()}, user 1 serves its initial bank "
+          f"(tokens equal a one-user engine)", flush=True)
+    return {"step_ms": step_ms, "fit_ms": fit_ms, "check_ms": check_ms}
+
+
+def _runtime_restart(cfg, params, dev) -> dict:
+    """(d) TrainLoop over a Mode A ColaSession: 4 steps against 2 + a resume
+    to 4, the straggler hook, a fit on the worker thread. Returns the
+    checkpoint's save and restore ms."""
+    import tempfile
+
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.core.session import ColaSession
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.train_loop import TrainLoop
+    from repro_torch.utils import sorted_leaves
+
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8, merged=True, interval=1)
+    data = SyntheticLM(cfg, batch=32, seq=128, seed=SEED, device=dev)
+
+    def session(**kw):
+        return ColaSession(cfg, cc, params, seed=SEED, optimizer=_adamw(),
+                           device=dev, **kw)
+
+    def state(sess):
+        off = sess.offloader
+        return ([t.clone() for t in sorted_leaves(off.adapters)]
+                + [t.clone() for t in sorted_leaves(
+                    {k: v for k, v in off.opt_state.items() if k != "step"})],
+                off.opt_state["step"])
+
+    with tempfile.TemporaryDirectory() as d:
+        full = TrainLoop(session(), data, f"{d}/a", ckpt_every=2)
+        full.run(4, resume=False)
+        TrainLoop(session(), data, f"{d}/b", ckpt_every=2).run(2, resume=False)
+        resumed = TrainLoop(session(), data, f"{d}/b", ckpt_every=2)
+        resumed.run(4, resume=True)
+        (want, want_step), (got, got_step) = state(full.session), state(
+            resumed.session)
+        check(resumed.session.step_count == 4 and got_step == want_step == 4
+              and type(got_step) is int and _equal(got, want)
+              and resumed.losses == full.losses[2:],
+              "[runtime] (d) the resumed run differs from the uninterrupted")
+
+        sess = full.session
+        sess.channel.quarantined = True
+        full._on_straggler(4, 9.9, 0.1)
+        full.ckpt.wait()
+        check(full.ckpt.latest_step() == 4 and not sess.channel.quarantined
+              and full.recoveries == 1,
+              "[runtime] (d) the straggler hook did not checkpoint and reset")
+
+        save_ms, restore_ms = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full.ckpt.save(5, full._state())
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            step, tree = full.ckpt.restore(5)
+            full._load_state(tree)
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        check(_equal(state(sess)[0], want), "[runtime] (d) a restore changed "
+              "the state")
+
+    # one fit on the worker thread (timeout_s) against the same thread
+    banks = []
+    for policy in (None, _policy(timeout_s=60.0)):
+        s = session(policy=policy)
+        s.step(data.batch_at(0))
+        banks.append([t.clone() for t in sorted_leaves(s.adapters)])
+    check(_equal(*banks), "[runtime] (d) the worker-thread fit differs")
+    print(f"[runtime] (d) TrainLoop over Mode A: 2 steps + a resume to 4 equal "
+          f"4 uninterrupted (adapters, AdamW state, step {got_step}); the "
+          f"straggler hook checkpointed and lifted the quarantine; the fit on "
+          f"the worker thread equals the same-thread fit", flush=True)
+    return {"save_ms": save_ms, "restore_ms": restore_ms}
+
+
+def phase_runtime(cfg, dev) -> dict:
+    """Phase 9 at full width; returns the launch counts of the phase."""
+    from repro_torch.models import model
+
+    check(cfg.remat == "full" and cfg.param_dtype == "bfloat16",
+          f"runtime config {cfg.remat}/{cfg.param_dtype}")
+    params = model.init(cfg, seed=SEED, device=dev)
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    figs = _runtime_collab(cfg, params, dev)
+    figs.update(_runtime_restart(cfg, params, dev))
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in ws.items()}
+    print(f"[runtime] launches: {launches}", flush=True)
+    for n in RUNTIME_KERNELS:
+        check(launches[n] > 0, f"kernel {n} was never launched in [runtime]")
+    fit = figs["fit_ms"]
+    print(f"[runtime] collab step p50 {statistics.median(figs['step_ms']):.2f} "
+          f"ms (K 4; steps {[round(t, 2) for t in figs['step_ms']]}); fit round "
+          f"p50 {statistics.median(fit):.3f} ms a user ({len(fit)} rounds, "
+          f"{sum(fit) / RUNTIME_STEPS:.3f} ms a step); "
+          f"{checks_line(figs['check_ms'], RUNTIME_STEPS)}; checkpoint save p50 "
+          f"{statistics.median(figs['save_ms']):.2f} ms, restore p50 "
+          f"{statistics.median(figs['restore_ms']):.2f} ms; {card_line()}",
+          flush=True)
+    return launches
 
 
 def _to(tree, device):
@@ -1226,6 +1589,9 @@ def main() -> int:
     store = phase_store(cfg, dev, setup)
     del setup
     print(f"[store] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runtime = phase_runtime(cfg, dev)
+    print(f"[runtime] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
@@ -1241,14 +1607,15 @@ def main() -> int:
                "flash_attention_bwd_dkv": "flash_attention_bwd",
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
-    # launches: the serving, training, serving-at-scale and store runs'
-    # together (flash_attention runs on all four paths);
+    # launches: the serving, training, serving-at-scale, store and runtime
+    # runs' together (flash_attention runs on all five paths);
     # the top-level numbers are the kernel's first row, "rows" holds every
     # phase-1 row of the kernel (both cola_fit taps, multi_lora at a tick)
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
                     replaces=replaces[n],
-                    launches=launches[n] + train[n] + scale[n] + store[n],
+                    launches=(launches[n] + train[n] + scale[n] + store[n]
+                              + runtime[n]),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})

@@ -11,12 +11,11 @@ parameter merging and the baselines, in the five modes of the JAX package's
 - "lora": the classic PEFT baseline: the same gradients, on-device optimizer.
 - "ft": full fine-tuning.
 
-In Mode A the JAX session ships adaptation data through ``OffloadChannel``.
-With no fault injector that channel pushes the data, runs the fit when it is
-due, and commits the new bank only if it is finite and moved by no more than
-``MAX_UPDATE_NORM`` (else it rolls the offloader back). This session does
-those checks itself, calling the offloader directly; the channel with its
-retries and fault injection is still to be ported (ROADMAP.md).
+Mode A ships its adaptation data over an ``OffloadChannel``
+(``repro_torch.core.channel``): retries, checksums, validated and versioned
+commits, rollback and quarantine, with an optional ``FaultInjector``. With
+no injector the channel passes every payload through and commits every fit
+that is finite and bounded.
 """
 from __future__ import annotations
 
@@ -26,18 +25,11 @@ from repro_torch.configs.base import ColaConfig, ModelConfig
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import gl, merge
 from repro_torch.core import taps as taps_lib
+from repro_torch.core.channel import OffloadChannel
 from repro_torch.core.offload import Offloader
 from repro_torch.models import model as model_lib
 from repro_torch.optim import optimizers as optim_lib
-from repro_torch.utils import all_finite, resolve_device, tree_leaves, tree_map
-
-MAX_UPDATE_NORM = 1e4   # the JAX OffloadChannel's default max_update_norm
-
-
-def _update_norm(new: dict, old: dict) -> float:
-    return float(torch.sqrt(sum(
-        torch.sum((a.double() - b.double()) ** 2)
-        for a, b in zip(tree_leaves(new), tree_leaves(old)))))
+from repro_torch.utils import resolve_device, tree_map
 
 
 class ColaSession:
@@ -45,16 +37,20 @@ class ColaSession:
     ``device`` (default the card); the offloader runs on ``offload_device``
     (default: ``device``). Adapters are drawn from a ``torch.Generator``
     seeded with ``seed``, on the CPU, so a seed gives the same adapters on
-    any device. ``telemetry`` is not ported yet: any value but None raises
-    ``NotImplementedError`` (ROADMAP.md)."""
+    any device. Mode A's payloads and fits go through ``self.channel``
+    (``injector`` and ``policy`` go to it); Mode B keeps one too, as the JAX
+    package does, for ``reset_channels`` and ``channel_health``.
+    ``telemetry`` is not ported yet: any value but None raises
+    ``NotImplementedError`` (ROADMAP.md A.4)."""
 
     def __init__(self, cfg: ModelConfig, cc: ColaConfig, params: dict,
                  seed: int = 0, optimizer=None, lr=1e-3, device="cuda",
-                 offload_device=None, telemetry=None):
+                 offload_device=None, injector=None, policy=None,
+                 telemetry=None):
         if telemetry is not None:
             raise NotImplementedError(
                 f"ColaSession(telemetry={telemetry!r}) is not ported yet "
-                "(see ROADMAP.md)")
+                "(ROADMAP.md A.4)")
         self.cfg, self.cc = cfg, cc
         self.device = resolve_device(device)
         self.base_params = tree_map(lambda a: a.to(self.device), params)
@@ -65,7 +61,6 @@ class ColaSession:
             family=cc.family, taps=taps, rank=cc.rank, hidden=cc.hidden,
             scale=cc.scale)
         self.step_count = 0
-        self.offload_stats = {"rejected_payloads": 0, "rollbacks": 0}
 
         if cc.mode == "ft":
             self.opt_state = self.optimizer.init(self.base_params)
@@ -77,7 +72,10 @@ class ColaSession:
                 self.adapter_spec, self.adapters, self.optimizer,
                 interval=cc.interval, compress=cc.compress,
                 device=self.device if offload_device is None else offload_device)
-            self._last_good = self.offloader.adapters
+            # Mode A ships payloads over the (possibly unreliable) offload
+            # transport; without faults the channel is a pass-through
+            self.channel = OffloadChannel(self.offloader, user=0,
+                                          injector=injector, policy=policy)
         elif cc.mode == "lora":
             self.opt_state = self.optimizer.init(self.adapters)
         else:
@@ -99,21 +97,6 @@ class ColaSession:
     def _on_device(self, tree: dict) -> dict:
         return tree_map(lambda a: torch.as_tensor(a, device=self.device), tree)
 
-    def _fit_round(self) -> dict | None:
-        """The offloaded fit, when due; commits the new bank only if it is
-        finite and moved by at most MAX_UPDATE_NORM, else rolls back."""
-        off = self.offloader
-        if not off.ready:
-            return None
-        snap = (off.adapters, off.opt_state)
-        new = off.maybe_fit()
-        if all_finite(new) and _update_norm(new, self._last_good) <= MAX_UPDATE_NORM:
-            self._last_good = new
-            return new
-        off.adapters, off.opt_state = snap
-        self.offload_stats["rollbacks"] += 1
-        return None
-
     # ------------------------------------------------------------------
     def step(self, batch: dict) -> float:
         """One training step on ``batch`` {"tokens", "labels"} (tensors or
@@ -134,11 +117,8 @@ class ColaSession:
             loss, data, _ = gl.server_step_a(self.cfg, self.server_spec,
                                              self._effective_params(),
                                              adapters_in, batch)
-            if all_finite(data):
-                self.offloader.push(data)
-            else:
-                self.offload_stats["rejected_payloads"] += 1
-            new = self._fit_round()
+            self.channel.push(data)
+            new = self.channel.fit_round()
             if new is not None:
                 self.adapters = tree_map(lambda a: a.to(self.device), new)
                 self._merged_cache = None   # re-merge from the pristine base
@@ -168,6 +148,20 @@ class ColaSession:
             grads, self.opt_state, self.adapters)
         self.adapters = optim_lib.apply_updates(self.adapters, updates)
         return float(loss)
+
+    # ------------------------------------------------------------------
+    def reset_channels(self) -> None:
+        """Watchdog recovery hook: drop in-flight offload state, restore the
+        last-good bank, lift quarantine (no-op for channel-less modes)."""
+        ch = getattr(self, "channel", None)
+        if ch is not None:
+            ch.reset()
+            self.adapters = tree_map(lambda a: a.to(self.device), ch.adapters)
+            self._merged_cache = None
+
+    def channel_health(self) -> dict:
+        ch = getattr(self, "channel", None)
+        return {0: ch.health()} if ch is not None else {}
 
     # ------------------------------------------------------------------
     def inference_params(self) -> dict:

@@ -1,7 +1,8 @@
-"""Data: the JAX package's ``SyntheticLM`` stream (``data/pipeline.py``),
-with the same numpy generator, so a seed gives the same tokens in both
-packages. ``batch_at(step)`` is a pure function of the step index and the
-seed; batches are tensors on the caller's device.
+"""Data: the JAX package's ``SyntheticLM`` stream and ``ByteCorpus``
+(``data/pipeline.py``), with the same numpy generators, so a seed gives the
+same tokens in both packages. ``batch_at(step)`` is a pure function of the
+step index and the seed (the restart contract of the train loop); batches
+are tensors on the caller's device, ``numpy_batch_at`` the same as numpy.
 """
 from __future__ import annotations
 
@@ -59,6 +60,33 @@ class SyntheticLM:
             batch["user_id"] = rng.integers(0, self.users, size=(b,),
                                             dtype=np.int32)
         return batch
+
+    def batch_at(self, step: int) -> dict:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in self.numpy_batch_at(step).items()}
+
+
+class ByteCorpus:
+    """Byte-level tokenised corpus from a local text file (vocab 256 + pad),
+    with the JAX package's window sampling: step ``s`` draws its windows from
+    ``default_rng(seed * 1_000_003 + s)``, so both packages read the same
+    windows. Batches are tensors on ``device`` (default the card)."""
+
+    def __init__(self, path: str, batch: int, seq: int, seed: int = 0,
+                 device: str | torch.device = "cuda"):
+        with open(path, "rb") as f:
+            self.data = np.frombuffer(f.read(), dtype=np.uint8).astype(np.int32)
+        if len(self.data) <= seq + 1:
+            raise ValueError(f"corpus of {len(self.data)} bytes is too small "
+                             f"for windows of {seq + 1}")
+        self.batch, self.seq, self.seed = batch, seq, seed
+        self.device = resolve_device(device)
+
+    def numpy_batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng(self.seed * 1_000_003 + step)
+        starts = rng.integers(0, len(self.data) - self.seq - 1, size=self.batch)
+        toks = self.data[starts[:, None] + np.arange(self.seq + 1)[None, :]]
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
     def batch_at(self, step: int) -> dict:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)

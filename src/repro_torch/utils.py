@@ -62,3 +62,56 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [l for v in tree for l in tree_leaves(v)]
     return [tree]
+
+
+def sorted_leaves(tree) -> list:
+    """The leaves in ``jax.tree.leaves`` order: dict keys sorted, tuples and
+    lists in order. Where a leaf's index must mean the same leaf as in the
+    JAX package (the fault injector's draws), walk with this, not
+    ``tree_leaves``."""
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (tuple, list)):
+        return [l for v in tree for l in sorted_leaves(v)]
+    return [tree]
+
+
+def replace_sorted_leaf(tree, index: int, new):
+    """A copy of ``tree``'s containers with leaf ``index`` (in
+    ``sorted_leaves`` order) replaced by ``new``; every other leaf is shared."""
+    count = [0]
+
+    def walk(t):
+        if isinstance(t, dict):   # counted in sorted order, kept in t's
+            done = {k: walk(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(v) for v in t)
+        i, count[0] = count[0], count[0] + 1
+        return new if i == index else t
+
+    return walk(tree)
+
+
+def flatten_dict(d: dict, prefix: str = "", sep: str = ".") -> dict:
+    """Nested dicts -> one dict of ``sep``-joined key paths."""
+    out: dict = {}
+    for k, v in d.items():
+        kk = f"{prefix}{sep}{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten_dict(v, kk, sep))
+        else:
+            out[kk] = v
+    return out
+
+
+def unflatten_dict(d: dict, sep: str = ".") -> dict:
+    """The inverse of ``flatten_dict``."""
+    out: dict = {}
+    for k, v in d.items():
+        parts = k.split(sep)
+        cur = out
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+    return out

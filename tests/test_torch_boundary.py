@@ -38,7 +38,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert bad == "[]", out.stdout
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     from repro_torch.configs import registry
@@ -61,6 +61,14 @@ def test_entry_points_default_to_the_card():
         ColaSession(cfg, ColaConfig(), params)
     with pytest.raises(RuntimeError, match="cuda"):
         SyntheticLM(cfg, batch=1, seq=4)
+    from repro_torch.core.collab import CollabSession
+    from repro_torch.data.pipeline import ByteCorpus
+    with pytest.raises(RuntimeError, match="cuda"):
+        CollabSession(cfg, ColaConfig(mode="faithful_offload", merged=True,
+                                      users=2), params)
+    (tmp_path / "corpus.txt").write_bytes(b"a tiny corpus " * 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ByteCorpus(str(tmp_path / "corpus.txt"), batch=1, seq=8)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -91,7 +91,7 @@ def test_session_trajectory_matches_jax(setup, mode, merged, interval,
         if mode == "lora":
             ts.opt_state = ts.optimizer.init(ad)
         else:
-            ts.offloader.adapters = ts._last_good = ad
+            ts.offloader.adapters = ts.channel.last_good = ad
     losses = [(ts.step(b), js.step(b)) for b in batches]
     np.testing.assert_allclose(*zip(*losses), rtol=1e-4)
     assert len({round(j, 6) for _, j in losses}) > 1   # training moved the loss
