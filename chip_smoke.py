@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-ten phases, exiting non-zero on any failure:
+eleven phases, exiting non-zero on any failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
    full-width smollm-135m shapes of the serving and training paths, in bf16
@@ -103,7 +103,25 @@ ten phases, exiting non-zero on any failure:
    a fit on the worker thread (``timeout_s``) equals the same-thread fit.
    Prints the collab step, the fit round, the channel's checks and the
    checkpoint's save and restore times.
-10. The last lines: the card's name and power limit, one JSON line with every
+10. Telemetry (``[telemetry]``), with the launch counts reset just before
+   and read just after (all eight kernels must run): (a) phase 2's 32
+   requests and (b) phase 6's, each with ``Telemetry(trace=True)``: the
+   tokens of the telemetry-off phase, bit for bit, a valid trace, 32
+   completed and 32 TTFT samples, no postmortem, (b)'s ``pager.*`` equal to
+   the pager's stats and the pool whole; (c) phase 9 (c)'s chaos run with
+   the telemetry handed to the injector and the ``CollabSession``: banks and
+   losses equal the telemetry-off run's, exactly one quarantine postmortem
+   (user 1) whose ring holds the injected fault, the rejected fits, the
+   rollback and the quarantine and names ``last_error_seq``, round-tripped
+   from disk, none for user 0; (d) a ``TrainLoop`` over Mode A writes
+   ``telemetry.jsonl``. No record, span argument or metric holds a tensor.
+   Under ``torch.cuda.set_sync_debug_mode("warn")`` one workload makes as
+   many synchronising calls with telemetry as without. Prints each path's
+   span table (host wall time), the decode-tick and prefill p50 with
+   telemetry off and on in turns (three runs each, a reading), and checks
+   that a ``torch.profiler`` run sees the ``serve.decode`` and
+   ``offload.fit`` annotations of ``Telemetry(profiler_annotations=True)``.
+11. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -661,7 +679,9 @@ def serving_setup(cfg, dev):
     return params, banks, prompts
 
 
-def phase_serving(cfg, dev, setup) -> dict:
+def phase_serving(cfg, dev, setup) -> tuple[dict, list]:
+    """Phase 2; returns the launch counts and the tokens of the measured
+    run."""
     params, banks, prompts = setup
     # warm-up (library handles, allocator); its launches are not counted
     serve(cfg, params, banks, prompts[:2], dev, slots=16, max_len=1024,
@@ -691,7 +711,7 @@ def phase_serving(cfg, dev, setup) -> dict:
           f" decode tick p50 {tp['decode_tick']['p50'] * 1e3:.2f} ms,"
           f" prefill calls {eng.stats['prefill_calls']}", flush=True)
     print(f"[serve] launches on the serving path: {launches}", flush=True)
-    return launches
+    return launches, [r.out for r in reqs]
 
 
 def phase_engine_vs_plain(cfg, dev) -> None:
@@ -728,9 +748,9 @@ SCALE = dict(kv_layout="paged", kv_block=16, prefill_chunk=128,
              bank_store="int8")
 
 
-def phase_serving_at_scale(cfg, dev, setup) -> dict:
+def phase_serving_at_scale(cfg, dev, setup) -> tuple[dict, list]:
     """Phase 2's requests through paged KV, chunked prefill and an int8 bank;
-    returns the launch counts of the measured run."""
+    returns the launch counts and the tokens of the measured run."""
     from repro_torch.models import model
 
     params, banks, prompts = setup
@@ -794,7 +814,7 @@ def phase_serving_at_scale(cfg, dev, setup) -> dict:
           f"multi_lora_q8 per call (chunk rounds + decode calls) "
           f"{launches['multi_lora_q8'] / (st['chunk_rounds'] + decode_calls):.1f}",
           flush=True)
-    return launches
+    return launches, [r.out for r in reqs]
 
 
 def phase_scale_vs_plain(cfg, dev) -> None:
@@ -1244,7 +1264,7 @@ def _policy(**kw):
 
 
 def _collab_run(cfg, params, batches, dev, *, injector=None, user0=False,
-                fit_ms=None):
+                fit_ms=None, telemetry=None):
     """Six steps of a K = 4 merged ``CollabSession`` (rank-8 ``qv``,
     interval 1, AdamW at TrainConfig's settings). With ``fit_ms``, every fit
     round is timed between syncs into it. Returns (session, losses, step
@@ -1255,7 +1275,8 @@ def _collab_run(cfg, params, batches, dev, *, injector=None, user0=False,
     cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
                     rank=8, merged=True, interval=1, users=4)
     sess = CollabSession(cfg, cc, params, seed=SEED, optimizer=_adamw(),
-                         injector=injector, policy=_policy(), device=dev)
+                         injector=injector, policy=_policy(), device=dev,
+                         telemetry=telemetry)
     if fit_ms is not None:
         for ch in sess.channels:
             def timed(fn=ch.fit_round):
@@ -1507,6 +1528,309 @@ def phase_runtime(cfg, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: telemetry through the serving paths and the training runtime
+# ---------------------------------------------------------------------------
+
+NAN_USER1 = dict(nan=1.0, targets=("adapters",))
+
+
+def _host_values_only(tm) -> None:
+    """No tensor reaches a record, a span argument or a metric (it would
+    sync when a postmortem prints it, and keep device memory alive)."""
+    def walk(v):
+        check(not isinstance(v, torch.Tensor),
+              f"[telemetry] a tensor in the telemetry: {v!r}")
+        if isinstance(v, (dict, list)):
+            for x in (v.values() if isinstance(v, dict) else v):
+                walk(x)
+
+    walk([tm.recorder.events(*k) for k in tm.recorder.keys()])
+    walk([p["events"] for p in tm.recorder.postmortems])
+    walk([ev.get("args", {}) for ev in (tm.tracer.events if tm.tracer else ())])
+    walk(tm.snapshot())
+
+
+def _span_table(tag: str, tm, names) -> dict:
+    """Print the trace's rows of ``names`` (ms, host wall time) and return
+    them by name; every name must have spans."""
+    from repro_torch import trace_summary
+    from repro_torch.telemetry import validate_trace
+
+    doc = tm.tracer.to_doc()
+    problems = validate_trace(doc)
+    check(problems == [], f"[telemetry] {tag}: invalid trace {problems[:3]}")
+    rows = {r["name"]: r for r in trace_summary.span_table(doc)}
+    for n in names:
+        check(n in rows, f"[telemetry] {tag}: no {n} span ({sorted(rows)})")
+        r = rows[n]
+        print(f"[telemetry] {tag} span {n}: count {r['count']}, total "
+              f"{r['total_ms']:.2f} ms, mean {r['mean_ms']:.3f}, p50 "
+              f"{r['p50_ms']:.3f}, p99 {r['p99_ms']:.3f}, max "
+              f"{r['max_ms']:.3f} ms", flush=True)
+    return rows
+
+
+def count_syncs(fn) -> "collections.Counter":
+    """Synchronising calls ``fn`` makes, as ``torch.cuda``'s sync debug mode
+    reports them (one warning each), by the Python line that made them."""
+    import collections
+    import gc
+    import warnings
+
+    gc.collect()            # no finalizer of an earlier run's objects inside
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def _telemetry_serving(cfg, dev, setup, want, tag, d, **options):
+    """Phase 2's (or 6's) 32 requests with telemetry: the tokens of the
+    telemetry-off run, a valid trace, JAX's counters, no postmortem."""
+    from repro_torch.telemetry import Telemetry
+
+    params, banks, prompts = setup
+    tm = Telemetry(trace=True, out_dir=d)
+    eng, reqs, _ = serve(cfg, params, banks, prompts, dev, slots=16,
+                         max_len=1024, max_new=32, telemetry=tm, **options)
+    check([r.out for r in reqs] == want,
+          f"[telemetry] {tag}: tokens differ from the telemetry-off run's")
+    snap = eng.telemetry_snapshot()
+    check(snap["serve.completed"] == 32 and snap["serve.ttft_s"]["count"] == 32,
+          f"[telemetry] {tag}: completed {snap['serve.completed']}, ttft "
+          f"count {snap['serve.ttft_s']['count']}")
+    check(tm.recorder.postmortems == [],
+          f"[telemetry] {tag}: postmortems {tm.recorder.postmortems[:1]}")
+    _host_values_only(tm)
+    return tm, eng, snap
+
+
+def _telemetry_chaos(cfg, params, dev, d) -> None:
+    """Phase 9 (c)'s chaos run with telemetry: the same banks and losses,
+    one quarantine postmortem (user 1) that names the failing seq ids. Runs
+    off, on, on, off, so that the step times compare in turns."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.faults import FaultInjector, FaultProfile
+    from repro_torch.telemetry import Telemetry
+
+    data = SyntheticLM(cfg, batch=32, seq=128, users=4, seed=SEED, device=dev)
+    batches = [data.batch_at(i) for i in range(RUNTIME_STEPS)]
+    runs, step_ms = [], {False: [], True: []}
+    for on, d_run in ((False, None), (True, d), (True, f"{d}-2"),
+                      (False, None)):
+        tm = Telemetry(trace=True, out_dir=d_run) if on else None
+        sess, losses, ms = _collab_run(
+            cfg, params, batches, dev, user0=True, telemetry=tm,
+            injector=FaultInjector({1: FaultProfile(**NAN_USER1)}, seed=0,
+                                   telemetry=tm))
+        runs.append((_bank_leaves(sess), losses, sess if len(runs) == 1
+                     else None, tm))
+        step_ms[on].append(statistics.median(ms))
+        del sess
+    for banks, losses, _, _ in runs[1:]:
+        check(losses == runs[0][1] and all(
+            _equal(a, b) for a, b in zip(banks, runs[0][0])),
+            "[telemetry] (c) telemetry changed the chaos run's banks or "
+            "losses")
+    sess, tm = runs[1][2], runs[1][3]
+    pms = tm.recorder.postmortems
+    quar = [p for p in pms if p["reason"].startswith("quarantined after")]
+    check(len(quar) == 1 and (quar[0]["scope"], quar[0]["key"]) == ("user", 1),
+          f"[telemetry] (c) quarantine postmortems {[p['reason'] for p in pms]}")
+    pm = quar[0]
+    kinds = [e["kind"] for e in pm["events"]]
+    check({"fault_injected", "fit_rejected", "rollback", "quarantine"}
+          <= set(kinds), f"[telemetry] (c) the postmortem's kinds {kinds}")
+    failing = {e["seq"] for e in pm["events"]
+               if e["kind"] in ("fit_rejected", "rollback")}
+    last = sess.channels[1].health()["last_error_seq"]
+    check(last in failing, f"[telemetry] (c) last_error_seq {last} not in "
+          f"the postmortem's failing seqs {sorted(failing)}")
+    with open(pm["path"]) as f:
+        disk = json.load(f)
+    check(disk["reason"] == pm["reason"]
+          and [e["kind"] for e in disk["events"]] == kinds,
+          "[telemetry] (c) the postmortem on disk differs")
+    check(not any(p["scope"] == "user" and p["key"] == 0 for p in pms),
+          "[telemetry] (c) a postmortem for user 0")
+    _host_values_only(tm)
+    print(f"[telemetry] (c) chaos K 4 (user 1 NaN-poisoned): banks and "
+          f"losses of off, on, on, off equal; postmortems "
+          f"{[(p['key'], p['reason'][:40]) for p in pms]}; the quarantine's "
+          f"ring {len(kinds)} events, failing seqs {sorted(failing)}, "
+          f"last_error_seq {last}; collab step p50 ms off "
+          f"{[round(x, 2) for x in step_ms[False]]}, on "
+          f"{[round(x, 2) for x in step_ms[True]]} (off, on, on, off)",
+          flush=True)
+    rows = _span_table("(c)", tm, ("session.offload_round", "channel.push",
+                                   "channel.fit_round"))
+    print(f"[telemetry] (c) offload rounds "
+          f"{rows['session.offload_round']['total_ms'] / RUNTIME_STEPS:.2f} "
+          f"ms a step, of the on-run's collab step p50 "
+          f"{step_ms[True][0]:.2f} ms", flush=True)
+
+
+def _telemetry_train_loop(cfg, params, dev, d):
+    """(d) a TrainLoop over Mode A with telemetry writes telemetry.jsonl.
+    Returns the session (its next step is profiled)."""
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.core.session import ColaSession
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.train_loop import TrainLoop
+    from repro_torch.telemetry import Telemetry
+
+    tm = Telemetry(out_dir=d)
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8, merged=True, interval=1)
+    sess = ColaSession(cfg, cc, params, seed=SEED, optimizer=_adamw(),
+                       device=dev, telemetry=tm)
+    data = SyntheticLM(cfg, batch=32, seq=128, seed=SEED, device=dev)
+    TrainLoop(sess, data, f"{d}/loop", telemetry=tm).run(2, resume=False)
+    with open(f"{d}/loop/telemetry.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    m = recs[-1]["metrics"]
+    check(m["train.step_s"]["count"] == 2 and m["channel.u0.version"] == 2,
+          f"[telemetry] (d) last telemetry.jsonl record {m}")
+    _host_values_only(tm)
+    print(f"[telemetry] (d) TrainLoop over Mode A, 2 steps: telemetry.jsonl "
+          f"{len(recs)} records, train.step_s count "
+          f"{m['train.step_s']['count']}, p50 {m['train.step_s']['p50'] * 1e3:.2f} "
+          f"ms, channel.u0.version {m['channel.u0.version']}", flush=True)
+    return sess, data.batch_at(2)
+
+
+def _overhead(cfg, dev, setup) -> None:
+    """Decode-tick and prefill p50 with telemetry off and on, in turns, three
+    runs each (a reading, not a gate)."""
+    from repro_torch.telemetry import Telemetry
+
+    params, banks, prompts = setup
+    p50 = {False: {"decode_tick": [], "prefill": []},
+           True: {"decode_tick": [], "prefill": []}}
+    for on in (False, True) * 3:
+        eng, _, _ = serve(cfg, params, banks, prompts, dev, slots=16,
+                          max_len=1024, max_new=16,
+                          telemetry=Telemetry(trace=True) if on else None)
+        tp = eng.throughput()
+        for k in p50[on]:
+            p50[on][k].append(tp[k]["p50"] * 1e3)
+    for k in ("decode_tick", "prefill"):
+        off, on = p50[False][k], p50[True][k]
+        print(f"[telemetry] overhead {k} p50 ms (32 requests, 16 new tokens; "
+              f"off, on in turns): off {[round(x, 2) for x in off]} median "
+              f"{statistics.median(off):.2f} spread {max(off) - min(off):.2f}; "
+              f"on {[round(x, 2) for x in on]} median "
+              f"{statistics.median(on):.2f} spread {max(on) - min(on):.2f}",
+              flush=True)
+
+
+def _annotations(cfg, dev, setup, sess, batch) -> None:
+    """``Telemetry(profiler_annotations=True)``: a torch.profiler run of one
+    tick and one fit sees ``serve.decode`` and ``offload.fit``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.serve_loop import Request, ServeEngine
+    from repro_torch.telemetry import Telemetry, enable_profiler_annotations
+
+    params, banks, prompts = setup
+    try:
+        tm = Telemetry(profiler_annotations=True)
+        eng = ServeEngine(cfg, params, slots=16, max_len=1024,
+                          user_adapters=banks, device=dev, telemetry=tm)
+        for i in range(2):
+            eng.submit(Request(rid=i, user=i, prompt=prompts[i], max_new=4))
+        eng.tick()                       # admission and prefill
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            eng.tick()
+            sess.step(batch)             # Mode A: push and fit, this thread
+            torch.cuda.synchronize()
+    finally:
+        enable_profiler_annotations(False)
+    names = {e.name for e in prof.events()}
+    check({"serve.decode", "offload.fit"} <= names,
+          f"[telemetry] profiler annotations missing: "
+          f"{sorted(n for n in names if '.' in n and '::' not in n)[:20]}")
+    print("[telemetry] torch.profiler sees serve.decode and offload.fit",
+          flush=True)
+
+
+def phase_telemetry(cfg, dev, setup, serve_tokens, scale_tokens) -> dict:
+    """Phase 10 at full width; returns the launch counts of the phase."""
+    import tempfile
+
+    from repro_torch.models import model
+
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        # (a) dense serving, f32 bank
+        tm, eng, _ = _telemetry_serving(cfg, dev, setup, serve_tokens, "(a)",
+                                        f"{d}/a")
+        print("[telemetry] (a) dense serving: tokens equal phase 2's; valid "
+              "trace; serve.completed 32, serve.ttft_s count 32; no "
+              "postmortem", flush=True)
+        _span_table("(a)", tm, ("serve.tick", "serve.admit", "serve.decode",
+                                "serve.prefill"))
+        # (b) paged + chunked + int8
+        tm, eng, snap = _telemetry_serving(cfg, dev, setup, scale_tokens,
+                                           "(b)", f"{d}/b", **SCALE)
+        pager = {k: snap[f"pager.{k}"] for k in eng.pager.stats}
+        check(pager == eng.pager.stats, f"[telemetry] (b) pager.* {pager}")
+        eng.pager.assert_empty()
+        print(f"[telemetry] (b) paged + chunks of 128 + int8: tokens equal "
+              f"phase 6's; pager.* == pager.stats {pager}; pool whole",
+              flush=True)
+        _span_table("(b)", tm, ("serve.tick", "serve.prefill_chunk",
+                                "serve.decode"))
+        # (c), (d)
+        train_params = model.init(cfg, seed=SEED, device=dev)
+        _telemetry_chaos(cfg, train_params, dev, f"{d}/c")
+        sess, batch = _telemetry_train_loop(cfg, train_params, dev, f"{d}/d")
+
+        # no sync added: one workload, off and on in turns, under sync debug
+        # mode, after a counted warm-up (the first run under the mode made
+        # one more call, at torch/cuda/__init__.py, telemetry off)
+        from repro_torch.telemetry import Telemetry
+        params, banks, prompts = setup
+
+        def workload(on):
+            serve(cfg, params, banks, prompts[:8], dev, slots=16,
+                  max_len=1024, max_new=8,
+                  telemetry=Telemetry(trace=True, out_dir=f"{d}/s")
+                  if on else None)
+
+        warm = count_syncs(lambda: workload(False))
+        syncs = [count_syncs(lambda: workload(on))
+                 for on in (False, True, False, True)]
+        totals = [sum(c.values()) for c in syncs]
+        check(syncs[0] == syncs[1] == syncs[2] == syncs[3] and totals[0] > 0,
+              f"[telemetry] synchronising calls off, on, off, on {totals}: "
+              f"off - on {syncs[0] - syncs[1]}, on - off {syncs[1] - syncs[0]}")
+        print(f"[telemetry] synchronising calls (8 requests, 8 new tokens, "
+              f"sync debug mode; off, on, off, on): {totals} (warm-up "
+              f"{sum(warm.values())}, {dict(warm - syncs[0])} more), by line "
+              f"{dict(syncs[1])}", flush=True)
+
+        _overhead(cfg, dev, setup)
+        _annotations(cfg, dev, setup, sess, batch)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in ws.items()}
+    print(f"[telemetry] launches: {launches}; {card_line()}", flush=True)
+    for n, c in launches.items():
+        check(c > 0, f"kernel {n} was never launched in [telemetry]")
+    return launches
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1565,7 +1889,7 @@ def main() -> int:
     print(f"[kernels] done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     setup = serving_setup(cfg, dev)
-    launches = phase_serving(cfg, dev, setup)
+    launches, serve_tokens = phase_serving(cfg, dev, setup)
     print(f"[serve] done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_engine_vs_plain(cfg, dev)
@@ -1579,7 +1903,7 @@ def main() -> int:
     print(f"[train-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
-    scale = phase_serving_at_scale(cfg, dev, setup)
+    scale, scale_tokens = phase_serving_at_scale(cfg, dev, setup)
     print(f"[scale] done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_scale_vs_plain(cfg, dev)
@@ -1587,11 +1911,14 @@ def main() -> int:
           flush=True)
     t0 = time.perf_counter()
     store = phase_store(cfg, dev, setup)
-    del setup
     print(f"[store] done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     runtime = phase_runtime(cfg, dev)
     print(f"[runtime] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tele = phase_telemetry(cfg, dev, setup, serve_tokens, scale_tokens)
+    del setup
+    print(f"[telemetry] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
@@ -1607,15 +1934,15 @@ def main() -> int:
                "flash_attention_bwd_dkv": "flash_attention_bwd",
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
-    # launches: the serving, training, serving-at-scale, store and runtime
-    # runs' together (flash_attention runs on all five paths);
+    # launches: the serving, training, serving-at-scale, store, runtime and
+    # telemetry runs' together (flash_attention runs on all six paths);
     # the top-level numbers are the kernel's first row, "rows" holds every
     # phase-1 row of the kernel (both cola_fit taps, multi_lora at a tick)
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
                     replaces=replaces[n],
                     launches=(launches[n] + train[n] + scale[n] + store[n]
-                              + runtime[n]),
+                              + runtime[n] + tele[n]),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})

@@ -28,12 +28,15 @@ to the host. Each reduction reads a payload leaf once.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from repro_torch.runtime.faults import (DeadLetter, Delivery, FaultInjector,
                                         FitTimeout, RetryPolicy,
                                         call_with_timeout)
+from repro_torch.telemetry import NULL_CONTEXT
 from repro_torch.utils import sorted_leaves
 
 
@@ -101,8 +104,10 @@ def _checksums_match(got: tuple[float, ...], want: tuple[float, ...]) -> bool:
 
 class OffloadChannel:
     """Reliable transport and validation around one user's ``Offloader``.
-    ``telemetry`` is not ported yet: any value but None raises
-    ``NotImplementedError`` (ROADMAP.md A.4)."""
+    With ``telemetry``: ``channel.push`` / ``channel.fit_round`` spans on the
+    "offload" lane, the ``channel.fit_round_s`` histogram, a record of each
+    delivery, commit, error (by kind), quarantine and reset in the user's
+    flight-recorder ring, and a postmortem on every rollback."""
 
     def __init__(self, offloader, *, user: int = 0,
                  injector: FaultInjector | None = None,
@@ -110,10 +115,6 @@ class OffloadChannel:
                  max_update_norm: float = 1e4,
                  quarantine_after: int = 2,
                  on_commit=None, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                f"OffloadChannel(telemetry={telemetry!r}) is not ported yet "
-                "(ROADMAP.md A.4)")
         self.offloader = offloader
         self.user = user
         self.injector = injector
@@ -124,6 +125,11 @@ class OffloadChannel:
         # validated commit (e.g. ServeEngine.install_adapters); it only ever
         # sees committed banks
         self.on_commit = on_commit
+        # telemetry is observational: every record/span reads values already
+        # computed for the reliability protocol, never perturbs it
+        self.tm = telemetry if telemetry else None
+        if self.tm:
+            self.tm.name_thread(1, "offload")
         # the last failure seen (reason and offending seq), in health()
         self.last_error: str | None = None
         self.last_error_seq: int | None = None
@@ -172,9 +178,29 @@ class OffloadChannel:
                 "last_error": self.last_error,
                 "last_error_seq": self.last_error_seq}
 
-    def _note_error(self, reason: str, seq: int) -> None:
+    # -- telemetry ----------------------------------------------------------
+    def _span(self, name: str, **args):
+        if self.tm is None:
+            return NULL_CONTEXT
+        return self.tm.span(name, cat="offload", tid=1, **args)
+
+    def _record(self, kind: str, **fields) -> None:
+        if self.tm is not None:
+            self.tm.record("user", self.user, kind, **fields)
+
+    def round_span(self):
+        """The ``session.offload_round`` span of one user round (push and
+        fit), which the sessions open; the channel's ``channel.push`` and
+        ``channel.fit_round`` spans, carrying the seq ids, nest inside."""
+        if self.tm is None:
+            return NULL_CONTEXT
+        return self.tm.span("session.offload_round", cat="offload", tid=1,
+                            user=self.user, seq=self._seq)
+
+    def _note_error(self, kind: str, reason: str, seq: int) -> None:
         self.last_error = reason
         self.last_error_seq = seq
+        self._record(kind, reason=reason, seq=seq)
 
     # -- transport: server -> offload device -------------------------------
     def _transmit(self, kind: str, obj) -> list[Delivery]:
@@ -189,11 +215,15 @@ class OffloadChannel:
         buffers; False when the user is quarantined or retries were
         exhausted (the payload is then dead-lettered, not silently lost).
         """
+        with self._span("channel.push", user=self.user, seq=self._seq):
+            return self._push(data)
+
+    def _push(self, data: dict[str, tuple]) -> bool:
         h = self.health_counters
         h["pushes"] += 1
         if self.quarantined:
             h["refused_quarantined"] += 1
-            self._note_error("quarantined", self._seq)
+            self._note_error("push_refused", "quarantined", self._seq)
             return False
         seq = self._seq
         self._seq += 1
@@ -214,17 +244,19 @@ class OffloadChannel:
                 finite, got = sent if d.obj is data else _tree_stats(d.obj)
                 if not finite:
                     h["nan_rejected"] += 1
-                    self._note_error("non-finite payload", seq)
+                    self._note_error("payload_nack", "non-finite payload", seq)
                     continue
                 if not _checksums_match(got, want):
                     h["corrupt_rejected"] += 1
-                    self._note_error("payload checksum mismatch", seq)
+                    self._note_error("payload_nack",
+                                     "payload checksum mismatch", seq)
                     continue
                 self._seen.add(seq)
                 self.offloader.push(d.obj)
                 accepted = True
             if accepted:
                 h["delivered"] += 1
+                self._record("delivered", seq=seq, attempts=attempt)
                 return True
             h["send_retries"] += 1
             h["backoff_s"] += self.policy.wait(attempt, self._rng)
@@ -232,7 +264,7 @@ class OffloadChannel:
             self.user, seq, "payload", "send retries exhausted",
             self.policy.max_attempts, data))
         h["dead_letters"] += 1
-        self._note_error("send retries exhausted", seq)
+        self._note_error("dead_letter", "send retries exhausted", seq)
         return False
 
     # -- fit round: offload device -> server --------------------------------
@@ -267,6 +299,16 @@ class OffloadChannel:
         """
         if self.quarantined or not self.offloader.ready:
             return None
+        t0 = time.perf_counter()
+        with self._span("channel.fit_round", user=self.user, seq=self._seq,
+                        version=self.version):
+            out = self._fit_round(t0)
+        if self.tm is not None:
+            self.tm.registry.histogram("channel.fit_round_s").observe(
+                time.perf_counter() - t0)
+        return out
+
+    def _fit_round(self, t0: float) -> dict | None:
         h = self.health_counters
         snap = self._snapshot()
         failure = "unknown"
@@ -278,14 +320,14 @@ class OffloadChannel:
             except FitTimeout:
                 h["fit_timeouts"] += 1
                 failure = "fit timeout"
-                self._note_error(failure, self._seq)
+                self._note_error("fit_timeout", failure, self._seq)
                 self._restore(snap)
                 h["backoff_s"] += self.policy.wait(attempt, self._rng)
                 continue
             except Exception as e:  # numerical failure on the fit device
                 h["fit_errors"] += 1
                 failure = f"fit error: {e}"
-                self._note_error(failure, self._seq)
+                self._note_error("fit_error", failure, self._seq)
                 self._restore(snap)
                 h["backoff_s"] += self.policy.wait(attempt, self._rng)
                 continue
@@ -302,7 +344,7 @@ class OffloadChannel:
             if delivered is None:
                 failure = "adapter return dropped"
                 h["send_retries"] += 1
-                self._note_error(failure, self._seq)
+                self._note_error("fit_nack", failure, self._seq)
                 self._restore(snap)    # the refit is deterministic
                 h["backoff_s"] += self.policy.wait(attempt, self._rng)
                 continue
@@ -310,7 +352,7 @@ class OffloadChannel:
             if reason is not None:
                 h["fit_rejected"] += 1
                 failure = reason
-                self._note_error(failure, self._seq)
+                self._note_error("fit_rejected", failure, self._seq)
                 self._restore(snap)
                 h["backoff_s"] += self.policy.wait(attempt, self._rng)
                 continue
@@ -320,6 +362,8 @@ class OffloadChannel:
             self.last_good = delivered
             self._fail_streak = 0
             h["fits_committed"] += 1
+            self._record("commit", version=self.version, attempts=attempt,
+                         fit_s=time.perf_counter() - t0)
             if self.on_commit is not None:
                 self.on_commit(self.user, self.version, delivered)
             return delivered
@@ -331,7 +375,17 @@ class OffloadChannel:
         h["dead_letters"] += 1
         h["rollbacks"] += 1
         self._fail_streak += 1
-        self._note_error(failure, self._seq)
+        self._note_error("rollback", failure, self._seq)
+        if self.tm is not None:
+            if self._fail_streak >= self.quarantine_after:
+                # quarantine is terminal for the user: freeze the evidence
+                self._record("quarantine", reason=failure,
+                             fail_streak=self._fail_streak)
+                self.tm.dump("user", self.user,
+                             f"quarantined after {self._fail_streak} failed "
+                             f"fit rounds: {failure}")
+            else:
+                self.tm.dump("user", self.user, f"fit rollback: {failure}")
         if self._fail_streak >= self.quarantine_after:
             self.quarantined = True
         return None
@@ -347,3 +401,4 @@ class OffloadChannel:
         self.offloader.adapters = self.last_good
         self.quarantined = False
         self._fail_streak = 0
+        self._record("reset", version=self.version)

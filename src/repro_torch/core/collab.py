@@ -47,8 +47,9 @@ def user_generator(seed: int, k: int) -> torch.Generator:
 class CollabSession:
     """K users fine-tuning one base model collaboratively (merged training).
     ``params`` are moved to ``device`` (default the card), where the
-    offloaders run too. ``telemetry`` is not ported yet: any value but None
-    raises ``NotImplementedError`` (ROADMAP.md A.4).
+    offloaders run too. ``telemetry`` goes to every user's channel, and
+    each user's round (row mask, push and fit) opens a
+    ``session.offload_round`` span.
     """
 
     def __init__(self, cfg: ModelConfig, cc: ColaConfig, params: dict,
@@ -57,13 +58,10 @@ class CollabSession:
                  injector=None, policy=None, max_update_norm: float = 1e4,
                  quarantine_after: int = 2, device="cuda",
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                f"CollabSession(telemetry={telemetry!r}) is not ported yet "
-                "(ROADMAP.md A.4)")
         if not (cc.mode == "faithful_offload" and cc.merged):
             raise ValueError("collaboration uses merged faithful-offload "
                              "training (Alg. 1)")
+        self.tm = telemetry if telemetry else None
         self.cfg, self.cc = cfg, cc
         self.device = resolve_device(device)
         self.base_params = tree_map(lambda a: a.to(self.device), params)
@@ -92,7 +90,7 @@ class CollabSession:
             self.channels.append(OffloadChannel(
                 off, user=k, injector=injector, policy=policy,
                 max_update_norm=max_update_norm,
-                quarantine_after=quarantine_after))
+                quarantine_after=quarantine_after, telemetry=self.tm))
         self._merged_cache: dict | None = None
         self.step_count = 0
 
@@ -122,9 +120,10 @@ class CollabSession:
                                          self.merged_model(), {}, batch)
         updated = False
         for k, ch in enumerate(self.channels):
-            ch.push(mask_user_rows(data, user_ids, k))
-            if ch.fit_round() is not None:
-                updated = True
+            with ch.round_span():   # the mask, the push and the fit
+                ch.push(mask_user_rows(data, user_ids, k))
+                if ch.fit_round() is not None:
+                    updated = True
         if updated:
             self._merged_cache = None
         return float(loss)

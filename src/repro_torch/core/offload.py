@@ -21,6 +21,7 @@ import torch
 from repro_torch.core import gl
 from repro_torch.core.taps import ColaSpec
 from repro_torch.optim import optimizers as optim_lib
+from repro_torch.telemetry import annotate
 from repro_torch.utils import resolve_device, tree_map
 
 
@@ -124,7 +125,8 @@ class Offloader:
         adapters (to be sent back to the server / merged) or None."""
         if not self.ready:
             return None
-        return self._fit(self.interval)
+        with annotate("offload.fit"):
+            return self._fit(self.interval)
 
     def force_fit(self) -> dict | None:
         """Fit on whatever is buffered, averaging over the batches held."""

@@ -40,17 +40,14 @@ class ColaSession:
     any device. Mode A's payloads and fits go through ``self.channel``
     (``injector`` and ``policy`` go to it); Mode B keeps one too, as the JAX
     package does, for ``reset_channels`` and ``channel_health``.
-    ``telemetry`` is not ported yet: any value but None raises
-    ``NotImplementedError`` (ROADMAP.md A.4)."""
+    ``telemetry`` goes to the channel, and each Mode A round (push and fit)
+    opens a ``session.offload_round`` span."""
 
     def __init__(self, cfg: ModelConfig, cc: ColaConfig, params: dict,
                  seed: int = 0, optimizer=None, lr=1e-3, device="cuda",
                  offload_device=None, injector=None, policy=None,
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                f"ColaSession(telemetry={telemetry!r}) is not ported yet "
-                "(ROADMAP.md A.4)")
+        self.tm = telemetry if telemetry else None
         self.cfg, self.cc = cfg, cc
         self.device = resolve_device(device)
         self.base_params = tree_map(lambda a: a.to(self.device), params)
@@ -75,7 +72,8 @@ class ColaSession:
             # Mode A ships payloads over the (possibly unreliable) offload
             # transport; without faults the channel is a pass-through
             self.channel = OffloadChannel(self.offloader, user=0,
-                                          injector=injector, policy=policy)
+                                          injector=injector, policy=policy,
+                                          telemetry=self.tm)
         elif cc.mode == "lora":
             self.opt_state = self.optimizer.init(self.adapters)
         else:
@@ -117,8 +115,9 @@ class ColaSession:
             loss, data, _ = gl.server_step_a(self.cfg, self.server_spec,
                                              self._effective_params(),
                                              adapters_in, batch)
-            self.channel.push(data)
-            new = self.channel.fit_round()
+            with self.channel.round_span():   # one round: push + fit
+                self.channel.push(data)
+                new = self.channel.fit_round()
             if new is not None:
                 self.adapters = tree_map(lambda a: a.to(self.device), new)
                 self._merged_cache = None   # re-merge from the pristine base

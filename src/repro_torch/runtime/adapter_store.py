@@ -39,8 +39,9 @@ entry and leaves the cluster's row and its other members as they were.
 A multi-LoRA row's result depends only on its own x row and its adapter, so
 serving through R resident rows gives the tokens of the all-resident engine.
 
-Ported from the JAX package's ``runtime/adapter_store.py``; telemetry is
-still to be ported (ROADMAP.md).
+Ported from the JAX package's ``runtime/adapter_store.py``, with its
+telemetry: the ``store.fetch_s`` histogram and a ``store_fetch`` record a
+fetch (host time of the row write; no sync is added to make it device time).
 """
 from __future__ import annotations
 
@@ -112,10 +113,6 @@ class AdapterStore:
 
     def __init__(self, resident: int, *, store: str = "f32", telemetry=None,
                  device="cuda"):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "AdapterStore(telemetry=...) is not ported yet (see "
-                "ROADMAP.md)")
         if resident < 1:
             raise ValueError(f"resident slot count must be >= 1, got {resident}")
         if store not in ("f32", "int8"):
@@ -123,6 +120,9 @@ class AdapterStore:
         self.device = resolve_device(device)
         self.resident = int(resident)
         self.store = store
+        # observational only: fetch-latency histogram + per-user residency
+        # breadcrumbs; `counters` stays the always-on authority
+        self.tm = telemetry if telemetry else None
         # host tier: key -> tree of CPU tensors; users route to a key
         self._host: dict[UserKey, dict] = {}
         self._route: dict[int, UserKey] = {}
@@ -274,6 +274,7 @@ class AdapterStore:
         self.counters["misses"] += 1
         slot = next((s for s, k in enumerate(self._slot_key) if k is None),
                     None)
+        evicted = None
         if slot is None:
             pinned = self._pinned_keys()
             victims = [(self._last_used[s], s)
@@ -284,12 +285,19 @@ class AdapterStore:
                     "adapter store: no evictable resident row (all "
                     f"{self.resident} rows pinned by live users)")
             _, slot = min(victims)
-            del self._key_slot[self._slot_key[slot]]
+            evicted = self._slot_key[slot]
+            del self._key_slot[evicted]
             self.counters["evictions"] += 1
         t0 = time.perf_counter()
         self._write_row(slot, self._host[key])
-        self.counters["fetch_time"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.counters["fetch_time"] += dt
         self.counters["fetches"] += 1
+        if self.tm is not None:
+            self.tm.registry.histogram("store.fetch_s").observe(dt)
+            self.tm.record("user", key[1], "store_fetch", row=int(slot),
+                           evicted=str(evicted) if evicted else None,
+                           fetch_s=dt)
         self._slot_key[slot] = key
         self._key_slot[key] = slot
         return slot

@@ -111,23 +111,28 @@ class FaultInjector:
     device) or "adapters" (offload device -> server); a profile only applies
     to kinds listed in its ``targets``. User k's faults are a pure function
     of (seed, k, transmission index), so a faulted user never perturbs a
-    healthy one's draws. ``telemetry`` is not ported yet: any value but None
-    raises ``NotImplementedError`` (ROADMAP.md A.4).
+    healthy one's draws. With ``telemetry``, each injected fault leaves a
+    ``fault_injected`` record in the target user's flight-recorder ring.
     """
 
     def __init__(self, profiles: dict[int, FaultProfile] | None = None, *,
                  default: FaultProfile | None = None, seed: int = 0,
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                f"FaultInjector(telemetry={telemetry!r}) is not ported yet "
-                "(ROADMAP.md A.4)")
         self.profiles = dict(profiles or {})
         self.default = default or FaultProfile()
         self.seed = seed
         self._rngs: dict[int, np.random.Generator] = {}
         self.injected = {"drop": 0, "delay": 0, "duplicate": 0, "corrupt": 0,
                          "nan": 0}
+        # a chaos run's postmortems then show the injected cause right next
+        # to the channel's reaction; the numpy draws are untouched, so seeded
+        # replays stay exact
+        self.tm = telemetry if telemetry else None
+
+    def _note(self, user: int, kind: str, fault: str) -> None:
+        if self.tm is not None:
+            self.tm.record("user", user, "fault_injected", target=kind,
+                           fault=fault)
 
     def profile(self, user: int) -> FaultProfile:
         return self.profiles.get(user, self.default)
@@ -146,20 +151,25 @@ class FaultInjector:
         r = rng.random()
         if r < prof.drop:
             self.injected["drop"] += 1
+            self._note(user, kind, "drop")
             return []
         late = 0
         if r < prof.drop + prof.delay:
             self.injected["delay"] += 1
+            self._note(user, kind, "delay")
             late = prof.delay_ticks
         copies = 1
         if rng.random() < prof.duplicate:
             self.injected["duplicate"] += 1
+            self._note(user, kind, "duplicate")
             copies = 2
         if rng.random() < prof.corrupt:
             self.injected["corrupt"] += 1
+            self._note(user, kind, "corrupt")
             obj = _poison_tree(obj, rng, prof.corrupt_scale)
         if rng.random() < prof.nan:
             self.injected["nan"] += 1
+            self._note(user, kind, "nan")
             obj = _poison_tree(obj, rng, None)
         return [Delivery(obj, late_ticks=late) for _ in range(copies)]
 

@@ -20,8 +20,9 @@ allocation never sits on the decode hot path: the engine calls ``ensure``
 before launching a tick and only the (tiny) table array crosses to the device.
 
 A copy of the JAX package's ``runtime/kv_pager.py`` (the port imports nothing
-of that package). The flight-recorder hooks are no-ops until telemetry is
-ported (ROADMAP.md).
+of that package), with its flight-recorder hooks (``kv_reserve``,
+``kv_reserve_fail``, ``kv_release``, and a postmortem before a
+``PagerError``).
 
 Invariants (guarded here and by tests/test_torch_serving_scale.py):
 
@@ -59,9 +60,9 @@ class BlockPager:
         if n_blocks < 1 or block_size < 1:
             raise ValueError(f"need n_blocks >= 1 and block_size >= 1, got "
                              f"{n_blocks}, {block_size}")
-        if telemetry is not None:
-            raise NotImplementedError("BlockPager(telemetry=...) is not "
-                                      "ported yet (see ROADMAP.md)")
+        # observational only (flight-recorder breadcrumbs + postmortems on
+        # accounting violations); the pager never blocks on it
+        self.tm = telemetry if telemetry else None
         self.n_blocks = n_blocks
         self.block_size = block_size
         self.slots = slots
@@ -76,11 +77,18 @@ class BlockPager:
         self.stats = {"allocs": 0, "frees": 0, "in_use": 0, "peak_in_use": 0,
                       "reserve_failures": 0}
 
-    # -- telemetry (flight-recorder hooks: no-ops until it is ported) -------
+    # -- telemetry ---------------------------------------------------------
     def _record(self, slot: int, kind: str, **fields) -> None:
-        pass
+        if self.tm is not None:
+            self.tm.record("slot", slot, kind, **fields)
 
     def _raise(self, slot, msg: str) -> None:
+        """Freeze the offending slot's flight-recorder ring into a postmortem
+        before raising — a PagerError is a terminal accounting violation and
+        the events leading up to it are the evidence."""
+        if self.tm is not None:
+            self.tm.record("slot", slot, "pager_error", message=msg)
+            self.tm.dump("slot", slot, f"PagerError: {msg}")
         raise PagerError(msg)
 
     # -- capacity ----------------------------------------------------------

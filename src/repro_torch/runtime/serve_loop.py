@@ -40,9 +40,19 @@ bump): in place in the dense bank, or into the store's host tier with a
 copy-on-write split off the user's cluster; ``publish_banks`` installs every
 channel's newer bank.
 
+Telemetry (``telemetry=Telemetry(...)``): the ``serve.ttft_s``,
+``serve.latency_s``, ``serve.decode_tick_s``, ``serve.prefill_chunk_s`` and
+``serve.prefill_call_s`` histograms; ``serve.tick`` spans holding
+``serve.admit`` / ``serve.prefill_chunk`` / ``serve.decode``, and
+``serve.prefill`` / ``serve.bank_install``; per-slot ``admit`` /
+``first_token`` / ``retire`` records and per-user ``bank_install`` records;
+``telemetry_snapshot()``. Each device span closes after the host has read
+the call's tokens back (the sync the tick already has), so it measures the
+device work too, not only its launch; telemetry adds no sync of its own.
+
 Ported from the JAX package's ``runtime/serve_loop.py``: the jitted steps
 become plain methods, and the ``lax.scan`` burst a host loop that emits the
-same tokens. Telemetry is still to be ported (ROADMAP.md).
+same tokens.
 """
 from __future__ import annotations
 
@@ -61,6 +71,8 @@ from repro_torch.kernels import multi_lora as ml
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.adapter_store import AdapterStore
 from repro_torch.runtime.kv_pager import BlockPager, PagerError
+from repro_torch.telemetry import NULL_CONTEXT, annotate
+from repro_torch.telemetry.metrics import NULL_METRIC, percentiles
 from repro_torch.utils import all_finite, resolve_device
 
 
@@ -92,19 +104,6 @@ class Request:
         if self.t_submit is None or self.t_done is None:
             return None
         return self.t_done - self.t_submit
-
-
-def percentiles(xs, qs=(50, 95, 99)) -> dict | None:
-    """Tail summary of a sample list: count/mean/max plus p50/p95/p99, or
-    None for an empty sample."""
-    xs = list(xs)
-    if not xs:
-        return None
-    a = np.asarray(xs, np.float64)
-    out = {"count": int(a.size), "mean": float(a.mean()), "max": float(a.max())}
-    for q in qs:
-        out[f"p{q}"] = float(np.percentile(a, q))
-    return out
 
 
 def stack_user_adapters(adapter_list: list[dict]) -> dict:
@@ -211,10 +210,6 @@ class ServeEngine:
             raise ValueError(f"bank_store={bank_store!r}")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout={kv_layout!r}")
-        if telemetry is not None:
-            raise NotImplementedError(
-                f"ServeEngine(telemetry={telemetry!r}) is not ported yet "
-                "(see ROADMAP.md)")
         if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk={prefill_chunk}")
@@ -229,6 +224,21 @@ class ServeEngine:
         if params["embed"]["emb"].device != self.device:
             raise ValueError(f"params live on {params['embed']['emb'].device}, "
                              f"the engine runs on {self.device}")
+        # Telemetry is strictly observational: it only reads host-side values
+        # after the tick's own device sync, so generated tokens are
+        # bit-identical telemetry-on vs. off. The disabled path is
+        # `self.tm is None` checks plus NULL_METRIC no-ops.
+        self.tm = telemetry if telemetry else None
+        _reg = self.tm.registry if self.tm else None
+        _hist = (_reg.histogram if _reg is not None
+                 else (lambda name: NULL_METRIC))
+        self._h_ttft = _hist("serve.ttft_s")
+        self._h_latency = _hist("serve.latency_s")
+        self._h_decode_tick = _hist("serve.decode_tick_s")
+        self._h_prefill_chunk = _hist("serve.prefill_chunk_s")
+        self._h_prefill_call = _hist("serve.prefill_call_s")
+        if self.tm:
+            self.tm.name_thread(0, "serve")
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -258,7 +268,8 @@ class ServeEngine:
         self.pager: BlockPager | None = None
         if kv_layout == "paged":   # as many blocks as the pool holds
             self.pager = BlockPager(self.cache["layers"]["k"].shape[1],
-                                    kv_block, slots, max_len)
+                                    kv_block, slots, max_len,
+                                    telemetry=self.tm)
         # the block table on the card, copied again only when it changes
         self._table_host: np.ndarray | None = None
         self._table_dev: torch.Tensor | None = None
@@ -277,7 +288,7 @@ class ServeEngine:
                 # host tier of every user, R rows on the card
                 self.store = AdapterStore.from_users(
                     user_adapters, resident=resident_slots, store=bank_store,
-                    device=self.device)
+                    telemetry=self.tm, device=self.device)
                 if cluster_threshold is not None:
                     self.store.build_clusters(cluster_threshold,
                                               mode=cluster_mode)
@@ -306,6 +317,38 @@ class ServeEngine:
                       "store_hits": 0, "store_misses": 0, "store_evictions": 0,
                       "store_hit_rate": 0.0, "store_pinned": 0,
                       "store_resident_bytes": 0, "store_fetch_time": 0.0}
+
+    # -- telemetry ---------------------------------------------------------
+    def _span(self, name: str, **args):
+        """A serve-lane trace span, or the shared null context when tracing
+        is off — cheap enough to leave inline in the tick path."""
+        if self.tm is None:
+            return NULL_CONTEXT
+        return self.tm.span(name, cat="serve", tid=0, **args)
+
+    def _record(self, scope: str, key, kind: str, **fields) -> None:
+        if self.tm is not None:
+            self.tm.record(scope, key, kind, **fields)
+
+    def telemetry_snapshot(self) -> dict:
+        """Sync the stat dicts, absorb them into the metric registry under
+        ``serve.*`` / ``store.*`` / ``pager.*`` and return the registry
+        snapshot. Empty dict when telemetry is disabled — ``engine.stats``
+        stays the always-on authority."""
+        if self.tm is None:
+            return {}
+        self._sync_store_stats()
+        self._sync_pager_stats()
+        reg = self.tm.registry
+        # store_*/kv_* keys are mirrors of the store/pager dicts; absorb the
+        # originals under their own namespaces instead of duplicating them
+        reg.absorb("serve", {k: v for k, v in self.stats.items()
+                             if not k.startswith(("store_", "kv_"))})
+        if self.store is not None:
+            reg.absorb("store", self.store.metrics())
+        if self.pager is not None:
+            reg.absorb("pager", self.pager.stats)
+        return reg.snapshot()
 
     # -- device steps --------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -449,6 +492,13 @@ class ServeEngine:
 
     # -- adapter bank lifecycle ---------------------------------------------
     def install_adapters(self, user: int, adapters: dict, version: int) -> bool:
+        with self._span("serve.bank_install", user=user, version=version):
+            ok = self._install_adapters(user, adapters, version)
+        self._record("user", user, "bank_install", version=version, ok=ok)
+        return ok
+
+    def _install_adapters(self, user: int, adapters: dict, version: int
+                          ) -> bool:
         """Hot-swap one user's adapters into the serving bank. Takes only a
         validated version bump: the version must exceed the user's installed
         one, every leaf must be finite and the tree must have the bank's
@@ -568,6 +618,10 @@ class ServeEngine:
                 [self.active[i].user for i in admitted])
             self.res_idx[admitted] = rows
         self.stats["admitted"] += len(admitted)
+        for i in admitted:
+            r = self.active[i]
+            self._record("slot", i, "admit", rid=r.rid, user=r.user,
+                         prompt_len=len(r.prompt))
         if self.prefill_chunk is not None:
             return   # chunk rounds (one per tick) do the prefill work
         rows = [(i, np.asarray(self.active[i].prompt, np.int32))
@@ -580,10 +634,14 @@ class ServeEngine:
                     nxt = self._feed(i, int(tok), t)
                 self._first_token(i, nxt, time.perf_counter())
         else:
-            self._prefill_batch(rows)
+            # the span closes after _prefill_batch has read the first tokens
+            # back to the host: it holds the device work, not just its launch
+            with self._span("serve.prefill", rows=len(rows)):
+                self._prefill_batch(rows)
         dt = time.perf_counter() - t0
         self.stats["prefill_time"] += dt
         self._prefill_s.append(dt)
+        self._h_prefill_call.observe(dt)
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += sum(len(f) for _, f in rows)
         now = time.perf_counter()
@@ -638,6 +696,9 @@ class ServeEngine:
         req._consumed = len(req.prompt)   # prompt fully in cache: decode-live
         self.positions[i] = len(req.prompt)
         self.stats["tokens"] += 1
+        self._h_ttft.observe(now - req.t_submit)
+        self._record("slot", i, "first_token", rid=req.rid, user=req.user,
+                     ttft=now - req.t_submit)
 
     def _maybe_finish(self, i: int, now: float) -> None:
         req = self.active[i]
@@ -651,6 +712,10 @@ class ServeEngine:
         req.status = "done"
         req.t_done = now
         self.stats["completed"] += 1
+        if req.latency is not None:
+            self._h_latency.observe(req.latency)
+        self._record("slot", i, "retire", rid=req.rid, user=req.user,
+                     new_tokens=len(req.out))
         self.finished.append(req)
         self.active[i] = None
         self.positions[i] = 0
@@ -712,6 +777,7 @@ class ServeEngine:
         dt = time.perf_counter() - t0
         self.stats["prefill_time"] += dt
         self._prefill_s.append(dt)
+        self._h_prefill_chunk.observe(dt)
         return pend
 
     def _burst_len(self, live_idx: list[int]) -> int:
@@ -737,11 +803,20 @@ class ServeEngine:
         (chunked mode), then decode one token (or a burst) for every slot
         whose prompt is fully in cache; bursts are capped at 1 while any slot
         is prefilling. Returns the number of tokens decoded."""
+        with self._span("serve.tick", tick=self.stats["ticks"]):
+            return self._tick_inner()
+
+    def _tick_inner(self) -> int:
         if self.queue:
-            self._admit()
+            with self._span("serve.admit", queued=len(self.queue)):
+                self._admit()
         prefilling: list[int] = []
-        if self.prefill_chunk is not None:
-            prefilling = self._chunk_round()
+        if self.prefill_chunk is not None and any(
+                r is not None and r._consumed < len(r.prompt)
+                for r in self.active):
+            # the span closes after the round's tokens are on the host
+            with self._span("serve.prefill_chunk"):
+                prefilling = self._chunk_round()
         live_idx = [i for i, r in enumerate(self.active)
                     if r is not None and r._consumed >= len(r.prompt)]
         if not live_idx:
@@ -764,14 +839,21 @@ class ServeEngine:
         args = (self._tensor(toks), self._tensor(self.positions),
                 self._tensor(self._dispatch_idx()), self._tensor(live))
         t0 = time.perf_counter()
-        if n <= 1:
-            trace = self._decode(*args)[None]
-        else:
-            trace = self._decode_burst(*args, n=n)
-        trace = trace.cpu().numpy()                          # (n, slots)
+        # the span and the annotation hold the sync that reads the tokens
+        # back: CUDA launches return before the device is done
+        with self._span("serve.decode", live=len(live_idx), burst=n), \
+                annotate("serve.decode"):
+            if n <= 1:
+                trace = self._decode(*args)[None]
+            else:
+                trace = self._decode_burst(*args, n=n)
+            trace = trace.cpu().numpy()                      # (n, slots)
         now = time.perf_counter()
         self.stats["decode_time"] += now - t0
+        # one sample per tick decoded: a burst's dispatch wall is split evenly
+        # so percentiles stay comparable across decode_burst settings
         self._decode_tick_s.append((now - t0) / trace.shape[0])
+        self._h_decode_tick.observe((now - t0) / trace.shape[0])
         for step in range(trace.shape[0]):
             for i in live_idx:
                 req = self.active[i]

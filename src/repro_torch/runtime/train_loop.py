@@ -10,7 +10,9 @@
 - Stragglers: the ``Watchdog`` flags slow steps; with
   ``recover_on_straggler`` the loop checkpoints and resets the session's
   offload channels. Metrics stream to ``metrics.jsonl`` with the JAX
-  package's keys.
+  package's keys; with ``telemetry`` the metric registry (``train.*``,
+  ``train.watchdog.*``, ``channel.u<k>.*``) streams to ``telemetry.jsonl``
+  beside it, and the watchdog observes the ``train.step_s`` histogram.
 """
 from __future__ import annotations
 
@@ -44,26 +46,29 @@ def _load_opt_state(tree: dict, like: dict, device) -> dict:
 
 class TrainLoop:
     """Drives ``session.step(data.batch_at(step))`` with checkpoints, a
-    watchdog and metrics. ``telemetry`` is not ported yet: any value but None
-    raises ``NotImplementedError`` (ROADMAP.md A.4)."""
+    watchdog and metrics."""
 
     def __init__(self, session, data, workdir: str, *, ckpt_every: int = 50,
                  log_every: int = 10, keep: int = 3,
                  eval_fn: Callable[[int], dict] | None = None,
                  eval_every: int = 0, recover_on_straggler: bool = False,
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                f"TrainLoop(telemetry={telemetry!r}) is not ported yet "
-                "(ROADMAP.md A.4)")
         self.session = session
         self.data = data
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
+        # telemetry: step-time histogram + straggler postmortems ride through
+        # the watchdog; the metric registry streams to telemetry.jsonl next
+        # to the (always-on) metrics.jsonl
+        self.tm = telemetry if telemetry else None
+        if self.tm:
+            self.tm.registry.stream_to(
+                os.path.join(workdir, "telemetry.jsonl"))
         self.ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), keep=keep)
         self.watchdog = Watchdog(
             heartbeat_path=os.path.join(workdir, "heartbeat.json"),
-            on_straggler=self._on_straggler if recover_on_straggler else None)
+            on_straggler=self._on_straggler if recover_on_straggler else None,
+            telemetry=self.tm)
         self.ckpt_every = ckpt_every
         self.log_every = log_every
         self.eval_fn = eval_fn
@@ -79,11 +84,15 @@ class TrainLoop:
         the last-good state and reset the offload channels (drop in-flight
         buffers, restore last-good banks, lift quarantine)."""
         self.recoveries += 1
+        if self.tm:
+            self.tm.record("train", 0, "recovery", step=step, dt=dt,
+                           median=med)
         self.ckpt.save_async(step, self._state())
         reset = getattr(self.session, "reset_channels", None)
         if reset is not None:
             reset()
 
+    # -- telemetry ----------------------------------------------------------
     def _channel_briefs(self) -> dict:
         """Per-user compact channel health (empty for channel-less modes)."""
         chs = getattr(self.session, "channels", None)
@@ -91,6 +100,20 @@ class TrainLoop:
             ch = getattr(self.session, "channel", None)
             chs = [ch] if ch is not None else []
         return {ch.user: ch.health_brief() for ch in chs}
+
+    def _emit_telemetry(self, step: int, loss: float) -> None:
+        """Absorb the train-side stat dicts into the registry (``train.*`` /
+        ``channel.*``) and append one snapshot to telemetry.jsonl. ``loss``
+        is the Python float ``session.step`` returned: no device sync."""
+        if self.tm is None:
+            return
+        reg = self.tm.registry
+        reg.absorb("train", {"step": step, "loss": float(loss),
+                             "recoveries": self.recoveries})
+        reg.absorb("train.watchdog", self.watchdog.stats)
+        for user, brief in self._channel_briefs().items():
+            reg.absorb(f"channel.u{user}", brief)
+        reg.emit(step=step)
 
     # -- state (de)hydration -------------------------------------------
     def _state(self) -> dict:
@@ -175,6 +198,7 @@ class TrainLoop:
                         rec.update(self.eval_fn(step))
                     mf.write(json.dumps(rec) + "\n")
                     mf.flush()
+                    self._emit_telemetry(step, loss)
                 if (step + 1) % self.ckpt_every == 0 or self._preempted:
                     self.ckpt.save_async(step + 1, self._state())
                 if self._preempted:

@@ -6,7 +6,9 @@ running median and flags steps slower than ``threshold`` x the median, and
 calls ``on_straggler`` (the train loop's recovery hook: checkpoint, then
 reset the offload channels). The heartbeat file lets an outside supervisor
 detect a hung process; a failed heartbeat write (full or read-only disk) is
-counted in ``stats`` and never fails the training step.
+counted in ``stats`` and never fails the training step. With ``telemetry``:
+the ``train.step_s`` histogram, a ``step`` record a step, and a
+``straggler`` record and postmortem for each straggler.
 """
 from __future__ import annotations
 
@@ -16,22 +18,7 @@ import os
 import time
 from typing import Callable
 
-import numpy as np
-
-
-def percentiles(xs, qs=(50, 95, 99)) -> dict | None:
-    """Tail summary of a sample list: count/mean/max plus p50/p95/p99.
-    Returns None for an empty sample (callers report 'no data', not zeros).
-    (The JAX package's ``telemetry.metrics.percentiles``, until the port has
-    its telemetry package, ROADMAP.md A.4.)"""
-    xs = list(xs)
-    if not xs:
-        return None
-    a = np.asarray(xs, np.float64)
-    out = {"count": int(a.size), "mean": float(a.mean()), "max": float(a.max())}
-    for q in qs:
-        out[f"p{q}"] = float(np.percentile(a, q))
-    return out
+from repro_torch.telemetry.metrics import percentiles
 
 
 class WatchdogError(RuntimeError):
@@ -43,10 +30,6 @@ class Watchdog:
                  heartbeat_path: str | None = None,
                  on_straggler: Callable[[int, float, float], None] | None = None,
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                f"Watchdog(telemetry={telemetry!r}) is not ported yet "
-                "(ROADMAP.md A.4)")
         self.window = window
         self.threshold = threshold
         self.heartbeat_path = heartbeat_path
@@ -55,6 +38,9 @@ class Watchdog:
         self.stragglers: list[tuple[int, float, float]] = []
         self.stats = {"steps": 0, "heartbeats": 0, "heartbeat_failures": 0}
         self._t0: float | None = None
+        # observational: step-time histogram + a per-step breadcrumb ring so
+        # a straggler postmortem shows the steps leading up to the outlier
+        self.tm = telemetry if telemetry else None
 
     def start_step(self) -> None:
         self._t0 = time.perf_counter()
@@ -67,8 +53,17 @@ class Watchdog:
         self._t0 = None
         self.stats["steps"] += 1
         med = self.median()
+        if self.tm is not None:
+            self.tm.registry.histogram("train.step_s").observe(dt)
+            self.tm.record("train", 0, "step", step=step, dt=dt)
         if med is not None and len(self.durations) >= 10 and dt > self.threshold * med:
             self.stragglers.append((step, dt, med))
+            if self.tm is not None:
+                self.tm.record("train", 0, "straggler", step=step, dt=dt,
+                               median=med)
+                self.tm.dump("train", 0,
+                             f"straggler step {step}: {dt:.4f}s > "
+                             f"{self.threshold:g}x median {med:.4f}s")
             if self.on_straggler:
                 self.on_straggler(step, dt, med)
         self.durations.append(dt)

@@ -11,7 +11,10 @@ orders). Inside the port the reference's bit-identity invariants hold
 exactly: recovered faults reproduce the fault-free run, and a poisoned peer
 never perturbs a healthy user.
 """
+import collections
 import dataclasses
+import json
+import os
 import time
 import types
 
@@ -32,6 +35,7 @@ from repro.data.pipeline import SyntheticLM  # noqa: E402
 from repro.models import model as M  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
 from repro.runtime import faults as jfaults  # noqa: E402
+from repro.telemetry import Telemetry as JTelemetry  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import registry as tregistry  # noqa: E402
@@ -43,6 +47,7 @@ from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.runtime import faults as tfaults  # noqa: E402
 from repro_torch.runtime import serve_loop as tserve  # noqa: E402
 from repro_torch.runtime import train_loop as ttrain  # noqa: E402
+from repro_torch.telemetry import Telemetry as TTelemetry  # noqa: E402
 from repro_torch.utils import sorted_leaves  # noqa: E402
 
 STEPS = 8
@@ -62,12 +67,12 @@ def _profile(p):
     return tfaults.FaultProfile(**dataclasses.asdict(p))
 
 
-def _injectors(profiles):
+def _injectors(profiles, tms=(None, None)):
     if profiles is None:
         return None, None
-    return (jfaults.FaultInjector(profiles, seed=0),
+    return (jfaults.FaultInjector(profiles, seed=0, telemetry=tms[0]),
             tfaults.FaultInjector({u: _profile(p) for u, p in profiles.items()},
-                                  seed=0))
+                                  seed=0, telemetry=tms[1]))
 
 
 def _t(tree):
@@ -94,21 +99,27 @@ def tiny():
 
 
 def _run_both(t, profiles=None, *, users=2, steps=STEPS, all_rows_user0=False,
-              optimizer="sgd"):
+              optimizer="sgd", out_dir=None):
     """The same K-user run through JAX's CollabSession and the port's, the
-    port starting from JAX's initial banks. Returns (jax session, port
-    session, jax losses, port losses)."""
+    port starting from JAX's initial banks; with ``out_dir``, each with a
+    tracing ``Telemetry`` (postmortems under ``out_dir``/jax and /torch)
+    handed to its injector and session (``session.tm``). Returns (jax
+    session, port session, jax losses, port losses)."""
     kw = dict(mode="faithful_offload", family="lowrank", taps="qv", rank=4,
               merged=True, users=users)
-    jinj, tinj = _injectors(profiles)
+    tms = ((JTelemetry(trace=True, out_dir=os.path.join(out_dir, "jax")),
+            TTelemetry(trace=True, out_dir=os.path.join(out_dir, "torch")))
+           if out_dir is not None else (None, None))
+    jinj, tinj = _injectors(profiles, tms)
     jopt_, topt_ = ((jopt.sgd(0.1), topt.sgd(0.1)) if optimizer == "sgd"
                     else (jopt.adamw(1e-2), topt.adamw(1e-2)))
     js = jcollab.CollabSession(t.cfg, ColaConfig(**kw), t.params, t.key,
                                optimizer=jopt_, injector=jinj,
-                               policy=_policy(jfaults))
+                               policy=_policy(jfaults), telemetry=tms[0])
     ts = tcollab.CollabSession(t.tcfg, tbase.ColaConfig(**kw), t.tparams,
                                optimizer=topt_, injector=tinj,
-                               policy=_policy(tfaults), device="cpu")
+                               policy=_policy(tfaults), device="cpu",
+                               telemetry=tms[1])
     for off, ch, joff in zip(ts.offloaders, ts.channels, js.offloaders):
         ad = _t(joff.adapters)
         off.adapters = ch.last_good = ad
@@ -162,15 +173,18 @@ def _check_against_jax(js, ts, jl, tl):
 
 
 @pytest.fixture(scope="module")
-def runs(tiny):
+def runs(tiny, tmp_path_factory):
     """``_run_both`` once per module for each set of arguments: every JAX
-    run happens here, whichever tests share it."""
+    run happens here, whichever tests share it. ``telemetry=True`` gives
+    both sessions a ``Telemetry`` writing under a fresh directory."""
     cache = {}
 
-    def get(profiles=None, **kw):
-        key = (repr(profiles), tuple(sorted(kw.items())))
+    def get(profiles=None, telemetry=False, **kw):
+        key = (repr(profiles), telemetry, tuple(sorted(kw.items())))
         if key not in cache:
-            cache[key] = _run_both(tiny, profiles, **kw)
+            out_dir = (str(tmp_path_factory.mktemp("postmortems"))
+                       if telemetry else None)
+            cache[key] = _run_both(tiny, profiles, out_dir=out_dir, **kw)
         return cache[key]
 
     return get
@@ -311,6 +325,71 @@ def test_k4_poisoned_peer_counters(runs):
 
 
 # ---------------------------------------------------------------------------
+# the quarantine postmortem (tests/test_faults.py), against JAX's
+# ---------------------------------------------------------------------------
+
+def _postmortems(tm):
+    return [(p["scope"], p["key"], p["reason"],
+             [e["kind"] for e in p["events"]],
+             [e.get("seq") for e in p["events"]]) for p in tm.recorder.postmortems]
+
+
+def test_quarantine_postmortem_names_failing_seq(runs, ref_user0_only):
+    """A chaos quarantine run freezes a flight-recorder postmortem for the
+    poisoned user whose ring names the failing channel seq ids: injected
+    fault, rejection, rollback and the final quarantine. The port's
+    postmortems equal JAX's: reasons, event kinds and seq ids."""
+    js, ts, jl, tl = runs(
+        {1: jfaults.FaultProfile(nan=1.0, targets=("adapters",))},
+        all_rows_user0=True, telemetry=True)
+    _check_against_jax(js, ts, jl, tl)
+    # telemetry on changes nothing: the fault map's run without it
+    plain = runs({1: jfaults.FaultProfile(nan=1.0, targets=("adapters",))},
+                 all_rows_user0=True)
+    assert tl == plain[3]
+    for got, want in zip(_banks(ts), _banks(plain[1])):
+        assert _bit_equal(got, want)
+    tm = ts.tm
+    assert _postmortems(tm) == _postmortems(js.tm)
+    ch1 = ts.channels[1]
+    assert ch1.quarantined
+    h = ch1.health()
+    assert h["last_error"] == "quarantined" or "adapter" in h["last_error"] \
+        or "finite" in h["last_error"]
+    assert isinstance(h["last_error_seq"], int)
+
+    pms = [p for p in tm.recorder.postmortems
+           if p["scope"] == "user" and p["key"] == 1]
+    assert pms, "quarantine run must dump user-1 postmortems"
+    q = [p for p in pms if p["reason"].startswith("quarantined after")]
+    assert len(q) == 1, "exactly one quarantine postmortem for the user"
+    pm = q[0]
+    kinds = [e["kind"] for e in pm["events"]]
+    assert "fault_injected" in kinds
+    assert "fit_rejected" in kinds
+    assert "rollback" in kinds and "quarantine" in kinds
+    failing = [e["seq"] for e in pm["events"]
+               if e["kind"] in ("fit_rejected", "rollback") and "seq" in e]
+    assert failing and all(isinstance(s, int) for s in failing)
+    assert h["last_error_seq"] in failing
+    assert pm["path"] and os.path.exists(pm["path"])
+    assert os.path.basename(pm["path"]) == os.path.basename(
+        [p for p in js.tm.recorder.postmortems
+         if p["reason"].startswith("quarantined after")][0]["path"])
+    with open(pm["path"]) as f:
+        on_disk = json.load(f)
+    assert on_disk["reason"] == pm["reason"]
+    assert [e["kind"] for e in on_disk["events"]] == kinds
+    assert not any(p["key"] == 0 for p in tm.recorder.postmortems
+                   if p["scope"] == "user")
+    # the spans: one offload round a user a step, the same as JAX's
+    names = [collections.Counter(e["name"] for e in t.tracer.events
+                                 if e["ph"] == "X") for t in (tm, js.tm)]
+    assert names[0] == names[1]
+    assert names[0]["session.offload_round"] == 2 * STEPS
+
+
+# ---------------------------------------------------------------------------
 # the injector: JAX's draws, leaf order, copies, bf16
 # ---------------------------------------------------------------------------
 
@@ -388,10 +467,25 @@ def test_injector_is_deterministic_per_user():
 
 
 def test_telemetry_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tfaults.FaultInjector(telemetry=object())
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tchannel.OffloadChannel(StubOffloader(), telemetry=object())
+    """The injector and the channel take a ``Telemetry`` and give the same
+    results as with None: the same draws, the same acceptances, the same
+    health. (The name dates from before the port had telemetry.)"""
+    prof = jfaults.FaultProfile(drop=0.3, delay=0.2, duplicate=0.3,
+                                corrupt=0.2, nan=0.2)
+    out = []
+    for tm in (None, TTelemetry()):
+        inj = tfaults.FaultInjector({0: _profile(prof)}, seed=5, telemetry=tm)
+        ch = tchannel.OffloadChannel(StubOffloader(), injector=inj,
+                                     policy=_policy(tfaults), telemetry=tm)
+        pushed = [ch.push(_payload(float(i + 1))) for i in range(6)]
+        fits = [ch.fit_round() is not None for _ in range(2)]
+        out.append((pushed, fits, ch.health(), dict(inj.injected),
+                    float(ch.adapters["w"][0])))
+        if tm is not None:
+            kinds = [e["kind"] for e in tm.recorder.events("user", 0)]
+            assert kinds.count("fault_injected") == sum(inj.injected.values())
+            assert "delivered" in kinds
+    assert out[0] == out[1]
 
 
 # ---------------------------------------------------------------------------

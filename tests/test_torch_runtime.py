@@ -339,16 +339,62 @@ def test_byte_corpus_matches_jax(tmp_path):
         tpipeline.ByteCorpus(str(p), batch=2, seq=4096, device="cpu")
 
 
+def _with_telemetry(tiny, tmp_path, cls, tm):
+    """What ``cls`` gives with ``telemetry=tm``: the losses and the banks of
+    a 2-user collab run, the losses and the adapters of a 3-step train loop,
+    or the watchdog's counters and stragglers."""
+    if cls == "CollabSession":
+        cc = tbase.ColaConfig(mode="faithful_offload", family="lowrank",
+                              taps="qv", rank=4, merged=True, users=2)
+        sess = tcollab.CollabSession(tiny.tcfg, cc, tiny.tparams,
+                                     optimizer=topt.sgd(0.1), device="cpu",
+                                     telemetry=tm)
+        data = tpipeline.SyntheticLM(tiny.tcfg, batch=4, seq=16, seed=2,
+                                     users=2, device="cpu")
+        losses = []
+        for step in range(2):
+            b = data.batch_at(step)
+            losses.append(sess.train_step(b, b.pop("user_id")))
+        assert tm is None or tm.snapshot()["channel.fit_round_s"]["count"] == 4
+        return losses, [_tnp(ch.adapters) for ch in sess.channels]
+    if cls == "TrainLoop":
+        sess = tsession.ColaSession(
+            tiny.tcfg, tbase.ColaConfig(**_MODE_A), tiny.tparams,
+            optimizer=topt.sgd(0.1), device="cpu", telemetry=tm)
+        data = tpipeline.SyntheticLM(tiny.tcfg, batch=4, seq=16, seed=3,
+                                     device="cpu")
+        d = tmp_path / ("on" if tm else "off")
+        loop = ttrain.TrainLoop(sess, data, str(d), telemetry=tm)
+        out = loop.run(3, resume=False)
+        assert os.path.exists(d / "telemetry.jsonl") == bool(tm)
+        return loop.losses, [_tnp(sess.adapters)], out["watchdog"]["steps"]
+    # 2 ms steps, then one of 0.3 s: a straggler past 50x the median only
+    wd = twatch.Watchdog(window=20, threshold=50.0, telemetry=tm)
+    for step in range(12):
+        wd.start_step()
+        time.sleep(0.3 if step == 11 else 0.002)
+        wd.end_step(step)
+    return wd.stats, [], [s for s, _, _ in wd.stragglers]
+
+
 @pytest.mark.parametrize("cls", ["CollabSession", "TrainLoop", "Watchdog"])
 def test_telemetry_is_not_ported_yet(tiny, tmp_path, cls):
-    cc = tbase.ColaConfig(mode="faithful_offload", merged=True, users=2)
-    make = {"CollabSession": lambda: tcollab.CollabSession(
-                tiny.tcfg, cc, tiny.tparams, device="cpu", telemetry=object()),
-            "TrainLoop": lambda: ttrain.TrainLoop(
-                None, None, str(tmp_path), telemetry=object()),
-            "Watchdog": lambda: twatch.Watchdog(telemetry=object())}[cls]
-    with pytest.raises(NotImplementedError, match="A.4"):
-        make()
+    """Each takes a ``Telemetry`` and gives the same result as with None
+    (bit for bit where it trains). (The name dates from before the port had
+    telemetry.)"""
+    from repro_torch.telemetry import Telemetry
+
+    tm = Telemetry(out_dir=str(tmp_path / "pm"))
+    off = _with_telemetry(tiny, tmp_path, cls, None)
+    on = _with_telemetry(tiny, tmp_path, cls, tm)
+    assert on[0] == off[0] and on[2:] == off[2:]
+    assert len(on[1]) == len(off[1])
+    for got, want in zip(on[1], off[1]):
+        assert _bit_equal(got, want)
+    if cls == "Watchdog":
+        assert on[2] == [11]
+        assert [p["key"] for p in tm.recorder.postmortems] == [0]
+        assert tm.snapshot()["train.step_s"]["count"] == 12
 
 
 # ---------------------------------------------------------------------------

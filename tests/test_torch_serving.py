@@ -114,23 +114,44 @@ def test_submit_rejects_bad_requests_and_reports_stats():
 
 
 def test_unported_options_raise():
+    """``telemetry=`` is taken and gives the tokens of ``telemetry=None``
+    (the name dates from before the port had telemetry); an empty bank list
+    still raises."""
+    from repro_torch.telemetry import Telemetry
     _, (tcfg, tparams, tbanks) = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.ServeEngine(tcfg, tparams, user_adapters=tbanks, device="cpu",
-                           telemetry=object())
+    prompts = _prompts(tcfg.vocab_size, (3, 9, 5))
+    outs = [_run(tserve, tcfg, tparams, tbanks, prompts, max_new=4, slots=2,
+                 max_len=32, device="cpu", telemetry=tm)
+            for tm in (None, Telemetry(trace=True))]
+    assert outs[0][0] == outs[1][0]
+    assert outs[1][1].telemetry_snapshot()["serve.completed"] == 3
     with pytest.raises(ValueError):
         tserve.stack_user_adapters([])
 
 
 def test_session_telemetry_raises():
-    """``ColaSession(telemetry=...)`` raises until telemetry is ported, as
-    the engine does, rather than dropping the argument."""
+    """``ColaSession(telemetry=...)`` is taken, not dropped: its channel
+    records the rounds, and the losses equal those without it. (The name
+    dates from before the port had telemetry.)"""
     from repro_torch.configs.base import ColaConfig as TColaConfig
     from repro_torch.core.session import ColaSession
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import optimizers
+    from repro_torch.telemetry import Telemetry
     _, (tcfg, tparams, _) = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ColaSession(tcfg, TColaConfig(), tparams, device="cpu",
-                    telemetry=object())
+    batch = SyntheticLM(tcfg, batch=2, seq=8, seed=0,
+                        device="cpu").batch_at(0)
+    losses = []
+    tm = Telemetry(trace=True)
+    for telemetry in (None, tm):
+        sess = ColaSession(tcfg, TColaConfig(mode="faithful_offload", rank=4),
+                           tparams, optimizer=optimizers.sgd(0.1),
+                           device="cpu", telemetry=telemetry)
+        losses.append([sess.step(batch) for _ in range(2)])
+    assert losses[0] == losses[1]
+    assert sess.channel.tm is tm
+    assert [e["kind"] for e in tm.recorder.events("user", 0)] == [
+        "delivered", "commit"] * 2
 
 
 def test_store_options_take_jax_defaults():

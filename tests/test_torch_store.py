@@ -224,9 +224,18 @@ def test_store_rejects_bad_arguments(tiny, bad):
     elif bad == "store":
         with pytest.raises(ValueError, match="store="):
             tstore.AdapterStore(2, store="f16", device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstore.AdapterStore(2, telemetry=object(), device="cpu")
+    else:   # a Telemetry is taken (no longer refused): the same rows
+        from repro_torch.telemetry import Telemetry
+        tm = Telemetry()
+        rows = []
+        for telemetry in (None, tm):
+            st = tstore.AdapterStore.from_users(
+                [_t(b) for b in _banks(tiny, 3)], resident=2,
+                telemetry=telemetry, device="cpu")
+            rows.append([st.ensure_resident(u).tolist()
+                         for u in ([0], [1, 0], [2], [1])])
+        assert rows[0] == rows[1]
+        assert tm.snapshot()["store.fetch_s"]["count"] == st.counters["fetches"]
 
 
 # ---------------------------------------------------------------------------
