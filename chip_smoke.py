@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-eleven phases, exiting non-zero on any failure:
+fourteen phases, exiting non-zero on any failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
    full-width smollm-135m shapes of the serving and training paths, in bf16
@@ -41,7 +41,18 @@ eleven phases, exiting non-zero on any failure:
    paged decode and both multi-LoRA kernels (bf16 and f32) must give the
    same bits; rows of the multi-LoRA prefill (T 8192) and chunk-round
    (T 2048) calls must equal the same rows in a T 16 call, and int8 the f32
-   kernel on the dequantised bank, bit for bit.
+   kernel on the dequantised bank, bit for bit. Then, in bf16 and f32, the
+   rows of the other registered configs (``model_cases``): gemma2-9b's
+   d_head 256 in the flash forward (2 x 4608 with window 4096 and softcap
+   50, and without either; a chunk round of 8 x 128 against a 6144 cache)
+   and in decode (8 slots up to 6143, window 4096, softcap 50, dead rows:
+   dense, paged, and the ring tick, which must equal the dense tick bit for
+   bit), G 1 at d_head 64 (gpt2-small) and G 4 at d_head 128
+   (mistral-nemo-12b), and multi_lora / multi_lora_q8 at the q and v taps
+   of gemma2-9b, mistral-nemo-12b and mistral-large-123b (d_in 12288); each
+   launched twice to the same bits. A softcap row has no library time (no
+   library call takes a softcap); the row without one has it. The build
+   lines report the registers and spills of every d_head 256 instantiation.
 2. Serving at full width: ``ServeEngine`` on smollm-135m (30 layers, bf16)
    with 4 users' rank-8 ``qv`` adapters, 16 slots, max_len 1024 and 32
    requests (prompts 32-512 tokens, 32 new tokens each), run to completion
@@ -121,7 +132,26 @@ eleven phases, exiting non-zero on any failure:
    telemetry off and on in turns (three runs each, a reading), and checks
    that a ``torch.profiler`` run sees the ``serve.decode`` and
    ``offload.fit`` annotations of ``Telemetry(profiler_annotations=True)``.
-11. The last lines: the card's name and power limit, one JSON line with every
+11. gemma2-9b's pairs plan at full width and depth (``[gemma2]``): 42
+   layers, bf16, seeded random weights, 4 users' rank-8 qv adapters, 8
+   slots, max_len 6144, 12 requests of 256-4800 tokens (two past the 4096
+   window), 16 new tokens each, with the launch counts reset just before
+   and read just after each run: (a) dense KV and an f32 bank (the flash
+   forward, dense decode and multi_lora must run), (b) paged KV in blocks
+   of 16, chunks of 128, rings for the local stack and an int8 bank (the
+   flash forward, paged decode in its pool and ring modes and
+   multi_lora_q8 must run, dense decode must not); every request completes
+   and the pool is whole at the end.
+12. gemma2-9b against the plain path (``[gemma2-vs-plain]``), f32 at full
+   width with the depth cut to 4 layers (2 pairs), three requests of 200 /
+   1500 / 4400 tokens, 8 new tokens: the card's dense engine and its paged
+   + chunked + ring + int8 engine each against the CPU's same engine, and
+   paged + ring against dense on the card: equal greedy tokens.
+13. The other registered configs (``[configs]``), 8 requests of 32-512
+   tokens, 16 new tokens, 8 slots: gpt2-small at full size in f32, its card
+   tokens equal to the CPU's; mistral-nemo-12b at full width and depth in
+   bf16; mistral-large-123b at full width, depth cut to 2 layers, bf16.
+14. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -215,10 +245,14 @@ def ptxas_report(name: str, kernel: str) -> list[str]:
     out, tag, spills = [], None, ""
     for line in _build.build_log(name).splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"{kernel}I((?:f|13__nv_bfloat16|Li\d+E)+)E", line)
+            m = re.search(rf"{kernel}I((?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+)E",
+                          line)
+            # a bool template argument names the decode kernel's ring mode
             tag = m and ",".join(
-                n or ("bf16" if bf else "f32") for n, bf in re.findall(
-                    r"Li(\d+)E|(13__nv_bfloat16)|f", m.group(1)))
+                n or ("ring" if ring == "1" else "bf16" if bf else "f32")
+                for n, ring, bf in re.findall(
+                    r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16)|f", m.group(1))
+                if ring != "0")
         elif tag and "spill stores" in line:
             spills = line.strip()
         elif tag and (m := re.search(r"Used (\d+) registers", line)):
@@ -503,6 +537,206 @@ def kernel_cases(cfg, dtype, dev, gen):
             flops=2 * T * (d * r + r * d_out))
 
 
+SOFTCAP_NOTE = ("no library call takes a softcap: the library time is on "
+                "the row without one")
+
+
+def _causal_pairs(q_pos, k_len: int, window: int | None = None) -> int:
+    """(query, key) pairs a causal (windowed) attention sees: keys at
+    positions 0..k_len-1, queries at q_pos (a 1-D tensor of positions)."""
+    hi = q_pos.clamp(max=k_len - 1) + 1
+    lo = (q_pos - window + 1).clamp(min=0) if window else torch.zeros_like(q_pos)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def _ring_of(kc, vc, pos, w_ring):
+    """Each slot's ring of its last ``w_ring`` positions of a dense cache,
+    position t at ring row t % w_ring (rows older than that stay zero)."""
+    rk = torch.zeros((kc.shape[0], w_ring) + kc.shape[2:], dtype=kc.dtype,
+                     device=kc.device)
+    rv = torch.zeros_like(rk)
+    for b, p in enumerate(pos.tolist()):
+        t = torch.arange(max(0, p - w_ring + 1), p + 1, device=kc.device)
+        rk[b, t % w_ring], rv[b, t % w_ring] = kc[b, t], vc[b, t]
+    return rk, rv
+
+
+def model_cases(dtype, dev, gen):
+    """Phase-1 rows at the other registered configs' shapes, in ``dtype``
+    (names carry it): gemma2-9b's d_head 256 (16 q heads, 8 kv heads, G 2;
+    local window 4096, attention softcap 50) in the flash forward (2 x 4608
+    with and without window and softcap; a chunk round of 8 rows x 128
+    queries against a 6144 cache) and in decode (8 slots up to position
+    6143, window 4096, softcap 50, dead rows: dense, paged through a
+    shuffled table, and the ring tick, which must equal the dense tick bit
+    for bit: ``tick`` names the two); G 1 at d_head 64 (gpt2-small) and G 4
+    at d_head 128 (mistral-nemo-12b) in both; and multi_lora (f32 bank, a
+    tick of 8 slots) and multi_lora_q8 (int8 bank, a chunk round of 8 x 128
+    rows) at the q and v taps of gemma2-9b (3584 -> 4096 / 2048),
+    mistral-nemo-12b (5120 -> 4096 / 1024) and mistral-large-123b (12288 ->
+    12288 / 1024)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import multi_lora as ml
+    from repro_torch.kernels import ops, ref
+
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+
+    def rnd(*shape, d=dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(d)
+
+    def flash(tag, B, S, H, K, D, window=None, softcap=None):
+        q, k, v = rnd(B, S, H, D), rnd(B, S, K, D), rnd(B, S, K, D)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        kw = dict(q_positions=pos, kv_positions=pos, window=window,
+                  softcap=softcap)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = None
+        if softcap is None and window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        return dict(
+            name=f"flash_attention[{tag} {dt}]", with_lse=True,
+            fn=lambda: fa.flash_attention(q, k, v, **kw),
+            plain=lambda: fa.plain(q, k, v, **kw), lib=lib,
+            **({} if lib or softcap is None else dict(note=SOFTCAP_NOTE)),
+            nbytes=nbytes(q, k, v, q) + B * H * S * 4 + 2 * S * 4,
+            flops=4 * D * B * H * _causal_pairs(pos[0], S, window))
+
+    def decode(tag, B, Smax, H, K, D, pos, window=None, softcap=None,
+               live=None):
+        q = rnd(B, 1, H, D)
+        kc, vc = rnd(B, Smax, K, D), rnd(B, Smax, K, D)
+        kw = dict(live=live, window=window, softcap=softcap)
+        qt, kct, vct = (t.transpose(1, 2).contiguous() for t in (q, kc, vc))
+        ar = torch.arange(Smax, device=dev)[None, :]
+        mask = ar <= pos[:, None]
+        if window:
+            mask = mask & (ar > pos[:, None] - window)
+        lib = None
+        if softcap is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kct, vct, attn_mask=mask[:, None, None], enable_gqa=True)
+        alive = live if live is not None else torch.ones_like(pos, dtype=torch.bool)
+        n_read = int(sum(_causal_pairs(p[None], Smax, window)
+                         for p, a in zip(pos, alive) if a))
+        return (q, kc, vc, kw), dict(
+            name=f"decode_attention[{tag} {dt}]",
+            fn=lambda: da.decode_attention(q, kc, vc, pos, **kw),
+            plain=lambda: da.plain(q, kc, vc, pos, **kw), lib=lib,
+            **({} if lib else dict(note=SOFTCAP_NOTE)),
+            nbytes=2 * nbytes(q) + 2 * n_read * K * D * q.element_size() + B * 5,
+            flops=4 * D * H * n_read)
+
+    # gemma2-9b's attention: d_head 256, 16 q heads, 8 kv heads
+    H, K, D, W, CAP = 16, 8, 256, 4096, 50.0
+    yield flash("gemma2 d256: 2 x 4608, window 4096, softcap 50", 2, 4608, H,
+                K, D, window=W, softcap=CAP)
+    yield flash("gemma2 d256: 2 x 4608, no window, no softcap", 2, 4608, H, K,
+                D)
+
+    # a chunk round of the global stack: 8 rows x 128 queries at chunk
+    # starts inside 6144-position prompts against the dense cache, softcap
+    # 50, a quarter of the rows dead
+    B, Smax, C = 8, 6144, 128
+    qc = rnd(B, C, H, D)
+    kc, vc = rnd(B, Smax, K, D), rnd(B, Smax, K, D)
+    posc = C * torch.randint(0, Smax // C, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    livec = torch.arange(B, device=dev) % 4 != 3
+    qpos = posc[:, None] + torch.arange(C, device=dev)[None]
+    pairs = sum(_causal_pairs(qpos[b], Smax) for b in range(B) if livec[b])
+    n_read = int((livec * (posc + C)).sum())
+    yield dict(
+        name=f"flash_attention[gemma2 d256: chunk 8 x 128 against 6144, "
+             f"softcap 50 {dt}]",
+        fn=lambda: ops.sdpa_decode(qc, kc, vc, posc, live=livec, softcap=CAP),
+        plain=lambda: ref.sdpa_decode(qc, kc, vc, posc, live=livec,
+                                      softcap=CAP),
+        lib=None, note=SOFTCAP_NOTE,
+        nbytes=2 * nbytes(qc) + 2 * n_read * K * D * qc.element_size() + B * 5,
+        flops=4 * D * H * pairs)
+    del qc, kc, vc
+
+    # decode: 8 slots up to position 6143, window 4096, softcap 50, dead rows
+    pos = torch.randint(0, Smax, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0], pos[1], pos[2] = Smax - 1, W + 200, 100
+    live = torch.arange(B, device=dev) % 4 != 3
+    tag = "gemma2 d256: 8 slots to 6143, window 4096, softcap 50, dead rows"
+    (q, kc, vc, kw), case = decode(tag, B, Smax, H, K, D, pos, window=W,
+                                   softcap=CAP, live=live)
+    yield dict(case, tick="dense")
+    # the same tick through a shuffled pool of 16-position blocks ...
+    bs = 16
+    nb = Smax // bs
+    perm = torch.randperm(B * nb, generator=torch.Generator().manual_seed(SEED))
+    table = perm.reshape(B, nb).to(device=dev, dtype=torch.int32)
+    kp = torch.empty((B * nb, bs, K, D), dtype=dtype, device=dev)
+    vp = torch.empty_like(kp)
+    kp[table.long()] = kc.reshape(B, nb, bs, K, D)
+    vp[table.long()] = vc.reshape(B, nb, bs, K, D)
+    yield dict(case, name=f"decode_attention_paged[{tag} {dt}]",
+               fn=lambda: da.decode_attention_paged(q, kp, vp, pos, table, **kw),
+               plain=lambda: da.plain_paged(q, kp, vp, pos, table, **kw),
+               nbytes=case["nbytes"] + nbytes(table))
+    # ... and through the rings of the last 4096 + 127 positions
+    rk, rv = _ring_of(kc, vc, pos, W + 127)
+    yield dict(case, tick="ring",
+               name=f"decode_attention_paged[ring {tag}, W_ring 4223 {dt}]",
+               fn=lambda: da.decode_attention_ring(q, rk, rv, pos,
+                                                   horizon=Smax, **kw),
+               plain=lambda: da.plain_ring(q, rk, rv, pos, **kw))
+    del kc, vc
+
+    # gpt2-small (G 1, d_head 64) and mistral-nemo-12b (G 4, d_head 128)
+    for tag, H, K, D in (("gpt2 G 1 d64", 12, 12, 64),
+                         ("nemo G 4 d128", 32, 8, 128)):
+        yield flash(f"{tag}: 8 x 512", 8, 512, H, K, D)
+        pos = torch.randint(32, 1024, (8,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        yield decode(f"{tag}: 8 slots of 1024", 8, 1024, H, K, D, pos)[1]
+
+    # the adapted taps of the three configs, 4 users, rank 8
+    U, r = 4, 8
+    for model, d_in, outs in (("gemma2", 3584, (4096, 2048)),
+                              ("nemo", 5120, (4096, 1024)),
+                              ("large", 12288, (12288, 1024))):
+        for d_out in outs:
+            A = rnd(U, d_in, r, d=torch.float32) / r ** 0.5
+            Bm = rnd(U, r, d_out, d=torch.float32) * 0.05
+            x = rnd(8, d_in)
+            idx = torch.arange(8, device=dev, dtype=torch.int32) % U
+            yield dict(
+                name=f"multi_lora[{model} {d_in} -> {d_out}: tick 8 {dt}]",
+                fn=lambda x=x, A=A, Bm=Bm, idx=idx: ml.multi_lora(x, A, Bm, idx),
+                plain=lambda x=x, A=A, Bm=Bm, idx=idx: ml.plain(x, A, Bm, idx),
+                lib=lambda x=x, A=A, Bm=Bm, idx=idx: torch.bmm(
+                    torch.bmm(x.float()[:, None], A[idx.long()]), Bm[idx.long()]),
+                nbytes=nbytes(x, idx, A, Bm) + 8 * d_out * x.element_size(),
+                flops=2 * 8 * (d_in * r + r * d_out))
+            Aq, As = ml.quant_rows(A)
+            Bq, Bs = ml.quant_rows(Bm)
+            T = 8 * 128
+            x = rnd(T, d_in)
+            ix = (torch.arange(8, device=dev, dtype=torch.int32) % U
+                  ).repeat_interleave(128)
+            yield dict(
+                name=f"multi_lora_q8[{model} {d_in} -> {d_out}: T 1024 {dt}]",
+                fn=lambda x=x, Aq=Aq, As=As, Bq=Bq, Bs=Bs, ix=ix:
+                    ml.multi_lora_q8(x, Aq, As, Bq, Bs, ix),
+                plain=lambda x=x, Aq=Aq, As=As, Bq=Bq, Bs=Bs, ix=ix:
+                    ml.plain_q8(x, Aq, As, Bq, Bs, ix),
+                lib=lambda x=x, Aq=Aq, As=As, Bq=Bq, Bs=Bs, ix=ix: torch.bmm(
+                    torch.bmm(x.float()[:, None],
+                              Aq[ix.long()].float() * As[ix.long()]),
+                    Bq[ix.long()].float() * Bs[ix.long()]),
+                nbytes=nbytes(x, ix, Aq, As, Bq, Bs) + T * d_out * x.element_size(),
+                flops=2 * T * (d_in * r + r * d_out))
+
+
 def max_err(got, want) -> tuple[float, float]:
     """(max |got - want|, max |want|) over a tensor or a tuple of them."""
     if isinstance(got, torch.Tensor):
@@ -512,43 +746,56 @@ def max_err(got, want) -> tuple[float, float]:
     return err, max(float(w.float().abs().max()) for w in want)
 
 
+def measure(c, dtype, timer) -> dict:
+    """One phase-1 row: the kernel against its plain version (within
+    TOL[dtype] * (1 + max |plain|)), and the median device times of the
+    kernel, the plain version and the library call, beside the bound."""
+    name = c["name"]
+    got, want = c["fn"](), c["plain"]()
+    if c.get("with_lse"):   # (o, lse): scale by o's values
+        err = max(max_err(g, w)[0] for g, w in zip(got, want))
+        scale = max_err(got[0], want[0])[1]
+    else:
+        err, scale = max_err(got, want)
+    torch.cuda.synchronize()
+    tol = TOL[dtype] * (1 + scale)
+    check(err <= tol, f"{name} {dtype}: max |kernel - plain| = {err:.3g}"
+          f" > {tol:.3g}")
+    ms = timer.median_ms(c["fn"])
+    plain_ms = timer.median_ms(c["plain"], iters=5)
+    lib = c["lib"]
+    if isinstance(lib, tuple):   # (call, part): library time of the rest
+        lib_ms = timer.median_diff_ms(*lib)
+    else:
+        lib_ms = timer.median_ms(lib) if lib is not None else None
+    b_ms, b_by = bound(c["nbytes"], c["flops"], dtype)
+    dt = str(dtype).replace("torch.", "")
+    stream = (f"  stream {timer.median_ms(c['stream']):.4f} ms"
+              if "stream" in c else "")
+    note = f"  ({c['note']})" if "note" in c else ""
+    print(f"[kernels] {name:24s} {dt:8s} max_abs_err {err:.3e} "
+          f"(tol {tol:.2e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+          f"  library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
+          f"  bound {b_ms:.4g} ms ({b_by}){stream}{note}", flush=True)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms)
+    if "note" in c:
+        row["note"] = c["note"]
+    return row
+
+
 def phase_kernels(cfg, dev) -> dict:
     """Rows of the JSON line, in the dtype each kernel runs in on its path:
-    bf16, and f32 for cola_fit."""
+    bf16, and f32 for cola_fit; then the rows of the other registered
+    configs' shapes (``model_cases``) in both dtypes."""
     timer = Timer(dev)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device=dev).manual_seed(SEED)
         for c in kernel_cases(cfg, dtype, dev, gen):
-            name = c["name"]
-            got, want = c["fn"](), c["plain"]()
-            if c.get("with_lse"):   # (o, lse): scale by o's values
-                err = max(max_err(g, w)[0] for g, w in zip(got, want))
-                scale = max_err(got[0], want[0])[1]
-            else:
-                err, scale = max_err(got, want)
-            torch.cuda.synchronize()
-            tol = TOL[dtype] * (1 + scale)
-            check(err <= tol, f"{name} {dtype}: max |kernel - plain| = {err:.3g}"
-                  f" > {tol:.3g}")
-            ms = timer.median_ms(c["fn"])
-            plain_ms = timer.median_ms(c["plain"], iters=5)
-            lib = c["lib"]
-            if isinstance(lib, tuple):   # (call, part): library time of the rest
-                lib_ms = timer.median_diff_ms(*lib)
-            else:
-                lib_ms = timer.median_ms(lib) if lib is not None else None
-            b_ms, b_by = bound(c["nbytes"], c["flops"], dtype)
-            dt = str(dtype).replace("torch.", "")
-            stream = (f"  stream {timer.median_ms(c['stream']):.4f} ms"
-                      if "stream" in c else "")
-            print(f"[kernels] {name:24s} {dt:8s} max_abs_err {err:.3e} "
-                  f"(tol {tol:.2e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-                  f"  library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
-                  f"  bound {b_ms:.4g} ms ({b_by}){stream}", flush=True)
-            if dtype == torch.bfloat16 or name not in rows:
-                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            row = measure(c, dtype, timer)
+            if dtype == torch.bfloat16 or c["name"] not in rows:
+                rows[c["name"]] = row
     # a second launch of the flash backward, cola_fit, dense and paged decode
     # and both multi-LoRA kernels (all their rows) gives the same bits
     for dtype, names in ((torch.float32, ("flash_attention_bwd", "cola_fit",
@@ -565,6 +812,24 @@ def phase_kernels(cfg, dev) -> dict:
                       f"{c['name']} {dtype}: two launches on the same inputs "
                       "differ")
     multi_lora_rows(cfg, dev)
+    # the pairs plan's d_head 256 and the other configs' head layouts and
+    # tap widths, each row launched twice to the same bits
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        outs = {}
+        for c in model_cases(dtype, dev, gen):
+            rows[c["name"]] = measure(c, dtype, timer)
+            a, b = c["fn"](), c["fn"]()
+            a, b = (a,) if isinstance(a, torch.Tensor) else a, \
+                (b,) if isinstance(b, torch.Tensor) else b
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{c['name']}: two launches on the same inputs differ")
+            if "tick" in c:
+                outs[c["tick"]] = a[0]
+        check(torch.equal(outs["ring"], outs["dense"]),
+              f"d_head 256 {dtype}: the ring tick differs from the dense tick")
+        print(f"[kernels] d_head 256 {dtype}: the ring tick equals the dense "
+              "tick with the same window, bit for bit", flush=True)
     return rows
 
 
@@ -1831,6 +2096,244 @@ def phase_telemetry(cfg, dev, setup, serve_tokens, scale_tokens) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: gemma2's pairs plan and the other registered configs
+# ---------------------------------------------------------------------------
+
+GEMMA2_PAGED = dict(kv_layout="paged", kv_block=16, prefill_chunk=128,
+                    bank_store="int8")
+
+
+def _free() -> None:
+    """Give the caching allocator's blocks back before the next model."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _gemma2_prompts(cfg, n: int, lo: int, hi: int, seed: int, long=()):
+    """``n`` seeded prompts of ``lo``-``hi`` tokens; ``long`` sets the
+    lengths of the first few (prompts past the local window)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    lens[:len(long)] = long
+    return [rng.integers(0, cfg.vocab_size, int(m)).astype(np.int32)
+            for m in lens]
+
+
+def _counted(fn) -> tuple:
+    """Run ``fn`` with every kernel's launch count (the ring decode's too)
+    reset just before and read just after; returns (fn's result, counts)."""
+    from repro_torch.kernels import decode_attention as da
+
+    ws = dict(wrappers(), decode_attention_ring=da.decode_attention_ring)
+    for w in ws.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: w.launches for n, w in ws.items()}
+
+
+def phase_gemma2(dev) -> dict:
+    """gemma2-9b at full width and depth (42 layers, d_model 3584, bf16,
+    seeded random weights), 4 users' rank-8 qv adapters, 8 slots, max_len
+    6144, 12 requests of 256-4800 tokens (two past the 4096 window, so the
+    local window masks and the rings wrap), 16 new tokens each: (a) dense KV
+    and an f32 bank, (b) paged KV in blocks of 16, chunks of 128, rings for
+    the local stack and an int8 bank. Returns the launch counts of both."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.utils import tree_leaves
+
+    cfg = registry.get_config("gemma2-9b")
+    params = model.init(cfg, seed=SEED, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    banks = user_banks(cfg, 4, dev, SEED)
+    prompts = _gemma2_prompts(cfg, 12, 256, 4800, SEED, long=(4800, 4400))
+    total = {}
+    for tag, opts, ran, idle in (
+            ("(a) dense KV, f32 bank", {},
+             ("flash_attention", "decode_attention", "multi_lora"),
+             ("decode_attention_paged", "decode_attention_ring",
+              "multi_lora_q8")),
+            ("(b) paged KV + rings, chunks of 128, int8 bank", GEMMA2_PAGED,
+             ("flash_attention", "decode_attention_paged",
+              "decode_attention_ring", "multi_lora_q8"),
+             ("decode_attention", "multi_lora"))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        (eng, reqs, peak_bytes), launches = _counted(lambda: serve(
+            cfg, params, banks, prompts, dev, slots=8, max_len=6144,
+            max_new=16, **opts))
+        check(all(r.status == "done" and len(r.out) == 16 for r in reqs),
+              f"[gemma2] {tag}: not every request finished with 16 tokens")
+        check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
+              f"[gemma2] {tag}: a token outside the vocabulary")
+        for n in ran:
+            check(launches[n] > 0, f"[gemma2] {tag}: {n} never launched")
+        for n in idle:
+            check(launches[n] == 0, f"[gemma2] {tag}: {n} ran {launches[n]} "
+                  "times")
+        cache = {s: tuple(e["k"].shape) for s, e in eng.cache.items()}
+        cache_bytes = sum(l.numel() * l.element_size()
+                          for e in eng.cache.values() for l in e.values())
+        if eng.pager is not None:
+            st = eng.stats
+            check(st["kv_allocs"] == st["kv_frees"] > 0,
+                  f"[gemma2] {tag}: kv allocs {st['kv_allocs']} != frees "
+                  f"{st['kv_frees']}")
+            eng.pager.assert_empty()
+        tp = eng.throughput()
+        print(f"[gemma2] {tag}: gemma2-9b bf16, 42 layers, {n_params} "
+              f"parameters, 8 slots, 4 users, 12 requests (prompts "
+              f"{sorted(len(p) for p in prompts)}): {tp['completed']} "
+              f"completed, decode {tp['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{tp['ttft']['p50'] * 1e3:.1f} ms, decode tick p50 "
+              f"{tp['decode_tick']['p50'] * 1e3:.2f} ms, prefill calls "
+              f"{eng.stats['prefill_calls']}, chunk rounds "
+              f"{eng.stats['chunk_rounds']}, prefill call / chunk round p50 "
+              f"{tp['prefill']['p50'] * 1e3:.2f} ms; {card_line()}", flush=True)
+        print(f"[gemma2] {tag}: cache {cache} = {cache_bytes} bytes, "
+              f"kv_cache_bytes at peak {peak_bytes}; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+              f"launches {launches}", flush=True)
+        total = {n: total.get(n, 0) + c for n, c in launches.items()}
+        del eng, reqs
+        _free()
+    del params, banks
+    _free()
+    return total
+
+
+def _recording_engine():
+    """A ServeEngine that keeps every step's next-token logits of the rows
+    it ran for (on the host)."""
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    class Recording(ServeEngine):
+        def __init__(self, *a, **kw):
+            self.logits = []
+            super().__init__(*a, **kw)
+
+        def _step_logits(self, tokens, positions, users, live, lens=None):
+            out = super()._step_logits(tokens, positions, users, live, lens)
+            self.logits.append(out[live].float().cpu())
+            return out
+
+    return Recording
+
+
+def phase_gemma2_vs_plain(dev) -> None:
+    """gemma2-9b in f32 at full width with the depth cut to 4 layers (2
+    pairs; ~6.8 GB of parameters, the CPU runs every engine too), three
+    requests of 200 / 1500 / 4400 tokens (the last past the 4096 window),
+    8 new tokens, 2 slots: the card's dense engine against the CPU's, the
+    card's paged + chunks of 128 + rings + int8 engine against the CPU's
+    same engine, and on the card paged + rings against dense with the same
+    chunks and int8 bank (the KV layout alone differs): equal greedy
+    tokens; prints the largest next-token logit gap of each."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+
+    cfg = registry.get_config("gemma2-9b").replace(
+        n_layers=4, param_dtype="float32", compute_dtype="float32")
+    params_cpu = model.init(cfg, seed=SEED + 1, device="cpu")
+    params_gpu = _to(params_cpu, dev)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (200, 1500, 4400)]
+    banks_cpu = user_banks(cfg, 2, "cpu", SEED + 1)
+    banks_gpu = [_to(b, dev) for b in banks_cpu]
+    kw = dict(slots=2, max_len=4608, max_new=8, engine=_recording_engine())
+    runs = {"card dense": (params_gpu, banks_gpu, dev, {}),
+            "cpu dense": (params_cpu, banks_cpu, "cpu", {}),
+            "card paged": (params_gpu, banks_gpu, dev, GEMMA2_PAGED),
+            "cpu paged": (params_cpu, banks_cpu, "cpu", GEMMA2_PAGED),
+            "card dense, chunks of 128, int8": (
+                params_gpu, banks_gpu, dev,
+                dict(prefill_chunk=128, bank_store="int8"))}
+    out = {}
+    for name, (params, banks, device, opts) in runs.items():
+        t0 = time.perf_counter()
+        eng, reqs, _ = serve(cfg, params, banks, prompts, device, **kw, **opts)
+        check(all(r.status == "done" and len(r.out) == 8 for r in reqs),
+              f"[gemma2-vs-plain] {name}: not every request finished")
+        if eng.pager is not None:
+            eng.pager.assert_empty()
+        out[name] = ([r.out for r in reqs], eng.logits)
+        print(f"[gemma2-vs-plain] {name}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del eng
+    for a, b in (("card dense", "cpu dense"), ("card paged", "cpu paged"),
+                 ("card paged", "card dense, chunks of 128, int8")):
+        (toks, lg), (toks_o, lg_o) = out[a], out[b]
+        steps = min(len(lg), len(lg_o))
+        gap = (max(float((x - y).abs().max()) for x, y in zip(lg, lg_o))
+               if len(lg) == len(lg_o) else None)
+        top = max(float(x.abs().max()) for x in lg[:steps])
+        print(f"[gemma2-vs-plain] f32, 4 layers at full width: {a} vs {b}: "
+              f"tokens equal {toks == toks_o}; largest next-token logit gap "
+              f"{gap if gap is None else f'{gap:.3e}'} (max |logit| {top:.3f})"
+              f" over {len(lg)} / {len(lg_o)} steps", flush=True)
+        check(toks == toks_o, f"[gemma2-vs-plain] greedy tokens differ, {a} "
+              f"vs {b}: {toks} vs {toks_o}")
+    del params_gpu, banks_gpu
+    _free()
+
+
+def phase_configs(dev) -> dict:
+    """Short ServeEngine runs of the other registered configs (8 requests
+    of 32-512 tokens, 16 new tokens, 8 slots, 4 users' rank-8 qv adapters):
+    gpt2-small at full size in f32 (its config's dtype: the f32 kernels),
+    its card tokens equal to the CPU's; mistral-nemo-12b at full width and
+    depth, bf16; mistral-large-123b at full width with its depth cut to 2
+    layers, bf16 (the 88 layers do not fit one 80 GB card). Returns the
+    launch counts of the card runs."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.utils import tree_leaves
+
+    total = {}
+    for name, depth in (("gpt2-small", None), ("mistral-nemo-12b", None),
+                        ("mistral-large-123b", 2)):
+        cfg = registry.get_config(name)
+        if depth:
+            cfg = cfg.replace(n_layers=depth)
+        params = model.init(cfg, seed=SEED, device=dev)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        banks = user_banks(cfg, 4, dev, SEED)
+        rng = np.random.default_rng(SEED + 2)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in rng.integers(32, 513, 8)]
+        (eng, reqs, _), launches = _counted(lambda: serve(
+            cfg, params, banks, prompts, dev, slots=8, max_len=1024,
+            max_new=16))
+        check(all(r.status == "done" and len(r.out) == 16 for r in reqs),
+              f"[configs] {name}: not every request finished")
+        for n in ("flash_attention", "decode_attention", "multi_lora"):
+            check(launches[n] > 0, f"[configs] {name}: {n} never launched")
+        tp = eng.throughput()
+        same = ""
+        if name == "gpt2-small":
+            cpu, cpu_reqs, _ = serve(cfg, _to(params, "cpu"),
+                                     [_to(b, "cpu") for b in banks], prompts,
+                                     "cpu", slots=8, max_len=1024, max_new=16)
+            same = [r.out for r in reqs] == [r.out for r in cpu_reqs]
+            check(same, f"[configs] {name}: card tokens differ from the CPU's")
+            same = "; card tokens == CPU tokens: True"
+        print(f"[configs] {name} {cfg.param_dtype}, {cfg.n_layers} layers, "
+              f"{n_params} parameters: {tp['completed']} completed, decode "
+              f"{tp['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{tp['ttft']['p50'] * 1e3:.1f} ms, decode tick p50 "
+              f"{tp['decode_tick']['p50'] * 1e3:.2f} ms{same}; launches "
+              f"{launches}", flush=True)
+        total = {n: total.get(n, 0) + c for n, c in launches.items()}
+        del eng, reqs, params, banks
+        _free()
+    return total
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1863,11 +2366,15 @@ def main() -> int:
     # (0 f32, 1 int8) and rank; at the path's shapes (bf16 d_head 64; the
     # fit's rank 8, 3 columns a thread; multi-LoRA's rank 8) they must not
     # spill
+    # (and d_head 256's own tilings: flash_fwd_tc_kernel<256>,
+    # flash_fwd_f32_kernel<256>, decode_split_kernel<*,256> and its ring
+    # mode <*,*,ring>, printed beside the others)
     for name, kernel, n, paths in (
-            ("flash_attention", "flash_fwd_tc_kernel", 4, ("64",)),
+            ("flash_attention", "flash_fwd_tc_kernel", 5, ("64",)),
+            ("flash_attention", "flash_fwd_f32_kernel", 5, ()),
             ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 4, ("64",)),
             ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 4, ("64",)),
-            ("decode_attention", "decode_split_kernel", 8, ("bf16,64",)),
+            ("decode_attention", "decode_split_kernel", 20, ("bf16,64",)),
             ("cola_fit", "fit_reg_kernel", 4, ("8,3,8",)),
             ("cola_fit", "fit_smem_kernel", 1, ()),
             ("multi_lora", "multi_lora_vec_kernel", 12,
@@ -1919,6 +2426,17 @@ def main() -> int:
     tele = phase_telemetry(cfg, dev, setup, serve_tokens, scale_tokens)
     del setup
     print(f"[telemetry] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    _free()
+    t0 = time.perf_counter()
+    gemma2 = phase_gemma2(dev)
+    print(f"[gemma2] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_gemma2_vs_plain(dev)
+    print(f"[gemma2-vs-plain] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    configs = phase_configs(dev)
+    print(f"[configs] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
@@ -1934,15 +2452,20 @@ def main() -> int:
                "flash_attention_bwd_dkv": "flash_attention_bwd",
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
-    # launches: the serving, training, serving-at-scale, store, runtime and
-    # telemetry runs' together (flash_attention runs on all six paths);
-    # the top-level numbers are the kernel's first row, "rows" holds every
-    # phase-1 row of the kernel (both cola_fit taps, multi_lora at a tick)
+    # launches: the serving, training, serving-at-scale, store, runtime,
+    # telemetry, gemma2 and configs runs' together (flash_attention runs on
+    # all eight paths; the ring ticks count as the paged decode kernel's, of
+    # which they are the ring addressing mode); the top-level numbers are
+    # the kernel's first row, "rows" holds every phase-1 row of the kernel
+    # (both cola_fit taps, multi_lora at a tick, the d_head 256 rows and the
+    # other configs' shapes)
+    for extra in (gemma2, configs):
+        extra["decode_attention_paged"] += extra.pop("decode_attention_ring")
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
                     replaces=replaces[n],
                     launches=(launches[n] + train[n] + scale[n] + store[n]
-                              + runtime[n] + tele[n]),
+                              + runtime[n] + tele[n] + gemma2[n] + configs[n]),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})

@@ -1,5 +1,7 @@
 """Architecture registry: full configs and reduced smoke variants. Only the
-architectures the port runs are listed (see ROADMAP.md for the rest)."""
+architectures the port runs are listed (see ROADMAP.md for the rest): the
+uniform-attention plan (gpt2-small, smollm-135m, the two mistrals) and
+gemma2's local/global pairs plan."""
 from __future__ import annotations
 
 import importlib
@@ -7,7 +9,11 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 ARCH_MODULES = {
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "gpt2-small": "repro_torch.configs.gpt2_small",
 }
 
 

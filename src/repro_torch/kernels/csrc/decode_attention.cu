@@ -59,6 +59,18 @@
 // The online softmax is f32; every sum runs in a fixed order, and the only
 // atomic is the integer counter, whose order of arrival changes nothing:
 // two launches give the same bits.
+//
+// Ring layout (the pairs plan's local-window stack under paged KV): slot b
+// keeps only its last W_ring positions, position t at ring row
+// b * W_ring + t % W_ring, so the paged kernel's table lookup becomes a
+// modulo (the RING instantiations). The walk covers the same positions
+// [lo, hi] in the same splits of the virtual horizon (Smax = the slots'
+// horizon, not W_ring, sizes the grid), so a ring tick gives the bits of a
+// dense tick with the same window, as long as W_ring >= window.
+//
+// d_head 256: a bf16 row is one 16-byte load a lane across the warp; an f32
+// row is 64 such loads, so each lane takes two (VPL), and a chunk holds
+// half as many rows to keep the registers of K and V in flight at 64.
 #include "common.cuh"
 
 // positions per split (one block) and warps per block. SPLIT 128 with 8
@@ -101,16 +113,19 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-// how a warp walks its PW positions: LPR lanes a row, RPW rows a load step,
-// NSTEP steps, taken NB steps (one chunk of registers) at a time
+// how a warp walks its PW positions: LPR lanes a row with VPL 16-byte
+// loads each, RPW rows a load step, NSTEP steps, taken NB steps (one chunk
+// of registers) at a time
 template <typename T, int DH>
 struct Walk {
   static constexpr int EPL = Vec<T>::N;
-  static constexpr int LPR = DH / EPL;
+  static constexpr int VPL = DH / EPL > 32 ? DH / EPL / 32 : 1;
+  static constexpr int LPR = DH / EPL / VPL;
   static constexpr int RPW = 32 / LPR;
   static constexpr int NSTEP = (PW + RPW - 1) / RPW;
-  static constexpr int NB = NSTEP < 8 ? NSTEP : 8;
-  static_assert(LPR >= 1 && LPR <= 32 && NSTEP % NB == 0, "walk shape");
+  static constexpr int NB = NSTEP < 8 / VPL ? NSTEP : 8 / VPL;
+  static_assert(LPR >= 1 && LPR <= 32 && LPR * VPL * EPL == DH && NSTEP % NB == 0,
+                "walk shape");
 };
 
 size_t smem_bytes(int G, int DH) {
@@ -119,10 +134,11 @@ size_t smem_bytes(int G, int DH) {
 }
 
 // Issue one chunk's K and V loads (rows outside [t_first, t_last] read
-// nothing and stay zero).
-template <typename T, int DH>
+// nothing and stay zero). Lane column c loads dims (v LPR + c) EPL + [0, EPL).
+template <typename T, int DH, bool RING>
 __device__ __forceinline__ void load_chunk(
-    uint4 (&kr)[Walk<T, DH>::NB], uint4 (&vr)[Walk<T, DH>::NB],
+    uint4 (&kr)[Walk<T, DH>::NB][Walk<T, DH>::VPL],
+    uint4 (&vr)[Walk<T, DH>::NB][Walk<T, DH>::VPL],
     const T* __restrict__ kc, const T* __restrict__ vc,
     const int* __restrict__ trow, int bs, int b, int Smax, int KH, int kh,
     int t0, int r, int c, int t_first, int t_last) {
@@ -131,23 +147,34 @@ __device__ __forceinline__ void load_chunk(
   for (int i = 0; i < W::NB; ++i) {
     const int t = t0 + i * W::RPW + r;
     if (t >= t_first && t <= t_last) {
-      const size_t row = trow == nullptr ? (size_t)b * Smax + t
-                                         : (size_t)__ldg(&trow[t / bs]) * bs + t % bs;
-      const size_t off = (row * KH + kh) * DH + c * W::EPL;
-      kr[i] = __ldg(reinterpret_cast<const uint4*>(kc + off));
-      vr[i] = __ldg(reinterpret_cast<const uint4*>(vc + off));
+      size_t row;
+      if constexpr (RING)
+        row = (size_t)b * bs + t % bs;
+      else
+        row = trow == nullptr ? (size_t)b * Smax + t
+                              : (size_t)__ldg(&trow[t / bs]) * bs + t % bs;
+#pragma unroll
+      for (int u = 0; u < W::VPL; ++u) {
+        const size_t off = (row * KH + kh) * DH + (u * W::LPR + c) * W::EPL;
+        kr[i][u] = __ldg(reinterpret_cast<const uint4*>(kc + off));
+        vr[i][u] = __ldg(reinterpret_cast<const uint4*>(vc + off));
+      }
     } else {
-      kr[i] = make_uint4(0u, 0u, 0u, 0u);
-      vr[i] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int u = 0; u < W::VPL; ++u) {
+        kr[i][u] = make_uint4(0u, 0u, 0u, 0u);
+        vr[i][u] = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   }
 }
 
 // table == nullptr: dense caches (B, Smax, K, DH). Otherwise pools
 // (n_blocks, bs, K, DH) read through table (B, Smax / bs), Smax = the
-// table's width in positions. ws: (B, KH, n_split, G * (DH + 2)) f32
+// table's width in positions. RING: rings (B, bs, K, DH), bs = W_ring, and
+// Smax the virtual horizon. ws: (B, KH, n_split, G * (DH + 2)) f32
 // partials; counters: (B * KH) int32, zero before and after the launch.
-template <typename T, int DH>
+template <typename T, int DH, bool RING>
 __global__ void __launch_bounds__(NT) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
     const int* __restrict__ pos, const uint8_t* __restrict__ live,
@@ -188,10 +215,10 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   const int* trow = table == nullptr ? nullptr : table + (size_t)b * (Smax / bs);
 
   // the first chunk's loads go out before q is staged
-  uint4 kr[W::NB], vr[W::NB];
+  uint4 kr[W::NB][W::VPL], vr[W::NB][W::VPL];
   if (t_first <= t_last)
-    load_chunk<T, DH>(kr, vr, kc, vc, trow, bs, b, Smax, KH, kh, w0, r, c,
-                      t_first, t_last);
+    load_chunk<T, DH, RING>(kr, vr, kc, vc, trow, bs, b, Smax, KH, kh, w0, r, c,
+                            t_first, t_last);
   for (int f = tid; f < G * DH; f += NT) q_s[f] = to_f32(q[base + f]);
   for (int f = tid; f < NW * G * DH; f += NT) acc_s[f] = 0.f;
   for (int f = tid; f < NW * G; f += NT) {
@@ -205,8 +232,8 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
     if (t0 > t_last) break;
     if (t0 + W::NB * W::RPW <= t_first) continue;
     if (i0 > 0)
-      load_chunk<T, DH>(kr, vr, kc, vc, trow, bs, b, Smax, KH, kh, t0, r, c,
-                        t_first, t_last);
+      load_chunk<T, DH, RING>(kr, vr, kc, vc, trow, bs, b, Smax, KH, kh, t0, r, c,
+                              t_first, t_last);
     bool valid[W::NB];
 #pragma unroll
     for (int i = 0; i < W::NB; ++i) {
@@ -215,12 +242,17 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
     }
 #pragma unroll 1
     for (int g = 0; g < G; ++g) {
-      float qf[W::EPL];
-      const float4* q4 = reinterpret_cast<const float4*>(q_s + g * DH + c * W::EPL);
+      float qf[W::VPL][W::EPL];
 #pragma unroll
-      for (int e = 0; e < W::EPL / 4; ++e) {
-        const float4 x = q4[e];
-        qf[4 * e] = x.x; qf[4 * e + 1] = x.y; qf[4 * e + 2] = x.z; qf[4 * e + 3] = x.w;
+      for (int u = 0; u < W::VPL; ++u) {
+        const float4* q4 =
+            reinterpret_cast<const float4*>(q_s + g * DH + (u * W::LPR + c) * W::EPL);
+#pragma unroll
+        for (int e = 0; e < W::EPL / 4; ++e) {
+          const float4 x = q4[e];
+          qf[u][4 * e] = x.x; qf[u][4 * e + 1] = x.y; qf[u][4 * e + 2] = x.z;
+          qf[u][4 * e + 3] = x.w;
+        }
       }
       // scores of the chunk's rows: a partial dot per lane, summed over the
       // LPR lanes of the row (every lane of the row ends with the same bits)
@@ -228,11 +260,14 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       float mx = NEG_INF_F;
 #pragma unroll
       for (int i = 0; i < W::NB; ++i) {
-        float kf[W::EPL];
-        Vec<T>::unpack(kr[i], kf);
         float a = 0.f;
 #pragma unroll
-        for (int e = 0; e < W::EPL; ++e) a = fmaf(qf[e], kf[e], a);
+        for (int u = 0; u < W::VPL; ++u) {
+          float kf[W::EPL];
+          Vec<T>::unpack(kr[i][u], kf);
+#pragma unroll
+          for (int e = 0; e < W::EPL; ++e) a = fmaf(qf[u][e], kf[e], a);
+        }
 #pragma unroll
         for (int off = W::LPR / 2; off > 0; off >>= 1)
           a += __shfl_xor_sync(0xffffffffu, a, off);
@@ -248,31 +283,41 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       const float m_old = m_s[slot], l_old = l_s[slot];
       const float m_new = fmaxf(m_old, mx);   // finite: the chunk holds a valid row
       const float corr = expf(m_old - m_new);
-      float psum = 0.f, pv[W::EPL];
+      float psum = 0.f, pv[W::VPL][W::EPL];
 #pragma unroll
-      for (int e = 0; e < W::EPL; ++e) pv[e] = 0.f;
+      for (int u = 0; u < W::VPL; ++u)
+#pragma unroll
+        for (int e = 0; e < W::EPL; ++e) pv[u][e] = 0.f;
 #pragma unroll
       for (int i = 0; i < W::NB; ++i) {
         const float pr = valid[i] ? expf(sc[i] - m_new) : 0.f;
         psum += pr;
-        float vf[W::EPL];
-        Vec<T>::unpack(vr[i], vf);
 #pragma unroll
-        for (int e = 0; e < W::EPL; ++e) pv[e] = fmaf(pr, vf[e], pv[e]);
+        for (int u = 0; u < W::VPL; ++u) {
+          float vf[W::EPL];
+          Vec<T>::unpack(vr[i][u], vf);
+#pragma unroll
+          for (int e = 0; e < W::EPL; ++e) pv[u][e] = fmaf(pr, vf[e], pv[u][e]);
+        }
       }
       // sum over the warp's rows (the lanes of one column hold its dims)
 #pragma unroll
       for (int off = W::LPR; off < 32; off <<= 1) {
         psum += __shfl_xor_sync(0xffffffffu, psum, off);
 #pragma unroll
-        for (int e = 0; e < W::EPL; ++e)
-          pv[e] += __shfl_xor_sync(0xffffffffu, pv[e], off);
+        for (int u = 0; u < W::VPL; ++u)
+#pragma unroll
+          for (int e = 0; e < W::EPL; ++e)
+            pv[u][e] += __shfl_xor_sync(0xffffffffu, pv[u][e], off);
       }
       __syncwarp();
       if (r == 0) {
-        float* ag = acc_s + (size_t)slot * DH + c * W::EPL;
 #pragma unroll
-        for (int e = 0; e < W::EPL; ++e) ag[e] = fmaf(ag[e], corr, pv[e]);
+        for (int u = 0; u < W::VPL; ++u) {
+          float* ag = acc_s + (size_t)slot * DH + (u * W::LPR + c) * W::EPL;
+#pragma unroll
+          for (int e = 0; e < W::EPL; ++e) ag[e] = fmaf(ag[e], corr, pv[u][e]);
+        }
       }
       if (lane == 0) {
         m_s[slot] = m_new;
@@ -341,40 +386,42 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool RING>
 int launch(const void* q, const void* k, const void* v, const int* pos,
            const uint8_t* live, const int* table, int bs, void* o, float* ws,
            int* counters, int B, int Smax, int H, int KH, float scale,
            int window, float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / KH, DH);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<T, DH>,
+    cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<T, DH, RING>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((Smax + SPLIT - 1) / SPLIT, KH, B);
-  decode_split_kernel<T, DH><<<grid, NT, smem, stream>>>(
+  decode_split_kernel<T, DH, RING><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       pos, live, table, bs, static_cast<T*>(o), ws, counters, Smax, H, KH, scale,
       window, softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool RING>
 int dispatch_dh(int DH, const void* q, const void* k, const void* v, const int* pos,
                 const uint8_t* live, const int* table, int bs, void* o, float* ws,
                 int* cnt, int B, int Smax, int H, int KH, float scale, int window,
                 float softcap, cudaStream_t s) {
   switch (DH) {
-    case 16: return launch<T, 16>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
-    case 32: return launch<T, 32>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
-    case 64: return launch<T, 64>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
-    case 128: return launch<T, 128>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 16: return launch<T, 16, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 32: return launch<T, 32, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 64: return launch<T, 64, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 128: return launch<T, 128, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 256: return launch<T, 256, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
     default: return -1;
   }
 }
 
+template <bool RING>
 int dispatch(int dtype, int DH, int split, const void* q, const void* k,
              const void* v, const void* positions, const void* live,
              const void* table, int bs, void* o, void* ws, void* counters, int B,
@@ -388,11 +435,11 @@ int dispatch(int dtype, int DH, int split, const void* q, const void* k,
   int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return dispatch_dh<float>(DH, q, k, v, pos, lv, tb, bs, o, w, cnt, B, Smax, H,
-                              KH, scale, window, softcap, s);
+    return dispatch_dh<float, RING>(DH, q, k, v, pos, lv, tb, bs, o, w, cnt, B, Smax, H,
+                                    KH, scale, window, softcap, s);
   if (dtype == DT_BF16)
-    return dispatch_dh<__nv_bfloat16>(DH, q, k, v, pos, lv, tb, bs, o, w, cnt, B,
-                                      Smax, H, KH, scale, window, softcap, s);
+    return dispatch_dh<__nv_bfloat16, RING>(DH, q, k, v, pos, lv, tb, bs, o, w, cnt, B,
+                                            Smax, H, KH, scale, window, softcap, s);
   return -1;
 }
 
@@ -409,9 +456,9 @@ extern "C" int decode_attention(const void* q, const void* k_cache,
                                 void* counters, int B, int Smax, int H, int KH,
                                 int DH, int dtype, int split, float scale,
                                 int window, float softcap, void* stream) {
-  return dispatch(dtype, DH, split, q, k_cache, v_cache, positions, live, nullptr,
-                  1, o, workspace, counters, B, Smax, H, KH, scale, window,
-                  softcap, stream);
+  return dispatch<false>(dtype, DH, split, q, k_cache, v_cache, positions, live,
+                         nullptr, 1, o, workspace, counters, B, Smax, H, KH, scale,
+                         window, softcap, stream);
 }
 
 // The paged layout: pools (n_blocks, bs, KH, DH), block_table (B, max_blocks)
@@ -426,7 +473,26 @@ extern "C" int decode_attention_paged(const void* q, const void* k_pool,
                                       int DH, int dtype, int split, float scale,
                                       int window, float softcap, void* stream) {
   if (bs < 8 || bs % 8 != 0 || block_table == nullptr) return -1;
-  return dispatch(dtype, DH, split, q, k_pool, v_pool, positions, live,
-                  block_table, bs, o, workspace, counters, B, max_blocks * bs, H,
-                  KH, scale, window, softcap, stream);
+  return dispatch<false>(dtype, DH, split, q, k_pool, v_pool, positions, live,
+                         block_table, bs, o, workspace, counters, B, max_blocks * bs, H,
+                         KH, scale, window, softcap, stream);
+}
+
+// The ring layout: rings (B, w_ring, KH, DH), position t of slot b at ring
+// row t % w_ring; horizon = the slots' virtual horizon (the dense cache's
+// Smax), which sizes the grid and the workspace as Smax does above. The
+// window must be positive and at most w_ring, so that every position the
+// query sees is still in its ring. Same arguments and returns as above, and
+// -1 for a window that breaks that.
+extern "C" int decode_attention_ring(const void* q, const void* k_ring,
+                                     const void* v_ring, const void* positions,
+                                     const void* live, void* o, void* workspace,
+                                     void* counters, int B, int horizon, int w_ring,
+                                     int H, int KH, int DH, int dtype, int split,
+                                     float scale, int window, float softcap,
+                                     void* stream) {
+  if (w_ring < 1 || window < 1 || window > w_ring) return -1;
+  return dispatch<true>(dtype, DH, split, q, k_ring, v_ring, positions, live,
+                        nullptr, w_ring, o, workspace, counters, B, horizon, H, KH,
+                        scale, window, softcap, stream);
 }

@@ -55,6 +55,15 @@
 // about three decimal digits and would break that, so f32 keeps exact f32
 // FMAs: one block per 64-row q tile, two threads per row, K/V tiles staged
 // in shared memory, the same tile skip (its range scanned by every thread).
+//
+// d_head 256 (gemma2) has its own tiling where the one above does not fit.
+// bf16: Q as A-fragments would take 16 k-steps x 4 = 64 registers beside
+// the 128 of the O accumulator and the 32 of S, past the 255 a thread, so
+// at 256 the kernel reads Q's fragment of each k-step from the q tile in
+// shared memory by ldmatrix (five 64 x 264 tiles, 169 KB, still fit). f32:
+// four threads a row (256 a block) instead of two, so a thread holds 64
+// accumulators and 16 scores; its shared memory, 214,280 bytes, fits. The
+// d_head 16-128 instantiations are unchanged.
 #include <climits>
 
 #include "common.cuh"
@@ -64,8 +73,7 @@ namespace {
 
 constexpr int BQ = 64;    // q rows per block
 constexpr int BK = 64;    // kv rows per shared-memory tile
-constexpr int NT = 128;   // threads: f32, two per q row; bf16, four warps
-constexpr int HK = BK / 2;
+constexpr int NT = 128;   // threads: f32, two per q row (f32_threads); bf16, four warps
 constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
@@ -88,6 +96,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc_kernel(
     float* __restrict__ lse, int Sq, int Sk, int H, int KH, int qpos_bstride,
     int kvpos_bstride, float scale, int causal, int window, float softcap) {
   static_assert(DH % 16 == 0 && BQ == 64 && BK == 64 && NT == 128, "tile shape");
+  // Q's A-fragments stay in registers for the whole walk up to d_head 128;
+  // at 256 they are read from the q tile at each k-step
+  constexpr bool QREG = DH <= 128;
   constexpr int LD = TcTile<DH>::LD, SIZE = TcTile<DH>::SIZE;
   constexpr int CH = DH / 8;       // 16-byte chunks of a row
   constexpr int KS = DH / 16;      // k-steps of Q K^T
@@ -180,9 +191,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc_kernel(
 
   // Q as A-fragments for the whole walk: x4 matrices (rows 0-7 | 8-15) x
   // (columns 0-7 | 8-15) of each 16-wide k-step
-  uint32_t qf[KS][4];
+  uint32_t qf[QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) ld_a(qf[kk], q_s + warp * 16 * LD + kk * 16, LD, lane);
+    for (int kk = 0; kk < KS; ++kk) ld_a(qf[kk], q_s + warp * 16 * LD + kk * 16, LD, lane);
+  }
 
   // p = 2^(x c - m c), one FFMA and one ex2 an element: x is the raw score
   // (c = scale log2(e)) or, with a softcap, the softcapped scaled score
@@ -211,14 +224,29 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc_kernel(
     float sc[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+    if constexpr (QREG) {
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
+      for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t kf[4];
-        ld_b_nk(kf, ks + np * 16 * LD + kk * 16, LD, lane);
-        mma_bf16(sc[2 * np], qf[kk], kf[0], kf[1]);
-        mma_bf16(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t kf[4];
+          ld_b_nk(kf, ks + np * 16 * LD + kk * 16, LD, lane);
+          mma_bf16(sc[2 * np], qf[kk], kf[0], kf[1]);
+          mma_bf16(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4];
+        ld_a(qa, q_s + warp * 16 * LD + kk * 16, LD, lane);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t kf[4];
+          ld_b_nk(kf, ks + np * 16 * LD + kk * 16, LD, lane);
+          mma_bf16(sc[2 * np], qa, kf[0], kf[1]);
+          mma_bf16(sc[2 * np + 1], qa, kf[2], kf[3]);
+        }
       }
     }
 
@@ -342,14 +370,22 @@ constexpr size_t smem_bytes() {
          sizeof(int) * (BK + BQ + 2);
 }
 
+// threads a q row of the f32 kernel: two, four at d_head 256
+__host__ __device__ constexpr int f32_log_tpr(int dh) { return dh > 128 ? 2 : 1; }
+__host__ __device__ constexpr int f32_threads(int dh) { return BQ << f32_log_tpr(dh); }
+
 template <int DH>
-__global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
+__global__ void __launch_bounds__(f32_threads(DH)) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ qpos,
     const int* __restrict__ kvpos, float* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KH,
     int qpos_bstride, int kvpos_bstride, float scale, int causal, int window,
     float softcap) {
-  constexpr int HD = DH / 2;   // output columns per thread (d = 2*i + half)
+  constexpr int LOG_TPR = f32_log_tpr(DH);
+  constexpr int TPR = 1 << LOG_TPR;         // threads a row
+  constexpr int NTF = f32_threads(DH);
+  constexpr int HD = DH / TPR;   // output columns per thread (d = TPR*i + part)
+  constexpr int HKF = BK / TPR;  // score columns per thread (j = TPR*jj + part)
   extern __shared__ float smem[];
   float* q_s = smem;                          // BQ x (DH+1)
   float* k_s = q_s + BQ * (DH + 1);           // BK x (DH+1)
@@ -364,15 +400,15 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / KH);
-  const int row = tid >> 1;
-  const int half = tid & 1;
+  const int row = tid >> LOG_TPR;
+  const int part = tid & (TPR - 1);
 
-  for (int f = tid; f < BQ * DH; f += NT) {
+  for (int f = tid; f < BQ * DH; f += NTF) {
     const int r = f / DH, d = f % DH, s = q0 + r;
     q_s[r * (DH + 1) + d] =
         s < Sq ? q[(((size_t)b * Sq + s) * H + h) * DH + d] : 0.f;
   }
-  for (int r = tid; r < BQ; r += NT)
+  for (int r = tid; r < BQ; r += NTF)
     qp_s[r] = q0 + r < Sq ? qpos[(size_t)b * qpos_bstride + q0 + r] : 0;
   __syncthreads();
   if (tid == 0) {
@@ -396,7 +432,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
 
   for (int k0 = 0; k0 < Sk; k0 += BK) {
     const int nk = min(BK, Sk - k0);
-    for (int j = tid; j < BK; j += NT)
+    for (int j = tid; j < BK; j += NTF)
       kp_s[j] = j < nk ? kvpos[(size_t)b * kvpos_bstride + k0 + j] : 0;
     __syncthreads();
     int kmin = INT_MAX, kmax = INT_MIN;
@@ -410,7 +446,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
       __syncthreads();
       continue;
     }
-    for (int f = tid; f < BK * DH; f += NT) {
+    for (int f = tid; f < BK * DH; f += NTF) {
       const int j = f / DH, d = f % DH;
       float kv = 0.f, vv = 0.f;
       if (j < nk) {
@@ -423,25 +459,25 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
     }
     __syncthreads();
 
-    // scores of this thread's row against columns j = 2*jj + half (the two
+    // scores of this thread's row against columns j = TPR*jj + part (the
     // threads of a row interleave, so their shared-memory reads hit
     // different banks)
-    float sc[HK];
+    float sc[HKF];
 #pragma unroll
-    for (int jj = 0; jj < HK; ++jj) sc[jj] = 0.f;
+    for (int jj = 0; jj < HKF; ++jj) sc[jj] = 0.f;
     const float* qrow = q_s + row * (DH + 1);
-    const float* kcol = k_s + half * (DH + 1);
+    const float* kcol = k_s + part * (DH + 1);
 #pragma unroll 4
     for (int d = 0; d < DH; ++d) {
       const float qd = qrow[d];
 #pragma unroll
-      for (int jj = 0; jj < HK; ++jj) sc[jj] += qd * kcol[2 * jj * (DH + 1) + d];
+      for (int jj = 0; jj < HKF; ++jj) sc[jj] += qd * kcol[TPR * jj * (DH + 1) + d];
     }
     unsigned valid = 0u;
     float tmax = NEG_INF_F;
 #pragma unroll
-    for (int jj = 0; jj < HK; ++jj) {
-      const int j = 2 * jj + half;
+    for (int jj = 0; jj < HKF; ++jj) {
+      const int j = TPR * jj + part;
       float s = sc[jj] * scale;
       if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
       const int kp = kp_s[j];
@@ -451,17 +487,19 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
       valid |= (ok ? 1u : 0u) << jj;
       tmax = fmaxf(tmax, sc[jj]);
     }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+#pragma unroll
+    for (int sh = 1; sh < TPR; sh <<= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, sh));
     const float m_new = fmaxf(m, tmax);
     const float corr = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < HK; ++jj) {
+    for (int jj = 0; jj < HKF; ++jj) {
       const float p = (valid >> jj) & 1u ? expf(sc[jj] - m_new) : 0.f;
-      p_s[row * (BK + 1) + 2 * jj + half] = p;
+      p_s[row * (BK + 1) + TPR * jj + part] = p;
       psum += p;
     }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+#pragma unroll
+    for (int sh = 1; sh < TPR; sh <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, sh);
     l = l * corr + psum;
     m = m_new;
     __syncthreads();
@@ -469,21 +507,21 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
 #pragma unroll
     for (int i = 0; i < HD; ++i) acc[i] *= corr;
     const float* prow = p_s + row * (BK + 1);
-    const float* vcol = v_s + half;
+    const float* vcol = v_s + part;
     for (int j = 0; j < nk; ++j) {
       const float p = prow[j];
 #pragma unroll
-      for (int i = 0; i < HD; ++i) acc[i] += p * vcol[j * DH + 2 * i];
+      for (int i = 0; i < HD; ++i) acc[i] += p * vcol[j * DH + TPR * i];
     }
     __syncthreads();
   }
 
   if (row_ok) {
     const float safe_l = l > 0.f ? l : 1.f;
-    float* orow = o + (((size_t)b * Sq + q0 + row) * H + h) * DH + half;
+    float* orow = o + (((size_t)b * Sq + q0 + row) * H + h) * DH + part;
 #pragma unroll
-    for (int i = 0; i < HD; ++i) orow[2 * i] = acc[i] / safe_l;
-    if (half == 0)
+    for (int i = 0; i < HD; ++i) orow[TPR * i] = acc[i] / safe_l;
+    if (part == 0)
       lse[((size_t)b * H + h) * Sq + q0 + row] = l > 0.f ? m + logf(l) : NEG_INF_F;
   }
 }
@@ -498,7 +536,7 @@ int launch_f32(const void* q, const void* k, const void* v, const int* qpos,
       flash_fwd_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_f32_kernel<DH><<<grid, NT, smem, stream>>>(
+  flash_fwd_f32_kernel<DH><<<grid, f32_threads(DH), smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), qpos, kvpos, static_cast<float*>(o), lse, Sq, Sk,
       H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap);
@@ -560,6 +598,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     case 32: return launch<32>(dtype, q, k, v, qp, kp, o, ls, B, Sq, Sk, H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap, s);
     case 64: return launch<64>(dtype, q, k, v, qp, kp, o, ls, B, Sq, Sk, H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap, s);
     case 128: return launch<128>(dtype, q, k, v, qp, kp, o, ls, B, Sq, Sk, H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap, s);
+    case 256: return launch<256>(dtype, q, k, v, qp, kp, o, ls, B, Sq, Sk, H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap, s);
     default: return -1;
   }
 }

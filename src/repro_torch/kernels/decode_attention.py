@@ -1,10 +1,12 @@
 """Single-query decode attention: the CUDA kernel ``csrc/decode_attention.cu``
-(a dense slot cache, and a paged block pool read through a block table) and
-its plain PyTorch versions.
+(a dense slot cache, a paged block pool read through a block table, and the
+pairs plan's per-slot rings) and its plain PyTorch versions.
 
 Replaces the TPU kernels ``src/repro/kernels/decode_attention.py:_kernel``
 (entry ``decode_attention``) and ``_kernel_paged`` (entry
-``decode_attention_paged``).
+``decode_attention_paged``); ``decode_attention_ring`` is the paged kernel
+with the table lookup replaced by ``t % W_ring`` (JAX runs its ring op as
+plain jnp on every backend).
 
 The kernel splits each (slot, kv head)'s walk over the cache into splits of
 ``SPLIT`` positions, one block each, and merges the splits in the same launch:
@@ -23,20 +25,22 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 SPLIT = 128   # positions per block; csrc/decode_attention.cu's DECODE_SPLIT
 
 _COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 plain = ref.sdpa_decode
 plain_paged = ref.sdpa_decode_paged
+plain_ring = ref.sdpa_decode_ring
 
 
 def _fn(name: str = "decode_attention"):
     fn = getattr(_build.load("decode_attention"), name)
     paged = name.endswith("_paged")   # + block_table; + bs
+    ring = name.endswith("_ring")     # + w_ring
     fn.argtypes = ([ctypes.c_void_p] * (9 if paged else 8)
-                   + [ctypes.c_int] * (8 if paged else 7)
+                   + [ctypes.c_int] * (8 if paged or ring else 7)
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -169,3 +173,51 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 decode_attention_paged.launches = 0
+
+
+def decode_attention_ring(q: torch.Tensor, k_ring: torch.Tensor,
+                          v_ring: torch.Tensor, positions: torch.Tensor, *,
+                          horizon: int | None = None,
+                          live: torch.Tensor | None = None,
+                          window: int | None = None,
+                          softcap: float | None = None,
+                          scale: float | None = None) -> torch.Tensor:
+    """q: (B, 1, H, Dh); rings: (B, W_ring, K, Dh), position t of slot b at
+    ring row ``t % W_ring``; positions: (B,) int; live: (B,) bool or None.
+    ``horizon``: the slots' virtual horizon (the dense cache's length), which
+    sets the kernel's splits, so a ring tick gives the bits of a dense tick
+    with the same window; the window must lie in [1, W_ring]. Returns
+    (B, 1, H, Dh). CPU tensors take the plain version (JAX's position-ordered
+    gather, ``ref.sdpa_decode_ring``); CUDA tensors launch the kernel or
+    raise."""
+    if q.device.type == "cpu":
+        return plain_ring(q, k_ring, v_ring, positions, live=live,
+                          window=window, softcap=softcap, scale=scale)
+    B, _, H, Dh = q.shape
+    W, K = k_ring.shape[1], k_ring.shape[2]
+    if scale is None:
+        scale = Dh ** -0.5
+    name = "decode_attention_ring"
+    pos, live = _check_common(name, q, k_ring, v_ring, positions, live)
+    req = partial(_build.require, kernel=name)
+    req(k_ring.shape[0] == B, what=f"ring batch {k_ring.shape[0]} != {B}")
+    req(horizon is not None and horizon >= 1,
+        what="the slots' virtual horizon is required (it sets the splits)")
+    req(window is not None and 1 <= window <= W,
+        what=f"window {window} must lie in [1, W_ring={W}]: the ring holds "
+        "only the last W_ring positions")
+
+    o = torch.empty_like(q)
+    ws, cnt = _scratch(q, horizon, K)
+    rc = _fn(name)(q.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(),
+                   pos.data_ptr(), None if live is None else live.data_ptr(),
+                   o.data_ptr(), ws.data_ptr(), cnt.data_ptr(), B, horizon, W,
+                   H, K, Dh, _build.DTYPE_CODES[q.dtype], SPLIT, float(scale),
+                   int(window), float(softcap or 0.0),
+                   _build.stream_ptr(q.device))
+    _build.check_launch(rc, name)
+    decode_attention_ring.launches += 1
+    return o
+
+
+decode_attention_ring.launches = 0

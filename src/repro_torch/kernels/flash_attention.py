@@ -17,7 +17,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims the kernels take: the forward also takes gemma2's 256; the
+# backward's d_head 256 tiling is still to come (ROADMAP.md A.5.2b)
+FWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 
 # The plain versions: o and the per-row lse, from the dense reference; and
 # (dq, dk, dv) from (q, k, v, o, lse, do).
@@ -62,7 +65,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         what="q, k, v must be CUDA tensors on one device")
     req(q.dtype in _build.DTYPE_CODES and k.dtype == q.dtype
         and v.dtype == q.dtype, what=f"dtype {q.dtype}/{k.dtype}/{v.dtype}")
-    req(Dh in HEAD_DIMS, what=f"head dim {Dh} not in {HEAD_DIMS}")
+    req(Dh in FWD_HEAD_DIMS, what=f"head dim {Dh} not in {FWD_HEAD_DIMS}")
     req(k.shape == v.shape and k.shape[0] == B and k.shape[3] == Dh
         and H % K == 0, what=f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
         f"v {tuple(v.shape)}")
@@ -110,13 +113,14 @@ def _bwd_launch(name: str, outs, q, k, v, do, lse, delta, q_positions,
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     req = partial(_build.require, kernel=name)
+    # first: a head dim the backward does not take (256) raises by name
+    req(Dh in BWD_HEAD_DIMS, what=f"head dim {Dh} not in {BWD_HEAD_DIMS}")
     req(all(t.is_cuda and t.device == q.device
             for t in (k, v, do, lse, delta, q_positions, kv_positions)),
         what="inputs must be CUDA tensors on one device")
     req(q.dtype in _build.DTYPE_CODES and k.dtype == q.dtype
         and v.dtype == q.dtype and do.dtype == q.dtype,
         what=f"dtype {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
-    req(Dh in HEAD_DIMS, what=f"head dim {Dh} not in {HEAD_DIMS}")
     req(k.shape == v.shape and k.shape[0] == B and k.shape[3] == Dh
         and H % K == 0 and do.shape == q.shape,
         what=f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "

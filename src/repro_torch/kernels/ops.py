@@ -83,13 +83,45 @@ def sdpa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                             window=window, softcap=softcap, scale=scale)
 
 
-def _chunk_attention(q, k, v, positions, *, live, window, softcap, scale):
-    """A chunk of c queries per row at positions + arange(c) against a dense
-    (B, Smax, K, Dh) cache at positions arange(Smax), causal, through the
-    flash forward kernel; dead rows give zeros."""
+def sdpa_decode_ring(q: torch.Tensor, k_ring: torch.Tensor,
+                     v_ring: torch.Tensor, positions: torch.Tensor, *,
+                     live: torch.Tensor | None = None,
+                     window: int | None = None, softcap: float | None = None,
+                     scale: float | None = None, horizon: int | None = None
+                     ) -> torch.Tensor:
+    """Incremental attention against per-slot rings (see
+    ref.sdpa_decode_ring): Sq == 1 is the decode kernel in its ring mode,
+    with ``horizon`` the slots' virtual horizon; a chunk (Sq > 1) gathers
+    each ring in position order and on the card runs the flash forward
+    kernel over it with per-row kv positions."""
+    if q.shape[1] == 1:
+        return da.decode_attention_ring(q, k_ring, v_ring, positions,
+                                        horizon=horizon, live=live,
+                                        window=window, softcap=softcap,
+                                        scale=scale)
+    if q.device.type == "cpu":
+        return ref.sdpa_decode_ring(q, k_ring, v_ring, positions, live=live,
+                                    window=window, softcap=softcap,
+                                    scale=scale)
+    ring_idx, kv_pos = ref.ring_order(positions + q.shape[1] - 1,
+                                      k_ring.shape[1])
+    rows = torch.arange(q.shape[0], device=q.device)[:, None]
+    idx = ring_idx.long()
+    return _chunk_attention(q, k_ring[rows, idx], v_ring[rows, idx], positions,
+                            kv_positions=kv_pos, live=live, window=window,
+                            softcap=softcap, scale=scale)
+
+
+def _chunk_attention(q, k, v, positions, *, kv_positions=None, live, window,
+                     softcap, scale):
+    """A chunk of c queries per row at positions + arange(c) against a
+    (B, Sk, K, Dh) cache at ``kv_positions`` (default arange(Sk): a dense
+    view), causal, through the flash forward kernel; dead rows give
+    zeros."""
     ar = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
     q_pos = positions.to(torch.int32)[:, None] + ar[None]
-    kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)[None]
+    kv_pos = (torch.arange(k.shape[1], dtype=torch.int32, device=q.device)[None]
+              if kv_positions is None else kv_positions)
     o, _ = fa.flash_attention(q.contiguous(), k, v, q_positions=q_pos,
                               kv_positions=kv_pos, causal=True, window=window,
                               softcap=softcap, scale=scale)

@@ -181,6 +181,50 @@ def sdpa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                        softcap=softcap, scale=scale)
 
 
+def ring_order(last: torch.Tensor, w_ring: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ring rows of each slot in ascending position order, and their
+    positions: (ring_idx, kv_pos), both (B, W_ring) int. ``last`` (B,) is
+    each slot's last written position P. Wrapped (P >= W_ring - 1): ordered
+    index j is ring row (P + 1 + j) % W_ring, holding position
+    P - W_ring + 1 + j. Not wrapped: ring row j holds position j (rows past
+    P are unwritten and masked by position)."""
+    last = last.to(torch.int32)[:, None]
+    j = torch.arange(w_ring, dtype=torch.int32, device=last.device)[None]
+    wrapped = last >= w_ring - 1
+    ring_idx = torch.where(wrapped, (last + 1 + j) % w_ring, j)
+    kv_pos = torch.where(wrapped, last - w_ring + 1 + j, j)
+    return ring_idx, kv_pos
+
+
+def sdpa_decode_ring(q: torch.Tensor, k_ring: torch.Tensor,
+                     v_ring: torch.Tensor, positions: torch.Tensor, *,
+                     live: torch.Tensor | None = None,
+                     window: int | None = None, softcap: float | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """Rolling-window (ring) incremental attention (JAX's
+    ``ref.sdpa_decode_ring``): the pairs plan's local layers under the paged
+    layout keep only the last W_ring positions of a slot, position p at ring
+    row ``p % W_ring``. q: (B, Sq, H, Dh); rings (B, W_ring, K, Dh);
+    positions: (B,) first query position; the caller has written the chunk,
+    so the last written position is positions + Sq - 1. The ring is gathered
+    in ascending position order (``ring_order``), so the sums run in the
+    dense layout's order, and attended with per-row kv positions. Requires
+    W_ring >= window + Sq - 1. ``live``: non-live slots return zeros.
+    """
+    B, Sq = q.shape[0], q.shape[1]
+    ring_idx, kv_pos = ring_order(positions + Sq - 1, k_ring.shape[1])
+    rows = torch.arange(B, device=q.device)[:, None]
+    kd, vd = k_ring[rows, ring_idx.long()], v_ring[rows, ring_idx.long()]
+    q_pos = (positions.to(torch.int32)[:, None]
+             + torch.arange(Sq, dtype=torch.int32, device=q.device)[None])
+    o = sdpa(q, kd, vd, q_positions=q_pos, kv_positions=kv_pos, causal=True,
+             window=window, softcap=softcap, scale=scale)
+    if live is not None:
+        o = torch.where(live[:, None, None, None], o, torch.zeros_like(o))
+    return o
+
+
 # ---------------------------------------------------------------------------
 # cola_fit oracle: fused low-rank adapter fit gradient (the offloaded GL step)
 # ---------------------------------------------------------------------------

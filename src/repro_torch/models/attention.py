@@ -1,9 +1,9 @@
 """GQA attention with RoPE (window and logit softcap reach the kernels).
 Two modes: prefill (full causal, returns K/V for the cache) and decode (c new
-tokens per row against a dense slot cache or a paged block pool: c == 1 is
-the decode tick, c > 1 a chunk of a chunked prefill). The inner attention
-goes through ``kernels.ops`` so the CUDA kernels replace the plain versions
-on the card.
+tokens per row against a dense slot cache, a paged block pool or a per-slot
+ring: c == 1 is the decode tick, c > 1 a chunk of a chunked prefill). The
+inner attention goes through ``kernels.ops`` so the CUDA kernels replace the
+plain versions on the card.
 """
 from __future__ import annotations
 
@@ -50,12 +50,12 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
 def kv_write_plan(positions: torch.Tensor, c: int,
                   live: torch.Tensor | None, *, smax: int | None = None,
                   block_table: torch.Tensor | None = None,
-                  block: int | None = None
+                  block: int | None = None, ring: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Where the K/V of a step's c new tokens per row go: (src, dst), flat
     indices into the (B * c) new rows and into the cache viewed as rows of
     (K, Dh). Only kept writes are listed. One plan serves every layer of a
-    step, so it is computed once per step.
+    stack in a step, so it is computed once per step and layout.
 
     - dense (``smax``): cache (B, Smax, K, Dh); row b's token i goes to
       position positions[b] + i. A single token (c == 1) is clamped into the
@@ -65,15 +65,21 @@ def kv_write_plan(positions: torch.Tensor, c: int,
       (n_blocks, block, K, Dh); position p goes to pool row
       ``block_table[b, p // block]``, offset ``p % block``; positions at or
       past max_blocks * block are dropped.
+    - ring (``ring`` = W_ring): cache (B, W_ring, K, Dh); position p of row b
+      goes to ring row ``b * W_ring + p % W_ring``; every position is kept
+      (a ring has no horizon), as JAX's ring scatter writes them all.
 
-    Dead rows' writes (``live`` False) are dropped in both layouts. Torch has
+    Dead rows' writes (``live`` False) are dropped in every layout. Torch has
     no scatter with ``mode="drop"``, so dropped writes are filtered out here
     rather than sent to a clamped in-range row, where two rows could race.
     """
     B = positions.shape[0]
     dev = positions.device
     pos = positions.long()[:, None] + torch.arange(c, device=dev)[None]
-    if block_table is None:
+    if ring is not None:
+        ok = torch.ones_like(pos, dtype=torch.bool)
+        dst = torch.arange(B, device=dev)[:, None] * ring + pos % ring
+    elif block_table is None:
         if c == 1:
             pos = pos.clamp(0, smax - 1)
         ok = pos < smax
@@ -97,14 +103,20 @@ def attention_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
                      tap_ctx: tuple | None = None,
                      kv_write: tuple[torch.Tensor, torch.Tensor],
                      live: torch.Tensor | None = None,
-                     block_table: torch.Tensor | None = None) -> torch.Tensor:
+                     block_table: torch.Tensor | None = None,
+                     ring_horizon: int | None = None) -> torch.Tensor:
     """Incremental step: write c new tokens per row into the cache, then
     attend causally against everything written so far. x: (B, c, d_model);
     positions: (B,) each row's first position (tokens already in its cache).
     c == 1 is the decode tick; c > 1 one chunk of a chunked prefill.
 
     Layouts: dense, k/v_cache (B, Smax, K, Dh); paged (``block_table``
-    (B, max_blocks) given), k/v_cache the shared pool (n_blocks, bs, K, Dh).
+    (B, max_blocks) given), k/v_cache the shared pool (n_blocks, bs, K, Dh);
+    ring (``ring_horizon`` given: the pairs plan's local stack under the
+    paged layout), k/v_cache (B, W_ring, K, Dh) holding the last W_ring
+    positions, position p at ``p % W_ring``, with W_ring >= window + c - 1;
+    ``ring_horizon`` is the virtual horizon of the slots' positions, which
+    sizes the decode kernel's splits as the dense cache's length would.
     ``kv_write`` is the step's ``kv_write_plan``: dead rows' writes and
     out-of-range chunk tails are dropped. The cache is updated in place (the
     JAX version returns a new cache); dead rows' attention output is zero.
@@ -119,7 +131,11 @@ def attention_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
     for cache, new in ((k_cache, k), (v_cache, v)):
         cache.view(-1, n_kv, d_head).index_copy_(
             0, dst, new.reshape(B * c, n_kv, d_head).index_select(0, src))
-    if block_table is None:
+    if ring_horizon is not None:
+        o = kernel_ops.sdpa_decode_ring(q, k_cache, v_cache, positions,
+                                        live=live, window=window,
+                                        softcap=softcap, horizon=ring_horizon)
+    elif block_table is None:
         o = kernel_ops.sdpa_decode(q, k_cache, v_cache, positions, live=live,
                                    window=window, softcap=softcap)
     else:

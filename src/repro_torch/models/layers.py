@@ -29,14 +29,25 @@ def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
     return params["emb"][ids.long()]
 
 
-def rmsnorm(params: dict, x: torch.Tensor, *, eps: float = 1e-5
-            ) -> torch.Tensor:
-    """RMSNorm in f32, cast back to x's dtype."""
+def rmsnorm(params: dict, x: torch.Tensor, *, eps: float = 1e-5,
+            plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm in f32, cast back to x's dtype. ``plus_one``: gemma's
+    (1 + scale), added in f32."""
     dt = x.dtype
     x = x.to(torch.float32)
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * params["scale"].to(torch.float32)).to(dt)
+    scale = params["scale"].to(torch.float32)
+    if plus_one:
+        scale = 1.0 + scale
+    return (x * scale).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """cap * tanh(x / cap); no-op without a (positive) cap."""
+    if cap is None or cap <= 0:
+        return x
+    return torch.tanh(x / cap) * cap
 
 
 def rope_freqs(d_head: int, theta: float, device) -> torch.Tensor:

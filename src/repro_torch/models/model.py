@@ -1,10 +1,17 @@
-"""LM assembly for the uniform-attention layer plan (the dense family, e.g.
-``smollm-135m``): embedding -> a Python loop over the stacked pre-norm blocks
+"""LM assembly: embedding -> a Python loop over the stacked pre-norm blocks
 (where JAX has ``lax.scan``) -> final norm -> tied head.
 
+Layer plans (``layer_plan``, as in the JAX package):
+- "uniform": one stack of identical blocks ("layers.*" taps), e.g.
+  ``smollm-135m``, ``gpt2-small``, the mistrals;
+- "pairs": gemma2's alternating local/global layers, two stacks
+  ("layers_a.*" local with ``window=local_window``, "layers_b.*" global),
+  walked pair by pair; under the paged KV layout the local stack keeps a
+  per-slot ring cache instead of pool blocks.
+The SSM and hybrid plans are still to be ported (ROADMAP.md A.5).
+
 Parameters are the JAX package's pytree as nested dicts of tensors, layer
-leaves stacked on a leading (L,) axis. The other layer plans (``pairs``,
-``hybrid``, SSM) are still to be ported (ROADMAP.md).
+leaves stacked on a leading (n,) axis per stack.
 
 Entry points: init, forward, loss_fn, prefill, decode_step, init_cache,
 scatter_prefill_cache, tap_sites, delta_shape.
@@ -42,19 +49,52 @@ def layer_plan(cfg: ModelConfig):
     return ("uniform", kind)
 
 
-def _require_uniform_attn(cfg: ModelConfig) -> None:
-    """The port runs the llama-style uniform-attention plan; every other plan
-    and architecture feature raises instead of running half-supported."""
+def _require_ported(cfg: ModelConfig) -> tuple:
+    """The plan of ``cfg`` (``layer_plan``) when the port runs it: the
+    uniform-attention plan and gemma2's local/global pairs. Every other plan
+    and architecture feature raises, naming the ROADMAP item that ports it,
+    instead of running half-supported."""
     plan = layer_plan(cfg)
-    if plan[0] != "uniform" or plan[1] != "attn":
-        raise NotImplementedError(f"{cfg.name}: layer plan {plan[0]}/{plan[1]} "
-                                  "is not ported yet (see ROADMAP.md)")
-    extras = [f for f in ("n_codebooks", "embed_input", "qk_norm", "post_norm",
-                          "norm_plus_one", "embed_scale", "final_softcap",
-                          "attn_softcap") if getattr(cfg, f)]
-    if extras or not cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: {extras or 'untied head'} "
-                                  "not ported yet (see ROADMAP.md)")
+    missing = [(f, item) for f, item in (
+        ("n_experts", "A.5.3"), ("qk_norm", "A.5.3"),
+        ("n_codebooks", "A.5.6"), ("embed_input", "A.5.6"))
+        if getattr(cfg, f)]
+    if plan[0] == "hybrid":
+        missing.append(("the hybrid plan", "A.5.5"))
+    elif plan == ("uniform", "ssm"):
+        missing.append(("the ssm plan", "A.5.4"))
+    if not cfg.tie_embeddings:
+        missing.append(("an untied head", "A.5.6"))
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: " + ", ".join(f"{f} (ROADMAP.md {item})"
+                                        for f, item in missing)
+            + " not ported yet")
+    return plan
+
+
+def _stacks(cfg: ModelConfig) -> dict[str, int]:
+    """The plan's layer stacks and their depths: "layers" for the uniform
+    plan, "layers_a" (local) and "layers_b" (global) for the pairs plan."""
+    plan = _require_ported(cfg)
+    if plan[0] == "pairs":
+        return {"layers_a": plan[1], "layers_b": plan[1]}
+    return {"layers": cfg.n_layers}
+
+
+def _walk(cfg: ModelConfig):
+    """(stack, layer index, attention window) in the order the layers run:
+    the uniform plan's layers in turn; the pairs plan's pairs, layer a with
+    ``window=local_window``, then layer b with no window (JAX's
+    ``_scan_pairs``)."""
+    plan = _require_ported(cfg)
+    if plan[0] == "pairs":
+        for i in range(plan[1]):
+            yield "layers_a", i, cfg.local_window
+            yield "layers_b", i, None
+    else:
+        for i in range(cfg.n_layers):
+            yield "layers", i, None
 
 
 def _layer(tree, i: int):
@@ -95,19 +135,20 @@ def delta_shape(cfg: ModelConfig, site: TapSite, batch: int, seq: int
 
 
 def tap_sites(cfg: ModelConfig) -> dict[str, TapSite]:
-    _require_uniform_attn(cfg)
+    """Every tappable Dense site, "<stack>.<site>", stacked over its stack's
+    depth."""
     sites = {}
-    n = cfg.n_layers
-    for nm, din, dout in [
-        ("attn.q", cfg.d_model, cfg.n_heads * cfg.d_head),
-        ("attn.k", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
-        ("attn.v", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
-        ("attn.o", cfg.n_heads * cfg.d_head, cfg.d_model),
-        ("mlp.gate", cfg.d_model, cfg.d_ff),
-        ("mlp.up", cfg.d_model, cfg.d_ff),
-        ("mlp.down", cfg.d_ff, cfg.d_model),
-    ]:
-        sites[f"layers.{nm}"] = TapSite(f"layers.{nm}", din, dout, n)
+    for prefix, n in _stacks(cfg).items():
+        for nm, din, dout in [
+            ("attn.q", cfg.d_model, cfg.n_heads * cfg.d_head),
+            ("attn.k", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
+            ("attn.v", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
+            ("attn.o", cfg.n_heads * cfg.d_head, cfg.d_model),
+            ("mlp.gate", cfg.d_model, cfg.d_ff),
+            ("mlp.up", cfg.d_model, cfg.d_ff),
+            ("mlp.down", cfg.d_ff, cfg.d_model),
+        ]:
+            sites[f"{prefix}.{nm}"] = TapSite(f"{prefix}.{nm}", din, dout, n)
     return sites
 
 
@@ -120,7 +161,7 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
     numbers differ from ``jax.random``'s; tests carry JAX weights across with
     ``convert.params_from_numpy`` instead)."""
-    _require_uniform_attn(cfg)
+    stacks = _stacks(cfg)
     dev = resolve_device(device)
     dt = canonical_dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -129,26 +170,34 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return (w * std).to(dt)
 
-    def dense(d_in, d_out):
-        return {"w": normal((cfg.n_layers, d_in, d_out), d_in ** -0.5)}
-
     def ones(*shape):
         return {"scale": torch.ones(shape, dtype=dt, device=dev)}
 
-    d, n = cfg.d_model, cfg.n_layers
+    d = cfg.d_model
     hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
-    return {
-        "embed": {"emb": normal((cfg.vocab_size, d), 0.02)},
-        "layers": {
+
+    def stack(n):
+        def dense(d_in, d_out):
+            return {"w": normal((n, d_in, d_out), d_in ** -0.5)}
+
+        p = {
             "ln1": ones(n, d),
             "attn": {"q": dense(d, hq), "k": dense(d, hkv),
                      "v": dense(d, hkv), "o": dense(hq, d)},
             "ln2": ones(n, d),
             "mlp": {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
                     "down": dense(cfg.d_ff, d)},
-        },
-        "final_norm": ones(d),
-    }
+        }
+        if cfg.post_norm:
+            p["post_ln1"] = ones(n, d)
+            p["post_ln2"] = ones(n, d)
+        return p
+
+    params = {"embed": {"emb": normal((cfg.vocab_size, d), 0.02)}}
+    for prefix, n in stacks.items():
+        params[prefix] = stack(n)
+    params["final_norm"] = ones(d)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -156,27 +205,39 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    _require_uniform_attn(cfg)
-    return L.embed(params["embed"], batch["tokens"]).to(
+    """Token embeddings in the compute dtype; with ``embed_scale`` times
+    sqrt(d_model) rounded to that dtype first (59.75 in bf16 at gemma2's
+    3584), as JAX's ``jnp.asarray(d_model ** 0.5, cdt)``."""
+    _require_ported(cfg)
+    x = L.embed(params["embed"], batch["tokens"]).to(
         canonical_dtype(cfg.compute_dtype))
+    if cfg.embed_scale:
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+    return x
 
 
 def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     """Tied head: h (..., d) -> logits (..., V), in h's dtype (so bf16 at
-    full width)."""
-    return h @ params["embed"]["emb"].to(h.dtype).T
+    full width); ``final_softcap`` takes the tanh in f32 and casts back."""
+    logits = h @ params["embed"]["emb"].to(h.dtype).T
+    if cfg.final_softcap:
+        logits = L.softcap(logits.to(torch.float32),
+                           cfg.final_softcap).to(logits.dtype)
+    return logits
 
 
 # ---------------------------------------------------------------------------
 # full sequence
 # ---------------------------------------------------------------------------
 
-def _block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-           positions: torch.Tensor, spec, ad_l: dict, de_l: dict):
-    """One layer; returns (x, (k, v), {tap: hidden input x} collected)."""
+def _block(cfg: ModelConfig, prefix: str, window: int | None, lp: dict,
+           x: torch.Tensor, positions: torch.Tensor, spec, ad_l: dict,
+           de_l: dict):
+    """One layer of stack ``prefix``; returns (x, (k, v), {tap: hidden input
+    x} collected)."""
     aux: dict = {}
-    x, kv = B.attn_block(cfg, lp, x, positions, window=None,
-                         tap_prefix="layers", tap_ctx=(spec, ad_l, de_l, aux))
+    x, kv = B.attn_block(cfg, lp, x, positions, window=window,
+                         tap_prefix=prefix, tap_ctx=(spec, ad_l, de_l, aux))
     return x, kv, aux
 
 
@@ -185,31 +246,39 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
                   *, collect_kv: bool = False):
     """Embedding + all layers + final norm. Returns (h, aux):
     aux["collected"] holds each collected tap's hidden inputs stacked per
-    layer, {tap: (L, B, S, d_in)}; with ``collect_kv`` aux["stacked"] holds
-    every layer's k, v (L, B, S, K, Dh)."""
-    ad = _subvars((cola_vars or {}).get("adapters", {}), "layers")
-    de = _subvars((cola_vars or {}).get("deltas", {}), "layers")
+    layer of its stack, {tap: (n, B, S, d_in)}; with ``collect_kv``
+    aux["stacked"] holds every layer's k, v per stack,
+    {stack: {"k", "v": (n, B, S, K, Dh)}}, written into one tensor as the
+    layers run (never a list and a stacked copy at once)."""
+    stacks = _stacks(cfg)
+    ad = {p: _subvars((cola_vars or {}).get("adapters", {}), p) for p in stacks}
+    de = {p: _subvars((cola_vars or {}).get("deltas", {}), p) for p in stacks}
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves([params, cola_vars or {}]))
     layer = _checkpointed(cfg, _block, needs_grad)
     x = embed_tokens(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
-    ks, vs = [], []
+    kv_out: dict[str, dict] = {}
     collected: dict[str, list] = {}
-    for i in range(cfg.n_layers):
-        x, (k, v), got = layer(cfg, _layer(params["layers"], i), x, positions,
-                               spec, _layer(ad, i), _layer(de, i))
+    for prefix, i, window in _walk(cfg):
+        x, (k, v), got = layer(cfg, prefix, window, _layer(params[prefix], i),
+                               x, positions, spec, _layer(ad[prefix], i),
+                               _layer(de[prefix], i))
         for tap, xin in got.items():
             collected.setdefault(tap, []).append(xin)
         if collect_kv:
-            ks.append(k)
-            vs.append(v)
+            if prefix not in kv_out:
+                kv_out[prefix] = {n: t.new_empty((stacks[prefix],) + t.shape)
+                                  for n, t in (("k", k), ("v", v))}
+            kv_out[prefix]["k"][i] = k
+            kv_out[prefix]["v"][i] = v
     aux: dict[str, Any] = {"collected": {t: torch.stack(xs) for t, xs
                                          in collected.items()}}
     if collect_kv:
-        aux["stacked"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps), aux
+        aux["stacked"] = kv_out
+    return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps,
+                     plus_one=cfg.norm_plus_one), aux
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict,
@@ -261,7 +330,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
             spec: ColaSpec | None = None, cola_vars: dict | None = None,
             *, lengths: torch.Tensor | None = None):
     """Full-sequence prefill; returns (logits (B, 1, V), cache) with the
-    cache holding every layer's K/V of the processed sequence.
+    cache holding every layer's K/V of the processed sequence, per stack.
 
     ``lengths``: optional (B,) valid prompt lengths of a right-padded batch;
     logits are then taken at position ``lengths - 1`` of each row. Causal
@@ -275,48 +344,65 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
         idx = (lengths.to(device=h.device, dtype=torch.long) - 1).clamp(min=0)
         h_last = h[torch.arange(h.shape[0], device=h.device), idx][:, None]
     logits = head_logits(cfg, params, h_last)
-    return logits, {"layers": aux["stacked"]}
+    return logits, aux["stacked"]
 
 
 # ---------------------------------------------------------------------------
 # caches / decode
 # ---------------------------------------------------------------------------
 
+def _ring_stack(cfg: ModelConfig, prefix: str, paged: bool) -> bool:
+    """Under the paged layout the pairs plan's local stack keeps rings."""
+    return paged and prefix == "layers_a" and layer_plan(cfg)[0] == "pairs"
+
+
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int, *,
                 kv_layout: str = "dense", kv_blocks: int | None = None,
-                kv_block: int = 16) -> dict:
-    """Decode-cache leaf (shape, dtype).
+                kv_block: int = 16, ring_len: int | None = None) -> dict:
+    """Decode-cache leaf (shape, dtype), per stack.
 
-    ``kv_layout="dense"``: every layer gets a (L, batch, max_len, K, Dh) slot
-    cache; memory scales with the horizon.
+    ``kv_layout="dense"``: every stack gets an (n, batch, max_len, K, Dh)
+    slot cache; memory scales with the horizon.
 
     ``kv_layout="paged"``: KV lives in a shared block pool
-    (L, kv_blocks, kv_block, K, Dh) addressed through a per-slot block table
+    (n, kv_blocks, kv_block, K, Dh) addressed through a per-slot block table
     (owned by the engine's ``runtime.kv_pager.BlockPager`` and passed to
     ``decode_step(block_table=)``); memory scales with kv_blocks and
     ``max_len`` only sizes the table. ``kv_blocks`` defaults to the
-    dense-equivalent pool. The pairs plan's ring caches for its local layers
-    are still to be ported (ROADMAP.md).
+    dense-equivalent pool. The pairs plan's local stack instead gets a
+    per-slot ring (half, batch, ring_len, K, Dh) of the last ring_len
+    positions; ``ring_len`` (default ``local_window`` or ``max_len``) must be
+    >= local_window + chunk - 1 for the chunk widths the caller uses.
     """
-    _require_uniform_attn(cfg)
+    stacks = _stacks(cfg)
     if kv_layout not in ("dense", "paged"):
         raise ValueError(f"kv_layout={kv_layout!r}")
     cdt = canonical_dtype(cfg.compute_dtype)
-    if kv_layout == "paged":
-        if kv_blocks is None:
-            kv_blocks = batch * cdiv(max_len, kv_block)
-        shape = (cfg.n_layers, kv_blocks, kv_block, cfg.n_kv_heads, cfg.d_head)
-    else:
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"layers": {"k": (shape, cdt), "v": (shape, cdt)}}
+    paged = kv_layout == "paged"
+    if paged and kv_blocks is None:
+        kv_blocks = batch * cdiv(max_len, kv_block)
+    out = {}
+    for prefix, n in stacks.items():
+        if _ring_stack(cfg, prefix, paged):
+            w = ring_len if ring_len is not None else (cfg.local_window
+                                                       or max_len)
+            shape = (n, batch, w, cfg.n_kv_heads, cfg.d_head)
+        elif paged:
+            shape = (n, kv_blocks, kv_block, cfg.n_kv_heads, cfg.d_head)
+        else:
+            shape = (n, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+        out[prefix] = {"k": (shape, cdt), "v": (shape, cdt)}
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                kv_layout: str = "dense", kv_blocks: int | None = None,
-               kv_block: int = 16, device="cuda") -> dict:
+               kv_block: int = 16, ring_len: int | None = None,
+               device="cuda") -> dict:
     dev = resolve_device(device)
     specs = cache_specs(cfg, batch, max_len, kv_layout=kv_layout,
-                        kv_blocks=kv_blocks, kv_block=kv_block)
+                        kv_blocks=kv_blocks, kv_block=kv_block,
+                        ring_len=ring_len)
     return {stack: {n: torch.zeros(shape, dtype=dt, device=dev)
                     for n, (shape, dt) in leaves.items()}
             for stack, leaves in specs.items()}
@@ -335,27 +421,44 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
     cache). ``live``: optional (B,) bool mask; non-live slots' cache writes
     are dropped (their logits carry no meaning). ``block_table``:
     (B, max_blocks) int32 selects the paged layout (the cache must come from
-    ``init_cache(kv_layout="paged")``).
+    ``init_cache(kv_layout="paged")``): pool stacks are read through the
+    table, and the pairs plan's local stack through its per-slot rings, with
+    the table's horizon (max_blocks * kv_block) as the rings' virtual one.
     """
-    ad = _subvars((cola_vars or {}).get("adapters", {}), "layers")
-    de = _subvars((cola_vars or {}).get("deltas", {}), "layers")
+    stacks = _stacks(cfg)
+    ad = {p: _subvars((cola_vars or {}).get("adapters", {}), p) for p in stacks}
+    de = {p: _subvars((cola_vars or {}).get("deltas", {}), p) for p in stacks}
     positions = batch["positions"]
     x = embed_tokens(cfg, params, batch)
-    kc, vc = cache["layers"]["k"], cache["layers"]["v"]
-    # one write plan for every layer: the kept (row, position) pairs
-    if block_table is None:
-        write = A.kv_write_plan(positions, x.shape[1], live, smax=kc.shape[2])
-    else:
-        write = A.kv_write_plan(positions, x.shape[1], live,
-                                block_table=block_table, block=kc.shape[2])
-    for i in range(cfg.n_layers):
-        tap_ctx = (spec, _layer(ad, i), _layer(de, i), {})
-        x = B.attn_block_decode(cfg, _layer(params["layers"], i), x, kc[i],
-                                vc[i], positions, window=None,
-                                tap_prefix="layers", tap_ctx=tap_ctx,
-                                live=live, block_table=block_table,
-                                kv_write=write)
-    x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+    c = x.shape[1]
+    # each stack's layout and write plan; one plan per layout and step, never
+    # one per layer
+    plans: dict[tuple, tuple] = {}
+    layouts = {}
+    for prefix in stacks:
+        width = cache[prefix]["k"].shape[2]   # Smax, W_ring or kv_block
+        table = horizon = None
+        if _ring_stack(cfg, prefix, block_table is not None):
+            kind, kw = "ring", dict(ring=width)
+            horizon = block_table.shape[1] * cache["layers_b"]["k"].shape[2]
+        elif block_table is not None:
+            kind, kw = "paged", dict(block_table=block_table, block=width)
+            table = block_table
+        else:
+            kind, kw = "dense", dict(smax=width)
+        if (kind, width) not in plans:
+            plans[kind, width] = A.kv_write_plan(positions, c, live, **kw)
+        layouts[prefix] = (table, horizon, plans[kind, width])
+    for prefix, i, window in _walk(cfg):
+        table, horizon, write = layouts[prefix]
+        tap_ctx = (spec, _layer(ad[prefix], i), _layer(de[prefix], i), {})
+        x = B.attn_block_decode(cfg, _layer(params[prefix], i), x,
+                                cache[prefix]["k"][i], cache[prefix]["v"][i],
+                                positions, window=window, tap_prefix=prefix,
+                                tap_ctx=tap_ctx, live=live, block_table=table,
+                                kv_write=write, ring_horizon=horizon)
+    x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps,
+                  plus_one=cfg.norm_plus_one)
     return head_logits(cfg, params, x), cache
 
 
@@ -365,16 +468,17 @@ def scatter_prefill_cache(cache: dict, pre: dict, slot_ids) -> dict:
 
     ``slot_ids`` (J,) maps prefill row j -> slot. Out-of-range ids are
     dropped (the JAX ``mode="drop"``), which is how padding rows of a
-    bucketed prefill batch are discarded: they are removed before the
-    ``index_copy_``. Positions >= a row's true prompt length receive pad-token
-    KV, which is safe: decode at position p writes the real KV at p before
-    attending, and causal masking hides positions > p.
+    bucketed prefill batch are discarded: they are skipped on the host.
+    Each kept row is copied on its own, so no gathered copy of the whole
+    prefill cache is ever made. Positions >= a row's true prompt length
+    receive pad-token KV, which is safe: decode at position p writes the real
+    KV at p before attending, and causal masking hides positions > p.
     """
-    ids = torch.as_tensor(slot_ids).cpu().long()   # host-side filtering
+    ids = [int(i) for i in torch.as_tensor(slot_ids).cpu()]
     for stack, leaves in cache.items():
         for name, c in leaves.items():
             p = pre[stack][name]
-            keep = ((ids >= 0) & (ids < c.shape[1])).nonzero().squeeze(1)
-            c.narrow(2, 0, p.shape[2]).index_copy_(
-                1, ids[keep].to(c.device), p.index_select(1, keep.to(p.device)))
+            for j, slot in enumerate(ids):
+                if 0 <= slot < c.shape[1]:
+                    c[:, slot, :p.shape[2]].copy_(p[:, j])
     return cache

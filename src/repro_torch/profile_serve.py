@@ -1,11 +1,13 @@
 """Where the serving path's time goes on the card.
 
 Runs the ``chip_smoke.py`` serving setup (full-width smollm-135m, bf16, 4
-users' rank-8 ``qv`` adapters, 16 slots, max_len 1024), fills all 16 slots
-and profiles the prefill, then a window of decode ticks, with
-``torch.profiler``. Unchunked, the prefill is one batched prefill call; with
-``--prefill-chunk C`` it is the first chunk round (one C-token chunk of all
-16 prompts), and the decode window starts once every prompt is in cache.
+users' rank-8 ``qv`` adapters, 16 slots, max_len 1024, prompts of 32-512
+tokens; ``--config``, ``--slots``, ``--max-len`` and ``--prompts`` set
+another registered model and load), fills every slot and profiles the
+prefill, then a window of decode ticks, with ``torch.profiler``.
+Unchunked, the prefill is one batched prefill call; with ``--prefill-chunk
+C`` it is the first chunk round (one C-token chunk of every prompt), and the
+decode window starts once every prompt is in cache.
 ``--kv-layout paged`` (blocks of ``--kv-block``; needs ``--prefill-chunk``)
 and ``--bank-store int8`` select the serving-at-scale paths. Prints, per
 phase, the host wall time, the device busy time (sum of kernel times), the
@@ -13,7 +15,9 @@ idle share, and the top device kernels and host ops.
 
 Run on a machine with a CUDA card, from the repo root:
 ``PYTHONPATH=src python -m repro_torch.profile_serve [--prefill-chunk 128
---kv-layout paged --bank-store int8]``
+--kv-layout paged --bank-store int8]``; gemma2-9b as ``chip_smoke.py``'s
+``[gemma2]`` drives it: ``--config gemma2-9b --slots 8 --max-len 6144
+--prompts 256 4800``.
 """
 from __future__ import annotations
 
@@ -49,6 +53,11 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-layout", choices=("dense", "paged"), default="dense")
     ap.add_argument("--kv-block", type=int, default=16)
     ap.add_argument("--bank-store", choices=("f32", "int8"), default="f32")
+    ap.add_argument("--config", default="smollm-135m")
+    ap.add_argument("--slots", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=1024)
+    ap.add_argument("--prompts", type=int, nargs=2, default=(32, 512),
+                    metavar=("MIN", "MAX"), help="prompt lengths drawn from")
     args = ap.parse_args(argv)
     ticks = args.ticks
     if not torch.cuda.is_available():
@@ -60,7 +69,7 @@ def main(argv=None) -> int:
     from repro_torch.runtime.serve_loop import Request, ServeEngine
 
     dev = torch.device("cuda")
-    cfg = registry.get_config("smollm-135m")
+    cfg = registry.get_config(args.config)
     params = model.init(cfg, seed=0, device=dev)
     gen = torch.Generator().manual_seed(0)
     sites = model.tap_sites(cfg)
@@ -72,12 +81,13 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
 
     def engine_with_requests():
-        eng = ServeEngine(cfg, params, slots=16, max_len=1024,
+        eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
                           user_adapters=banks, device=dev,
                           prefill_chunk=args.prefill_chunk,
                           kv_layout=args.kv_layout, kv_block=args.kv_block,
                           bank_store=args.bank_store)
-        for i, n in enumerate(rng.integers(32, 513, 16)):
+        lo, hi = args.prompts
+        for i, n in enumerate(rng.integers(lo, hi + 1, args.slots)):
             eng.submit(Request(rid=i, user=i % 4, max_new=ticks + 8,
                                prompt=rng.integers(0, cfg.vocab_size, n)))
         return eng
@@ -85,13 +95,15 @@ def main(argv=None) -> int:
     warm = engine_with_requests()          # library handles, allocator
     warm.tick()
     warm.tick()
+    del warm                                # its cache, before the next one's
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     eng = engine_with_requests()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng._admit()      # unchunked: one batched prefill of 16 prompts
+        eng._admit()      # unchunked: one batched prefill of every slot
         if args.prefill_chunk is not None:
             eng._chunk_round()              # the first chunk round
         torch.cuda.synchronize()

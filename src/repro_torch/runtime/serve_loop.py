@@ -25,7 +25,8 @@ Serving at scale:
   the ``BlockPager``'s per-slot block table. Admission reserves a request's
   worst case (or waits, FIFO), ``ensure`` allocates before each device call,
   and retirement releases the slot's blocks. ``max_len`` becomes a virtual
-  horizon.
+  horizon. The pairs plan's local stack keeps a per-slot ring of
+  ``local_window + prefill_chunk - 1`` positions instead of pool blocks.
 - ``bank_store="int8"``: the adapter bank is held as int8 codes with per-row
   f32 scales (``quantize_bank``) and dequantised on load in the kernel.
 - ``resident_slots=R``: the tiered adapter store (``runtime/adapter_store``)
@@ -261,13 +262,20 @@ class ServeEngine:
         self.active: list[Request | None] = [None] * slots
         self.positions = np.zeros(slots, np.int32)
         self.users = np.zeros(slots, np.int32)
+        ring_len = None
+        if kv_layout == "paged" and model_lib.layer_plan(cfg)[0] == "pairs":
+            # local-window ring: the window plus a full chunk's in-flight
+            # writes (see models/attention.attention_decode)
+            ring_len = (cfg.local_window or max_len) + prefill_chunk - 1
         self.cache = model_lib.init_cache(cfg, slots, max_len,
                                           kv_layout=kv_layout,
                                           kv_blocks=kv_blocks,
-                                          kv_block=kv_block, device=self.device)
+                                          kv_block=kv_block, ring_len=ring_len,
+                                          device=self.device)
         self.pager: BlockPager | None = None
-        if kv_layout == "paged":   # as many blocks as the pool holds
-            self.pager = BlockPager(self.cache["layers"]["k"].shape[1],
+        if kv_layout == "paged":   # as many blocks as the pool stack holds
+            pool = "layers_b" if ring_len is not None else "layers"
+            self.pager = BlockPager(self.cache[pool]["k"].shape[1],
                                     kv_block, slots, max_len,
                                     telemetry=self.tm)
         # the block table on the card, copied again only when it changes
@@ -904,15 +912,23 @@ class ServeEngine:
     def kv_cache_bytes(self) -> int:
         """Decode-cache bytes attributable to current load. Dense: every leaf
         in full (the slot cache is the footprint, occupied or not). Paged:
-        the pools (every leaf of the uniform plan) are charged per block in
-        use, plus the block table; the pools themselves are allocated in
-        full at construction."""
-        total = sum(leaf.numel() * leaf.element_size()
-                    for stack in self.cache.values() for leaf in stack.values())
+        the pool leaves are charged per block in use, plus the block table,
+        and the other leaves (the pairs plan's rings) in full, as JAX does;
+        the pools themselves are allocated in full at construction."""
+        total = pool = 0
+        for leaves in self.cache.values():
+            for leaf in leaves.values():
+                nbytes = leaf.numel() * leaf.element_size()
+                total += nbytes
+                if (self.pager is not None and leaf.dim() == 5
+                        and leaf.shape[1] == self.pager.n_blocks
+                        and leaf.shape[2] == self.pager.block_size):
+                    pool += nbytes
         if self.pager is None:
             return total
-        per_block = total // self.pager.n_blocks
-        return per_block * self.pager.blocks_in_use() + self.pager.table.nbytes
+        per_block = pool // max(self.pager.n_blocks, 1)
+        return ((total - pool) + per_block * self.pager.blocks_in_use()
+                + self.pager.table.nbytes)
 
     def request_stats(self) -> list[dict]:
         """Per-completed-request latency metrics (seconds)."""

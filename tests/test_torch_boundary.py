@@ -83,3 +83,37 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_head_dim_256_forward_and_decode_take_it_the_backward_refuses_it():
+    """gemma2's d_head 256: the flash forward and the decode kernels take it;
+    the flash backward's checks raise by name before anything launches
+    (its d_head 256 tiling is still to come), on any device."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    assert 256 in fa.FWD_HEAD_DIMS and 256 in da.HEAD_DIMS
+    assert 256 not in fa.BWD_HEAD_DIMS
+    B, S, H, K = 1, 8, 2, 1
+    q = torch.zeros(B, S, H, 256)
+    k = torch.zeros(B, S, K, 256)
+    stats = torch.zeros(B, H, S)
+    pos = torch.arange(S, dtype=torch.int32)[None]
+    with pytest.raises(ValueError, match=r"head dim 256 not in \(16, 32, 64, 128\)"):
+        fa._bwd_launch("flash_attention_bwd_dq", (q,), q, k, k, q, stats, stats,
+                       pos, pos, True, None, None, 256 ** -0.5)
+
+
+def test_new_wrappers_refuse_non_cpu_tensors():
+    """The ring decode wrapper and a ring chunk through ``ops`` take the
+    plain version only for CPU tensors: any other device goes to the
+    kernels' checks, which raise (meta tensors stand in for the card)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    q = torch.empty(2, 1, 4, 256, device="meta")
+    ring = torch.empty(2, 19, 2, 256, device="meta")
+    pos = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention_ring(q, ring, ring, pos, horizon=64, window=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.sdpa_decode_ring(q.expand(2, 4, 4, 256), ring, ring, pos,
+                             window=16, horizon=64)

@@ -832,3 +832,133 @@ def test_store_engine_matches_all_resident_on_the_card(dev, bank_store):
     assert st["store_evictions"] > 0 and st["store_pinned"] == 0
     assert all(leaf.is_cuda and leaf.is_contiguous() and leaf.shape[1] == 2
                for e in eng.store.bank.values() for leaf in e.values())
+
+
+# -- d_head 256 (gemma2): the flash forward's and the decode kernel's own
+# -- tiling, the ring addressing mode, and the backward's refusal -----------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,K,window,softcap", [
+    (2, 100, 4, 2, None, None),     # ragged last q / kv tile
+    (1, 257, 16, 8, 40, 50.0),      # gemma2's heads, window + softcap
+    (2, 65, 4, 4, None, None),      # G = 1
+    (1, 1, 4, 2, None, None),
+])
+def test_d256_flash_forward_kernel(dev, dtype, B, S, H, K, window, softcap):
+    gen = torch.Generator(device=dev).manual_seed(20)
+    q, k, v = (_rnd(gen, dev, dtype, B, S, n, 256) for n in (H, K, K))
+    o, lse = fa.flash_attention(q, k, v, window=window, softcap=softcap)
+    pos = torch.arange(S, device=dev)[None]
+    o2, lse2 = fa.plain(q, k, v, q_positions=pos, kv_positions=pos,
+                        window=window, softcap=softcap)
+    _close(o, o2, dtype)
+    _close(lse, lse2, torch.float32)
+    o3, lse3 = fa.flash_attention(q, k, v, window=window, softcap=softcap)
+    assert torch.equal(o, o3) and torch.equal(lse, lse3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_d256_decode_kernels_dense_and_paged(dev, dtype):
+    """Split edges of a 300-position cache, G = 2, every decode option;
+    dense and paged (blocks of 16, shuffled) against the plain versions,
+    two launches the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    B, Smax, H, K, D = 6, 304, 16, 8, 256
+    q = _rnd(gen, dev, dtype, B, 1, H, D)
+    kc, vc = (_rnd(gen, dev, dtype, B, Smax, K, D) for _ in range(2))
+    pos = torch.randint(0, Smax, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0], pos[-1] = 0, Smax - 1
+    _split_edges(pos, Smax)
+    live = torch.arange(B, device=dev) % 3 != 1
+    for kw in _decode_options(live):
+        o = da.decode_attention(q, kc, vc, pos, **kw)
+        _close(o, da.plain(q, kc, vc, pos, **kw), dtype)
+        assert torch.equal(o, da.decode_attention(q, kc, vc, pos, **kw))
+    q, kp, vp, pos, table = _paged_case(gen, dev, dtype, B, H, K, D, 16, Smax,
+                                        B * Smax // 16 + 3, edges=True)
+    for kw in _decode_options(live):
+        o = da.decode_attention_paged(q, kp, vp, pos, table, **kw)
+        _close(o, da.plain_paged(q, kp, vp, pos, table, **kw), dtype)
+        assert torch.equal(o, da.decode_attention_paged(q, kp, vp, pos, table,
+                                                        **kw))
+
+
+def _ring_of(kc, vc, pos, w_ring):
+    """Each slot's last w_ring positions of a dense cache, position t at
+    ring row t % w_ring (older rows: garbage the window never reaches)."""
+    B = kc.shape[0]
+    rk = torch.randn((B, w_ring) + kc.shape[2:], device=kc.device).to(kc.dtype)
+    rv = torch.randn_like(rk)
+    for b, p in enumerate(pos.tolist()):
+        t = torch.arange(max(0, p - w_ring + 1), p + 1, device=kc.device)
+        rk[b, t % w_ring], rv[b, t % w_ring] = kc[b, t], vc[b, t]
+    return rk, rv
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,H,K,window", [(256, 16, 8, 4096), (256, 4, 2, 100),
+                                          (64, 4, 4, 40), (128, 8, 2, 130)])
+def test_ring_tick_equals_dense_tick_bit_for_bit(dev, dtype, D, H, K, window):
+    """The decode kernel's ring mode walks the dense tick's positions in the
+    dense tick's splits (the horizon, not W_ring, sets them): equal bits,
+    softcap on, dead rows zero; within tolerance of the plain ring op."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    B, Smax = 8, 6144 if window == 4096 else 512
+    w_ring = window + 127
+    q = _rnd(gen, dev, dtype, B, 1, H, D)
+    kc, vc = (_rnd(gen, dev, dtype, B, Smax, K, D) for _ in range(2))
+    pos = torch.randint(0, Smax, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0], pos[1], pos[-1] = 0, w_ring - 1, Smax - 1
+    live = torch.arange(B, device=dev) % 4 != 3
+    rk, rv = _ring_of(kc, vc, pos, w_ring)
+    kw = dict(live=live, window=window, softcap=50.0)
+    before = da.decode_attention_ring.launches
+    ring = da.decode_attention_ring(q, rk, rv, pos, horizon=Smax, **kw)
+    assert da.decode_attention_ring.launches == before + 1
+    dense = da.decode_attention(q, kc, vc, pos, **kw)
+    assert torch.equal(ring, dense)
+    assert bool((ring[~live] == 0).all())
+    _close(ring, da.plain_ring(q.cpu(), rk.cpu(), rv.cpu(), pos.cpu(),
+                               live=live.cpu(), window=window,
+                               softcap=50.0).to(dev), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ring_chunk_runs_the_flash_kernel(dev, dtype):
+    """A chunk against rings through ``ops.sdpa_decode_ring``: the flash
+    forward kernel over the position-ordered gather, against the plain ring
+    op; dead rows zero."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(23)
+    B, c, H, K, D, window = 4, 128, 16, 8, 256, 300
+    w_ring = window + c - 1
+    q = _rnd(gen, dev, dtype, B, c, H, D)
+    rk, rv = (_rnd(gen, dev, dtype, B, w_ring, K, D) for _ in range(2))
+    pos = torch.tensor([0, 256, 1000, 5000], dtype=torch.int32, device=dev)
+    live = torch.tensor([True, True, False, True], device=dev)
+    before = fa.flash_attention.launches
+    o = ops.sdpa_decode_ring(q, rk, rv, pos, live=live, window=window,
+                             softcap=50.0, horizon=6144)
+    assert fa.flash_attention.launches == before + 1
+    _close(o, ref.sdpa_decode_ring(q, rk, rv, pos, live=live, window=window,
+                                   softcap=50.0), dtype)
+    assert bool((o[~live] == 0).all())
+
+
+def test_d256_backward_and_bad_rings_raise_on_the_card(dev):
+    q = torch.zeros(1, 8, 2, 256, device=dev)
+    k = torch.zeros(1, 8, 1, 256, device=dev)
+    o, lse = fa.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="head dim 256"):
+        fa.flash_attention_bwd(q, k, k, o, lse, q,
+                               q_positions=torch.arange(8, device=dev)[None],
+                               kv_positions=torch.arange(8, device=dev)[None])
+    qd = torch.zeros(2, 1, 2, 256, device=dev)
+    ring = torch.zeros(2, 19, 1, 256, device=dev)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="window"):
+        da.decode_attention_ring(qd, ring, ring, pos, horizon=64, window=20)
+    with pytest.raises(ValueError, match="horizon"):
+        da.decode_attention_ring(qd, ring, ring, pos, window=16)

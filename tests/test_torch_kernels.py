@@ -377,3 +377,101 @@ def test_multi_lora_plan_covers_rows_and_columns_once(T, din, dout, r, x_bytes):
         assert want.get(T, (tile, sq)) == (tile, sq)
         if T == 16:
             assert T * slices == 80
+
+
+# ---------------------------------------------------------------------------
+# d_head 256 (gemma2): 2 kv heads, G = 2, short sequences, window and softcap
+# ---------------------------------------------------------------------------
+
+D256_MASKS = [(None, None), (24, 50.0)]
+
+
+@pytest.mark.parametrize("window,softcap", D256_MASKS)
+def test_d256_flash_forward_matches_pallas(window, softcap):
+    rng = np.random.default_rng(10)
+    B, S, H, K, D = 2, 64, 4, 2, 256
+    q, k, v = (_normal(rng, B, S, n, D) for n in (H, K, K))
+    o_j, lse_j = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          scale=D ** -0.5, causal=True, window=window,
+                          softcap=softcap, q_offset=0, interpret=True)
+    o_t, lse_t = fa.flash_attention(_t(q), _t(k), _t(v), window=window,
+                                    softcap=softcap)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), **TOL)
+    got = ops.sdpa(_t(q), _t(k), _t(v), q_positions=_t(np.arange(S)[None]),
+                   kv_positions=_t(np.arange(S)[None]), window=window,
+                   softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(o_j), **TOL)
+
+
+@pytest.mark.parametrize("window,softcap", D256_MASKS)
+def test_d256_decode_dense_and_paged_match_pallas(window, softcap):
+    """Dense and paged (a shuffled table of 8-position blocks) against the
+    Pallas kernels in interpret mode, one dead row."""
+    rng = np.random.default_rng(11)
+    B, Smax, H, K, D, bs = 3, 64, 4, 2, 256, 8
+    q = _normal(rng, B, 1, H, D)
+    kc, vc = _normal(rng, B, Smax, K, D), _normal(rng, B, Smax, K, D)
+    pos = np.array([5, 63, 40], np.int32)
+    lv = np.array([True, True, False])
+    kw = dict(window=window, softcap=softcap)
+    o_j = jda.decode_attention(*(jnp.asarray(a) for a in (q, kc, vc, pos)),
+                               live=jnp.asarray(lv), interpret=True, **kw)
+    o_t = da.decode_attention(*(_t(a) for a in (q, kc, vc, pos)),
+                              live=_t(lv), **kw)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TOL)
+    nb = Smax // bs
+    table = rng.permutation(B * nb).reshape(B, nb).astype(np.int32)
+    kp = np.zeros((B * nb, bs, K, D), np.float32)
+    vp = np.zeros_like(kp)
+    for b in range(B):            # the dense rows, scattered through the table
+        kp[table[b]] = kc[b].reshape(nb, bs, K, D)
+        vp[table[b]] = vc[b].reshape(nb, bs, K, D)
+    p_j = jda.decode_attention_paged(
+        *(jnp.asarray(a) for a in (q, kp, vp, pos, table)),
+        live=jnp.asarray(lv), interpret=True, **kw)
+    p_t = da.decode_attention_paged(*(_t(a) for a in (q, kp, vp, pos, table)),
+                                    live=_t(lv), **kw)
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), **TOL)
+    np.testing.assert_allclose(p_t.numpy(), o_t.numpy(), **TOL)
+    assert np.all(o_t.numpy()[2] == 0) and np.all(p_t.numpy()[2] == 0)
+
+
+@pytest.mark.parametrize("sq", [1, 4])
+def test_d256_ring_matches_jax(sq):
+    """The ring (W_ring = 24 + 4 - 1 = 27) through ``ops.sdpa_decode_ring``
+    against JAX's ring op, rows wrapped and not; window 24, softcap 50."""
+    rng = np.random.default_rng(12 + sq)
+    B, W, H, K, D = 3, 27, 4, 2, 256
+    q = _normal(rng, B, sq, H, D)
+    k, v = _normal(rng, B, W, K, D), _normal(rng, B, W, K, D)
+    pos = np.array([4, 50, 27 - sq], np.int32)
+    lv = np.array([True, True, False])
+    kw = dict(window=24, softcap=50.0)
+    want = jref.sdpa_decode_ring(*(jnp.asarray(a) for a in (q, k, v, pos)),
+                                 live=jnp.asarray(lv), **kw)
+    got = ops.sdpa_decode_ring(*(_t(a) for a in (q, k, v, pos)), live=_t(lv),
+                               horizon=64, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert np.all(got.numpy()[2] == 0)
+
+
+def test_d256_plain_ring_tick_equals_dense_tick():
+    """The plain ring tick against the plain dense tick with the same window
+    over the same positions (the ring holds the dense cache's last W_ring
+    positions): within 1e-5 (f32; the card holds the two kernels to equal
+    bits)."""
+    rng = np.random.default_rng(14)
+    B, Smax, W, H, K, D = 3, 64, 27, 4, 2, 256
+    q = _t(_normal(rng, B, 1, H, D))
+    kc, vc = _t(_normal(rng, B, Smax, K, D)), _t(_normal(rng, B, Smax, K, D))
+    pos = torch.tensor([3, 40, 63], dtype=torch.int32)
+    ring_k = torch.zeros(B, W, K, D)
+    ring_v = torch.zeros(B, W, K, D)
+    for b, p in enumerate(pos.tolist()):
+        for t in range(max(0, p - W + 1), p + 1):
+            ring_k[b, t % W], ring_v[b, t % W] = kc[b, t], vc[b, t]
+    dense = da.decode_attention(q, kc, vc, pos, window=24, softcap=50.0)
+    ring = da.decode_attention_ring(q, ring_k, ring_v, pos, horizon=Smax,
+                                    window=24, softcap=50.0)
+    np.testing.assert_allclose(ring.numpy(), dense.numpy(), **TOL)
