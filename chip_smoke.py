@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-fourteen phases, exiting non-zero on any failure:
+fifteen phases, exiting non-zero on any failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
    full-width smollm-135m shapes of the serving and training paths, in bf16
@@ -49,10 +49,17 @@ fourteen phases, exiting non-zero on any failure:
    dense, paged, and the ring tick, which must equal the dense tick bit for
    bit), G 1 at d_head 64 (gpt2-small) and G 4 at d_head 128
    (mistral-nemo-12b), and multi_lora / multi_lora_q8 at the q and v taps
-   of gemma2-9b, mistral-nemo-12b and mistral-large-123b (d_in 12288); each
+   of gemma2-9b, mistral-nemo-12b and mistral-large-123b (d_in 12288);
+   gemma2's training shape in the flash backward (dq and dk/dv at 1 x 4608,
+   16 / 8 heads, d_head 256, with window 4096 + softcap 50 and with neither;
+   the row with neither also against the library's whole backward) and its
+   fit (cola_fit f32 at q 3584 -> 4096, the shared-memory kernel with its
+   columns split in two, and v 3584 -> 2048; L 21, T 4608, rank 8); each
    launched twice to the same bits. A softcap row has no library time (no
    library call takes a softcap); the row without one has it. The build
-   lines report the registers and spills of every d_head 256 instantiation.
+   lines report the registers and spills of every d_head 256 instantiation
+   (the flash backward's too, which must not spill, nor may
+   ``fit_smem_kernel<8>``).
 2. Serving at full width: ``ServeEngine`` on smollm-135m (30 layers, bf16)
    with 4 users' rank-8 ``qv`` adapters, 16 slots, max_len 1024 and 32
    requests (prompts 32-512 tokens, 32 new tokens each), run to completion
@@ -147,11 +154,30 @@ fourteen phases, exiting non-zero on any failure:
    1500 / 4400 tokens, 8 new tokens: the card's dense engine and its paged
    + chunked + ring + int8 engine each against the CPU's same engine, and
    paged + ring against dense on the card: equal greedy tokens.
-13. The other registered configs (``[configs]``), 8 requests of 32-512
+13. gemma2-9b's ColA training (``[gemma2-train]``): (a) full width and depth
+   (42 layers, bf16, remat "full", seeded random weights), ``ColaSession``
+   Mode A merged rank-8 ``qv`` on both stacks, interval 1, AdamW at
+   TrainConfig's settings, SyntheticLM 1 x 4608 (past the 4096 window), a
+   warm-up step and 4 measured steps with a fit each, the offloader on the
+   card through the channel, the launch counts reset just before and read
+   just after: 84 flash forwards (42 and their recomputes), 42 dq, 42 dk/dv
+   a step and 4 cola_fit launches a fit (a tap of each stack); every loss
+   finite, every tap's x and grad_h finite and grad_h non-zero, the bank
+   moved at every fit, every fit committed; prints the server step p50, the
+   fit ms, training tokens/s, the channel's checks and the peak memory.
+   (b) f32 at full width, depth cut to 4 layers (2 pairs), 1 x 4608: one
+   step of the merged session (server step, fit, AdamW) on the card and on
+   the CPU, losses within 1e-5, each tap's grad_h and fit gradients within
+   1e-3 of the largest entry (as phase 5), the bank after AdamW within 1e-3
+   of its largest entry wherever both devices see the gradient's sign (2 lr
+   elsewhere); on the card the unmerged server step's loss and fit
+   gradients against the CPU's, and its fit gradients equal to Mode B's
+   (Prop 1).
+14. The other registered configs (``[configs]``), 8 requests of 32-512
    tokens, 16 new tokens, 8 slots: gpt2-small at full size in f32, its card
    tokens equal to the CPU's; mistral-nemo-12b at full width and depth in
    bf16; mistral-large-123b at full width, depth cut to 2 layers, bf16.
-14. The last lines: the card's name and power limit, one JSON line with every
+15. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -577,6 +603,7 @@ def model_cases(dtype, dev, gen):
     12288 / 1024)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cola_fit as cf
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import multi_lora as ml
@@ -630,12 +657,79 @@ def model_cases(dtype, dev, gen):
             nbytes=2 * nbytes(q) + 2 * n_read * K * D * q.element_size() + B * 5,
             flops=4 * D * H * n_read)
 
+    def flash_bwd(tag, B, S, H, K, D, window=None, softcap=None):
+        """The dq and dk/dv rows of one backward shape; the library's whole
+        backward (``scaled_dot_product_attention``'s) on a row with neither
+        window nor softcap, as in kernel_cases."""
+        q, k, v, do = rnd(B, S, H, D), rnd(B, S, K, D), rnd(B, S, K, D), \
+            rnd(B, S, H, D)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        kw = dict(q_positions=pos, kv_positions=pos, window=window,
+                  softcap=softcap)
+        o, lse = fa.flash_attention(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        pairs = B * H * _causal_pairs(pos[0], S, window)
+        stats = 2 * nbytes(lse) + 2 * S * 4    # lse, delta, positions
+        extra = dict(lib=None, note=SOFTCAP_NOTE)
+        if softcap is None and window is None:
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            def sdpa_fwd_bwd():
+                return torch.autograd.grad(F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt),
+                    dot)
+
+            extra = dict(lib=(sdpa_fwd_bwd, sdpa_fwd))
+        yield dict(extra,
+                   name=f"flash_attention_bwd_dq[{tag} {dt}]",
+                   fn=lambda: fa.bwd_dq(q, k, v, do, lse, delta, **kw),
+                   plain=lambda: fa.plain_bwd(q, k, v, o, lse, do, **kw)[0],
+                   nbytes=nbytes(q, k, v, do, q) + stats, flops=6 * D * pairs)
+        yield dict(extra,
+                   name=f"flash_attention_bwd_dkv[{tag} {dt}]",
+                   fn=lambda: fa.bwd_dkv(q, k, v, do, lse, delta, **kw),
+                   plain=lambda: fa.plain_bwd(q, k, v, o, lse, do, **kw)[1:],
+                   nbytes=nbytes(q, k, v, do, k, v) + stats,
+                   flops=8 * D * pairs)
+
     # gemma2-9b's attention: d_head 256, 16 q heads, 8 kv heads
     H, K, D, W, CAP = 16, 8, 256, 4096, 50.0
     yield flash("gemma2 d256: 2 x 4608, window 4096, softcap 50", 2, 4608, H,
                 K, D, window=W, softcap=CAP)
     yield flash("gemma2 d256: 2 x 4608, no window, no softcap", 2, 4608, H, K,
                 D)
+    # its training shape in the backward ([gemma2-train]: 1 x 4608, 42 dq
+    # and 42 dk/dv launches a step), with the local stack's window and
+    # softcap and with neither
+    yield from flash_bwd("gemma2 d256: 1 x 4608, window 4096, softcap 50", 1,
+                         4608, H, K, D, window=W, softcap=CAP)
+    yield from flash_bwd("gemma2 d256: 1 x 4608, no window, no softcap", 1,
+                         4608, H, K, D)
+    # and its fit (f32 only): one stack's 21 layers of each tap, T = 1 x 4608
+    # rows, rank 8; q's 3584 + 4096 columns take the shared-memory kernel
+    # with its columns split in two, v's 3584 + 2048 one slice
+    if dtype == torch.float32:
+        L, T, r, d_in = 21, 4608, 8, 3584
+        for d_out in (4096, 2048):
+            x, g = rnd(L, T, d_in), rnd(L, T, d_out)
+            A, Bm = rnd(L, d_in, r) / r ** 0.5, rnd(L, r, d_out) * 0.05
+            yield dict(
+                name=f"cola_fit[gemma2 {d_in} -> {d_out}: L {L}, T {T} {dt}]",
+                fn=lambda x=x, g=g, A=A, Bm=Bm: cf.cola_fit_lowrank(x, g, A, Bm),
+                plain=lambda x=x, g=g, A=A, Bm=Bm: cf.plain(x, g, A, Bm),
+                lib=lambda x=x, g=g, A=A, Bm=Bm: (
+                    torch.matmul((x @ A).transpose(1, 2), g),
+                    torch.matmul(x.transpose(1, 2), g @ Bm.transpose(1, 2))),
+                stream=lambda x=x, g=g: (x.sum(), g.sum()),
+                nbytes=nbytes(x, g, A, Bm, A, Bm),
+                flops=4 * r * (d_in + d_out) * T * L)
 
     # a chunk round of the global stack: 8 rows x 128 queries at chunk
     # starts inside 6144-position prompts against the dense cache, softcap
@@ -1312,27 +1406,15 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "cola_fit")
 
 
-def phase_training(cfg, dev) -> dict:
-    """Six Mode A steps of ColaSession at full width; returns the launch
-    counts of the measured steps."""
-    from repro_torch.configs.base import ColaConfig, TrainConfig
-    from repro_torch.core.session import ColaSession
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models import model
-    from repro_torch.optim import optimizers
+def _measured_steps(sess, batches, dev) -> dict:
+    """A warm-up step of ``sess`` on ``batches[0]`` (its launches are not
+    counted), then a step on each later batch with every kernel's launch
+    count reset just before and read just after, the peak memory read from
+    a reset, each fit timed between syncs and the channel's checks timed
+    (``time_channel_checks``). Checks that every fit moved the bank.
+    Returns the losses, step / server / fit ms, the checks' ms, the launch
+    counts and the peak memory."""
     from repro_torch.utils import tree_leaves
-
-    tc = TrainConfig()
-    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
-                    rank=8, merged=True, interval=2)
-    check(cfg.remat == "full" and cfg.param_dtype == "bfloat16",
-          f"training config {cfg.remat}/{cfg.param_dtype}")
-    sess = ColaSession(cfg, cc, model.init(cfg, seed=SEED, device=dev),
-                       seed=SEED, device=dev, optimizer=optimizers.adamw(
-                           tc.lr, b1=tc.b1, b2=tc.b2, eps=tc.eps,
-                           weight_decay=tc.weight_decay))
-    data = SyntheticLM(cfg, batch=tc.batch, seq=tc.seq, seed=SEED, device=dev)
-    batches = [data.batch_at(i) for i in range(7)]
 
     off = sess.offloader
     fit_ms: list[float] = []
@@ -1347,7 +1429,7 @@ def phase_training(cfg, dev) -> dict:
         return out
 
     off.maybe_fit = timed_fit
-    sess.step(batches[0])     # warm-up; its launches are not counted
+    sess.step(batches[0])
     torch.cuda.synchronize()
     fit_ms.clear()
     check_ms, untimed = time_channel_checks()
@@ -1373,7 +1455,36 @@ def phase_training(cfg, dev) -> dict:
     launches = {n: w.launches for n, w in ws.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     untimed()
+    off.maybe_fit = inner
+    return dict(losses=losses, step_ms=step_ms, server_ms=server_ms,
+                fit_ms=fit_ms, check_ms=check_ms, launches=launches, peak=peak)
 
+
+def phase_training(cfg, dev) -> dict:
+    """Six Mode A steps of ColaSession at full width; returns the launch
+    counts of the measured steps."""
+    from repro_torch.configs.base import ColaConfig, TrainConfig
+    from repro_torch.core.session import ColaSession
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model
+    from repro_torch.optim import optimizers
+    from repro_torch.profile_train import SETUPS
+
+    tc = TrainConfig()
+    batch, seq, interval = SETUPS[cfg.name]
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8, merged=True, interval=interval)
+    check(cfg.remat == "full" and cfg.param_dtype == "bfloat16",
+          f"training config {cfg.remat}/{cfg.param_dtype}")
+    sess = ColaSession(cfg, cc, model.init(cfg, seed=SEED, device=dev),
+                       seed=SEED, device=dev, optimizer=optimizers.adamw(
+                           tc.lr, b1=tc.b1, b2=tc.b2, eps=tc.eps,
+                           weight_decay=tc.weight_decay))
+    data = SyntheticLM(cfg, batch=batch, seq=seq, seed=SEED, device=dev)
+    m = _measured_steps(sess, [data.batch_at(i) for i in range(7)], dev)
+    losses, step_ms, fit_ms = m["losses"], m["step_ms"], m["fit_ms"]
+    launches = m["launches"]
+    off = sess.offloader
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(len(fit_ms) == 3 and off.stats["fits"] == 3,
           f"{len(fit_ms)} fits in the measured steps, {off.stats['fits']} in all")
@@ -1384,16 +1495,16 @@ def phase_training(cfg, dev) -> dict:
     for n in TRAIN_KERNELS:
         check(launches[n] > 0, f"kernel {n} was never launched in training")
     n_steps = len(step_ms)
-    tokens = n_steps * tc.batch * tc.seq
+    tokens = n_steps * batch * seq
     print(f"[train] smollm-135m bf16, 30 layers, remat full, Mode A merged "
-          f"rank-8 qv, interval 2, batch {tc.batch} x {tc.seq}: losses "
+          f"rank-8 qv, interval {interval}, batch {batch} x {seq}: losses "
           f"{[round(x, 4) for x in losses]}", flush=True)
     print(f"[train] step ms {[round(t, 2) for t in step_ms]}; server step p50 "
-          f"{statistics.median(server_ms):.2f} ms; fit ms "
+          f"{statistics.median(m['server_ms']):.2f} ms; fit ms "
           f"{[round(t, 2) for t in fit_ms]} (p50 {statistics.median(fit_ms):.2f});"
-          f" {checks_line(check_ms, n_steps)}; "
+          f" {checks_line(m['check_ms'], n_steps)}; "
           f"{tokens / (sum(step_ms) / 1e3):.1f} training tokens/s; peak memory "
-          f"{peak / 2**30:.3f} GiB", flush=True)
+          f"{m['peak'] / 2**30:.3f} GiB", flush=True)
     print(f"[train] launches in {n_steps} steps: {launches}; per step "
           f"{ {n: c / n_steps for n, c in launches.items()} }", flush=True)
     return launches
@@ -2097,7 +2208,8 @@ def phase_telemetry(cfg, dev, setup, serve_tokens, scale_tokens) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 11-13: gemma2's pairs plan and the other registered configs
+# phases 11-14: gemma2's pairs plan (serving, training) and the other
+# registered configs
 # ---------------------------------------------------------------------------
 
 GEMMA2_PAGED = dict(kv_layout="paged", kv_block=16, prefill_chunk=128,
@@ -2282,6 +2394,258 @@ def phase_gemma2_vs_plain(dev) -> None:
     _free()
 
 
+GEMMA2_TRAIN_STEPS = 4
+
+
+def _tap_stats(sess) -> list:
+    """Wrap the session's channel push so that every pushed payload leaves,
+    per tap, device flags (x finite, grad_h finite, grad_h non-zero), read
+    after the steps: no sync inside a step."""
+    flags = []
+    push = sess.channel.push
+
+    def pushed(data):
+        flags.append({t: torch.stack([x.isfinite().all(), g.isfinite().all(),
+                                      (g != 0).any()])
+                      for t, (x, g) in data.items()})
+        return push(data)
+
+    sess.channel.push = pushed
+    return flags
+
+
+def _gemma2_train_full(dev) -> dict:
+    """(a): gemma2-9b at full width and depth, bf16, remat "full", Mode A
+    merged rank-8 qv, interval 1, AdamW, 1 x 4608, a warm-up step then the
+    measured steps, each with its fit (``_measured_steps``); every step's
+    taps checked (``_tap_stats``). Returns the launch counts."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.core.session import ColaSession
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model
+    from repro_torch.profile_train import SETUPS
+
+    cfg = registry.get_config("gemma2-9b")
+    batch, seq, interval = SETUPS[cfg.name]   # 1 x 4608: past the 4096 window
+    check(cfg.remat == "full" and cfg.param_dtype == "bfloat16"
+          and cfg.loss_chunk == 512, f"gemma2 training config {cfg.remat}/"
+          f"{cfg.param_dtype}/{cfg.loss_chunk}")
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8, merged=True, interval=interval)
+    sess = ColaSession(cfg, cc, model.init(cfg, seed=SEED, device=dev),
+                       seed=SEED, device=dev, optimizer=_adamw())
+    taps = sorted(sess.adapters)
+    check(taps == ["layers_a.attn.q", "layers_a.attn.v", "layers_b.attn.q",
+                   "layers_b.attn.v"], f"[gemma2-train] taps {taps}")
+    data = SyntheticLM(cfg, batch=batch, seq=seq, seed=SEED, device=dev)
+    flags = _tap_stats(sess)
+    m = _measured_steps(sess, [data.batch_at(i) for i in
+                               range(GEMMA2_TRAIN_STEPS + 1)], dev)
+    losses, step_ms, fit_ms = m["losses"], m["step_ms"], m["fit_ms"]
+    launches = m["launches"]
+
+    n = GEMMA2_TRAIN_STEPS
+    check(all(np.isfinite(losses)), f"[gemma2-train] non-finite loss: {losses}")
+    check(len(fit_ms) == n, f"[gemma2-train] {len(fit_ms)} fits in {n} steps")
+    bad = [(i, t) for i, f in enumerate(flags) for t, v in f.items()
+           if not bool(v.all())]
+    check(len(flags) == n + 1 and not bad, f"[gemma2-train] a tap's x or "
+          f"grad_h not finite, or grad_h all zero (step, tap): {bad}")
+    health = sess.channel_health()[0]
+    check(health["fits_committed"] == n + 1 and all(
+        health[k] == 0 for k in ("rollbacks", "dead_letters", "send_retries")),
+        f"[gemma2-train] offload rounds failed: {health}")
+    # a step: 42 forwards and their 42 recomputes, 42 of each backward
+    # kernel; a fit: one cola_fit launch per tap of each stack
+    want = {"flash_attention": 84 * n, "flash_attention_bwd_dq": 42 * n,
+            "flash_attention_bwd_dkv": 42 * n, "cola_fit": 4 * n}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"[gemma2-train] launches {launches}, want {want}")
+    tokens = n * batch * seq
+    print(f"[gemma2-train] (a) gemma2-9b bf16, 42 layers, remat full, Mode A "
+          f"merged rank-8 qv on both stacks, interval {interval}, AdamW, batch "
+          f"{batch} x {seq}: losses {[round(x, 5) for x in losses]}; every "
+          f"tap's x and grad_h finite, grad_h non-zero; the bank moved at "
+          f"every fit", flush=True)
+    print(f"[gemma2-train] (a) step ms {[round(t, 1) for t in step_ms]}; server "
+          f"step p50 {statistics.median(m['server_ms']):.1f} ms; fit ms "
+          f"{[round(t, 2) for t in fit_ms]} (p50 {statistics.median(fit_ms):.2f})"
+          f"; {checks_line(m['check_ms'], n)}; "
+          f"{tokens / (sum(step_ms) / 1e3):.1f} training tokens/s; peak memory "
+          f"{m['peak'] / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); {card_line()}", flush=True)
+    print(f"[gemma2-train] (a) launches in {n} steps: {launches}", flush=True)
+    del sess
+    _free()
+    return launches
+
+
+def _gemma2_session_step(cfg, cc, params, batch, device) -> dict:
+    """One step of a merged ``ColaSession`` on ``device`` (the merged server
+    step, the push through the channel, the fit and AdamW) from ``params``
+    and a bank whose B is drawn != 0 the same way on every device (so dA
+    carries information). Returns the session, the bank before and after,
+    the loss, each tap's grad_h, the fit gradients (``gl.fit_grads`` on the
+    pushed payload and the bank before, as the offloader's fit computes
+    them) and the seconds the step took."""
+    from repro_torch.core import gl
+    from repro_torch.core.session import ColaSession
+
+    sess = ColaSession(cfg, cc, params, seed=SEED + 2, device=device,
+                       optimizer=_adamw())
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for tap in sorted(sess.adapters):
+        B = torch.randn(sess.adapters[tap]["B"].shape, generator=gen) * 0.02
+        # in place: the offloader and its channel hold these tensors too
+        sess.adapters[tap]["B"].copy_(B)
+        sess.offloader.adapters[tap]["B"].copy_(B)
+    bank0 = {t: {k: v.clone() for k, v in w.items()}
+             for t, w in sess.adapters.items()}
+    pushed = []
+    push = sess.channel.push
+    sess.channel.push = lambda data: (pushed.append(data), push(data))[1]
+    t0 = time.perf_counter()
+    loss = sess.step(_to(batch, device))
+    secs = time.perf_counter() - t0
+    check(sess.offloader.stats["fits"] == 1
+          and sess.channel_health()[0]["fits_committed"] == 1,
+          f"[gemma2-train] (b) on {device}: the fit did not commit")
+    (data,) = pushed
+    grads = gl.fit_grads(sess.offloader.spec, bank0, data)
+    return dict(sess=sess, bank0=bank0, loss=loss, secs=secs,
+                grad_h={t: g.cpu() for t, (_, g) in data.items()},
+                fit=_to(grads, "cpu"), bank=_to(sess.adapters, "cpu"))
+
+
+def _gemma2_train_vs_plain(dev) -> None:
+    """(b): gemma2-9b in f32 at full width, depth cut to 4 layers (2 pairs),
+    at (a)'s batch shape: one step of a merged rank-8 qv ``ColaSession``
+    (``_gemma2_session_step``) on the card and on the CPU (plain versions):
+    the losses within 1e-5; each tap's grad_h and fit gradients within
+    phase 5's 1e-3 of the largest entry; the bank after the fit and AdamW
+    within 1e-3 of its largest entry wherever the CPU's gradient is larger
+    than the card-vs-CPU gap of that gradient (so both devices see its
+    sign), and within AdamW's step, 2 lr, elsewhere (its first step is
+    lr g / (|g| + eps), the sign of a gradient the two devices do not
+    resolve there). Then on the card the unmerged Mode A server step: its
+    loss and fit gradients against the CPU's merged ones, and its fit
+    gradients against Mode B's adapter gradients (Prop 1) at
+    test_gl_equivalence.py's tolerance."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ColaConfig, TrainConfig
+    from repro_torch.core import gl
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model
+    from repro_torch.profile_train import SETUPS
+
+    batch_size, seq, _ = SETUPS["gemma2-9b"]
+    cfg = registry.get_config("gemma2-9b").replace(
+        n_layers=4, param_dtype="float32", compute_dtype="float32")
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8, merged=True, interval=1)
+    params = model.init(cfg, seed=SEED + 2, device="cpu")
+    batch = SyntheticLM(cfg, batch=batch_size, seq=seq, seed=SEED + 2,
+                        device="cpu").batch_at(0)
+    cpu = _gemma2_session_step(cfg, cc, params, batch, "cpu")
+    del cpu["sess"]
+    gpu = _gemma2_session_step(cfg, cc, params, batch, dev)
+    loss_diff = abs(gpu["loss"] - cpu["loss"])
+    check(loss_diff <= 1e-5 * abs(cpu["loss"]),
+          f"[gemma2-train] loss card {gpu['loss']} vs CPU {cpu['loss']}")
+    worst = {"grad_h": 0.0, "fit": 0.0, "bank": 0.0}
+    gaps = {}
+    for tap in sorted(cpu["grad_h"]):
+        pairs = [("grad_h", f"{tap} grad_h", gpu["grad_h"][tap],
+                  cpu["grad_h"][tap])]
+        pairs += [("fit", f"{tap}.{leaf}", gpu["fit"][tap][leaf], a)
+                  for leaf, a in cpu["fit"][tap].items()]
+        for kind, what, got, want in pairs:
+            err, scale = max_err(got, want)
+            check(scale > 0 and err <= 1e-3 * scale, f"[gemma2-train] {what}: "
+                  f"card vs CPU max |diff| {err:.3g} > 1e-3 x {scale:.3g}")
+            worst[kind] = max(worst[kind], err / scale)
+            gaps[what] = err
+    lr = TrainConfig().lr
+    unresolved = total = 0
+    for tap, w in cpu["bank"].items():
+        for leaf, want in w.items():
+            got = gpu["bank"][tap][leaf]
+            check(bool((got != gpu["bank0"][tap][leaf].cpu()).any()),
+                  f"[gemma2-train] the card's fit left {tap}.{leaf} as it was")
+            sure = cpu["fit"][tap][leaf].abs() > gaps[f"{tap}.{leaf}"]
+            diff = (got - want).abs()
+            scale = float(want.abs().max())
+            err = float(diff[sure].max())
+            rest = float(diff[~sure].max()) if bool((~sure).any()) else 0.0
+            check(err <= 1e-3 * scale and rest <= 2 * lr * (1 + 1e-3),
+                  f"[gemma2-train] bank {tap}.{leaf} after AdamW: card vs CPU "
+                  f"max |diff| {err:.3g} (tol 1e-3 x {scale:.3g}) where the "
+                  f"gradient's sign is resolved, {rest:.3g} (tol 2 lr) "
+                  f"elsewhere")
+            worst["bank"] = max(worst["bank"], err / scale)
+            unresolved += int((~sure).sum())
+            total += sure.numel()
+
+    # the unmerged server step on the card, and Mode B (Prop 1)
+    sess = gpu.pop("sess")
+    bank0, b = gpu["bank0"], _to(batch, dev)
+    spec_a = gl.make_spec(cfg, ColaConfig(mode="faithful_offload",
+                                          family="lowrank", taps="qv", rank=8))
+    loss_a, data, _ = gl.server_step_a(cfg, spec_a, sess.base_params, bank0,
+                                       b)
+    g_a = gl.fit_grads(sess.offloader.spec, bank0, data)
+    del data
+    check(abs(float(loss_a) - cpu["loss"]) <= 1e-5 * abs(cpu["loss"]),
+          f"[gemma2-train] unmerged loss card {float(loss_a)} vs merged CPU "
+          f"{cpu['loss']}")
+    unmerged = 0.0
+    for tap, w in cpu["fit"].items():
+        for leaf, want in w.items():
+            err, scale = max_err(g_a[tap][leaf].cpu(), want)
+            check(err <= 1e-3 * scale, f"[gemma2-train] unmerged fit grad "
+                  f"{tap}.{leaf}: card vs the CPU's merged step max |diff| "
+                  f"{err:.3g} > 1e-3 x {scale:.3g}")
+            unmerged = max(unmerged, err / scale)
+    spec_b = gl.make_spec(cfg, ColaConfig(mode="fused_fit", family="lowrank",
+                                          taps="qv", rank=8))
+    loss_b, g_b, _ = gl.train_step_b(cfg, spec_b, sess.base_params, bank0, b)
+    prop1 = 0.0   # max |A - B| / (atol + rtol |B|): allclose when <= 1
+    for tap, w in g_b.items():
+        for leaf, gb in w.items():
+            ga = g_a[tap][leaf]
+            ratio = float(((ga - gb).abs() / (1e-6 + 2e-4 * gb.abs())).max())
+            prop1 = max(prop1, ratio)
+            check(ratio <= 1, f"[gemma2-train] Prop 1 on the card: {tap}.{leaf}"
+                  f" Mode A vs Mode B beyond rtol 2e-4, atol 1e-6 ({ratio:.3g} x)")
+    check(abs(float(loss_b) - float(loss_a)) <= 1e-6 * abs(float(loss_a)),
+          f"[gemma2-train] Mode B loss {float(loss_b)} vs Mode A "
+          f"{float(loss_a)}")
+    print(f"[gemma2-train] (b) f32, 4 layers at full width, {batch_size} x "
+          f"{seq}, merged session step: loss card {gpu['loss']:.7f} CPU "
+          f"{cpu['loss']:.7f} (|diff| {loss_diff:.3e}); max |card - CPU| / "
+          f"max |CPU| over the 4 taps: grad_h {worst['grad_h']:.3e}, fit "
+          f"grads {worst['fit']:.3e} (tol 1e-3), the bank after AdamW "
+          f"{worst['bank']:.3e} (tol 1e-3; {unresolved} of {total} entries "
+          f"where the devices do not resolve the gradient's sign, within 2 "
+          f"lr); unmerged on the card: loss {float(loss_a):.7f}, fit grads "
+          f"{unmerged:.3e} of the CPU's merged; Prop 1 on the card: max "
+          f"|A - B| / (1e-6 + 2e-4 |B|) = {prop1:.3f} (<= 1); session step "
+          f"{cpu['secs']:.1f} s on the CPU, {gpu['secs']:.2f} s on the card",
+          flush=True)
+    del sess, gpu, g_a, g_b
+    _free()
+
+
+def phase_gemma2_train(dev) -> dict:
+    """gemma2-9b's ColA training on the card: (a) full width and depth, (b)
+    against the plain path and Mode B at 4 layers. Returns (a)'s launch
+    counts."""
+    launches = _gemma2_train_full(dev)
+    _gemma2_train_vs_plain(dev)
+    return launches
+
+
 def phase_configs(dev) -> dict:
     """Short ServeEngine runs of the other registered configs (8 requests
     of 32-512 tokens, 16 new tokens, 8 slots, 4 users' rank-8 qv adapters):
@@ -2372,11 +2736,14 @@ def main() -> int:
     for name, kernel, n, paths in (
             ("flash_attention", "flash_fwd_tc_kernel", 5, ("64",)),
             ("flash_attention", "flash_fwd_f32_kernel", 5, ()),
-            ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 4, ("64",)),
-            ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 4, ("64",)),
+            ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 5, ("64", "256")),
+            ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 5,
+             ("64", "256")),
+            ("flash_attention_bwd", "flash_bwd_dq_f32_kernel", 5, ("256",)),
+            ("flash_attention_bwd", "flash_bwd_dkv_f32_kernel", 5, ("256",)),
             ("decode_attention", "decode_split_kernel", 20, ("bf16,64",)),
             ("cola_fit", "fit_reg_kernel", 4, ("8,3,8",)),
-            ("cola_fit", "fit_smem_kernel", 1, ()),
+            ("cola_fit", "fit_smem_kernel", 1, ("8",)),
             ("multi_lora", "multi_lora_vec_kernel", 12,
              ("bf16,0,8", "bf16,1,8", "f32,0,8", "f32,1,8")),
             ("multi_lora", "multi_lora_any_kernel", 4, ())):
@@ -2435,6 +2802,10 @@ def main() -> int:
     print(f"[gemma2-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
+    gemma2_train = phase_gemma2_train(dev)
+    print(f"[gemma2-train] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
     configs = phase_configs(dev)
     print(f"[configs] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2453,8 +2824,9 @@ def main() -> int:
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
     # launches: the serving, training, serving-at-scale, store, runtime,
-    # telemetry, gemma2 and configs runs' together (flash_attention runs on
-    # all eight paths; the ring ticks count as the paged decode kernel's, of
+    # telemetry, gemma2, gemma2-train and configs runs' together
+    # (flash_attention runs on all nine paths; the ring ticks count as the
+    # paged decode kernel's, of
     # which they are the ring addressing mode); the top-level numbers are
     # the kernel's first row, "rows" holds every phase-1 row of the kernel
     # (both cola_fit taps, multi_lora at a tick, the d_head 256 rows and the
@@ -2465,7 +2837,8 @@ def main() -> int:
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
                     replaces=replaces[n],
                     launches=(launches[n] + train[n] + scale[n] + store[n]
-                              + runtime[n] + tele[n] + gemma2[n] + configs[n]),
+                              + runtime[n] + tele[n] + gemma2[n]
+                              + gemma2_train[n] + configs[n]),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})

@@ -49,11 +49,21 @@ class Config:
     slice: int        # columns a slice
 
 
+GRID_Y = 65535           # blocks the grid's second axis may hold
+
+
 def takes(d_in: int, d_out: int, r: int) -> bool:
-    """The shapes the kernel takes: those whose accumulators and one row of
-    x and g fit one block's shared memory (the first kernel's rule)."""
-    need = 4 * ((d_in + d_out) * r + (d_in + 1) + (d_out + 1) + 2 * r)
-    return min(d_in, d_out, r) >= 1 and need <= SMEM_LIMIT
+    """The shapes the kernel takes: every width and rank whose plan fits the
+    launch. ``config`` routes a shape to the register kernel or else to the
+    shared-memory kernel with its columns split over the grid's second axis,
+    whose blocks (rank blocks x column slices) may number ``GRID_Y``; a
+    layer's (d_in + d_out) r accumulators are indexed in 32 bits. That takes
+    every shape JAX's kernel takes (``supported``: d_in and d_out up to 8192,
+    r up to 256), gemma2's and mistral-nemo's q taps among them."""
+    if min(d_in, d_out, r) < 1 or (d_in + d_out) * r >= 2 ** 31:
+        return False
+    c = config(d_in, d_out, r)
+    return c.n_rb * c.n_split <= GRID_Y
 
 
 def _reg_smem(tt: int, d: int, warps: int, rb: int) -> int:
@@ -124,7 +134,7 @@ def plan(lib, device: torch.device, L: int, T: int, d_in: int, d_out: int,
     """(config, chunks) of one launch. Depends on the shapes and the card
     alone, so a refit adds the same partials in the same order."""
     _build.require(takes(d_in, d_out, r), "cola_fit", f"dims {d_in} + "
-                   f"{d_out} at rank {r} do not fit in shared memory")
+                   f"{d_out} at rank {r} do not fit the launch")
     cfg = config(d_in, d_out, r)
     per_sm = lib.cola_fit_blocks_per_sm(cfg.variant, cfg.rb, cfg.cpt,
                                         cfg.threads, cfg.smem)

@@ -61,6 +61,24 @@
 // cores: the card's oracle (the f32 training step must match the CPU's
 // within 1e-5, which TF32 tensor cores would break). Scalar FMAs from f32
 // tiles in shared memory, two threads per row; each gradient written once.
+//
+// d_head 256 (gemma2's training path: 1 x 4608, 16 / 8 heads, window 4096,
+// softcap 50) has its own tiling where the one above does not fit; the
+// d_head 16-128 instantiations are unchanged. bf16 dq: dQ's accumulator is
+// 128 registers a thread, so S and dP are taken over half a kv tile at a
+// time (KW = 32 kv rows: 16 registers each). bf16 dk/dv: a warp's dK and
+// dV for a 16-row slab at 256 columns would be 256 registers alone, so two
+// warps share a slab (DSPLIT, 8 warps a block), each holding 128 of dK's and
+// dV's columns; both compute the slab's S^T and dP^T over the whole d_head
+// (it has to be whole for either half), which spends 1.5x the tensor-core
+// work of one warp a slab but keeps everything in registers with no
+// exchange through shared memory; S^T and dP^T are taken over half the q
+// tile at a time (QW = 32, as at 128). In both kernels the 16 k-steps of S
+// (S^T) are unrolled four at a time (KU), so that ptxas keeps every value
+// in registers. Shared memory at 256 is 6 x 64 x 264 bf16
+// (202,752 bytes) plus the positions: one block an SM. f32: 32-row tiles
+// and four threads a row (F32Tile), so that the tiles fit shared memory and
+// a thread's columns its registers.
 #include <climits>
 
 #include "common.cuh"
@@ -70,9 +88,7 @@ namespace {
 
 constexpr int BQ = 64;    // q rows per tile
 constexpr int BK = 64;    // kv rows per tile
-constexpr int NT = 128;   // threads: f32, two per tile row; bf16, four warps
-constexpr int HQ = BQ / 2;
-constexpr int HK = BK / 2;
+constexpr int NT = 128;   // threads: f32, two or four per tile row; bf16, four warps
 
 // ---------------------------------------------------------------------------
 // f32: the CUDA-core kernels
@@ -106,10 +122,23 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal, int window) 
   return (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
 }
 
+// The f32 kernels' tiling: rows a tile (q and kv tiles alike) and threads a
+// row, NT threads a block either way. Two threads a row on 64-row tiles up
+// to d_head 128; at 256 those tiles' shared memory (dq 280,832 bytes, dk/dv
+// 297,472) passes the 232,448 a block may use, and a thread's columns (128
+// of dq, 2 x 128 of dk/dv) would pass the registers, so d_head 256 takes
+// 32-row tiles and four threads a row (dq 136,320 bytes, dk/dv 140,544).
+template <int DH>
+struct F32Tile {
+  static constexpr int LOG_TPR = DH > 128 ? 2 : 1;
+  static constexpr int TPR = 1 << LOG_TPR;   // threads a row
+  static constexpr int R = NT / TPR;         // rows a tile
+};
+
 template <int DH>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * BQ * (DH + 1) + 2 * BK * (DH + 1) + BQ * (BK + 1) + 2 * BQ) +
-         sizeof(int) * (BK + BQ);
+  constexpr int R = F32Tile<DH>::R;
+  return sizeof(float) * (4 * R * (DH + 1) + R * (R + 1) + 2 * R) + sizeof(int) * 2 * R;
 }
 
 // One block per (q tile, q head, batch row); walks the kv tiles.
@@ -121,30 +150,33 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
     const int* __restrict__ kvpos, float* __restrict__ dq, int Sq, int Sk, int H,
     int KH, int qpos_bstride, int kvpos_bstride, float scale, int causal,
     int window, float softcap) {
-  constexpr int HD = DH / 2;   // dq columns per thread (d = 2*i + half)
+  constexpr int LOG_TPR = F32Tile<DH>::LOG_TPR, TPR = F32Tile<DH>::TPR;
+  constexpr int R = F32Tile<DH>::R;   // q and kv rows a tile
+  constexpr int HD = DH / TPR;        // dq columns per thread (d = TPR*i + part)
+  constexpr int HK = R / TPR;         // score columns per thread (j = TPR*jj + part)
   extern __shared__ float smem[];
-  float* q_s = smem;                      // BQ x (DH+1)
-  float* do_s = q_s + BQ * (DH + 1);      // BQ x (DH+1)
-  float* k_s = do_s + BQ * (DH + 1);      // BK x (DH+1)
-  float* v_s = k_s + BK * (DH + 1);       // BK x (DH+1)
-  float* ds_s = v_s + BK * (DH + 1);      // BQ x (BK+1)
-  float* lse_s = ds_s + BQ * (BK + 1);    // BQ
-  float* dl_s = lse_s + BQ;               // BQ
-  int* kp_s = reinterpret_cast<int*>(dl_s + BQ);   // BK
-  int* qp_s = kp_s + BK;                           // BQ
+  float* q_s = smem;                     // R x (DH+1)
+  float* do_s = q_s + R * (DH + 1);      // R x (DH+1)
+  float* k_s = do_s + R * (DH + 1);      // R x (DH+1)
+  float* v_s = k_s + R * (DH + 1);       // R x (DH+1)
+  float* ds_s = v_s + R * (DH + 1);      // R x (R+1)
+  float* lse_s = ds_s + R * (R + 1);     // R
+  float* dl_s = lse_s + R;               // R
+  int* kp_s = reinterpret_cast<int*>(dl_s + R);   // R
+  int* qp_s = kp_s + R;                           // R
 
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * R;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / KH);
-  const int row = tid >> 1;
-  const int half = tid & 1;
-  const int nq = min(BQ, Sq - q0);
+  const int row = tid >> LOG_TPR;
+  const int part = tid & (TPR - 1);
+  const int nq = min(R, Sq - q0);
 
-  load_tile<DH>(q_s, q, b, q0, nq, Sq, H, h, BQ);
-  load_tile<DH>(do_s, dout, b, q0, nq, Sq, H, h, BQ);
-  for (int r = tid; r < BQ; r += NT) {
+  load_tile<DH>(q_s, q, b, q0, nq, Sq, H, h, R);
+  load_tile<DH>(do_s, dout, b, q0, nq, Sq, H, h, R);
+  for (int r = tid; r < R; r += NT) {
     const bool ok = r < nq;
     const size_t stat = ((size_t)b * H + h) * Sq + q0 + r;
     qp_s[r] = ok ? qpos[(size_t)b * qpos_bstride + q0 + r] : 0;
@@ -163,9 +195,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
 #pragma unroll
   for (int i = 0; i < HD; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    const int nk = min(BK, Sk - k0);
-    for (int j = tid; j < BK; j += NT)
+  for (int k0 = 0; k0 < Sk; k0 += R) {
+    const int nk = min(R, Sk - k0);
+    for (int j = tid; j < R; j += NT)
       kp_s[j] = j < nk ? kvpos[(size_t)b * kvpos_bstride + k0 + j] : 0;
     __syncthreads();
     int kmin, kmax;
@@ -174,30 +206,30 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
       __syncthreads();
       continue;
     }
-    load_tile<DH>(k_s, k, b, k0, nk, Sk, KH, kh, BK);
-    load_tile<DH>(v_s, v, b, k0, nk, Sk, KH, kh, BK);
+    load_tile<DH>(k_s, k, b, k0, nk, Sk, KH, kh, R);
+    load_tile<DH>(v_s, v, b, k0, nk, Sk, KH, kh, R);
     __syncthreads();
 
-    // scores and dp of this thread's row against columns j = 2*jj + half
+    // scores and dp of this thread's row against columns j = TPR*jj + part
     float sc[HK], dp[HK];
 #pragma unroll
     for (int jj = 0; jj < HK; ++jj) sc[jj] = dp[jj] = 0.f;
     const float* qrow = q_s + row * (DH + 1);
     const float* dorow = do_s + row * (DH + 1);
-    const float* kcol = k_s + half * (DH + 1);
-    const float* vcol = v_s + half * (DH + 1);
+    const float* kcol = k_s + part * (DH + 1);
+    const float* vcol = v_s + part * (DH + 1);
 #pragma unroll 4
     for (int d = 0; d < DH; ++d) {
       const float qd = qrow[d], dd = dorow[d];
 #pragma unroll
       for (int jj = 0; jj < HK; ++jj) {
-        sc[jj] += qd * kcol[2 * jj * (DH + 1) + d];
-        dp[jj] += dd * vcol[2 * jj * (DH + 1) + d];
+        sc[jj] += qd * kcol[TPR * jj * (DH + 1) + d];
+        dp[jj] += dd * vcol[TPR * jj * (DH + 1) + d];
       }
     }
 #pragma unroll
     for (int jj = 0; jj < HK; ++jj) {
-      const int j = 2 * jj + half;
+      const int j = TPR * jj + part;
       float s = sc[jj] * scale, dcap = 1.f;
       if (softcap > 0.f) {
         const float t = tanhf(s / softcap);
@@ -206,31 +238,31 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
       }
       const bool ok = row_ok && j < nk && visible(qp, kp_s[j], causal, window);
       const float p = ok ? expf(s - lse_r) : 0.f;
-      ds_s[row * (BK + 1) + j] = p * (dp[jj] - dl_r) * dcap;
+      ds_s[row * (R + 1) + j] = p * (dp[jj] - dl_r) * dcap;
     }
     __syncthreads();
 
-    const float* dsrow = ds_s + row * (BK + 1);
-    const float* kc = k_s + half;
+    const float* dsrow = ds_s + row * (R + 1);
+    const float* kc = k_s + part;
     for (int j = 0; j < nk; ++j) {
       const float w = dsrow[j];
 #pragma unroll
-      for (int i = 0; i < HD; ++i) acc[i] += w * kc[j * (DH + 1) + 2 * i];
+      for (int i = 0; i < HD; ++i) acc[i] += w * kc[j * (DH + 1) + TPR * i];
     }
     __syncthreads();
   }
 
   if (row_ok) {
-    float* out = dq + (((size_t)b * Sq + q0 + row) * H + h) * DH + half;
+    float* out = dq + (((size_t)b * Sq + q0 + row) * H + h) * DH + part;
 #pragma unroll
-    for (int i = 0; i < HD; ++i) out[2 * i] = acc[i] * scale;
+    for (int i = 0; i < HD; ++i) out[TPR * i] = acc[i] * scale;
   }
 }
 
 template <int DH>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * BK * (DH + 1) + 2 * BQ * (DH + 1) + 2 * BK * (BQ + 1) + 2 * BQ) +
-         sizeof(int) * (BQ + BK);
+  constexpr int R = F32Tile<DH>::R;
+  return sizeof(float) * (4 * R * (DH + 1) + 2 * R * (R + 1) + 2 * R) + sizeof(int) * 2 * R;
 }
 
 // One block per (kv tile, kv head, batch row); walks the q tiles of every
@@ -243,31 +275,34 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_f32_kernel(
     const int* __restrict__ kvpos, float* __restrict__ dk, float* __restrict__ dv,
     int Sq, int Sk, int H, int KH, int qpos_bstride, int kvpos_bstride,
     float scale, int causal, int window, float softcap) {
-  constexpr int HD = DH / 2;   // dk/dv columns per thread (d = 2*c + half)
+  constexpr int LOG_TPR = F32Tile<DH>::LOG_TPR, TPR = F32Tile<DH>::TPR;
+  constexpr int R = F32Tile<DH>::R;   // kv and q rows a tile
+  constexpr int HD = DH / TPR;        // dk/dv columns per thread (d = TPR*c + part)
+  constexpr int HQ = R / TPR;         // score columns per thread (i = TPR*ii + part)
   extern __shared__ float smem[];
-  float* k_s = smem;                      // BK x (DH+1)
-  float* v_s = k_s + BK * (DH + 1);       // BK x (DH+1)
-  float* q_s = v_s + BK * (DH + 1);       // BQ x (DH+1)
-  float* do_s = q_s + BQ * (DH + 1);      // BQ x (DH+1)
-  float* p_s = do_s + BQ * (DH + 1);      // BK x (BQ+1)
-  float* ds_s = p_s + BK * (BQ + 1);      // BK x (BQ+1)
-  float* lse_s = ds_s + BK * (BQ + 1);    // BQ
-  float* dl_s = lse_s + BQ;               // BQ
-  int* qp_s = reinterpret_cast<int*>(dl_s + BQ);   // BQ
-  int* kp_s = qp_s + BQ;                           // BK
+  float* k_s = smem;                     // R x (DH+1)
+  float* v_s = k_s + R * (DH + 1);       // R x (DH+1)
+  float* q_s = v_s + R * (DH + 1);       // R x (DH+1)
+  float* do_s = q_s + R * (DH + 1);      // R x (DH+1)
+  float* p_s = do_s + R * (DH + 1);      // R x (R+1)
+  float* ds_s = p_s + R * (R + 1);       // R x (R+1)
+  float* lse_s = ds_s + R * (R + 1);     // R
+  float* dl_s = lse_s + R;               // R
+  int* qp_s = reinterpret_cast<int*>(dl_s + R);   // R
+  int* kp_s = qp_s + R;                           // R
 
   const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * R;
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / KH;
-  const int row = tid >> 1;   // kv row of this thread
-  const int half = tid & 1;
-  const int nk = min(BK, Sk - k0);
+  const int row = tid >> LOG_TPR;   // kv row of this thread
+  const int part = tid & (TPR - 1);
+  const int nk = min(R, Sk - k0);
 
-  load_tile<DH>(k_s, k, b, k0, nk, Sk, KH, kh, BK);
-  load_tile<DH>(v_s, v, b, k0, nk, Sk, KH, kh, BK);
-  for (int j = tid; j < BK; j += NT)
+  load_tile<DH>(k_s, k, b, k0, nk, Sk, KH, kh, R);
+  load_tile<DH>(v_s, v, b, k0, nk, Sk, KH, kh, R);
+  for (int j = tid; j < R; j += NT)
     kp_s[j] = j < nk ? kvpos[(size_t)b * kvpos_bstride + k0 + j] : 0;
   __syncthreads();
   int kmin, kmax;
@@ -281,9 +316,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_f32_kernel(
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
-    for (int q0 = 0; q0 < Sq; q0 += BQ) {
-      const int nq = min(BQ, Sq - q0);
-      for (int r = tid; r < BQ; r += NT) {
+    for (int q0 = 0; q0 < Sq; q0 += R) {
+      const int nq = min(R, Sq - q0);
+      for (int r = tid; r < R; r += NT) {
         const bool ok = r < nq;
         const size_t stat = ((size_t)b * H + h) * Sq + q0 + r;
         qp_s[r] = ok ? qpos[(size_t)b * qpos_bstride + q0 + r] : 0;
@@ -297,30 +332,30 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_f32_kernel(
         __syncthreads();
         continue;
       }
-      load_tile<DH>(q_s, q, b, q0, nq, Sq, H, h, BQ);
-      load_tile<DH>(do_s, dout, b, q0, nq, Sq, H, h, BQ);
+      load_tile<DH>(q_s, q, b, q0, nq, Sq, H, h, R);
+      load_tile<DH>(do_s, dout, b, q0, nq, Sq, H, h, R);
       __syncthreads();
 
-      // scores and dp of this thread's kv row against q rows i = 2*ii + half
+      // scores and dp of this thread's kv row against q rows i = TPR*ii + part
       float sc[HQ], dp[HQ];
 #pragma unroll
       for (int ii = 0; ii < HQ; ++ii) sc[ii] = dp[ii] = 0.f;
       const float* krow = k_s + row * (DH + 1);
       const float* vrow = v_s + row * (DH + 1);
-      const float* qcol = q_s + half * (DH + 1);
-      const float* docol = do_s + half * (DH + 1);
+      const float* qcol = q_s + part * (DH + 1);
+      const float* docol = do_s + part * (DH + 1);
 #pragma unroll 4
       for (int d = 0; d < DH; ++d) {
         const float kd = krow[d], vd = vrow[d];
 #pragma unroll
         for (int ii = 0; ii < HQ; ++ii) {
-          sc[ii] += qcol[2 * ii * (DH + 1) + d] * kd;
-          dp[ii] += docol[2 * ii * (DH + 1) + d] * vd;
+          sc[ii] += qcol[TPR * ii * (DH + 1) + d] * kd;
+          dp[ii] += docol[TPR * ii * (DH + 1) + d] * vd;
         }
       }
 #pragma unroll
       for (int ii = 0; ii < HQ; ++ii) {
-        const int i = 2 * ii + half;
+        const int i = TPR * ii + part;
         float s = sc[ii] * scale, dcap = 1.f;
         if (softcap > 0.f) {
           const float t = tanhf(s / softcap);
@@ -329,21 +364,21 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_f32_kernel(
         }
         const bool ok = row_ok && i < nq && visible(qp_s[i], kp, causal, window);
         const float p = ok ? expf(s - lse_s[i]) : 0.f;
-        p_s[row * (BQ + 1) + i] = p;
-        ds_s[row * (BQ + 1) + i] = p * (dp[ii] - dl_s[i]) * dcap;
+        p_s[row * (R + 1) + i] = p;
+        ds_s[row * (R + 1) + i] = p * (dp[ii] - dl_s[i]) * dcap;
       }
       __syncthreads();
 
-      const float* prow = p_s + row * (BQ + 1);
-      const float* dsrow = ds_s + row * (BQ + 1);
-      const float* doc = do_s + half;
-      const float* qc = q_s + half;
+      const float* prow = p_s + row * (R + 1);
+      const float* dsrow = ds_s + row * (R + 1);
+      const float* doc = do_s + part;
+      const float* qc = q_s + part;
       for (int i = 0; i < nq; ++i) {
         const float pw = prow[i], dw = dsrow[i];
 #pragma unroll
         for (int c = 0; c < HD; ++c) {
-          acc_dv[c] += pw * doc[i * (DH + 1) + 2 * c];
-          acc_dk[c] += dw * qc[i * (DH + 1) + 2 * c];
+          acc_dv[c] += pw * doc[i * (DH + 1) + TPR * c];
+          acc_dk[c] += dw * qc[i * (DH + 1) + TPR * c];
         }
       }
       __syncthreads();
@@ -351,11 +386,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_f32_kernel(
   }
 
   if (row_ok) {
-    const size_t off = (((size_t)b * Sk + k0 + row) * KH + kh) * DH + half;
+    const size_t off = (((size_t)b * Sk + k0 + row) * KH + kh) * DH + part;
 #pragma unroll
     for (int c = 0; c < HD; ++c) {
-      dk[off + 2 * c] = acc_dk[c] * scale;
-      dv[off + 2 * c] = acc_dv[c];
+      dk[off + TPR * c] = acc_dk[c] * scale;
+      dv[off + TPR * c] = acc_dv[c];
     }
   }
 }
@@ -376,9 +411,23 @@ struct TcTile {
   // dk/dv: K's and V's A-fragments held in registers for the whole walk
   // (else re-read from shared memory at each k-step)
   static constexpr bool FRAGS = DH <= 64;
-  // q columns of one dk/dv sub-step: the whole q tile, or half of it at
+  // q columns of one dk/dv sub-step: the whole q tile, or half of it from
   // d_head 128, where S^T and dP^T of 64 columns would spill
   static constexpr int QW = DH <= 64 ? BQ : BQ / 2;
+  // kv rows of one dq sub-step: the whole kv tile, or half of it at d_head
+  // 256, where S and dP of 64 columns beside dQ's 128 accumulators spill
+  static constexpr int KW = DH <= 128 ? BK : BK / 2;
+  // k-steps of S and dP (S^T and dP^T) unrolled at a time: all of them up to
+  // d_head 128; four at 256, where the full unroll of 16 hoists the
+  // fragment loads past the registers (ptxas: spills of 64 bytes in dq and
+  // 36 in dk/dv; four: none, and faster than quarter sub-steps)
+  static constexpr int KU = DH <= 128 ? DH / 16 : 4;
+  // dk/dv: warps a 16-row slab, each holding DH / DSPLIT of dK's and dV's
+  // columns; at d_head 256 one warp's two accumulators alone would be 256
+  // registers, so two warps share a slab (8 warps a block) and each
+  // computes the slab's S^T and dP^T over the whole d_head itself
+  static constexpr int DSPLIT = DH <= 128 ? 1 : 2;
+  static constexpr int DKV_THREADS = NT * DSPLIT;
 };
 
 // One block per (q tile, q head, batch row); walks the kv tiles.
@@ -393,8 +442,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_tc_kernel(
   static_assert(DH % 16 == 0 && BQ == 64 && BK == 64 && NT == 128, "tile shape");
   constexpr int LD = TcTile<DH>::LD, SIZE = TcTile<DH>::SIZE;
   constexpr int CH = DH / 8;       // 16-byte chunks of a row
+  constexpr int KW = TcTile<DH>::KW, KU = TcTile<DH>::KU;
   constexpr int KS = DH / 16;      // k-steps of S and dP
-  constexpr int NS = BK / 8;       // n-tiles of S and dP (8 kv columns each)
+  constexpr int NS = KW / 8;       // n-tiles of S and dP (8 kv columns each)
   constexpr int ND = DH / 8;       // n-tiles of dQ
   constexpr int NW = NT / 32;      // warps
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -508,74 +558,78 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_tc_kernel(
     cp_async_wait<1>();   // this tile has landed
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T: each x4 load gives the B-fragments of two
-    // n-tiles
     const bf16* ks = k_s + st * SIZE;
     const bf16* vs = v_s + st * SIZE;
-    float sc[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa_[4], da_[4];
-      ld_a(qa_, q_w + kk * 16, LD, lane);
-      ld_a(da_, do_w + kk * 16, LD, lane);
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t kb[4], vb[4];
-        ld_b_nk(kb, ks + np * 16 * LD + kk * 16, LD, lane);
-        ld_b_nk(vb, vs + np * 16 * LD + kk * 16, LD, lane);
-        mma_bf16(sc[2 * np], qa_, kb[0], kb[1]);
-        mma_bf16(sc[2 * np + 1], qa_, kb[2], kb[3]);
-        mma_bf16(dp[2 * np], da_, vb[0], vb[1]);
-        mma_bf16(dp[2 * np + 1], da_, vb[2], vb[3]);
-      }
-    }
-
-    // softcap, mask, p and ds = p (dp - delta) dcap in registers; element e
-    // of n-tile j is row (e < 2 ? r0 : r1), column j * 8 + 2 * t4 + (e & 1)
     const bool whole = full(cur);
     const int nk = min(BK, Sk - cur * BK);
     const int* kps = kp_s + st * BK;
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int col = j * 8 + 2 * t4;
-      const int2 kp = *reinterpret_cast<const int2*>(kps + col);
+    for (int k0 = 0; k0 < BK; k0 += KW) {   // the sub-steps of KW kv rows
+      // S = Q K^T and dP = dO V^T: each x4 load gives the B-fragments of two
+      // n-tiles
+      float sc[NS][4], dp[NS][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[j][e], dcap = 1.f;
-        if (softcap > 0.f) {
-          const float th = tanhf(x * cap_in);
-          x = th * softcap;
-          dcap = 1.f - th * th;
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll (KU)
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa_[4], da_[4];
+        ld_a(qa_, q_w + kk * 16, LD, lane);
+        ld_a(da_, do_w + kk * 16, LD, lane);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t kb[4], vb[4];
+          ld_b_nk(kb, ks + (k0 + np * 16) * LD + kk * 16, LD, lane);
+          ld_b_nk(vb, vs + (k0 + np * 16) * LD + kk * 16, LD, lane);
+          mma_bf16(sc[2 * np], qa_, kb[0], kb[1]);
+          mma_bf16(sc[2 * np + 1], qa_, kb[2], kb[3]);
+          mma_bf16(dp[2 * np], da_, vb[0], vb[1]);
+          mma_bf16(dp[2 * np + 1], da_, vb[2], vb[3]);
         }
-        if (!whole) {
-          const int kpe = (e & 1) ? kp.y : kp.x;
-          const int qpe = e < 2 ? qp0 : qp1;
-          const bool ok = (e < 2 ? ok0 : ok1) && col + (e & 1) < nk &&
-                          (!causal || kpe <= qpe) && (window <= 0 || kpe > qpe - window);
-          if (!ok) x = -INFINITY;
-        }
-        const float p = exp2_approx(fmaf(x, c, e < 2 ? nl0 : nl1));
-        dp[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * dcap;
       }
-    }
 
-    // dQ += dS K: dS's accumulator tiles 2 kk and 2 kk + 1 are the
-    // A-fragment of k-step kk; each x4.trans load gives K's B-fragments of
-    // two n-tiles
+      // softcap, mask, p and ds = p (dp - delta) dcap in registers; element
+      // e of n-tile j is row (e < 2 ? r0 : r1), column k0 + j * 8 + 2 * t4 +
+      // (e & 1)
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+      for (int j = 0; j < NS; ++j) {
+        const int col = k0 + j * 8 + 2 * t4;
+        const int2 kp = *reinterpret_cast<const int2*>(kps + col);
 #pragma unroll
-      for (int np = 0; np < ND / 2; ++np) {
-        uint32_t kb[4];
-        ld_b_kn(kb, ks + kk * 16 * LD + np * 16, LD, lane);
-        mma_bf16(acc[2 * np], sa, kb[0], kb[1]);
-        mma_bf16(acc[2 * np + 1], sa, kb[2], kb[3]);
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[j][e], dcap = 1.f;
+          if (softcap > 0.f) {
+            const float th = tanhf(x * cap_in);
+            x = th * softcap;
+            dcap = 1.f - th * th;
+          }
+          if (!whole) {
+            const int kpe = (e & 1) ? kp.y : kp.x;
+            const int qpe = e < 2 ? qp0 : qp1;
+            const bool ok = (e < 2 ? ok0 : ok1) && col + (e & 1) < nk &&
+                            (!causal || kpe <= qpe) && (window <= 0 || kpe > qpe - window);
+            if (!ok) x = -INFINITY;
+          }
+          const float p = exp2_approx(fmaf(x, c, e < 2 ? nl0 : nl1));
+          dp[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * dcap;
+        }
+      }
+
+      // dQ += dS K: dS's accumulator tiles 2 kk and 2 kk + 1 are the
+      // A-fragment of k-step kk; each x4.trans load gives K's B-fragments of
+      // two n-tiles
+#pragma unroll
+      for (int kk = 0; kk < KW / 16; ++kk) {
+        uint32_t sa[4];
+        acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {
+          uint32_t kb[4];
+          ld_b_kn(kb, ks + (k0 + kk * 16) * LD + np * 16, LD, lane);
+          mma_bf16(acc[2 * np], sa, kb[0], kb[1]);
+          mma_bf16(acc[2 * np + 1], sa, kb[2], kb[3]);
+        }
       }
     }
     __syncthreads();   // every warp is done with this stage before it is refilled
@@ -605,8 +659,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_tc_kernel(
 // One block per (kv tile, kv head, batch row); walks the q tiles of every q
 // head of the group: step w is head w / n_qt of the group and q tile
 // n_qt - 1 - w % n_qt (the last q tile first: a causal mask never skips it).
+// DSPLIT warps a 16-row slab of the kv tile: warp w takes slab w % 4 and
+// dK's and dV's columns [w / 4 * DW, (w / 4 + 1) * DW).
 template <int DH>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
+__global__ void __launch_bounds__(TcTile<DH>::DKV_THREADS) flash_bwd_dkv_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const int* __restrict__ qpos,
@@ -617,11 +673,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
   constexpr int LD = TcTile<DH>::LD, SIZE = TcTile<DH>::SIZE;
   constexpr bool FRAGS = TcTile<DH>::FRAGS;
   constexpr int CH = DH / 8;       // 16-byte chunks of a row
-  constexpr int QW = TcTile<DH>::QW;
+  constexpr int QW = TcTile<DH>::QW, KU = TcTile<DH>::KU;
+  constexpr int DS = TcTile<DH>::DSPLIT;
+  constexpr int NTK = TcTile<DH>::DKV_THREADS;
+  constexpr int DW = DH / DS;      // dK and dV columns of one warp
   constexpr int KS = DH / 16;      // k-steps of S^T and dP^T
   constexpr int NQ = QW / 8;       // n-tiles of S^T and dP^T (8 q columns each)
-  constexpr int ND = DH / 8;       // n-tiles of dK and dV
-  constexpr int NW = NT / 32;      // warps
+  constexpr int ND = DW / 8;       // n-tiles of this warp's dK and dV
+  constexpr int NW = NTK / 32;     // warps
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* v_s = k_s + SIZE;
@@ -635,6 +694,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;   // the mma fragments' row group and column pair
+  const int slab = DS == 1 ? warp : warp & 3;         // this warp's 16 kv rows
+  const int c0 = DS == 1 ? 0 : (warp >> 2) * DW;      // and its first dK / dV column
   // heavy kv tiles (early in causal order) first, so the grid's tail is light
   const int k0 = blockIdx.x * BK, kh = blockIdx.y, b = blockIdx.z;
   const int* qp = qpos + (size_t)b * qpos_bstride;
@@ -645,7 +706,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
     const int h = kh * G + w / n_qt, q0 = q_tile(w) * BQ;
     bf16* qs = q_s + st * SIZE;
     bf16* ds = do_s + st * SIZE;
-    for (int c = tid; c < BQ * CH; c += NT) {
+    for (int c = tid; c < BQ * CH; c += NTK) {
       const int r = c / CH, s = q0 + r;
       const bool in = s < Sq;
       const size_t off = (((size_t)b * Sq + (in ? s : 0)) * H + h) * DH + (c % CH) * 8;
@@ -664,7 +725,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
   // group 0: the K and V tiles (rows past Sk zero-filled). Group 1: step 0
   // into stage 0, before it is known to be live; its copy then overlaps the
   // range pass below.
-  for (int c = tid; c < BK * CH; c += NT) {
+  for (int c = tid; c < BK * CH; c += NTK) {
     const int r = c / CH, s = k0 + r;
     const bool in = s < Sk;
     const size_t off = (((size_t)b * Sk + (in ? s : 0)) * KH + kh) * DH + (c % CH) * 8;
@@ -676,7 +737,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
   cp_async_commit();
 
   // this thread's two kv rows: r0 = row g of its warp's slab, r1 = row g + 8
-  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = k0 + slab * 16 + g, r1 = r0 + 8;
   const bool ok0 = r0 < Sk, ok1 = r1 < Sk;
   const int kp0 = ok0 ? kvp[r0] : 0, kp1 = ok1 ? kvp[r1] : 0;
   // two kv positions a lane for the block's range, reduced after the q pass
@@ -711,8 +772,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
     cp_async_commit();
   }
 
-  const bf16* k_w = k_s + warp * 16 * LD;   // this warp's slab of the K and V tiles
-  const bf16* v_w = v_s + warp * 16 * LD;
+  const bf16* k_w = k_s + slab * 16 * LD;   // this warp's slab of the K and V tiles
+  const bf16* v_w = v_s + slab * 16 * LD;
   uint32_t kf[FRAGS ? KS : 1][4], vf[FRAGS ? KS : 1][4];
   if constexpr (FRAGS) {
 #pragma unroll
@@ -753,7 +814,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
+#pragma unroll (KU)
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t ka_[4], va_[4];
         if constexpr (FRAGS) {
@@ -807,9 +868,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
         }
       }
 
-      // dV += P^T dO and dK += dS^T Q: the accumulator tiles 2 kk and
-      // 2 kk + 1 are the A-fragment of k-step kk (16 q rows); each x4.trans
-      // load gives the B-fragments of two n-tiles
+      // dV += P^T dO and dK += dS^T Q over this warp's DW columns: the
+      // accumulator tiles 2 kk and 2 kk + 1 are the A-fragment of k-step kk
+      // (16 q rows); each x4.trans load gives the B-fragments of two n-tiles
 #pragma unroll
       for (int kk = 0; kk < QW / 16; ++kk) {
         uint32_t pa[4], sa[4];
@@ -818,8 +879,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
 #pragma unroll
         for (int np = 0; np < ND / 2; ++np) {
           uint32_t db_[4], qb_[4];
-          ld_b_kn(db_, dos + (q0 + kk * 16) * LD + np * 16, LD, lane);
-          ld_b_kn(qb_, qs + (q0 + kk * 16) * LD + np * 16, LD, lane);
+          ld_b_kn(db_, dos + (q0 + kk * 16) * LD + c0 + np * 16, LD, lane);
+          ld_b_kn(qb_, qs + (q0 + kk * 16) * LD + c0 + np * 16, LD, lane);
           mma_bf16(dv_acc[2 * np], pa, db_[0], db_[1]);
           mma_bf16(dv_acc[2 * np + 1], pa, db_[2], db_[3]);
           mma_bf16(dk_acc[2 * np], sa, qb_[0], qb_[1]);
@@ -831,11 +892,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
     cur = nxt;
   }
 
-  // dk = scale acc and dv in bf16, staged through this warp's own rows of the
-  // K and V tiles (no other warp reads them) so that the stores are 16 bytes
-  // wide
-  bf16* ks_w = k_s + warp * 16 * LD;
-  bf16* vs_w = v_s + warp * 16 * LD;
+  // dk = scale acc and dv in bf16, staged through this warp's own rows and
+  // columns of the K and V tiles (no other warp reads them) so that the
+  // stores are 16 bytes wide
+  bf16* ks_w = k_s + slab * 16 * LD + c0;
+  bf16* vs_w = v_s + slab * 16 * LD + c0;
   __syncwarp();
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
@@ -850,14 +911,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tc_kernel(
         __floats2bfloat162_rn(dv_acc[j][2], dv_acc[j][3]);
   }
   __syncwarp();
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, s = k0 + warp * 16 + r;
+  constexpr int CW = DW / 8;       // 16-byte chunks of this warp's columns of a row
+  for (int i = lane; i < 16 * CW; i += 32) {
+    const int r = i / CW, s = k0 + slab * 16 + r;
     if (s < Sk) {
-      const size_t off = (((size_t)b * Sk + s) * KH + kh) * DH + (i % CH) * 8;
+      const size_t off = (((size_t)b * Sk + s) * KH + kh) * DH + c0 + (i % CW) * 8;
       *reinterpret_cast<uint4*>(dk + off) =
-          *reinterpret_cast<const uint4*>(ks_w + r * LD + (i % CH) * 8);
+          *reinterpret_cast<const uint4*>(ks_w + r * LD + (i % CW) * 8);
       *reinterpret_cast<uint4*>(dv + off) =
-          *reinterpret_cast<const uint4*>(vs_w + r * LD + (i % CH) * 8);
+          *reinterpret_cast<const uint4*>(vs_w + r * LD + (i % CW) * 8);
     }
   }
 }
@@ -889,7 +951,7 @@ int launch_f32(const Args& a) {
     err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((a.Sk + BK - 1) / BK, a.KH, a.B);
+    dim3 grid((a.Sk + F32Tile<DH>::R - 1) / F32Tile<DH>::R, a.KH, a.B);
     flash_bwd_dkv_f32_kernel<DH><<<grid, NT, smem, a.stream>>>(
         q, k, v, dout, lse, delta, qp, kp, static_cast<float*>(a.dk),
         static_cast<float*>(a.dv), a.Sq, a.Sk, a.H, a.KH, a.qb, a.kb, a.scale, a.causal,
@@ -898,7 +960,7 @@ int launch_f32(const Args& a) {
     err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+    dim3 grid((a.Sq + F32Tile<DH>::R - 1) / F32Tile<DH>::R, a.H, a.B);
     flash_bwd_dq_f32_kernel<DH><<<grid, NT, smem, a.stream>>>(
         q, k, v, dout, lse, delta, qp, kp, static_cast<float*>(a.dq), a.Sq, a.Sk, a.H,
         a.KH, a.qb, a.kb, a.scale, a.causal, a.window, a.softcap);
@@ -925,7 +987,7 @@ int launch_bf16(const Args& a) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((a.Sk + BK - 1) / BK, a.KH, a.B);
-    flash_bwd_dkv_tc_kernel<DH><<<grid, NT, smem, a.stream>>>(
+    flash_bwd_dkv_tc_kernel<DH><<<grid, TcTile<DH>::DKV_THREADS, smem, a.stream>>>(
         q, k, v, dout, lse, delta, qp, kp, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
         a.Sq, a.Sk, a.H, a.KH, a.qb, a.kb, a.scale, a.causal, a.window, a.softcap);
   } else {     // one int2 a kv tile
@@ -955,6 +1017,7 @@ int dispatch(int DH, int dtype, const Args& a) {
     case 32: return launch<DKV, 32>(dtype, a);
     case 64: return launch<DKV, 64>(dtype, a);
     case 128: return launch<DKV, 128>(dtype, a);
+    case 256: return launch<DKV, 256>(dtype, a);
     default: return -1;
   }
 }

@@ -17,10 +17,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# head dims the kernels take: the forward also takes gemma2's 256; the
-# backward's d_head 256 tiling is still to come (ROADMAP.md A.5.2b)
+# head dims the kernels take; gemma2's 256 has its own tilings in the
+# forward and in the backward (csrc/flash_attention_bwd.cu)
 FWD_HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 # The plain versions: o and the per-row lse, from the dense reference; and
 # (dq, dk, dv) from (q, k, v, o, lse, do).
@@ -113,7 +113,7 @@ def _bwd_launch(name: str, outs, q, k, v, do, lse, delta, q_positions,
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     req = partial(_build.require, kernel=name)
-    # first: a head dim the backward does not take (256) raises by name
+    # first: a head dim the backward does not take raises by name
     req(Dh in BWD_HEAD_DIMS, what=f"head dim {Dh} not in {BWD_HEAD_DIMS}")
     req(all(t.is_cuda and t.device == q.device
             for t in (k, v, do, lse, delta, q_positions, kv_positions)),

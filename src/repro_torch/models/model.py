@@ -7,8 +7,11 @@ Layer plans (``layer_plan``, as in the JAX package):
 - "pairs": gemma2's alternating local/global layers, two stacks
   ("layers_a.*" local with ``window=local_window``, "layers_b.*" global),
   walked pair by pair; under the paged KV layout the local stack keeps a
-  per-slot ring cache instead of pool blocks.
-The SSM and hybrid plans are still to be ported (ROADMAP.md A.5).
+  per-slot ring cache instead of pool blocks. Both plans serve and train
+  (ColA's taps and deltas on every stack).
+Still to be ported (ROADMAP.md A.5; ``_require_ported`` raises for each):
+the MoE blocks and ``qk_norm``, the SSM and hybrid plans, codebooks,
+``embed_input`` and an untied head.
 
 Parameters are the JAX package's pytree as nested dicts of tensors, layer
 leaves stacked on a leading (n,) axis per stack.

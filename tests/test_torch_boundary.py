@@ -86,21 +86,27 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
 
 
 def test_head_dim_256_forward_and_decode_take_it_the_backward_refuses_it():
-    """gemma2's d_head 256: the flash forward and the decode kernels take it;
-    the flash backward's checks raise by name before anything launches
-    (its d_head 256 tiling is still to come), on any device."""
+    """gemma2's d_head 256: every kernel takes it now, the flash backward
+    too, whose checks pass the head dim and stop at the device (CPU tensors
+    here); a head dim no kernel takes (48) still raises by name before
+    anything launches, on any device."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     assert 256 in fa.FWD_HEAD_DIMS and 256 in da.HEAD_DIMS
-    assert 256 not in fa.BWD_HEAD_DIMS
+    assert 256 in fa.BWD_HEAD_DIMS
+    assert 48 not in fa.FWD_HEAD_DIMS + fa.BWD_HEAD_DIMS + da.HEAD_DIMS
     B, S, H, K = 1, 8, 2, 1
-    q = torch.zeros(B, S, H, 256)
-    k = torch.zeros(B, S, K, 256)
-    stats = torch.zeros(B, H, S)
     pos = torch.arange(S, dtype=torch.int32)[None]
-    with pytest.raises(ValueError, match=r"head dim 256 not in \(16, 32, 64, 128\)"):
-        fa._bwd_launch("flash_attention_bwd_dq", (q,), q, k, k, q, stats, stats,
-                       pos, pos, True, None, None, 256 ** -0.5)
+    stats = torch.zeros(B, H, S)
+    for D, match in ((256, "CUDA"),
+                     (48, r"head dim 48 not in \(16, 32, 64, 128, 256\)")):
+        q = torch.zeros(B, S, H, D)
+        k = torch.zeros(B, S, K, D)
+        for name, outs in (("flash_attention_bwd_dq", (q,)),
+                           ("flash_attention_bwd_dkv", (k, k))):
+            with pytest.raises(ValueError, match=match):
+                fa._bwd_launch(name, outs, q, k, k, q, stats, stats, pos, pos,
+                               True, None, None, D ** -0.5)
 
 
 def test_new_wrappers_refuse_non_cpu_tensors():

@@ -366,7 +366,16 @@ def test_wrappers_raise_for_what_the_kernels_do_not_take(dev):
     # dk/dv summed over G = 1, 3, 4 q heads at every head dim, a ragged
     # third tile
     *[(2, 150, 2 * G, 2, D, None, None) for G in (1, 3, 4)
-      for D in (16, 32, 64, 128)],
+      for D in (16, 32, 64, 128, 256)],
+    # d_head 256's own tilings: gemma2's heads (G 2) with window + softcap,
+    # G 1 / 2 / 4, the 16-row slabs (1, 16, 17 rows), dq's 32-row kv halves
+    # (31, 32, 33), the 64-row tiles (64, 65, a ragged 100) and the f32
+    # kernels' 32-row tiles and four threads a row (the same edges)
+    (1, 300, 16, 8, 256, 100, 50.0),
+    (1, 257, 2, 2, 256, 40, 20.0),      # window + softcap, G = 1
+    (2, 100, 8, 2, 256, 24, 50.0),      # window + softcap, G = 4
+    *[(1, S, 4, 2, 256, None, None) for S in (1, 16, 17, 31, 32, 33, 64, 65)],
+    (2, 100, 2, 2, 256, None, None),    # G = 1, ragged
 ])
 def test_flash_backward_kernels(dev, dtype, B, S, H, K, D, window, softcap):
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -546,7 +555,10 @@ def _check_cola_fit(x, g, A, Bm):
     (3, 1, 576, 192, 8),               # T of one row
     (300, 16, 64, 48, 8),              # L above one wave: chunks span layers
     (1, 40, 9000, 5000, 1),            # shared memory, columns split in two
-    (2, 50, 2501, 301, 3)])            # shared memory, odd width, rank 3
+    (2, 50, 2501, 301, 3),             # shared memory, odd width, rank 3
+    (2, 300, 3584, 4096, 8),           # gemma2-9b's q tap: split in two
+    (2, 300, 3584, 2048, 8),           # its v tap
+    (1, 64, 8192, 8192, 8)])           # JAX's widest: split in three
 def test_cola_fit_kernel(dev, L, T, din, dout, r):
     gen = torch.Generator(device=dev).manual_seed(7)
     x, g = (_rnd(gen, dev, torch.float32, L, T, d) for d in (din, dout))
@@ -948,13 +960,23 @@ def test_ring_chunk_runs_the_flash_kernel(dev, dtype):
 
 
 def test_d256_backward_and_bad_rings_raise_on_the_card(dev):
+    """The flash backward takes d_head 256 on the card (one launch of each
+    kernel; zero inputs give zero gradients); a head dim no kernel takes
+    (48) raises by name; so do rings the decode kernel does not take."""
+    pos = dict(q_positions=torch.arange(8, device=dev)[None],
+               kv_positions=torch.arange(8, device=dev)[None])
     q = torch.zeros(1, 8, 2, 256, device=dev)
     k = torch.zeros(1, 8, 1, 256, device=dev)
     o, lse = fa.flash_attention(q, k, k)
-    with pytest.raises(ValueError, match="head dim 256"):
-        fa.flash_attention_bwd(q, k, k, o, lse, q,
-                               q_positions=torch.arange(8, device=dev)[None],
-                               kv_positions=torch.arange(8, device=dev)[None])
+    launches = (fa.bwd_dq.launches, fa.bwd_dkv.launches)
+    grads = fa.flash_attention_bwd(q, k, k, o, lse, q, **pos)
+    assert (fa.bwd_dq.launches, fa.bwd_dkv.launches) == (launches[0] + 1,
+                                                         launches[1] + 1)
+    assert all(bool((g == 0).all()) for g in grads)
+    q48 = torch.zeros(1, 8, 2, 48, device=dev)
+    k48 = torch.zeros(1, 8, 1, 48, device=dev)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.flash_attention_bwd(q48, k48, k48, q48, lse, q48, **pos)
     qd = torch.zeros(2, 1, 2, 256, device=dev)
     ring = torch.zeros(2, 19, 1, 256, device=dev)
     pos = torch.zeros(2, dtype=torch.int32, device=dev)

@@ -15,6 +15,7 @@ copies of ``tests/test_gl_equivalence.py`` keep that file's tolerances.
 """
 import dataclasses
 import functools
+import types
 
 import pytest
 
@@ -317,14 +318,36 @@ def test_cola_fit_config(d_in, d_out, r, want):
         assert c.n_split * c.slice >= d_in + d_out
 
 
-def test_cola_fit_takes_the_first_kernels_shapes():
-    """The kernel takes every shape whose accumulators and one row of x and
-    g fit one block's shared memory, and raises for the rest."""
-    assert cf.takes(6000, 450, 8) and not cf.takes(6000, 460, 8)
-    assert cf.takes(29000, 50, 1) and not cf.takes(29100, 10, 1)
-    assert cf.takes(100, 100, 256) and not cf.takes(200, 200, 256)
-    for d_in, d_out, r in ((6000, 450, 8), (29000, 50, 1), (100, 100, 256)):
-        assert cf.config(d_in, d_out, r).smem <= cf.SMEM_LIMIT
+@pytest.mark.parametrize("d_in,d_out,r", [
+    (6000, 450, 8), (6000, 460, 8),     # the first kernel's edge, both sides
+    (29000, 50, 1), (29100, 10, 1),
+    (100, 100, 256), (200, 200, 256),
+    (3584, 4096, 8), (3584, 2048, 8),   # gemma2-9b's q and v taps
+    (5120, 4096, 8),                    # mistral-nemo-12b's q tap
+    (8192, 8192, 256), (8192, 8192, 1), (1, 1, 1),   # JAX's bounds
+])
+def test_cola_fit_takes_the_first_kernels_shapes(d_in, d_out, r):
+    """The kernel takes every shape the first kernel took (its accumulators
+    and one row of x and g in one block's shared memory) and every shape
+    JAX's kernel takes (``supported``: d_in, d_out <= 8192, r <= 256), each
+    planned within a block's shared memory and the grid's second axis, its
+    columns and ranks covered."""
+    assert cf.takes(d_in, d_out, r)
+    c = cf.config(d_in, d_out, r)
+    assert c.smem <= cf.SMEM_LIMIT and c.n_rb * c.n_split <= cf.GRID_Y
+    assert c.n_rb * c.rb >= r
+    assert c.variant == 0 or c.n_split * c.slice >= d_in + d_out
+    if max(d_in, d_out) <= 8192 and r <= 256:
+        shapes = [types.SimpleNamespace(shape=s)
+                  for s in ((64, d_in), (64, d_out), (d_in, r), (r, d_out))]
+        assert jcf.supported(*shapes)
+
+
+def test_cola_fit_refuses_only_what_no_launch_holds():
+    """Empty widths or ranks, and accumulators past 32-bit indexing, raise."""
+    assert not cf.takes(0, 8, 8) and not cf.takes(8, 0, 8)
+    assert not cf.takes(8, 8, 0)
+    assert not cf.takes(2 ** 20, 2 ** 20, 1024)
 
 
 def _chunk_order_fit(x, g, A, B, scale, tile, G):
