@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-fifteen phases, exiting non-zero on any failure:
+seventeen phases, exiting non-zero on any failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
    full-width smollm-135m shapes of the serving and training paths, in bf16
@@ -48,8 +48,12 @@ fifteen phases, exiting non-zero on any failure:
    and in decode (8 slots up to 6143, window 4096, softcap 50, dead rows:
    dense, paged, and the ring tick, which must equal the dense tick bit for
    bit), G 1 at d_head 64 (gpt2-small) and G 4 at d_head 128
-   (mistral-nemo-12b), and multi_lora / multi_lora_q8 at the q and v taps
-   of gemma2-9b, mistral-nemo-12b and mistral-large-123b (d_in 12288);
+   (mistral-nemo-12b), G 8 and G 6 at d_head 128 (qwen3-moe-30b-a3b,
+   dbrx-132b), and multi_lora / multi_lora_q8 at the q and v taps of
+   gemma2-9b, mistral-nemo-12b, mistral-large-123b (d_in 12288),
+   qwen3-moe-30b-a3b (2048) and dbrx-132b (6144); qwen3-moe's training
+   shape in the flash backward (1 x 2048, 32 / 4 heads) and its fit
+   (cola_fit f32, L 48, T 2048: q 2048 -> 4096, v 2048 -> 512);
    gemma2's training shape in the flash backward (dq and dk/dv at 1 x 4608,
    16 / 8 heads, d_head 256, with window 4096 + softcap 50 and with neither;
    the row with neither also against the library's whole backward) and its
@@ -177,7 +181,29 @@ fifteen phases, exiting non-zero on any failure:
    tokens, 16 new tokens, 8 slots: gpt2-small at full size in f32, its card
    tokens equal to the CPU's; mistral-nemo-12b at full width and depth in
    bf16; mistral-large-123b at full width, depth cut to 2 layers, bf16.
-15. The last lines: the card's name and power limit, one JSON line with every
+15. The MoE blocks and QK-norm (``[moe]``), with the launch counts reset
+   just before and read just after each run: (a) qwen3-moe-30b-a3b at full
+   width and depth (48 layers, 128 experts top 8, QK-norm, bf16, seeded
+   random weights, init drawn a layer of experts at a time, its peak memory
+   printed), phase 14's load (4 users' rank-8 qv adapters, 8 slots,
+   max_len 1024, 8 requests of 32-512 tokens, 16 new) with dense KV and an
+   f32 bank, then paged KV, chunks of 128 and an int8 bank (the flash
+   forward, the layout's decode kernel and the bank's multi-LoRA kernel
+   must run, the others not); (b) ColA training on it: a warm-up step and
+   2 measured steps, Mode A merged rank-8 qv, interval 1, AdamW, remat
+   "full", SyntheticLM 1 x 2048, launches exactly 96 flash forwards, 48 dq
+   and 48 dk/dv a step and 2 cola_fit a fit, losses (the aux included)
+   finite, grad_h non-zero, the bank moved; (c) dbrx-132b at full width
+   with the depth cut to 4 layers, served as in phase 14.
+16. The MoE path against the plain path (``[moe-vs-plain]``): qwen3-moe in
+   f32 at full width cut to 2 layers, capacity factor 1.25, the dense and
+   the paged + chunked + int8 engines on the card and on the CPU (prefill
+   and chunk calls route in 512-token groups): equal greedy tokens, and
+   how many routing decisions differ between the devices with the smallest
+   CPU top-k margin among them; one merged session step at 1 x 1024, card
+   against CPU: losses within 1e-5, grad_h and the fit gradients within
+   1e-3 of their largest entry.
+17. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -595,12 +621,15 @@ def model_cases(dtype, dev, gen):
     queries against a 6144 cache) and in decode (8 slots up to position
     6143, window 4096, softcap 50, dead rows: dense, paged through a
     shuffled table, and the ring tick, which must equal the dense tick bit
-    for bit: ``tick`` names the two); G 1 at d_head 64 (gpt2-small) and G 4
-    at d_head 128 (mistral-nemo-12b) in both; and multi_lora (f32 bank, a
-    tick of 8 slots) and multi_lora_q8 (int8 bank, a chunk round of 8 x 128
-    rows) at the q and v taps of gemma2-9b (3584 -> 4096 / 2048),
-    mistral-nemo-12b (5120 -> 4096 / 1024) and mistral-large-123b (12288 ->
-    12288 / 1024)."""
+    for bit: ``tick`` names the two); G 1 at d_head 64 (gpt2-small), G 4
+    (mistral-nemo-12b), G 8 (qwen3-moe-30b-a3b) and G 6 (dbrx-132b) at
+    d_head 128 in both; qwen3-moe's training shape in the flash backward (1
+    x 2048) and its fit (cola_fit f32, L 48, T 2048: q 2048 -> 4096, v 2048
+    -> 512); and multi_lora (f32 bank, a tick of 8 slots) and multi_lora_q8
+    (int8 bank, a chunk round of 8 x 128 rows) at the q and v taps of
+    gemma2-9b (3584 -> 4096 / 2048), mistral-nemo-12b (5120 -> 4096 / 1024),
+    mistral-large-123b (12288 -> 12288 / 1024), qwen3-moe-30b-a3b (2048 ->
+    4096 / 512) and dbrx-132b (6144 -> 6144 / 1024)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cola_fit as cf
@@ -785,19 +814,45 @@ def model_cases(dtype, dev, gen):
                plain=lambda: da.plain_ring(q, rk, rv, pos, **kw))
     del kc, vc
 
-    # gpt2-small (G 1, d_head 64) and mistral-nemo-12b (G 4, d_head 128)
+    # gpt2-small (G 1, d_head 64), mistral-nemo-12b (G 4, d_head 128), and
+    # the MoE configs' attention: qwen3-moe-30b-a3b (G 8, d_head 128; its
+    # serving path's 8 x 512 prefill) and dbrx-132b (G 6, d_head 128)
     for tag, H, K, D in (("gpt2 G 1 d64", 12, 12, 64),
-                         ("nemo G 4 d128", 32, 8, 128)):
+                         ("nemo G 4 d128", 32, 8, 128),
+                         ("qwen3 G 8 d128", 32, 4, 128),
+                         ("dbrx G 6 d128", 48, 8, 128)):
         yield flash(f"{tag}: 8 x 512", 8, 512, H, K, D)
         pos = torch.randint(32, 1024, (8,), generator=gen, device=dev,
                             dtype=torch.int32)
         yield decode(f"{tag}: 8 slots of 1024", 8, 1024, H, K, D, pos)[1]
 
-    # the adapted taps of the three configs, 4 users, rank 8
+    # qwen3-moe-30b-a3b's training shape ([moe] (b): 1 x 2048, 48 dq and 48
+    # dk/dv launches a step) and its fit (f32): 48 layers of each tap, T = 1
+    # x 2048 rows, rank 8, q 2048 -> 4096 and v 2048 -> 512
+    yield from flash_bwd("qwen3 G 8 d128: 1 x 2048", 1, 2048, 32, 4, 128)
+    if dtype == torch.float32:
+        L, T, r, d_in = 48, 2048, 8, 2048
+        for d_out in (4096, 512):
+            x, g = rnd(L, T, d_in), rnd(L, T, d_out)
+            A, Bm = rnd(L, d_in, r) / r ** 0.5, rnd(L, r, d_out) * 0.05
+            yield dict(
+                name=f"cola_fit[qwen3 {d_in} -> {d_out}: L {L}, T {T} {dt}]",
+                fn=lambda x=x, g=g, A=A, Bm=Bm: cf.cola_fit_lowrank(x, g, A, Bm),
+                plain=lambda x=x, g=g, A=A, Bm=Bm: cf.plain(x, g, A, Bm),
+                lib=lambda x=x, g=g, A=A, Bm=Bm: (
+                    torch.matmul((x @ A).transpose(1, 2), g),
+                    torch.matmul(x.transpose(1, 2), g @ Bm.transpose(1, 2))),
+                stream=lambda x=x, g=g: (x.sum(), g.sum()),
+                nbytes=nbytes(x, g, A, Bm, A, Bm),
+                flops=4 * r * (d_in + d_out) * T * L)
+
+    # the adapted taps of the five configs, 4 users, rank 8
     U, r = 4, 8
     for model, d_in, outs in (("gemma2", 3584, (4096, 2048)),
                               ("nemo", 5120, (4096, 1024)),
-                              ("large", 12288, (12288, 1024))):
+                              ("large", 12288, (12288, 1024)),
+                              ("qwen3", 2048, (4096, 512)),
+                              ("dbrx", 6144, (6144, 1024))):
         for d_out in outs:
             A = rnd(U, d_in, r, d=torch.float32) / r ** 0.5
             Bm = rnd(U, r, d_out, d=torch.float32) * 0.05
@@ -2481,7 +2536,7 @@ def _gemma2_train_full(dev) -> dict:
     return launches
 
 
-def _gemma2_session_step(cfg, cc, params, batch, device) -> dict:
+def _session_step(cfg, cc, params, batch, device, tag) -> dict:
     """One step of a merged ``ColaSession`` on ``device`` (the merged server
     step, the push through the channel, the fit and AdamW) from ``params``
     and a bank whose B is drawn != 0 the same way on every device (so dA
@@ -2510,7 +2565,7 @@ def _gemma2_session_step(cfg, cc, params, batch, device) -> dict:
     secs = time.perf_counter() - t0
     check(sess.offloader.stats["fits"] == 1
           and sess.channel_health()[0]["fits_committed"] == 1,
-          f"[gemma2-train] (b) on {device}: the fit did not commit")
+          f"{tag} on {device}: the fit did not commit")
     (data,) = pushed
     grads = gl.fit_grads(sess.offloader.spec, bank0, data)
     return dict(sess=sess, bank0=bank0, loss=loss, secs=secs,
@@ -2521,7 +2576,7 @@ def _gemma2_session_step(cfg, cc, params, batch, device) -> dict:
 def _gemma2_train_vs_plain(dev) -> None:
     """(b): gemma2-9b in f32 at full width, depth cut to 4 layers (2 pairs),
     at (a)'s batch shape: one step of a merged rank-8 qv ``ColaSession``
-    (``_gemma2_session_step``) on the card and on the CPU (plain versions):
+    (``_session_step``) on the card and on the CPU (plain versions):
     the losses within 1e-5; each tap's grad_h and fit gradients within
     phase 5's 1e-3 of the largest entry; the bank after the fit and AdamW
     within 1e-3 of its largest entry wherever the CPU's gradient is larger
@@ -2547,9 +2602,9 @@ def _gemma2_train_vs_plain(dev) -> None:
     params = model.init(cfg, seed=SEED + 2, device="cpu")
     batch = SyntheticLM(cfg, batch=batch_size, seq=seq, seed=SEED + 2,
                         device="cpu").batch_at(0)
-    cpu = _gemma2_session_step(cfg, cc, params, batch, "cpu")
+    cpu = _session_step(cfg, cc, params, batch, "cpu", "[gemma2-train] (b)")
     del cpu["sess"]
-    gpu = _gemma2_session_step(cfg, cc, params, batch, dev)
+    gpu = _session_step(cfg, cc, params, batch, dev, "[gemma2-train] (b)")
     loss_diff = abs(gpu["loss"] - cpu["loss"])
     check(loss_diff <= 1e-5 * abs(cpu["loss"]),
           f"[gemma2-train] loss card {gpu['loss']} vs CPU {cpu['loss']}")
@@ -2698,6 +2753,310 @@ def phase_configs(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases 15 and 16: the MoE blocks and QK-norm (qwen3-moe-30b-a3b, dbrx-132b)
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_STEPS = 2
+# (label, options, kernels that must run, kernels that must not)
+MOE_RUNS = (("dense KV, f32 bank", {},
+             ("flash_attention", "decode_attention", "multi_lora"),
+             ("decode_attention_paged", "decode_attention_ring",
+              "multi_lora_q8")),
+            ("paged KV, chunks of 128, int8 bank", SCALE,
+             ("flash_attention", "decode_attention_paged", "multi_lora_q8"),
+             ("decode_attention", "decode_attention_ring", "multi_lora")))
+
+
+def _moe_serve(cfg, params, dev, tag, runs) -> dict:
+    """phase 14's load on a MoE config: 4 users' rank-8 qv adapters, 8
+    slots, max_len 1024, 8 requests of 32-512 tokens (one prefill of 8 x
+    512: eight 512-token routing groups), 16 new tokens each, once per
+    entry of ``runs`` with the launch counts reset just before and read
+    just after. Returns the launch counts of all runs."""
+    from repro_torch.utils import tree_leaves
+
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    banks = user_banks(cfg, 4, dev, SEED)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(32, 513, 8)]
+    total = {}
+    for label, opts, ran, idle in runs:
+        torch.cuda.reset_peak_memory_stats(dev)
+        (eng, reqs, _), launches = _counted(lambda: serve(
+            cfg, params, banks, prompts, dev, slots=8, max_len=1024,
+            max_new=16, **opts))
+        check(all(r.status == "done" and len(r.out) == 16 for r in reqs),
+              f"{tag} {label}: not every request finished with 16 tokens")
+        check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
+              f"{tag} {label}: a token outside the vocabulary")
+        for n in ran:
+            check(launches[n] > 0, f"{tag} {label}: {n} never launched")
+        for n in idle:
+            check(launches[n] == 0, f"{tag} {label}: {n} ran {launches[n]} "
+                  "times")
+        if eng.pager is not None:
+            eng.pager.assert_empty()
+        tp = eng.throughput()
+        print(f"{tag} {cfg.name} {cfg.param_dtype}, {cfg.n_layers} layers, "
+              f"{n_params} parameters, {label}: {tp['completed']} completed, "
+              f"decode {tp['decode_tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{tp['ttft']['p50'] * 1e3:.1f} ms, decode tick p50 "
+              f"{tp['decode_tick']['p50'] * 1e3:.2f} ms, prefill calls "
+              f"{eng.stats['prefill_calls']}, chunk rounds "
+              f"{eng.stats['chunk_rounds']}, prefill call / chunk round p50 "
+              f"{tp['prefill']['p50'] * 1e3:.2f} ms; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+              f"{card_line()}", flush=True)
+        print(f"{tag} {label}: launches {launches}", flush=True)
+        total = {n: total.get(n, 0) + c for n, c in launches.items()}
+        del eng, reqs
+        _free()
+    return total
+
+
+def _moe_train(cfg, params, dev) -> dict:
+    """(b): a ColA warm-up step and MOE_TRAIN_STEPS measured steps on
+    qwen3-moe at full width and depth (bf16, remat "full"), Mode A merged
+    rank-8 qv, interval 1, AdamW, SyntheticLM 1 x 2048, each step with its
+    fit (``_measured_steps``); every step's taps checked (``_tap_stats``).
+    Returns the launch counts."""
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.core.session import ColaSession
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.profile_train import SETUPS
+
+    batch, seq, interval = SETUPS[cfg.name]
+    check(cfg.remat == "full" and cfg.param_dtype == "bfloat16",
+          f"[moe] training config {cfg.remat}/{cfg.param_dtype}")
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8, merged=True, interval=interval)
+    sess = ColaSession(cfg, cc, params, seed=SEED, device=dev,
+                       optimizer=_adamw())
+    check(sorted(sess.adapters) == ["layers.attn.q", "layers.attn.v"],
+          f"[moe] (b) taps {sorted(sess.adapters)}")
+    data = SyntheticLM(cfg, batch=batch, seq=seq, seed=SEED, device=dev)
+    flags = _tap_stats(sess)
+    m = _measured_steps(sess, [data.batch_at(i) for i in
+                               range(MOE_TRAIN_STEPS + 1)], dev)
+    losses, step_ms, fit_ms = m["losses"], m["step_ms"], m["fit_ms"]
+    launches, n = m["launches"], MOE_TRAIN_STEPS
+    check(all(np.isfinite(losses)), f"[moe] (b) non-finite loss: {losses}")
+    check(len(fit_ms) == n, f"[moe] (b) {len(fit_ms)} fits in {n} steps")
+    bad = [(i, t) for i, f in enumerate(flags) for t, v in f.items()
+           if not bool(v.all())]
+    check(len(flags) == n + 1 and not bad, f"[moe] (b) a tap's x or grad_h "
+          f"not finite, or grad_h all zero (step, tap): {bad}")
+    health = sess.channel_health()[0]
+    check(health["fits_committed"] == n + 1 and all(
+        health[k] == 0 for k in ("rollbacks", "dead_letters", "send_retries")),
+        f"[moe] (b) offload rounds failed: {health}")
+    # a step: 48 forwards and their 48 recomputes, 48 of each backward
+    # kernel; a fit: one cola_fit launch a tap
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L * n, "flash_attention_bwd_dq": L * n,
+            "flash_attention_bwd_dkv": L * n, "cola_fit": 2 * n}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"[moe] (b) launches {launches}, want {want}")
+    tokens = n * batch * seq
+    print(f"[moe] (b) {cfg.name} bf16, {L} layers, remat full, Mode A merged "
+          f"rank-8 qv, interval {interval}, AdamW, batch {batch} x {seq}: "
+          f"losses (CE + {cfg.aux_loss_coef} x the MoE aux) "
+          f"{[round(x, 5) for x in losses]}; every tap's x and grad_h finite, "
+          f"grad_h non-zero; the bank moved at every fit", flush=True)
+    print(f"[moe] (b) step ms {[round(t, 1) for t in step_ms]} (p50 "
+          f"{statistics.median(step_ms):.1f}); server step p50 "
+          f"{statistics.median(m['server_ms']):.1f} ms; fit ms "
+          f"{[round(t, 2) for t in fit_ms]} (p50 {statistics.median(fit_ms):.2f})"
+          f"; {checks_line(m['check_ms'], n)}; "
+          f"{tokens / (sum(step_ms) / 1e3):.1f} training tokens/s; peak memory "
+          f"{m['peak'] / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+          f"{card_line()}", flush=True)
+    print(f"[moe] (b) launches in {n} steps: {launches}", flush=True)
+    del sess
+    _free()
+    return launches
+
+
+def phase_moe(dev) -> dict:
+    """qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts
+    top 8, QK-norm, bf16, seeded random weights; init drawn a layer of
+    experts at a time, its peak memory printed): (a) phase 14's serving load
+    with dense KV and an f32 bank, then paged KV, chunks of 128 and an int8
+    bank; (b) ColA training (``_moe_train``); then (c) dbrx-132b at full
+    width with the depth cut to 4 layers, served as in phase 14 (dense KV,
+    f32 bank). Returns the launch counts of all runs."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+
+    cfg = registry.get_config("qwen3-moe-30b-a3b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"[moe] qwen3-moe-30b-a3b init at full depth in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB of parameters, "
+          f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); {card_line()}", flush=True)
+    total = _moe_serve(cfg, params, dev, "[moe] (a)", MOE_RUNS)
+    train = _moe_train(cfg, params, dev)
+    del params
+    _free()
+
+    cfg = registry.get_config("dbrx-132b").replace(n_layers=4)
+    params = model.init(cfg, seed=SEED, device=dev)
+    dbrx = _moe_serve(cfg, params, dev, "[moe] (c)", MOE_RUNS[:1])
+    del params
+    _free()
+    return {n: total[n] + train.get(n, 0) + dbrx[n] for n in total}
+
+
+def _routing_recorder():
+    """Wrap ``moe._route`` so that every call also keeps, on the host, its
+    expert ids and the router's k + 1 largest probabilities (one sync a
+    call: for the comparison runs only). Returns (the records, a function
+    that restores ``_route``)."""
+    from repro_torch.models import moe
+
+    inner = moe._route
+    records = []
+
+    def route(params, x, top_k):
+        w, idx, aux = inner(params, x, top_k)
+        probs = torch.softmax(x.float() @ params["router"]["w"].float(), -1)
+        top = torch.topk(probs, top_k + 1, dim=-1).values
+        records.append((idx.reshape(-1, top_k).cpu(),
+                        top.reshape(-1, top_k + 1).cpu()))
+        return w, idx, aux
+
+    moe._route = route
+    return records, lambda: setattr(moe, "_route", inner)
+
+
+def _routing_gaps(card, cpu) -> str:
+    """How many tokens' routing decisions (their top-k experts, in order)
+    differ between the card's calls and the CPU's, and the smallest CPU
+    top-k margin (gap between neighbours among the k + 1 largest
+    probabilities) among them and among all."""
+    check(len(card) == len(cpu), f"[moe-vs-plain] {len(card)} routing calls "
+          f"on the card, {len(cpu)} on the CPU")
+    n = differ = 0
+    least_all = least_differ = float("inf")
+    for (ia, _), (ib, pb) in zip(card, cpu):
+        check(ia.shape == ib.shape, "[moe-vs-plain] routing call shapes differ")
+        margin = (pb[:, :-1] - pb[:, 1:]).min(dim=-1).values
+        bad = (ia != ib).any(dim=-1)
+        n += ia.shape[0]
+        differ += int(bad.sum())
+        least_all = min(least_all, float(margin.min()))
+        if bool(bad.any()):
+            least_differ = min(least_differ, float(margin[bad].min()))
+    among = f"among them {least_differ:.3e}; " if differ else ""
+    return (f"{differ} of {n} routing decisions differ (smallest CPU top-k "
+            f"margin {among}among all {least_all:.3e})")
+
+
+def phase_moe_vs_plain(dev) -> None:
+    """qwen3-moe-30b-a3b in f32 at full width, depth cut to 2 layers (~6.2
+    GB a device), at the config's capacity factor 1.25, against the CPU's
+    plain path: (a) the dense engine and the paged + chunks of 128 + int8
+    engine, 4 slots, 6 requests of 400 / 96 / 120 / 64 / 200 / 50 tokens, 8
+    new tokens (the first prefill routes its 4 x 512 tokens in 512-token
+    groups, the second its 2 x 256 in one group across both rows, and
+    every chunk round 4 x 128 in one group): equal greedy tokens, and the
+    routing decisions that differ between the devices with the smallest CPU
+    top-k margin among them (reported, never hidden); (b) one merged
+    rank-8 qv session step (server step, fit, AdamW) at 1 x 1024, card
+    against CPU: losses within 1e-5, each tap's grad_h and fit gradients
+    within 1e-3 of the largest entry (as phase 13 (b))."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model
+
+    cfg = registry.get_config("qwen3-moe-30b-a3b").replace(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params_cpu = model.init(cfg, seed=SEED + 1, device="cpu")
+    params_gpu = _to(params_cpu, dev)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (400, 96, 120, 64, 200, 50)]
+    banks_cpu = user_banks(cfg, 2, "cpu", SEED + 1)
+    banks_gpu = [_to(b, dev) for b in banks_cpu]
+    kw = dict(slots=4, max_len=1024, max_new=8, engine=_recording_engine())
+    for label, opts in (("dense", {}), ("paged, chunks of 128, int8", SCALE)):
+        out = {}
+        for where, params, banks, device in (
+                ("card", params_gpu, banks_gpu, dev),
+                ("cpu", params_cpu, banks_cpu, "cpu")):
+            records, restore = _routing_recorder()
+            t0 = time.perf_counter()
+            try:
+                eng, reqs, _ = serve(cfg, params, banks, prompts, device, **kw,
+                                     **opts)
+            finally:
+                restore()
+            check(all(r.status == "done" and len(r.out) == 8 for r in reqs),
+                  f"[moe-vs-plain] {label} on the {where}: not every request "
+                  "finished")
+            if eng.pager is not None:
+                eng.pager.assert_empty()
+            out[where] = ([r.out for r in reqs], eng.logits, records,
+                          dict(eng.stats), time.perf_counter() - t0)
+            del eng
+        (toks, lg, rec, st, secs), (toks_c, lg_c, rec_c, _, secs_c) = \
+            out["card"], out["cpu"]
+        gap = (max(float((x - y).abs().max()) for x, y in zip(lg, lg_c))
+               if len(lg) == len(lg_c) else None)
+        print(f"[moe-vs-plain] f32, 2 layers at full width, {label}: prefill "
+              f"calls {st['prefill_calls']}, chunk rounds {st['chunk_rounds']}"
+              f"; tokens card == CPU: {toks == toks_c}; largest next-token "
+              f"logit gap {gap if gap is None else f'{gap:.3e}'} (max |logit| "
+              f"{max(float(x.abs().max()) for x in lg_c):.3f}); "
+              f"{_routing_gaps(rec, rec_c)}; {secs:.1f} s on the card, "
+              f"{secs_c:.1f} s on the CPU", flush=True)
+        check(toks == toks_c, f"[moe-vs-plain] {label}: greedy tokens differ, "
+              f"card {toks} vs CPU {toks_c}")
+    del banks_gpu
+    _free()
+
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8, merged=True, interval=1)
+    batch = SyntheticLM(cfg, batch=1, seq=1024, seed=SEED + 2,
+                        device="cpu").batch_at(0)
+    tag = "[moe-vs-plain] (b)"
+    cpu = _session_step(cfg, cc, params_cpu, batch, "cpu", tag)
+    del cpu["sess"]
+    gpu = _session_step(cfg, cc, params_gpu, batch, dev, tag)
+    del gpu["sess"]
+    loss_diff = abs(gpu["loss"] - cpu["loss"])
+    check(loss_diff <= 1e-5 * abs(cpu["loss"]),
+          f"{tag} loss card {gpu['loss']} vs CPU {cpu['loss']}")
+    worst = {"grad_h": 0.0, "fit": 0.0}
+    for t in sorted(cpu["grad_h"]):
+        pairs = [("grad_h", f"{t} grad_h", gpu["grad_h"][t], cpu["grad_h"][t])]
+        pairs += [("fit", f"{t}.{leaf}", gpu["fit"][t][leaf], a)
+                  for leaf, a in cpu["fit"][t].items()]
+        for kind, what, got, want in pairs:
+            err, scale = max_err(got, want)
+            check(scale > 0 and err <= 1e-3 * scale, f"{tag} {what}: card vs "
+                  f"CPU max |diff| {err:.3g} > 1e-3 x {scale:.3g}")
+            worst[kind] = max(worst[kind], err / scale)
+    bank = max(max_err(gpu["bank"][t][leaf], w)[0] / max_err(w, w)[1]
+               for t, e in cpu["bank"].items() for leaf, w in e.items())
+    print(f"{tag} f32, 2 layers at full width, merged session step at 1 x "
+          f"1024: loss card {gpu['loss']:.7f} CPU {cpu['loss']:.7f} (|diff| "
+          f"{loss_diff:.3e}); max |card - CPU| / max |CPU| over both taps: "
+          f"grad_h {worst['grad_h']:.3e}, fit grads {worst['fit']:.3e} (tol "
+          f"1e-3); the bank after AdamW {bank:.3e} (not held to a bound); "
+          f"session step {cpu['secs']:.1f} s on the CPU, {gpu['secs']:.2f} s "
+          f"on the card", flush=True)
+    del params_gpu, gpu
+    _free()
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -2808,6 +3167,13 @@ def main() -> int:
     t0 = time.perf_counter()
     configs = phase_configs(dev)
     print(f"[configs] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    moe = phase_moe(dev)
+    print(f"[moe] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_moe_vs_plain(dev)
+    print(f"[moe-vs-plain] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
@@ -2824,21 +3190,21 @@ def main() -> int:
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
     # launches: the serving, training, serving-at-scale, store, runtime,
-    # telemetry, gemma2, gemma2-train and configs runs' together
-    # (flash_attention runs on all nine paths; the ring ticks count as the
+    # telemetry, gemma2, gemma2-train, configs and moe runs' together
+    # (flash_attention runs on all ten paths; the ring ticks count as the
     # paged decode kernel's, of
     # which they are the ring addressing mode); the top-level numbers are
     # the kernel's first row, "rows" holds every phase-1 row of the kernel
     # (both cola_fit taps, multi_lora at a tick, the d_head 256 rows and the
     # other configs' shapes)
-    for extra in (gemma2, configs):
+    for extra in (gemma2, configs, moe):
         extra["decode_attention_paged"] += extra.pop("decode_attention_ring")
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
                     replaces=replaces[n],
                     launches=(launches[n] + train[n] + scale[n] + store[n]
                               + runtime[n] + tele[n] + gemma2[n]
-                              + gemma2_train[n] + configs[n]),
+                              + gemma2_train[n] + configs[n] + moe[n]),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})

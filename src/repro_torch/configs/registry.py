@@ -1,7 +1,8 @@
 """Architecture registry: full configs and reduced smoke variants. Only the
 architectures the port runs are listed (see ROADMAP.md for the rest): the
-uniform-attention plan (gpt2-small, smollm-135m, the two mistrals) and
-gemma2's local/global pairs plan."""
+uniform-attention plan with dense blocks (gpt2-small, smollm-135m, the two
+mistrals) and with MoE blocks (qwen3-moe-30b-a3b, dbrx-132b), and gemma2's
+local/global pairs plan."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +15,8 @@ ARCH_MODULES = {
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "gpt2-small": "repro_torch.configs.gpt2_small",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
 }
 
 

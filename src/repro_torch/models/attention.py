@@ -1,9 +1,9 @@
-"""GQA attention with RoPE (window and logit softcap reach the kernels).
-Two modes: prefill (full causal, returns K/V for the cache) and decode (c new
-tokens per row against a dense slot cache, a paged block pool or a per-slot
-ring: c == 1 is the decode tick, c > 1 a chunk of a chunked prefill). The
-inner attention goes through ``kernels.ops`` so the CUDA kernels replace the
-plain versions on the card.
+"""GQA attention with RoPE and optional QK-norm (window and logit softcap
+reach the kernels). Two modes: prefill (full causal, returns K/V for the
+cache) and decode (c new tokens per row against a dense slot cache, a paged
+block pool or a per-slot ring: c == 1 is the decode tick, c > 1 a chunk of a
+chunked prefill). The inner attention goes through ``kernels.ops`` so the
+CUDA kernels replace the plain versions on the card.
 """
 from __future__ import annotations
 
@@ -12,10 +12,16 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers as L
 
+# QK-norm's eps: the JAX package's ``_project_qkv`` default, which its
+# callers never override with the config's ``norm_eps``
+QK_NORM_EPS = 1e-6
+
 
 def _project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                  n_heads: int, n_kv: int, d_head: int, rope_theta: float,
-                 tap_prefix: str, tap_ctx: tuple | None):
+                 qk_norm: bool, tap_prefix: str, tap_ctx: tuple | None):
+    """q, k, v per head, RoPE applied; with ``qk_norm`` q and k are
+    RMS-normed over d_head first (at ``QK_NORM_EPS``)."""
     B, S, _ = x.shape
     q = L.dense(params["q"], x, tap=f"{tap_prefix}.q", tap_ctx=tap_ctx)
     k = L.dense(params["k"], x, tap=f"{tap_prefix}.k", tap_ctx=tap_ctx)
@@ -23,6 +29,9 @@ def _project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     q = q.reshape(B, S, n_heads, d_head)
     k = k.reshape(B, S, n_kv, d_head)
     v = v.reshape(B, S, n_kv, d_head)
+    if qk_norm:
+        q = L.rmsnorm(params["q_norm"], q, eps=QK_NORM_EPS)
+        k = L.rmsnorm(params["k_norm"], k, eps=QK_NORM_EPS)
     q = L.apply_rope(q, positions, rope_theta)
     k = L.apply_rope(k, positions, rope_theta)
     return q, k, v
@@ -31,14 +40,15 @@ def _project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
 def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                       n_heads: int, n_kv: int, d_head: int,
                       rope_theta: float = 1e4, window: int | None = None,
-                      softcap: float | None = None, tap_prefix: str = "attn",
-                      tap_ctx: tuple | None = None):
+                      softcap: float | None = None, qk_norm: bool = False,
+                      tap_prefix: str = "attn", tap_ctx: tuple | None = None):
     """Full-sequence causal attention; also returns (k, v) to seed the
     decode cache."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, positions, n_heads=n_heads, n_kv=n_kv,
                            d_head=d_head, rope_theta=rope_theta,
-                           tap_prefix=tap_prefix, tap_ctx=tap_ctx)
+                           qk_norm=qk_norm, tap_prefix=tap_prefix,
+                           tap_ctx=tap_ctx)
     o = kernel_ops.sdpa(q, k, v, q_positions=positions,
                         kv_positions=positions, causal=True, window=window,
                         softcap=softcap)
@@ -99,8 +109,8 @@ def attention_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, positions: torch.Tensor, *,
                      n_heads: int, n_kv: int, d_head: int,
                      rope_theta: float = 1e4, window: int | None = None,
-                     softcap: float | None = None, tap_prefix: str = "attn",
-                     tap_ctx: tuple | None = None,
+                     softcap: float | None = None, qk_norm: bool = False,
+                     tap_prefix: str = "attn", tap_ctx: tuple | None = None,
                      kv_write: tuple[torch.Tensor, torch.Tensor],
                      live: torch.Tensor | None = None,
                      block_table: torch.Tensor | None = None,
@@ -126,7 +136,8 @@ def attention_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
                                               device=x.device)[None]
     q, k, v = _project_qkv(params, x, pos2d, n_heads=n_heads, n_kv=n_kv,
                            d_head=d_head, rope_theta=rope_theta,
-                           tap_prefix=tap_prefix, tap_ctx=tap_ctx)
+                           qk_norm=qk_norm, tap_prefix=tap_prefix,
+                           tap_ctx=tap_ctx)
     src, dst = kv_write
     for cache, new in ((k_cache, k), (v_cache, v)):
         cache.view(-1, n_kv, d_head).index_copy_(

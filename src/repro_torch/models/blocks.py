@@ -1,7 +1,8 @@
-"""Residual blocks: the pre-norm attention + gated-MLP block (llama / mistral
-style), with gemma2's post-norms, (1 + scale) norms and attention logit
-softcap when the config asks for them. MoE and SSM blocks are still to be
-ported (ROADMAP.md).
+"""Residual blocks: the pre-norm attention block (llama / mistral style) with
+a gated-MLP FFN, or a routed-expert FFN where the config has experts
+(qwen3-moe, dbrx; ``models/moe.py``); gemma2's post-norms, (1 + scale)
+norms and attention logit softcap, and QK-norm, when the config asks for
+them. The SSM blocks are still to be ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -10,12 +11,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-
-
-def _require_mlp(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet "
-                                  "(ROADMAP.md A.5.3)")
+from repro_torch.models import moe as M
 
 
 def _norm(cfg: ModelConfig, p, x):
@@ -25,34 +21,44 @@ def _norm(cfg: ModelConfig, p, x):
 def _attn_kwargs(cfg: ModelConfig, window, tap_prefix, tap_ctx) -> dict:
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
                 rope_theta=cfg.rope_theta, window=window,
-                softcap=cfg.attn_softcap or None,
+                softcap=cfg.attn_softcap or None, qk_norm=cfg.qk_norm,
                 tap_prefix=f"{tap_prefix}.attn", tap_ctx=tap_ctx)
 
 
-def _mlp_half(cfg: ModelConfig, params: dict, x: torch.Tensor, h, *,
-              tap_prefix: str, tap_ctx) -> torch.Tensor:
+def _ffn_half(cfg: ModelConfig, params: dict, x: torch.Tensor, h, *,
+              tap_prefix: str, tap_ctx):
     """Residual add of the attention output (post-normed under
-    ``post_norm``), then the gated-MLP half likewise."""
+    ``post_norm``), then the FFN half likewise: the routed experts where
+    the config has them (no taps: JAX puts none on the experts), else the
+    gated MLP. Returns (x, the MoE aux loss, or None without experts)."""
     if cfg.post_norm:
         h = _norm(cfg, params["post_ln1"], h)
     x = x + h
-    h = L.mlp(params["mlp"], _norm(cfg, params["ln2"], x), act=cfg.act,
-              tap_prefix=f"{tap_prefix}.mlp", tap_ctx=tap_ctx)
+    h = _norm(cfg, params["ln2"], x)
+    aux = None
+    if cfg.n_experts:
+        h, aux = M.moe_block(params["moe"], h, top_k=cfg.moe_top_k,
+                             impl=cfg.moe_impl, group=cfg.moe_group,
+                             capacity_factor=cfg.capacity_factor)
+    else:
+        h = L.mlp(params["mlp"], h, act=cfg.act,
+                  tap_prefix=f"{tap_prefix}.mlp", tap_ctx=tap_ctx)
     if cfg.post_norm:
         h = _norm(cfg, params["post_ln2"], h)
-    return x + h
+    return x + h, aux
 
 
 def attn_block(cfg: ModelConfig, params: dict, x: torch.Tensor,
                positions: torch.Tensor, *, window: int | None,
                tap_prefix: str, tap_ctx: tuple | None):
-    """Full-sequence block (prefill). Returns (x, (k, v))."""
-    _require_mlp(cfg)
+    """Full-sequence block (prefill, training). Returns (x, the layer's MoE
+    aux loss or None, (k, v))."""
     h, k, v = A.attention_prefill(params["attn"], _norm(cfg, params["ln1"], x),
                                   positions, **_attn_kwargs(cfg, window,
                                                             tap_prefix, tap_ctx))
-    x = _mlp_half(cfg, params, x, h, tap_prefix=tap_prefix, tap_ctx=tap_ctx)
-    return x, (k, v)
+    x, aux = _ffn_half(cfg, params, x, h, tap_prefix=tap_prefix,
+                       tap_ctx=tap_ctx)
+    return x, aux, (k, v)
 
 
 def attn_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -64,11 +70,12 @@ def attn_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
                       block_table: torch.Tensor | None = None,
                       ring_horizon: int | None = None) -> torch.Tensor:
     """Decode-tick (or prefill-chunk) block; writes the new tokens' K/V into
-    the caches in place (see attention.attention_decode)."""
-    _require_mlp(cfg)
+    the caches in place (see attention.attention_decode). The MoE aux loss
+    is dropped, as JAX's decode drops it."""
     h = A.attention_decode(params["attn"], _norm(cfg, params["ln1"], x),
                            k_cache, v_cache, positions, live=live,
                            block_table=block_table, kv_write=kv_write,
                            ring_horizon=ring_horizon,
                            **_attn_kwargs(cfg, window, tap_prefix, tap_ctx))
-    return _mlp_half(cfg, params, x, h, tap_prefix=tap_prefix, tap_ctx=tap_ctx)
+    return _ffn_half(cfg, params, x, h, tap_prefix=tap_prefix,
+                     tap_ctx=tap_ctx)[0]

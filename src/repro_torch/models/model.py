@@ -3,15 +3,17 @@
 
 Layer plans (``layer_plan``, as in the JAX package):
 - "uniform": one stack of identical blocks ("layers.*" taps), e.g.
-  ``smollm-135m``, ``gpt2-small``, the mistrals;
+  ``smollm-135m``, ``gpt2-small``, the mistrals, and the MoE configs
+  ``qwen3-moe-30b-a3b`` (QK-norm) and ``dbrx-132b``, whose blocks route to
+  experts and add the switch aux loss to the training loss;
 - "pairs": gemma2's alternating local/global layers, two stacks
   ("layers_a.*" local with ``window=local_window``, "layers_b.*" global),
   walked pair by pair; under the paged KV layout the local stack keeps a
   per-slot ring cache instead of pool blocks. Both plans serve and train
   (ColA's taps and deltas on every stack).
-Still to be ported (ROADMAP.md A.5; ``_require_ported`` raises for each):
-the MoE blocks and ``qk_norm``, the SSM and hybrid plans, codebooks,
-``embed_input`` and an untied head.
+Still to be ported (ROADMAP.md A.2-A.4; ``_require_ported`` raises for
+each): the SSM plan (A.2), the hybrid plan (A.3), codebooks, ``embed_input``
+and an untied head (A.4).
 
 Parameters are the JAX package's pytree as nested dicts of tensors, layer
 leaves stacked on a leading (n,) axis per stack.
@@ -32,6 +34,7 @@ from repro_torch.core.taps import ColaSpec, TapSite
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.utils import (canonical_dtype, cdiv, resolve_device,
                                tree_leaves)
 
@@ -54,20 +57,18 @@ def layer_plan(cfg: ModelConfig):
 
 def _require_ported(cfg: ModelConfig) -> tuple:
     """The plan of ``cfg`` (``layer_plan``) when the port runs it: the
-    uniform-attention plan and gemma2's local/global pairs. Every other plan
-    and architecture feature raises, naming the ROADMAP item that ports it,
-    instead of running half-supported."""
+    uniform-attention plan (dense or MoE blocks) and gemma2's local/global
+    pairs. Every other plan and architecture feature raises, naming the
+    ROADMAP item that ports it, instead of running half-supported."""
     plan = layer_plan(cfg)
-    missing = [(f, item) for f, item in (
-        ("n_experts", "A.5.3"), ("qk_norm", "A.5.3"),
-        ("n_codebooks", "A.5.6"), ("embed_input", "A.5.6"))
-        if getattr(cfg, f)]
+    missing = [(f, "A.4") for f in ("n_codebooks", "embed_input")
+               if getattr(cfg, f)]
     if plan[0] == "hybrid":
-        missing.append(("the hybrid plan", "A.5.5"))
+        missing.append(("the hybrid plan", "A.3"))
     elif plan == ("uniform", "ssm"):
-        missing.append(("the ssm plan", "A.5.4"))
+        missing.append(("the ssm plan", "A.2"))
     if not cfg.tie_embeddings:
-        missing.append(("an untied head", "A.5.6"))
+        missing.append(("an untied head", "A.4"))
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: " + ", ".join(f"{f} (ROADMAP.md {item})"
@@ -139,18 +140,21 @@ def delta_shape(cfg: ModelConfig, site: TapSite, batch: int, seq: int
 
 def tap_sites(cfg: ModelConfig) -> dict[str, TapSite]:
     """Every tappable Dense site, "<stack>.<site>", stacked over its stack's
-    depth."""
+    depth: the attention projections, and the gated MLP's where the config
+    has one (``d_ff``; the experts carry no taps)."""
     sites = {}
     for prefix, n in _stacks(cfg).items():
-        for nm, din, dout in [
+        named = [
             ("attn.q", cfg.d_model, cfg.n_heads * cfg.d_head),
             ("attn.k", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
             ("attn.v", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
             ("attn.o", cfg.n_heads * cfg.d_head, cfg.d_model),
-            ("mlp.gate", cfg.d_model, cfg.d_ff),
-            ("mlp.up", cfg.d_model, cfg.d_ff),
-            ("mlp.down", cfg.d_ff, cfg.d_model),
-        ]:
+        ]
+        if cfg.d_ff:
+            named += [("mlp.gate", cfg.d_model, cfg.d_ff),
+                      ("mlp.up", cfg.d_model, cfg.d_ff),
+                      ("mlp.down", cfg.d_ff, cfg.d_model)]
+        for nm, din, dout in named:
             sites[f"{prefix}.{nm}"] = TapSite(f"{prefix}.{nm}", din, dout, n)
     return sites
 
@@ -163,7 +167,8 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     """Random parameters with the JAX package's shapes, scales and dtypes,
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
     numbers differ from ``jax.random``'s; tests carry JAX weights across with
-    ``convert.params_from_numpy`` instead)."""
+    ``convert.params_from_numpy`` instead). Expert leaves are drawn a layer
+    at a time (``normal_by_layer``); every other leaf in one draw."""
     stacks = _stacks(cfg)
     dev = resolve_device(device)
     dt = canonical_dtype(cfg.param_dtype)
@@ -172,6 +177,13 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     def normal(shape, std):
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return (w * std).to(dt)
+
+    def normal_by_layer(shape, std):
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for i in range(shape[0]):
+            out[i] = torch.randn(shape[1:], generator=gen, device=dev,
+                                 dtype=torch.float32).mul_(std)
+        return out
 
     def ones(*shape):
         return {"scale": torch.ones(shape, dtype=dt, device=dev)}
@@ -183,14 +195,19 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
         def dense(d_in, d_out):
             return {"w": normal((n, d_in, d_out), d_in ** -0.5)}
 
-        p = {
-            "ln1": ones(n, d),
-            "attn": {"q": dense(d, hq), "k": dense(d, hkv),
-                     "v": dense(d, hkv), "o": dense(hq, d)},
-            "ln2": ones(n, d),
-            "mlp": {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
-                    "down": dense(cfg.d_ff, d)},
-        }
+        attn = {"q": dense(d, hq), "k": dense(d, hkv), "v": dense(d, hkv),
+                "o": dense(hq, d)}
+        if cfg.qk_norm:
+            attn["q_norm"] = ones(n, cfg.d_head)
+            attn["k_norm"] = ones(n, cfg.d_head)
+        p = {"ln1": ones(n, d), "attn": attn, "ln2": ones(n, d)}
+        if cfg.n_experts:
+            p["moe"] = M.moe_init(n, d, cfg.n_experts, cfg.d_expert,
+                                  normal=normal,
+                                  normal_by_layer=normal_by_layer)
+        else:
+            p["mlp"] = {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
+                        "down": dense(cfg.d_ff, d)}
         if cfg.post_norm:
             p["post_ln1"] = ones(n, d)
             p["post_ln2"] = ones(n, d)
@@ -236,18 +253,20 @@ def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor
 def _block(cfg: ModelConfig, prefix: str, window: int | None, lp: dict,
            x: torch.Tensor, positions: torch.Tensor, spec, ad_l: dict,
            de_l: dict):
-    """One layer of stack ``prefix``; returns (x, (k, v), {tap: hidden input
-    x} collected)."""
+    """One layer of stack ``prefix``; returns (x, the MoE aux loss or None,
+    (k, v), {tap: hidden input x} collected)."""
     aux: dict = {}
-    x, kv = B.attn_block(cfg, lp, x, positions, window=window,
-                         tap_prefix=prefix, tap_ctx=(spec, ad_l, de_l, aux))
-    return x, kv, aux
+    x, moe_aux, kv = B.attn_block(cfg, lp, x, positions, window=window,
+                                  tap_prefix=prefix,
+                                  tap_ctx=(spec, ad_l, de_l, aux))
+    return x, moe_aux, kv, aux
 
 
 def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
                   spec: ColaSpec | None = None, cola_vars: dict | None = None,
                   *, collect_kv: bool = False):
     """Embedding + all layers + final norm. Returns (h, aux):
+    aux["moe_aux"] is the layers' mean MoE aux loss (0 without experts);
     aux["collected"] holds each collected tap's hidden inputs stacked per
     layer of its stack, {tap: (n, B, S, d_in)}; with ``collect_kv``
     aux["stacked"] holds every layer's k, v per stack,
@@ -264,20 +283,25 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
                              device=x.device)[None, :]
     kv_out: dict[str, dict] = {}
     collected: dict[str, list] = {}
+    moe_aux = []
     for prefix, i, window in _walk(cfg):
-        x, (k, v), got = layer(cfg, prefix, window, _layer(params[prefix], i),
+        x, layer_aux, (k, v), got = layer(cfg, prefix, window, _layer(params[prefix], i),
                                x, positions, spec, _layer(ad[prefix], i),
                                _layer(de[prefix], i))
         for tap, xin in got.items():
             collected.setdefault(tap, []).append(xin)
+        if layer_aux is not None:
+            moe_aux.append(layer_aux)
         if collect_kv:
             if prefix not in kv_out:
                 kv_out[prefix] = {n: t.new_empty((stacks[prefix],) + t.shape)
                                   for n, t in (("k", k), ("v", v))}
             kv_out[prefix]["k"][i] = k
             kv_out[prefix]["v"][i] = v
-    aux: dict[str, Any] = {"collected": {t: torch.stack(xs) for t, xs
-                                         in collected.items()}}
+    aux: dict[str, Any] = {
+        "moe_aux": (torch.stack(moe_aux).mean() if moe_aux else
+                    torch.zeros((), dtype=torch.float32, device=x.device)),
+        "collected": {t: torch.stack(xs) for t, xs in collected.items()}}
     if collect_kv:
         aux["stacked"] = kv_out
     return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps,
@@ -324,9 +348,13 @@ def lm_loss(cfg: ModelConfig, params: dict, h: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             spec: ColaSpec | None = None, cola_vars: dict | None = None):
-    """(mean next-token CE, aux) of one batch {"tokens", "labels"}."""
+    """(mean next-token CE, plus ``aux_loss_coef`` times the MoE aux loss
+    where the config has experts; aux) of one batch {"tokens", "labels"}."""
     h, aux = hidden_states(cfg, params, batch, spec, cola_vars)
-    return lm_loss(cfg, params, h, batch["labels"]), aux
+    loss = lm_loss(cfg, params, h, batch["labels"])
+    if cfg.n_experts:
+        loss = loss + cfg.aux_loss_coef * aux["moe_aux"]
+    return loss, aux
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict,

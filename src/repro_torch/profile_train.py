@@ -4,7 +4,8 @@ Runs a ``chip_smoke.py`` training setup: full width, bf16, remat "full",
 ``ColaSession`` Mode A with merged rank-8 ``qv`` adapters, AdamW, and the
 config's batch, sequence and fit interval from ``SETUPS`` (smollm-135m:
 TrainConfig's 32 x 128, a fit every 2 steps, as ``[train]``; gemma2-9b: 1 x
-4608, a fit every step, as ``[gemma2-train]``). Takes two warm-up steps
+4608, a fit every step, as ``[gemma2-train]``; qwen3-moe-30b-a3b: 1 x 2048,
+a fit every step, as ``[moe]`` (b)). Takes two warm-up steps
 (the second fits), then profiles with ``torch.profiler`` two more steps,
 each labelled by whether it ran the offloaded fit. Prints, per step, the
 host wall time, the device busy time (sum of kernel times), the idle share,
@@ -28,7 +29,8 @@ from repro_torch.profile_serve import _summary
 # (batch, seq, fit interval) of each config's training setup, shared with
 # chip_smoke.py's training phases
 SETUPS = {"smollm-135m": (TrainConfig.batch, TrainConfig.seq, 2),
-          "gemma2-9b": (1, 4608, 1)}
+          "gemma2-9b": (1, 4608, 1),
+          "qwen3-moe-30b-a3b": (1, 2048, 1)}
 
 
 def main(argv=None) -> int:

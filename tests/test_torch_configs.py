@@ -1,5 +1,5 @@
-"""The port's registered configs (gpt2-small, smollm-135m, the two mistrals
-and gemma2-9b) against the JAX package's, field for field, full and
+"""The port's registered configs (gpt2-small, smollm-135m, the two mistrals,
+gemma2-9b, qwen3-moe-30b-a3b and dbrx-132b) against the JAX package's, field for field, full and
 reduced; the reduced uniform-plan configs through ``forward`` and a short
 engine run against the JAX package with the same weights (f32, logits
 within rtol 1e-4 / atol 1e-5: sums in another order; equal greedy tokens).
@@ -25,7 +25,7 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.runtime import serve_loop as tserve  # noqa: E402
 
 PORTED = ("gpt2-small", "smollm-135m", "mistral-nemo-12b",
-          "mistral-large-123b", "gemma2-9b")
+          "mistral-large-123b", "gemma2-9b", "qwen3-moe-30b-a3b", "dbrx-132b")
 UNIFORM = ("gpt2-small", "mistral-nemo-12b", "mistral-large-123b")
 
 
@@ -41,6 +41,16 @@ def test_config_equals_jax_field_for_field(name, reduced):
     want = dataclasses.asdict(getattr(registry, get)(name))
     got = dataclasses.asdict(getattr(tregistry, get)(name))
     assert got == want
+
+
+def test_full_moe_configs_match_assignment():
+    """The MoE lines of tests/test_models_smoke.py::
+    test_full_configs_match_assignment, on the port's registry."""
+    c = tregistry.get_config("qwen3-moe-30b-a3b")
+    assert (c.n_experts, c.moe_top_k, c.d_expert, c.vocab_size) == \
+        (128, 8, 768, 151936)
+    c = tregistry.get_config("dbrx-132b")
+    assert (c.n_experts, c.moe_top_k, c.d_expert) == (16, 4, 10752)
 
 
 def test_reduced_gpt2_small_is_mha_with_the_odd_vocabulary_cut():
