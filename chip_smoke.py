@@ -4,7 +4,8 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-seventeen phases, exiting non-zero on any failure:
+eighteen phases, then prints its result lines, exiting non-zero on any
+failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
    full-width smollm-135m shapes of the serving and training paths, in bf16
@@ -51,7 +52,9 @@ seventeen phases, exiting non-zero on any failure:
    (mistral-nemo-12b), G 8 and G 6 at d_head 128 (qwen3-moe-30b-a3b,
    dbrx-132b), and multi_lora / multi_lora_q8 at the q and v taps of
    gemma2-9b, mistral-nemo-12b, mistral-large-123b (d_in 12288),
-   qwen3-moe-30b-a3b (2048) and dbrx-132b (6144); qwen3-moe's training
+   qwen3-moe-30b-a3b (2048), dbrx-132b (6144) and mamba2-370m's ssm taps
+   (1024 -> 4384, 2048 -> 1024) and its fit (cola_fit f32, L 48, T 4 x
+   2048, both taps); qwen3-moe's training
    shape in the flash backward (1 x 2048, 32 / 4 heads) and its fit
    (cola_fit f32, L 48, T 2048: q 2048 -> 4096, v 2048 -> 512);
    gemma2's training shape in the flash backward (dq and dk/dv at 1 x 4608,
@@ -203,7 +206,26 @@ seventeen phases, exiting non-zero on any failure:
    CPU top-k margin among them; one merged session step at 1 x 1024, card
    against CPU: losses within 1e-5, grad_h and the fit gradients within
    1e-3 of their largest entry.
-17. The last lines: the card's name and power limit, one JSON line with every
+17. The SSM plan (``[ssm]``), with the launch counts reset just before and
+   read just after each run: mamba2-370m at full width and depth (48
+   layers, d_model 1024, 32 SSD heads of 64, state 128, bf16, seeded
+   random weights; dt_bias, A_log and D f32), (a) phase 14's load with 4
+   users' rank-8 qv adapters (the taps fall back to the ssm in and out
+   projections, 1024 -> 4384 and 2048 -> 1024) with dense state and an f32
+   bank, then the paged layout, chunks of 128 and an int8 bank (multi_lora,
+   then multi_lora_q8, must run; no attention kernel may); (b) ColA
+   training: a warm-up step and 2 measured steps, Mode A merged rank-8 qv,
+   interval 1, AdamW, remat "full", SyntheticLM 4 x 2048: exactly 2
+   cola_fit launches a fit and no attention kernel, losses finite, grad_h
+   non-zero at both taps, the bank moved.
+18. The SSM plan against the plain path (``[ssm-vs-plain]``): mamba2-370m
+   in f32 at full width cut to 2 layers, the dense and the paged + chunked
+   + int8 engines on the card and on the CPU, prompts whose last chunk is
+   narrower than 128, 4 slots (two reused): equal greedy tokens, the
+   largest next-token logit gap printed; one merged session step at 2 x
+   1024, card against CPU: losses within 1e-5, grad_h and the fit
+   gradients within 1e-3 of their largest entry.
+19. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -629,7 +651,9 @@ def model_cases(dtype, dev, gen):
     (int8 bank, a chunk round of 8 x 128 rows) at the q and v taps of
     gemma2-9b (3584 -> 4096 / 2048), mistral-nemo-12b (5120 -> 4096 / 1024),
     mistral-large-123b (12288 -> 12288 / 1024), qwen3-moe-30b-a3b (2048 ->
-    4096 / 512) and dbrx-132b (6144 -> 6144 / 1024)."""
+    4096 / 512), dbrx-132b (6144 -> 6144 / 1024) and mamba2-370m's ssm taps
+    (1024 -> 4384, 2048 -> 1024); mamba2-370m's fit (cola_fit f32, L 48,
+    T 4 x 2048, both ssm taps)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cola_fit as cf
@@ -846,13 +870,35 @@ def model_cases(dtype, dev, gen):
                 nbytes=nbytes(x, g, A, Bm, A, Bm),
                 flops=4 * r * (d_in + d_out) * T * L)
 
-    # the adapted taps of the five configs, 4 users, rank 8
+    # mamba2-370m's fit ([ssm] (b), f32): 48 layers of each ssm tap, T = 4 x
+    # 2048 rows, rank 8, in 1024 -> 4384 and out 2048 -> 1024
+    if dtype == torch.float32:
+        L, T, r = 48, 4 * 2048, 8
+        for d_in, d_out in ((1024, 4384), (2048, 1024)):
+            x, g = rnd(L, T, d_in), rnd(L, T, d_out)
+            A, Bm = rnd(L, d_in, r) / r ** 0.5, rnd(L, r, d_out) * 0.05
+            yield dict(
+                name=f"cola_fit[mamba2 {d_in} -> {d_out}: L {L}, T {T} {dt}]",
+                fn=lambda x=x, g=g, A=A, Bm=Bm: cf.cola_fit_lowrank(x, g, A, Bm),
+                plain=lambda x=x, g=g, A=A, Bm=Bm: cf.plain(x, g, A, Bm),
+                lib=lambda x=x, g=g, A=A, Bm=Bm: (
+                    torch.matmul((x @ A).transpose(1, 2), g),
+                    torch.matmul(x.transpose(1, 2), g @ Bm.transpose(1, 2))),
+                stream=lambda x=x, g=g: (x.sum(), g.sum()),
+                nbytes=nbytes(x, g, A, Bm, A, Bm),
+                flops=4 * r * (d_in + d_out) * T * L)
+            del x, g
+
+    # the adapted taps of the six configs, 4 users, rank 8 (mamba2's are
+    # its ssm in and out projections, of two input widths)
     U, r = 4, 8
     for model, d_in, outs in (("gemma2", 3584, (4096, 2048)),
                               ("nemo", 5120, (4096, 1024)),
                               ("large", 12288, (12288, 1024)),
                               ("qwen3", 2048, (4096, 512)),
-                              ("dbrx", 6144, (6144, 1024))):
+                              ("dbrx", 6144, (6144, 1024)),
+                              ("mamba2", 1024, (4384,)),
+                              ("mamba2", 2048, (1024,))):
         for d_out in outs:
             A = rnd(U, d_in, r, d=torch.float32) / r ** 0.5
             Bm = rnd(U, r, d_out, d=torch.float32) * 0.05
@@ -2784,7 +2830,7 @@ def _moe_serve(cfg, params, dev, tag, runs) -> dict:
     total = {}
     for label, opts, ran, idle in runs:
         torch.cuda.reset_peak_memory_stats(dev)
-        (eng, reqs, _), launches = _counted(lambda: serve(
+        (eng, reqs, peak_bytes), launches = _counted(lambda: serve(
             cfg, params, banks, prompts, dev, slots=8, max_len=1024,
             max_new=16, **opts))
         check(all(r.status == "done" and len(r.out) == 16 for r in reqs),
@@ -2806,7 +2852,8 @@ def _moe_serve(cfg, params, dev, tag, runs) -> dict:
               f"{tp['decode_tick']['p50'] * 1e3:.2f} ms, prefill calls "
               f"{eng.stats['prefill_calls']}, chunk rounds "
               f"{eng.stats['chunk_rounds']}, prefill call / chunk round p50 "
-              f"{tp['prefill']['p50'] * 1e3:.2f} ms; peak memory "
+              f"{tp['prefill']['p50'] * 1e3:.2f} ms; largest kv_cache_bytes "
+              f"{peak_bytes}; peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
               f"{card_line()}", flush=True)
         print(f"{tag} {label}: launches {launches}", flush=True)
@@ -2816,11 +2863,12 @@ def _moe_serve(cfg, params, dev, tag, runs) -> dict:
     return total
 
 
-def _moe_train(cfg, params, dev) -> dict:
-    """(b): a ColA warm-up step and MOE_TRAIN_STEPS measured steps on
-    qwen3-moe at full width and depth (bf16, remat "full"), Mode A merged
-    rank-8 qv, interval 1, AdamW, SyntheticLM 1 x 2048, each step with its
-    fit (``_measured_steps``); every step's taps checked (``_tap_stats``).
+def _cola_train(cfg, params, dev, tag, taps, want) -> dict:
+    """A ColA warm-up step and MOE_TRAIN_STEPS measured steps at full width
+    and depth (bf16, remat "full"), Mode A merged rank-8 qv (``taps``),
+    interval 1, AdamW, SyntheticLM at the config's ``SETUPS`` shape, each
+    step with its fit (``_measured_steps``); every step's taps checked
+    (``_tap_stats``); the launch counts exactly ``want(n_layers, steps)``.
     Returns the launch counts."""
     from repro_torch.configs.base import ColaConfig
     from repro_torch.core.session import ColaSession
@@ -2829,43 +2877,42 @@ def _moe_train(cfg, params, dev) -> dict:
 
     batch, seq, interval = SETUPS[cfg.name]
     check(cfg.remat == "full" and cfg.param_dtype == "bfloat16",
-          f"[moe] training config {cfg.remat}/{cfg.param_dtype}")
+          f"{tag} training config {cfg.remat}/{cfg.param_dtype}")
     cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
                     rank=8, merged=True, interval=interval)
     sess = ColaSession(cfg, cc, params, seed=SEED, device=dev,
                        optimizer=_adamw())
-    check(sorted(sess.adapters) == ["layers.attn.q", "layers.attn.v"],
-          f"[moe] (b) taps {sorted(sess.adapters)}")
+    check(sorted(sess.adapters) == list(taps), f"{tag} taps "
+          f"{sorted(sess.adapters)}")
     data = SyntheticLM(cfg, batch=batch, seq=seq, seed=SEED, device=dev)
     flags = _tap_stats(sess)
     m = _measured_steps(sess, [data.batch_at(i) for i in
                                range(MOE_TRAIN_STEPS + 1)], dev)
     losses, step_ms, fit_ms = m["losses"], m["step_ms"], m["fit_ms"]
     launches, n = m["launches"], MOE_TRAIN_STEPS
-    check(all(np.isfinite(losses)), f"[moe] (b) non-finite loss: {losses}")
-    check(len(fit_ms) == n, f"[moe] (b) {len(fit_ms)} fits in {n} steps")
+    check(all(np.isfinite(losses)), f"{tag} non-finite loss: {losses}")
+    check(len(fit_ms) == n, f"{tag} {len(fit_ms)} fits in {n} steps")
     bad = [(i, t) for i, f in enumerate(flags) for t, v in f.items()
            if not bool(v.all())]
-    check(len(flags) == n + 1 and not bad, f"[moe] (b) a tap's x or grad_h "
+    check(len(flags) == n + 1 and not bad, f"{tag} a tap's x or grad_h "
           f"not finite, or grad_h all zero (step, tap): {bad}")
     health = sess.channel_health()[0]
     check(health["fits_committed"] == n + 1 and all(
         health[k] == 0 for k in ("rollbacks", "dead_letters", "send_retries")),
-        f"[moe] (b) offload rounds failed: {health}")
-    # a step: 48 forwards and their 48 recomputes, 48 of each backward
-    # kernel; a fit: one cola_fit launch a tap
+        f"{tag} offload rounds failed: {health}")
     L = cfg.n_layers
-    want = {"flash_attention": 2 * L * n, "flash_attention_bwd_dq": L * n,
-            "flash_attention_bwd_dkv": L * n, "cola_fit": 2 * n}
-    check(all(launches[k] == v for k, v in want.items()),
-          f"[moe] (b) launches {launches}, want {want}")
+    expected = want(L, n)
+    check(all(launches[k] == v for k, v in expected.items()),
+          f"{tag} launches {launches}, want {expected}")
     tokens = n * batch * seq
-    print(f"[moe] (b) {cfg.name} bf16, {L} layers, remat full, Mode A merged "
-          f"rank-8 qv, interval {interval}, AdamW, batch {batch} x {seq}: "
-          f"losses (CE + {cfg.aux_loss_coef} x the MoE aux) "
-          f"{[round(x, 5) for x in losses]}; every tap's x and grad_h finite, "
-          f"grad_h non-zero; the bank moved at every fit", flush=True)
-    print(f"[moe] (b) step ms {[round(t, 1) for t in step_ms]} (p50 "
+    aux = (f" (CE + {cfg.aux_loss_coef} x the MoE aux)" if cfg.n_experts
+           else "")
+    print(f"{tag} {cfg.name} bf16, {L} layers, remat full, Mode A merged "
+          f"rank-8 qv ({', '.join(taps)}), interval {interval}, AdamW, batch "
+          f"{batch} x {seq}: losses{aux} {[round(x, 5) for x in losses]}; "
+          f"every tap's x and grad_h finite, grad_h non-zero; the bank moved "
+          f"at every fit", flush=True)
+    print(f"{tag} step ms {[round(t, 1) for t in step_ms]} (p50 "
           f"{statistics.median(step_ms):.1f}); server step p50 "
           f"{statistics.median(m['server_ms']):.1f} ms; fit ms "
           f"{[round(t, 2) for t in fit_ms]} (p50 {statistics.median(fit_ms):.2f})"
@@ -2873,10 +2920,21 @@ def _moe_train(cfg, params, dev) -> dict:
           f"{tokens / (sum(step_ms) / 1e3):.1f} training tokens/s; peak memory "
           f"{m['peak'] / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
           f"{card_line()}", flush=True)
-    print(f"[moe] (b) launches in {n} steps: {launches}", flush=True)
+    print(f"{tag} launches in {n} steps: {launches}", flush=True)
     del sess
     _free()
     return launches
+
+
+def _moe_train(cfg, params, dev) -> dict:
+    """(b): ``_cola_train`` on qwen3-moe: a step is 48 forwards and their
+    48 recomputes and 48 of each backward kernel; a fit one cola_fit launch
+    a tap."""
+    return _cola_train(
+        cfg, params, dev, "[moe] (b)", ("layers.attn.q", "layers.attn.v"),
+        lambda L, n: {"flash_attention": 2 * L * n,
+                      "flash_attention_bwd_dq": L * n,
+                      "flash_attention_bwd_dkv": L * n, "cola_fit": 2 * n})
 
 
 def phase_moe(dev) -> dict:
@@ -2972,8 +3030,6 @@ def phase_moe_vs_plain(dev) -> None:
     against CPU: losses within 1e-5, each tap's grad_h and fit gradients
     within 1e-3 of the largest entry (as phase 13 (b))."""
     from repro_torch.configs import registry
-    from repro_torch.configs.base import ColaConfig
-    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import model
 
     cfg = registry.get_config("qwen3-moe-30b-a3b").replace(
@@ -3022,11 +3078,24 @@ def phase_moe_vs_plain(dev) -> None:
     del banks_gpu
     _free()
 
+    _session_vs_plain(cfg, params_cpu, params_gpu, dev, 1,
+                      "[moe-vs-plain] (b)")
+    del params_gpu
+    _free()
+
+
+def _session_vs_plain(cfg, params_cpu, params_gpu, dev, batch_rows, tag):
+    """One merged rank-8 qv session step (server step, fit, AdamW) at
+    ``batch_rows`` x 1024, card against CPU (``_session_step``): losses
+    within 1e-5, each tap's grad_h and fit gradients within 1e-3 of the
+    largest entry (as phase 13 (b)); the bank after AdamW printed."""
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.data.pipeline import SyntheticLM
+
     cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
                     rank=8, merged=True, interval=1)
-    batch = SyntheticLM(cfg, batch=1, seq=1024, seed=SEED + 2,
+    batch = SyntheticLM(cfg, batch=batch_rows, seq=1024, seed=SEED + 2,
                         device="cpu").batch_at(0)
-    tag = "[moe-vs-plain] (b)"
     cpu = _session_step(cfg, cc, params_cpu, batch, "cpu", tag)
     del cpu["sess"]
     gpu = _session_step(cfg, cc, params_gpu, batch, dev, tag)
@@ -3046,14 +3115,125 @@ def phase_moe_vs_plain(dev) -> None:
             worst[kind] = max(worst[kind], err / scale)
     bank = max(max_err(gpu["bank"][t][leaf], w)[0] / max_err(w, w)[1]
                for t, e in cpu["bank"].items() for leaf, w in e.items())
-    print(f"{tag} f32, 2 layers at full width, merged session step at 1 x "
-          f"1024: loss card {gpu['loss']:.7f} CPU {cpu['loss']:.7f} (|diff| "
+    print(f"{tag} f32, 2 layers at full width, merged session step at "
+          f"{batch_rows} x 1024: loss card {gpu['loss']:.7f} CPU {cpu['loss']:.7f} (|diff| "
           f"{loss_diff:.3e}); max |card - CPU| / max |CPU| over both taps: "
           f"grad_h {worst['grad_h']:.3e}, fit grads {worst['fit']:.3e} (tol "
           f"1e-3); the bank after AdamW {bank:.3e} (not held to a bound); "
           f"session step {cpu['secs']:.1f} s on the CPU, {gpu['secs']:.2f} s "
           f"on the card", flush=True)
-    del params_gpu, gpu
+    del gpu
+    _free()
+
+
+# ---------------------------------------------------------------------------
+# phases 17 and 18: the SSM plan (mamba2-370m)
+# ---------------------------------------------------------------------------
+
+ATTENTION_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv", "decode_attention",
+                     "decode_attention_paged", "decode_attention_ring")
+SSM_TAPS = ("layers.ssm.in", "layers.ssm.out")
+# (label, options, kernels that must run, kernels that must not): no
+# attention kernel on the attention-free path
+SSM_RUNS = (("dense state, f32 bank", {}, ("multi_lora",),
+             ATTENTION_KERNELS + ("multi_lora_q8", "cola_fit")),
+            ("paged layout, chunks of 128, int8 bank", SCALE,
+             ("multi_lora_q8",),
+             ATTENTION_KERNELS + ("multi_lora", "cola_fit")))
+
+
+def phase_ssm(dev) -> dict:
+    """mamba2-370m at full width and depth (48 layers, d_model 1024, 32 SSD
+    heads of 64, state 128, bf16, seeded random weights): (a) phase 14's
+    serving load (4 users' rank-8 qv adapters, which tap the ssm in and out
+    projections, 8 slots, max_len 1024, 8 requests of 32-512 tokens, 16
+    new), dense state and an f32 bank, then the paged layout, chunks of 128
+    and an int8 bank, the bank's multi-LoRA kernel launched and no attention
+    kernel; (b) ColA training (``_cola_train``): 2 cola_fit launches a fit
+    and no attention kernel. Returns the launch counts of all runs."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.utils import tree_leaves
+
+    cfg = registry.get_config("mamba2-370m")
+    t0 = time.perf_counter()
+    params = model.init(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    f32 = [k for k, v in params["layers"]["ssm"].items()
+           if torch.is_tensor(v) and v.dtype == torch.float32]
+    check(sorted(f32) == ["A_log", "D", "dt_bias"], f"[ssm] f32 leaves {f32}")
+    print(f"[ssm] mamba2-370m init at full depth in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{sum(t.numel() for t in tree_leaves(params))} parameters, "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB; {card_line()}",
+          flush=True)
+    serve_launches = _moe_serve(cfg, params, dev, "[ssm] (a)", SSM_RUNS)
+    none = dict.fromkeys(ATTENTION_KERNELS[:5] + ("multi_lora",
+                                                  "multi_lora_q8"), 0)
+    train = _cola_train(cfg, params, dev, "[ssm] (b)", SSM_TAPS,
+                        lambda L, n: {**none, "cola_fit": 2 * n})
+    del params
+    _free()
+    return {n: serve_launches[n] + train.get(n, 0) for n in serve_launches}
+
+
+def phase_ssm_vs_plain(dev) -> None:
+    """mamba2-370m in f32 at full width, depth cut to 2 layers, against the
+    CPU's plain path: (a) the dense engine and the paged + chunks of 128 +
+    int8 engine, 4 slots (two requests reuse a slot), 6 requests of 300 /
+    77 / 190 / 140 / 45 / 260 tokens (tail chunks of 44, 77, 62, 12, 45
+    and 4), 8 new tokens: equal greedy tokens, the largest next-token logit
+    gap printed; (b) one merged rank-8 qv session step at 2 x 1024
+    (``_session_vs_plain``)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+
+    cfg = registry.get_config("mamba2-370m").replace(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params_cpu = model.init(cfg, seed=SEED + 1, device="cpu")
+    params_gpu = _to(params_cpu, dev)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (300, 77, 190, 140, 45, 260)]
+    banks_cpu = user_banks(cfg, 2, "cpu", SEED + 1)
+    banks_gpu = [_to(b, dev) for b in banks_cpu]
+    kw = dict(slots=4, max_len=1024, max_new=8, engine=_recording_engine())
+    for label, opts in (("dense", {}), ("paged, chunks of 128, int8", SCALE)):
+        out = {}
+        for where, params, banks, device in (
+                ("card", params_gpu, banks_gpu, dev),
+                ("cpu", params_cpu, banks_cpu, "cpu")):
+            t0 = time.perf_counter()
+            eng, reqs, _ = serve(cfg, params, banks, prompts, device, **kw,
+                                 **opts)
+            check(all(r.status == "done" and len(r.out) == 8 for r in reqs),
+                  f"[ssm-vs-plain] {label} on the {where}: not every request "
+                  "finished")
+            if eng.pager is not None:
+                eng.pager.assert_empty()
+            out[where] = ([r.out for r in reqs], eng.logits, dict(eng.stats),
+                          time.perf_counter() - t0)
+            del eng
+        (toks, lg, st, secs), (toks_c, lg_c, _, secs_c) = \
+            out["card"], out["cpu"]
+        check(len(lg) == len(lg_c), f"[ssm-vs-plain] {label}: {len(lg)} "
+              f"steps on the card, {len(lg_c)} on the CPU")
+        gap = max(float((x - y).abs().max()) for x, y in zip(lg, lg_c))
+        print(f"[ssm-vs-plain] f32, 2 layers at full width, {label}: prefill "
+              f"calls {st['prefill_calls']}, chunk rounds {st['chunk_rounds']}"
+              f", chunk groups {st['prefill_chunks']}; tokens card == CPU: "
+              f"{toks == toks_c}; largest next-token logit gap {gap:.3e} (max "
+              f"|logit| {max(float(x.abs().max()) for x in lg_c):.3f}); "
+              f"{secs:.1f} s on the card, {secs_c:.1f} s on the CPU",
+              flush=True)
+        check(toks == toks_c, f"[ssm-vs-plain] {label}: greedy tokens differ, "
+              f"card {toks} vs CPU {toks_c}")
+    del banks_gpu
+    _free()
+    _session_vs_plain(cfg, params_cpu, params_gpu, dev, 2,
+                      "[ssm-vs-plain] (b)")
+    del params_gpu
     _free()
 
 
@@ -3174,6 +3354,13 @@ def main() -> int:
     phase_moe_vs_plain(dev)
     print(f"[moe-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    ssm = phase_ssm(dev)
+    print(f"[ssm] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_ssm_vs_plain(dev)
+    print(f"[ssm-vs-plain] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
@@ -3190,21 +3377,24 @@ def main() -> int:
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
     # launches: the serving, training, serving-at-scale, store, runtime,
-    # telemetry, gemma2, gemma2-train, configs and moe runs' together
-    # (flash_attention runs on all ten paths; the ring ticks count as the
+    # telemetry, gemma2, gemma2-train, configs, moe and ssm runs' together
+    # (flash_attention runs on all ten attention paths, none on the ssm
+    # path, which runs the multi-LoRA kernels and cola_fit; the ring ticks
+    # count as the
     # paged decode kernel's, of
     # which they are the ring addressing mode); the top-level numbers are
     # the kernel's first row, "rows" holds every phase-1 row of the kernel
     # (both cola_fit taps, multi_lora at a tick, the d_head 256 rows and the
     # other configs' shapes)
-    for extra in (gemma2, configs, moe):
+    for extra in (gemma2, configs, moe, ssm):
         extra["decode_attention_paged"] += extra.pop("decode_attention_ring")
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
                     replaces=replaces[n],
                     launches=(launches[n] + train[n] + scale[n] + store[n]
                               + runtime[n] + tele[n] + gemma2[n]
-                              + gemma2_train[n] + configs[n] + moe[n]),
+                              + gemma2_train[n] + configs[n] + moe[n]
+                              + ssm[n]),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})

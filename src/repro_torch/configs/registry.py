@@ -1,8 +1,9 @@
 """Architecture registry: full configs and reduced smoke variants. Only the
 architectures the port runs are listed (see ROADMAP.md for the rest): the
 uniform-attention plan with dense blocks (gpt2-small, smollm-135m, the two
-mistrals) and with MoE blocks (qwen3-moe-30b-a3b, dbrx-132b), and gemma2's
-local/global pairs plan."""
+mistrals) and with MoE blocks (qwen3-moe-30b-a3b, dbrx-132b), gemma2's
+local/global pairs plan, and the attention-free SSM plan of Mamba2 blocks
+(mamba2-370m)."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +18,7 @@ ARCH_MODULES = {
     "gpt2-small": "repro_torch.configs.gpt2_small",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
 }
 
 

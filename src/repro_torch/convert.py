@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.utils import canonical_dtype, resolve_device
+from repro_torch.models import model
+from repro_torch.utils import canonical_dtype, resolve_device, tree_map
 
 
 def _leaf(a, float_dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -24,16 +25,29 @@ def _leaf(a, float_dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=float_dtype if is_float else t.dtype)
 
 
-def _tree(tree, float_dtype: torch.dtype, device: torch.device):
+def _tree(tree, dtypes, device: torch.device, fallback=None):
+    """``dtypes``: one dtype for every float leaf, or a tree of dtypes by
+    path; a leaf the tree of dtypes lacks takes ``fallback``."""
     if isinstance(tree, dict):
-        return {k: _tree(v, float_dtype, device) for k, v in tree.items()}
-    return _leaf(tree, float_dtype, device)
+        return {k: _tree(v, (dtypes.get(k, fallback)
+                             if isinstance(dtypes, dict) else dtypes),
+                         device, fallback)
+                for k, v in tree.items()}
+    return _leaf(tree, fallback if isinstance(dtypes, dict) else dtypes,
+                 device)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
-    """The JAX parameter pytree (numpy leaves) -> the port's parameters. Float
-    leaves take ``cfg.param_dtype``, the dtype JAX's ``init`` gives them."""
-    return _tree(tree, canonical_dtype(cfg.param_dtype), resolve_device(device))
+    """The JAX parameter pytree (numpy leaves, or any part of it) -> the
+    port's parameters. Each float leaf takes the dtype the port's
+    ``model.init`` gives it, which is JAX's: ``cfg.param_dtype``, except the
+    Mamba2 blocks' ``dt_bias``, ``A_log`` and ``D``, which are f32 in any
+    ``param_dtype``."""
+    # the dtypes of the port's init tree, built on the meta device (no
+    # memory, no draws)
+    dtypes = tree_map(lambda t: t.dtype, model.init(cfg, device="meta"))
+    return _tree(tree, dtypes, resolve_device(device),
+                 fallback=canonical_dtype(cfg.param_dtype))
 
 
 def adapters_from_numpy(tree: dict, device="cuda", dtype="float32") -> dict:

@@ -23,6 +23,8 @@ _SITE_PATHS = {
     "mlp.gate": ("mlp", "gate"),
     "mlp.up": ("mlp", "up"),
     "mlp.down": ("mlp", "down"),
+    "ssm.in": ("ssm", "in_proj"),
+    "ssm.out": ("ssm", "out_proj"),
 }
 
 

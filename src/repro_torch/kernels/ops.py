@@ -7,6 +7,8 @@ There is no fallback from a CUDA tensor to the plain version. Attention that
 autograd must see through goes through ``FlashAttention``, whose backward is
 the flash backward kernels on the card (the plain backward on the CPU); the
 other kernels have no backward and raise on CUDA inputs that require grad.
+The SSD scan of the Mamba2 block (``ssd``, ``ssd_decode_step``) has no
+kernel on either device, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import multi_lora as ml
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -150,3 +153,26 @@ def multi_lora_q8(x: torch.Tensor, A_q: torch.Tensor, A_scale: torch.Tensor,
     """Multi-LoRA apply from an int8 bank, dequantised on load (see
     ref.multi_lora_q8)."""
     return ml.multi_lora_q8(x, A_q, A_scale, B_q, B_scale, idx, scale=scale)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, D: torch.Tensor,
+        init_state: torch.Tensor | None = None, *, chunk: int = 128
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan of a Mamba2 block (see ref.ssd): up to ``chunk``
+    positions the quadratic form at once, longer sequences the chunked scan
+    (``ssd_scan.ssd_chunked``). Plain PyTorch on every device, with no
+    kernel behind it, because the JAX package has none: its ``ops.ssd`` is
+    jnp on every backend. This is not a fallback from a kernel."""
+    if x.shape[1] <= chunk:
+        return ref.ssd(x, dt, a, B, C, D, init_state)
+    return ssd_scan.ssd_chunked(x, dt, a, B, C, D, init_state, chunk=chunk)
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                    state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One token of the SSD recurrence (see ref.ssd_decode_step). Plain
+    PyTorch on every device, as in the JAX package, which has no kernel for
+    it: not a fallback from a kernel."""
+    return ref.ssd_decode_step(x, dt, a, B, C, D, state)

@@ -283,3 +283,83 @@ def multi_lora_q8(x: torch.Tensor, A_q: torch.Tensor, A_scale: torch.Tensor,
     y = torch.einsum("tr,tro->to", xa, b)
     y = torch.where((idx >= 0)[:, None], y, torch.zeros_like(y))
     return (scale * y).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ssd oracle: mamba2 state-space duality (quadratic within-chunk form)
+# ---------------------------------------------------------------------------
+
+def _segsum(log_decay: torch.Tensor) -> torch.Tensor:
+    """Stable segment sum: seg[i, j] = sum_{k=j+1..i} log_decay_k (j <= i).
+
+    Each column j is accumulated directly from position j + 1: log_decay is
+    masked to the strict lower triangle and summed along i. The naive
+    ``cum_i - cum_j`` differences two global prefix sums whose magnitude
+    grows with S while the segment sum stays small, so f32 cancellation
+    corrupts exactly the nearby decays that matter.
+
+    log_decay: (b, S, H) -> (b, S, S, H) with axis 1 = i, axis 2 = j.
+    """
+    S = log_decay.shape[1]
+    strict = torch.ones(S, S, dtype=torch.bool,
+                        device=log_decay.device).tril(-1)      # i > j
+    terms = torch.where(strict[None, :, :, None], log_decay[:, :, None, :],
+                        0.0)                                    # (b,i,j,H)
+    return terms.cumsum(dim=1)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, D: torch.Tensor,
+        init_state: torch.Tensor | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reference SSD (the O(S^2) masked form of the Mamba2 paper).
+
+    x : (b, S, H, P)   inputs per head
+    dt: (b, S, H)      positive step sizes (already softplus'ed)
+    a : (H,)           negative decay rate per head (A = -exp(A_log))
+    B : (b, S, N)      input projections (one group)
+    C : (b, S, N)      output projections
+    D : (H,)           skip connection
+    init_state: (b, H, P, N) or None (then no init terms at all)
+    Returns (y: (b, S, H, P) in x's dtype, final_state: (b, H, P, N) f32).
+    Every sum is in f32.
+    """
+    S = x.shape[1]
+    f32 = torch.float32
+    xf, dtf, Bf, Cf = x.to(f32), dt.to(f32), B.to(f32), C.to(f32)
+    log_decay = dtf * a.to(f32)[None, None, :]              # (b,S,H) < 0
+    cum = log_decay.cumsum(dim=1)                           # (b,S,H)
+    seg = _segsum(log_decay)                                # (b,Sq,Sk,H)
+    causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
+    Lmat = torch.where(causal[None, :, :, None], seg.exp(), 0.0)
+    cb = torch.einsum("bin,bjn->bij", Cf, Bf)               # (b,S,S)
+    w = cb[:, :, :, None] * Lmat                            # (b,Sq,Sk,H)
+    y = torch.einsum("bijh,bjhp->bihp", w * dtf[:, None], xf)
+    if init_state is not None:
+        sf = init_state.to(f32)                             # (b,H,P,N)
+        y = y + torch.einsum("bin,bhpn,bih->bihp", Cf, sf, cum.exp())
+    # final state: sum_j exp(sum_{k=j+1..S} log_decay_k) dt_j B_j x_j, the
+    # decay to the end being seg's last row (+ the carried state)
+    decay_to_end = seg[:, -1].exp()                          # (b,S,H)
+    state = torch.einsum("bjhp,bjn->bhpn",
+                         xf * (decay_to_end * dtf)[..., None], Bf)
+    if init_state is not None:
+        state = state + init_state.to(f32) * cum[:, -1].exp()[:, :, None, None]
+    y = y + xf * D.to(f32)[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                    state: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD recurrence. x: (b, H, P); dt: (b, H); B, C: (b, N);
+    state: (b, H, P, N) f32. Returns (y (b, H, P) in x's dtype, state)."""
+    f32 = torch.float32
+    xf, dtf, Bf, Cf = x.to(f32), dt.to(f32), B.to(f32), C.to(f32)
+    decay = (dtf * a.to(f32)[None, :]).exp()                 # (b,H)
+    state = (state * decay[:, :, None, None]
+             + torch.einsum("bhp,bn->bhpn", xf * dtf[..., None], Bf))
+    y = (torch.einsum("bhpn,bn->bhp", state, Cf)
+         + xf * D.to(f32)[None, :, None])
+    return y.to(x.dtype), state

@@ -2,7 +2,8 @@
 a gated-MLP FFN, or a routed-expert FFN where the config has experts
 (qwen3-moe, dbrx; ``models/moe.py``); gemma2's post-norms, (1 + scale)
 norms and attention logit softcap, and QK-norm, when the config asks for
-them. The SSM blocks are still to be ported (ROADMAP.md).
+them; and the Mamba2 block of the SSM plan (mamba2-370m): a pre-norm
+``ln`` and the SSD mixer of ``models/ssm.py``, with no FFN.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 
 def _norm(cfg: ModelConfig, p, x):
@@ -79,3 +81,53 @@ def attn_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
                            **_attn_kwargs(cfg, window, tap_prefix, tap_ctx))
     return _ffn_half(cfg, params, x, h, tap_prefix=tap_prefix,
                      tap_ctx=tap_ctx)[0]
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 block (the ssm plan)
+# ---------------------------------------------------------------------------
+
+def ssm_block_init(cfg: ModelConfig, n: int, *, normal, uniform, full) -> dict:
+    """A stack of ``n`` Mamba2 blocks: the pre-norm ``ln`` and the mixer
+    (``ssm.ssm_init``, which says what the draw callables are)."""
+    return {"ln": {"scale": full((n, cfg.d_model), 1.0)},
+            "ssm": S.ssm_init(n, cfg.d_model, normal=normal, uniform=uniform,
+                              full=full, expand=cfg.ssm_expand,
+                              headdim=cfg.ssm_headdim, state=cfg.ssm_state,
+                              d_conv=cfg.ssm_conv)}
+
+
+def _ssm_kwargs(cfg: ModelConfig, tap_prefix: str, tap_ctx) -> dict:
+    return dict(d_model=cfg.d_model, expand=cfg.ssm_expand,
+                headdim=cfg.ssm_headdim, state=cfg.ssm_state,
+                norm_eps=cfg.norm_eps, tap_prefix=f"{tap_prefix}.ssm",
+                tap_ctx=tap_ctx)
+
+
+def ssm_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
+              tap_prefix: str, tap_ctx: tuple | None):
+    """Full-sequence block (prefill, training). Returns (x, the layer's
+    final {"conv", "ssm"} state)."""
+    y, st = S.ssm_block(params["ssm"], _norm(cfg, params["ln"], x),
+                        chunk=cfg.ssd_chunk,
+                        **_ssm_kwargs(cfg, tap_prefix, tap_ctx))
+    return x + y, st
+
+
+def ssm_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                     conv_state: torch.Tensor, ssm_state: torch.Tensor, *,
+                     tap_prefix: str, tap_ctx: tuple | None):
+    """Incremental block. x: (B, 1, d) runs the one-token recurrence;
+    x: (B, c, d) runs one prefill chunk through the full-sequence block with
+    both states carried in and out, exact length, so no padding ever reaches
+    the recurrent state. Returns (x, conv_state, ssm_state); the caches are
+    not touched."""
+    h = _norm(cfg, params["ln"], x)
+    kw = _ssm_kwargs(cfg, tap_prefix, tap_ctx)
+    if x.shape[1] > 1:
+        y, st = S.ssm_block(params["ssm"], h, chunk=cfg.ssd_chunk,
+                            init_state=ssm_state, conv_state=conv_state, **kw)
+        return x + y, st["conv"], st["ssm"]
+    y, conv_state, ssm_state = S.ssm_decode_step(params["ssm"], h, conv_state,
+                                                 ssm_state, **kw)
+    return x + y, conv_state, ssm_state

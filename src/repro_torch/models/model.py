@@ -9,11 +9,15 @@ Layer plans (``layer_plan``, as in the JAX package):
 - "pairs": gemma2's alternating local/global layers, two stacks
   ("layers_a.*" local with ``window=local_window``, "layers_b.*" global),
   walked pair by pair; under the paged KV layout the local stack keeps a
-  per-slot ring cache instead of pool blocks. Both plans serve and train
-  (ColA's taps and deltas on every stack).
-Still to be ported (ROADMAP.md A.2-A.4; ``_require_ported`` raises for
-each): the SSM plan (A.2), the hybrid plan (A.3), codebooks, ``embed_input``
-and an untied head (A.4).
+  per-slot ring cache instead of pool blocks;
+- the SSM plan: "uniform" over Mamba2 blocks (``mamba2-370m``, taps
+  "layers.ssm.in" / "layers.ssm.out"), whose decode cache is each layer's
+  recurrent state ({"conv", "ssm"}, the same in both KV layouts) instead
+  of K/V.
+Every plan serves and trains (ColA's taps and deltas on every stack).
+Still to be ported (ROADMAP.md A.3-A.4; ``_require_ported`` raises for
+each): the hybrid plan (A.3), codebooks, ``embed_input`` and an untied head
+(A.4).
 
 Parameters are the JAX package's pytree as nested dicts of tensors, layer
 leaves stacked on a leading (n,) axis per stack.
@@ -35,6 +39,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.utils import (canonical_dtype, cdiv, resolve_device,
                                tree_leaves)
 
@@ -57,16 +62,15 @@ def layer_plan(cfg: ModelConfig):
 
 def _require_ported(cfg: ModelConfig) -> tuple:
     """The plan of ``cfg`` (``layer_plan``) when the port runs it: the
-    uniform-attention plan (dense or MoE blocks) and gemma2's local/global
-    pairs. Every other plan and architecture feature raises, naming the
-    ROADMAP item that ports it, instead of running half-supported."""
+    uniform plan over attention blocks (dense or MoE) or over Mamba2 blocks,
+    and gemma2's local/global pairs. Every other plan and architecture
+    feature raises, naming the ROADMAP item that ports it, instead of
+    running half-supported."""
     plan = layer_plan(cfg)
     missing = [(f, "A.4") for f in ("n_codebooks", "embed_input")
                if getattr(cfg, f)]
     if plan[0] == "hybrid":
         missing.append(("the hybrid plan", "A.3"))
-    elif plan == ("uniform", "ssm"):
-        missing.append(("the ssm plan", "A.2"))
     if not cfg.tie_embeddings:
         missing.append(("an untied head", "A.4"))
     if missing:
@@ -141,8 +145,17 @@ def delta_shape(cfg: ModelConfig, site: TapSite, batch: int, seq: int
 def tap_sites(cfg: ModelConfig) -> dict[str, TapSite]:
     """Every tappable Dense site, "<stack>.<site>", stacked over its stack's
     depth: the attention projections, and the gated MLP's where the config
-    has one (``d_ff``; the experts carry no taps)."""
+    has one (``d_ff``; the experts carry no taps); on the ssm plan the
+    Mamba2 block's in and out projections."""
     sites = {}
+    if _require_ported(cfg) == ("uniform", "ssm"):
+        dims = S.ssm_dims(cfg.d_model, expand=cfg.ssm_expand,
+                          headdim=cfg.ssm_headdim, state=cfg.ssm_state)
+        for nm, din, dout in (("ssm.in", cfg.d_model, S.d_in_proj(dims)),
+                              ("ssm.out", dims["d_inner"], cfg.d_model)):
+            sites[f"layers.{nm}"] = TapSite(f"layers.{nm}", din, dout,
+                                            cfg.n_layers)
+        return sites
     for prefix, n in _stacks(cfg).items():
         named = [
             ("attn.q", cfg.d_model, cfg.n_heads * cfg.d_head),
@@ -168,11 +181,15 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
     numbers differ from ``jax.random``'s; tests carry JAX weights across with
     ``convert.params_from_numpy`` instead). Expert leaves are drawn a layer
-    at a time (``normal_by_layer``); every other leaf in one draw."""
+    at a time (``normal_by_layer``); every other leaf in one draw. The
+    Mamba2 blocks' ``dt_bias``, ``A_log`` and ``D`` are f32 in any
+    ``param_dtype``, as in JAX."""
     stacks = _stacks(cfg)
     dev = resolve_device(device)
     dt = canonical_dtype(cfg.param_dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # the meta device (shapes and dtypes only) takes no generator
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
 
     def normal(shape, std):
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
@@ -187,6 +204,12 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
 
     def ones(*shape):
         return {"scale": torch.ones(shape, dtype=dt, device=dev)}
+
+    def uniform(shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=dev)
 
     d = cfg.d_model
     hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
@@ -214,8 +237,11 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
         return p
 
     params = {"embed": {"emb": normal((cfg.vocab_size, d), 0.02)}}
+    ssm = layer_plan(cfg) == ("uniform", "ssm")
     for prefix, n in stacks.items():
-        params[prefix] = stack(n)
+        params[prefix] = (B.ssm_block_init(cfg, n, normal=normal,
+                                           uniform=uniform, full=full)
+                          if ssm else stack(n))
     params["final_norm"] = ones(d)
     return params
 
@@ -254,12 +280,16 @@ def _block(cfg: ModelConfig, prefix: str, window: int | None, lp: dict,
            x: torch.Tensor, positions: torch.Tensor, spec, ad_l: dict,
            de_l: dict):
     """One layer of stack ``prefix``; returns (x, the MoE aux loss or None,
-    (k, v), {tap: hidden input x} collected)."""
+    the layer's cache leaves ({"k", "v"}, or a Mamba2 block's final
+    {"conv", "ssm"} state), {tap: hidden input x} collected)."""
     aux: dict = {}
-    x, moe_aux, kv = B.attn_block(cfg, lp, x, positions, window=window,
-                                  tap_prefix=prefix,
-                                  tap_ctx=(spec, ad_l, de_l, aux))
-    return x, moe_aux, kv, aux
+    tap_ctx = (spec, ad_l, de_l, aux)
+    if "ssm" in lp:
+        x, st = B.ssm_block(cfg, lp, x, tap_prefix=prefix, tap_ctx=tap_ctx)
+        return x, None, st, aux
+    x, moe_aux, (k, v) = B.attn_block(cfg, lp, x, positions, window=window,
+                                      tap_prefix=prefix, tap_ctx=tap_ctx)
+    return x, moe_aux, {"k": k, "v": v}, aux
 
 
 def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
@@ -269,9 +299,11 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
     aux["moe_aux"] is the layers' mean MoE aux loss (0 without experts);
     aux["collected"] holds each collected tap's hidden inputs stacked per
     layer of its stack, {tap: (n, B, S, d_in)}; with ``collect_kv``
-    aux["stacked"] holds every layer's k, v per stack,
-    {stack: {"k", "v": (n, B, S, K, Dh)}}, written into one tensor as the
-    layers run (never a list and a stacked copy at once)."""
+    aux["stacked"] holds every layer's cache leaves per stack,
+    {stack: {"k", "v": (n, B, S, K, Dh)}} (on the ssm plan the final
+    {"conv": (n, B, W-1, C), "ssm": (n, B, H, P, N)} state), written into
+    one tensor as the layers run (never a list and a stacked copy at
+    once)."""
     stacks = _stacks(cfg)
     ad = {p: _subvars((cola_vars or {}).get("adapters", {}), p) for p in stacks}
     de = {p: _subvars((cola_vars or {}).get("deltas", {}), p) for p in stacks}
@@ -285,9 +317,9 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
     collected: dict[str, list] = {}
     moe_aux = []
     for prefix, i, window in _walk(cfg):
-        x, layer_aux, (k, v), got = layer(cfg, prefix, window, _layer(params[prefix], i),
-                               x, positions, spec, _layer(ad[prefix], i),
-                               _layer(de[prefix], i))
+        x, layer_aux, leaves, got = layer(
+            cfg, prefix, window, _layer(params[prefix], i), x, positions,
+            spec, _layer(ad[prefix], i), _layer(de[prefix], i))
         for tap, xin in got.items():
             collected.setdefault(tap, []).append(xin)
         if layer_aux is not None:
@@ -295,9 +327,9 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
         if collect_kv:
             if prefix not in kv_out:
                 kv_out[prefix] = {n: t.new_empty((stacks[prefix],) + t.shape)
-                                  for n, t in (("k", k), ("v", v))}
-            kv_out[prefix]["k"][i] = k
-            kv_out[prefix]["v"][i] = v
+                                  for n, t in leaves.items()}
+            for n, t in leaves.items():
+                kv_out[prefix][n][i] = t
     aux: dict[str, Any] = {
         "moe_aux": (torch.stack(moe_aux).mean() if moe_aux else
                     torch.zeros((), dtype=torch.float32, device=x.device)),
@@ -361,7 +393,9 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
             spec: ColaSpec | None = None, cola_vars: dict | None = None,
             *, lengths: torch.Tensor | None = None):
     """Full-sequence prefill; returns (logits (B, 1, V), cache) with the
-    cache holding every layer's K/V of the processed sequence, per stack.
+    cache holding every layer's K/V of the processed sequence, per stack
+    (on the ssm plan every layer's final conv and ssm state, which folds in
+    every input token: such rows must be prefilled at their exact length).
 
     ``lengths``: optional (B,) valid prompt lengths of a right-padded batch;
     logits are then taken at position ``lengths - 1`` of each row. Causal
@@ -381,6 +415,14 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
 # ---------------------------------------------------------------------------
 # caches / decode
 # ---------------------------------------------------------------------------
+
+def has_recurrent_state(cfg: ModelConfig) -> bool:
+    """Whether the decode cache holds recurrent (conv / ssm) state, which,
+    unlike attention KV, cannot be seeded from a right-padded prefill batch
+    (the final state folds in the pad tokens)."""
+    plan = layer_plan(cfg)
+    return plan[0] == "hybrid" or plan == ("uniform", "ssm")
+
 
 def _ring_stack(cfg: ModelConfig, prefix: str, paged: bool) -> bool:
     """Under the paged layout the pairs plan's local stack keeps rings."""
@@ -404,11 +446,22 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int, *,
     per-slot ring (half, batch, ring_len, K, Dh) of the last ring_len
     positions; ``ring_len`` (default ``local_window`` or ``max_len``) must be
     >= local_window + chunk - 1 for the chunk widths the caller uses.
+
+    The ssm plan's cache is every layer's recurrent state, the same in both
+    layouts: {"conv": (n, batch, W-1, C) in the compute dtype, "ssm":
+    (n, batch, H, P, N) f32}.
     """
     stacks = _stacks(cfg)
     if kv_layout not in ("dense", "paged"):
         raise ValueError(f"kv_layout={kv_layout!r}")
     cdt = canonical_dtype(cfg.compute_dtype)
+    if layer_plan(cfg) == ("uniform", "ssm"):
+        sh = S.ssm_state_shapes(cfg.d_model, batch, expand=cfg.ssm_expand,
+                                headdim=cfg.ssm_headdim, state=cfg.ssm_state,
+                                d_conv=cfg.ssm_conv)
+        return {"layers": {"conv": ((cfg.n_layers,) + sh["conv"], cdt),
+                           "ssm": ((cfg.n_layers,) + sh["ssm"],
+                                   torch.float32)}}
     paged = kv_layout == "paged"
     if paged and kv_blocks is None:
         kv_blocks = batch * cdiv(max_len, kv_block)
@@ -455,12 +508,24 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
     ``init_cache(kv_layout="paged")``): pool stacks are read through the
     table, and the pairs plan's local stack through its per-slot rings, with
     the table's horizon (max_blocks * kv_block) as the rings' virtual one.
+
+    On the ssm plan a step runs every layer's Mamba2 block on its carried
+    conv and ssm state (c == 1 the recurrence, c > 1 the full-sequence
+    block over the chunk, exact length) and has no KV write plan;
+    ``positions`` and ``block_table`` are not read. Non-live rows keep
+    their state bit for bit (JAX's ``_mask_cache_rows``).
     """
     stacks = _stacks(cfg)
     ad = {p: _subvars((cola_vars or {}).get("adapters", {}), p) for p in stacks}
     de = {p: _subvars((cola_vars or {}).get("deltas", {}), p) for p in stacks}
     positions = batch["positions"]
     x = embed_tokens(cfg, params, batch)
+    if layer_plan(cfg) == ("uniform", "ssm"):
+        x = _ssm_decode(cfg, params, x, cache["layers"], spec, ad["layers"],
+                        de["layers"], live)
+        x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps,
+                      plus_one=cfg.norm_plus_one)
+        return head_logits(cfg, params, x), cache
     c = x.shape[1]
     # each stack's layout and write plan; one plan per layout and step, never
     # one per layer
@@ -493,6 +558,25 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
     return head_logits(cfg, params, x), cache
 
 
+def _ssm_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                cache: dict, spec, ad: dict, de: dict,
+                live: torch.Tensor | None) -> torch.Tensor:
+    """The ssm plan's layers of a decode step, each layer's state written
+    back into ``cache`` in place; rows where ``live`` is False get their old
+    state back (a select against the old state, no host sync)."""
+    for i in range(cfg.n_layers):
+        conv, st = cache["conv"][i], cache["ssm"][i]
+        x, new_conv, new_st = B.ssm_block_decode(
+            cfg, _layer(params["layers"], i), x, conv, st, tap_prefix="layers",
+            tap_ctx=(spec, _layer(ad, i), _layer(de, i), {}))
+        if live is not None:
+            new_conv = torch.where(live[:, None, None], new_conv, conv)
+            new_st = torch.where(live[:, None, None, None], new_st, st)
+        conv.copy_(new_conv)
+        st.copy_(new_st)
+    return x
+
+
 def scatter_prefill_cache(cache: dict, pre: dict, slot_ids) -> dict:
     """Write a prefill cache (rows 0..J-1, sequence length P) into slot
     positions [0, P) of a serving slot cache, in place; returns ``cache``.
@@ -504,6 +588,10 @@ def scatter_prefill_cache(cache: dict, pre: dict, slot_ids) -> dict:
     prefill cache is ever made. Positions >= a row's true prompt length
     receive pad-token KV, which is safe: decode at position p writes the real
     KV at p before attending, and causal masking hides positions > p.
+    State leaves (the ssm plan's conv and ssm state) have the slot cache's
+    trailing shape and are written whole. Recurrent state folds in every
+    token, padding included, so such rows must come from an exact-length
+    prefill (``has_recurrent_state``).
     """
     ids = [int(i) for i in torch.as_tensor(slot_ids).cpu()]
     for stack, leaves in cache.items():

@@ -17,7 +17,9 @@ Run on a machine with a CUDA card, from the repo root:
 ``PYTHONPATH=src python -m repro_torch.profile_serve [--prefill-chunk 128
 --kv-layout paged --bank-store int8]``; gemma2-9b as ``chip_smoke.py``'s
 ``[gemma2]`` drives it: ``--config gemma2-9b --slots 8 --max-len 6144
---prompts 256 4800``.
+--prompts 256 4800``; mamba2-370m as ``[ssm]`` (a): ``--config mamba2-370m
+--slots 8 --max-len 1024`` (the taps "qv" fall back to its ssm
+projections).
 """
 from __future__ import annotations
 

@@ -20,6 +20,13 @@ Serving at scale:
   through the multi-token decode step. A request's first token comes from
   its last chunk's logits, and decode bursts are capped at 1 while any slot
   is prefilling.
+- Recurrent state (the ssm plan, ``model.has_recurrent_state``) folds in
+  every input token, so padding must never reach it: the unchunked prefill
+  runs each prompt at its exact length (one forward a prompt), and a chunk
+  round groups its rows by exact width ``min(C, remaining)``, one device
+  call a group in ascending width. Admission zeroes a slot's state, which
+  the chunked and the reference prefills start from (JAX's engine starts
+  them from the slot's last request's state).
 - ``kv_layout="paged"`` (requires ``prefill_chunk``): KV lives in a shared
   pool of ``kv_blocks`` blocks of ``kv_block`` positions, addressed through
   the ``BlockPager``'s per-slot block table. Admission reserves a request's
@@ -27,6 +34,8 @@ Serving at scale:
   and retirement releases the slot's blocks. ``max_len`` becomes a virtual
   horizon. The pairs plan's local stack keeps a per-slot ring of
   ``local_window + prefill_chunk - 1`` positions instead of pool blocks.
+  On the ssm plan the paged layout is bookkeeping only: the state is the
+  same in both layouts.
 - ``bank_store="int8"``: the adapter bank is held as int8 codes with per-row
   f32 scales (``quantize_bank``) and dequantised on load in the kernel.
 - ``resident_slots=R``: the tiered adapter store (``runtime/adapter_store``)
@@ -74,7 +83,7 @@ from repro_torch.runtime.adapter_store import AdapterStore
 from repro_torch.runtime.kv_pager import BlockPager, PagerError
 from repro_torch.telemetry import NULL_CONTEXT, annotate
 from repro_torch.telemetry.metrics import NULL_METRIC, percentiles
-from repro_torch.utils import all_finite, resolve_device
+from repro_torch.utils import all_finite, cdiv, resolve_device
 
 
 @dataclasses.dataclass
@@ -263,21 +272,22 @@ class ServeEngine:
         self.positions = np.zeros(slots, np.int32)
         self.users = np.zeros(slots, np.int32)
         ring_len = None
-        if kv_layout == "paged" and model_lib.layer_plan(cfg)[0] == "pairs":
-            # local-window ring: the window plus a full chunk's in-flight
-            # writes (see models/attention.attention_decode)
-            ring_len = (cfg.local_window or max_len) + prefill_chunk - 1
+        self.pager: BlockPager | None = None
+        if kv_layout == "paged":
+            if kv_blocks is None:   # the dense-equivalent pool
+                kv_blocks = slots * cdiv(max_len, kv_block)
+            self.pager = BlockPager(kv_blocks, kv_block, slots, max_len,
+                                    telemetry=self.tm)
+            if model_lib.layer_plan(cfg)[0] == "pairs":
+                # local-window ring: the window plus a full chunk's in-flight
+                # writes (see models/attention.attention_decode)
+                ring_len = (cfg.local_window or max_len) + prefill_chunk - 1
         self.cache = model_lib.init_cache(cfg, slots, max_len,
                                           kv_layout=kv_layout,
                                           kv_blocks=kv_blocks,
                                           kv_block=kv_block, ring_len=ring_len,
                                           device=self.device)
-        self.pager: BlockPager | None = None
-        if kv_layout == "paged":   # as many blocks as the pool stack holds
-            pool = "layers_b" if ring_len is not None else "layers"
-            self.pager = BlockPager(self.cache[pool]["k"].shape[1],
-                                    kv_block, slots, max_len,
-                                    telemetry=self.tm)
+        self._recurrent = model_lib.has_recurrent_state(cfg)
         # the block table on the card, copied again only when it changes
         self._table_host: np.ndarray | None = None
         self._table_dev: torch.Tensor | None = None
@@ -620,6 +630,14 @@ class ServeEngine:
             admitted.append(i)
         if not admitted:
             return
+        if self._recurrent:
+            # a reused slot still holds its last request's recurrent state,
+            # which the chunked and the token-by-token prefills would start
+            # from: a new request starts from zeros
+            for leaves in self.cache.values():
+                for leaf in leaves.values():
+                    for i in admitted:
+                        leaf[:, i].zero_()
         if self.store is not None:
             # fetch on admission: resident before any device call reads it
             rows = self.store.ensure_resident(
@@ -658,6 +676,19 @@ class ServeEngine:
                 self._maybe_finish(i, now)
 
     def _prefill_batch(self, rows: list[tuple[int, np.ndarray]]) -> None:
+        if self._recurrent:
+            # recurrent state folds in every token, so a right-padded batch
+            # would pollute the shorter rows' state: one exact-length
+            # forward a prompt
+            idx = self._dispatch_idx()
+            for i, feed in rows:
+                nxt = self._prefill(self._tensor(feed[None, :]),
+                                    self._tensor(idx[i:i + 1]),
+                                    np.array([i], np.int32),
+                                    self._tensor(np.array([len(feed)],
+                                                          np.int32)))
+                self._first_token(i, int(nxt.cpu()[0]), time.perf_counter())
+            return
         # Pad-token KV beyond a row's true length is safe (decode overwrites
         # position p before attending; causality hides > p), so shapes are
         # bucketed to powers of two. The bucket never exceeds max_len.
@@ -743,50 +774,68 @@ class ServeEngine:
         return min(self.max_len, max(padded, P + req.max_new))
 
     def _chunk_round(self) -> list[int]:
-        """Advance every mid-prefill slot by one chunk, as one width-C padded
-        group (exactly one round per tick, so a long prompt costs each decode
-        tick at most one chunk of extra model work). Returns the slots that
-        were mid-prefill at entry."""
+        """Advance every mid-prefill slot by one chunk (exactly one round per
+        tick, so a long prompt costs each decode tick at most one chunk of
+        extra model work): as one width-C padded group, or, with recurrent
+        state, one group of each exact width ``min(C, remaining)`` in
+        ascending order, so padding never reaches the state. Returns the
+        slots that were mid-prefill at entry."""
         pend = [i for i, r in enumerate(self.active)
                 if r is not None and r._consumed < len(r.prompt)]
         if not pend:
             return pend
         C = self.prefill_chunk
         t0 = time.perf_counter()
-        toks = np.zeros((self.slots, C), np.int32)
-        lens = np.ones((self.slots,), np.int32)
-        live = np.zeros((self.slots,), bool)
-        pos = np.zeros((self.slots,), np.int32)
-        for i in pend:
-            req = self.active[i]
-            c = min(C, len(req.prompt) - req._consumed)
-            toks[i, :c] = req.prompt[req._consumed:req._consumed + c]
-            lens[i] = c
-            live[i] = True
-            pos[i] = req._consumed
-            if self.pager is not None and not self.pager.ensure(
-                    i, min(req._consumed + C - 1, self.max_len - 1)):
-                raise PagerError(f"slot {i}: its admission reservation does "
-                                 "not cover its prompt")
-        nxt = self._chunk(self._tensor(toks), self._tensor(pos),
-                          self._tensor(self._dispatch_idx()),
-                          self._tensor(live), self._tensor(lens)).cpu().numpy()
-        now = time.perf_counter()
-        for i in pend:
-            req = self.active[i]
-            c = min(C, len(req.prompt) - req._consumed)
-            req._consumed += c
-            self.stats["prefill_tokens"] += c
-            if req._consumed >= len(req.prompt):
-                self._first_token(i, int(nxt[i]), now)
-                self._maybe_finish(i, now)
-        self.stats["prefill_chunks"] += len(pend)
+        if self._recurrent:
+            groups: dict[int, list[int]] = {}
+            for i in pend:
+                req = self.active[i]
+                groups.setdefault(min(C, len(req.prompt) - req._consumed),
+                                  []).append(i)
+            todo = sorted(groups.items())
+        else:
+            todo = [(C, pend)]
+        for width, group in todo:
+            self._chunk_group(width, group)
         self.stats["chunk_rounds"] += 1
         dt = time.perf_counter() - t0
         self.stats["prefill_time"] += dt
         self._prefill_s.append(dt)
         self._h_prefill_chunk.observe(dt)
         return pend
+
+    def _chunk_group(self, width: int, group: list[int]) -> None:
+        """One device call of a chunk round: the next ``width`` (or fewer)
+        prompt tokens of every slot in ``group``; a slot whose prompt
+        completes gets its first token."""
+        toks = np.zeros((self.slots, width), np.int32)
+        lens = np.ones((self.slots,), np.int32)
+        live = np.zeros((self.slots,), bool)
+        pos = np.zeros((self.slots,), np.int32)
+        for i in group:
+            req = self.active[i]
+            c = min(width, len(req.prompt) - req._consumed)
+            toks[i, :c] = req.prompt[req._consumed:req._consumed + c]
+            lens[i] = c
+            live[i] = True
+            pos[i] = req._consumed
+            if self.pager is not None and not self.pager.ensure(
+                    i, min(req._consumed + width - 1, self.max_len - 1)):
+                raise PagerError(f"slot {i}: its admission reservation does "
+                                 "not cover its prompt")
+        nxt = self._chunk(self._tensor(toks), self._tensor(pos),
+                          self._tensor(self._dispatch_idx()),
+                          self._tensor(live), self._tensor(lens)).cpu().numpy()
+        now = time.perf_counter()
+        for i in group:
+            req = self.active[i]
+            c = min(width, len(req.prompt) - req._consumed)
+            req._consumed += c
+            self.stats["prefill_tokens"] += c
+            if req._consumed >= len(req.prompt):
+                self._first_token(i, int(nxt[i]), now)
+                self._maybe_finish(i, now)
+        self.stats["prefill_chunks"] += len(group)
 
     def _burst_len(self, live_idx: list[int]) -> int:
         """Largest safe burst: no live slot may complete inside a burst.
@@ -913,14 +962,15 @@ class ServeEngine:
         """Decode-cache bytes attributable to current load. Dense: every leaf
         in full (the slot cache is the footprint, occupied or not). Paged:
         the pool leaves are charged per block in use, plus the block table,
-        and the other leaves (the pairs plan's rings) in full, as JAX does;
-        the pools themselves are allocated in full at construction."""
+        and the other leaves (the pairs plan's rings, recurrent state) in
+        full, as JAX does; the pools themselves are allocated in full at
+        construction."""
         total = pool = 0
         for leaves in self.cache.values():
-            for leaf in leaves.values():
+            for name, leaf in leaves.items():
                 nbytes = leaf.numel() * leaf.element_size()
                 total += nbytes
-                if (self.pager is not None and leaf.dim() == 5
+                if (self.pager is not None and name in ("k", "v")
                         and leaf.shape[1] == self.pager.n_blocks
                         and leaf.shape[2] == self.pager.block_size):
                     pool += nbytes

@@ -1,8 +1,11 @@
 """The port's registered configs (gpt2-small, smollm-135m, the two mistrals,
-gemma2-9b, qwen3-moe-30b-a3b and dbrx-132b) against the JAX package's, field for field, full and
-reduced; the reduced uniform-plan configs through ``forward`` and a short
-engine run against the JAX package with the same weights (f32, logits
-within rtol 1e-4 / atol 1e-5: sums in another order; equal greedy tokens).
+gemma2-9b, qwen3-moe-30b-a3b, dbrx-132b and mamba2-370m) against the JAX
+package's, field for field, full and reduced; the reduced uniform-plan
+configs through ``forward`` and a short engine run against the JAX package
+with the same weights (f32, logits within rtol 1e-4 / atol 1e-5: sums in
+another order; equal greedy tokens); mamba2-370m's lines of
+tests/test_models_smoke.py (its prefill -> decode against the forward, at
+that test's rtol 1e-4 / atol 1e-4 and 2e-4, and its assigned sizes).
 """
 import dataclasses
 
@@ -25,7 +28,8 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.runtime import serve_loop as tserve  # noqa: E402
 
 PORTED = ("gpt2-small", "smollm-135m", "mistral-nemo-12b",
-          "mistral-large-123b", "gemma2-9b", "qwen3-moe-30b-a3b", "dbrx-132b")
+          "mistral-large-123b", "gemma2-9b", "qwen3-moe-30b-a3b", "dbrx-132b",
+          "mamba2-370m")
 UNIFORM = ("gpt2-small", "mistral-nemo-12b", "mistral-large-123b")
 
 
@@ -51,6 +55,47 @@ def test_full_moe_configs_match_assignment():
         (128, 8, 768, 151936)
     c = tregistry.get_config("dbrx-132b")
     assert (c.n_experts, c.moe_top_k, c.d_expert) == (16, 4, 10752)
+
+
+def test_full_mamba2_config_matches_assignment():
+    """The mamba2 line of tests/test_models_smoke.py::
+    test_full_configs_match_assignment, on the port's registry."""
+    c = tregistry.get_config("mamba2-370m")
+    assert (c.n_layers, c.d_model, c.ssm_state, c.vocab_size) == \
+        (48, 1024, 128, 50280)
+
+
+def test_mamba2_prefill_decode_matches_forward():
+    """tests/test_models_smoke.py::test_prefill_decode_matches_forward
+    [mamba2-370m] in the port (reduced config, B 2, S 16): prefill's
+    logits equal the forward's at S - 1, and a tick from the prefill's
+    states grafted into a longer cache equals the forward's at S; both
+    also against JAX's forward."""
+    cfg = registry.reduced_config("mamba2-370m")
+    tcfg = tregistry.reduced_config("mamba2-370m")
+    key = jax.random.PRNGKey(1)
+    params = M.init(cfg, key)
+    tparams = convert.params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
+                                        device="cpu")
+    B, S = 2, 16
+    toks = np.array(jax.random.randint(key, (B, S + 1), 0, cfg.vocab_size),
+                    np.int32)
+    full, _ = TM.forward(tcfg, tparams, {"tokens": torch.as_tensor(toks)})
+    pre, cache = TM.prefill(tcfg, tparams,
+                            {"tokens": torch.as_tensor(toks[:, :S])})
+    np.testing.assert_allclose(pre[:, 0].numpy(), full[:, S - 1].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    cache2 = TM.init_cache(tcfg, B, S + 8, device="cpu")
+    TM.scatter_prefill_cache(cache2, cache, np.arange(B))
+    step = {"tokens": torch.as_tensor(toks[:, S:S + 1]),
+            "positions": torch.full((B,), S, dtype=torch.int32)}
+    dec, cache3 = TM.decode_step(tcfg, tparams, step, cache2)
+    np.testing.assert_allclose(dec[:, 0].numpy(), full[:, S].numpy(),
+                               rtol=1e-4, atol=2e-4)
+    assert {k: set(v) for k, v in cache3.items()} == {"layers": {"conv", "ssm"}}
+    want, _ = M.forward(cfg, params, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(full.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
 
 
 def test_reduced_gpt2_small_is_mha_with_the_odd_vocabulary_cut():

@@ -293,12 +293,15 @@ def test_tap_sites_match_jax_without_mlp_sites(model_pair):
 
 
 def test_require_ported_takes_moe_and_names_the_rest():
-    """The MoE configs run; the rest still raise, naming the current
-    ROADMAP item."""
+    """The MoE configs run, and so does the ssm plan (mamba2-370m); the
+    rest still raise, naming the current ROADMAP item."""
     for name in MOE:
         assert TM._require_ported(tregistry.get_config(name)) == \
             ("uniform", "attn")
-    for name, item in (("mamba2-370m", "A.2"), ("zamba2-7b", "A.3"),
+    cfg = tbase.ModelConfig(**dataclasses.asdict(
+        registry.get_config("mamba2-370m")))
+    assert TM._require_ported(cfg) == ("uniform", "ssm")
+    for name, item in (("zamba2-7b", "A.3"),
                        ("musicgen-medium", "A.4"), ("pixtral-12b", "A.4")):
         cfg = tbase.ModelConfig(**dataclasses.asdict(registry.get_config(name)))
         with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\)"):

@@ -400,14 +400,32 @@ def test_profiler_annotations_name_the_decode_and_the_fit(tiny):
 # the serve engine: JAX's suite, ported
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("plan", ["paged-chunked", "dense-batched"])
-def test_tokens_bit_identical_telemetry_on_off(tiny, plan, tmp_path):
-    """The attention plan only: the mamba2 case of test_telemetry.py waits
-    for the port of ``models/ssm.py`` (ROADMAP A.5.4)."""
-    kw = PLANS.get(plan, {})
-    _, ref_outs = _serve(tiny, tserve, None, **kw)
+@pytest.fixture(scope="module")
+def mamba_tiny():
+    """test_telemetry.py's mamba2 case: reduced mamba2-370m at _tiny's
+    widths (ssm_headdim 16, ssm_state 16), no adapters (bankless)."""
+    over = dict(n_layers=2, d_model=64, vocab_size=128, ssm_headdim=16,
+                ssm_state=16)
+    cfg = registry.reduced_config("mamba2-370m").replace(**over)
+    tcfg = tregistry.reduced_config("mamba2-370m").replace(**over)
+    params = M.init(cfg, jax.random.PRNGKey(0))
+    return dict(tcfg=tcfg, tbanks=None, tparams=convert.params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, params), device="cpu"))
+
+
+@pytest.mark.parametrize("plan", ["paged-chunked", "dense-batched",
+                                  "mamba2-chunked"])
+def test_tokens_bit_identical_telemetry_on_off(tiny, plan, tmp_path, request):
+    """test_telemetry.py's cases: the attention plan (paged + chunked, and
+    dense and batched), and the ssm plan chunked (mamba2-370m, bankless,
+    chunks of 4, two slots: slots are reused)."""
+    t = request.getfixturevalue("mamba_tiny") if plan == "mamba2-chunked" \
+        else tiny
+    kw = dict(prefill_chunk=4) if plan == "mamba2-chunked" else \
+        PLANS.get(plan, {})
+    _, ref_outs = _serve(t, tserve, None, **kw)
     tm = ttel.Telemetry(trace=True, out_dir=str(tmp_path))
-    eng, outs = _serve(tiny, tserve, tm, **kw)
+    eng, outs = _serve(t, tserve, tm, **kw)
     assert outs == ref_outs, "telemetry must never perturb generated tokens"
     snap = eng.telemetry_snapshot()
     assert snap["serve.completed"] == len(ref_outs)
