@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-eighteen phases, then prints its result lines, exiting non-zero on any
+twenty phases, then prints its result lines, exiting non-zero on any
 failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
@@ -61,12 +61,19 @@ failure:
    16 / 8 heads, d_head 256, with window 4096 + softcap 50 and with neither;
    the row with neither also against the library's whole backward) and its
    fit (cola_fit f32 at q 3584 -> 4096, the shared-memory kernel with its
-   columns split in two, and v 3584 -> 2048; L 21, T 4608, rank 8); each
-   launched twice to the same bits. A softcap row has no library time (no
-   library call takes a softcap); the row without one has it. The build
-   lines report the registers and spills of every d_head 256 instantiation
-   (the flash backward's too, which must not spill, nor may
-   ``fit_smem_kernel<8>``).
+   columns split in two, and v 3584 -> 2048; L 21, T 4608, rank 8);
+   zamba2-7b's d_head 112 (32 heads, MHA) in the flash forward and both
+   backward kernels at its training shape (2 x 2048), the forward at a
+   chunk round of 8 x 128 against a 1024 cache, dense and paged decode at
+   8 slots of 1024 with dead rows and a shuffled table, multi_lora (tick 8)
+   and multi_lora_q8 (T 1024) at 3584 -> 3584 and its fit (cola_fit f32, L
+   14 calls, T 2 x 2048, 3584 -> 3584); each launched twice to the same
+   bits. A softcap row has no library time (no library call takes a
+   softcap); the row without one has it. The build lines report the
+   registers and spills of every d_head 256 and 112 instantiation (the
+   flash backward's at 256, the forward's and bf16 decode's at 112 and
+   ``fit_smem_kernel<8>`` must not spill; the backward's at 112 are
+   printed).
 2. Serving at full width: ``ServeEngine`` on smollm-135m (30 layers, bf16)
    with 4 users' rank-8 ``qv`` adapters, 16 slots, max_len 1024 and 32
    requests (prompts 32-512 tokens, 32 new tokens each), run to completion
@@ -225,7 +232,30 @@ failure:
    largest next-token logit gap printed; one merged session step at 2 x
    1024, card against CPU: losses within 1e-5, grad_h and the fit
    gradients within 1e-3 of their largest entry.
-19. The last lines: the card's name and power limit, one JSON line with every
+19. The hybrid plan (``[hybrid]``), with the launch counts reset just
+   before and read just after each run: zamba2-7b at full width and depth
+   (81 Mamba2 layers, d_model 3584, 112 SSD heads of 64, state 64, and one
+   shared attention block of 32 heads of 112 at the head of each of the 14
+   segments; bf16, seeded random weights, its parameters and GiB printed),
+   (a) phase 14's load with 4 users' rank-8 qv adapters at the shared q and
+   v taps (one adapter at every call), dense KV and state and an f32 bank,
+   then paged KV, chunks of 128 and an int8 bank: every prefill and chunk
+   call launches the flash forward 14 times, every tick the layout's decode
+   kernel 14 times, and each call the bank's multi-LoRA kernel 28 times;
+   every request finishes and the pool is whole; (b) ColA training: a
+   warm-up step and 2 measured steps, Mode A merged rank-8 qv, interval 1,
+   AdamW, remat "full", SyntheticLM 2 x 2048: exactly 28 flash forwards, 14
+   dq and 14 dk/dv a step and 2 cola_fit a fit, losses finite, grad_h
+   non-zero at every call of both taps, the bank moved, the peak printed.
+20. The hybrid plan against the plain path (``[hybrid-vs-plain]``):
+   zamba2-7b in f32 at full width cut to 7 layers (the shared block every
+   6 kept: segments of 6 and 1), the dense and the paged + chunked + int8
+   engines on the card and on the CPU, prompts whose last chunk is
+   narrower than 128, 4 slots (two reused): equal greedy tokens, the
+   largest next-token logit gap printed; one merged session step at 1 x
+   1024, card against CPU: losses within 1e-5, grad_h and the fit gradients
+   of both shared taps within 1e-3 of their largest entry.
+21. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -233,6 +263,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import re
 import statistics
@@ -870,6 +901,73 @@ def model_cases(dtype, dev, gen):
                 nbytes=nbytes(x, g, A, Bm, A, Bm),
                 flops=4 * r * (d_in + d_out) * T * L)
 
+    # zamba2-7b's shared attention block ([hybrid]): d_head 112, 32 heads,
+    # MHA. The training shape (2 x 2048: 28 forwards, 14 dq and 14 dk/dv a
+    # step) in the forward and both backward kernels
+    H, K, D = 32, 32, 112
+    yield flash("zamba2 G 1 d112: 2 x 2048", 2, 2048, H, K, D)
+    yield from flash_bwd("zamba2 G 1 d112: 2 x 2048", 2, 2048, H, K, D)
+    # a chunk round of 8 rows x 128 queries at chunk starts inside
+    # 1024-position prompts against the dense cache, a quarter dead
+    B, Smax, C = 8, 1024, 128
+    qc = rnd(B, C, H, D)
+    kc, vc = rnd(B, Smax, K, D), rnd(B, Smax, K, D)
+    posc = C * torch.randint(0, Smax // C, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    livec = torch.arange(B, device=dev) % 4 != 3
+    qpos = posc[:, None] + torch.arange(C, device=dev)[None]
+    pairs = sum(_causal_pairs(qpos[b], Smax) for b in range(B) if livec[b])
+    n_read = int((livec * (posc + C)).sum())
+    maskc = torch.arange(Smax, device=dev)[None, None] <= qpos[:, :, None]
+    qct, kct, vct = (t.transpose(1, 2).contiguous() for t in (qc, kc, vc))
+    yield dict(
+        name=f"flash_attention[zamba2 d112: chunk 8 x 128 against 1024 {dt}]",
+        fn=lambda: ops.sdpa_decode(qc, kc, vc, posc, live=livec),
+        plain=lambda: ref.sdpa_decode(qc, kc, vc, posc, live=livec),
+        lib=lambda: F.scaled_dot_product_attention(
+            qct, kct, vct, attn_mask=maskc[:, None]),
+        nbytes=2 * nbytes(qc) + 2 * n_read * K * D * qc.element_size() + B * 5,
+        flops=4 * D * H * pairs)
+    # decode: 8 slots of 1024, a quarter dead, dense and through a shuffled
+    # pool of 16-position blocks (14 launches a tick)
+    pos = torch.randint(32, Smax, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0] = Smax - 1
+    live = torch.arange(B, device=dev) % 4 != 3
+    tag = "zamba2 G 1 d112: 8 slots of 1024, dead rows"
+    (q, kc, vc, kw), case = decode(tag, B, Smax, H, K, D, pos, live=live)
+    yield case
+    bs = 16
+    nb = Smax // bs
+    perm = torch.randperm(B * nb, generator=torch.Generator().manual_seed(SEED))
+    table = perm.reshape(B, nb).to(device=dev, dtype=torch.int32)
+    kp = torch.empty((B * nb, bs, K, D), dtype=dtype, device=dev)
+    vp = torch.empty_like(kp)
+    kp[table.long()] = kc.reshape(B, nb, bs, K, D)
+    vp[table.long()] = vc.reshape(B, nb, bs, K, D)
+    yield dict(case, name=f"decode_attention_paged[{tag} {dt}]",
+               fn=lambda: da.decode_attention_paged(q, kp, vp, pos, table, **kw),
+               plain=lambda: da.plain_paged(q, kp, vp, pos, table, **kw),
+               nbytes=case["nbytes"] + nbytes(table))
+    del qc, kc, vc, kp, vp
+    # its fit (f32): one adapter at each of the 14 calls, the calls
+    # expanded to L 14 for the kernel; T = 2 x 2048 rows, rank 8, q and v
+    # both 3584 -> 3584
+    if dtype == torch.float32:
+        L, T, r, d_in, d_out = 14, 4096, 8, 3584, 3584
+        x, g = rnd(L, T, d_in), rnd(L, T, d_out)
+        A, Bm = rnd(L, d_in, r) / r ** 0.5, rnd(L, r, d_out) * 0.05
+        yield dict(
+            name=f"cola_fit[zamba2 {d_in} -> {d_out}: L {L}, T {T} {dt}]",
+            fn=lambda: cf.cola_fit_lowrank(x, g, A, Bm),
+            plain=lambda: cf.plain(x, g, A, Bm),
+            lib=lambda: (
+                torch.matmul((x @ A).transpose(1, 2), g),
+                torch.matmul(x.transpose(1, 2), g @ Bm.transpose(1, 2))),
+            stream=lambda: (x.sum(), g.sum()),
+            nbytes=nbytes(x, g, A, Bm, A, Bm),
+            flops=4 * r * (d_in + d_out) * T * L)
+
     # mamba2-370m's fit ([ssm] (b), f32): 48 layers of each ssm tap, T = 4 x
     # 2048 rows, rank 8, in 1024 -> 4384 and out 2048 -> 1024
     if dtype == torch.float32:
@@ -889,8 +987,9 @@ def model_cases(dtype, dev, gen):
                 flops=4 * r * (d_in + d_out) * T * L)
             del x, g
 
-    # the adapted taps of the six configs, 4 users, rank 8 (mamba2's are
-    # its ssm in and out projections, of two input widths)
+    # the adapted taps of the seven configs, 4 users, rank 8 (mamba2's are
+    # its ssm in and out projections, of two input widths; zamba2's q and
+    # v, both 3584 -> 3584, one row for the two)
     U, r = 4, 8
     for model, d_in, outs in (("gemma2", 3584, (4096, 2048)),
                               ("nemo", 5120, (4096, 1024)),
@@ -898,7 +997,8 @@ def model_cases(dtype, dev, gen):
                               ("qwen3", 2048, (4096, 512)),
                               ("dbrx", 6144, (6144, 1024)),
                               ("mamba2", 1024, (4384,)),
-                              ("mamba2", 2048, (1024,))):
+                              ("mamba2", 2048, (1024,)),
+                              ("zamba2", 3584, (3584,))):
         for d_out in outs:
             A = rnd(U, d_in, r, d=torch.float32) / r ** 0.5
             Bm = rnd(U, r, d_out, d=torch.float32) * 0.05
@@ -1085,9 +1185,10 @@ def user_banks(cfg, n_users: int, device, seed: int) -> list[dict]:
         bank = {}
         for tap in gl.select_taps(cfg, "qv"):
             s = sites[tap]
+            lead = (s.stacked,) if s.stacked else ()   # zamba2's shared taps
             bank[tap] = {
-                "A": torch.randn((s.stacked, s.d_in, 8), generator=gen) / 8 ** 0.5,
-                "B": torch.randn((s.stacked, 8, s.d_out), generator=gen) * 0.05}
+                "A": torch.randn(lead + (s.d_in, 8), generator=gen) / 8 ** 0.5,
+                "B": torch.randn(lead + (8, s.d_out), generator=gen) * 0.05}
         out.append({t: {n: a.to(device) for n, a in e.items()}
                     for t, e in bank.items()})
     return out
@@ -2051,7 +2152,6 @@ def _span_table(tag: str, tm, names) -> dict:
 def count_syncs(fn) -> "collections.Counter":
     """Synchronising calls ``fn`` makes, as ``torch.cuda``'s sync debug mode
     reports them (one warning each), by the Python line that made them."""
-    import collections
     import gc
     import warnings
 
@@ -2498,16 +2598,20 @@ def phase_gemma2_vs_plain(dev) -> None:
 GEMMA2_TRAIN_STEPS = 4
 
 
-def _tap_stats(sess) -> list:
+def _tap_stats(sess, per_call: bool = False) -> list:
     """Wrap the session's channel push so that every pushed payload leaves,
-    per tap, device flags (x finite, grad_h finite, grad_h non-zero), read
-    after the steps: no sync inside a step."""
+    per tap, device flags (x finite, grad_h finite, grad_h non-zero; with
+    ``per_call``, non-zero at every index of its leading axis: each call of
+    zamba2's shared block), read after the steps: no sync inside a step."""
     flags = []
     push = sess.channel.push
 
+    def nonzero(g):
+        return (g.flatten(1) != 0).any(1).all() if per_call else (g != 0).any()
+
     def pushed(data):
         flags.append({t: torch.stack([x.isfinite().all(), g.isfinite().all(),
-                                      (g != 0).any()])
+                                      nonzero(g)])
                       for t, (x, g) in data.items()})
         return push(data)
 
@@ -2814,12 +2918,13 @@ MOE_RUNS = (("dense KV, f32 bank", {},
              ("decode_attention", "decode_attention_ring", "multi_lora")))
 
 
-def _moe_serve(cfg, params, dev, tag, runs) -> dict:
+def _moe_serve(cfg, params, dev, tag, runs, check_calls=None) -> dict:
     """phase 14's load on a MoE config: 4 users' rank-8 qv adapters, 8
     slots, max_len 1024, 8 requests of 32-512 tokens (one prefill of 8 x
     512: eight 512-token routing groups), 16 new tokens each, once per
     entry of ``runs`` with the launch counts reset just before and read
-    just after. Returns the launch counts of all runs."""
+    just after; ``check_calls(engine, label)``, where given, checks each
+    run's engine before it goes. Returns the launch counts of all runs."""
     from repro_torch.utils import tree_leaves
 
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -2844,6 +2949,8 @@ def _moe_serve(cfg, params, dev, tag, runs) -> dict:
                   "times")
         if eng.pager is not None:
             eng.pager.assert_empty()
+        if check_calls is not None:
+            check_calls(eng, label)
         tp = eng.throughput()
         print(f"{tag} {cfg.name} {cfg.param_dtype}, {cfg.n_layers} layers, "
               f"{n_params} parameters, {label}: {tp['completed']} completed, "
@@ -2863,13 +2970,13 @@ def _moe_serve(cfg, params, dev, tag, runs) -> dict:
     return total
 
 
-def _cola_train(cfg, params, dev, tag, taps, want) -> dict:
+def _cola_train(cfg, params, dev, tag, taps, want, per_call=False) -> dict:
     """A ColA warm-up step and MOE_TRAIN_STEPS measured steps at full width
     and depth (bf16, remat "full"), Mode A merged rank-8 qv (``taps``),
     interval 1, AdamW, SyntheticLM at the config's ``SETUPS`` shape, each
     step with its fit (``_measured_steps``); every step's taps checked
-    (``_tap_stats``); the launch counts exactly ``want(n_layers, steps)``.
-    Returns the launch counts."""
+    (``_tap_stats``, grad_h at every call with ``per_call``); the launch
+    counts exactly ``want(n_layers, steps)``. Returns the launch counts."""
     from repro_torch.configs.base import ColaConfig
     from repro_torch.core.session import ColaSession
     from repro_torch.data.pipeline import SyntheticLM
@@ -2885,7 +2992,7 @@ def _cola_train(cfg, params, dev, tag, taps, want) -> dict:
     check(sorted(sess.adapters) == list(taps), f"{tag} taps "
           f"{sorted(sess.adapters)}")
     data = SyntheticLM(cfg, batch=batch, seq=seq, seed=SEED, device=dev)
-    flags = _tap_stats(sess)
+    flags = _tap_stats(sess, per_call)
     m = _measured_steps(sess, [data.batch_at(i) for i in
                                range(MOE_TRAIN_STEPS + 1)], dev)
     losses, step_ms, fit_ms = m["losses"], m["step_ms"], m["fit_ms"]
@@ -2895,7 +3002,8 @@ def _cola_train(cfg, params, dev, tag, taps, want) -> dict:
     bad = [(i, t) for i, f in enumerate(flags) for t, v in f.items()
            if not bool(v.all())]
     check(len(flags) == n + 1 and not bad, f"{tag} a tap's x or grad_h "
-          f"not finite, or grad_h all zero (step, tap): {bad}")
+          f"not finite, or grad_h all zero{' at a call' if per_call else ''}"
+          f" (step, tap): {bad}")
     health = sess.channel_health()[0]
     check(health["fits_committed"] == n + 1 and all(
         health[k] == 0 for k in ("rollbacks", "dead_letters", "send_retries")),
@@ -2910,8 +3018,9 @@ def _cola_train(cfg, params, dev, tag, taps, want) -> dict:
     print(f"{tag} {cfg.name} bf16, {L} layers, remat full, Mode A merged "
           f"rank-8 qv ({', '.join(taps)}), interval {interval}, AdamW, batch "
           f"{batch} x {seq}: losses{aux} {[round(x, 5) for x in losses]}; "
-          f"every tap's x and grad_h finite, grad_h non-zero; the bank moved "
-          f"at every fit", flush=True)
+          f"every tap's x and grad_h finite, grad_h non-zero"
+          f"{' at every call' if per_call else ''}; the bank moved at every "
+          f"fit", flush=True)
     print(f"{tag} step ms {[round(t, 1) for t in step_ms]} (p50 "
           f"{statistics.median(step_ms):.1f}); server step p50 "
           f"{statistics.median(m['server_ms']):.1f} ms; fit ms "
@@ -3115,8 +3224,10 @@ def _session_vs_plain(cfg, params_cpu, params_gpu, dev, batch_rows, tag):
             worst[kind] = max(worst[kind], err / scale)
     bank = max(max_err(gpu["bank"][t][leaf], w)[0] / max_err(w, w)[1]
                for t, e in cpu["bank"].items() for leaf, w in e.items())
-    print(f"{tag} f32, 2 layers at full width, merged session step at "
-          f"{batch_rows} x 1024: loss card {gpu['loss']:.7f} CPU {cpu['loss']:.7f} (|diff| "
+    print(f"{tag} f32, {cfg.n_layers} layers at full width, merged session "
+          f"step at "
+          f"{batch_rows} x 1024: loss card {gpu['loss']:.7f} CPU "
+          f"{cpu['loss']:.7f} (|diff| "
           f"{loss_diff:.3e}); max |card - CPU| / max |CPU| over both taps: "
           f"grad_h {worst['grad_h']:.3e}, fit grads {worst['fit']:.3e} (tol "
           f"1e-3); the bank after AdamW {bank:.3e} (not held to a bound); "
@@ -3237,6 +3348,196 @@ def phase_ssm_vs_plain(dev) -> None:
     _free()
 
 
+# ---------------------------------------------------------------------------
+# phases 19 and 20: the hybrid plan (zamba2-7b)
+# ---------------------------------------------------------------------------
+
+HYBRID_TAPS = ("shared.attn.q", "shared.attn.v")
+# (label, options, kernels that must run, kernels that must not)
+HYBRID_RUNS = (("dense KV and state, f32 bank", {},
+                ("flash_attention", "decode_attention", "multi_lora"),
+                ("decode_attention_paged", "decode_attention_ring",
+                 "multi_lora_q8", "cola_fit")),
+               ("paged KV, chunks of 128, int8 bank", SCALE,
+                ("flash_attention", "decode_attention_paged",
+                 "multi_lora_q8"),
+                ("decode_attention", "decode_attention_ring", "multi_lora",
+                 "cola_fit")))
+
+
+def _call_counting_engine():
+    """A ServeEngine that keeps, for each device call, its kind ("prefill",
+    "chunk" or "tick") and every kernel's launches in it (the wrappers'
+    counts read on the host before and after: no sync)."""
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    ws = wrappers()
+
+    class Counting(ServeEngine):
+        def __init__(self, *a, **kw):
+            self.calls = []
+            super().__init__(*a, **kw)
+
+        def _counted_call(self, kind, fn, *a, **kw):
+            before = {n: w.launches for n, w in ws.items()}
+            out = fn(*a, **kw)
+            self.calls.append((kind, {n: w.launches - before[n]
+                                      for n, w in ws.items()}))
+            return out
+
+        def _step_logits(self, tokens, positions, users, live, lens=None):
+            kind = "tick" if tokens.shape[1] == 1 else "chunk"
+            return self._counted_call(kind, super()._step_logits, tokens,
+                                      positions, users, live, lens)
+
+        def _prefill(self, tokens, users, slot_ids, lengths):
+            return self._counted_call("prefill", super()._prefill, tokens,
+                                      users, slot_ids, lengths)
+
+    return Counting
+
+
+def _hybrid_calls(n_seg: int):
+    """The per-call launch check of ``_moe_serve``: every prefill and chunk
+    call launches the flash forward once a shared-block call (n_seg) and
+    the bank's multi-LoRA kernel twice as often (q and v), every tick the
+    layout's decode kernel n_seg times and the bank's kernel 2 n_seg
+    times."""
+    def check_calls(eng, label):
+        bank = "multi_lora_q8" if eng.bank and "A_q" in next(
+            iter(eng.bank.values())) else "multi_lora"
+        decode = ("decode_attention" if eng.pager is None
+                  else "decode_attention_paged")
+        want = {"prefill": {"flash_attention": n_seg, bank: 2 * n_seg},
+                "chunk": {"flash_attention": n_seg, bank: 2 * n_seg},
+                "tick": {decode: n_seg, bank: 2 * n_seg}}
+        kinds = collections.Counter(k for k, _ in eng.calls)
+        bad = [(k, got) for k, got in eng.calls
+               if {n: c for n, c in got.items() if c} != want[k]]
+        check(not bad and kinds["tick"] > 0 and (kinds["prefill"] > 0
+                                                 or kinds["chunk"] > 0),
+              f"[hybrid] (a) {label}: calls {dict(kinds)}, a call's "
+              f"launches off {want}: {bad[:3]}")
+        print(f"[hybrid] (a) {label}: device calls {dict(kinds)}, each "
+              f"launching exactly {want}", flush=True)
+    return check_calls
+
+
+def phase_hybrid(dev) -> dict:
+    """zamba2-7b at full width and depth (81 Mamba2 layers, d_model 3584,
+    112 SSD heads of 64, state 64; the shared attention block, 32 heads of
+    112, MHA, d_ff 14336, at the head of each of the 14 segments; bf16,
+    seeded random weights): (a) phase 14's serving load (4 users' rank-8 qv
+    adapters at the shared q and v taps, 8 slots, max_len 1024, 8 requests
+    of 32-512 tokens, 16 new) with dense KV and state and an f32 bank, then
+    paged KV, chunks of 128 and an int8 bank, each device call's launches
+    exact (``_hybrid_calls``); (b) ColA training (``_cola_train``): 28 flash
+    forwards, 14 dq and 14 dk/dv a step, 2 cola_fit a fit, grad_h non-zero
+    at every call of both taps. Returns the launch counts of all runs."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.utils import tree_leaves
+
+    cfg = registry.get_config("zamba2-7b")
+    n_seg = len(model.layer_plan(cfg)[1])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    f32 = [k for k, v in params["layers"]["ssm"].items()
+           if torch.is_tensor(v) and v.dtype == torch.float32]
+    check(sorted(f32) == ["A_log", "D", "dt_bias"], f"[hybrid] f32 leaves {f32}")
+    hq = cfg.n_heads * cfg.d_head
+    check(params["shared"]["attn"]["q"]["w"].shape == (cfg.d_model, hq),
+          "[hybrid] the shared block is not one unstacked block")
+    print(f"[hybrid] zamba2-7b init at full depth in "
+          f"{time.perf_counter() - t0:.1f} s: {cfg.n_layers} Mamba2 layers "
+          f"and the shared block over {n_seg} segments, "
+          f"{sum(t.numel() for t in tree_leaves(params))} parameters, "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); {card_line()}", flush=True)
+    engine = _call_counting_engine()
+    runs = tuple((label, dict(opts, engine=engine), ran, idle)
+                 for label, opts, ran, idle in HYBRID_RUNS)
+    serve_launches = _moe_serve(cfg, params, dev, "[hybrid] (a)", runs,
+                                check_calls=_hybrid_calls(n_seg))
+    none = dict.fromkeys(("decode_attention", "decode_attention_paged",
+                          "multi_lora", "multi_lora_q8"), 0)
+    train = _cola_train(
+        cfg, params, dev, "[hybrid] (b)", HYBRID_TAPS,
+        lambda L, n: {**none, "flash_attention": 2 * n_seg * n,
+                      "flash_attention_bwd_dq": n_seg * n,
+                      "flash_attention_bwd_dkv": n_seg * n,
+                      "cola_fit": 2 * n}, per_call=True)
+    del params
+    _free()
+    return {n: serve_launches[n] + train.get(n, 0) for n in serve_launches}
+
+
+def phase_hybrid_vs_plain(dev) -> None:
+    """zamba2-7b in f32 at full width, depth cut to 7 layers with the shared
+    block every 6 kept (segments of 6 and 1: two calls and a one-layer
+    tail), against the CPU's plain path: (a) the dense engine and the paged
+    + chunks of 128 + int8 engine, 4 slots (two requests reuse a slot), 6
+    requests of 300 / 77 / 190 / 140 / 45 / 260 tokens (tail chunks of 44,
+    77, 62, 12, 45 and 4), 8 new tokens: equal greedy tokens, the largest
+    next-token logit gap printed; (b) one merged rank-8 qv session step at
+    1 x 1024 (``_session_vs_plain``: losses within 1e-5, grad_h and the fit
+    gradients of both shared taps within 1e-3 of their largest entry)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+
+    cfg = registry.get_config("zamba2-7b").replace(
+        n_layers=7, param_dtype="float32", compute_dtype="float32")
+    check(model.layer_plan(cfg)[1] == [(0, 6), (6, 1)],
+          f"[hybrid-vs-plain] plan {model.layer_plan(cfg)}")
+    params_cpu = model.init(cfg, seed=SEED + 1, device="cpu")
+    params_gpu = _to(params_cpu, dev)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (300, 77, 190, 140, 45, 260)]
+    banks_cpu = user_banks(cfg, 2, "cpu", SEED + 1)
+    banks_gpu = [_to(b, dev) for b in banks_cpu]
+    kw = dict(slots=4, max_len=1024, max_new=8, engine=_recording_engine())
+    for label, opts in (("dense", {}), ("paged, chunks of 128, int8", SCALE)):
+        out = {}
+        for where, params, banks, device in (
+                ("card", params_gpu, banks_gpu, dev),
+                ("cpu", params_cpu, banks_cpu, "cpu")):
+            t0 = time.perf_counter()
+            eng, reqs, _ = serve(cfg, params, banks, prompts, device, **kw,
+                                 **opts)
+            check(all(r.status == "done" and len(r.out) == 8 for r in reqs),
+                  f"[hybrid-vs-plain] {label} on the {where}: not every "
+                  "request finished")
+            if eng.pager is not None:
+                eng.pager.assert_empty()
+            out[where] = ([r.out for r in reqs], eng.logits, dict(eng.stats),
+                          time.perf_counter() - t0)
+            del eng
+        (toks, lg, st, secs), (toks_c, lg_c, _, secs_c) = \
+            out["card"], out["cpu"]
+        check(len(lg) == len(lg_c), f"[hybrid-vs-plain] {label}: {len(lg)} "
+              f"steps on the card, {len(lg_c)} on the CPU")
+        gap = max(float((x - y).abs().max()) for x, y in zip(lg, lg_c))
+        print(f"[hybrid-vs-plain] f32, 7 layers (segments of 6 and 1) at full "
+              f"width, {label}: prefill calls {st['prefill_calls']}, chunk "
+              f"rounds {st['chunk_rounds']}, chunk groups "
+              f"{st['prefill_chunks']}; tokens card == CPU: {toks == toks_c}; "
+              f"largest next-token logit gap {gap:.3e} (max |logit| "
+              f"{max(float(x.abs().max()) for x in lg_c):.3f}); {secs:.1f} s "
+              f"on the card, {secs_c:.1f} s on the CPU", flush=True)
+        check(toks == toks_c, f"[hybrid-vs-plain] {label}: greedy tokens "
+              f"differ, card {toks} vs CPU {toks_c}")
+    del banks_gpu
+    _free()
+    _session_vs_plain(cfg, params_cpu, params_gpu, dev, 1,
+                      "[hybrid-vs-plain] (b)")
+    del params_gpu
+    _free()
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -3266,21 +3567,24 @@ def main() -> int:
     # registers and spills of every instantiation: the tensor-core kernels
     # at every head dim, the decode kernel per dtype too, cola_fit's by rank
     # block, columns a thread and rows a tile, multi-LoRA's by x dtype, bank
-    # (0 f32, 1 int8) and rank; at the path's shapes (bf16 d_head 64; the
-    # fit's rank 8, 3 columns a thread; multi-LoRA's rank 8) they must not
-    # spill
+    # (0 f32, 1 int8) and rank; at the path's shapes (bf16 d_head 64, and
+    # zamba2's 112 in the forward and bf16 decode, which run on every
+    # prefill and tick; the fit's rank 8, 3 columns a thread; multi-LoRA's
+    # rank 8) they must not spill
     # (and d_head 256's own tilings: flash_fwd_tc_kernel<256>,
     # flash_fwd_f32_kernel<256>, decode_split_kernel<*,256> and its ring
-    # mode <*,*,ring>, printed beside the others)
+    # mode <*,*,ring>, printed beside the others; the backward's at 112 are
+    # printed)
     for name, kernel, n, paths in (
-            ("flash_attention", "flash_fwd_tc_kernel", 5, ("64",)),
-            ("flash_attention", "flash_fwd_f32_kernel", 5, ()),
-            ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 5, ("64", "256")),
-            ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 5,
+            ("flash_attention", "flash_fwd_tc_kernel", 6, ("64", "112")),
+            ("flash_attention", "flash_fwd_f32_kernel", 6, ()),
+            ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 6, ("64", "256")),
+            ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 6,
              ("64", "256")),
-            ("flash_attention_bwd", "flash_bwd_dq_f32_kernel", 5, ("256",)),
-            ("flash_attention_bwd", "flash_bwd_dkv_f32_kernel", 5, ("256",)),
-            ("decode_attention", "decode_split_kernel", 20, ("bf16,64",)),
+            ("flash_attention_bwd", "flash_bwd_dq_f32_kernel", 6, ("256",)),
+            ("flash_attention_bwd", "flash_bwd_dkv_f32_kernel", 6, ("256",)),
+            ("decode_attention", "decode_split_kernel", 24,
+             ("bf16,64", "bf16,112")),
             ("cola_fit", "fit_reg_kernel", 4, ("8,3,8",)),
             ("cola_fit", "fit_smem_kernel", 1, ("8",)),
             ("multi_lora", "multi_lora_vec_kernel", 12,
@@ -3361,6 +3665,13 @@ def main() -> int:
     phase_ssm_vs_plain(dev)
     print(f"[ssm-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    hybrid = phase_hybrid(dev)
+    print(f"[hybrid] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_hybrid_vs_plain(dev)
+    print(f"[hybrid-vs-plain] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
@@ -3377,16 +3688,15 @@ def main() -> int:
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
     # launches: the serving, training, serving-at-scale, store, runtime,
-    # telemetry, gemma2, gemma2-train, configs, moe and ssm runs' together
-    # (flash_attention runs on all ten attention paths, none on the ssm
-    # path, which runs the multi-LoRA kernels and cola_fit; the ring ticks
-    # count as the
-    # paged decode kernel's, of
-    # which they are the ring addressing mode); the top-level numbers are
-    # the kernel's first row, "rows" holds every phase-1 row of the kernel
-    # (both cola_fit taps, multi_lora at a tick, the d_head 256 rows and the
-    # other configs' shapes)
-    for extra in (gemma2, configs, moe, ssm):
+    # telemetry, gemma2, gemma2-train, configs, moe, ssm and hybrid runs'
+    # together (flash_attention runs on all eleven attention paths, none on
+    # the ssm path, which runs the multi-LoRA kernels and cola_fit; the ring
+    # ticks count as the paged decode kernel's, of which they are the ring
+    # addressing mode); the top-level numbers are the kernel's first row,
+    # "rows" holds every phase-1 row of the kernel (both cola_fit taps,
+    # multi_lora at a tick, the d_head 256 and 112 rows and the other
+    # configs' shapes)
+    for extra in (gemma2, configs, moe, ssm, hybrid):
         extra["decode_attention_paged"] += extra.pop("decode_attention_ring")
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
@@ -3394,7 +3704,7 @@ def main() -> int:
                     launches=(launches[n] + train[n] + scale[n] + store[n]
                               + runtime[n] + tele[n] + gemma2[n]
                               + gemma2_train[n] + configs[n] + moe[n]
-                              + ssm[n]),
+                              + ssm[n] + hybrid[n]),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})

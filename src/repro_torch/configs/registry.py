@@ -2,8 +2,9 @@
 architectures the port runs are listed (see ROADMAP.md for the rest): the
 uniform-attention plan with dense blocks (gpt2-small, smollm-135m, the two
 mistrals) and with MoE blocks (qwen3-moe-30b-a3b, dbrx-132b), gemma2's
-local/global pairs plan, and the attention-free SSM plan of Mamba2 blocks
-(mamba2-370m)."""
+local/global pairs plan, the attention-free SSM plan of Mamba2 blocks
+(mamba2-370m), and the hybrid plan of Mamba2 segments with a shared
+attention block (zamba2-7b)."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +20,7 @@ ARCH_MODULES = {
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 

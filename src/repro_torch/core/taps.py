@@ -7,7 +7,9 @@
 ``ColaSpec`` is static (hashable). The matching vars are
 {"adapters": {tap: w}, "deltas": {tap: tensor}}. Taps inside the layer stack
 are named ``layers.<site>`` and their vars carry a leading (L,) axis, which
-the model's layer loop slices.
+the model's layer loop slices. zamba2's shared block ("shared.<site>") is
+one unstacked site called once a segment: its adapter is used whole at
+every call, and its deltas and collected inputs carry a leading call axis.
 """
 from __future__ import annotations
 
@@ -26,6 +28,15 @@ class TapSite:
     d_in: int
     d_out: int
     stacked: int = 0   # number of stacked layers (0 = unstacked)
+    # calls of an unstacked site a pass (zamba2's shared block: one a
+    # segment, each with its own Mode-A delta); 0 = one call
+    calls: int = 0
+
+    def lead(self) -> tuple[int, ...]:
+        """The leading axis of the site's deltas and collected inputs: the
+        layer axis, the call axis, or none."""
+        n = self.stacked or self.calls
+        return (n,) if n else ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,15 +96,12 @@ def zero_delta_vars(spec: ColaSpec, sites: Mapping[str, TapSite],
                     batch_shape: tuple[int, ...], dtype=torch.float32,
                     device="cuda") -> dict:
     """Zero deltas {tap: (L?, *batch_shape, d_out)} for grad extraction
-    (Mode A)."""
-    out = {}
-    for name in spec.inject:
-        site = sites[name]
-        shape = batch_shape + (site.d_out,)
-        if site.stacked:
-            shape = (site.stacked,) + shape
-        out[name] = torch.zeros(shape, dtype=dtype, device=device)
-    return out
+    (Mode A); L is the layer axis of a stacked site or the call axis of a
+    shared one (``TapSite.lead``)."""
+    return {name: torch.zeros(sites[name].lead() + batch_shape
+                              + (sites[name].d_out,), dtype=dtype,
+                              device=device)
+            for name in spec.inject}
 
 
 def apply_tap(spec: ColaSpec | None, name: str, x: torch.Tensor,

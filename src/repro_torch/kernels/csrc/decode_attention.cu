@@ -71,6 +71,11 @@
 // d_head 256: a bf16 row is one 16-byte load a lane across the warp; an f32
 // row is 64 such loads, so each lane takes two (VPL), and a chunk holds
 // half as many rows to keep the registers of K and V in flight at 64.
+//
+// d_head 112 (zamba2): a row is 14 16-byte loads in bf16 and 28 in f32,
+// not a power of two, so a row takes the next power of two of lanes (16,
+// 32) and the lanes past its columns load nothing, add zeros to every sum
+// and write nothing; the reductions then never mix two rows' lanes.
 #include "common.cuh"
 
 // positions per split (one block) and warps per block. SPLIT 128 with 8
@@ -113,18 +118,25 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-// how a warp walks its PW positions: LPR lanes a row with VPL 16-byte
-// loads each, RPW rows a load step, NSTEP steps, taken NB steps (one chunk
-// of registers) at a time
+constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
+// how a warp walks its PW positions: LPR lanes a row (a power of two, so
+// that the shuffles over a row's lanes and over the rows stay apart), of
+// which the first CPR load VPL 16-byte columns each and the rest load
+// nothing; RPW rows a load step, NSTEP steps, taken NB steps (one chunk of
+// registers) at a time. d_head 112 has 14 columns in bf16 (16 lanes a row,
+// two idle) and 28 in f32 (32 lanes, four idle): the walks of d_head 128.
 template <typename T, int DH>
 struct Walk {
   static constexpr int EPL = Vec<T>::N;
   static constexpr int VPL = DH / EPL > 32 ? DH / EPL / 32 : 1;
-  static constexpr int LPR = DH / EPL / VPL;
+  static constexpr int CPR = DH / EPL / VPL;
+  static constexpr int LPR = pow2_ceil(CPR);
   static constexpr int RPW = 32 / LPR;
   static constexpr int NSTEP = (PW + RPW - 1) / RPW;
   static constexpr int NB = NSTEP < 8 / VPL ? NSTEP : 8 / VPL;
-  static_assert(LPR >= 1 && LPR <= 32 && LPR * VPL * EPL == DH && NSTEP % NB == 0,
+  static_assert(CPR >= 1 && CPR <= LPR && LPR <= 32 && (LPR & (LPR - 1)) == 0 &&
+                    CPR * VPL * EPL == DH && NSTEP % NB == 0,
                 "walk shape");
 };
 
@@ -133,8 +145,9 @@ size_t smem_bytes(int G, int DH) {
   return sizeof(float) * ((size_t)(1 + NW) * G * DH + 2 * NW * G);
 }
 
-// Issue one chunk's K and V loads (rows outside [t_first, t_last] read
-// nothing and stay zero). Lane column c loads dims (v LPR + c) EPL + [0, EPL).
+// Issue one chunk's K and V loads (rows outside [t_first, t_last], and the
+// lanes of a row past its CPR columns, read nothing and stay zero). Lane
+// column c loads dims (v CPR + c) EPL + [0, EPL).
 template <typename T, int DH, bool RING>
 __device__ __forceinline__ void load_chunk(
     uint4 (&kr)[Walk<T, DH>::NB][Walk<T, DH>::VPL],
@@ -146,7 +159,7 @@ __device__ __forceinline__ void load_chunk(
 #pragma unroll
   for (int i = 0; i < W::NB; ++i) {
     const int t = t0 + i * W::RPW + r;
-    if (t >= t_first && t <= t_last) {
+    if (t >= t_first && t <= t_last && c < W::CPR) {
       size_t row;
       if constexpr (RING)
         row = (size_t)b * bs + t % bs;
@@ -155,7 +168,7 @@ __device__ __forceinline__ void load_chunk(
                               : (size_t)__ldg(&trow[t / bs]) * bs + t % bs;
 #pragma unroll
       for (int u = 0; u < W::VPL; ++u) {
-        const size_t off = (row * KH + kh) * DH + (u * W::LPR + c) * W::EPL;
+        const size_t off = (row * KH + kh) * DH + (u * W::CPR + c) * W::EPL;
         kr[i][u] = __ldg(reinterpret_cast<const uint4*>(kc + off));
         vr[i][u] = __ldg(reinterpret_cast<const uint4*>(vc + off));
       }
@@ -212,6 +225,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   const int w0 = split * SPLIT + warp * PW;
   const int t_first = max(lo, w0), t_last = min(hi, w0 + PW - 1);
   const int r = lane / W::LPR, c = lane % W::LPR;   // row in a step, 16-byte column
+  const bool col = c < W::CPR;   // a lane past the row's columns adds zeros
   const int* trow = table == nullptr ? nullptr : table + (size_t)b * (Smax / bs);
 
   // the first chunk's loads go out before q is staged
@@ -245,11 +259,11 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       float qf[W::VPL][W::EPL];
 #pragma unroll
       for (int u = 0; u < W::VPL; ++u) {
-        const float4* q4 =
-            reinterpret_cast<const float4*>(q_s + g * DH + (u * W::LPR + c) * W::EPL);
+        const float4* q4 = reinterpret_cast<const float4*>(
+            q_s + g * DH + (col ? (u * W::CPR + c) * W::EPL : 0));
 #pragma unroll
         for (int e = 0; e < W::EPL / 4; ++e) {
-          const float4 x = q4[e];
+          const float4 x = col ? q4[e] : make_float4(0.f, 0.f, 0.f, 0.f);
           qf[u][4 * e] = x.x; qf[u][4 * e + 1] = x.y; qf[u][4 * e + 2] = x.z;
           qf[u][4 * e + 3] = x.w;
         }
@@ -311,10 +325,10 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
             pv[u][e] += __shfl_xor_sync(0xffffffffu, pv[u][e], off);
       }
       __syncwarp();
-      if (r == 0) {
+      if (r == 0 && col) {
 #pragma unroll
         for (int u = 0; u < W::VPL; ++u) {
-          float* ag = acc_s + (size_t)slot * DH + (u * W::LPR + c) * W::EPL;
+          float* ag = acc_s + (size_t)slot * DH + (u * W::CPR + c) * W::EPL;
 #pragma unroll
           for (int e = 0; e < W::EPL; ++e) ag[e] = fmaf(ag[e], corr, pv[u][e]);
         }
@@ -392,7 +406,9 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
            int* counters, int B, int Smax, int H, int KH, float scale,
            int window, float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / KH, DH);
-  if (smem > 48 * 1024) {
+  // the 48 KB a launch may take without the attribute holds the static
+  // last_s too (G 12 at d_head 112 asks for exactly 48 KB of dynamic memory)
+  if (smem + sizeof(int) > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<T, DH, RING>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
@@ -415,6 +431,7 @@ int dispatch_dh(int DH, const void* q, const void* k, const void* v, const int* 
     case 16: return launch<T, 16, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
     case 32: return launch<T, 32, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
     case 64: return launch<T, 64, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 112: return launch<T, 112, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
     case 128: return launch<T, 128, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
     case 256: return launch<T, 256, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
     default: return -1;

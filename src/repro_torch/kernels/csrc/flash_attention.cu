@@ -64,6 +64,12 @@
 // four threads a row (256 a block) instead of two, so a thread holds 64
 // accumulators and 16 scores; its shared memory, 214,280 bytes, fits. The
 // d_head 16-128 instantiations are unchanged.
+//
+// d_head 112 (zamba2, 7 x 16) takes the d_head 16-128 tiling as it is: 7
+// k-steps of Q K^T (Q's 28 fragment registers held for the walk), 14
+// n-tiles of O (7 x4.trans loads of V), rows of 120 bf16 (240 bytes: on 16
+// bytes, and 8 rows of an ldmatrix fall in 8 distinct 4-bank groups); f32
+// two threads a row, 56 accumulators each, 103,168 bytes of shared memory.
 #include <climits>
 
 #include "common.cuh"
@@ -597,6 +603,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     case 16: return launch<16>(dtype, q, k, v, qp, kp, o, ls, B, Sq, Sk, H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap, s);
     case 32: return launch<32>(dtype, q, k, v, qp, kp, o, ls, B, Sq, Sk, H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap, s);
     case 64: return launch<64>(dtype, q, k, v, qp, kp, o, ls, B, Sq, Sk, H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap, s);
+    case 112: return launch<112>(dtype, q, k, v, qp, kp, o, ls, B, Sq, Sk, H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap, s);
     case 128: return launch<128>(dtype, q, k, v, qp, kp, o, ls, B, Sq, Sk, H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap, s);
     case 256: return launch<256>(dtype, q, k, v, qp, kp, o, ls, B, Sq, Sk, H, KH, qpos_bstride, kvpos_bstride, scale, causal, window, softcap, s);
     default: return -1;

@@ -79,6 +79,12 @@
 // (202,752 bytes) plus the positions: one block an SM. f32: 32-row tiles
 // and four threads a row (F32Tile), so that the tiles fit shared memory and
 // a thread's columns its registers.
+//
+// d_head 112 (zamba2's training path: 2 x 2048, 32 / 32 heads) takes the
+// d_head 128 tiling: KU = 7 (every k-step of S unrolled), dk/dv's q tile in
+// two halves of 32 columns, K and V re-read at each k-step; dQ, dK and dV
+// are 14 n-tiles (7 x4.trans loads a k-step); f32 two threads a row on
+// 64-row tiles (dq 133,376 bytes of shared memory, dk/dv 150,016).
 #include <climits>
 
 #include "common.cuh"
@@ -1016,6 +1022,7 @@ int dispatch(int DH, int dtype, const Args& a) {
     case 16: return launch<DKV, 16>(dtype, a);
     case 32: return launch<DKV, 32>(dtype, a);
     case 64: return launch<DKV, 64>(dtype, a);
+    case 112: return launch<DKV, 112>(dtype, a);
     case 128: return launch<DKV, 128>(dtype, a);
     case 256: return launch<DKV, 256>(dtype, a);
     default: return -1;

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 SPLIT = 128   # positions per block; csrc/decode_attention.cu's DECODE_SPLIT
 
 _COUNTERS: dict[torch.device, torch.Tensor] = {}

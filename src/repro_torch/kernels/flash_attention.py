@@ -18,9 +18,10 @@ import torch
 from repro_torch.kernels import _build, ref
 
 # head dims the kernels take; gemma2's 256 has its own tilings in the
-# forward and in the backward (csrc/flash_attention_bwd.cu)
-FWD_HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+# forward and in the backward (csrc/flash_attention_bwd.cu), zamba2's 112
+# takes those of 16-128
+FWD_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 # The plain versions: o and the per-row lse, from the dense reference; and
 # (dq, dk, dv) from (q, k, v, o, lse, do).

@@ -13,14 +13,20 @@ Layer plans (``layer_plan``, as in the JAX package):
 - the SSM plan: "uniform" over Mamba2 blocks (``mamba2-370m``, taps
   "layers.ssm.in" / "layers.ssm.out"), whose decode cache is each layer's
   recurrent state ({"conv", "ssm"}, the same in both KV layouts) instead
-  of K/V.
+  of K/V;
+- "hybrid": zamba2-7b's segments of ``shared_attn_every`` Mamba2 layers
+  ("layers.*"), each led by one call of the shared attention block
+  ("shared.*": one unstacked parameter set and adapter used at every
+  call, a Mode-A delta and a collected input a call); its cache holds the
+  Mamba2 layers' recurrent state and the shared block's K/V a call (dense,
+  or a paged pool).
 Every plan serves and trains (ColA's taps and deltas on every stack).
-Still to be ported (ROADMAP.md A.3-A.4; ``_require_ported`` raises for
-each): the hybrid plan (A.3), codebooks, ``embed_input`` and an untied head
-(A.4).
+Still to be ported (ROADMAP.md A.4; ``_require_ported`` raises for each):
+codebooks, ``embed_input`` and an untied head.
 
 Parameters are the JAX package's pytree as nested dicts of tensors, layer
-leaves stacked on a leading (n,) axis per stack.
+leaves stacked on a leading (n,) axis per stack (the shared block's
+unstacked).
 
 Entry points: init, forward, loss_fn, prefill, decode_step, init_cache,
 scatter_prefill_cache, tap_sites, delta_shape.
@@ -63,14 +69,12 @@ def layer_plan(cfg: ModelConfig):
 def _require_ported(cfg: ModelConfig) -> tuple:
     """The plan of ``cfg`` (``layer_plan``) when the port runs it: the
     uniform plan over attention blocks (dense or MoE) or over Mamba2 blocks,
-    and gemma2's local/global pairs. Every other plan and architecture
-    feature raises, naming the ROADMAP item that ports it, instead of
-    running half-supported."""
+    gemma2's local/global pairs and zamba2's hybrid segments. Every other
+    architecture feature raises, naming the ROADMAP item that ports it,
+    instead of running half-supported."""
     plan = layer_plan(cfg)
     missing = [(f, "A.4") for f in ("n_codebooks", "embed_input")
                if getattr(cfg, f)]
-    if plan[0] == "hybrid":
-        missing.append(("the hybrid plan", "A.3"))
     if not cfg.tie_embeddings:
         missing.append(("an untied head", "A.4"))
     if missing:
@@ -83,23 +87,41 @@ def _require_ported(cfg: ModelConfig) -> tuple:
 
 def _stacks(cfg: ModelConfig) -> dict[str, int]:
     """The plan's layer stacks and their depths: "layers" for the uniform
-    plan, "layers_a" (local) and "layers_b" (global) for the pairs plan."""
+    plan, "layers_a" (local) and "layers_b" (global) for the pairs plan,
+    "layers" and the unstacked "shared" (depth 0, as ``TapSite.stacked``)
+    for the hybrid plan."""
     plan = _require_ported(cfg)
     if plan[0] == "pairs":
         return {"layers_a": plan[1], "layers_b": plan[1]}
+    if plan[0] == "hybrid":
+        return {"layers": cfg.n_layers, "shared": 0}
     return {"layers": cfg.n_layers}
 
 
+def _calls(cfg: ModelConfig, prefix: str) -> int:
+    """How many times a pass runs stack ``prefix``: its depth, or for the
+    hybrid plan's shared block its number of segments."""
+    n = _stacks(cfg)[prefix]
+    return n if n else len(layer_plan(cfg)[1])
+
+
 def _walk(cfg: ModelConfig):
-    """(stack, layer index, attention window) in the order the layers run:
-    the uniform plan's layers in turn; the pairs plan's pairs, layer a with
+    """(stack, index, attention window) in the order the layers run: the
+    uniform plan's layers in turn; the pairs plan's pairs, layer a with
     ``window=local_window``, then layer b with no window (JAX's
-    ``_scan_pairs``)."""
+    ``_scan_pairs``); the hybrid plan's segments, each the shared block
+    (its index the call, JAX's ``_run_hybrid``) and then the segment's
+    Mamba2 layers."""
     plan = _require_ported(cfg)
     if plan[0] == "pairs":
         for i in range(plan[1]):
             yield "layers_a", i, cfg.local_window
             yield "layers_b", i, None
+    elif plan[0] == "hybrid":
+        for i, (start, n) in enumerate(plan[1]):
+            yield "shared", i, None
+            for j in range(start, start + n):
+                yield "layers", j, None
     else:
         for i in range(cfg.n_layers):
             yield "layers", i, None
@@ -116,6 +138,18 @@ def _subvars(d: dict | None, prefix: str) -> dict:
     if not d:
         return {}
     return {k: v for k, v in d.items() if k.startswith(prefix + ".")}
+
+
+def _site_vars(prefix: str, i: int, params: dict, ad: dict, de: dict
+               ) -> tuple[dict, dict, dict]:
+    """(parameters, adapters, deltas) of index i of stack ``prefix``: layer
+    i of a stacked one; the shared block's call i takes its parameters and
+    adapters whole and its own delta of each tap."""
+    if prefix == "shared":
+        return (params["shared"], ad["shared"],
+                {t: d[i] for t, d in de["shared"].items()})
+    return (_layer(params[prefix], i), _layer(ad[prefix], i),
+            _layer(de[prefix], i))
 
 
 def _checkpointed(cfg: ModelConfig, fn, needs_grad: bool):
@@ -137,38 +171,40 @@ def _checkpointed(cfg: ModelConfig, fn, needs_grad: bool):
 def delta_shape(cfg: ModelConfig, site: TapSite, batch: int, seq: int
                 ) -> tuple:
     """Shape of the Mode-A injected delta of one tap; stacked sites carry the
-    layer axis."""
-    base = (batch, seq, site.d_out)
-    return (site.stacked,) + base if site.stacked else base
+    layer axis, the hybrid plan's shared sites one delta a call (so each
+    call gets its own gradient, JAX's ``delta_shape``)."""
+    return site.lead() + (batch, seq, site.d_out)
 
 
 def tap_sites(cfg: ModelConfig) -> dict[str, TapSite]:
     """Every tappable Dense site, "<stack>.<site>", stacked over its stack's
-    depth: the attention projections, and the gated MLP's where the config
-    has one (``d_ff``; the experts carry no taps); on the ssm plan the
-    Mamba2 block's in and out projections."""
+    depth: a Mamba2 block's in and out projections (the ssm plan's, the
+    hybrid plan's "layers"), else the attention projections and the gated
+    MLP's where the config has one (``d_ff``; the experts carry no taps).
+    The hybrid plan's shared block is unstacked and called once a
+    segment."""
     sites = {}
-    if _require_ported(cfg) == ("uniform", "ssm"):
-        dims = S.ssm_dims(cfg.d_model, expand=cfg.ssm_expand,
-                          headdim=cfg.ssm_headdim, state=cfg.ssm_state)
-        for nm, din, dout in (("ssm.in", cfg.d_model, S.d_in_proj(dims)),
-                              ("ssm.out", dims["d_inner"], cfg.d_model)):
-            sites[f"layers.{nm}"] = TapSite(f"layers.{nm}", din, dout,
-                                            cfg.n_layers)
-        return sites
     for prefix, n in _stacks(cfg).items():
-        named = [
-            ("attn.q", cfg.d_model, cfg.n_heads * cfg.d_head),
-            ("attn.k", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
-            ("attn.v", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
-            ("attn.o", cfg.n_heads * cfg.d_head, cfg.d_model),
-        ]
-        if cfg.d_ff:
-            named += [("mlp.gate", cfg.d_model, cfg.d_ff),
-                      ("mlp.up", cfg.d_model, cfg.d_ff),
-                      ("mlp.down", cfg.d_ff, cfg.d_model)]
+        if _mamba_stack(cfg, prefix):
+            dims = S.ssm_dims(cfg.d_model, expand=cfg.ssm_expand,
+                              headdim=cfg.ssm_headdim, state=cfg.ssm_state)
+            named = [("ssm.in", cfg.d_model, S.d_in_proj(dims)),
+                     ("ssm.out", dims["d_inner"], cfg.d_model)]
+        else:
+            named = [
+                ("attn.q", cfg.d_model, cfg.n_heads * cfg.d_head),
+                ("attn.k", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
+                ("attn.v", cfg.d_model, cfg.n_kv_heads * cfg.d_head),
+                ("attn.o", cfg.n_heads * cfg.d_head, cfg.d_model),
+            ]
+            if cfg.d_ff:
+                named += [("mlp.gate", cfg.d_model, cfg.d_ff),
+                          ("mlp.up", cfg.d_model, cfg.d_ff),
+                          ("mlp.down", cfg.d_ff, cfg.d_model)]
         for nm, din, dout in named:
-            sites[f"{prefix}.{nm}"] = TapSite(f"{prefix}.{nm}", din, dout, n)
+            sites[f"{prefix}.{nm}"] = TapSite(
+                f"{prefix}.{nm}", din, dout, n,
+                calls=0 if n else _calls(cfg, prefix))
     return sites
 
 
@@ -192,8 +228,10 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
            else torch.Generator(device=dev).manual_seed(seed))
 
     def normal(shape, std):
+        # scaled in place: one f32 draw at a time (zamba2's 81 in_proj
+        # weights are 4.2 G elements)
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (w * std).to(dt)
+        return w.mul_(std).to(dt)
 
     def normal_by_layer(shape, std):
         out = torch.empty(shape, dtype=dt, device=dev)
@@ -215,15 +253,19 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
 
     def stack(n):
+        """n attention blocks stacked, or one unstacked block for n == 0
+        (the hybrid plan's shared block)."""
+        lead = (n,) if n else ()
+
         def dense(d_in, d_out):
-            return {"w": normal((n, d_in, d_out), d_in ** -0.5)}
+            return {"w": normal(lead + (d_in, d_out), d_in ** -0.5)}
 
         attn = {"q": dense(d, hq), "k": dense(d, hkv), "v": dense(d, hkv),
                 "o": dense(hq, d)}
         if cfg.qk_norm:
-            attn["q_norm"] = ones(n, cfg.d_head)
-            attn["k_norm"] = ones(n, cfg.d_head)
-        p = {"ln1": ones(n, d), "attn": attn, "ln2": ones(n, d)}
+            attn["q_norm"] = ones(*lead, cfg.d_head)
+            attn["k_norm"] = ones(*lead, cfg.d_head)
+        p = {"ln1": ones(*lead, d), "attn": attn, "ln2": ones(*lead, d)}
         if cfg.n_experts:
             p["moe"] = M.moe_init(n, d, cfg.n_experts, cfg.d_expert,
                                   normal=normal,
@@ -232,16 +274,15 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
             p["mlp"] = {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
                         "down": dense(cfg.d_ff, d)}
         if cfg.post_norm:
-            p["post_ln1"] = ones(n, d)
-            p["post_ln2"] = ones(n, d)
+            p["post_ln1"] = ones(*lead, d)
+            p["post_ln2"] = ones(*lead, d)
         return p
 
     params = {"embed": {"emb": normal((cfg.vocab_size, d), 0.02)}}
-    ssm = layer_plan(cfg) == ("uniform", "ssm")
     for prefix, n in stacks.items():
         params[prefix] = (B.ssm_block_init(cfg, n, normal=normal,
                                            uniform=uniform, full=full)
-                          if ssm else stack(n))
+                          if _mamba_stack(cfg, prefix) else stack(n))
     params["final_norm"] = ones(d)
     return params
 
@@ -298,12 +339,13 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
     """Embedding + all layers + final norm. Returns (h, aux):
     aux["moe_aux"] is the layers' mean MoE aux loss (0 without experts);
     aux["collected"] holds each collected tap's hidden inputs stacked per
-    layer of its stack, {tap: (n, B, S, d_in)}; with ``collect_kv``
-    aux["stacked"] holds every layer's cache leaves per stack,
-    {stack: {"k", "v": (n, B, S, K, Dh)}} (on the ssm plan the final
-    {"conv": (n, B, W-1, C), "ssm": (n, B, H, P, N)} state), written into
-    one tensor as the layers run (never a list and a stacked copy at
-    once)."""
+    layer of its stack, {tap: (n, B, S, d_in)} (the hybrid plan's shared
+    taps per call, (n_seg, B, S, d_in): JAX's ``collected_shared``); with
+    ``collect_kv`` aux["stacked"] holds every layer's cache leaves per
+    stack, {stack: {"k", "v": (n, B, S, K, Dh)}} (on the ssm plan the final
+    {"conv": (n, B, W-1, C), "ssm": (n, B, H, P, N)} state; on the hybrid
+    plan both, "shared" one K/V a call), written into one tensor as the
+    layers run (never a list and a stacked copy at once)."""
     stacks = _stacks(cfg)
     ad = {p: _subvars((cola_vars or {}).get("adapters", {}), p) for p in stacks}
     de = {p: _subvars((cola_vars or {}).get("deltas", {}), p) for p in stacks}
@@ -317,16 +359,17 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
     collected: dict[str, list] = {}
     moe_aux = []
     for prefix, i, window in _walk(cfg):
-        x, layer_aux, leaves, got = layer(
-            cfg, prefix, window, _layer(params[prefix], i), x, positions,
-            spec, _layer(ad[prefix], i), _layer(de[prefix], i))
+        lp, ad_l, de_l = _site_vars(prefix, i, params, ad, de)
+        x, layer_aux, leaves, got = layer(cfg, prefix, window, lp, x,
+                                          positions, spec, ad_l, de_l)
         for tap, xin in got.items():
             collected.setdefault(tap, []).append(xin)
         if layer_aux is not None:
             moe_aux.append(layer_aux)
         if collect_kv:
             if prefix not in kv_out:
-                kv_out[prefix] = {n: t.new_empty((stacks[prefix],) + t.shape)
+                kv_out[prefix] = {n: t.new_empty((_calls(cfg, prefix),)
+                                                 + t.shape)
                                   for n, t in leaves.items()}
             for n, t in leaves.items():
                 kv_out[prefix][n][i] = t
@@ -394,8 +437,10 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
             *, lengths: torch.Tensor | None = None):
     """Full-sequence prefill; returns (logits (B, 1, V), cache) with the
     cache holding every layer's K/V of the processed sequence, per stack
-    (on the ssm plan every layer's final conv and ssm state, which folds in
-    every input token: such rows must be prefilled at their exact length).
+    (a Mamba2 layer's final conv and ssm state instead, which folds in
+    every input token: such rows must be prefilled at their exact length;
+    the hybrid plan's cache is {"layers": {"conv", "ssm"}, "shared": {"k",
+    "v": (n_seg, B, S, K, Dh)}}).
 
     ``lengths``: optional (B,) valid prompt lengths of a right-padded batch;
     logits are then taken at position ``lengths - 1`` of each row. Causal
@@ -424,6 +469,12 @@ def has_recurrent_state(cfg: ModelConfig) -> bool:
     return plan[0] == "hybrid" or plan == ("uniform", "ssm")
 
 
+def _mamba_stack(cfg: ModelConfig, prefix: str) -> bool:
+    """Whether stack ``prefix`` holds Mamba2 blocks: the ssm plan's one
+    stack and the hybrid plan's "layers"."""
+    return prefix == "layers" and has_recurrent_state(cfg)
+
+
 def _ring_stack(cfg: ModelConfig, prefix: str, paged: bool) -> bool:
     """Under the paged layout the pairs plan's local stack keeps rings."""
     return paged and prefix == "layers_a" and layer_plan(cfg)[0] == "pairs"
@@ -434,8 +485,8 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int, *,
                 kv_block: int = 16, ring_len: int | None = None) -> dict:
     """Decode-cache leaf (shape, dtype), per stack.
 
-    ``kv_layout="dense"``: every stack gets an (n, batch, max_len, K, Dh)
-    slot cache; memory scales with the horizon.
+    ``kv_layout="dense"``: every attention stack gets an (n, batch,
+    max_len, K, Dh) slot cache; memory scales with the horizon.
 
     ``kv_layout="paged"``: KV lives in a shared block pool
     (n, kv_blocks, kv_block, K, Dh) addressed through a per-slot block table
@@ -447,26 +498,29 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int, *,
     positions; ``ring_len`` (default ``local_window`` or ``max_len``) must be
     >= local_window + chunk - 1 for the chunk widths the caller uses.
 
-    The ssm plan's cache is every layer's recurrent state, the same in both
-    layouts: {"conv": (n, batch, W-1, C) in the compute dtype, "ssm":
-    (n, batch, H, P, N) f32}.
+    A stack of Mamba2 blocks (the ssm plan's, the hybrid plan's "layers")
+    keeps every layer's recurrent state, the same in both layouts:
+    {"conv": (n, batch, W-1, C) in the compute dtype, "ssm": (n, batch, H,
+    P, N) f32}. The hybrid plan's shared block has one K/V a call (n the
+    number of segments), dense or in a pool.
     """
     stacks = _stacks(cfg)
     if kv_layout not in ("dense", "paged"):
         raise ValueError(f"kv_layout={kv_layout!r}")
     cdt = canonical_dtype(cfg.compute_dtype)
-    if layer_plan(cfg) == ("uniform", "ssm"):
-        sh = S.ssm_state_shapes(cfg.d_model, batch, expand=cfg.ssm_expand,
-                                headdim=cfg.ssm_headdim, state=cfg.ssm_state,
-                                d_conv=cfg.ssm_conv)
-        return {"layers": {"conv": ((cfg.n_layers,) + sh["conv"], cdt),
-                           "ssm": ((cfg.n_layers,) + sh["ssm"],
-                                   torch.float32)}}
     paged = kv_layout == "paged"
     if paged and kv_blocks is None:
         kv_blocks = batch * cdiv(max_len, kv_block)
     out = {}
-    for prefix, n in stacks.items():
+    for prefix in stacks:
+        n = _calls(cfg, prefix)
+        if _mamba_stack(cfg, prefix):
+            sh = S.ssm_state_shapes(cfg.d_model, batch, expand=cfg.ssm_expand,
+                                    headdim=cfg.ssm_headdim,
+                                    state=cfg.ssm_state, d_conv=cfg.ssm_conv)
+            out[prefix] = {"conv": ((n,) + sh["conv"], cdt),
+                           "ssm": ((n,) + sh["ssm"], torch.float32)}
+            continue
         if _ring_stack(cfg, prefix, paged):
             w = ring_len if ring_len is not None else (cfg.local_window
                                                        or max_len)
@@ -509,29 +563,28 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
     table, and the pairs plan's local stack through its per-slot rings, with
     the table's horizon (max_blocks * kv_block) as the rings' virtual one.
 
-    On the ssm plan a step runs every layer's Mamba2 block on its carried
-    conv and ssm state (c == 1 the recurrence, c > 1 the full-sequence
-    block over the chunk, exact length) and has no KV write plan;
-    ``positions`` and ``block_table`` are not read. Non-live rows keep
-    their state bit for bit (JAX's ``_mask_cache_rows``).
+    A Mamba2 layer (the ssm plan's, the hybrid plan's "layers") runs its
+    block on its carried conv and ssm state (c == 1 the recurrence, c > 1
+    the full-sequence block over the chunk, exact length), with no KV
+    write plan; non-live rows keep their state bit for bit (JAX's
+    ``_mask_cache_rows``). On the ssm plan ``positions`` and
+    ``block_table`` are not read. Each attention stack gets one KV write
+    plan a step (the hybrid plan's shared block one for all its calls),
+    never one a layer.
     """
     stacks = _stacks(cfg)
     ad = {p: _subvars((cola_vars or {}).get("adapters", {}), p) for p in stacks}
     de = {p: _subvars((cola_vars or {}).get("deltas", {}), p) for p in stacks}
     positions = batch["positions"]
     x = embed_tokens(cfg, params, batch)
-    if layer_plan(cfg) == ("uniform", "ssm"):
-        x = _ssm_decode(cfg, params, x, cache["layers"], spec, ad["layers"],
-                        de["layers"], live)
-        x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps,
-                      plus_one=cfg.norm_plus_one)
-        return head_logits(cfg, params, x), cache
     c = x.shape[1]
-    # each stack's layout and write plan; one plan per layout and step, never
-    # one per layer
+    # each attention stack's layout and write plan; one plan per layout and
+    # step, never one per layer
     plans: dict[tuple, tuple] = {}
     layouts = {}
     for prefix in stacks:
+        if _mamba_stack(cfg, prefix):
+            continue
         width = cache[prefix]["k"].shape[2]   # Smax, W_ring or kv_block
         table = horizon = None
         if _ring_stack(cfg, prefix, block_table is not None):
@@ -546,11 +599,15 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
             plans[kind, width] = A.kv_write_plan(positions, c, live, **kw)
         layouts[prefix] = (table, horizon, plans[kind, width])
     for prefix, i, window in _walk(cfg):
+        lp, ad_l, de_l = _site_vars(prefix, i, params, ad, de)
+        tap_ctx = (spec, ad_l, de_l, {})
+        if _mamba_stack(cfg, prefix):
+            x = _ssm_decode(cfg, lp, x, cache[prefix], i, tap_ctx, live)
+            continue
         table, horizon, write = layouts[prefix]
-        tap_ctx = (spec, _layer(ad[prefix], i), _layer(de[prefix], i), {})
-        x = B.attn_block_decode(cfg, _layer(params[prefix], i), x,
-                                cache[prefix]["k"][i], cache[prefix]["v"][i],
-                                positions, window=window, tap_prefix=prefix,
+        x = B.attn_block_decode(cfg, lp, x, cache[prefix]["k"][i],
+                                cache[prefix]["v"][i], positions,
+                                window=window, tap_prefix=prefix,
                                 tap_ctx=tap_ctx, live=live, block_table=table,
                                 kv_write=write, ring_horizon=horizon)
     x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps,
@@ -558,22 +615,21 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
     return head_logits(cfg, params, x), cache
 
 
-def _ssm_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                cache: dict, spec, ad: dict, de: dict,
-                live: torch.Tensor | None) -> torch.Tensor:
-    """The ssm plan's layers of a decode step, each layer's state written
-    back into ``cache`` in place; rows where ``live`` is False get their old
-    state back (a select against the old state, no host sync)."""
-    for i in range(cfg.n_layers):
-        conv, st = cache["conv"][i], cache["ssm"][i]
-        x, new_conv, new_st = B.ssm_block_decode(
-            cfg, _layer(params["layers"], i), x, conv, st, tap_prefix="layers",
-            tap_ctx=(spec, _layer(ad, i), _layer(de, i), {}))
-        if live is not None:
-            new_conv = torch.where(live[:, None, None], new_conv, conv)
-            new_st = torch.where(live[:, None, None, None], new_st, st)
-        conv.copy_(new_conv)
-        st.copy_(new_st)
+def _ssm_decode(cfg: ModelConfig, lp: dict, x: torch.Tensor, cache: dict,
+                i: int, tap_ctx: tuple, live: torch.Tensor | None
+                ) -> torch.Tensor:
+    """Mamba2 layer i of a decode step (parameters ``lp``), its state
+    written back into ``cache`` in place; rows where ``live`` is False get
+    their old state back (a select against the old state, no host sync)."""
+    conv, st = cache["conv"][i], cache["ssm"][i]
+    x, new_conv, new_st = B.ssm_block_decode(cfg, lp, x, conv, st,
+                                             tap_prefix="layers",
+                                             tap_ctx=tap_ctx)
+    if live is not None:
+        new_conv = torch.where(live[:, None, None], new_conv, conv)
+        new_st = torch.where(live[:, None, None, None], new_st, st)
+    conv.copy_(new_conv)
+    st.copy_(new_st)
     return x
 
 
@@ -588,7 +644,7 @@ def scatter_prefill_cache(cache: dict, pre: dict, slot_ids) -> dict:
     prefill cache is ever made. Positions >= a row's true prompt length
     receive pad-token KV, which is safe: decode at position p writes the real
     KV at p before attending, and causal masking hides positions > p.
-    State leaves (the ssm plan's conv and ssm state) have the slot cache's
+    State leaves (the Mamba2 layers' conv and ssm state) have the slot cache's
     trailing shape and are written whole. Recurrent state folds in every
     token, padding included, so such rows must come from an exact-length
     prefill (``has_recurrent_state``).

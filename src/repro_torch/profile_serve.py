@@ -19,7 +19,9 @@ Run on a machine with a CUDA card, from the repo root:
 ``[gemma2]`` drives it: ``--config gemma2-9b --slots 8 --max-len 6144
 --prompts 256 4800``; mamba2-370m as ``[ssm]`` (a): ``--config mamba2-370m
 --slots 8 --max-len 1024`` (the taps "qv" fall back to its ssm
-projections).
+projections); zamba2-7b as ``[hybrid]`` (a): ``--config zamba2-7b --slots 8
+--max-len 1024`` (the taps "qv" are the shared block's q and v, one
+adapter at every call).
 """
 from __future__ import annotations
 
@@ -75,9 +77,13 @@ def main(argv=None) -> int:
     params = model.init(cfg, seed=0, device=dev)
     gen = torch.Generator().manual_seed(0)
     sites = model.tap_sites(cfg)
-    banks = [{t: {"A": torch.randn((sites[t].stacked, sites[t].d_in, 8),
+
+    def lead(t):   # a stacked site's adapter has the layer axis
+        return (sites[t].stacked,) if sites[t].stacked else ()
+
+    banks = [{t: {"A": torch.randn(lead(t) + (sites[t].d_in, 8),
                                    generator=gen).to(dev) / 8 ** 0.5,
-                  "B": torch.randn((sites[t].stacked, 8, sites[t].d_out),
+                  "B": torch.randn(lead(t) + (8, sites[t].d_out),
                                    generator=gen).to(dev) * 0.05}
               for t in gl.select_taps(cfg, "qv")} for _ in range(4)]
     rng = np.random.default_rng(0)

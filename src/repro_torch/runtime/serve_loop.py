@@ -20,13 +20,14 @@ Serving at scale:
   through the multi-token decode step. A request's first token comes from
   its last chunk's logits, and decode bursts are capped at 1 while any slot
   is prefilling.
-- Recurrent state (the ssm plan, ``model.has_recurrent_state``) folds in
-  every input token, so padding must never reach it: the unchunked prefill
-  runs each prompt at its exact length (one forward a prompt), and a chunk
-  round groups its rows by exact width ``min(C, remaining)``, one device
-  call a group in ascending width. Admission zeroes a slot's state, which
-  the chunked and the reference prefills start from (JAX's engine starts
-  them from the slot's last request's state).
+- Recurrent state (the ssm and hybrid plans, ``model.has_recurrent_state``)
+  folds in every input token, so padding must never reach it: the
+  unchunked prefill runs each prompt at its exact length (one forward a
+  prompt), and a chunk round groups its rows by exact width ``min(C,
+  remaining)``, one device call a group in ascending width. Admission
+  zeroes a slot's state (its K/V is left alone), which the chunked and the
+  reference prefills start from (JAX's engine starts them from the slot's
+  last request's state).
 - ``kv_layout="paged"`` (requires ``prefill_chunk``): KV lives in a shared
   pool of ``kv_blocks`` blocks of ``kv_block`` positions, addressed through
   the ``BlockPager``'s per-slot block table. Admission reserves a request's
@@ -34,8 +35,9 @@ Serving at scale:
   and retirement releases the slot's blocks. ``max_len`` becomes a virtual
   horizon. The pairs plan's local stack keeps a per-slot ring of
   ``local_window + prefill_chunk - 1`` positions instead of pool blocks.
-  On the ssm plan the paged layout is bookkeeping only: the state is the
-  same in both layouts.
+  Recurrent state is the same in both layouts: on the ssm plan the paged
+  layout is bookkeeping only, on the hybrid plan (zamba2) the shared
+  block's K/V lives in the pool beside the Mamba2 layers' state.
 - ``bank_store="int8"``: the adapter bank is held as int8 codes with per-row
   f32 scales (``quantize_bank``) and dequantised on load in the kernel.
 - ``resident_slots=R``: the tiered adapter store (``runtime/adapter_store``)
@@ -633,11 +635,15 @@ class ServeEngine:
         if self._recurrent:
             # a reused slot still holds its last request's recurrent state,
             # which the chunked and the token-by-token prefills would start
-            # from: a new request starts from zeros
+            # from: a new request starts from zeros. Only the state leaves:
+            # a K/V leaf's axis 1 is a pool's block, which another slot may
+            # own, and a dense slot's stale K/V is never read (a request
+            # writes position p before it attends to it)
             for leaves in self.cache.values():
-                for leaf in leaves.values():
-                    for i in admitted:
-                        leaf[:, i].zero_()
+                for name, leaf in leaves.items():
+                    if name in ("conv", "ssm"):
+                        for i in admitted:
+                            leaf[:, i].zero_()
         if self.store is not None:
             # fetch on admission: resident before any device call reads it
             rows = self.store.ensure_resident(

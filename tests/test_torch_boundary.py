@@ -86,20 +86,22 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
 
 
 def test_head_dim_256_forward_and_decode_take_it_the_backward_refuses_it():
-    """gemma2's d_head 256: every kernel takes it now, the flash backward
-    too, whose checks pass the head dim and stop at the device (CPU tensors
-    here); a head dim no kernel takes (48) still raises by name before
-    anything launches, on any device."""
+    """gemma2's d_head 256 and zamba2's 112: every kernel takes them now,
+    the flash backward too, whose checks pass the head dim and stop at the
+    device (CPU tensors here); a head dim no kernel takes (48) still raises
+    by name before anything launches, on any device."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    assert 256 in fa.FWD_HEAD_DIMS and 256 in da.HEAD_DIMS
-    assert 256 in fa.BWD_HEAD_DIMS
+    for D in (256, 112):
+        assert D in fa.FWD_HEAD_DIMS and D in da.HEAD_DIMS
+        assert D in fa.BWD_HEAD_DIMS
     assert 48 not in fa.FWD_HEAD_DIMS + fa.BWD_HEAD_DIMS + da.HEAD_DIMS
     B, S, H, K = 1, 8, 2, 1
     pos = torch.arange(S, dtype=torch.int32)[None]
     stats = torch.zeros(B, H, S)
-    for D, match in ((256, "CUDA"),
-                     (48, r"head dim 48 not in \(16, 32, 64, 128, 256\)")):
+    for D, match in ((256, "CUDA"), (112, "CUDA"),
+                     (48, r"head dim 48 not in \(16, 32, 64, 112, 128, "
+                          r"256\)")):
         q = torch.zeros(B, S, H, D)
         k = torch.zeros(B, S, K, D)
         for name, outs in (("flash_attention_bwd_dq", (q,)),

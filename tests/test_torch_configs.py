@@ -1,5 +1,6 @@
 """The port's registered configs (gpt2-small, smollm-135m, the two mistrals,
-gemma2-9b, qwen3-moe-30b-a3b, dbrx-132b and mamba2-370m) against the JAX
+gemma2-9b, qwen3-moe-30b-a3b, dbrx-132b, mamba2-370m and zamba2-7b) against
+the JAX
 package's, field for field, full and reduced; the reduced uniform-plan
 configs through ``forward`` and a short engine run against the JAX package
 with the same weights (f32, logits within rtol 1e-4 / atol 1e-5: sums in
@@ -29,7 +30,7 @@ from repro_torch.runtime import serve_loop as tserve  # noqa: E402
 
 PORTED = ("gpt2-small", "smollm-135m", "mistral-nemo-12b",
           "mistral-large-123b", "gemma2-9b", "qwen3-moe-30b-a3b", "dbrx-132b",
-          "mamba2-370m")
+          "mamba2-370m", "zamba2-7b")
 UNIFORM = ("gpt2-small", "mistral-nemo-12b", "mistral-large-123b")
 
 

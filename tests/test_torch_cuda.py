@@ -12,7 +12,8 @@ against an f64 reference (the plain path in f64 on the CPU); kernels without
 a backward refusing inputs that require grad; the split-KV decode kernel,
 dense and paged, at the split edges (slots at 0, L - 1, L, L + 1, 2L - 1 and
 Smax - 1 of a cache that is no multiple of the split L, a window floor
-inside a later split, window 1, G 1 / 3 / 4 / 12 at every head dim, dead
+inside a later split, window 1, G 1 / 3 / 4 / 12 at every head dim (d_head
+112's idle lanes a row among them), dead
 slots, two launches giving the same bits) and its merge counters (grown
 with B * KH, left at zero by every launch); the paged decode kernel over
 block sizes and shuffled tables (and that it reads only the blocks the table
@@ -87,6 +88,11 @@ def _rnd(gen, dev, dtype, *shape):
     (2, 65, 8, 2, 128, None, None),     # G = 4
     (1, 257, 3, 3, 32, 40, 20.0),       # window + softcap, G = 1
     (2, 257, 12, 3, 128, 100, 30.0),    # window + softcap, G = 4
+    # zamba2's d_head 112: G 1, its tile edges, window + softcap, G 4
+    (1, 1, 4, 4, 112, None, None),
+    (2, 65, 8, 8, 112, None, None),
+    (1, 257, 4, 4, 112, 40, 20.0),
+    (2, 130, 8, 2, 112, None, None),
 ])
 def test_flash_forward_kernel(dev, dtype, B, S, H, K, D, window, softcap):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -192,13 +198,15 @@ def _decode_options(live):
 # of 300 positions (not a multiple of the split), G 1 / 3 / 4 / 12 at every
 # head dim
 EDGE_ROWS = [(6, 300, 2 * G, 2, D, True) for G in (1, 3, 4, 12)
-             for D in (16, 32, 64, 128)]
+             for D in (16, 32, 64, 112, 128)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,Smax,H,K,D,edges", [
     (16, 1024, 9, 3, 64, False), (4, 128, 4, 2, 32, False),
-    (3, 64, 6, 1, 128, False), (5, 100, 8, 8, 16, False), *EDGE_ROWS])
+    (3, 64, 6, 1, 128, False), (5, 100, 8, 8, 16, False),
+    (8, 1024, 32, 32, 112, False),   # zamba2's serving tick (G 1, d_head 112)
+    *EDGE_ROWS])
 def test_decode_attention_kernel(dev, dtype, B, Smax, H, K, D, edges):
     gen = torch.Generator(device=dev).manual_seed(2)
     q = _rnd(gen, dev, dtype, B, 1, H, D)
@@ -366,7 +374,10 @@ def test_wrappers_raise_for_what_the_kernels_do_not_take(dev):
     # dk/dv summed over G = 1, 3, 4 q heads at every head dim, a ragged
     # third tile
     *[(2, 150, 2 * G, 2, D, None, None) for G in (1, 3, 4)
-      for D in (16, 32, 64, 128, 256)],
+      for D in (16, 32, 64, 112, 128, 256)],
+    # zamba2's d_head 112 (G 1) at its tile edges, window + softcap
+    *[(1, S, 2, 2, 112, None, None) for S in (1, 17, 65)],
+    (2, 257, 4, 4, 112, 40, 20.0),
     # d_head 256's own tilings: gemma2's heads (G 2) with window + softcap,
     # G 1 / 2 / 4, the 16-row slabs (1, 16, 17 rows), dq's 32-row kv halves
     # (31, 32, 33), the 64-row tiles (64, 65, a ragged 100) and the f32
@@ -636,7 +647,8 @@ def _paged_case(gen, dev, dtype, B, H, K, D, bs, max_len, n_blocks,
     # 3 / 4 / 12 at every head dim
     *[(6, 2 * G, 2, D, bs, bs * -(-300 // bs), True)
       for G, bs in ((1, 8), (3, 16), (4, 24), (12, 32))
-      for D in (16, 32, 64, 128)],
+      for D in (16, 32, 64, 112, 128)],
+    (8, 32, 32, 112, 16, 1024, False),   # zamba2's paged tick
 ])
 def test_decode_attention_paged_kernel(dev, dtype, B, H, K, D, bs, max_len,
                                        edges):
@@ -910,7 +922,8 @@ def _ring_of(kc, vc, pos, w_ring):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("D,H,K,window", [(256, 16, 8, 4096), (256, 4, 2, 100),
-                                          (64, 4, 4, 40), (128, 8, 2, 130)])
+                                          (64, 4, 4, 40), (128, 8, 2, 130),
+                                          (112, 4, 4, 40)])
 def test_ring_tick_equals_dense_tick_bit_for_bit(dev, dtype, D, H, K, window):
     """The decode kernel's ring mode walks the dense tick's positions in the
     dense tick's splits (the horizon, not W_ring, sets them): equal bits,

@@ -293,16 +293,20 @@ def test_tap_sites_match_jax_without_mlp_sites(model_pair):
 
 
 def test_require_ported_takes_moe_and_names_the_rest():
-    """The MoE configs run, and so does the ssm plan (mamba2-370m); the
-    rest still raise, naming the current ROADMAP item."""
+    """The MoE configs run, and so do the ssm plan (mamba2-370m) and the
+    hybrid plan (zamba2-7b); the rest still raise, naming the current
+    ROADMAP item."""
     for name in MOE:
         assert TM._require_ported(tregistry.get_config(name)) == \
             ("uniform", "attn")
     cfg = tbase.ModelConfig(**dataclasses.asdict(
         registry.get_config("mamba2-370m")))
     assert TM._require_ported(cfg) == ("uniform", "ssm")
-    for name, item in (("zamba2-7b", "A.3"),
-                       ("musicgen-medium", "A.4"), ("pixtral-12b", "A.4")):
+    cfg = tbase.ModelConfig(**dataclasses.asdict(
+        registry.get_config("zamba2-7b")))
+    assert TM._require_ported(cfg) == M.layer_plan(registry.get_config(
+        "zamba2-7b"))
+    for name, item in (("musicgen-medium", "A.4"), ("pixtral-12b", "A.4")):
         cfg = tbase.ModelConfig(**dataclasses.asdict(registry.get_config(name)))
         with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\)"):
             TM._require_ported(cfg)

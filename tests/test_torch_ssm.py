@@ -414,10 +414,14 @@ def test_convert_gives_each_leaf_jax_init_dtype(name, dtype):
 
 
 def test_require_ported_takes_the_ssm_plan():
-    """mamba2-370m runs; the hybrid plan still raises (A.3)."""
+    """mamba2-370m runs, and so does the hybrid plan (zamba2-7b), whose
+    Mamba2 layers carry recurrent state too."""
     assert TM._require_ported(tregistry.get_config(NAME)) == ("uniform", "ssm")
     assert TM.has_recurrent_state(tregistry.get_config(NAME))
     assert not TM.has_recurrent_state(tregistry.get_config("smollm-135m"))
+    zamba2 = tregistry.get_config("zamba2-7b")
+    assert TM._require_ported(zamba2)[0] == "hybrid"
+    assert TM.has_recurrent_state(zamba2)
 
 
 # ---------------------------------------------------------------------------
