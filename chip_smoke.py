@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-twenty phases, then prints its result lines, exiting non-zero on any
+twenty-three phases, then prints its result lines, exiting non-zero on any
 failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
@@ -67,8 +67,12 @@ failure:
    chunk round of 8 x 128 against a 1024 cache, dense and paged decode at
    8 slots of 1024 with dead rows and a shuffled table, multi_lora (tick 8)
    and multi_lora_q8 (T 1024) at 3584 -> 3584 and its fit (cola_fit f32, L
-   14 calls, T 2 x 2048, 3584 -> 3584); each launched twice to the same
-   bits. A softcap row has no library time (no library call takes a
+   14 calls, T 2 x 2048, 3584 -> 3584); musicgen-medium's and
+   pixtral-12b's training shapes (4 x 2048, 24 heads of 64, MHA; 1 x 2048,
+   32 / 8 heads of 128) in the flash forward and both backward kernels,
+   their fits (cola_fit f32: 1536 -> 1536, L 48, T 8192; 5120 -> 4096 and
+   5120 -> 1024, L 40, T 2048) and multi_lora / multi_lora_q8 at 1536 ->
+   1536; each launched twice to the same bits. A softcap row has no library time (no library call takes a
    softcap); the row without one has it. The build lines report the
    registers and spills of every d_head 256 and 112 instantiation (the
    flash backward's at 256, the forward's and bf16 decode's at 112 and
@@ -255,7 +259,41 @@ failure:
    largest next-token logit gap printed; one merged session step at 1 x
    1024, card against CPU: losses within 1e-5, grad_h and the fit gradients
    of both shared taps within 1e-3 of their largest entry.
-21. The last lines: the card's name and power limit, one JSON line with every
+21. musicgen-medium at full width and depth (``[musicgen]``: 48 layers,
+   d_model 1536, 24 heads of 64, MHA, 4 codebooks of 2048 summed at the
+   input, an untied head of 4 x 2048 columns; bf16, seeded random weights,
+   its parameters and GiB printed), with the launch counts reset just
+   before and read just after each run: (a) 8 rows on 4 users' rank-8 qv
+   adapters, prompts of 32-512 positions x 4 codebooks, through the
+   model's entry points (the engine serves (P,) token prompts only): one
+   batched ``prefill`` with ``lengths`` into a dense cache and an f32 bank,
+   then paged K/V, prefill chunks of 128 through ``decode_step`` and an
+   int8 bank, each followed by 16 greedy ticks (``decode_step`` and an
+   argmax over the last axis, each tick's (8, 1, 4) argmax fed back):
+   every prefill or chunk call launches the flash forward 48 times, every
+   tick the layout's decode kernel 48 times, each call the bank's
+   multi-LoRA kernel 96 times, nothing else; every row gets 16 tokens of 4
+   codebooks; the pool is whole at the end; tick p50, prefill and chunk
+   times and the peak printed; (b) ColA training: a warm-up step and 2
+   measured steps, Mode A merged rank-8 qv, interval 1, AdamW, remat
+   "full", SyntheticLM 4 x 2048 of 4 codebooks: exactly 96 flash forwards,
+   48 dq and 48 dk/dv a step and 2 cola_fit a fit, losses finite, grad_h
+   non-zero, the bank moved.
+22. pixtral-12b at full width and depth (``[pixtral]``: 40 layers, d_model
+   5120, 32 / 8 heads of 128, vocab 131072, embeddings in and an
+   ``unembed`` head; bf16, seeded), as phase 21 with the stubbed
+   frontend's seeded embeddings as prompts and as each tick's input (the
+   argmax tokens recorded): 40 flash forwards a prefill or chunk call, 40
+   decode launches a tick, 80 multi-LoRA a call; (b) at 1 x 2048 of
+   SyntheticLM's embeddings: 80 / 40 / 40 attention launches a step.
+23. Both against the plain path (``[modality-vs-plain]``): each in f32 at
+   full width cut to 2 layers, dense + f32 and paged + chunks of 128 +
+   int8, 4 rows of 300 / 77 / 190 / 45 positions, 8 ticks, on the card and
+   on the CPU: equal greedy tokens (all 4 codebooks for musicgen), the
+   largest next-token logit gap printed; one merged session step at 1 x
+   1024: losses within 1e-5, grad_h and the fit gradients within 1e-3 of
+   their largest entry.
+24. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
@@ -684,7 +722,12 @@ def model_cases(dtype, dev, gen):
     mistral-large-123b (12288 -> 12288 / 1024), qwen3-moe-30b-a3b (2048 ->
     4096 / 512), dbrx-132b (6144 -> 6144 / 1024) and mamba2-370m's ssm taps
     (1024 -> 4384, 2048 -> 1024); mamba2-370m's fit (cola_fit f32, L 48,
-    T 4 x 2048, both ssm taps)."""
+    T 4 x 2048, both ssm taps); the training shapes of musicgen-medium (4 x
+    2048, 24 heads of 64, MHA) and pixtral-12b (1 x 2048, G 4 at d_head
+    128) in the flash forward and both backward kernels, their fits
+    (cola_fit f32: musicgen 1536 -> 1536, L 48, T 8192; pixtral q 5120 ->
+    4096 and v 5120 -> 1024, L 40, T 2048) and multi_lora / multi_lora_q8 at
+    musicgen's 1536 -> 1536."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cola_fit as cf
@@ -968,6 +1011,36 @@ def model_cases(dtype, dev, gen):
             nbytes=nbytes(x, g, A, Bm, A, Bm),
             flops=4 * r * (d_in + d_out) * T * L)
 
+    # the training shapes of musicgen-medium ([musicgen] (b): 4 x 2048, 24
+    # heads of 64, MHA; 96 forwards, 48 dq and 48 dk/dv a step) and
+    # pixtral-12b ([pixtral] (b): 1 x 2048, 32 / 8 heads of 128; 80 / 40 /
+    # 40) in the forward and both backward kernels, and their fits (f32,
+    # rank 8): musicgen's q and v both 1536 -> 1536 (one row for the two), L
+    # 48, T 4 x 2048; pixtral's q 5120 -> 4096 and v 5120 -> 1024, L 40, T
+    # 2048
+    for tag, B, H, K, D in (("musicgen G 1 d64: 4 x 2048", 4, 24, 24, 64),
+                            ("pixtral G 4 d128: 1 x 2048", 1, 32, 8, 128)):
+        yield flash(tag, B, 2048, H, K, D)
+        yield from flash_bwd(tag, B, 2048, H, K, D)
+    if dtype == torch.float32:
+        r = 8
+        for model, L, T, d_in, d_out in (("musicgen", 48, 4 * 2048, 1536, 1536),
+                                         ("pixtral", 40, 2048, 5120, 4096),
+                                         ("pixtral", 40, 2048, 5120, 1024)):
+            x, g = rnd(L, T, d_in), rnd(L, T, d_out)
+            A, Bm = rnd(L, d_in, r) / r ** 0.5, rnd(L, r, d_out) * 0.05
+            yield dict(
+                name=f"cola_fit[{model} {d_in} -> {d_out}: L {L}, T {T} {dt}]",
+                fn=lambda x=x, g=g, A=A, Bm=Bm: cf.cola_fit_lowrank(x, g, A, Bm),
+                plain=lambda x=x, g=g, A=A, Bm=Bm: cf.plain(x, g, A, Bm),
+                lib=lambda x=x, g=g, A=A, Bm=Bm: (
+                    torch.matmul((x @ A).transpose(1, 2), g),
+                    torch.matmul(x.transpose(1, 2), g @ Bm.transpose(1, 2))),
+                stream=lambda x=x, g=g: (x.sum(), g.sum()),
+                nbytes=nbytes(x, g, A, Bm, A, Bm),
+                flops=4 * r * (d_in + d_out) * T * L)
+            del x, g
+
     # mamba2-370m's fit ([ssm] (b), f32): 48 layers of each ssm tap, T = 4 x
     # 2048 rows, rank 8, in 1024 -> 4384 and out 2048 -> 1024
     if dtype == torch.float32:
@@ -987,9 +1060,10 @@ def model_cases(dtype, dev, gen):
                 flops=4 * r * (d_in + d_out) * T * L)
             del x, g
 
-    # the adapted taps of the seven configs, 4 users, rank 8 (mamba2's are
+    # the adapted taps of the eight configs, 4 users, rank 8 (mamba2's are
     # its ssm in and out projections, of two input widths; zamba2's q and
-    # v, both 3584 -> 3584, one row for the two)
+    # v, both 3584 -> 3584, and musicgen's, both 1536 -> 1536, one row for
+    # the two; pixtral's are nemo's)
     U, r = 4, 8
     for model, d_in, outs in (("gemma2", 3584, (4096, 2048)),
                               ("nemo", 5120, (4096, 1024)),
@@ -998,7 +1072,8 @@ def model_cases(dtype, dev, gen):
                               ("dbrx", 6144, (6144, 1024)),
                               ("mamba2", 1024, (4384,)),
                               ("mamba2", 2048, (1024,)),
-                              ("zamba2", 3584, (3584,))):
+                              ("zamba2", 3584, (3584,)),
+                              ("musicgen", 1536, (1536,))):
         for d_out in outs:
             A = rnd(U, d_in, r, d=torch.float32) / r ** 0.5
             Bm = rnd(U, r, d_out, d=torch.float32) * 0.05
@@ -3538,6 +3613,338 @@ def phase_hybrid_vs_plain(dev) -> None:
     _free()
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: musicgen-medium's codebooks and untied head, pixtral-12b's
+# embedding input
+# ---------------------------------------------------------------------------
+
+MODALITY_TAPS = ("layers.attn.q", "layers.attn.v")
+# (label, paged KV with prefill chunks of 128, bank store)
+MODALITY_RUNS = (("dense KV, f32 bank", False, "f32"),
+                 ("paged KV, chunks of 128, int8 bank", True, "int8"))
+
+
+def _modality_inputs(cfg, lens, seed: int) -> list:
+    """Seeded prompts: (P, CB) tokens, or with ``embed_input`` the stubbed
+    frontend's (P, d) f32 embeddings."""
+    rng = np.random.default_rng(seed)
+    if cfg.embed_input:
+        return [rng.standard_normal((int(n), cfg.d_model)).astype(np.float32)
+                for n in lens]
+    return [rng.integers(0, cfg.vocab_size, (int(n), cfg.n_codebooks))
+            .astype(np.int32) for n in lens]
+
+
+def modality_serve(cfg, params, banks, prompts, device, *, paged: bool,
+                   store: str, ticks: int, seed: int, max_len: int = 1024,
+                   chunk: int = 128, block: int = 16, keep_logits=False):
+    """Serve one row a prompt through the model's entry points, as the JAX
+    package's prefill and serve steps do at one device (its engine serves
+    (P,) token prompts only): row i on user i % len(banks)'s adapters
+    (``cola_vars`` with per-row ``idx``, as ``ServeEngine._cola_vars``
+    builds them; the f32 bank, or int8 through ``quantize_bank``). Dense:
+    one right-padded ``model.prefill`` with ``lengths``, scattered into an
+    ``init_cache`` (``scatter_prefill_cache``). Paged: a ``BlockPager``
+    reserves each row's prompt and ticks, and the prompts go through
+    ``model.decode_step`` in rounds of ``chunk`` (a row live until its
+    prompt is in), the table copied to the device each call. Then
+    ``ticks`` greedy ticks (``decode_step`` + an argmax over the last
+    axis): with codebooks each tick feeds back the last (B, 1, CB) argmax;
+    with ``embed_input`` it takes a seeded (B, 1, d) stub embedding. Each
+    device call's kind, launches (the wrappers' counts, read on the host)
+    and host seconds (the argmax read back ends it) are kept. Returns the
+    tokens (the prompt's argmax and each tick's, per row), the calls, the
+    largest pool use and, with ``keep_logits``, each call's next-token
+    logits on the host. The pool must be whole at the end."""
+    from repro_torch.core import gl
+    from repro_torch.core import taps as taps_lib
+    from repro_torch.models import model
+    from repro_torch.runtime.kv_pager import BlockPager
+    from repro_torch.runtime.serve_loop import (quantize_bank,
+                                                stack_user_adapters)
+    from repro_torch.utils import cdiv
+
+    B, L = len(prompts), cfg.n_layers
+    lens = np.array([len(p) for p in prompts], np.int32)
+    key = "embeds" if cfg.embed_input else "tokens"
+    bank = stack_user_adapters(banks)
+    if store == "int8":
+        bank = quantize_bank(bank)
+    users = torch.arange(B, dtype=torch.int32, device=device) % len(banks)
+    cola_vars = {"adapters": {t: dict({n: a.to(device).contiguous()
+                                       for n, a in e.items()},
+                                      idx=users.expand(L, -1))
+                              for t, e in bank.items()}}
+    spec = taps_lib.make_spec(family="multi_lowrank",
+                              taps=gl.select_taps(cfg, "qv"), scale=1.0)
+    stub = np.random.default_rng(seed).standard_normal(
+        (ticks, B, 1, cfg.d_model)).astype(np.float32)
+    ws = wrappers()
+    calls, logits_kept = [], []
+
+    def tensor(a):
+        return torch.as_tensor(a, device=device)
+
+    def call(kind, fn):
+        """One device call; returns its rows' next-token argmax (on the
+        host) and logits."""
+        before = {n: w.launches for n, w in ws.items()}
+        t0 = time.perf_counter()
+        logits = fn()
+        nxt = logits.argmax(dim=-1)
+        host = nxt.cpu()
+        calls.append((kind, {n: w.launches - before[n] for n, w in ws.items()},
+                      time.perf_counter() - t0))
+        if keep_logits:
+            logits_kept.append(logits.float().cpu())
+        return nxt, host
+
+    pager = None
+    feat = prompts[0].shape[1:]
+    if paged:
+        n_blocks = B * cdiv(max_len, block)
+        pager = BlockPager(n_blocks, block, B, max_len)
+        for i, n in enumerate(lens):
+            check(pager.reserve(i, int(n) + ticks), f"slot {i}: no reservation")
+        cache = model.init_cache(cfg, B, max_len, kv_layout="paged",
+                                 kv_blocks=n_blocks, kv_block=block,
+                                 device=device)
+        done = np.zeros(B, np.int32)
+        first = [None] * B
+        rows = torch.arange(B, device=device)
+        while (done < lens).any():
+            x = np.zeros((B, chunk) + feat, prompts[0].dtype)
+            pos, width = done.copy(), np.ones(B, np.int32)
+            live = done < lens
+            for i in np.flatnonzero(live):
+                c = min(chunk, int(lens[i] - done[i]))
+                x[i, :c] = prompts[i][done[i]:done[i] + c]
+                width[i] = c
+                check(pager.ensure(i, min(int(done[i]) + chunk - 1,
+                                          max_len - 1)), f"slot {i}: ensure")
+            table = tensor(pager.table)
+
+            def step(x=x, pos=pos, live=live, table=table, width=width):
+                lg, _ = model.decode_step(
+                    cfg, params, {key: tensor(x), "positions": tensor(pos)},
+                    cache, spec, cola_vars, live=tensor(live),
+                    block_table=table)
+                return lg[rows, tensor(width).long() - 1]
+
+            nxt, host = call("chunk", step)
+            done += np.where(live, width, 0).astype(np.int32)
+            for i in np.flatnonzero(live & (done >= lens)):
+                first[i] = (nxt[i], host[i])
+        nxt = torch.stack([f[0] for f in first])
+        host = torch.stack([f[1] for f in first])
+    else:
+        cache = model.init_cache(cfg, B, max_len, device=device)
+        x = np.zeros((B, int(lens.max())) + feat, prompts[0].dtype)
+        for i, p in enumerate(prompts):
+            x[i, :len(p)] = p
+
+        def prefill():
+            lg, pre = model.prefill(cfg, params, {key: tensor(x)}, spec,
+                                    cola_vars, lengths=tensor(lens))
+            model.scatter_prefill_cache(cache, pre, np.arange(B))
+            return lg[:, -1]
+
+        nxt, host = call("prefill", prefill)
+    tokens = [[host[i].tolist()] for i in range(B)]
+    peak_blocks = pager.blocks_in_use() if pager is not None else 0
+    for t in range(ticks):
+        pos = lens + t
+        table = None
+        if pager is not None:
+            for i in range(B):
+                check(pager.ensure(i, int(pos[i])), f"slot {i}: ensure")
+            table = tensor(pager.table)
+            peak_blocks = max(peak_blocks, pager.blocks_in_use())
+        x = tensor(stub[t]) if cfg.embed_input else nxt[:, None]
+
+        def tick(x=x, pos=pos, table=table):
+            lg, _ = model.decode_step(cfg, params,
+                                      {key: x, "positions": tensor(pos)},
+                                      cache, spec, cola_vars,
+                                      block_table=table)
+            return lg[:, -1]
+
+        nxt, host = call("tick", tick)
+        for i in range(B):
+            tokens[i].append(host[i].tolist())
+    if pager is not None:
+        for i in range(B):
+            pager.release(i)
+        pager.assert_empty()
+    del cache
+    return dict(tokens=tokens, calls=calls, logits=logits_kept,
+                peak_blocks=peak_blocks)
+
+
+def _modality_calls(tag, label, cfg, calls, store, paged) -> dict:
+    """Every device call's launches exact: a prefill or chunk call the
+    flash forward once a layer and the bank's multi-LoRA kernel twice a
+    layer (q and v), a tick the layout's decode kernel once a layer and
+    the bank's kernel twice; nothing else. Returns the calls' total
+    launches."""
+    L = cfg.n_layers
+    bank = "multi_lora_q8" if store == "int8" else "multi_lora"
+    decode = "decode_attention_paged" if paged else "decode_attention"
+    want = {"prefill": {"flash_attention": L, bank: 2 * L},
+            "chunk": {"flash_attention": L, bank: 2 * L},
+            "tick": {decode: L, bank: 2 * L}}
+    kinds = collections.Counter(k for k, _, _ in calls)
+    bad = [(k, got) for k, got, _ in calls
+           if {n: c for n, c in got.items() if c} != want[k]]
+    check(not bad and kinds["tick"] > 0, f"{tag} {label}: calls "
+          f"{dict(kinds)}, a call's launches off {want}: {bad[:3]}")
+    print(f"{tag} {label}: device calls {dict(kinds)}, each prefill or "
+          f"chunk call launching exactly {want['chunk']}, each tick "
+          f"{want['tick']}", flush=True)
+    total = collections.Counter()
+    for _, got, _ in calls:
+        total.update(got)
+    return dict(total)
+
+
+def phase_modality(dev, name: str, tag: str) -> dict:
+    """``name`` (musicgen-medium: 48 layers, d_model 1536, 24 heads of 64,
+    MHA, 4 codebooks of 2048 summed at the input and an untied head of 4 x
+    2048 columns; pixtral-12b: 40 layers, d_model 5120, 32 / 8 heads of
+    128, vocab 131072, embeddings in and an ``unembed`` head) at full width
+    and depth, bf16, seeded random weights: (a) 8 rows on 4 users' rank-8
+    qv adapters, prompts of 32-512 positions (x 4 codebooks, or stub
+    embeddings), right-padded: one batched prefill with ``lengths`` into a
+    dense cache and an f32 bank, then paged K/V, prefill chunks of 128
+    through ``decode_step`` and an int8 bank, each followed by 16 greedy
+    ticks (``modality_serve``), with the launch counts reset just before
+    and read just after each run and each device call's launches exact
+    (``_modality_calls``); (b) ColA training (``_cola_train``): a warm-up
+    step and 2 measured steps, Mode A merged rank-8 qv, interval 1, AdamW,
+    remat "full", SyntheticLM at ``SETUPS``' shape: 2 L flash forwards, L
+    dq and L dk/dv a step and 2 cola_fit a fit. Returns the launch counts
+    of all runs."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.utils import tree_leaves
+
+    cfg = registry.get_config(name)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{tag} {name} init at full depth in {time.perf_counter() - t0:.1f} "
+          f"s: {cfg.n_layers} layers, {n_params} parameters, "
+          f"{n_params * 2 / 2**30:.2f} GiB in bf16 "
+          f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated, "
+          f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB); "
+          f"leaves {sorted(k for k in params if not k.startswith('layers'))}"
+          f"; {card_line()}", flush=True)
+    banks = user_banks(cfg, 4, dev, SEED)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = _modality_inputs(cfg, rng.integers(32, 513, 8), SEED + 2)
+    ticks = 16
+    total = collections.Counter()
+    for label, paged, store in MODALITY_RUNS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, launches = _counted(lambda: modality_serve(
+            cfg, params, banks, prompts, dev, paged=paged, store=store,
+            ticks=ticks, seed=SEED + 3))
+        calls = _modality_calls(f"{tag} (a)", label, cfg, out["calls"], store,
+                                paged)
+        check(all(calls.get(n, 0) == c for n, c in launches.items()),
+              f"{tag} (a) {label}: launches {launches} != the calls' {calls}")
+        width = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+        toks = np.array(out["tokens"])
+        check(toks.shape == (8, ticks + 1) + width
+              and 0 <= toks.min() and toks.max() < cfg.vocab_size,
+              f"{tag} (a) {label}: tokens of shape {toks.shape}, not 8 rows "
+              f"of the prompt's and {ticks} ticks' {width} in the vocabulary")
+        secs = {k: [s * 1e3 for kk, _, s in out["calls"] if kk == k]
+                for k in ("prefill", "chunk", "tick")}
+        pre = (f"prefill call {secs['prefill'][0]:.1f} ms" if secs["prefill"]
+               else f"{len(secs['chunk'])} chunk calls, p50 "
+                    f"{statistics.median(secs['chunk']):.1f} ms, "
+                    f"{sum(secs['chunk']):.1f} ms in all")
+        print(f"{tag} (a) {name} bf16, {label}: 8 rows of "
+              f"{sorted(len(p) for p in prompts)} positions, every row "
+              f"{ticks} tick tokens of shape {width}; {pre}; tick p50 "
+              f"{statistics.median(secs['tick']):.2f} ms (max "
+              f"{max(secs['tick']):.2f}); largest pool use "
+              f"{out['peak_blocks']} blocks of 16; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+              f"{card_line()}", flush=True)
+        print(f"{tag} (a) {label}: launches {launches}", flush=True)
+        total.update(launches)
+        _free()
+    none = dict.fromkeys(("decode_attention", "decode_attention_paged",
+                          "multi_lora", "multi_lora_q8"), 0)
+    train = _cola_train(
+        cfg, params, dev, f"{tag} (b)", MODALITY_TAPS,
+        lambda L, n: {**none, "flash_attention": 2 * L * n,
+                      "flash_attention_bwd_dq": L * n,
+                      "flash_attention_bwd_dkv": L * n, "cola_fit": 2 * n})
+    del params
+    _free()
+    total.update(train)
+    return dict(total)
+
+
+def phase_modality_vs_plain(dev) -> None:
+    """musicgen-medium and pixtral-12b in f32 at full width, depth cut to 2
+    layers, against the CPU's plain path: (a) ``modality_serve``, dense +
+    f32 bank and paged + chunks of 128 + int8 bank, 4 rows of 300 / 77 /
+    190 / 45 positions (tail chunks of 44, 77, 62 and 45) on 2 users, 8
+    ticks: equal greedy tokens (all 4 codebooks for musicgen), the largest
+    next-token logit gap printed; (b) one merged rank-8 qv session step at
+    1 x 1024 (``_session_vs_plain``: losses within 1e-5, grad_h and the fit
+    gradients within 1e-3 of their largest entry)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+
+    tag = "[modality-vs-plain]"
+    for name in ("musicgen-medium", "pixtral-12b"):
+        cfg = registry.get_config(name).replace(
+            n_layers=2, param_dtype="float32", compute_dtype="float32")
+        params_cpu = model.init(cfg, seed=SEED + 1, device="cpu")
+        params_gpu = _to(params_cpu, dev)
+        prompts = _modality_inputs(cfg, (300, 77, 190, 45), SEED + 3)
+        banks_cpu = user_banks(cfg, 2, "cpu", SEED + 1)
+        banks_gpu = [_to(b, dev) for b in banks_cpu]
+        for label, paged, store in MODALITY_RUNS:
+            out, secs = {}, {}
+            for where, params, banks, device in (
+                    ("card", params_gpu, banks_gpu, dev),
+                    ("cpu", params_cpu, banks_cpu, "cpu")):
+                t0 = time.perf_counter()
+                out[where] = modality_serve(
+                    cfg, params, banks, prompts, device, paged=paged,
+                    store=store, ticks=8, seed=SEED + 4, keep_logits=True)
+                secs[where] = time.perf_counter() - t0
+            card, cpu = out["card"], out["cpu"]
+            check(len(card["logits"]) == len(cpu["logits"]),
+                  f"{tag} {name} {label}: {len(card['logits'])} calls on the "
+                  f"card, {len(cpu['logits'])} on the CPU")
+            gap = max(float((x - y).abs().max())
+                      for x, y in zip(card["logits"], cpu["logits"]))
+            same = card["tokens"] == cpu["tokens"]
+            print(f"{tag} {name} f32, 2 layers at full width, {label}: "
+                  f"{len(card['calls'])} device calls; tokens card == CPU: "
+                  f"{same}; largest next-token logit gap {gap:.3e} (max "
+                  f"|logit| {max(float(x.abs().max()) for x in cpu['logits']):.3f}"
+                  f"); {secs['card']:.1f} s on the card, {secs['cpu']:.1f} s "
+                  f"on the CPU", flush=True)
+            check(same, f"{tag} {name} {label}: greedy tokens differ, card "
+                  f"{card['tokens']} vs CPU {cpu['tokens']}")
+        del banks_gpu
+        _free()
+        _session_vs_plain(cfg, params_cpu, params_gpu, dev, 1,
+                          f"{tag} {name} (b)")
+        del params_gpu, params_cpu
+        _free()
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -3672,6 +4079,16 @@ def main() -> int:
     phase_hybrid_vs_plain(dev)
     print(f"[hybrid-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    musicgen = phase_modality(dev, "musicgen-medium", "[musicgen]")
+    print(f"[musicgen] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    pixtral = phase_modality(dev, "pixtral-12b", "[pixtral]")
+    print(f"[pixtral] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_modality_vs_plain(dev)
+    print(f"[modality-vs-plain] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
@@ -3688,23 +4105,24 @@ def main() -> int:
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
     # launches: the serving, training, serving-at-scale, store, runtime,
-    # telemetry, gemma2, gemma2-train, configs, moe, ssm and hybrid runs'
-    # together (flash_attention runs on all eleven attention paths, none on
-    # the ssm path, which runs the multi-LoRA kernels and cola_fit; the ring
-    # ticks count as the paged decode kernel's, of which they are the ring
-    # addressing mode); the top-level numbers are the kernel's first row,
+    # telemetry, gemma2, gemma2-train, configs, moe, ssm, hybrid, musicgen
+    # and pixtral runs' together (flash_attention runs on all thirteen
+    # attention paths, none on the ssm path, which runs the multi-LoRA
+    # kernels and cola_fit; the ring ticks count as the paged decode
+    # kernel's, of which they are the ring addressing mode); the top-level numbers are the kernel's first row,
     # "rows" holds every phase-1 row of the kernel (both cola_fit taps,
     # multi_lora at a tick, the d_head 256 and 112 rows and the other
     # configs' shapes)
-    for extra in (gemma2, configs, moe, ssm, hybrid):
-        extra["decode_attention_paged"] += extra.pop("decode_attention_ring")
+    for extra in (gemma2, configs, moe, ssm, hybrid, musicgen, pixtral):
+        extra["decode_attention_paged"] += extra.pop("decode_attention_ring", 0)
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
                     replaces=replaces[n],
                     launches=(launches[n] + train[n] + scale[n] + store[n]
                               + runtime[n] + tele[n] + gemma2[n]
                               + gemma2_train[n] + configs[n] + moe[n]
-                              + ssm[n] + hybrid[n]),
+                              + ssm[n] + hybrid[n] + musicgen.get(n, 0)
+                              + pixtral.get(n, 0)),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})

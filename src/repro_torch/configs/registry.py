@@ -1,27 +1,35 @@
-"""Architecture registry: full configs and reduced smoke variants. Only the
-architectures the port runs are listed (see ROADMAP.md for the rest): the
-uniform-attention plan with dense blocks (gpt2-small, smollm-135m, the two
-mistrals) and with MoE blocks (qwen3-moe-30b-a3b, dbrx-132b), gemma2's
-local/global pairs plan, the attention-free SSM plan of Mamba2 blocks
-(mamba2-370m), and the hybrid plan of Mamba2 segments with a shared
-attention block (zamba2-7b)."""
+"""Architecture registry: full configs, reduced smoke variants and the shape
+cells, as in the JAX package's ``configs/registry.py``. Every one of its
+eleven configs is listed: the uniform-attention plan with dense blocks
+(gpt2-small, smollm-135m, the two mistrals, and musicgen-medium's four
+codebooks with an untied head and pixtral-12b's embedding input) and with
+MoE blocks (qwen3-moe-30b-a3b, dbrx-132b), gemma2's local/global pairs
+plan, the attention-free SSM plan of Mamba2 blocks (mamba2-370m), and the
+hybrid plan of Mamba2 segments with a shared attention block (zamba2-7b).
+The dry-run's input specs and mesh wait for the distributed port (see
+ROADMAP.md)."""
 from __future__ import annotations
 
 import importlib
+from dataclasses import dataclass
 
 from repro_torch.configs.base import ModelConfig
 
 ARCH_MODULES = {
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
-    "gpt2-small": "repro_torch.configs.gpt2_small",
-    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
-    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "gpt2-small": "repro_torch.configs.gpt2_small",
 }
+
+ASSIGNED = tuple(k for k in ARCH_MODULES if k != "gpt2-small")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -54,3 +62,42 @@ def reduced_config(name: str) -> ModelConfig:
     if cfg.attn_pattern == "local_global":
         kw.update(local_window=16)
     return cfg.replace(**kw)
+
+
+# ---------------------------------------------------------------------------
+# shape cells
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # "train" | "prefill" | "decode"
+    seq: int
+    batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """Skip rules: long_500k only for sub-quadratic (SSM / hybrid) archs."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        shapes.append("long_500k")
+    return shapes
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [(arch, s) for arch in ASSIGNED
+            for s in applicable_shapes(get_config(arch))]
+
+
+def skipped_cells() -> list[tuple[str, str, str]]:
+    return [(arch, "long_500k",
+             "full quadratic attention; 500k ctx requires sub-quadratic")
+            for arch in ASSIGNED if not get_config(arch).sub_quadratic]

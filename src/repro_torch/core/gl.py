@@ -101,8 +101,10 @@ def server_step_a(cfg: ModelConfig, spec: ColaSpec, params: dict,
 
     ``params`` should already be merged in merged mode (then
     ``spec.families`` is empty and adapters are not applied in the graph).
+    The batch holds "tokens" or, with ``embed_input``, "embeds"; B and S
+    are its first two axes either way.
     """
-    tok = batch["tokens"]
+    tok = batch.get("tokens", batch.get("embeds"))
     deltas = {t: d.requires_grad_() for t, d in zero_deltas(
         cfg, spec, tok.shape[0], tok.shape[1], device=tok.device).items()}
     loss, aux = model_lib.loss_fn(cfg, params, batch, spec,

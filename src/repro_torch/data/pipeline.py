@@ -19,7 +19,11 @@ from repro_torch.utils import resolve_device
 class SyntheticLM:
     """Seeded synthetic LM stream with learnable structure: a fixed random
     bigram table (8 likely successors per token, 10 % noise) generates the
-    tokens, so a model can reduce its loss."""
+    tokens, so a model can reduce its loss. With codebooks each of the CB
+    streams is drawn in turn from the step's generator and stacked last,
+    tokens and labels (b, seq, CB); with ``embed_input`` the batch is
+    standard-normal f32 stub embeddings (b, seq, d) and uniform labels, in
+    JAX's order of draws."""
     cfg: ModelConfig
     batch: int
     seq: int
@@ -30,9 +34,6 @@ class SyntheticLM:
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
-        if self.cfg.n_codebooks or self.cfg.embed_input:
-            raise NotImplementedError("codebook and embedding inputs are not "
-                                      "ported yet (see ROADMAP.md)")
         self.device = resolve_device(self.device)
         rng = np.random.default_rng(self.seed)
         self._succ = rng.integers(0, self.cfg.vocab_size, size=(
@@ -54,8 +55,18 @@ class SyntheticLM:
         rng = np.random.default_rng(
             (self.seed * 1_000_003 + step) * 7919 + self.host_id)
         b = self.batch // self.n_hosts
-        toks = self._gen_tokens(rng, b, self.seq)
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if self.cfg.embed_input:
+            emb = rng.standard_normal(
+                (b, self.seq, self.cfg.d_model)).astype(np.float32)
+            labels = rng.integers(0, self.cfg.vocab_size,
+                                  size=(b, self.seq), dtype=np.int32)
+            batch = {"embeds": emb, "labels": labels}
+        else:
+            toks = (np.stack([self._gen_tokens(rng, b, self.seq)
+                              for _ in range(self.cfg.n_codebooks)], axis=-1)
+                    if self.cfg.n_codebooks
+                    else self._gen_tokens(rng, b, self.seq))
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
         if self.users > 1:
             batch["user_id"] = rng.integers(0, self.users, size=(b,),
                                             dtype=np.int32)

@@ -3,9 +3,10 @@
 
 Layer plans (``layer_plan``, as in the JAX package):
 - "uniform": one stack of identical blocks ("layers.*" taps), e.g.
-  ``smollm-135m``, ``gpt2-small``, the mistrals, and the MoE configs
-  ``qwen3-moe-30b-a3b`` (QK-norm) and ``dbrx-132b``, whose blocks route to
-  experts and add the switch aux loss to the training loss;
+  ``smollm-135m``, ``gpt2-small``, the mistrals, ``musicgen-medium`` and
+  ``pixtral-12b``, and the MoE configs ``qwen3-moe-30b-a3b`` (QK-norm) and
+  ``dbrx-132b``, whose blocks route to experts and add the switch aux loss
+  to the training loss;
 - "pairs": gemma2's alternating local/global layers, two stacks
   ("layers_a.*" local with ``window=local_window``, "layers_b.*" global),
   walked pair by pair; under the paged KV layout the local stack keeps a
@@ -21,8 +22,13 @@ Layer plans (``layer_plan``, as in the JAX package):
   Mamba2 layers' recurrent state and the shared block's K/V a call (dense,
   or a paged pool).
 Every plan serves and trains (ColA's taps and deltas on every stack).
-Still to be ported (ROADMAP.md A.4; ``_require_ported`` raises for each):
-codebooks, ``embed_input`` and an untied head.
+
+Inputs and head (``embed_tokens``, ``head_logits``): token ids (B, S) and a
+tied head, logits (..., V); musicgen's ``n_codebooks`` streams (B, S, CB),
+their embeddings summed, and an untied ``lm_head`` giving (..., CB, V),
+labels (B, S, CB); pixtral's ``embed_input``, precomputed embeddings
+{"embeds": (B, S, d)} and a separate ``unembed`` head. B, S and a step's c
+come from the embedded input, whichever key the batch holds.
 
 Parameters are the JAX package's pytree as nested dicts of tensors, layer
 leaves stacked on a leading (n,) axis per stack (the shared block's
@@ -67,22 +73,9 @@ def layer_plan(cfg: ModelConfig):
 
 
 def _require_ported(cfg: ModelConfig) -> tuple:
-    """The plan of ``cfg`` (``layer_plan``) when the port runs it: the
-    uniform plan over attention blocks (dense or MoE) or over Mamba2 blocks,
-    gemma2's local/global pairs and zamba2's hybrid segments. Every other
-    architecture feature raises, naming the ROADMAP item that ports it,
-    instead of running half-supported."""
-    plan = layer_plan(cfg)
-    missing = [(f, "A.4") for f in ("n_codebooks", "embed_input")
-               if getattr(cfg, f)]
-    if not cfg.tie_embeddings:
-        missing.append(("an untied head", "A.4"))
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: " + ", ".join(f"{f} (ROADMAP.md {item})"
-                                        for f, item in missing)
-            + " not ported yet")
-    return plan
+    """The plan of ``cfg`` (``layer_plan``): the port runs every registered
+    architecture, so none raises."""
+    return layer_plan(cfg)
 
 
 def _stacks(cfg: ModelConfig) -> dict[str, int]:
@@ -219,7 +212,10 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     ``convert.params_from_numpy`` instead). Expert leaves are drawn a layer
     at a time (``normal_by_layer``); every other leaf in one draw. The
     Mamba2 blocks' ``dt_bias``, ``A_log`` and ``D`` are f32 in any
-    ``param_dtype``, as in JAX."""
+    ``param_dtype``, as in JAX. The input and head leaves are JAX's: with
+    codebooks ``embed.emb`` (CB, V, d) and ``lm_head.w`` (d, CB * V); with
+    ``embed_input`` only ``unembed.emb`` (V, d); else ``embed.emb`` (V, d),
+    and ``lm_head.w`` (d, V) where the head is untied."""
     stacks = _stacks(cfg)
     dev = resolve_device(device)
     dt = canonical_dtype(cfg.param_dtype)
@@ -278,7 +274,17 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
             p["post_ln2"] = ones(*lead, d)
         return p
 
-    params = {"embed": {"emb": normal((cfg.vocab_size, d), 0.02)}}
+    V = cfg.vocab_size
+    if cfg.n_codebooks:
+        params = {"embed": {"emb": normal((cfg.n_codebooks, V, d), 0.02)},
+                  "lm_head": {"w": normal((d, cfg.n_codebooks * V),
+                                          d ** -0.5)}}
+    elif cfg.embed_input:
+        params = {"unembed": {"emb": normal((V, d), 0.02)}}
+    else:
+        params = {"embed": {"emb": normal((V, d), 0.02)}}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = {"w": normal((d, V), d ** -0.5)}
     for prefix, n in stacks.items():
         params[prefix] = (B.ssm_block_init(cfg, n, normal=normal,
                                            uniform=uniform, full=full)
@@ -292,21 +298,45 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Token embeddings in the compute dtype; with ``embed_scale`` times
-    sqrt(d_model) rounded to that dtype first (59.75 in bf16 at gemma2's
-    3584), as JAX's ``jnp.asarray(d_model ** 0.5, cdt)``."""
-    _require_ported(cfg)
-    x = L.embed(params["embed"], batch["tokens"]).to(
-        canonical_dtype(cfg.compute_dtype))
+    """The input (B, S, d) in the compute dtype: ``batch["embeds"]`` cast
+    with ``embed_input``; with codebooks the CB streams' embeddings of
+    ``batch["tokens"]`` (B, S, CB) added to zeros in the compute dtype one
+    codebook at a time, 0 first (JAX's order: in bf16 each add rounds);
+    else the tokens' embeddings. With ``embed_scale`` times sqrt(d_model)
+    rounded to that dtype first (59.75 in bf16 at gemma2's 3584), as JAX's
+    ``jnp.asarray(d_model ** 0.5, cdt)``."""
+    cdt = canonical_dtype(cfg.compute_dtype)
+    if cfg.embed_input:
+        x = batch["embeds"].to(cdt)
+    elif cfg.n_codebooks:
+        toks, emb = batch["tokens"].long(), params["embed"]["emb"]
+        x = torch.zeros(toks.shape[:2] + (cfg.d_model,), dtype=cdt,
+                        device=emb.device)
+        for cb in range(cfg.n_codebooks):
+            x = x + emb[cb][toks[..., cb]].to(cdt)
+    else:
+        x = L.embed(params["embed"], batch["tokens"]).to(cdt)
     if cfg.embed_scale:
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
     return x
 
 
 def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
-    """Tied head: h (..., d) -> logits (..., V), in h's dtype (so bf16 at
-    full width); ``final_softcap`` takes the tanh in f32 and casts back."""
-    logits = h @ params["embed"]["emb"].to(h.dtype).T
+    """h (..., d) -> logits (..., V) in h's dtype (so bf16 at full width):
+    through the tied embedding, ``unembed`` (``embed_input``) or an untied
+    ``lm_head``; with codebooks (..., CB, V), column cb * V + v of
+    ``lm_head`` being codebook cb's token v. ``final_softcap`` takes the
+    tanh in f32 and casts back."""
+    if cfg.embed_input:
+        w = params["unembed"]["emb"].T
+    elif cfg.n_codebooks or not cfg.tie_embeddings:
+        w = params["lm_head"]["w"]
+    else:
+        w = params["embed"]["emb"].T
+    logits = h @ w.to(h.dtype)
+    if cfg.n_codebooks:
+        logits = logits.reshape(h.shape[:-1] + (cfg.n_codebooks,
+                                                cfg.vocab_size))
     if cfg.final_softcap:
         logits = L.softcap(logits.to(torch.float32),
                            cfg.final_softcap).to(logits.dtype)
@@ -395,7 +425,8 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
 
 def _ce(logits: torch.Tensor, labels: torch.Tensor
         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sum of CE and count over valid (label >= 0) positions. f32 math."""
+    """Sum of CE and count over valid (label >= 0) positions (with
+    codebooks, (position, codebook) pairs). f32 math."""
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.long().clamp(min=0)[..., None])[..., 0]
@@ -406,8 +437,9 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor
 
 def lm_loss(cfg: ModelConfig, params: dict, h: torch.Tensor,
             labels: torch.Tensor) -> torch.Tensor:
-    """CE from hidden states; with ``cfg.loss_chunk`` the sequence is taken
-    in chunks, so the full (B, S, V) logits tensor never exists at once."""
+    """CE from hidden states against labels (B, S) or, with codebooks,
+    (B, S, CB); with ``cfg.loss_chunk`` the sequence is taken in chunks, so
+    the full (B, S, V) logits tensor never exists at once."""
     S = h.shape[1]
     c = cfg.loss_chunk
     if c and S % c == 0 and S > c:
@@ -424,7 +456,8 @@ def lm_loss(cfg: ModelConfig, params: dict, h: torch.Tensor,
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             spec: ColaSpec | None = None, cola_vars: dict | None = None):
     """(mean next-token CE, plus ``aux_loss_coef`` times the MoE aux loss
-    where the config has experts; aux) of one batch {"tokens", "labels"}."""
+    where the config has experts; aux) of one batch {"tokens" or "embeds",
+    "labels"}."""
     h, aux = hidden_states(cfg, params, batch, spec, cola_vars)
     loss = lm_loss(cfg, params, h, batch["labels"])
     if cfg.n_experts:
@@ -435,7 +468,8 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
 def prefill(cfg: ModelConfig, params: dict, batch: dict,
             spec: ColaSpec | None = None, cola_vars: dict | None = None,
             *, lengths: torch.Tensor | None = None):
-    """Full-sequence prefill; returns (logits (B, 1, V), cache) with the
+    """Full-sequence prefill of {"tokens"} or {"embeds"}; returns (logits
+    (B, 1, V), or (B, 1, CB, V) with codebooks, cache) with the
     cache holding every layer's K/V of the processed sequence, per stack
     (a Mamba2 layer's final conv and ssm state instead, which folds in
     every input token: such rows must be prefilled at their exact length;
@@ -550,10 +584,11 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
                 spec: ColaSpec | None = None, cola_vars: dict | None = None,
                 *, live: torch.Tensor | None = None,
                 block_table: torch.Tensor | None = None):
-    """One incremental step. batch: {"tokens": (B, c), "positions": (B,)}:
-    c == 1 is the decode tick, c > 1 one chunk of a chunked prefill (the
-    chunk attends to every earlier chunk through the cache). Returns
-    (logits (B, c, V), cache).
+    """One incremental step. batch: {"tokens": (B, c) or with codebooks
+    (B, c, CB), or "embeds": (B, c, d); "positions": (B,)}: c == 1 is the
+    decode tick, c > 1 one chunk of a chunked prefill (the chunk attends to
+    every earlier chunk through the cache). Returns (logits (B, c, V), or
+    (B, c, CB, V) with codebooks, cache).
 
     The cache is updated in place and returned (the JAX version returns a new
     cache). ``live``: optional (B,) bool mask; non-live slots' cache writes

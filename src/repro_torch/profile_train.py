@@ -7,7 +7,9 @@ TrainConfig's 32 x 128, a fit every 2 steps, as ``[train]``; gemma2-9b: 1 x
 4608, a fit every step, as ``[gemma2-train]``; qwen3-moe-30b-a3b: 1 x 2048,
 a fit every step, as ``[moe]`` (b); mamba2-370m: 4 x 2048, a fit every
 step, as ``[ssm]`` (b); zamba2-7b: 2 x 2048, a fit every step, as
-``[hybrid]`` (b)). Takes two warm-up steps
+``[hybrid]`` (b); musicgen-medium: 4 x 2048 of 4 codebooks, a fit every
+step, as ``[musicgen]`` (b); pixtral-12b: 1 x 2048 stub embeddings, a fit
+every step, as ``[pixtral]`` (b)). Takes two warm-up steps
 (the second fits), then profiles with ``torch.profiler`` two more steps,
 each labelled by whether it ran the offloaded fit. Prints, per step, the
 host wall time, the device busy time (sum of kernel times), the idle share,
@@ -34,7 +36,9 @@ SETUPS = {"smollm-135m": (TrainConfig.batch, TrainConfig.seq, 2),
           "gemma2-9b": (1, 4608, 1),
           "qwen3-moe-30b-a3b": (1, 2048, 1),
           "mamba2-370m": (4, 2048, 1),
-          "zamba2-7b": (2, 2048, 1)}
+          "zamba2-7b": (2, 2048, 1),
+          "musicgen-medium": (4, 2048, 1),
+          "pixtral-12b": (1, 2048, 1)}
 
 
 def main(argv=None) -> int:

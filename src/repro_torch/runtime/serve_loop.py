@@ -216,6 +216,11 @@ class ServeEngine:
                  max_prompt: int | None = None, telemetry=None,
                  device="cuda"):
         self.device = resolve_device(device)
+        if cfg.n_codebooks or cfg.embed_input:
+            raise ValueError(
+                f"{cfg.name}: the engine serves (P,) token prompts, as the "
+                "JAX engine does; codebook and embedding inputs go through "
+                "model.prefill and model.decode_step")
         if prefill_mode not in ("batched", "reference"):
             raise ValueError(f"prefill_mode={prefill_mode!r}")
         if bank_store not in ("f32", "int8"):

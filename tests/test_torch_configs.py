@@ -1,7 +1,7 @@
-"""The port's registered configs (gpt2-small, smollm-135m, the two mistrals,
-gemma2-9b, qwen3-moe-30b-a3b, dbrx-132b, mamba2-370m and zamba2-7b) against
-the JAX
-package's, field for field, full and reduced; the reduced uniform-plan
+"""The port's registered configs (all eleven of the JAX package's:
+gpt2-small, smollm-135m, the two mistrals, gemma2-9b, qwen3-moe-30b-a3b,
+dbrx-132b, mamba2-370m, zamba2-7b, musicgen-medium and pixtral-12b) against
+the JAX package's, field for field, full and reduced, and its shape cells; the reduced uniform-plan
 configs through ``forward`` and a short engine run against the JAX package
 with the same weights (f32, logits within rtol 1e-4 / atol 1e-5: sums in
 another order; equal greedy tokens); mamba2-370m's lines of
@@ -30,7 +30,7 @@ from repro_torch.runtime import serve_loop as tserve  # noqa: E402
 
 PORTED = ("gpt2-small", "smollm-135m", "mistral-nemo-12b",
           "mistral-large-123b", "gemma2-9b", "qwen3-moe-30b-a3b", "dbrx-132b",
-          "mamba2-370m", "zamba2-7b")
+          "mamba2-370m", "zamba2-7b", "musicgen-medium", "pixtral-12b")
 UNIFORM = ("gpt2-small", "mistral-nemo-12b", "mistral-large-123b")
 
 
@@ -64,6 +64,49 @@ def test_full_mamba2_config_matches_assignment():
     c = tregistry.get_config("mamba2-370m")
     assert (c.n_layers, c.d_model, c.ssm_state, c.vocab_size) == \
         (48, 1024, 128, 50280)
+
+
+def test_full_configs_match_assignment():
+    """tests/test_models_smoke.py::test_full_configs_match_assignment on the
+    port's registry, whole: every assigned config's sizes, the ten assigned
+    configs and the 40 cells with the long_500k skips, equal to JAX's
+    ``all_cells`` and ``skipped_cells``."""
+    c = tregistry.get_config("mistral-large-123b")
+    assert (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.d_ff,
+            c.vocab_size) == (88, 12288, 96, 8, 28672, 32768)
+    c = tregistry.get_config("qwen3-moe-30b-a3b")
+    assert (c.n_experts, c.moe_top_k, c.d_expert, c.vocab_size) == \
+        (128, 8, 768, 151936)
+    c = tregistry.get_config("gemma2-9b")
+    assert (c.n_layers, c.d_model, c.vocab_size, c.attn_pattern) == \
+        (42, 3584, 256000, "local_global")
+    c = tregistry.get_config("mamba2-370m")
+    assert (c.n_layers, c.d_model, c.ssm_state, c.vocab_size) == \
+        (48, 1024, 128, 50280)
+    c = tregistry.get_config("zamba2-7b")
+    assert (c.n_layers, c.d_model, c.shared_attn_every, c.ssm_state) == \
+        (81, 3584, 6, 64)
+    c = tregistry.get_config("dbrx-132b")
+    assert (c.n_experts, c.moe_top_k, c.d_expert) == (16, 4, 10752)
+    c = tregistry.get_config("musicgen-medium")
+    assert (c.n_codebooks, c.vocab_size, c.n_heads) == (4, 2048, 24)
+    c = tregistry.get_config("pixtral-12b")
+    assert c.embed_input and c.d_model == 5120
+    assert len(tregistry.ASSIGNED) == 10
+    assert tregistry.ASSIGNED == registry.ASSIGNED
+    cells = tregistry.all_cells()
+    skips = tregistry.skipped_cells()
+    assert len(cells) + len(skips) == 40
+    assert all(s == "long_500k" for _, s, _ in skips)
+    assert {a for a, _, _ in skips} == set(tregistry.ASSIGNED) - {
+        "mamba2-370m", "zamba2-7b"}
+    assert cells == registry.all_cells()
+    assert skips == registry.skipped_cells()
+    assert {n: dataclasses.asdict(s) for n, s in tregistry.SHAPES.items()} \
+        == {n: dataclasses.asdict(s) for n, s in registry.SHAPES.items()}
+    for name in tregistry.ARCH_MODULES:
+        assert tregistry.applicable_shapes(tregistry.get_config(name)) == \
+            registry.applicable_shapes(registry.get_config(name))
 
 
 def test_mamba2_prefill_decode_matches_forward():

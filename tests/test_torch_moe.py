@@ -293,9 +293,10 @@ def test_tap_sites_match_jax_without_mlp_sites(model_pair):
 
 
 def test_require_ported_takes_moe_and_names_the_rest():
-    """The MoE configs run, and so do the ssm plan (mamba2-370m) and the
-    hybrid plan (zamba2-7b); the rest still raise, naming the current
-    ROADMAP item."""
+    """The MoE configs run, and so do the ssm plan (mamba2-370m), the
+    hybrid plan (zamba2-7b), and musicgen-medium's codebooks and untied
+    head and pixtral-12b's embedding input on the uniform attention plan:
+    no registered config raises."""
     for name in MOE:
         assert TM._require_ported(tregistry.get_config(name)) == \
             ("uniform", "attn")
@@ -306,10 +307,9 @@ def test_require_ported_takes_moe_and_names_the_rest():
         registry.get_config("zamba2-7b")))
     assert TM._require_ported(cfg) == M.layer_plan(registry.get_config(
         "zamba2-7b"))
-    for name, item in (("musicgen-medium", "A.4"), ("pixtral-12b", "A.4")):
+    for name in ("musicgen-medium", "pixtral-12b"):
         cfg = tbase.ModelConfig(**dataclasses.asdict(registry.get_config(name)))
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP.md {item}\)"):
-            TM._require_ported(cfg)
+        assert TM._require_ported(cfg) == ("uniform", "attn")
 
 
 # ---------------------------------------------------------------------------
