@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-twenty-three phases, then prints its result lines, exiting non-zero on any
+twenty-five phases, then prints its result lines, exiting non-zero on any
 failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
@@ -168,7 +168,7 @@ failure:
    multi_lora_q8 must run, dense decode must not); every request completes
    and the pool is whole at the end.
 12. gemma2-9b against the plain path (``[gemma2-vs-plain]``), f32 at full
-   width with the depth cut to 4 layers (2 pairs), three requests of 200 /
+   width with the depth cut to 2 layers (1 pair), three requests of 200 /
    1500 / 4400 tokens, 8 new tokens: the card's dense engine and its paged
    + chunked + ring + int8 engine each against the CPU's same engine, and
    paged + ring against dense on the card: equal greedy tokens.
@@ -183,7 +183,7 @@ failure:
    finite, every tap's x and grad_h finite and grad_h non-zero, the bank
    moved at every fit, every fit committed; prints the server step p50, the
    fit ms, training tokens/s, the channel's checks and the peak memory.
-   (b) f32 at full width, depth cut to 4 layers (2 pairs), 1 x 4608: one
+   (b) f32 at full width, depth cut to 2 layers (1 pair), 1 x 4608: one
    step of the merged session (server step, fit, AdamW) on the card and on
    the CPU, losses within 1e-5, each tap's grad_h and fit gradients within
    1e-3 of the largest entry (as phase 5), the bank after AdamW within 1e-3
@@ -293,17 +293,54 @@ failure:
    largest next-token logit gap printed; one merged session step at 1 x
    1024: losses within 1e-5, grad_h and the fit gradients within 1e-3 of
    their largest entry.
-24. The last lines: the card's name and power limit, one JSON line with every
+24. The distribution layer (``[distributed]``): a world-size-1 process group
+   (``init_process_group("cpu:gloo,cuda:nccl")``, one NCCL all_reduce on
+   the card checked), ``single_device_mesh()`` on the card, and
+   mistral-nemo-12b at full width and depth (40 layers, bf16, seeded,
+   remat "full") placed by ``sharding.distribute`` (no leaf copied), its
+   own ``microbatches=8``, 8 x 1024 of seeded tokens with unevenly masked
+   labels, rank-8 qv adapters (B drawn, so every gradient is non-zero):
+   (a) ``make_train_step`` in Mode A, a warm-up step and 2 measured steps,
+   each step's 8 pushes through an ``Offloader`` (interval 8, AdamW) and
+   its fit (2 cola_fit launches a fit); (b) Mode B the same, without an
+   optimizer; a step's attention launches exactly 8 times one direct
+   ``gl.server_step_a`` / ``train_step_b`` on one microbatch, and its loss
+   and data or gradients equal the direct calls on microbatches of 1 x 1024
+   bit for bit; (c) ``make_prefill_step`` at 8 x 512 (40 flash forwards),
+   the cache written into an 8 x 1024 decode cache, then 16 ticks of
+   ``make_serve_step`` (40 decode launches a tick), tokens and prefill
+   logits equal to direct ``model.prefill`` / ``decode_step``; step p50,
+   tokens/s and peak memory printed; the group destroyed at the end.
+25. The distribution layer against the plain path
+   (``[distributed-vs-plain]``): nemo in f32 at full width cut to 2 layers
+   (remat "none"), 8 x 256 with ``microbatches=8``, the card's Mode A and
+   Mode B steps against the CPU's (a gloo mesh on the host in the same
+   group): losses within 1e-5, data and gradients within 1e-3 of their
+   largest entry; a prefill at 8 x 256 and 8 ticks: equal tokens.
+26. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
+
+The CPU halves of phases 12, 13 (b), 16, 18, 20 and 23 (the plain path on
+the host, in f32) run in a worker process that the script starts after the
+build (``chip_smoke.py --cpu-halves DIR THREADS``, no card in its
+environment, all but two of the host's cores): it computes them from the
+same seeds as the card's halves, in the order the phases need them, while
+the card's phases run, and saves each to ``build/chip_smoke_cpu/``; each
+phase waits for its half (``[cpu-halves] <job>: waited N s``) and compares
+as before. The worker dies with the script. Phase 25's CPU half stays in
+the script: it shares the card's process group.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
 prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2612,59 +2649,97 @@ def _recording_engine():
     return Recording
 
 
-def phase_gemma2_vs_plain(dev) -> None:
-    """gemma2-9b in f32 at full width with the depth cut to 4 layers (2
-    pairs; ~6.8 GB of parameters, the CPU runs every engine too), three
-    requests of 200 / 1500 / 4400 tokens (the last past the 4096 window),
-    8 new tokens, 2 slots: the card's dense engine against the CPU's, the
-    card's paged + chunks of 128 + rings + int8 engine against the CPU's
-    same engine, and on the card paged + rings against dense with the same
-    chunks and int8 bank (the KV layout alone differs): equal greedy
-    tokens; prints the largest next-token logit gap of each."""
+def _plain_setup(name: str, n_layers: int, lens, prompt_seed: int) -> tuple:
+    """The f32 model at full width cut to ``n_layers``, its seeded weights on
+    the CPU, seeded prompts of ``lens`` tokens and 2 users' banks: the same
+    on the card's side of a comparison and in the CPU worker."""
     from repro_torch.configs import registry
     from repro_torch.models import model
 
-    cfg = registry.get_config("gemma2-9b").replace(
-        n_layers=4, param_dtype="float32", compute_dtype="float32")
-    params_cpu = model.init(cfg, seed=SEED + 1, device="cpu")
-    params_gpu = _to(params_cpu, dev)
-    rng = np.random.default_rng(SEED + 1)
+    cfg = registry.get_config(name).replace(
+        n_layers=n_layers, param_dtype="float32", compute_dtype="float32")
+    params = model.init(cfg, seed=SEED + 1, device="cpu")
+    rng = np.random.default_rng(prompt_seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (200, 1500, 4400)]
-    banks_cpu = user_banks(cfg, 2, "cpu", SEED + 1)
+               for n in lens]
+    return cfg, params, prompts, user_banks(cfg, 2, "cpu", SEED + 1)
+
+
+def _engine_run(tag, label, cfg, params, banks, prompts, device, kw, opts,
+                routing: bool = False) -> dict:
+    """Serve ``prompts`` to completion on the recording engine: every
+    request done with its ``max_new`` tokens, the pool whole at the end.
+    Returns the tokens, each step's next-token logits, the engine's stats,
+    the routing records (with ``routing``) and the seconds it took."""
+    records, restore = _routing_recorder() if routing else ([], None)
+    t0 = time.perf_counter()
+    try:
+        eng, reqs, _ = serve(cfg, params, banks, prompts, device,
+                             engine=_recording_engine(), **kw, **opts)
+    finally:
+        if restore is not None:
+            restore()
+    check(all(r.status == "done" and len(r.out) == kw["max_new"]
+              for r in reqs), f"{tag} {label}: not every request finished")
+    if eng.pager is not None:
+        eng.pager.assert_empty()
+    return dict(tokens=[r.out for r in reqs], logits=eng.logits,
+                stats=dict(eng.stats), records=records,
+                secs=time.perf_counter() - t0)
+
+
+GEMMA2_PLAIN = ("gemma2-9b", 2, (200, 1500, 4400), SEED + 1)
+GEMMA2_PLAIN_KW = dict(slots=2, max_len=4608, max_new=8)
+GEMMA2_PLAIN_RUNS = {"dense": {}, "paged": GEMMA2_PAGED}
+
+
+def _cpu_gemma2_vs_plain() -> dict:
+    """The CPU half of phase 12: its dense and its paged engine."""
+    cfg, params, prompts, banks = _plain_setup(*GEMMA2_PLAIN)
+    return {f"cpu {n}": _engine_run("[gemma2-vs-plain]", f"cpu {n}", cfg,
+                                    params, banks, prompts, "cpu",
+                                    GEMMA2_PLAIN_KW, opts)
+            for n, opts in GEMMA2_PLAIN_RUNS.items()}
+
+
+def phase_gemma2_vs_plain(dev) -> None:
+    """gemma2-9b in f32 at full width with the depth cut to 2 layers (1
+    pair: a local and a global layer, the CPU runs every engine too), three
+    requests of 200 / 1500 / 4400 tokens (the last past the 4096 window),
+    8 new tokens, 2 slots: the card's dense engine against the CPU's, the
+    card's paged + chunks of 128 + rings + int8 engine against the CPU's
+    same engine (the CPU's from the worker), and on the card paged + rings
+    against dense with the same chunks and int8 bank (the KV layout alone
+    differs): equal greedy tokens; prints the largest next-token logit gap
+    of each."""
+    tag = "[gemma2-vs-plain]"
+    cfg, params_cpu, prompts, banks_cpu = _plain_setup(*GEMMA2_PLAIN)
+    params_gpu = _to(params_cpu, dev)
     banks_gpu = [_to(b, dev) for b in banks_cpu]
-    kw = dict(slots=2, max_len=4608, max_new=8, engine=_recording_engine())
-    runs = {"card dense": (params_gpu, banks_gpu, dev, {}),
-            "cpu dense": (params_cpu, banks_cpu, "cpu", {}),
-            "card paged": (params_gpu, banks_gpu, dev, GEMMA2_PAGED),
-            "cpu paged": (params_cpu, banks_cpu, "cpu", GEMMA2_PAGED),
-            "card dense, chunks of 128, int8": (
-                params_gpu, banks_gpu, dev,
-                dict(prefill_chunk=128, bank_store="int8"))}
     out = {}
-    for name, (params, banks, device, opts) in runs.items():
-        t0 = time.perf_counter()
-        eng, reqs, _ = serve(cfg, params, banks, prompts, device, **kw, **opts)
-        check(all(r.status == "done" and len(r.out) == 8 for r in reqs),
-              f"[gemma2-vs-plain] {name}: not every request finished")
-        if eng.pager is not None:
-            eng.pager.assert_empty()
-        out[name] = ([r.out for r in reqs], eng.logits)
-        print(f"[gemma2-vs-plain] {name}: {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        del eng
+    for name, opts in (("card dense", GEMMA2_PLAIN_RUNS["dense"]),
+                       ("card paged", GEMMA2_PLAIN_RUNS["paged"]),
+                       ("card dense, chunks of 128, int8",
+                        dict(prefill_chunk=128, bank_store="int8"))):
+        out[name] = _engine_run(tag, name, cfg, params_gpu, banks_gpu,
+                                prompts, dev, GEMMA2_PLAIN_KW, opts)
+        print(f"{tag} {name}: {out[name]['secs']:.1f} s", flush=True)
+    for name, run in cpu_half("gemma2-vs-plain").items():
+        print(f"{tag} {name}: {run['secs']:.1f} s", flush=True)
+        out[name] = run
     for a, b in (("card dense", "cpu dense"), ("card paged", "cpu paged"),
                  ("card paged", "card dense, chunks of 128, int8")):
-        (toks, lg), (toks_o, lg_o) = out[a], out[b]
+        toks, lg = out[a]["tokens"], out[a]["logits"]
+        toks_o, lg_o = out[b]["tokens"], out[b]["logits"]
         steps = min(len(lg), len(lg_o))
         gap = (max(float((x - y).abs().max()) for x, y in zip(lg, lg_o))
                if len(lg) == len(lg_o) else None)
         top = max(float(x.abs().max()) for x in lg[:steps])
-        print(f"[gemma2-vs-plain] f32, 4 layers at full width: {a} vs {b}: "
+        print(f"{tag} f32, 2 layers at full width: {a} vs {b}: "
               f"tokens equal {toks == toks_o}; largest next-token logit gap "
               f"{gap if gap is None else f'{gap:.3e}'} (max |logit| {top:.3f})"
               f" over {len(lg)} / {len(lg_o)} steps", flush=True)
-        check(toks == toks_o, f"[gemma2-vs-plain] greedy tokens differ, {a} "
+        check(toks == toks_o, f"{tag} greedy tokens differ, {a} "
               f"vs {b}: {toks} vs {toks_o}")
     del params_gpu, banks_gpu
     _free()
@@ -2798,8 +2873,36 @@ def _session_step(cfg, cc, params, batch, device, tag) -> dict:
                 fit=_to(grads, "cpu"), bank=_to(sess.adapters, "cpu"))
 
 
+def _gemma2_train_plain_setup() -> tuple:
+    """(b)'s config (f32, 2 layers), merged rank-8 qv ColA, seeded weights
+    on the CPU and (a)'s batch shape of SyntheticLM."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model
+    from repro_torch.profile_train import SETUPS
+
+    batch_size, seq, _ = SETUPS["gemma2-9b"]
+    cfg = registry.get_config("gemma2-9b").replace(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                    rank=8, merged=True, interval=1)
+    params = model.init(cfg, seed=SEED + 2, device="cpu")
+    batch = SyntheticLM(cfg, batch=batch_size, seq=seq, seed=SEED + 2,
+                        device="cpu").batch_at(0)
+    return cfg, cc, params, batch
+
+
+def _cpu_gemma2_train() -> dict:
+    """The CPU half of phase 13 (b): the merged session step."""
+    out = _session_step(*_gemma2_train_plain_setup(), "cpu",
+                        "[gemma2-train] (b)")
+    del out["sess"]
+    return out
+
+
 def _gemma2_train_vs_plain(dev) -> None:
-    """(b): gemma2-9b in f32 at full width, depth cut to 4 layers (2 pairs),
+    """(b): gemma2-9b in f32 at full width, depth cut to 2 layers (1 pair),
     at (a)'s batch shape: one step of a merged rank-8 qv ``ColaSession``
     (``_session_step``) on the card and on the CPU (plain versions):
     the losses within 1e-5; each tap's grad_h and fit gradients within
@@ -2812,24 +2915,13 @@ def _gemma2_train_vs_plain(dev) -> None:
     loss and fit gradients against the CPU's merged ones, and its fit
     gradients against Mode B's adapter gradients (Prop 1) at
     test_gl_equivalence.py's tolerance."""
-    from repro_torch.configs import registry
     from repro_torch.configs.base import ColaConfig, TrainConfig
     from repro_torch.core import gl
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models import model
-    from repro_torch.profile_train import SETUPS
 
-    batch_size, seq, _ = SETUPS["gemma2-9b"]
-    cfg = registry.get_config("gemma2-9b").replace(
-        n_layers=4, param_dtype="float32", compute_dtype="float32")
-    cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
-                    rank=8, merged=True, interval=1)
-    params = model.init(cfg, seed=SEED + 2, device="cpu")
-    batch = SyntheticLM(cfg, batch=batch_size, seq=seq, seed=SEED + 2,
-                        device="cpu").batch_at(0)
-    cpu = _session_step(cfg, cc, params, batch, "cpu", "[gemma2-train] (b)")
-    del cpu["sess"]
+    cfg, cc, params, batch = _gemma2_train_plain_setup()
+    batch_size, seq = batch["tokens"].shape
     gpu = _session_step(cfg, cc, params, batch, dev, "[gemma2-train] (b)")
+    cpu = cpu_half("gemma2-train")
     loss_diff = abs(gpu["loss"] - cpu["loss"])
     check(loss_diff <= 1e-5 * abs(cpu["loss"]),
           f"[gemma2-train] loss card {gpu['loss']} vs CPU {cpu['loss']}")
@@ -2901,7 +2993,7 @@ def _gemma2_train_vs_plain(dev) -> None:
     check(abs(float(loss_b) - float(loss_a)) <= 1e-6 * abs(float(loss_a)),
           f"[gemma2-train] Mode B loss {float(loss_b)} vs Mode A "
           f"{float(loss_a)}")
-    print(f"[gemma2-train] (b) f32, 4 layers at full width, {batch_size} x "
+    print(f"[gemma2-train] (b) f32, 2 layers at full width, {batch_size} x "
           f"{seq}, merged session step: loss card {gpu['loss']:.7f} CPU "
           f"{cpu['loss']:.7f} (|diff| {loss_diff:.3e}); max |card - CPU| / "
           f"max |CPU| over the 4 taps: grad_h {worst['grad_h']:.3e}, fit "
@@ -2919,7 +3011,7 @@ def _gemma2_train_vs_plain(dev) -> None:
 
 def phase_gemma2_train(dev) -> dict:
     """gemma2-9b's ColA training on the card: (a) full width and depth, (b)
-    against the plain path and Mode B at 4 layers. Returns (a)'s launch
+    against the plain path and Mode B at 2 layers. Returns (a)'s launch
     counts."""
     launches = _gemma2_train_full(dev)
     _gemma2_train_vs_plain(dev)
@@ -3200,88 +3292,96 @@ def _routing_gaps(card, cpu) -> str:
             f"margin {among}among all {least_all:.3e})")
 
 
+MOE_PLAIN = ("qwen3-moe-30b-a3b", 2, (400, 96, 120, 64, 200, 50), SEED + 1)
+PLAIN_KW = dict(slots=4, max_len=1024, max_new=8)
+PLAIN_RUNS = (("dense", {}), ("paged, chunks of 128, int8", SCALE))
+
+
+def _cpu_engine_vs_plain(setup, tag, session_rows, routing=False) -> dict:
+    """The CPU half of phases 16, 18 and 20: the dense and the paged engine
+    on ``setup``'s model, and the merged session step."""
+    cfg, params, prompts, banks = _plain_setup(*setup)
+    runs = {label: _engine_run(tag, f"{label} on the cpu", cfg, params, banks,
+                               prompts, "cpu", PLAIN_KW, opts, routing)
+            for label, opts in PLAIN_RUNS}
+    return dict(runs=runs, session=_cpu_session(cfg, params, session_rows,
+                                                f"{tag} (b)"))
+
+
 def phase_moe_vs_plain(dev) -> None:
     """qwen3-moe-30b-a3b in f32 at full width, depth cut to 2 layers (~6.2
     GB a device), at the config's capacity factor 1.25, against the CPU's
-    plain path: (a) the dense engine and the paged + chunks of 128 + int8
-    engine, 4 slots, 6 requests of 400 / 96 / 120 / 64 / 200 / 50 tokens, 8
-    new tokens (the first prefill routes its 4 x 512 tokens in 512-token
-    groups, the second its 2 x 256 in one group across both rows, and
-    every chunk round 4 x 128 in one group): equal greedy tokens, and the
-    routing decisions that differ between the devices with the smallest CPU
-    top-k margin among them (reported, never hidden); (b) one merged
-    rank-8 qv session step (server step, fit, AdamW) at 1 x 1024, card
-    against CPU: losses within 1e-5, each tap's grad_h and fit gradients
-    within 1e-3 of the largest entry (as phase 13 (b))."""
-    from repro_torch.configs import registry
-    from repro_torch.models import model
-
-    cfg = registry.get_config("qwen3-moe-30b-a3b").replace(
-        n_layers=2, param_dtype="float32", compute_dtype="float32")
-    params_cpu = model.init(cfg, seed=SEED + 1, device="cpu")
+    plain path (from the worker): (a) the dense engine and the paged +
+    chunks of 128 + int8 engine, 4 slots, 6 requests of 400 / 96 / 120 /
+    64 / 200 / 50 tokens, 8 new tokens (the first prefill routes its 4 x
+    512 tokens in 512-token groups, the second its 2 x 256 in one group
+    across both rows, and every chunk round 4 x 128 in one group): equal
+    greedy tokens, and the routing decisions that differ between the
+    devices with the smallest CPU top-k margin among them (reported, never
+    hidden); (b) one merged rank-8 qv session step (server step, fit,
+    AdamW) at 1 x 1024, card against CPU: losses within 1e-5, each tap's
+    grad_h and fit gradients within 1e-3 of the largest entry (as phase 13
+    (b))."""
+    tag = "[moe-vs-plain]"
+    cfg, params_cpu, prompts, banks_cpu = _plain_setup(*MOE_PLAIN)
     params_gpu = _to(params_cpu, dev)
-    rng = np.random.default_rng(SEED + 1)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (400, 96, 120, 64, 200, 50)]
-    banks_cpu = user_banks(cfg, 2, "cpu", SEED + 1)
+    del params_cpu
     banks_gpu = [_to(b, dev) for b in banks_cpu]
-    kw = dict(slots=4, max_len=1024, max_new=8, engine=_recording_engine())
-    for label, opts in (("dense", {}), ("paged, chunks of 128, int8", SCALE)):
-        out = {}
-        for where, params, banks, device in (
-                ("card", params_gpu, banks_gpu, dev),
-                ("cpu", params_cpu, banks_cpu, "cpu")):
-            records, restore = _routing_recorder()
-            t0 = time.perf_counter()
-            try:
-                eng, reqs, _ = serve(cfg, params, banks, prompts, device, **kw,
-                                     **opts)
-            finally:
-                restore()
-            check(all(r.status == "done" and len(r.out) == 8 for r in reqs),
-                  f"[moe-vs-plain] {label} on the {where}: not every request "
-                  "finished")
-            if eng.pager is not None:
-                eng.pager.assert_empty()
-            out[where] = ([r.out for r in reqs], eng.logits, records,
-                          dict(eng.stats), time.perf_counter() - t0)
-            del eng
-        (toks, lg, rec, st, secs), (toks_c, lg_c, rec_c, _, secs_c) = \
-            out["card"], out["cpu"]
+    card = {label: _engine_run(tag, f"{label} on the card", cfg, params_gpu,
+                               banks_gpu, prompts, dev, PLAIN_KW, opts, True)
+            for label, opts in PLAIN_RUNS}
+    cpu = cpu_half("moe-vs-plain")
+    for label, _ in PLAIN_RUNS:
+        a, b = card[label], cpu["runs"][label]
+        toks, toks_c, lg, lg_c = a["tokens"], b["tokens"], a["logits"], \
+            b["logits"]
+        st = a["stats"]
         gap = (max(float((x - y).abs().max()) for x, y in zip(lg, lg_c))
                if len(lg) == len(lg_c) else None)
-        print(f"[moe-vs-plain] f32, 2 layers at full width, {label}: prefill "
+        print(f"{tag} f32, 2 layers at full width, {label}: prefill "
               f"calls {st['prefill_calls']}, chunk rounds {st['chunk_rounds']}"
               f"; tokens card == CPU: {toks == toks_c}; largest next-token "
               f"logit gap {gap if gap is None else f'{gap:.3e}'} (max |logit| "
               f"{max(float(x.abs().max()) for x in lg_c):.3f}); "
-              f"{_routing_gaps(rec, rec_c)}; {secs:.1f} s on the card, "
-              f"{secs_c:.1f} s on the CPU", flush=True)
-        check(toks == toks_c, f"[moe-vs-plain] {label}: greedy tokens differ, "
+              f"{_routing_gaps(a['records'], b['records'])}; {a['secs']:.1f} "
+              f"s on the card, {b['secs']:.1f} s on the CPU", flush=True)
+        check(toks == toks_c, f"{tag} {label}: greedy tokens differ, "
               f"card {toks} vs CPU {toks_c}")
-    del banks_gpu
+    del banks_gpu, card
     _free()
 
-    _session_vs_plain(cfg, params_cpu, params_gpu, dev, 1,
-                      "[moe-vs-plain] (b)")
+    _session_vs_plain(cfg, cpu["session"], params_gpu, dev, 1, f"{tag} (b)")
     del params_gpu
     _free()
 
 
-def _session_vs_plain(cfg, params_cpu, params_gpu, dev, batch_rows, tag):
-    """One merged rank-8 qv session step (server step, fit, AdamW) at
-    ``batch_rows`` x 1024, card against CPU (``_session_step``): losses
-    within 1e-5, each tap's grad_h and fit gradients within 1e-3 of the
-    largest entry (as phase 13 (b)); the bank after AdamW printed."""
+def _session_setup(cfg, batch_rows: int) -> tuple:
+    """Merged rank-8 qv ColA and a seeded SyntheticLM batch of
+    ``batch_rows`` x 1024 on the CPU."""
     from repro_torch.configs.base import ColaConfig
     from repro_torch.data.pipeline import SyntheticLM
 
     cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
                     rank=8, merged=True, interval=1)
-    batch = SyntheticLM(cfg, batch=batch_rows, seq=1024, seed=SEED + 2,
-                        device="cpu").batch_at(0)
-    cpu = _session_step(cfg, cc, params_cpu, batch, "cpu", tag)
-    del cpu["sess"]
+    return cc, SyntheticLM(cfg, batch=batch_rows, seq=1024, seed=SEED + 2,
+                           device="cpu").batch_at(0)
+
+
+def _cpu_session(cfg, params_cpu, batch_rows: int, tag: str) -> dict:
+    """The CPU half of ``_session_vs_plain``."""
+    cc, batch = _session_setup(cfg, batch_rows)
+    out = _session_step(cfg, cc, params_cpu, batch, "cpu", tag)
+    del out["sess"]
+    return out
+
+
+def _session_vs_plain(cfg, cpu, params_gpu, dev, batch_rows, tag):
+    """One merged rank-8 qv session step (server step, fit, AdamW) at
+    ``batch_rows`` x 1024, card against CPU (``_session_step``; ``cpu`` is
+    the CPU's, ``_cpu_session``): losses within 1e-5, each tap's grad_h and
+    fit gradients within 1e-3 of the largest entry (as phase 13 (b)); the
+    bank after AdamW printed."""
+    cc, batch = _session_setup(cfg, batch_rows)
     gpu = _session_step(cfg, cc, params_gpu, batch, dev, tag)
     del gpu["sess"]
     loss_diff = abs(gpu["loss"] - cpu["loss"])
@@ -3364,6 +3464,48 @@ def phase_ssm(dev) -> dict:
     return {n: serve_launches[n] + train.get(n, 0) for n in serve_launches}
 
 
+SSM_PLAIN = ("mamba2-370m", 2, (300, 77, 190, 140, 45, 260), SEED + 3)
+
+
+def _engine_vs_plain(dev, setup, tag, desc, session_rows) -> None:
+    """Phases 18 and 20: ``setup``'s model on the card against the CPU's
+    half from the worker (``_cpu_engine_vs_plain``): (a) the dense and the
+    paged + chunks of 128 + int8 engines, equal greedy tokens, the largest
+    next-token logit gap printed; (b) the merged session step
+    (``_session_vs_plain``)."""
+    cfg, params_cpu, prompts, banks_cpu = _plain_setup(*setup)
+    params_gpu = _to(params_cpu, dev)
+    del params_cpu
+    banks_gpu = [_to(b, dev) for b in banks_cpu]
+    card = {label: _engine_run(tag, f"{label} on the card", cfg, params_gpu,
+                               banks_gpu, prompts, dev, PLAIN_KW, opts)
+            for label, opts in PLAIN_RUNS}
+    cpu = cpu_half(tag.strip("[]"))
+    for label, _ in PLAIN_RUNS:
+        a, b = card[label], cpu["runs"][label]
+        toks, toks_c, lg, lg_c = a["tokens"], b["tokens"], a["logits"], \
+            b["logits"]
+        st = a["stats"]
+        check(len(lg) == len(lg_c), f"{tag} {label}: {len(lg)} "
+              f"steps on the card, {len(lg_c)} on the CPU")
+        gap = max(float((x - y).abs().max()) for x, y in zip(lg, lg_c))
+        print(f"{tag} f32, {desc} at full width, {label}: prefill "
+              f"calls {st['prefill_calls']}, chunk rounds {st['chunk_rounds']}"
+              f", chunk groups {st['prefill_chunks']}; tokens card == CPU: "
+              f"{toks == toks_c}; largest next-token logit gap {gap:.3e} (max "
+              f"|logit| {max(float(x.abs().max()) for x in lg_c):.3f}); "
+              f"{a['secs']:.1f} s on the card, {b['secs']:.1f} s on the CPU",
+              flush=True)
+        check(toks == toks_c, f"{tag} {label}: greedy tokens differ, "
+              f"card {toks} vs CPU {toks_c}")
+    del banks_gpu, card
+    _free()
+    _session_vs_plain(cfg, cpu["session"], params_gpu, dev, session_rows,
+                      f"{tag} (b)")
+    del params_gpu
+    _free()
+
+
 def phase_ssm_vs_plain(dev) -> None:
     """mamba2-370m in f32 at full width, depth cut to 2 layers, against the
     CPU's plain path: (a) the dense engine and the paged + chunks of 128 +
@@ -3372,55 +3514,7 @@ def phase_ssm_vs_plain(dev) -> None:
     and 4), 8 new tokens: equal greedy tokens, the largest next-token logit
     gap printed; (b) one merged rank-8 qv session step at 2 x 1024
     (``_session_vs_plain``)."""
-    from repro_torch.configs import registry
-    from repro_torch.models import model
-
-    cfg = registry.get_config("mamba2-370m").replace(
-        n_layers=2, param_dtype="float32", compute_dtype="float32")
-    params_cpu = model.init(cfg, seed=SEED + 1, device="cpu")
-    params_gpu = _to(params_cpu, dev)
-    rng = np.random.default_rng(SEED + 3)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (300, 77, 190, 140, 45, 260)]
-    banks_cpu = user_banks(cfg, 2, "cpu", SEED + 1)
-    banks_gpu = [_to(b, dev) for b in banks_cpu]
-    kw = dict(slots=4, max_len=1024, max_new=8, engine=_recording_engine())
-    for label, opts in (("dense", {}), ("paged, chunks of 128, int8", SCALE)):
-        out = {}
-        for where, params, banks, device in (
-                ("card", params_gpu, banks_gpu, dev),
-                ("cpu", params_cpu, banks_cpu, "cpu")):
-            t0 = time.perf_counter()
-            eng, reqs, _ = serve(cfg, params, banks, prompts, device, **kw,
-                                 **opts)
-            check(all(r.status == "done" and len(r.out) == 8 for r in reqs),
-                  f"[ssm-vs-plain] {label} on the {where}: not every request "
-                  "finished")
-            if eng.pager is not None:
-                eng.pager.assert_empty()
-            out[where] = ([r.out for r in reqs], eng.logits, dict(eng.stats),
-                          time.perf_counter() - t0)
-            del eng
-        (toks, lg, st, secs), (toks_c, lg_c, _, secs_c) = \
-            out["card"], out["cpu"]
-        check(len(lg) == len(lg_c), f"[ssm-vs-plain] {label}: {len(lg)} "
-              f"steps on the card, {len(lg_c)} on the CPU")
-        gap = max(float((x - y).abs().max()) for x, y in zip(lg, lg_c))
-        print(f"[ssm-vs-plain] f32, 2 layers at full width, {label}: prefill "
-              f"calls {st['prefill_calls']}, chunk rounds {st['chunk_rounds']}"
-              f", chunk groups {st['prefill_chunks']}; tokens card == CPU: "
-              f"{toks == toks_c}; largest next-token logit gap {gap:.3e} (max "
-              f"|logit| {max(float(x.abs().max()) for x in lg_c):.3f}); "
-              f"{secs:.1f} s on the card, {secs_c:.1f} s on the CPU",
-              flush=True)
-        check(toks == toks_c, f"[ssm-vs-plain] {label}: greedy tokens differ, "
-              f"card {toks} vs CPU {toks_c}")
-    del banks_gpu
-    _free()
-    _session_vs_plain(cfg, params_cpu, params_gpu, dev, 2,
-                      "[ssm-vs-plain] (b)")
-    del params_gpu
-    _free()
+    _engine_vs_plain(dev, SSM_PLAIN, "[ssm-vs-plain]", "2 layers", 2)
 
 
 # ---------------------------------------------------------------------------
@@ -3550,6 +3644,9 @@ def phase_hybrid(dev) -> dict:
     return {n: serve_launches[n] + train.get(n, 0) for n in serve_launches}
 
 
+HYBRID_PLAIN = ("zamba2-7b", 7, SSM_PLAIN[2], SEED + 3)
+
+
 def phase_hybrid_vs_plain(dev) -> None:
     """zamba2-7b in f32 at full width, depth cut to 7 layers with the shared
     block every 6 kept (segments of 6 and 1: two calls and a one-layer
@@ -3563,54 +3660,11 @@ def phase_hybrid_vs_plain(dev) -> None:
     from repro_torch.configs import registry
     from repro_torch.models import model
 
-    cfg = registry.get_config("zamba2-7b").replace(
-        n_layers=7, param_dtype="float32", compute_dtype="float32")
+    cfg = registry.get_config(HYBRID_PLAIN[0]).replace(n_layers=HYBRID_PLAIN[1])
     check(model.layer_plan(cfg)[1] == [(0, 6), (6, 1)],
           f"[hybrid-vs-plain] plan {model.layer_plan(cfg)}")
-    params_cpu = model.init(cfg, seed=SEED + 1, device="cpu")
-    params_gpu = _to(params_cpu, dev)
-    rng = np.random.default_rng(SEED + 3)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (300, 77, 190, 140, 45, 260)]
-    banks_cpu = user_banks(cfg, 2, "cpu", SEED + 1)
-    banks_gpu = [_to(b, dev) for b in banks_cpu]
-    kw = dict(slots=4, max_len=1024, max_new=8, engine=_recording_engine())
-    for label, opts in (("dense", {}), ("paged, chunks of 128, int8", SCALE)):
-        out = {}
-        for where, params, banks, device in (
-                ("card", params_gpu, banks_gpu, dev),
-                ("cpu", params_cpu, banks_cpu, "cpu")):
-            t0 = time.perf_counter()
-            eng, reqs, _ = serve(cfg, params, banks, prompts, device, **kw,
-                                 **opts)
-            check(all(r.status == "done" and len(r.out) == 8 for r in reqs),
-                  f"[hybrid-vs-plain] {label} on the {where}: not every "
-                  "request finished")
-            if eng.pager is not None:
-                eng.pager.assert_empty()
-            out[where] = ([r.out for r in reqs], eng.logits, dict(eng.stats),
-                          time.perf_counter() - t0)
-            del eng
-        (toks, lg, st, secs), (toks_c, lg_c, _, secs_c) = \
-            out["card"], out["cpu"]
-        check(len(lg) == len(lg_c), f"[hybrid-vs-plain] {label}: {len(lg)} "
-              f"steps on the card, {len(lg_c)} on the CPU")
-        gap = max(float((x - y).abs().max()) for x, y in zip(lg, lg_c))
-        print(f"[hybrid-vs-plain] f32, 7 layers (segments of 6 and 1) at full "
-              f"width, {label}: prefill calls {st['prefill_calls']}, chunk "
-              f"rounds {st['chunk_rounds']}, chunk groups "
-              f"{st['prefill_chunks']}; tokens card == CPU: {toks == toks_c}; "
-              f"largest next-token logit gap {gap:.3e} (max |logit| "
-              f"{max(float(x.abs().max()) for x in lg_c):.3f}); {secs:.1f} s "
-              f"on the card, {secs_c:.1f} s on the CPU", flush=True)
-        check(toks == toks_c, f"[hybrid-vs-plain] {label}: greedy tokens "
-              f"differ, card {toks} vs CPU {toks_c}")
-    del banks_gpu
-    _free()
-    _session_vs_plain(cfg, params_cpu, params_gpu, dev, 1,
-                      "[hybrid-vs-plain] (b)")
-    del params_gpu
-    _free()
+    _engine_vs_plain(dev, HYBRID_PLAIN, "[hybrid-vs-plain]",
+                     "7 layers (segments of 6 and 1)", 1)
 
 
 # ---------------------------------------------------------------------------
@@ -3891,38 +3945,65 @@ def phase_modality(dev, name: str, tag: str) -> dict:
     return dict(total)
 
 
-def phase_modality_vs_plain(dev) -> None:
-    """musicgen-medium and pixtral-12b in f32 at full width, depth cut to 2
-    layers, against the CPU's plain path: (a) ``modality_serve``, dense +
-    f32 bank and paged + chunks of 128 + int8 bank, 4 rows of 300 / 77 /
-    190 / 45 positions (tail chunks of 44, 77, 62 and 45) on 2 users, 8
-    ticks: equal greedy tokens (all 4 codebooks for musicgen), the largest
-    next-token logit gap printed; (b) one merged rank-8 qv session step at
-    1 x 1024 (``_session_vs_plain``: losses within 1e-5, grad_h and the fit
-    gradients within 1e-3 of their largest entry)."""
+MODALITY_PLAIN = ("musicgen-medium", "pixtral-12b")
+
+
+def _modality_plain_setup(name: str) -> tuple:
+    """``name`` in f32 at full width cut to 2 layers, seeded weights on the
+    CPU, 4 seeded rows of 300 / 77 / 190 / 45 positions, 2 users' banks."""
     from repro_torch.configs import registry
     from repro_torch.models import model
 
+    cfg = registry.get_config(name).replace(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = model.init(cfg, seed=SEED + 1, device="cpu")
+    prompts = _modality_inputs(cfg, (300, 77, 190, 45), SEED + 3)
+    return cfg, params, prompts, user_banks(cfg, 2, "cpu", SEED + 1)
+
+
+def _modality_run(cfg, params, banks, prompts, device, paged, store) -> dict:
+    """``modality_serve`` for 8 ticks, the logits kept and the seconds it
+    took."""
+    t0 = time.perf_counter()
+    out = modality_serve(cfg, params, banks, prompts, device, paged=paged,
+                         store=store, ticks=8, seed=SEED + 4,
+                         keep_logits=True)
+    return dict(out, secs=time.perf_counter() - t0)
+
+
+def _cpu_modality_vs_plain(name: str) -> dict:
+    """The CPU half of phase 23 for ``name``: both serving runs and the
+    merged session step."""
+    cfg, params, prompts, banks = _modality_plain_setup(name)
+    runs = {label: _modality_run(cfg, params, banks, prompts, "cpu", paged,
+                                 store)
+            for label, paged, store in MODALITY_RUNS}
+    return dict(runs=runs, session=_cpu_session(
+        cfg, params, 1, f"[modality-vs-plain] {name} (b)"))
+
+
+def phase_modality_vs_plain(dev) -> None:
+    """musicgen-medium and pixtral-12b in f32 at full width, depth cut to 2
+    layers, against the CPU's plain path (from the worker): (a)
+    ``modality_serve``, dense + f32 bank and paged + chunks of 128 + int8
+    bank, 4 rows of 300 / 77 / 190 / 45 positions (tail chunks of 44, 77,
+    62 and 45) on 2 users, 8 ticks: equal greedy tokens (all 4 codebooks
+    for musicgen), the largest next-token logit gap printed; (b) one merged
+    rank-8 qv session step at 1 x 1024 (``_session_vs_plain``: losses
+    within 1e-5, grad_h and the fit gradients within 1e-3 of their largest
+    entry)."""
     tag = "[modality-vs-plain]"
-    for name in ("musicgen-medium", "pixtral-12b"):
-        cfg = registry.get_config(name).replace(
-            n_layers=2, param_dtype="float32", compute_dtype="float32")
-        params_cpu = model.init(cfg, seed=SEED + 1, device="cpu")
+    for name in MODALITY_PLAIN:
+        cfg, params_cpu, prompts, banks_cpu = _modality_plain_setup(name)
         params_gpu = _to(params_cpu, dev)
-        prompts = _modality_inputs(cfg, (300, 77, 190, 45), SEED + 3)
-        banks_cpu = user_banks(cfg, 2, "cpu", SEED + 1)
+        del params_cpu
         banks_gpu = [_to(b, dev) for b in banks_cpu]
-        for label, paged, store in MODALITY_RUNS:
-            out, secs = {}, {}
-            for where, params, banks, device in (
-                    ("card", params_gpu, banks_gpu, dev),
-                    ("cpu", params_cpu, banks_cpu, "cpu")):
-                t0 = time.perf_counter()
-                out[where] = modality_serve(
-                    cfg, params, banks, prompts, device, paged=paged,
-                    store=store, ticks=8, seed=SEED + 4, keep_logits=True)
-                secs[where] = time.perf_counter() - t0
-            card, cpu = out["card"], out["cpu"]
+        runs = {label: _modality_run(cfg, params_gpu, banks_gpu, prompts, dev,
+                                     paged, store)
+                for label, paged, store in MODALITY_RUNS}
+        half = cpu_half(f"modality-vs-plain-{name}")
+        for label, _, _ in MODALITY_RUNS:
+            card, cpu = runs[label], half["runs"][label]
             check(len(card["logits"]) == len(cpu["logits"]),
                   f"{tag} {name} {label}: {len(card['logits'])} calls on the "
                   f"card, {len(cpu['logits'])} on the CPU")
@@ -3933,16 +4014,546 @@ def phase_modality_vs_plain(dev) -> None:
                   f"{len(card['calls'])} device calls; tokens card == CPU: "
                   f"{same}; largest next-token logit gap {gap:.3e} (max "
                   f"|logit| {max(float(x.abs().max()) for x in cpu['logits']):.3f}"
-                  f"); {secs['card']:.1f} s on the card, {secs['cpu']:.1f} s "
+                  f"); {card['secs']:.1f} s on the card, {cpu['secs']:.1f} s "
                   f"on the CPU", flush=True)
             check(same, f"{tag} {name} {label}: greedy tokens differ, card "
                   f"{card['tokens']} vs CPU {cpu['tokens']}")
-        del banks_gpu
+        del banks_gpu, runs
         _free()
-        _session_vs_plain(cfg, params_cpu, params_gpu, dev, 1,
+        _session_vs_plain(cfg, half["session"], params_gpu, dev, 1,
                           f"{tag} {name} (b)")
-        del params_gpu, params_cpu
+        del params_gpu
         _free()
+
+
+# ---------------------------------------------------------------------------
+# phases 24 and 25: the distribution layer on torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_ROWS, DIST_SEQ, DIST_STEPS = 8, 1024, 2
+DIST_PREFILL, DIST_MAX_LEN, DIST_TICKS = 512, 1024, 16
+DIST_PLAIN_SEQ, DIST_PLAIN_TICKS = 256, 8
+ATTN_TRAIN = ("flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _process_group(dev, tag: str) -> None:
+    """A world-size-1 group: gloo for the host's tensors, NCCL for the
+    card's; one all_reduce on the card shows NCCL is up (a failed init or
+    collective raises: nothing falls back)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    t = torch.arange(4, dtype=torch.float32, device=dev)
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    check(torch.equal(t.cpu(), torch.arange(4, dtype=torch.float32)),
+          f"{tag} NCCL all_reduce at world size 1 changed its input")
+    print(f"{tag} process group: backend {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}, NCCL all_reduce on the card checked",
+          flush=True)
+
+
+def _dist_batch(cfg, rows: int, seq: int, seed: int, dev) -> dict:
+    """Seeded tokens and next-token labels, row r's first (37 r) mod (seq /
+    2) labels masked (-1): the rows' counts differ, so a microbatch grouped
+    wrongly or a mean of means would show."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (rows, seq + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    for r in range(rows):
+        labels[r, :(37 * r) % (seq // 2)] = -1
+    return {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+            "labels": torch.as_tensor(labels, device=dev)}
+
+
+def _micro(batch: dict, i: int, m: int) -> dict:
+    b = next(iter(batch.values())).shape[0] // m
+    return {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+
+
+def _same(got, want) -> float:
+    """0.0 when equal bit for bit, else max |got - want| over max |want|
+    (``got`` moved to ``want``'s device)."""
+    got = got.to(want.device)
+    if torch.equal(got, want):
+        return 0.0
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def _dist_adapters(cfg, cc, dev) -> dict:
+    """Seeded rank-8 adapters with B drawn too (B = 0 leaves dA = 0)."""
+    from repro_torch.core import gl
+
+    g = torch.Generator().manual_seed(SEED)
+    adapters = gl.init_adapters(cfg, cc, g, device=dev)
+    for w in adapters.values():
+        w["B"] = (torch.randn(w["B"].shape, generator=g) * 0.01).to(dev)
+    return adapters
+
+
+def _dist_train(tag, cfg, cc, mesh, P, params, adapters, batches, dev,
+                offloader=None) -> dict:
+    """``make_train_step(cfg, cc, mesh)``: a warm-up step on batches[0],
+    then one measured step on each later batch (launches reset just before
+    and read just after the step, and again around the fit); Mode A's data
+    pushed to ``offloader`` as M pushes and fitted. Then the last step
+    against the direct per-microbatch calls: launches exactly M times one
+    call's, loss and data or gradients bit for bit (or within 1e-6 of the
+    largest entry). Returns the launch counts of the measured windows."""
+    from repro_torch.core import gl
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import steps
+    from repro_torch.utils import tree_leaves
+
+    m = cfg.microbatches
+    fn, (_, ash) = steps.make_train_step(cfg, cc, mesh)
+    mode_a = cc.mode == "faithful_offload"
+    total = collections.Counter()
+    step_ms, fit_ms, losses = [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for n, batch in enumerate(batches):
+        used = {t: {k: v.clone() for k, v in w.items()} for t, w in
+                (offloader.adapters if offloader else adapters).items()}
+        A = sh.distribute(mesh, used, ash)
+        out = None   # the last step's data goes before the next is made
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (loss, out), launches = _counted(lambda: fn(P, A, batch))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if offloader is not None:
+            before = [t.clone() for t in tree_leaves(offloader.adapters)]
+            t0 = time.perf_counter()
+
+            def fit():
+                for i in range(m):
+                    offloader.push({t: (x.to_local()[i], g.to_local()[i])
+                                    for t, (x, g) in out.items()})
+                return offloader.maybe_fit()
+
+            new, fl = _counted(fit)
+            fit_ms.append((time.perf_counter() - t0) * 1e3)
+            check(new is not None and fl["cola_fit"] == 2
+                  and sum(fl.values()) == 2,
+                  f"{tag} a fit of {m} pushes launched {fl}, not 2 cola_fit")
+            check(any(not torch.equal(a, b) for a, b in
+                      zip(before, tree_leaves(offloader.adapters))),
+                  f"{tag} the fit left the adapters as they were")
+            launches = collections.Counter(launches) + collections.Counter(fl)
+        if n:
+            total.update(launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(losses)), f"{tag} losses {losses}")
+
+    # the last step against the direct calls on its microbatches
+    spec = gl.make_spec(cfg, cc)
+    call = gl.server_step_a if mode_a else gl.train_step_b
+    tot = acc = None
+    worst = 0.0
+    for i in range(m):
+        mb = _micro(batches[-1], i, m)
+        (loss_i, got_i, _), c = _counted(
+            lambda: call(cfg, spec, params, used, mb))
+        if i == 0:
+            one = {k: c[k] for k in ATTN_TRAIN}
+        if tot is None:
+            tot = torch.zeros((), dtype=loss_i.dtype, device=loss_i.device)
+        tot = tot + loss_i
+        if mode_a:
+            for t, (x, g) in got_i.items():
+                worst = max(worst, _same(out[t][0].to_local()[i], x),
+                            _same(out[t][1].to_local()[i], g))
+        else:
+            acc = (got_i if acc is None else
+                   {t: {k: acc[t][k] + v for k, v in w.items()}
+                    for t, w in got_i.items()})
+        del got_i
+    if mode_a:
+        direct = tot / m
+    else:
+        direct = tot / float(m)
+        for t, w in acc.items():
+            for k, v in w.items():
+                worst = max(worst, _same(out[t][k].to_local(), v / float(m)))
+    lw = _same(loss, direct)
+    last = {k: launches[k] for k in ATTN_TRAIN}
+    check(all(one[k] > 0 and last[k] == m * one[k] for k in ATTN_TRAIN),
+          f"{tag} a step launched {last}, not {m} x one microbatch's {one}")
+    check(lw <= 1e-6 and worst <= 1e-6,
+          f"{tag} step against the direct calls: loss {lw:.3g}, "
+          f"{'data' if mode_a else 'gradients'} {worst:.3g} of the largest")
+    label = "Mode A" if mode_a else "Mode B"
+    tokens = sum(next(iter(b.values())).numel() for b in batches[1:])
+    measured = step_ms[1:]
+    fits = (f"; fit ms {[round(t, 2) for t in fit_ms[1:]]} (8 pushes, 2 "
+            f"cola_fit a fit)" if fit_ms else "")
+    print(f"{tag} {label} {cfg.name} bf16, {cfg.n_layers} layers, {m} "
+          f"microbatches of {DIST_ROWS // m} x {DIST_SEQ}: losses "
+          f"{[round(x, 5) for x in losses]}; step ms "
+          f"{[round(t, 1) for t in step_ms]} (warm-up first; p50 of the "
+          f"measured {statistics.median(measured):.1f}){fits}; "
+          f"{tokens / (sum(measured) / 1e3):.1f} training tokens/s; peak "
+          f"memory {peak / 2**30:.2f} GiB; {card_line()}", flush=True)
+    print(f"{tag} {label}: a step launches {last} = {m} x one microbatch's "
+          f"{one}; loss and {'data' if mode_a else 'gradients'} against the "
+          f"direct calls: "
+          f"{'equal bit for bit' if lw == worst == 0.0 else f'{max(lw, worst):.3g} of the largest entry'}"
+          f"; launches in {len(batches) - 1} measured steps "
+          f"{dict(total)}", flush=True)
+    return dict(total)
+
+
+def _dist_serve(tag, cfg, mesh, P, params, dev) -> dict:
+    """``make_prefill_step`` at 8 x DIST_PREFILL, its cache written into a
+    placed 8 x DIST_MAX_LEN decode cache, then DIST_TICKS ticks of
+    ``make_serve_step``; tokens and prefill logits equal to direct
+    ``model.prefill`` / ``decode_step``. Returns the launch counts."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import steps
+    from repro_torch.models import model
+    from repro_torch.utils import tree_map
+
+    L, B = cfg.n_layers, DIST_ROWS
+    rng = np.random.default_rng(SEED + 20)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, DIST_PREFILL))
+                           .astype(np.int32), device=dev)
+    fn_p, _ = steps.make_prefill_step(cfg, mesh)
+    fn_s, _ = steps.make_serve_step(cfg, mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn_p(P, {"tokens": toks})   # warm-up
+    _free()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (logits, pre), total = _counted(lambda: fn_p(P, {"tokens": toks}))
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    check(total["flash_attention"] == L and sum(total.values()) == L,
+          f"{tag} (c) prefill launched {total}, not {L} flash forwards")
+    total = collections.Counter(total)
+    cspec, _ = steps.serve_shardings(cfg, mesh, B, DIST_MAX_LEN)
+    C = sh.distribute(mesh, model.init_cache(cfg, B, DIST_MAX_LEN,
+                                             device=dev), cspec)
+    model.scatter_prefill_cache(tree_map(lambda d: d.to_local(), C),
+                                tree_map(lambda d: d.to_local(), pre),
+                                range(B))
+    del pre
+    tok = logits.to_local().argmax(-1).to(torch.int32)
+    pos = torch.full((B,), DIST_PREFILL, dtype=torch.int32, device=dev)
+    got, tick_ms = [tok], []
+    for _ in range(DIST_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (out, C), c = _counted(
+            lambda: fn_s(P, C, {"tokens": tok, "positions": pos}))
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        check(c["decode_attention"] == L and sum(c.values()) == L,
+              f"{tag} (c) a tick launched {c}, not {L} decode")
+        total.update(c)
+        tok, pos = out.to_local(), pos + 1
+        got.append(tok)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del C
+    _free()
+    # direct
+    lg, pre = model.prefill(cfg, params, {"tokens": toks})
+    same_logits = torch.equal(lg, logits.to_local())
+    cache = model.init_cache(cfg, B, DIST_MAX_LEN, device=dev)
+    model.scatter_prefill_cache(cache, pre, range(B))
+    del pre
+    tok = lg.argmax(-1).to(torch.int32)
+    pos = torch.full((B,), DIST_PREFILL, dtype=torch.int32, device=dev)
+    want = [tok]
+    for _ in range(DIST_TICKS):
+        lg, cache = model.decode_step(cfg, params, {"tokens": tok,
+                                                    "positions": pos}, cache)
+        tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
+        want.append(tok)
+    del cache
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{tag} (c) the steps' tokens differ from the direct calls'")
+    check(same_logits, f"{tag} (c) the prefill step's logits differ from "
+          f"model.prefill's")
+    print(f"{tag} (c) {cfg.name} bf16: prefill step 8 x {DIST_PREFILL} "
+          f"{pre_ms:.1f} ms ({B * DIST_PREFILL / (pre_ms / 1e3):.1f} prefill "
+          f"tokens/s), {DIST_TICKS} serve-step ticks p50 "
+          f"{statistics.median(tick_ms):.2f} ms (max {max(tick_ms):.2f}; "
+          f"{B / (statistics.median(tick_ms) / 1e3):.1f} decode tokens/s); "
+          f"tokens and prefill logits equal to model.prefill / decode_step; "
+          f"peak memory {peak / 2**30:.2f} GiB; launches {dict(total)}; "
+          f"{card_line()}", flush=True)
+    return dict(total)
+
+
+def phase_distributed(dev) -> dict:
+    """mistral-nemo-12b at full width and depth through the step builders on
+    a one-card mesh (phase 24; see the module docstring). Returns the
+    launch counts of the measured windows."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.core import gl
+    from repro_torch.core.offload import Offloader
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import steps
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.models import model
+    from repro_torch.utils import tree_leaves
+
+    tag = "[distributed]"
+    _process_group(dev, tag)
+    try:
+        mesh = single_device_mesh()
+        cfg = registry.get_config("mistral-nemo-12b")
+        check(cfg.microbatches == 8 and cfg.remat == "full"
+              and cfg.param_dtype == "bfloat16",
+              f"{tag} config {cfg.microbatches} / {cfg.remat} / "
+              f"{cfg.param_dtype}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = model.init(cfg, seed=SEED, device=dev)
+        ps = sh.params_shardings(mesh, steps.shaped_params(cfg),
+                                 policy=cfg.shard_policy)
+        P = sh.distribute(mesh, params, ps)
+        check(all(d.to_local().data_ptr() == t.data_ptr()
+                  for d, t in zip(tree_leaves(P), tree_leaves(params))),
+              f"{tag} distribute copied a leaf at one rank")
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"{tag} {cfg.name}: {cfg.n_layers} layers, {n_params} "
+              f"parameters ({n_params * 2 / 2**30:.2f} GiB in bf16) placed on "
+              f"the {tuple(mesh.shape)} mesh {mesh.mesh_dim_names} without a "
+              f"copy; init peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+              f" GiB", flush=True)
+        batches = [_dist_batch(cfg, DIST_ROWS, DIST_SEQ, SEED + 10 + i, dev)
+                   for i in range(DIST_STEPS + 1)]
+        cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                        rank=8)
+        adapters = _dist_adapters(cfg, cc, dev)
+        off = Offloader(gl.make_spec(cfg, cc), adapters, _adamw(),
+                        interval=cfg.microbatches, device=dev)
+        total = collections.Counter(_dist_train(
+            f"{tag} (a)", cfg, cc, mesh, P, params, None, batches, dev,
+            offloader=off))
+        del off
+        _free()
+        total.update(_dist_train(
+            f"{tag} (b)", cfg, dataclasses.replace(cc, mode="fused_fit"),
+            mesh, P, params, adapters, batches, dev))
+        _free()
+        total.update(_dist_serve(tag, cfg, mesh, P, params, dev))
+        del P, params
+        _free()
+        return dict(total)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_distributed_vs_plain(dev) -> None:
+    """nemo f32 at full width, 2 layers, through the step builders on the
+    card's mesh and on a host mesh of the same group (phase 25)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import steps
+    from repro_torch.launch.mesh import make_mesh, single_device_mesh
+    from repro_torch.models import model
+    from repro_torch.utils import tree_leaves, tree_map
+
+    tag = "[distributed-vs-plain]"
+    _process_group(dev, tag)
+    try:
+        meshes = {"card": single_device_mesh(),
+                  "cpu": make_mesh(1, 1, device_type="cpu")}
+        cfg = registry.get_config("mistral-nemo-12b").replace(
+            n_layers=2, param_dtype="float32", compute_dtype="float32",
+            remat="none")
+        params = {"card": model.init(cfg, seed=SEED, device=dev)}
+        params["cpu"] = _to(params["card"], "cpu")
+        batch = {"card": _dist_batch(cfg, DIST_ROWS, DIST_PLAIN_SEQ,
+                                     SEED + 30, dev)}
+        batch["cpu"] = _to(batch["card"], "cpu")
+        cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
+                        rank=8)
+        adapters = {"card": _dist_adapters(cfg, cc, dev)}
+        adapters["cpu"] = _to(adapters["card"], "cpu")
+        for mode in ("faithful_offload", "fused_fit"):
+            c = dataclasses.replace(cc, mode=mode)
+            res = {}
+            for where, mesh in meshes.items():
+                fn, (ps, ash) = steps.make_train_step(cfg, c, mesh)
+                t0 = time.perf_counter()
+                loss, out = fn(sh.distribute(mesh, params[where], ps),
+                               sh.distribute(mesh, adapters[where], ash),
+                               batch[where])
+                if where == "card":
+                    torch.cuda.synchronize()
+                res[where] = (loss, [d.to_local() for d in tree_leaves(out)],
+                              (time.perf_counter() - t0) * 1e3)
+            (lg, og, msg), (lc, oc, msc) = res["card"], res["cpu"]
+            lrel = abs(float(lg) - float(lc)) / abs(float(lc))
+            worst = max(_same(a, b) for a, b in zip(og, oc))
+            check(lrel <= 1e-5 and worst <= 1e-3,
+                  f"{tag} {mode}: loss {float(lg)} / {float(lc)} ({lrel:.3g}"
+                  f"), outputs {worst:.3g} of the largest entry")
+            print(f"{tag} {mode} f32, 2 layers, {cfg.microbatches} "
+                  f"microbatches of 1 x {DIST_PLAIN_SEQ}: loss card "
+                  f"{float(lg):.6f} / CPU {float(lc):.6f} ({lrel:.3g} "
+                  f"relative); {'data' if mode == 'faithful_offload' else 'gradients'}"
+                  f" within {worst:.3g} of the largest entry; step ms card "
+                  f"{msg:.1f}, CPU {msc:.1f}", flush=True)
+            del res
+        toks = {}
+        for where, mesh in meshes.items():
+            d = dev if where == "card" else torch.device("cpu")
+            fn_p, _ = steps.make_prefill_step(cfg, mesh)
+            fn_s, _ = steps.make_serve_step(cfg, mesh)
+            ps = sh.params_shardings(mesh, steps.shaped_params(cfg))
+            P = sh.distribute(mesh, params[where], ps)
+            logits, pre = fn_p(P, {"tokens": batch[where]["tokens"]})
+            cspec, _ = steps.serve_shardings(cfg, mesh, DIST_ROWS,
+                                             2 * DIST_PLAIN_SEQ)
+            C = sh.distribute(mesh, model.init_cache(
+                cfg, DIST_ROWS, 2 * DIST_PLAIN_SEQ, device=d), cspec)
+            model.scatter_prefill_cache(tree_map(lambda x: x.to_local(), C),
+                                        tree_map(lambda x: x.to_local(), pre),
+                                        range(DIST_ROWS))
+            tok = logits.to_local().argmax(-1).to(torch.int32)
+            pos = torch.full((DIST_ROWS,), DIST_PLAIN_SEQ, dtype=torch.int32,
+                             device=d)
+            out = [tok.cpu()]
+            for _ in range(DIST_PLAIN_TICKS):
+                o, C = fn_s(P, C, {"tokens": tok, "positions": pos})
+                tok, pos = o.to_local(), pos + 1
+                out.append(tok.cpu())
+            toks[where] = torch.cat(out, dim=1)
+        check(torch.equal(toks["card"], toks["cpu"]),
+              f"{tag} serve: card tokens differ from the CPU's")
+        print(f"{tag} prefill step 8 x {DIST_PLAIN_SEQ} + "
+              f"{DIST_PLAIN_TICKS} serve-step ticks: card tokens == CPU "
+              f"tokens ({tuple(toks['card'].shape)}); {card_line()}",
+              flush=True)
+        del params, adapters
+        _free()
+    finally:
+        dist.destroy_process_group()
+
+
+
+# ---------------------------------------------------------------------------
+# the CPU halves of phases 12, 13 (b), 16, 18, 20 and 23, in a worker process
+# ---------------------------------------------------------------------------
+
+# in the order the phases need them
+CPU_JOBS = ("gemma2-vs-plain", "gemma2-train", "moe-vs-plain", "ssm-vs-plain",
+            "hybrid-vs-plain", *(f"modality-vs-plain-{n}"
+                                 for n in MODALITY_PLAIN))
+
+
+def _cpu_job(job: str):
+    if job == "gemma2-vs-plain":
+        return _cpu_gemma2_vs_plain()
+    if job == "gemma2-train":
+        return _cpu_gemma2_train()
+    if job == "moe-vs-plain":
+        return _cpu_engine_vs_plain(MOE_PLAIN, "[moe-vs-plain]", 1,
+                                    routing=True)
+    if job == "ssm-vs-plain":
+        return _cpu_engine_vs_plain(SSM_PLAIN, "[ssm-vs-plain]", 2)
+    if job == "hybrid-vs-plain":
+        return _cpu_engine_vs_plain(HYBRID_PLAIN, "[hybrid-vs-plain]", 1)
+    return _cpu_modality_vs_plain(job.removeprefix("modality-vs-plain-"))
+
+
+def cpu_halves_main(out_dir: str, threads: int) -> int:
+    """The worker: every job of ``CPU_JOBS`` in turn on ``threads`` of the
+    host's cores, each result saved whole to ``out_dir/<job>.pt``. It dies
+    with the script that started it."""
+    import ctypes
+    import gc
+    import signal
+
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)   # PR_SET_PDEATHSIG
+    torch.set_num_threads(threads)
+    sys.path.insert(0, str(ROOT / "src"))
+    out = Path(out_dir)
+    for job in CPU_JOBS:
+        tmp = out / f"{job}.pt.part"
+        torch.save(_cpu_job(job), tmp)
+        os.replace(tmp, out / f"{job}.pt")
+        gc.collect()
+    return 0
+
+
+class CpuHalves:
+    """The worker process (``chip_smoke.py --cpu-halves DIR THREADS``, no
+    card in its environment) that computes the CPU halves of the comparison
+    phases from the same seeds as their card halves while the card's phases
+    run, leaving the card's phases two of the host's cores. The halves are
+    the CPU's plain path, as they were in the script's own process."""
+
+    def __init__(self, out_dir: Path):
+        self.dir = out_dir
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.dir.mkdir(parents=True)
+        self.log = open(self.dir / "worker.log", "w")
+        threads = max(1, len(os.sched_getaffinity(0)) - 2)
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cpu-halves",
+             str(self.dir), str(threads)], cwd=ROOT, stdout=self.log,
+            stderr=subprocess.STDOUT, env=dict(os.environ,
+                                               CUDA_VISIBLE_DEVICES=""))
+        print(f"[cpu-halves] worker started on {threads} CPU threads: "
+              f"{', '.join(CPU_JOBS)}", flush=True)
+
+    def get(self, job: str, timeout: float = 900.0):
+        """``job``'s result, waiting for the worker; fails if it ended
+        without it."""
+        path = self.dir / f"{job}.pt"
+        t0 = time.perf_counter()
+        while not path.exists():
+            if self.proc.poll() is not None and not path.exists():
+                self.log.flush()
+                tail = (self.dir / "worker.log").read_text()[-4000:]
+                check(False, f"the CPU worker ended with rc "
+                      f"{self.proc.returncode} before {job}:\n{tail}")
+            check(time.perf_counter() - t0 < timeout,
+                  f"the CPU worker gave no {job} in {timeout:.0f} s")
+            time.sleep(0.1)
+        waited = time.perf_counter() - t0
+        out = torch.load(path, weights_only=False)
+        path.unlink()
+        print(f"[cpu-halves] {job}: waited {waited:.1f} s", flush=True)
+        return out
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+_HALVES: CpuHalves | None = None
+
+
+def cpu_half(job: str):
+    """The CPU half of a comparison phase, from the worker."""
+    check(_HALVES is not None, f"no CPU worker for {job}")
+    return _HALVES.get(job)
 
 
 def _to(tree, device):
@@ -3964,13 +4575,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
-    print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}",
+    start = time.perf_counter()
+    print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}"
+          f"; {torch.get_num_threads()} CPU threads",
           flush=True)
 
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"[build] {sorted(built)} built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    global _HALVES
+    _HALVES = CpuHalves(ROOT / "build" / "chip_smoke_cpu")
+    atexit.register(_HALVES.close)
     # registers and spills of every instantiation: the tensor-core kernels
     # at every head dim, the decode kernel per dtype too, cola_fit's by rank
     # block, columns a thread and rows a tile, multi-LoRA's by x dtype, bank
@@ -4089,6 +4705,17 @@ def main() -> int:
     phase_modality_vs_plain(dev)
     print(f"[modality-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    distributed = phase_distributed(dev)
+    print(f"[distributed] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    phase_distributed_vs_plain(dev)
+    print(f"[distributed-vs-plain] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print(f"[phases] done in {time.perf_counter() - start:.1f} s, the build "
+          f"included", flush=True)
+    _HALVES.close()
 
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:61",
@@ -4105,15 +4732,16 @@ def main() -> int:
                "decode_attention_paged": "decode_attention",
                "multi_lora_q8": "multi_lora"}
     # launches: the serving, training, serving-at-scale, store, runtime,
-    # telemetry, gemma2, gemma2-train, configs, moe, ssm, hybrid, musicgen
-    # and pixtral runs' together (flash_attention runs on all thirteen
+    # telemetry, gemma2, gemma2-train, configs, moe, ssm, hybrid, musicgen,
+    # pixtral and distributed runs' together (flash_attention runs on all thirteen
     # attention paths, none on the ssm path, which runs the multi-LoRA
     # kernels and cola_fit; the ring ticks count as the paged decode
     # kernel's, of which they are the ring addressing mode); the top-level numbers are the kernel's first row,
     # "rows" holds every phase-1 row of the kernel (both cola_fit taps,
     # multi_lora at a tick, the d_head 256 and 112 rows and the other
     # configs' shapes)
-    for extra in (gemma2, configs, moe, ssm, hybrid, musicgen, pixtral):
+    for extra in (gemma2, configs, moe, ssm, hybrid, musicgen, pixtral,
+                  distributed):
         extra["decode_attention_paged"] += extra.pop("decode_attention_ring", 0)
     kernels = [dict(name=n, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{sources.get(n, n)}.cu",
@@ -4122,7 +4750,7 @@ def main() -> int:
                               + runtime[n] + tele[n] + gemma2[n]
                               + gemma2_train[n] + configs[n] + moe[n]
                               + ssm[n] + hybrid[n] + musicgen.get(n, 0)
-                              + pixtral.get(n, 0)),
+                              + pixtral.get(n, 0) + distributed.get(n, 0)),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})
@@ -4136,4 +4764,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-halves"]:
+        sys.exit(cpu_halves_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

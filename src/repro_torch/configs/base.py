@@ -1,5 +1,6 @@
-"""ModelConfig (the architecture), ColaConfig (how ColA attaches to it) and
-TrainConfig (optimizer and batch): frozen dataclasses, so they are hashable.
+"""ModelConfig (the architecture), ColaConfig (how ColA attaches to it),
+TrainConfig (optimizer and batch) and MeshConfig (the device mesh's shape):
+frozen dataclasses, so they are hashable.
 Copies of the JAX package's ``configs/base.py``; the port keeps its own so
 that it imports nothing of the JAX package.
 """
@@ -102,3 +103,17 @@ class TrainConfig:
     grad_clip: float = 1.0
     schedule: str = "linear"       # "linear" | "cosine" | "const"
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A mesh's shape without its devices: ("data", "model"), or ("pod",
+    "data", "model") when ``pods`` > 1. The sharding rules take one in place
+    of a ``DeviceMesh`` (``repro_torch.distributed.sharding``)."""
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+
+    @property
+    def devices(self) -> int:
+        return self.data * self.model * self.pods

@@ -6,14 +6,17 @@ codebooks with an untied head and pixtral-12b's embedding input) and with
 MoE blocks (qwen3-moe-30b-a3b, dbrx-132b), gemma2's local/global pairs
 plan, the attention-free SSM plan of Mamba2 blocks (mamba2-370m), and the
 hybrid plan of Mamba2 segments with a shared attention block (zamba2-7b).
-The dry-run's input specs and mesh wait for the distributed port (see
-ROADMAP.md)."""
+The input specs are tensors on the meta device (shape and dtype, no
+memory), the counterpart of JAX's ``ShapeDtypeStruct`` stand-ins."""
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.utils import canonical_dtype
 
 ARCH_MODULES = {
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
@@ -101,3 +104,50 @@ def skipped_cells() -> list[tuple[str, str, str]]:
     return [(arch, "long_500k",
              "full quadratic attention; 500k ctx requires sub-quadratic")
             for arch in ASSIGNED if not get_config(arch).sub_quadratic]
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta-device stand-ins: no allocation)
+# ---------------------------------------------------------------------------
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=canonical_dtype(dtype), device="meta")
+
+
+def batch_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """Training / prefill batch input specs for one model: token ids, 4
+    codebooks' ids, or embeddings in ``compute_dtype``, and the labels."""
+    if cfg.embed_input:
+        return {
+            "embeds": _sds((batch, seq, cfg.d_model), cfg.compute_dtype),
+            "labels": _sds((batch, seq), torch.int32),
+        }
+    if cfg.n_codebooks:
+        return {
+            "tokens": _sds((batch, seq, cfg.n_codebooks), torch.int32),
+            "labels": _sds((batch, seq, cfg.n_codebooks), torch.int32),
+        }
+    return {
+        "tokens": _sds((batch, seq), torch.int32),
+        "labels": _sds((batch, seq), torch.int32),
+    }
+
+
+def decode_token_specs(cfg: ModelConfig, batch: int) -> dict:
+    if cfg.embed_input:
+        tok = {"embeds": _sds((batch, 1, cfg.d_model), cfg.compute_dtype)}
+    elif cfg.n_codebooks:
+        tok = {"tokens": _sds((batch, 1, cfg.n_codebooks), torch.int32)}
+    else:
+        tok = {"tokens": _sds((batch, 1), torch.int32)}
+    tok["positions"] = _sds((batch,), torch.int32)
+    return tok
+
+
+def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
+    """Meta-tensor stand-ins for every model input of a shape cell. A decode
+    cell's cache specs come from ``repro_torch.models.model.cache_specs``."""
+    spec = SHAPES[shape_name]
+    if spec.kind in ("train", "prefill"):
+        return batch_specs(cfg, spec.batch, spec.seq)
+    return decode_token_specs(cfg, spec.batch)

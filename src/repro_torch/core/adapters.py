@@ -29,10 +29,13 @@ def init(family: str, gen: torch.Generator, d_in: int, d_out: int, *,
     ``gen`` on its own device and moved to ``device`` (default: the
     generator's). ``lead`` prepends axes (the layer axis of a stacked tap) to
     every leaf. The draws differ from ``jax.random``'s; tests carry JAX
-    adapters across with ``convert.adapters_from_numpy``."""
+    adapters across with ``convert.adapters_from_numpy``. On the meta device
+    nothing is drawn (shapes and dtypes only)."""
     device = gen.device if device is None else device
 
     def normal(*shape, fan):
+        if torch.device(device).type == "meta":
+            return torch.empty(lead + shape, dtype=dtype, device="meta")
         w = torch.randn(lead + shape, generator=gen, device=gen.device,
                         dtype=torch.float32)
         return (w / fan ** 0.5).to(device=device, dtype=dtype)

@@ -1,0 +1,390 @@
+"""Step builders on a mesh: the train step of every ColA mode, the serve
+(decode) step and the prefill step, the JAX package's
+``distributed/steps.py`` under its names. Each wraps the same
+``repro_torch.core.gl`` / ``models.model`` math as one device: the
+distribution layer adds placements and never changes the numbers.
+
+Execution, as this port runs it:
+
+- **Data parallel over the batch axes** (``sharding.batch_axes(mesh,
+  cfg.shard_policy)``). A step takes the whole batch (plain tensors, or
+  DTensors, which it gathers); each rank computes its block of every
+  (micro)batch's rows. Where the rows do not divide over the batch ranks,
+  every rank computes them all, as JAX replicates a batch that does not
+  divide.
+- **Parameters, adapters, caches** come as DTensors at the rules' placements
+  (``sharding.distribute``) or as plain tensors. A leaf split over more than
+  one rank is gathered at use; any other is used as it is, so at one rank
+  the step runs on the tensors themselves, with no copy. Tensor-parallel
+  compute over "model" is not done: under "2d" the ranks along "model"
+  compute the same rows.
+- **Outputs** go back as DTensors at the rules' placements: Mode B, LoRA and
+  full-FT gradients summed over the batch ranks and placed as the adapters
+  or parameters are; Mode A's data by ``delta_shardings`` with a leading
+  microbatch axis; tokens or logits by ``batch_shardings``; caches by
+  ``cache_shardings``. The loss is a plain scalar, the whole batch's, on
+  every rank.
+- **The loss over split rows** is the whole batch's masked mean: the CE
+  sums and counts (and the MoE router's statistics) are reduced over the
+  batch ranks inside ``activation_rules(local_rows=True)``, and each rank
+  backpropagates its own share, so its grad_h rows and the reduced
+  gradients are one device's.
+
+``cfg.microbatches`` (M) splits a train step's batch as JAX's
+``split_micro`` does: microbatch i is global rows [i B / M, (i + 1) B / M),
+whose rows are then split across the batch ranks. Mode A returns the mean
+of the M microbatches' losses and each microbatch's own (x, grad_h),
+stacked (M, L?, b, S, d), to stream to the offloader as M pushes; Mode B
+and LoRA sum the gradients over the microbatches and divide by M; full FT
+takes no microbatches.
+
+A MoE batch is split over ranks only where each rank's dispatch groups are
+one device's: the einsum dispatch's groups of ``moe_group`` tokens (or rows)
+must fall alike, and the sort dispatch's capacity counts every token of the
+call, so it is never split. Otherwise the step raises ``ValueError``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.configs.base import ColaConfig, ModelConfig
+from repro_torch.core import gl
+from repro_torch.distributed import sharding as sh
+from repro_torch.models import model as model_lib
+from repro_torch.utils import tree_leaves, tree_map
+
+
+# ---------------------------------------------------------------------------
+# shape-only param / adapter trees (meta device: no memory)
+# ---------------------------------------------------------------------------
+
+def shaped_params(cfg: ModelConfig) -> dict:
+    return model_lib.init(cfg, device="meta")
+
+
+def shaped_adapters(cfg: ModelConfig, cc: ColaConfig) -> dict:
+    if cc.mode in ("ft", "frozen"):
+        return {}
+    return gl.init_adapters(cfg, cc, torch.Generator(), dtype=torch.float32,
+                            device="meta")
+
+
+# ---------------------------------------------------------------------------
+# rows: which rows of a batch this rank computes
+# ---------------------------------------------------------------------------
+
+class _Rows:
+    """Rows [start(i), start(i) + rows) of the whole batch that this rank
+    computes for microbatch i of ``m``. ``split``: the rows divide over the
+    ``n`` > 1 batch ranks; else every rank computes every row."""
+
+    def __init__(self, mesh: DeviceMesh, policy: str, batch: int, m: int = 1):
+        if batch % m:
+            raise ValueError(f"batch {batch} does not split into {m} "
+                             f"microbatches")
+        self.axes = sh.batch_axes(mesh, policy)
+        shape = sh.mesh_shape(mesh)
+        self.n = 1
+        for a in self.axes:
+            self.n *= shape[a]
+        self.micro = batch // m
+        self.split = self.n > 1 and self.micro % self.n == 0
+        self.rows = self.micro // self.n if self.split else self.micro
+        self.index = 0
+        if self.split:
+            coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            for a in self.axes:
+                self.index = self.index * shape[a] + coord[a]
+
+    def start(self, i: int) -> int:
+        return i * self.micro + self.index * self.rows
+
+    def take(self, batch: dict, i: int = 0) -> dict:
+        s = self.start(i)
+        return {k: v[s:s + self.rows] for k, v in batch.items()}
+
+
+def _check_groups(cfg: ModelConfig, rows: _Rows, seq: int) -> None:
+    """Raise where splitting the rows would give a rank other MoE dispatch
+    groups (or capacities) than one device's."""
+    if not cfg.n_experts or not rows.split:
+        return
+    if cfg.moe_impl == "sort":
+        raise ValueError(
+            "the sort dispatch's expert capacity counts every token of the "
+            f"call; split over {rows.n} batch ranks it would not be one "
+            "device's")
+    if cfg.moe_impl == "einsum":
+        whole, local, g = rows.micro * seq, rows.rows * seq, cfg.moe_group
+        if whole % g == 0 and local % g:
+            raise ValueError(
+                f"MoE dispatch groups of {g} tokens: one device groups the "
+                f"{whole} tokens of a (micro)batch by {g}, a rank's {local} "
+                f"would be grouped by row; use a batch whose rows a rank "
+                f"hold a multiple of {g} tokens")
+
+
+# ---------------------------------------------------------------------------
+# moving leaves between the rules' placements and the compute layout
+# ---------------------------------------------------------------------------
+
+def _use(tree):
+    """Every leaf whole for compute (``sharding.gathered``)."""
+    return tree_map(sh.gathered, tree)
+
+
+def _compute_placements(mesh: DeviceMesh, rows: _Rows, bdim: int) -> tuple:
+    """Shard(bdim) on the batch axes where the rows are split, else
+    replicated."""
+    axes = rows.axes if rows.split else ()
+    return tuple(Shard(bdim) if a in axes else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def _rows_of(mesh: DeviceMesh, x, rows: _Rows, bdim: int) -> torch.Tensor:
+    """This rank's rows of a per-row leaf (all its entries on every other
+    dim): a DTensor redistributed to the compute layout (its own tensor when
+    nothing moves), a plain tensor (the whole leaf) sliced."""
+    if isinstance(x, DTensor):
+        want = _compute_placements(mesh, rows, bdim)
+        if tuple(x.placements) != want and mesh.size() > 1:
+            x = x.redistribute(mesh, want)
+        return x.to_local()
+    if not rows.split:
+        return x
+    return x.narrow(bdim, rows.start(0), rows.rows)
+
+
+def _place_rows(mesh: DeviceMesh, local: torch.Tensor, spec: tuple,
+                rows: _Rows, bdim: int | None) -> DTensor:
+    """This rank's computed rows (dim ``bdim``; None: the whole tensor) as a
+    DTensor at ``spec``."""
+    if bdim is None or not rows.split:   # ``local`` is the whole tensor
+        return sh.place(mesh, local, spec)
+    d = DTensor.from_local(local, mesh, _compute_placements(mesh, rows, bdim),
+                           run_check=False)
+    return d.redistribute(mesh, sh.placements(mesh, spec))
+
+
+def _sum_over_rows(rows: _Rows, mesh: DeviceMesh, tree):
+    """Sum each leaf of a rank's gradient share over the batch ranks."""
+    if not rows.split:
+        return tree
+    shape = sh.mesh_shape(mesh)
+    for g in tree_leaves(tree):
+        for a in rows.axes:
+            if shape[a] > 1:
+                dist.all_reduce(g, group=mesh.get_group(a))
+    return tree
+
+
+def _place_tree(mesh, tree, specs, rows, bdim_of):
+    return sh.map_with_specs(
+        lambda x, s: _place_rows(mesh, x, s, rows, bdim_of(x)), tree, specs)
+
+
+def _batch_rows(batch: dict) -> tuple[int, int]:
+    x = batch.get("tokens", batch.get("embeds"))
+    return x.shape[0], x.shape[1]
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg: ModelConfig, cc: ColaConfig, mesh: DeviceMesh):
+    """Returns (fn, (param specs, adapter specs or None)); fn's signature
+    depends on the mode:
+      fused_fit / lora : fn(params, adapters, batch) -> (loss, adapter_grads)
+      faithful_offload : fn(params, adapters, batch) -> (loss, adaptation_data)
+      ft               : fn(params, batch) -> (loss, param_grads)
+    """
+    policy = cfg.shard_policy
+    ps = sh.params_shardings(mesh, shaped_params(cfg), policy=policy)
+
+    def rules(rows):
+        return sh.activation_rules(mesh, policy, local_rows=rows.split)
+
+    if cc.mode == "ft":
+        def fn_ft(params, batch):
+            batch = _use(batch)
+            B, S = _batch_rows(batch)
+            rows = _Rows(mesh, policy, B)
+            _check_groups(cfg, rows, S)
+            with rules(rows):
+                loss, grads, _ = gl.train_step_ft(cfg, _use(params),
+                                                  rows.take(batch))
+            grads = _sum_over_rows(rows, mesh, grads)
+            return loss, _place_tree(mesh, grads, ps, rows, lambda _: None)
+
+        return fn_ft, (ps, None)
+
+    spec = gl.make_spec(cfg, cc)
+    ash = sh.params_shardings(mesh, shaped_adapters(cfg, cc), adapter=True,
+                              policy=policy)
+    m = cfg.microbatches
+
+    def setup(params, adapters, batch):
+        batch = _use(batch)
+        B, S = _batch_rows(batch)
+        rows = _Rows(mesh, policy, B, m)
+        _check_groups(cfg, rows, S)
+        return _use(params), _use(adapters), batch, rows
+
+    if cc.mode == "faithful_offload":
+        def fn_a(params, adapters, batch):
+            p, a, batch, rows = setup(params, adapters, batch)
+            if m == 1:
+                with rules(rows):
+                    loss, data, _ = gl.server_step_a(cfg, spec, p, a,
+                                                     rows.take(batch))
+            else:
+                tot = data = None
+                for i in range(m):
+                    with rules(rows):
+                        loss_i, data_i, _ = gl.server_step_a(
+                            cfg, spec, p, a, rows.take(batch, i))
+                    # data leaves (M, L?, b, S, d): per-microbatch adaptation
+                    # data, streamed to the offloader as M pushes
+                    if data is None:
+                        tot = torch.zeros((), dtype=loss_i.dtype,
+                                          device=loss_i.device)
+                        data = {t: tuple(v.new_empty((m,) + v.shape)
+                                         for v in xg)
+                                for t, xg in data_i.items()}
+                    tot = tot + loss_i
+                    for t, xg in data_i.items():
+                        for dst, src in zip(data[t], xg):
+                            dst[i].copy_(src)
+                    del data_i
+                loss = tot / m
+            dspec = sh.delta_shardings(mesh, {
+                t: tuple(_global_shape(v, rows, v.dim() - 3) for v in xg)
+                for t, xg in data.items()})
+            return loss, _place_tree(mesh, data, dspec, rows,
+                                     lambda x: x.dim() - 3)
+
+        return fn_a, (ps, ash)
+
+    def fn_b(params, adapters, batch):
+        p, a, batch, rows = setup(params, adapters, batch)
+        if m == 1:
+            with rules(rows):
+                loss, grads, _ = gl.train_step_b(cfg, spec, p, a,
+                                                 rows.take(batch))
+        else:
+            tot = acc = None
+            for i in range(m):
+                with rules(rows):
+                    loss_i, g_i, _ = gl.train_step_b(cfg, spec, p, a,
+                                                     rows.take(batch, i))
+                if acc is None:
+                    tot = torch.zeros((), dtype=loss_i.dtype,
+                                      device=loss_i.device)
+                    acc = tree_map(torch.zeros_like, g_i)
+                tot = tot + loss_i
+                acc = tree_map(torch.add, acc, g_i)
+            loss = tot / float(m)
+            grads = tree_map(lambda g: g / float(m), acc)
+        grads = _sum_over_rows(rows, mesh, grads)
+        return loss, _place_tree(mesh, grads, ash, rows, lambda _: None)
+
+    return fn_b, (ps, ash)
+
+
+# ---------------------------------------------------------------------------
+# serve step (decode)
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
+    """fn(params, cache, batch) -> (tokens | logits, new cache). The cache's
+    leaves (n, B, ...) are updated in place where the rank computes on them
+    as they are (one rank), else the new cache is placed anew."""
+    policy = cfg.shard_policy
+
+    def fn(params, cache, batch):
+        batch = _use(batch)
+        B = batch["positions"].shape[0]
+        rows = _Rows(mesh, policy, B)
+        _check_groups(cfg, rows, 1)
+        cspec = sh.cache_shardings(mesh, cache)
+        local = tree_map(lambda c: _rows_of(mesh, c, rows, 1), cache)
+        with sh.activation_rules(mesh, policy, local_rows=rows.split):
+            logits, local = model_lib.decode_step(cfg, _use(params),
+                                                  rows.take(batch), local)
+        out = (torch.argmax(logits, dim=-1).to(torch.int32) if greedy
+               else logits)
+        ospec = sh.batch_shardings(mesh, {"out": _global_shape(out, rows)},
+                                   policy=policy)["out"]
+        return (_place_rows(mesh, out, ospec, rows, 0),
+                _place_tree(mesh, local, cspec, rows, lambda _: 1))
+
+    ps = sh.params_shardings(mesh, shaped_params(cfg), policy=policy)
+    return fn, ps
+
+
+def _global_shape(x: torch.Tensor, rows: _Rows, bdim: int = 0):
+    """(shape, dtype) of the whole batch's tensor of which ``x`` holds this
+    rank's computed rows (dim ``bdim``)."""
+    shape = list(x.shape)
+    if rows.split:
+        shape[bdim] *= rows.n
+    return (tuple(shape), x.dtype)
+
+
+def serve_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    from repro_torch.configs import registry
+
+    cache_sh = sh.cache_shardings(mesh, model_lib.cache_specs(cfg, batch,
+                                                              max_len))
+    tok = sh.batch_shardings(mesh, registry.decode_token_specs(cfg, batch),
+                             policy=cfg.shard_policy)
+    return cache_sh, tok
+
+
+# ---------------------------------------------------------------------------
+# prefill step
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ModelConfig, mesh: DeviceMesh):
+    """fn(params, batch) -> (logits, cache) at ``prefill_out_shardings`` of
+    the batch's (B, S)."""
+    policy = cfg.shard_policy
+
+    def fn(params, batch):
+        batch = _use(batch)
+        B, S = _batch_rows(batch)
+        rows = _Rows(mesh, policy, B)
+        _check_groups(cfg, rows, S)
+        with sh.activation_rules(mesh, policy, local_rows=rows.split):
+            logits, cache = model_lib.prefill(cfg, _use(params),
+                                              rows.take(batch))
+        lspec, cspec = prefill_out_shardings(cfg, mesh, B, S)
+        return (_place_rows(mesh, logits, lspec, rows, 0),
+                _place_tree(mesh, cache, cspec, rows, lambda _: 1))
+
+    ps = sh.params_shardings(mesh, shaped_params(cfg), policy=policy)
+    return fn, ps
+
+
+def prefill_out_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    """Logits over batch and vocab; the cache placed like the decode cache,
+    so the prefill's output feeds the serve step without a move."""
+    logits_shape = ((batch, 1, cfg.n_codebooks, cfg.vocab_size)
+                    if cfg.n_codebooks else (batch, 1, cfg.vocab_size))
+    ba = sh.batch_axes(mesh)
+    shape = sh.mesh_shape(mesh)
+    nb = 1
+    for a in ba:
+        nb *= shape[a]
+    lspec: list = [None] * len(logits_shape)
+    if batch % nb == 0:
+        lspec[0] = ba
+    if logits_shape[-1] % shape.get("model", 1) == 0:
+        lspec[-1] = "model"
+    cache_sh = sh.cache_shardings(mesh, model_lib.cache_specs(cfg, batch,
+                                                              max_len))
+    return sh._spec(*lspec), cache_sh

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.taps import ColaSpec, TapSite
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -435,11 +436,12 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor
     return ce.sum(), valid.sum().to(torch.float32)
 
 
-def lm_loss(cfg: ModelConfig, params: dict, h: torch.Tensor,
-            labels: torch.Tensor) -> torch.Tensor:
-    """CE from hidden states against labels (B, S) or, with codebooks,
-    (B, S, CB); with ``cfg.loss_chunk`` the sequence is taken in chunks, so
-    the full (B, S, V) logits tensor never exists at once."""
+def lm_loss_sum(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of CE, count of valid labels) from hidden states against labels
+    (B, S) or, with codebooks, (B, S, CB); with ``cfg.loss_chunk`` the
+    sequence is taken in chunks, so the full (B, S, V) logits tensor never
+    exists at once."""
     S = h.shape[1]
     c = cfg.loss_chunk
     if c and S % c == 0 and S > c:
@@ -448,8 +450,17 @@ def lm_loss(cfg: ModelConfig, params: dict, h: torch.Tensor,
             s, n = _ce(head_logits(cfg, params, h[:, i:i + c]),
                        labels[:, i:i + c])
             tot, cnt = tot + s, cnt + n
-        return tot / cnt.clamp(min=1.0)
-    s, n = _ce(head_logits(cfg, params, h), labels)
+        return tot, cnt
+    return _ce(head_logits(cfg, params, h), labels)
+
+
+def lm_loss(cfg: ModelConfig, params: dict, h: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """The masked mean CE (``lm_loss_sum``'s sum over its count). Under
+    ``activation_rules(local_rows=True)`` both are the whole batch's, summed
+    over the batch ranks, and the gradient is this rank's share."""
+    s, n = lm_loss_sum(cfg, params, h, labels)
+    s, n = sharding.batch_sum(s), sharding.batch_sum(n)
     return s / n.clamp(min=1.0)
 
 

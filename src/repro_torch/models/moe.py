@@ -14,13 +14,16 @@ All three share the router (f32 logits, softmax, top-k, renormalised) and
 the switch-style load-balancing aux loss. The products are plain PyTorch
 (the JAX package computes them outside any Pallas kernel); the JAX
 package's sharding constraints are the identity on one card and are left
-out.
+out. The aux loss's two means over tokens go through
+``sharding.batch_mean``: ``mean(dim=0)`` on one device, the whole batch's
+when a distributed step splits the rows over ranks.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.utils import cdiv
 
 
@@ -46,15 +49,16 @@ def _route(params: dict, x: torch.Tensor, top_k: int):
     """x: (..., d). Returns (weights (..., k) f32, expert ids (..., k), the
     aux loss): f32 router logits, softmax, top-k, renormalised; the aux is
     E * sum_e (mean router probability of e) * (share of choices to e) over
-    all tokens."""
+    all tokens (the whole batch's, when a distributed step splits its rows
+    over ranks)."""
     logits = x.float() @ params["router"]["w"].float()
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, top_k, dim=-1)
     w = w / w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
     E = logits.shape[-1]
-    me = probs.reshape(-1, E).mean(dim=0)
+    me = sharding.batch_mean(probs.reshape(-1, E))
     one_hot = F.one_hot(idx.reshape(-1, top_k), E).float()
-    ce = one_hot.sum(dim=1).mean(dim=0) / top_k
+    ce = sharding.batch_mean(one_hot.sum(dim=1)) / top_k
     return w, idx, E * (me * ce).sum()
 
 

@@ -1,0 +1,523 @@
+"""The distribution layer in the port (``repro_torch.distributed``,
+``launch/mesh.py``, the registry's input specs and ``MeshConfig``) against
+the JAX package's, on the CPU.
+
+- The rules: for every leaf of all eleven configs at full size (meta
+  trees against ``jax.eval_shape``), the port's parameter and adapter specs
+  equal JAX's on meshes (16, 16), (2, 16, 16) and (2, 4) under both
+  policies; so do the batch, cache and delta specs of every shape cell, and
+  the input specs. JAX's rules run on an ``AbstractMesh`` (a mesh's shape
+  without devices).
+- The steps: JAX's ``steps.make_*`` on a (1, 1) mesh with ``Auto`` axes
+  (JAX 0.9's ``jax.make_mesh`` gives ``Explicit`` ones, which its
+  ``constrain`` refuses) are the oracle for the port's at world size 1, on
+  reduced f32 configs (mistral-nemo-12b, qwen3-moe-30b-a3b with MoE groups
+  of 32 tokens, mamba2-370m), weights and inputs carried across as numpy:
+  Mode A and Mode B with two microbatches, LoRA with one, full FT, prefill
+  and the serve step (tokens and logits). Labels are masked unevenly across
+  rows (one row wholly), so a wrong microbatch grouping or a mean of means
+  fails. The port's steps run in spawned gloo groups
+  (``tests/torch_dist_worker.py``): world size 1, and world size 8 on
+  (2, 4) and (2, 2, 2) (and (2, 4) under "dp"), whose results must equal
+  world size 1's; every rank's block of every placed leaf must be its slice
+  under the rule, and a MoE batch whose dispatch groups would fall
+  differently on a rank must raise.
+
+Bounds: the loss within 1e-5 relative; gradients and Mode A data rtol 5e-3
+/ atol 1e-5 against JAX (JAX's own sharded-step test's bounds); logits and
+caches 1e-5; tokens equal. World size 8 against 1: rtol 1e-5, atol 1e-6
+(sums over ranks in another order).
+"""
+import os
+import pickle
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.sharding import AbstractMesh, AxisType  # noqa: E402
+
+from repro.configs import base as jbase  # noqa: E402
+from repro.configs import registry as jregistry  # noqa: E402
+from repro.core import gl as jgl  # noqa: E402
+from repro.distributed import sharding as jsh  # noqa: E402
+from repro.distributed import steps as jsteps  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.configs import registry as tregistry  # noqa: E402
+from repro_torch.distributed import sharding as tsh  # noqa: E402
+from repro_torch.distributed import steps as tsteps  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+
+HERE = os.path.dirname(__file__)
+WORKER = os.path.join(HERE, "torch_dist_worker.py")
+MESHES = ((16, 16, 1), (16, 16, 2), (2, 4, 1))
+SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
+             d_ff=128, vocab_size=128)
+CONFIGS = {
+    "nemo": ("mistral-nemo-12b", SMALL),
+    "qwen": ("qwen3-moe-30b-a3b", dict(SMALL, moe_group=32)),
+    "mamba": ("mamba2-370m", dict(n_layers=2, d_model=64, vocab_size=128)),
+}
+B_TRAIN, S_TRAIN, B_DEC, S_PRE, MAX_LEN = 16, 16, 8, 16, 32
+# (step, mode, microbatches); the serve step with and without greedy
+STEPS = (("train", "faithful_offload", 2), ("train", "fused_fit", 2),
+         ("train", "lora", 1), ("train", "ft", 1), ("prefill", None, 1),
+         ("serve", True, 1), ("serve", False, 1))
+W1_STEPS = {"nemo": STEPS, "qwen": STEPS[:2] + STEPS[4:],
+            "mamba": STEPS[:2] + STEPS[4:]}
+W8 = (("nemo", (2, 4, 1)), ("nemo", (2, 2, 2)), ("qwen", (2, 4, 1)),
+      ("qwen", (2, 2, 2)))
+
+
+# ---------------------------------------------------------------------------
+# the rules at full size
+# ---------------------------------------------------------------------------
+
+def _abstract(mesh):
+    data, model, pods = mesh
+    if pods > 1:
+        return AbstractMesh((pods, data, model), ("pod", "data", "model"))
+    return AbstractMesh((data, model), ("data", "model"))
+
+
+def _meshcfg(mesh):
+    data, model, pods = mesh
+    return tbase.MeshConfig(data=data, model=model, pods=pods)
+
+
+def _jflat(tree):
+    """{dotted path: leaf} of a JAX tree (NamedShardings are leaves)."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))
+    return {jsh._path_str(p): v for p, v in flat}
+
+
+def _tflat(tree, path=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tflat(v, path + (k,)))
+        return out
+    return {".".join(map(str, path)): tree}
+
+
+def _equal_specs(tspecs, jshardings, what):
+    t, j = _tflat(tspecs), _jflat(jshardings)
+    assert set(t) == set(j), what
+    for k in j:
+        assert t[k] == tuple(j[k].spec), (what, k, t[k], j[k].spec)
+
+
+@pytest.fixture(scope="module")
+def trees():
+    """Every config's parameter and adapter trees at full size: the port's
+    on the meta device, JAX's by eval_shape (taps "all", three families)."""
+    out = {}
+    key = jax.random.PRNGKey(0)
+    for name in tregistry.ARCH_MODULES:
+        tcfg, jcfg = tregistry.get_config(name), jregistry.get_config(name)
+        t = {"params": TM.init(tcfg, device="meta")}
+        j = {"params": jax.eval_shape(lambda: JM.init(jcfg, key))}
+        for fam in ("lowrank", "linear", "mlp"):
+            tcc = tbase.ColaConfig(family=fam, taps="all")
+            jcc = jbase.ColaConfig(family=fam, taps="all")
+            t[fam] = tsteps.shaped_adapters(tcfg, tcc)
+            j[fam] = jax.eval_shape(
+                lambda c=jcc: jgl.init_adapters(jcfg, c, key))
+        out[name] = (t, j)
+    return out
+
+
+@pytest.mark.parametrize("policy", ["2d", "dp"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_param_and_adapter_specs_equal_jax(trees, mesh, policy):
+    for name, (t, j) in trees.items():
+        for kind in ("params", "lowrank", "linear", "mlp"):
+            adapter = kind != "params"
+            _equal_specs(
+                tsh.params_shardings(_meshcfg(mesh), t[kind], adapter=adapter,
+                                     policy=policy),
+                jsh.params_shardings(_abstract(mesh), j[kind],
+                                     adapter=adapter, policy=policy),
+                (name, kind, mesh, policy))
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_batch_cache_delta_specs_equal_jax(mesh):
+    tm, jm = _meshcfg(mesh), _abstract(mesh)
+    for name in tregistry.ARCH_MODULES:
+        tcfg, jcfg = tregistry.get_config(name), jregistry.get_config(name)
+        for cell in tregistry.applicable_shapes(tcfg):
+            spec = tregistry.SHAPES[cell]
+            for policy in ("2d", "dp"):
+                _equal_specs(
+                    tsh.batch_shardings(
+                        tm, tregistry.input_specs(tcfg, cell), policy),
+                    jsh.batch_shardings(
+                        jm, jregistry.input_specs(jcfg, cell), policy),
+                    (name, cell, policy))
+            if spec.kind == "decode":
+                _equal_specs(
+                    tsh.cache_shardings(tm, TM.cache_specs(tcfg, spec.batch,
+                                                           spec.seq)),
+                    jsh.cache_shardings(jm, JM.cache_specs(jcfg, spec.batch,
+                                                           spec.seq)),
+                    (name, cell, "cache"))
+                tsteps_specs = tsteps.serve_shardings(tcfg, tm, spec.batch,
+                                                      spec.seq)
+                jsteps_specs = jsteps.serve_shardings(jcfg, jm, spec.batch,
+                                                      spec.seq)
+                for a, b in zip(tsteps_specs, jsteps_specs):
+                    _equal_specs(a, b, (name, cell, "serve"))
+            else:
+                tl, tc = tsteps.prefill_out_shardings(tcfg, tm, spec.batch,
+                                                      spec.seq)
+                jl, jc = jsteps.prefill_out_shardings(jcfg, jm, spec.batch,
+                                                      spec.seq)
+                assert tl == tuple(jl.spec), (name, cell)
+                _equal_specs(tc, jc, (name, cell, "prefill cache"))
+            tsites, jsites = TM.tap_sites(tcfg), JM.tap_sites(jcfg)
+            tdeltas = {n: (TM.delta_shape(tcfg, s, spec.batch, spec.seq),
+                           torch.float32) for n, s in tsites.items()}
+            jdeltas = {n: jax.ShapeDtypeStruct(
+                JM.delta_shape(jcfg, s, spec.batch, spec.seq), jnp.float32)
+                for n, s in jsites.items()}
+            _equal_specs(tsh.delta_shardings(tm, tdeltas),
+                         jsh.delta_shardings(jm, jdeltas),
+                         (name, cell, "deltas"))
+            _equal_specs(tsh.replicated(tm, tdeltas),
+                         jsh.replicated(jm, jdeltas),
+                         (name, cell, "replicated"))
+
+
+def _sds(t):
+    return (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+
+
+@pytest.mark.parametrize("name", list(tregistry.ARCH_MODULES))
+def test_input_specs_equal_jax(name):
+    tcfg, jcfg = tregistry.get_config(name), jregistry.get_config(name)
+    for cell in tregistry.applicable_shapes(tcfg):
+        t = tregistry.input_specs(tcfg, cell)
+        j = jregistry.input_specs(jcfg, cell)
+        assert {k: _sds(v) for k, v in t.items()} == \
+            {k: (tuple(v.shape), str(v.dtype)) for k, v in j.items()}, cell
+        assert all(v.device.type == "meta" for v in t.values())
+    for b in (1, 8):
+        t, j = tregistry.decode_token_specs(tcfg, b), \
+            jregistry.decode_token_specs(jcfg, b)
+        assert {k: _sds(v) for k, v in t.items()} == \
+            {k: (tuple(v.shape), str(v.dtype)) for k, v in j.items()}
+    spec = tregistry.SHAPES["train_4k"]
+    assert tregistry.batch_specs(tcfg, spec.batch, spec.seq).keys() == \
+        jregistry.batch_specs(jcfg, spec.batch, spec.seq).keys()
+
+
+def test_param_shardings_divisibility(trees):
+    """Every assigned arch's rules give valid placements on a (2, 4) mesh:
+    each split dim divides (the port of test_distributed.py's case)."""
+    mesh = tbase.MeshConfig(data=2, model=4)
+    shape = tsh.mesh_shape(mesh)
+    for arch in tregistry.ASSIGNED:
+        params = trees[arch][0]["params"]
+        specs = _tflat(tsh.params_shardings(mesh, params))
+        for path, leaf in _tflat(params).items():
+            for dim, entry in zip(leaf.shape, specs[path]):
+                if entry is None:
+                    continue
+                axes = (entry,) if isinstance(entry, str) else entry
+                n = 1
+                for a in axes:
+                    n *= shape[a]
+                assert dim % n == 0, (arch, path, leaf.shape, specs[path])
+
+
+def test_mesh_config_and_mesh_builders():
+    assert tbase.MeshConfig().devices == 256
+    assert tbase.MeshConfig(pods=2).devices == 512
+    assert tsh.mesh_shape(tbase.MeshConfig(2, 4, 2)) == \
+        {"pod": 2, "data": 2, "model": 4}
+    if not torch.distributed.is_initialized():
+        for build in (lambda: tmesh.make_mesh(1, 1, device_type="cpu"),
+                      lambda: tmesh.single_device_mesh(),
+                      lambda: tmesh.make_production_mesh(device_type="cpu")):
+            with pytest.raises(RuntimeError, match="process group"):
+                build()
+
+
+def test_constrain_and_batch_reductions_outside_a_split():
+    x = torch.randn(4, 6)
+    assert tsh.constrain(x, "batch", "model") is x
+    with tsh.activation_rules(tbase.MeshConfig(2, 4)) as r:
+        assert r.batch_axes == ("data",) and r.model_axis == "model"
+        assert tsh.constrain(x, "batch", "model") is x
+        assert tsh.batch_sum(x) is x
+        assert torch.equal(tsh.batch_mean(x), x.mean(dim=0))
+    with tsh.activation_rules(tbase.MeshConfig(2, 4), "dp") as r:
+        assert r.batch_axes == ("data", "model") and r.model_axis is None
+    assert tsh.current_rules() is None
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        with tsh.activation_rules(tbase.MeshConfig(2, 4), local_rows=True):
+            pass
+
+
+# ---------------------------------------------------------------------------
+# the steps: world sizes 1 and 8 against JAX
+# ---------------------------------------------------------------------------
+
+def _configs(key, m):
+    name, kw = CONFIGS[key]
+    return (jregistry.reduced_config(name).replace(**kw, microbatches=m),
+            dict(kw, microbatches=m))
+
+
+def _labels(rng, vocab, B, S):
+    lab = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    for r in range(B):
+        lab[r, :(r * 5) % (S + 1)] = -1
+    lab[3] = -1
+    return lab
+
+
+def _inputs(key):
+    jcfg, _ = _configs(key, 1)
+    rng = np.random.default_rng(7)
+    params = jax.tree.map(np.asarray, JM.init(jcfg, jax.random.PRNGKey(0)))
+    cc = jbase.ColaConfig(mode="fused_fit", family="lowrank", taps="qv",
+                          rank=4)
+    adapters = jax.tree.map(np.asarray, jgl.init_adapters(
+        jcfg, cc, jax.random.PRNGKey(1)))
+    for w in adapters.values():   # B != 0, so dA != 0
+        w["B"] = (rng.standard_normal(w["B"].shape) * 0.1).astype(np.float32)
+    V = jcfg.vocab_size
+    train = {"tokens": rng.integers(0, V, (B_TRAIN, S_TRAIN)).astype(np.int32),
+             "labels": _labels(rng, V, B_TRAIN, S_TRAIN)}
+    pre = {"tokens": rng.integers(0, V, (B_DEC, S_PRE)).astype(np.int32)}
+    cache = jax.tree.map(
+        lambda s: (rng.standard_normal(s.shape) * 0.5).astype(s.dtype),
+        JM.cache_specs(jcfg, B_DEC, MAX_LEN))
+    dec = {"tokens": rng.integers(0, V, (B_DEC, 1)).astype(np.int32),
+           "positions": rng.integers(0, MAX_LEN - 1, B_DEC).astype(np.int32)}
+    return {"params": params, "adapters": adapters, "train": train,
+            "prefill": pre, "cache": cache, "decode": dec}
+
+
+def _case_name(key, step, mode, mesh=None):
+    tail = "" if mesh is None else f"@{'x'.join(map(str, mesh))}"
+    return f"{key}:{step}:{mode}{tail}"
+
+
+def _case(key, step, mode, m, mesh, inputs, policy=None, batch=None):
+    _, kw = _configs(key, m)
+    if policy:
+        kw = dict(kw, shard_policy=policy)
+    c = {"name": _case_name(key, step, mode, mesh) + (f":{policy}"
+                                                      if policy else ""),
+         "config": CONFIGS[key][0], "overrides": kw, "mesh": mesh,
+         "weights": key, "step": step}
+    if step == "train":
+        c.update(mode=mode, batch=batch or inputs["train"])
+    elif step == "prefill":
+        c.update(batch=inputs["prefill"])
+    else:
+        c.update(greedy=mode, batch=inputs["decode"], cache=inputs["cache"],
+                 max_len=MAX_LEN)
+    return c
+
+
+def _spawn(tmp, world, cases, weights):
+    src = os.path.join(tmp, f"in{world}.pkl")
+    dst = os.path.join(tmp, f"out{world}.pkl")
+    with open(src, "wb") as f:
+        pickle.dump({"weights": weights, "cases": cases}, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, WORKER, src, dst, str(world)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    return proc, dst
+
+
+def _collect(proc, dst):
+    out, err = proc.communicate(timeout=400)
+    assert proc.returncode == 0, err[-4000:]
+    with open(dst, "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both spawned groups, started together: world size 1 on (1, 1) for
+    every W1_STEPS case; world size 8 for every W8 case, nemo's fused_fit on
+    (2, 4) under "dp", and qwen's Mode A on (2, 2, 2) at 8 rows (2 of a
+    microbatch's rows a rank: 16 tokens against groups of 32) and a
+    prefill under the sort dispatch on (2, 4), which must raise. Returns
+    the inputs, JAX's outputs and both runs' outputs."""
+    tmp = str(tmp_path_factory.mktemp("dist"))
+    inputs = {k: _inputs(k) for k in CONFIGS}
+    weights = {k: {"params": v["params"], "adapters": v["adapters"]}
+               for k, v in inputs.items()}
+    one = [_case(k, s, mo, m, (1, 1, 1), inputs[k])
+           for k, steps in W1_STEPS.items() for s, mo, m in steps]
+    eight = [_case(k, s, mo, m, mesh, inputs[k])
+             for k, mesh in W8 for s, mo, m in W1_STEPS[k]]
+    eight.append(_case("nemo", "train", "fused_fit", 2, (2, 4, 1),
+                       inputs["nemo"], policy="dp"))
+    small = {k: v[:8] for k, v in inputs["qwen"]["train"].items()}
+    bad = _case("qwen", "train", "faithful_offload", 2, (2, 2, 2),
+                inputs["qwen"], batch=small)
+    bad.update(name="qwen:misaligned", raises="dispatch groups")
+    eight.append(bad)
+    sort = _case("qwen", "prefill", None, 1, (2, 4, 1), inputs["qwen"])
+    sort["overrides"] = dict(sort["overrides"], moe_impl="sort")
+    sort.update(name="qwen:sort", raises="sort dispatch")
+    eight.append(sort)
+    p1, d1 = _spawn(tmp, 1, one, weights)
+    p8, d8 = _spawn(tmp, 8, eight, weights)
+    try:
+        oracles = _oracles(inputs)
+        return inputs, oracles, _collect(p1, d1), _collect(p8, d8)
+    finally:
+        for p in (p1, p8):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def _jmesh():
+    return jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+
+
+def _jnp(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def _oracles(inputs):
+    """JAX's step builders on the (1, 1) Auto mesh, per W1_STEPS case:
+    {case name: {"loss"?, "out": {path: array}}}."""
+    mesh = _jmesh()
+    out = {}
+    for key, steps in W1_STEPS.items():
+        inp = inputs[key]
+        params, adapters = _jnp(inp["params"]), _jnp(inp["adapters"])
+        logits = None
+        for step, mode, m in steps:
+            jcfg, _ = _configs(key, m)
+            name = _case_name(key, step, mode, (1, 1, 1))
+            if step == "train":
+                cc = jbase.ColaConfig(mode=mode, family="lowrank", taps="qv",
+                                      rank=4)
+                fn, _, _ = jsteps.make_train_step(jcfg, cc, mesh)
+                batch = _jnp(inp["train"])
+                if mode == "ft":
+                    loss, res = jax.jit(fn)(params, batch)
+                else:
+                    loss, res = jax.jit(fn)(params, adapters, batch)
+                out[name] = {"loss": float(loss), "out": _paths(res)}
+            elif step == "prefill":
+                fn, _ = jsteps.make_prefill_step(jcfg, mesh)
+                lg, cache = jax.jit(fn)(params, _jnp(inp["prefill"]))
+                out[name] = {"out": _paths({"logits": lg, "cache": cache})}
+            else:
+                if logits is None:
+                    fn, _ = jsteps.make_serve_step(jcfg, mesh, greedy=False)
+                    logits, cache = jax.jit(fn)(params, _jnp(inp["cache"]),
+                                                _jnp(inp["decode"]))
+                res = (jnp.argmax(logits, axis=-1).astype(jnp.int32)
+                       if mode else logits)
+                out[name] = {"out": _paths({"out": res, "cache": cache})}
+    return out
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_paths(v, path + (k,)))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_paths(v, path + (i,)))
+        return out
+    return {path: np.asarray(tree)}
+
+
+def _agree(got, want, rtol, atol, what):
+    """Equal paths and shapes; integer leaves equal, float ones within
+    rtol / atol."""
+    assert set(got) == set(want), (what, sorted(got), sorted(want))
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        assert g.shape == w.shape, (what, k)
+        if w.dtype.kind in "iu":
+            np.testing.assert_array_equal(g, w, err_msg=f"{what} {k}")
+        else:
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                       err_msg=f"{what} {k}")
+
+
+@pytest.mark.parametrize("name", [
+    _case_name(k, s, mo, (1, 1, 1)) for k, steps in W1_STEPS.items()
+    for s, mo, _ in steps])
+def test_world1_steps_match_jax(runs, name):
+    _, oracles, one, _ = runs
+    got, want = one["results"][name], oracles[name]
+    assert "raised" not in got and "error" not in got, got
+    if "loss" in want:
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    step = name.split(":")[1]
+    rtol, atol = (5e-3, 1e-5) if step == "train" else (1e-5, 1e-5)
+    _agree(got["out"], want["out"], rtol, atol, name)
+    if step == "train":
+        assert all(np.abs(v).max() > 0 for v in got["out"].values()), name
+
+
+def test_world1_placements_and_no_failures(runs):
+    _, _, one, _ = runs
+    assert one["bad"] == []
+
+
+@pytest.mark.parametrize("name", [
+    _case_name(k, s, mo, mesh) for k, mesh in W8
+    for s, mo, _ in W1_STEPS[k]]
+    + ["nemo:train:fused_fit@2x4x1:dp"])
+def test_world8_matches_world1(runs, name):
+    _, _, one, eight = runs
+    got = eight["results"][name]
+    assert "raised" not in got and "error" not in got, got
+    want = one["results"][name.split("@")[0] + "@1x1x1"]
+    if "loss" in want:
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    _agree(got["out"], want["out"], 1e-5, 1e-6, name)
+
+
+def test_world8_placements_and_misaligned_moe_groups(runs):
+    _, _, _, eight = runs
+    assert eight["bad"] == []
+    assert "dispatch groups" in eight["results"]["qwen:misaligned"]["raised"]
+    assert "sort dispatch" in eight["results"]["qwen:sort"]["raised"]
+
+
+def test_lm_loss_is_its_sum_over_its_count():
+    """The factored sum and count give lm_loss's value bit for bit, whole
+    and in chunks."""
+    cfg = tregistry.reduced_config("mistral-nemo-12b").replace(**SMALL)
+    params = TM.init(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn(2, 16, cfg.d_model, generator=g)
+    labels = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+    labels[0, :5] = -1
+    for chunk in (0, 4):
+        c = cfg.replace(loss_chunk=chunk)
+        s, n = TM.lm_loss_sum(c, params, h, labels)
+        assert torch.equal(TM.lm_loss(c, params, h, labels),
+                           s / n.clamp(min=1.0))
+        assert float(n) == 27.0

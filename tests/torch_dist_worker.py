@@ -1,0 +1,208 @@
+"""Runs the port's distributed step builders in a spawned gloo process
+group on the CPU, for ``tests/test_torch_distributed.py``; imports no JAX.
+
+    python tests/torch_dist_worker.py IN.pkl OUT.pkl WORLD
+
+IN.pkl holds {"weights": {key: {"params", "adapters"}}, "cases": [...]}
+with numpy leaves; each case names its config (a reduced config and its
+overrides), its mesh (data, model, pods), its step ("train" with a ColA
+mode, "prefill", "serve") and its inputs. Every rank places the weights
+with ``sharding.distribute`` and the batch at ``batch_shardings``, runs the
+step and checks that its local block of every placed leaf (weights and
+outputs) is its slice under the rule (and, once a mesh, ``constrain``); rank 0 writes each case's outputs,
+gathered whole, and every rank's failed checks to OUT.pkl. A case with
+"raises" must raise ``ValueError`` matching it.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+import socket
+import sys
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.base import ColaConfig  # noqa: E402
+from repro_torch.distributed import sharding as sh  # noqa: E402
+from repro_torch.distributed import steps  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+
+
+def _config(case):
+    return registry.reduced_config(case["config"]).replace(**case["overrides"])
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, (tuple, list)) and not isinstance(tree, sh.Spec):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _flat(tree) -> dict:
+    return dict(_leaves(tree))
+
+
+def _check(mesh, placed, specs, whole, what, bad):
+    """Each placed leaf's local block equals its slice under its spec, and
+    gathers back to ``whole`` (when given)."""
+    sp = _flat(specs)
+    wh = _flat(whole) if whole is not None else None
+    for path, d in _leaves(placed):
+        full = d.full_tensor()
+        if wh is not None and not torch.equal(full, wh[path]):
+            bad.append(f"{what} {path}: gathers to another tensor")
+        want = sh.local_slice(mesh, full, sp[path])
+        if not torch.equal(d.to_local(), want):
+            bad.append(f"{what} {path} spec {sp[path]}: local block "
+                       f"{tuple(d.to_local().shape)} is not its slice")
+
+
+def _whole(tree):
+    out = {}
+    for path, d in _leaves(tree):
+        out[path] = d.full_tensor().numpy()
+    return out
+
+
+def _constrain(mesh, what, bad):
+    """``constrain`` redistributes a DTensor to the rule's placements inside
+    ``activation_rules`` and leaves it (and any plain tensor) alone
+    outside."""
+    x = torch.arange(8 * 16, dtype=torch.float32).reshape(8, 16)
+    d = sh.place(mesh, x, sh.Spec((None, None)))
+    if sh.constrain(d, "batch", "model") is not d:
+        bad.append(f"{what}: constrain moved a DTensor outside the rules")
+    with sh.activation_rules(mesh) as r:
+        y = sh.constrain(d, "batch", "model")
+        if sh.constrain(x, "batch", "model") is not x:
+            bad.append(f"{what}: constrain moved a plain tensor")
+    spec = sh.Spec((r.batch_axes if len(r.batch_axes) > 1
+                    else r.batch_axes[0], "model"))
+    if tuple(y.placements) != sh.placements(mesh, spec):
+        bad.append(f"{what}: constrain gave {y.placements}")
+    if not torch.equal(y.full_tensor(), x) or not torch.equal(
+            y.to_local(), sh.local_slice(mesh, x, spec)):
+        bad.append(f"{what}: constrain changed the values or the blocks")
+
+
+def _run_case(case, weights, meshes, bad):
+    cfg = _config(case)
+    key = tuple(case["mesh"])
+    if key not in meshes:
+        data, model, pods = key
+        meshes[key] = make_mesh(data, model, pods, device_type="cpu")
+        _constrain(meshes[key], f"constrain on {key}", bad)
+    mesh = meshes[key]
+    w = weights[case["weights"]]
+    params = convert.params_from_numpy(cfg, w["params"], device="cpu")
+    what = f"{case['name']} on {key}"
+    batch = _tensors(case["batch"])
+    bspec = sh.batch_shardings(mesh, batch, policy=cfg.shard_policy)
+    pbatch = sh.distribute(mesh, batch, bspec)
+    _check(mesh, pbatch, bspec, batch, f"{what} batch", bad)
+    if case["step"] == "train":
+        cc = ColaConfig(mode=case["mode"], family="lowrank", taps="qv",
+                        rank=4)
+        fn, (ps, ash) = steps.make_train_step(cfg, cc, mesh)
+        P = sh.distribute(mesh, params, ps)
+        _check(mesh, P, ps, params, f"{what} params", bad)
+        if cc.mode == "ft":
+            loss, out = fn(P, pbatch)
+            _check(mesh, out, ps, None, f"{what} grads", bad)
+        else:
+            adapters = convert.adapters_from_numpy(w["adapters"],
+                                                   device="cpu")
+            A = sh.distribute(mesh, adapters, ash)
+            _check(mesh, A, ash, adapters, f"{what} adapters", bad)
+            loss, out = fn(P, A, pbatch)
+            if cc.mode == "faithful_offload":
+                specs = sh.delta_shardings(mesh, out)
+            else:
+                specs = ash
+            _check(mesh, out, specs, None, f"{what} outputs", bad)
+        return {"loss": float(loss), "out": _whole(out)}
+    if case["step"] == "prefill":
+        fn, ps = steps.make_prefill_step(cfg, mesh)
+        P = sh.distribute(mesh, params, ps)
+        logits, cache = fn(P, pbatch)
+        B, S = batch["tokens"].shape[:2]
+        lspec, cspec = steps.prefill_out_shardings(cfg, mesh, B, S)
+        _check(mesh, {"logits": logits, "cache": cache},
+               {"logits": lspec, "cache": cspec}, None, f"{what} out", bad)
+        return {"out": _whole({"logits": logits, "cache": cache})}
+    # serve
+    fn, ps = steps.make_serve_step(cfg, mesh, greedy=case["greedy"])
+    P = sh.distribute(mesh, params, ps)
+    B = batch["positions"].shape[0]
+    cache = _tensors(case["cache"])
+    max_len = case["max_len"]
+    cspec, tspec = steps.serve_shardings(cfg, mesh, B, max_len)
+    C = sh.distribute(mesh, cache, cspec)
+    _check(mesh, C, cspec, cache, f"{what} cache", bad)
+    out, new_cache = fn(P, C, pbatch)
+    ospec = sh.batch_shardings(mesh, {"out": out}, policy=cfg.shard_policy)
+    _check(mesh, {"out": out, "cache": new_cache},
+           {"out": ospec["out"], "cache": cspec}, None, f"{what} out", bad)
+    return {"out": _whole({"out": out, "cache": new_cache})}
+
+
+def _worker(rank: int, world: int, port: int, src: str, dst: str) -> None:
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    with open(src, "rb") as f:
+        spec = pickle.load(f)
+    results, bad, meshes = {}, [], {}
+    for case in spec["cases"]:
+        try:
+            res = _run_case(case, spec["weights"], meshes, bad)
+            if case.get("raises"):
+                bad.append(f"{case['name']}: did not raise")
+            results[case["name"]] = res
+        except ValueError as e:
+            if not case.get("raises") or case["raises"] not in str(e):
+                bad.append(f"{case['name']}: {traceback.format_exc()}")
+            results[case["name"]] = {"raised": str(e)}
+        except Exception:   # noqa: BLE001 -- reported to the test
+            bad.append(f"{case['name']} rank {rank}: "
+                       f"{traceback.format_exc()}")
+            results[case["name"]] = {"error": traceback.format_exc()}
+    every = [None] * world
+    dist.all_gather_object(every, bad)
+    if rank == 0:
+        with open(dst, "wb") as f:
+            pickle.dump({"results": results,
+                         "bad": [b for r in every for b in r]}, f)
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+if __name__ == "__main__":
+    src, dst, world = sys.argv[1], sys.argv[2], int(sys.argv[3])
+    mp.spawn(_worker, args=(world, _free_port(), src, dst), nprocs=world)
