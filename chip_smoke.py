@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-twenty-five phases, then prints its result lines, exiting non-zero on any
+twenty-six phases, then prints its result lines, exiting non-zero on any
 failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
@@ -317,18 +317,32 @@ failure:
    Mode B steps against the CPU's (a gloo mesh on the host in the same
    group): losses within 1e-5, data and gradients within 1e-3 of their
    largest entry; a prefill at 8 x 256 and 8 ticks: equal tokens.
-26. The last lines: the card's name and power limit, one JSON line with every
+26. The step builders' share of the card's peak (``[roofline]``): the
+   dry-run's count (``repro_torch.launch.dryrun``) of phase 24's four steps
+   (Mode A and Mode B at 8 x 1024 with M 8, the prefill step at 8 x 512, a
+   serve-step tick at 8 slots of 1024; nemo whole, bf16, remat "full") as
+   rank 0 of a one-rank fake group on the host's plain path, against phase
+   24's measured ms: counted FLOPs beside ``model_flops``, achieved FLOP/s,
+   the shares of the bf16 peak and of the bytes bound (the step's inputs
+   read once and outputs written once) and which bounds the step, the
+   plain path's unfused bytes beside them, and the card's name and power
+   limit; a share past 1.05 fails. No kernel launches.
+27. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 The CPU halves of phases 12, 13 (b), 16, 18, 20 and 23 (the plain path on
-the host, in f32) run in a worker process that the script starts after the
-build (``chip_smoke.py --cpu-halves DIR THREADS``, no card in its
-environment, all but two of the host's cores): it computes them from the
-same seeds as the card's halves, in the order the phases need them, while
-the card's phases run, and saves each to ``build/chip_smoke_cpu/``; each
-phase waits for its half (``[cpu-halves] <job>: waited N s``) and compares
-as before. The worker dies with the script. Phase 25's CPU half stays in
-the script: it shares the card's process group.
+the host, in f32) and phase 26's count run in a worker process that the
+script starts after the build (``chip_smoke.py --cpu-halves DIR THREADS``,
+no card in its environment, all but two of the host's cores): it computes
+them from the same seeds as the card's halves, in the order the phases
+need them, while the card's phases run, and saves each to
+``build/chip_smoke_cpu/``; each phase waits for its half (``[cpu-halves]
+<job>: waited N s``) and compares as before. The worker dies with the
+script. Phase 25's CPU half stays in the script: it shares the card's
+process group. Phase 26's count starts its own fake group in the worker,
+which has none; it is the worker's last job and runs beside phase 25,
+which runs before phase 24, and it is awaited before phase 24, so no
+worker job runs while phase 24 times the steps it counts.
 
 Without a card (``torch.cuda.is_available()`` false) it exits non-zero and
 prints no result.
@@ -352,10 +366,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # Tolerance of a kernel against its plain version: max |kernel - plain| <=
 # TOL[dtype] * (1 + max |plain|). bf16: two roundings of a bf16 output
@@ -442,8 +452,14 @@ def ptxas_report(name: str, kernel: str) -> list[str]:
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    """The least ms the card could take: bytes over HBM's rate or
+    operations over the dtype's peak (the H100 SXM data sheet's, dense, at
+    the 700 W limit: ``repro_torch.analysis.roofline``), the larger."""
+    from repro_torch.analysis import roofline as rl
+
+    peak = {torch.bfloat16: rl.PEAK_FLOPS, torch.float32: rl.PEAK_FLOPS_F32}
+    t_bytes = nbytes / rl.HBM_BW * 1e3
+    t_ops = flops / peak[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -4104,14 +4120,15 @@ def _dist_adapters(cfg, cc, dev) -> dict:
 
 
 def _dist_train(tag, cfg, cc, mesh, P, params, adapters, batches, dev,
-                offloader=None) -> dict:
+                offloader=None) -> tuple[dict, float]:
     """``make_train_step(cfg, cc, mesh)``: a warm-up step on batches[0],
     then one measured step on each later batch (launches reset just before
     and read just after the step, and again around the fit); Mode A's data
     pushed to ``offloader`` as M pushes and fitted. Then the last step
     against the direct per-microbatch calls: launches exactly M times one
     call's, loss and data or gradients bit for bit (or within 1e-6 of the
-    largest entry). Returns the launch counts of the measured windows."""
+    largest entry). Returns the launch counts of the measured windows and
+    the measured steps' p50 ms."""
     from repro_torch.core import gl
     from repro_torch.distributed import sharding as sh
     from repro_torch.distributed import steps
@@ -4212,14 +4229,15 @@ def _dist_train(tag, cfg, cc, mesh, P, params, adapters, batches, dev,
           f"{'equal bit for bit' if lw == worst == 0.0 else f'{max(lw, worst):.3g} of the largest entry'}"
           f"; launches in {len(batches) - 1} measured steps "
           f"{dict(total)}", flush=True)
-    return dict(total)
+    return dict(total), statistics.median(measured)
 
 
-def _dist_serve(tag, cfg, mesh, P, params, dev) -> dict:
+def _dist_serve(tag, cfg, mesh, P, params, dev) -> tuple[dict, float, float]:
     """``make_prefill_step`` at 8 x DIST_PREFILL, its cache written into a
     placed 8 x DIST_MAX_LEN decode cache, then DIST_TICKS ticks of
     ``make_serve_step``; tokens and prefill logits equal to direct
-    ``model.prefill`` / ``decode_step``. Returns the launch counts."""
+    ``model.prefill`` / ``decode_step``. Returns the launch counts, the
+    measured prefill's ms and the ticks' p50 ms."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.distributed import steps
     from repro_torch.models import model
@@ -4292,13 +4310,14 @@ def _dist_serve(tag, cfg, mesh, P, params, dev) -> dict:
           f"tokens and prefill logits equal to model.prefill / decode_step; "
           f"peak memory {peak / 2**30:.2f} GiB; launches {dict(total)}; "
           f"{card_line()}", flush=True)
-    return dict(total)
+    return dict(total), pre_ms, statistics.median(tick_ms)
 
 
-def phase_distributed(dev) -> dict:
+def phase_distributed(dev) -> tuple[dict, dict]:
     """mistral-nemo-12b at full width and depth through the step builders on
     a one-card mesh (phase 24; see the module docstring). Returns the
-    launch counts of the measured windows."""
+    launch counts of the measured windows and the measured ms of each step
+    ({"mode_a", "mode_b", "prefill", "tick"}: p50s, the prefill's one)."""
     import dataclasses
 
     import torch.distributed as dist
@@ -4342,19 +4361,24 @@ def phase_distributed(dev) -> dict:
         adapters = _dist_adapters(cfg, cc, dev)
         off = Offloader(gl.make_spec(cfg, cc), adapters, _adamw(),
                         interval=cfg.microbatches, device=dev)
-        total = collections.Counter(_dist_train(
+        ms = {}
+        launches, ms["mode_a"] = _dist_train(
             f"{tag} (a)", cfg, cc, mesh, P, params, None, batches, dev,
-            offloader=off))
+            offloader=off)
+        total = collections.Counter(launches)
         del off
         _free()
-        total.update(_dist_train(
+        launches, ms["mode_b"] = _dist_train(
             f"{tag} (b)", cfg, dataclasses.replace(cc, mode="fused_fit"),
-            mesh, P, params, adapters, batches, dev))
+            mesh, P, params, adapters, batches, dev)
+        total.update(launches)
         _free()
-        total.update(_dist_serve(tag, cfg, mesh, P, params, dev))
+        launches, ms["prefill"], ms["tick"] = _dist_serve(tag, cfg, mesh, P,
+                                                          params, dev)
+        total.update(launches)
         del P, params
         _free()
-        return dict(total)
+        return dict(total), ms
     finally:
         dist.destroy_process_group()
 
@@ -4452,15 +4476,93 @@ def phase_distributed_vs_plain(dev) -> None:
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the step builders' share of the card's peak
+# ---------------------------------------------------------------------------
+
+# (label, ColA mode, step kind, rows, sequence or cache length, phase 24's
+# time) of each step phase 24 measures
+ROOFLINE_CELLS = (
+    ("Mode A step", "faithful_offload", "train", DIST_ROWS, DIST_SEQ,
+     "mode_a"),
+    ("Mode B step", "fused_fit", "train", DIST_ROWS, DIST_SEQ, "mode_b"),
+    ("prefill step", "fused_fit", "prefill", DIST_ROWS, DIST_PREFILL,
+     "prefill"),
+    ("serve-step tick", "fused_fit", "decode", DIST_ROWS, DIST_MAX_LEN,
+     "tick"))
+
+
+def _cpu_roofline() -> dict:
+    """The dry-run's count of phase 24's steps (mistral-nemo-12b whole,
+    bf16, remat "full", M 8, rank-8 qv adapters) as rank 0 of a one-rank
+    fake group, on the host's plain path: {time key: {"flops",
+    "bytes_accessed", "collective_bytes", "memory", "count_s",
+    "model_flops"}}, each interpolated from 2, 3 and 4 layers
+    (``dryrun.count_by_layers``, exact for the uniform plan)."""
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import single_device_mesh
+
+    cfg = registry.get_config("mistral-nemo-12b")
+    out = {}
+    with dryrun.fake_world(1):
+        mesh = single_device_mesh(device_type="cpu")
+        for _, mode, kind, rows, seq, key in ROOFLINE_CELLS:
+            cc = ColaConfig(mode=mode, family="lowrank", taps="qv", rank=8)
+            c = dryrun.count_by_layers(cfg, cc, kind, rows, seq, mesh)
+            c["model_flops"] = rl.model_flops(
+                cfg, registry.ShapeSpec(key, kind, seq, rows))
+            out[key] = c
+    return out
+
+
+def phase_roofline(counts: dict, ms: dict) -> None:
+    """Phase 24's measured steps against the dry-run's count of them (phase
+    26): the roofline terms of the count (``roofline.roofline_terms``: the
+    counted FLOPs over the bf16 peak, the bytes the step must move over
+    HBM's rate), each over the step's measured time, which of the two
+    bounds the step, and achieved FLOP/s; a share past 1.05 fails (the
+    count or the clock is wrong). The plain path's unfused bytes are
+    printed beside them and bound nothing. ``counts``:
+    ``_cpu_roofline``'s."""
+    from repro_torch.analysis import roofline as rl
+
+    tag = "[roofline]"
+    card = card_line()
+    for label, mode, kind, rows, seq, key in ROOFLINE_CELLS:
+        c, t = counts[key], ms[key] / 1e3
+        terms = rl.roofline_terms(c)
+        compute, mem = terms["t_compute"] / t, terms["t_memory"] / t
+        shape = (f"{rows} x {seq}, M 8" if kind == "train" else
+                 f"{rows} x {seq}" if kind == "prefill" else
+                 f"{rows} slots of {seq}")
+        print(f"{tag} {label} ({mode if kind == 'train' else kind}, {shape}):"
+              f" counted {c['flops']:.6e} FLOP (model_flops "
+              f"{c['model_flops']:.6e}), inputs + outputs "
+              f"{rl.bytes_moved(c['memory']):.6e} bytes, unfused plain-path "
+              f"bytes {c['bytes_accessed']:.6e} (counted in "
+              f"{c['count_s']:.1f} s on the host); measured {ms[key]:.2f}"
+              f" ms: {c['flops'] / t:.6e} FLOP/s, {compute:.4f} of the bf16 "
+              f"peak ({rl.PEAK_FLOPS:.4g} FLOP/s), {mem:.4f} of the bytes "
+              f"bound ({rl.HBM_BW:.4g} B/s): bound by {terms['bottleneck']} "
+              f"(unfused bytes {terms['t_memory_unfused'] / t:.4f}); {card}",
+              flush=True)
+        check(compute <= 1.05 and mem <= 1.05,
+              f"{tag} {label}: a share past 1.05 (compute {compute:.3f}, "
+              f"bytes {mem:.3f}): the count or the clock is wrong")
+
 
 # ---------------------------------------------------------------------------
-# the CPU halves of phases 12, 13 (b), 16, 18, 20 and 23, in a worker process
+# the CPU halves of phases 12, 13 (b), 16, 18, 20 and 23 and phase 26's
+# count, in a worker process
 # ---------------------------------------------------------------------------
 
 # in the order the phases need them
 CPU_JOBS = ("gemma2-vs-plain", "gemma2-train", "moe-vs-plain", "ssm-vs-plain",
             "hybrid-vs-plain", *(f"modality-vs-plain-{n}"
-                                 for n in MODALITY_PLAIN))
+                                 for n in MODALITY_PLAIN), "roofline")
 
 
 def _cpu_job(job: str):
@@ -4475,6 +4577,8 @@ def _cpu_job(job: str):
         return _cpu_engine_vs_plain(SSM_PLAIN, "[ssm-vs-plain]", 2)
     if job == "hybrid-vs-plain":
         return _cpu_engine_vs_plain(HYBRID_PLAIN, "[hybrid-vs-plain]", 1)
+    if job == "roofline":
+        return _cpu_roofline()
     return _cpu_modality_vs_plain(job.removeprefix("modality-vs-plain-"))
 
 
@@ -4705,14 +4809,20 @@ def main() -> int:
     phase_modality_vs_plain(dev)
     print(f"[modality-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    t0 = time.perf_counter()
-    distributed = phase_distributed(dev)
-    print(f"[distributed] done in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    # phase 25 runs before 24, beside the worker's last job (phase 26's
+    # count), which must be done before phase 24 times the steps it counts
     t0 = time.perf_counter()
     phase_distributed_vs_plain(dev)
     print(f"[distributed-vs-plain] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    counts = cpu_half("roofline")
+    t0 = time.perf_counter()
+    distributed, dist_ms = phase_distributed(dev)
+    print(f"[distributed] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    phase_roofline(counts, dist_ms)
+    print(f"[roofline] done in {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[phases] done in {time.perf_counter() - start:.1f} s, the build "
           f"included", flush=True)
     _HALVES.close()

@@ -201,7 +201,11 @@ def _requiring_grad(tree: dict) -> dict:
 
 
 def _grads_like(loss: torch.Tensor, tree: dict) -> dict:
+    """Gradients of ``loss`` shaped as ``tree``; an empty tree (the frozen
+    mode's adapters) has none, as JAX's ``value_and_grad`` of one."""
     leaves = tree_leaves(tree)
+    if not leaves:
+        return tree
     it = iter(torch.autograd.grad(loss, leaves))
     return tree_map(lambda _: next(it), tree)
 

@@ -1,0 +1,463 @@
+"""Dry-run of every (architecture x input-shape) cell on the production
+meshes, on the host: the JAX package's ``launch/dryrun.py`` under its
+arguments and record keys, counting instead of compiling.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out out.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \
+      --shape train_4k --override shard_policy=dp --tag dp_only --breakdown
+
+``--tag`` writes the tag and the overrides into each record; ``--breakdown``
+prints each cell's collectives as the step issued them (``launch/perf_probe``
+is this with JAX's perf-probe defaults).
+
+JAX lowers and compiles each cell's HLO and reads XLA's cost and memory
+analyses. The port runs the cell's real step builder
+(``repro_torch.distributed.steps``) once, on fake tensors (no storage, no
+device), as rank 0 of a fake process group at the mesh's world size (256
+for 16 x 16, 512 for 2 x 16 x 16), and counts what it runs:
+
+- ``flops``: ``torch.utils.flop_counter.FlopCounterMode``, one rank's. It
+  counts the products only (mm, bmm, einsum, sdpa), not elementwise work,
+  reductions or softmax.
+- ``collective_bytes`` and ``collectives``: every collective the step
+  issues (``analysis.collectives.CollectiveRecorder``), an all-reduce
+  counted twice, and the bytes by op.
+- ``memory``: the bytes rank 0 holds live, its inputs' local blocks
+  included, at the most (``peak_bytes_per_device``), in JAX's keys
+  (``roofline.memory_record``).
+- ``bytes_accessed``: computed, unfused: each op's tensor inputs plus its
+  outputs, views, allocations and collectives excluded. A fused kernel
+  reads and writes less, so the memory term reads the bytes the step must
+  move instead (``roofline.bytes_moved``: inputs + outputs - in-place
+  outputs) and these stand beside it as ``t_memory_unfused``.
+- ``model_flops``, ``useful_ratio`` and the roofline terms, as JAX has them.
+
+What the count is of:
+
+- The plain path. Fake tensors are CPU tensors, since ``kernels/ops.py``
+  sends CUDA tensors to the compiled kernels, which cannot take a fake
+  tensor; so attention runs ``kernels.ref``'s blocked path. The card's
+  flash kernels never hold the blocked path's score blocks, so the peak
+  over-counts attention's working set. No number is computed and no tensor
+  reaches a device.
+- Data-dependent sizes take their bound. The KV write plan's ``nonzero``
+  (``models/attention.py``, every decode step) gets an unbacked size under
+  ``FakeTensorMode(shape_env=ShapeEnv())``, counted at its upper bound,
+  every write kept (B * c); the record lists such ops in ``bounded_ops``.
+- Rank 0 only; its rows come from the steps' ``_Rows``. The steps gather
+  every split leaf whole at use (``sharding.gathered``), so a rank's peak
+  holds the whole parameter tree.
+- Every Python loop (layers, chunks, microbatches, the loss, the SSD scan)
+  runs in full, so no layer extrapolation is needed and there is no
+  ``--no-cost-pass``: one eager pass counts everything.
+
+A cell that a step refuses (a MoE batch whose dispatch groups would not be
+one device's, ``steps._check_groups``) fails with the step's text.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import logging
+import os
+import sys
+import time
+import traceback
+import weakref
+
+import torch
+import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.analysis import collectives, roofline
+from repro_torch.configs import registry
+from repro_torch.configs.base import ColaConfig
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed import steps
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import model as model_lib
+from repro_torch.utils import canonical_dtype
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A fake process group of ``world_size`` ranks with this process as
+    rank 0: collectives return at once and move nothing. Destroyed on
+    exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already started; the dry-run "
+                           "starts its own fake one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+# ops that move no bytes of their own (allocations, waits)
+_NO_TRAFFIC = {"aten::empty", "aten::empty_strided", "aten::empty_like",
+               "aten::new_empty", "aten::new_empty_strided",
+               "_c10d_functional::wait_tensor"}
+
+
+def _tensors(xs):
+    """The tensors among an op's arguments or results (tensors and lists or
+    tuples of them: an aten op nests no deeper)."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (list, tuple)):
+            yield from (y for y in x if isinstance(y, torch.Tensor))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return getattr(t, "_local_tensor", t)
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts, for every op run under it, the bytes of its tensor inputs and
+    outputs (``bytes_accessed``; views, allocations, collectives and
+    metadata queries move none), and the bytes of the storages live at
+    once (``peak``), from ``hold``'s tensors (the inputs) on. A
+    data-dependent size counts at its bound; the ops that gave one are kept
+    in ``bounded_ops``."""
+
+    def __init__(self, hold=()):
+        super().__init__()
+        self.bytes_accessed = 0
+        self.live = 0
+        self.bounded_ops: set[str] = set()
+        self._storages: dict[int, int] = {}
+        self.argument = self._hold(hold)
+        self.peak = self.live
+
+    def _free(self, key: int) -> None:
+        self.live -= self._storages.pop(key)
+
+    def _hold(self, tensors) -> int:
+        """Track the storages of ``tensors`` while they live; the bytes of
+        those not tracked before."""
+        new = 0
+        for t in tensors:
+            st = _local(t).untyped_storage()
+            key = id(st)
+            if key in self._storages:
+                continue
+            n = collectives.size_bound(st.nbytes())
+            self._storages[key] = n
+            weakref.finalize(st, self._free, key)
+            self.live += n
+            new += n
+        return new
+
+    def storage_bytes(self, tensors) -> int:
+        """Bytes of the distinct tracked storages that ``tensors`` hold."""
+        keys = {id(_local(t).untyped_storage()) for t in tensors}
+        return sum(self._storages.get(k, 0) for k in keys)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        outs = list(_tensors((out,)))
+        if any(isinstance(d, torch.SymInt) for t in outs for d in t.shape):
+            self.bounded_ops.add(str(func))
+        # no tensor out: a metadata query (``prim.device``, sizes)
+        if outs and not (func.is_view or collectives.collective_name(func)
+                         or func.overloadpacket._qualified_op_name
+                         in _NO_TRAFFIC):
+            ins = list(_tensors(args)) + list(_tensors(kwargs.values()))
+            self.bytes_accessed += sum(
+                collectives.size_bound(_local(t).numel()) * t.element_size()
+                for t in ins + outs)
+        self._hold(outs)
+        self.peak = max(self.peak, self.live)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# one step, counted
+# ---------------------------------------------------------------------------
+
+def _fake(leaf) -> torch.Tensor:
+    """A fake CPU tensor of a meta tensor's or a (shape, dtype) pair's shape
+    and dtype (under the active FakeTensorMode)."""
+    if isinstance(leaf, torch.Tensor):
+        shape, dtype = leaf.shape, leaf.dtype
+    else:
+        shape, dtype = leaf
+    return torch.empty(tuple(shape), dtype=canonical_dtype(dtype), device="cpu")
+
+
+def _leaves(tree) -> list:
+    out: list = []
+    sh._map(lambda _, x: out.append(x), tree)
+    return out
+
+
+def _placed(mesh, specs_tree, shardings) -> dict:
+    """Fake tensors of ``specs_tree``'s leaves placed at ``shardings``."""
+    return sh.map_with_specs(lambda leaf, s: sh.place(mesh, _fake(leaf), s),
+                             specs_tree, shardings)
+
+
+def count_step(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
+               mesh) -> dict:
+    """Run the step builder of ``kind`` ("train" in ``cc.mode``, "prefill",
+    "decode" against a cache of ``seq`` positions) once on ``mesh`` (of a
+    started process group, real or fake) on fake tensors of ``batch`` x
+    ``seq``, and count it. The step is the one JAX's ``_compile_cell``
+    picks; the inputs are placed as its ``in_shardings`` place them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.symbolic_shapes import ShapeEnv
+
+    t0 = time.perf_counter()
+    with FakeTensorMode(shape_env=ShapeEnv()):
+        shaped = steps.shaped_params(cfg)
+        P = _placed(mesh, shaped, sh.params_shardings(
+            mesh, shaped, policy=cfg.shard_policy))
+        if kind == "train":
+            specs = registry.batch_specs(cfg, batch, seq)
+            X = _placed(mesh, specs, sh.batch_shardings(
+                mesh, specs, policy=cfg.shard_policy))
+            fn, (_, ash) = steps.make_train_step(cfg, cc, mesh)
+            if cc.mode == "ft":
+                inputs = (P, X)
+            else:
+                inputs = (P, _placed(mesh, steps.shaped_adapters(cfg, cc),
+                                     ash), X)
+        elif kind == "prefill":
+            # a prefill takes its tokens (or embeddings) and no labels
+            specs = {k: v for k, v in registry.batch_specs(cfg, batch,
+                                                           seq).items()
+                     if k != "labels"}
+            fn, _ = steps.make_prefill_step(cfg, mesh)
+            inputs = (P, _placed(mesh, specs,
+                                 sh.batch_shardings(mesh, specs)))
+        else:
+            fn, _ = steps.make_serve_step(cfg, mesh)
+            cache_sh, tok_sh = steps.serve_shardings(cfg, mesh, batch, seq)
+            inputs = (P, _placed(mesh, model_lib.cache_specs(cfg, batch, seq),
+                                 cache_sh),
+                      _placed(mesh, registry.decode_token_specs(cfg, batch),
+                              tok_sh))
+        held = _leaves(inputs)
+        counter = StepCounter(held)
+        recorder = collectives.CollectiveRecorder()
+        flops = FlopCounterMode(display=False)
+        with flops, recorder, counter:
+            out = fn(*inputs)
+        outs = _leaves(out)
+        output = counter.storage_bytes(outs)
+        inputs_at = {id(_local(h).untyped_storage()) for h in held}
+        alias = counter.storage_bytes(
+            [t for t in outs if id(_local(t).untyped_storage()) in inputs_at])
+        memory = roofline.memory_record(counter.argument, output, alias,
+                                        counter.peak)
+    return {"flops": float(flops.get_total_flops()),
+            "bytes_accessed": float(counter.bytes_accessed),
+            "collective_bytes": collectives.total_bytes(recorder.records),
+            "collective_records": recorder.records,
+            "memory": memory,
+            "bounded_ops": sorted(counter.bounded_ops),
+            "count_s": time.perf_counter() - t0}
+
+
+def count_by_layers(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
+                    mesh) -> dict:
+    """``count_step``'s flops, bytes_accessed and collective_bytes, and the
+    bytes of its inputs, outputs and in-place outputs (``memory``, in
+    ``memory_record``'s keys, with no peak), of ``cfg`` at its depth L, from
+    counts at 2, 3 and 4 layers of the uniform plan, through the quadratic
+    on those three points: exact, since every layer runs the same ops and
+    the embedding, head and loss run once. FLOPs, collectives, inputs and
+    outputs grow linearly in L; the bytes accessed also carry an L^2 term
+    (each layer's backward through its view of a tap's stacked (L, ...)
+    delta or adapter leaf fills and adds a gradient of the whole stack). One
+    layer is not a point: a stacked leaf of one layer may be placed
+    otherwise. JAX's dry-run extrapolates from two depths for the same
+    reason of time; this serves a count whose host time is bounded
+    (``chip_smoke.py``'s ``[roofline]``), and gives no peak."""
+    if model_lib.layer_plan(cfg)[0] != "uniform":
+        raise ValueError(f"{cfg.name}: layer extrapolation takes the uniform "
+                         f"plan only")
+    memory_keys = ("argument_size_in_bytes", "output_size_in_bytes",
+                   "alias_size_in_bytes")
+    count_keys = ("flops", "bytes_accessed", "collective_bytes")
+
+    def point(n):
+        c = count_step(cfg.replace(n_layers=n), cc, kind, batch, seq, mesh)
+        return {**c["memory"], **c}
+
+    f2, f3, f4 = (point(n) for n in (2, 3, 4))
+    L = cfg.n_layers
+    # Lagrange on 2, 3, 4 in integers (each product of two consecutive
+    # integers is even)
+    at = {k: (round(f2[k]) * (L - 3) * (L - 4) // 2
+              - round(f3[k]) * (L - 2) * (L - 4)
+              + round(f4[k]) * (L - 2) * (L - 3) // 2)
+          for k in count_keys + memory_keys}
+    return {**{k: at[k] for k in count_keys},
+            "memory": {k: at[k] for k in memory_keys},
+            "count_s": f2["count_s"] + f3["count_s"] + f4["count_s"]}
+
+
+def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+               cola_mode: str = "fused_fit", overrides: dict | None = None,
+               verbose: bool = True) -> dict:
+    """Count one (arch, shape) cell on a fake production mesh; return the
+    §Dry-run / §Roofline record (``collective_records`` holds every
+    collective as issued)."""
+    cfg = registry.get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    spec = registry.SHAPES[shape_name]
+    cc = ColaConfig(mode=cola_mode, family="lowrank", taps="qv", rank=16)
+    world = 512 if multi_pod else 256
+    with fake_world(world):
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        count = count_step(cfg, cc, spec.kind, spec.batch, spec.seq, mesh)
+    rec = {
+        "arch": arch,
+        "shape": shape_name,
+        "mesh": "pod2x16x16" if multi_pod else "pod16x16",
+        "mode": cola_mode,
+        "kind": spec.kind,
+        "count_s": round(count["count_s"], 1),
+        "memory": count["memory"],
+        "flops": count["flops"],
+        "flops_counted": "products only (mm, bmm, einsum, sdpa)",
+        "bytes_accessed": count["bytes_accessed"],
+        "bytes_accessed_counted": "computed, unfused: each op's inputs plus "
+                                  "outputs on the plain path",
+        "collective_bytes": count["collective_bytes"],
+        "collectives": collectives.bytes_by_op(count["collective_records"]),
+        "collective_records": count["collective_records"],
+        "bounded_ops": count["bounded_ops"],
+        "devices": world,
+        "exact_costs": True,
+    }
+    rec.update(roofline.roofline_terms(rec))
+    rec["model_flops"] = roofline.model_flops(cfg, spec)
+    # flops are one rank's; model_flops is the whole step's
+    rec["useful_ratio"] = (rec["model_flops"] / (rec["flops"] * rec["devices"])
+                           if rec["flops"] else 0.0)
+    if verbose:
+        print(f"[dryrun] {arch} x {shape_name} ({rec['mesh']}, {cola_mode}) "
+              f"counted in {rec['count_s']}s")
+        print("  memory:", json.dumps(rec["memory"]))
+        print(f"  flops={rec['flops']:.3e} "
+              f"moved={roofline.bytes_moved(rec['memory']):.3e} "
+              f"unfused={rec['bytes_accessed']:.3e} "
+              f"collective={rec['collective_bytes']:.3e} "
+              f"{json.dumps(rec['collectives'])}")
+        print(f"  terms(s): compute={rec['t_compute']:.4e} "
+              f"memory={rec['t_memory']:.4e} collective={rec['t_collective']:.4e}"
+              f" (unfused {rec['t_memory_unfused']:.4e}, NIC "
+              f"{rec['t_collective_nic']:.4e})"
+              f" -> bottleneck={rec['bottleneck']}")
+    return rec
+
+
+def parse_overrides(text: str | None) -> dict:
+    """``k=v,k=v`` model-config overrides: ints, floats, else strings."""
+    overrides = {}
+    if text:
+        for kv in text.split(","):
+            k, v = kv.split("=")
+            try:
+                overrides[k] = int(v)
+            except ValueError:
+                try:
+                    overrides[k] = float(v)
+                except ValueError:
+                    overrides[k] = v
+    return overrides
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default=None)
+    p.add_argument("--shape", default=None)
+    p.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
+    p.add_argument("--mode", default="fused_fit",
+                   choices=["fused_fit", "faithful_offload", "ft", "frozen"])
+    p.add_argument("--all", action="store_true")
+    p.add_argument("--out", default=None, help="append JSON records to file")
+    p.add_argument("--override", default=None,
+                   help="comma k=v model-config overrides (ints/floats/strs)")
+    p.add_argument("--skip-done", action="store_true",
+                   help="skip cells already present in --out")
+    p.add_argument("--tag", default=None,
+                   help="write this tag and the overrides into each record")
+    p.add_argument("--breakdown", action="store_true",
+                   help="print each cell's collectives as the step issued "
+                        "them, one rank's")
+    args = p.parse_args(argv)
+    # DTensor warns at every leaf gathered from a strided placement (two
+    # all-gathers where one would do); the records count both
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+
+    overrides = parse_overrides(args.override)
+    cells: list[tuple[str, str]]
+    if args.all:
+        cells = registry.all_cells()
+    else:
+        if not (args.arch and args.shape):
+            p.error("--arch/--shape or --all")
+        cells = [(args.arch, args.shape)]
+
+    meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
+    done = set()
+    if args.skip_done and args.out and os.path.exists(args.out):
+        with open(args.out) as f:
+            for line in f:
+                try:
+                    r = json.loads(line)
+                    done.add((r["arch"], r["shape"], r["mesh"]))
+                except json.JSONDecodeError:
+                    pass
+    records, failures = [], []
+    t0 = time.perf_counter()
+    for arch, shape in cells:
+        for mp in meshes:
+            if (arch, shape, "pod2x16x16" if mp else "pod16x16") in done:
+                continue
+            try:
+                rec = lower_cell(arch, shape, multi_pod=mp, cola_mode=args.mode,
+                                 overrides=overrides or None)
+                if args.tag is not None:
+                    rec.update(tag=args.tag, overrides=overrides)
+                if args.breakdown:
+                    print("[collective breakdown — every collective as the "
+                          "step issued it, one rank's]")
+                    collectives.print_breakdown(rec["collective_records"],
+                                                report=print)
+                records.append(rec)
+                if args.out:   # flush per cell (crash-safe)
+                    with open(args.out, "a") as f:
+                        f.write(json.dumps(rec) + "\n")
+            except Exception as e:  # noqa: BLE001 — report every cell
+                traceback.print_exc()
+                failures.append({"arch": arch, "shape": shape,
+                                 "multi_pod": mp, "error": repr(e)})
+    if args.out and failures:
+        with open(args.out + ".failures", "a") as f:
+            for r in failures:
+                f.write(json.dumps(r) + "\n")
+    print(f"\n[dryrun] {len(records)} cells OK, {len(failures)} failed in "
+          f"{time.perf_counter() - t0:.1f} s of host time")
+    for f_ in failures:
+        print("  FAILED:", f_)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

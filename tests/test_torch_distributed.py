@@ -22,6 +22,11 @@ the JAX package's, on the CPU.
   world size 1's; every rank's block of every placed leaf must be its slice
   under the rule, and a MoE batch whose dispatch groups would fall
   differently on a rank must raise.
+- The dry-run (``repro_torch.launch.dryrun.count_step``, rank 0 of a fake
+  group at the same world size and mesh) counts the same FLOPs and the same
+  collective breakdown as rank 0's real step in the gloo groups, exactly,
+  for every step that runs (the serve step with its default greedy
+  tokens).
 
 Bounds: the loss within 1e-5 relative; gradients and Mode A data rtol 5e-3
 / atol 1e-5 against JAX (JAX's own sharded-step test's bounds); logits and
@@ -52,6 +57,8 @@ from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import registry as tregistry  # noqa: E402
 from repro_torch.distributed import sharding as tsh  # noqa: E402
 from repro_torch.distributed import steps as tsteps  # noqa: E402
+from repro_torch.analysis import collectives as tcoll  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
@@ -358,7 +365,9 @@ def runs(tmp_path_factory):
     (2, 4) under "dp", and qwen's Mode A on (2, 2, 2) at 8 rows (2 of a
     microbatch's rows a rank: 16 tokens against groups of 32) and a
     prefill under the sort dispatch on (2, 4), which must raise. Returns
-    the inputs, JAX's outputs and both runs' outputs."""
+    the inputs, JAX's outputs and both runs' outputs, each run's with the
+    dry-run's counts of its cases (``"dry"``), made while the groups
+    run."""
     tmp = str(tmp_path_factory.mktemp("dist"))
     inputs = {k: _inputs(k) for k in CONFIGS}
     weights = {k: {"params": v["params"], "adapters": v["adapters"]}
@@ -382,12 +391,46 @@ def runs(tmp_path_factory):
     p8, d8 = _spawn(tmp, 8, eight, weights)
     try:
         oracles = _oracles(inputs)
-        return inputs, oracles, _collect(p1, d1), _collect(p8, d8)
+        dry1, dry8 = _dry_counts(1, one), _dry_counts(8, eight)
+        out1, out8 = _collect(p1, d1), _collect(p8, d8)
+        out1["dry"], out8["dry"] = dry1, dry8
+        return inputs, oracles, out1, out8
     finally:
         for p in (p1, p8):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+
+
+def _dry_counts(world, cases):
+    """The dry-run's count of each case that runs a step (no "raises"; the
+    serve step greedy), as rank 0 of a fake group of ``world`` ranks on the
+    case's mesh: {case name: {"flops", "breakdown"}}."""
+    out = {}
+    with dryrun.fake_world(world):
+        meshes = {}
+        for c in cases:
+            if c.get("raises") or c.get("greedy") is False:
+                continue
+            key = tuple(c["mesh"])
+            if key not in meshes:
+                meshes[key] = tmesh.make_mesh(key[0], key[1], key[2],
+                                              device_type="cpu")
+            cfg = tregistry.reduced_config(c["config"]).replace(
+                **c["overrides"])
+            cc = tbase.ColaConfig(mode=c.get("mode") or "fused_fit",
+                                  family="lowrank", taps="qv", rank=4)
+            if c["step"] == "train":
+                args = ("train", B_TRAIN, S_TRAIN)
+            elif c["step"] == "prefill":
+                args = ("prefill", B_DEC, S_PRE)
+            else:
+                args = ("decode", B_DEC, MAX_LEN)
+            count = dryrun.count_step(cfg, cc, *args, meshes[key])
+            out[c["name"]] = {"flops": count["flops"],
+                              "breakdown": tcoll.breakdown(
+                                  count["collective_records"], top=None)}
+    return out
 
 
 def _jmesh():
@@ -521,3 +564,18 @@ def test_lm_loss_is_its_sum_over_its_count():
         assert torch.equal(TM.lm_loss(c, params, h, labels),
                            s / n.clamp(min=1.0))
         assert float(n) == 27.0
+
+
+@pytest.mark.parametrize("world", [1, 8])
+def test_dry_run_counts_equal_the_real_steps(runs, world):
+    """Rank 0's FLOPs and collective breakdown of every step, real (gloo)
+    and counted (fake group, fake tensors)."""
+    _, _, one, eight = runs
+    run = one if world == 1 else eight
+    dry = run["dry"]
+    assert len(dry) == (14 if world == 1 else 21)
+    for name, want in dry.items():
+        got = run["results"][name]["count"]
+        assert got["flops"] == want["flops"] > 0, name
+        assert list(got["breakdown"]) == list(want["breakdown"]), name
+        assert bool(want["breakdown"]) == (world > 1), name

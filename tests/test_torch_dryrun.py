@@ -1,0 +1,330 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) and perf probe on the
+CPU: fake process groups, fake tensors, no card, no JAX.
+
+- Reduced cells: for each layer plan (uniform, pairs, MoE, SSM, hybrid)
+  and each ``--mode``, at world sizes 1 and 8 on a fake group, the counted
+  FLOPs of one rank's train step equal a count written out here from the
+  config's widths, product by product (``_train_flops``); so do a prefill
+  and a serve tick's (the uniform plan's).
+- The count is the plain path's and data-dependent sizes take their bound:
+  a serve tick lists the KV write plan's ``nonzero`` in ``bounded_ops``,
+  and the frozen mode (no adapters) counts a forward only.
+- ``count_by_layers`` (three depths, interpolated) equals the eager count
+  at full depth, for each step ``chip_smoke.py``'s ``[roofline]`` counts.
+- One production cell: smollm-135m x decode_32k on the 16 x 16 fake mesh,
+  with JAX's record keys, ``model_flops`` and the roofline terms; a MoE
+  cell that ``steps._check_groups`` refuses fails with the step's text.
+- ``perf_probe --breakdown`` writes a record with every JAX key the port
+  keeps and prints every collective.
+- No test leaves a process group behind.
+
+The real steps' FLOPs and collective breakdowns in gloo groups, against
+the dry-run's, are in ``tests/test_torch_distributed.py``.
+"""
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.base import ColaConfig  # noqa: E402
+from repro_torch.analysis import roofline  # noqa: E402
+from repro_torch.launch import dryrun, perf_probe  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import model  # noqa: E402
+from repro_torch.models import ssm as S  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
+
+SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
+             d_ff=128, vocab_size=128, microbatches=2)
+PLANS = {
+    "uniform": ("mistral-nemo-12b", SMALL),
+    "pairs": ("gemma2-9b", dict(SMALL, local_window=8)),
+    "moe": ("qwen3-moe-30b-a3b", dict(SMALL, moe_group=32)),
+    "ssm": ("mamba2-370m", dict(n_layers=2, d_model=64, vocab_size=128,
+                                microbatches=2)),
+    "hybrid": ("zamba2-7b", dict(SMALL, n_kv_heads=4, shared_attn_every=1)),
+}
+MODES = ("fused_fit", "faithful_offload", "ft", "frozen")
+B, SEQ, RANK = 8, 16, 4
+WORLDS = ((1, (1, 1)), (8, (2, 4)))
+
+
+def _cfg(plan):
+    name, kw = PLANS[plan]
+    return registry.reduced_config(name).replace(**kw)
+
+
+@pytest.fixture(autouse=True)
+def _no_group_left():
+    yield
+    assert not dist.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# the count written out from the widths
+# ---------------------------------------------------------------------------
+
+def _lin(T, i, o):
+    return 2 * T * i * o
+
+
+def _dense(T, i, o, x_grad, w_grad):
+    """x @ W: the product, dX where x needs a gradient, dW where W does."""
+    return _lin(T, i, o) * (1 + x_grad + w_grad)
+
+
+def _adapter(T, i, o, r, x_grad, w_grad):
+    """(x @ A) @ B: both products; d(xA) where x or A needs a gradient,
+    dB and dA where the adapter does, dx where x does."""
+    f = _lin(T, i, r) + _lin(T, r, o)
+    f += _lin(T, r, o) * ((x_grad or w_grad) + w_grad)
+    f += _lin(T, i, r) * (x_grad + w_grad)
+    return f
+
+
+class _Count:
+    """Products of one rank's (micro)batch of b rows x s on the plain path,
+    forward and backward, layer by layer; ``live``: whether the residual
+    stream needs a gradient."""
+
+    def __init__(self, cfg, mode, b, s, r):
+        self.cfg, self.b, self.s, self.r, self.T = cfg, b, s, r, b * s
+        self.ft = mode == "ft"
+        self.tapped = mode in ("fused_fit", "faithful_offload")
+        self.fit = mode == "fused_fit"
+        self.live = self.ft            # the embedding needs a gradient in ft
+        self.flops = 0
+
+    def attn_block(self, ffn="mlp"):
+        c, T, b, s = self.cfg, self.T, self.b, self.s
+        d, hq, hkv = c.d_model, c.n_heads * c.d_head, c.n_kv_heads * c.d_head
+        x, w = self.live, self.ft
+        f = _dense(T, d, hq, x, w) + 2 * _dense(T, d, hkv, x, w)
+        if self.tapped:    # taps q and v: adapters, and Mode A's deltas
+            f += _adapter(T, d, hq, self.r, x, self.fit)
+            f += _adapter(T, d, hkv, self.r, x, self.fit)
+        qkv = x or w or self.tapped
+        core = 2 * b * s * s * c.n_heads * c.d_head
+        f += 2 * core + (5 * core if qkv else 0)   # sdpa; the plain backward
+        f += _dense(T, hq, d, qkv, w)
+        self.live = x = self.live or qkv
+        if ffn == "mlp":
+            F = c.d_ff
+            f += 2 * _dense(T, d, F, x, w) + _dense(T, F, d, x or w, w)
+        else:
+            E, k, F = c.n_experts, c.moe_top_k, c.d_expert
+            G = c.moe_group if T % c.moe_group == 0 else s
+            C = max(k, -(-int(G * k * c.capacity_factor) // E))
+            g = x or w                          # router logits, combine
+            f += _dense(T, d, E, x, w)          # router
+            f += _lin(T, E * C, d) * (1 + x)    # dispatch (one-hot, x)
+            f += 2 * _dense(T // G * E * C, d, F, x, w)   # experts' gate, up
+            f += _dense(T // G * E * C, F, d, x or w, w)  # down
+            f += _lin(T, E * C, d) * (1 + g + g)  # combine (weights, y)
+        self.flops += f
+
+    def ssm_block(self, taps):
+        c, T, b, s, r = self.cfg, self.T, self.b, self.s, self.r
+        dims = S.ssm_dims(c.d_model, expand=c.ssm_expand,
+                          headdim=c.ssm_headdim, state=c.ssm_state)
+        d, di, H = c.d_model, dims["d_inner"], dims["nheads"]
+        P, N, dip = c.ssm_headdim, c.ssm_state, S.d_in_proj(dims)
+        x, w = self.live, self.ft
+        tapped = taps and self.tapped
+        f = _dense(T, d, dip, x, w)
+        if tapped:
+            f += _adapter(T, d, dip, r, x, self.fit)
+        g = x or w or tapped
+        # SSD in one chunk (s <= ssd_chunk): C B^T, (w dt) x, the final
+        # state (unused by the loss: no backward)
+        cb, y = 2 * b * s * s * N, 2 * b * H * s * s * P
+        f += cb + y + 2 * b * H * P * N * s + (2 * cb + 2 * y if g else 0)
+        f += _dense(T, di, d, g, w)
+        if tapped:
+            f += _adapter(T, di, d, r, g, self.fit)
+        self.live = self.live or g
+        self.flops += f
+
+    def head(self):
+        c = self.cfg
+        self.flops += _dense(self.T, c.d_model,
+                             c.vocab_size * (c.n_codebooks or 1), self.live,
+                             self.ft)
+
+
+def _train_flops(plan, cfg, mode, rows):
+    """One rank's train step: M microbatches of ``rows`` rows (ft: one batch
+    of M * rows)."""
+    m = 1 if mode == "ft" else cfg.microbatches
+    b = rows if mode != "ft" else rows * cfg.microbatches
+    c = _Count(cfg, mode, b, SEQ, RANK)
+    if plan == "ssm":
+        for _ in range(cfg.n_layers):
+            c.ssm_block(taps=True)
+    elif plan == "hybrid":
+        for start in range(0, cfg.n_layers, cfg.shared_attn_every):
+            c.attn_block()
+            for _ in range(min(cfg.shared_attn_every,
+                               cfg.n_layers - start)):
+                c.ssm_block(taps=False)
+    else:
+        for _ in range(cfg.n_layers):
+            c.attn_block("moe" if plan == "moe" else "mlp")
+    c.head()
+    return m * c.flops
+
+
+def _prefill_flops(plan, cfg, b, s):
+    """A prefill: forward products only, no adapters, the head on the last
+    position."""
+    c = _Count(cfg, "frozen", b, s, RANK)
+    for _ in range(cfg.n_layers):
+        c.attn_block("moe" if plan == "moe" else "mlp")
+    c.T = b
+    c.head()
+    return c.flops
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+def test_reduced_train_cells_count_the_written_out_flops(plan):
+    cfg = _cfg(plan)
+    for world, shape in WORLDS:
+        with dryrun.fake_world(world):
+            mesh = make_mesh(*shape, device_type="cpu")
+            for mode in MODES:
+                cc = ColaConfig(mode=mode, family="lowrank", taps="qv",
+                                rank=RANK)
+                got = dryrun.count_step(cfg, cc, "train", B, SEQ, mesh)
+                rows = B // cfg.microbatches // (2 if world == 8 else 1)
+                assert got["flops"] == _train_flops(plan, cfg, mode, rows), \
+                    (plan, world, mode)
+                assert got["bounded_ops"] == []
+                assert (got["collective_bytes"] > 0) == (world > 1)
+                m = got["memory"]
+                assert m["peak_bytes_per_device"] >= (
+                    m["argument_size_in_bytes"] + m["output_size_in_bytes"]
+                    - m["alias_size_in_bytes"]) > 0
+
+
+def test_prefill_and_serve_tick_count_the_written_out_flops():
+    """The uniform plan's prefill (the head on the last position) and a
+    serve tick; the tick's KV write plan takes its bound."""
+    cfg = _cfg("uniform")
+    c = cfg
+    with dryrun.fake_world(1):
+        mesh = make_mesh(1, 1, device_type="cpu")
+        cc = ColaConfig()
+        pre = dryrun.count_step(cfg, cc, "prefill", B, SEQ, mesh)
+        tick = dryrun.count_step(cfg, cc, "decode", B, 64, mesh)
+    assert pre["flops"] == _prefill_flops("uniform", cfg, B, SEQ)
+    assert pre["bounded_ops"] == []
+    # a tick: every dense on B tokens, attention of one query against the
+    # cache's 64 positions, the head on B tokens
+    d, hq, hkv = c.d_model, c.n_heads * c.d_head, c.n_kv_heads * c.d_head
+    per_layer = (_lin(B, d, hq) + 2 * _lin(B, d, hkv) + _lin(B, hq, d)
+                 + 3 * _lin(B, d, c.d_ff) + 2 * 2 * B * 64 * hq)
+    assert tick["flops"] == c.n_layers * per_layer + _lin(B, d, c.vocab_size)
+    assert "aten.nonzero.default" in tick["bounded_ops"]
+
+
+# the (mode, kind) of each step that ``chip_smoke.py``'s ``[roofline]``
+# counts by layers: Mode A, Mode B, the prefill step and a serve tick
+ROOFLINE_STEPS = (("faithful_offload", "train"), ("fused_fit", "train"),
+                  ("fused_fit", "prefill"), ("fused_fit", "decode"))
+
+
+@pytest.mark.parametrize("mode,kind,world",
+                         [(m, k, 1) for m, k in ROOFLINE_STEPS]
+                         + [("faithful_offload", "train", 8)])
+def test_count_by_layers_equals_the_eager_count(mode, kind, world):
+    """At world size 1, as ``[roofline]`` counts, and Mode A at 8: Mode A's
+    bytes carry the L^2 term, a stacked leaf of one layer is placed
+    otherwise at 8, and a tick's KV write plan takes its bound. One
+    microbatch: the depth is what is extrapolated."""
+    cfg = _cfg("uniform").replace(n_layers=5, microbatches=1)
+    cc = ColaConfig(mode=mode, family="lowrank", taps="qv", rank=8)
+    with dryrun.fake_world(world):
+        mesh = make_mesh(*dict(WORLDS)[world], device_type="cpu")
+        eager = dryrun.count_step(cfg, cc, kind, B, SEQ, mesh)
+        three = dryrun.count_by_layers(cfg, cc, kind, B, SEQ, mesh)
+        with pytest.raises(ValueError, match="uniform"):
+            dryrun.count_by_layers(_cfg("pairs"), cc, kind, B, SEQ, mesh)
+    for k in ("flops", "bytes_accessed", "collective_bytes"):
+        assert three[k] == eager[k], k
+    assert three["flops"] > 0
+    for k in three["memory"]:
+        assert three["memory"][k] == eager["memory"][k], k
+    assert roofline.bytes_moved(three["memory"]) == \
+        roofline.bytes_moved(eager["memory"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# production cells
+# ---------------------------------------------------------------------------
+
+JAX_KEYS = {"arch", "shape", "mesh", "mode", "kind", "memory", "flops",
+            "bytes_accessed", "collective_bytes", "devices", "exact_costs",
+            "t_compute", "t_memory", "t_collective", "bottleneck",
+            "roofline_s", "roofline_fraction", "model_flops", "useful_ratio"}
+MEMORY_KEYS = {"argument_size_in_bytes", "output_size_in_bytes",
+               "alias_size_in_bytes", "temp_size_in_bytes",
+               "peak_bytes_per_device"}
+
+
+def test_production_cell_smollm_decode_32k_on_16x16():
+    """smollm-135m's serve tick at 128 slots of 32768 on the 16 x 16 fake
+    mesh (train_4k takes ~22 s of host time here: ``--all`` counts it)."""
+    rec = dryrun.lower_cell("smollm-135m", "decode_32k", verbose=False)
+    assert JAX_KEYS <= set(rec) and MEMORY_KEYS == set(rec["memory"])
+    assert rec["mesh"] == "pod16x16" and rec["devices"] == 256
+    cfg = registry.get_config("smollm-135m")
+    spec = registry.SHAPES["decode_32k"]
+    assert rec["model_flops"] == roofline.model_flops(cfg, spec) == \
+        2.0 * roofline.param_count(cfg)[1] * 128
+    # 8 slots a rank (128 over "data"); the 16 ranks of "model" compute the
+    # same slots (ROADMAP A.2), so the useful share is below 1/16
+    assert 0 < rec["useful_ratio"] < 1 / 16
+    # every split leaf gathered whole: the peak holds the whole tree, and
+    # this rank's 8 slots of the cache, gathered over "model"
+    whole = sum(t.numel() * t.element_size()
+                for t in tree_leaves(model.init(cfg, device="meta")))
+    kv = 2 * cfg.n_layers * 8 * spec.seq * cfg.n_kv_heads * cfg.d_head * 2
+    assert rec["memory"]["peak_bytes_per_device"] > whole + kv
+    assert rec["memory"]["argument_size_in_bytes"] < (whole + kv) / 8
+    assert set(rec["collectives"]) == {"all-gather"}
+    assert rec["collective_bytes"] == sum(rec["collectives"].values()) > kv
+    assert "aten.nonzero.default" in rec["bounded_ops"]
+    assert rec["bottleneck"] in ("compute", "memory", "collective")
+    assert rec["t_collective_nic"] == pytest.approx(9 * rec["t_collective"],
+                                                    rel=1e-12)
+
+
+def test_moe_cell_refused_by_the_group_check_fails_with_its_text():
+    cfg = _cfg("moe").replace(moe_group=64)
+    with dryrun.fake_world(8):
+        mesh = make_mesh(2, 4, device_type="cpu")
+        with pytest.raises(ValueError, match="dispatch groups of 64"):
+            dryrun.count_step(cfg, ColaConfig(rank=RANK), "train", B, SEQ,
+                              mesh)
+
+
+def test_perf_probe_breakdown_writes_a_record(tmp_path, capsys):
+    out = tmp_path / "probe.jsonl"
+    assert perf_probe.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
+                            "--override", "n_layers=2,ssd_chunk=64",
+                            "--tag", "t", "--breakdown",
+                            "--out", str(out)]) == 0
+    (rec,) = [json.loads(line) for line in out.read_text().splitlines()]
+    assert JAX_KEYS <= set(rec) and MEMORY_KEYS == set(rec["memory"])
+    assert rec["tag"] == "t"
+    assert rec["overrides"] == {"n_layers": 2, "ssd_chunk": 64}
+    text = capsys.readouterr().out
+    rows = [line for line in text.splitlines() if " GB  x" in line]
+    assert "[collective breakdown" in text and 0 < len(rows) <= 15
+    assert all(" all-gather " in r or " all-reduce " in r for r in rows)
+    assert sum(int(r.split(" x")[1].split()[0]) for r in rows) <= len(
+        rec["collective_records"])

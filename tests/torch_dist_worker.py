@@ -11,7 +11,9 @@ with ``sharding.distribute`` and the batch at ``batch_shardings``, runs the
 step and checks that its local block of every placed leaf (weights and
 outputs) is its slice under the rule (and, once a mesh, ``constrain``); rank 0 writes each case's outputs,
 gathered whole, and every rank's failed checks to OUT.pkl. A case with
-"raises" must raise ``ValueError`` matching it.
+"raises" must raise ``ValueError`` matching it. Each step runs under
+``FlopCounterMode`` and the dry-run's ``CollectiveRecorder``: rank 0's
+FLOPs and collective breakdown go with its outputs (``"count"``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,10 @@ import torch.multiprocessing as mp
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
+
 from repro_torch import convert  # noqa: E402
+from repro_torch.analysis import collectives  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import ColaConfig  # noqa: E402
 from repro_torch.distributed import sharding as sh  # noqa: E402
@@ -105,6 +110,15 @@ def _constrain(mesh, what, bad):
         bad.append(f"{what}: constrain changed the values or the blocks")
 
 
+def _counted(fn, *args):
+    """fn(*args), and its FLOPs and collective breakdown on this rank."""
+    flops, rec = FlopCounterMode(display=False), collectives.CollectiveRecorder()
+    with flops, rec:
+        out = fn(*args)
+    return out, {"flops": flops.get_total_flops(),
+                 "breakdown": collectives.breakdown(rec.records, top=None)}
+
+
 def _run_case(case, weights, meshes, bad):
     cfg = _config(case)
     key = tuple(case["mesh"])
@@ -127,29 +141,30 @@ def _run_case(case, weights, meshes, bad):
         P = sh.distribute(mesh, params, ps)
         _check(mesh, P, ps, params, f"{what} params", bad)
         if cc.mode == "ft":
-            loss, out = fn(P, pbatch)
+            (loss, out), count = _counted(fn, P, pbatch)
             _check(mesh, out, ps, None, f"{what} grads", bad)
         else:
             adapters = convert.adapters_from_numpy(w["adapters"],
                                                    device="cpu")
             A = sh.distribute(mesh, adapters, ash)
             _check(mesh, A, ash, adapters, f"{what} adapters", bad)
-            loss, out = fn(P, A, pbatch)
+            (loss, out), count = _counted(fn, P, A, pbatch)
             if cc.mode == "faithful_offload":
                 specs = sh.delta_shardings(mesh, out)
             else:
                 specs = ash
             _check(mesh, out, specs, None, f"{what} outputs", bad)
-        return {"loss": float(loss), "out": _whole(out)}
+        return {"loss": float(loss), "out": _whole(out), "count": count}
     if case["step"] == "prefill":
         fn, ps = steps.make_prefill_step(cfg, mesh)
         P = sh.distribute(mesh, params, ps)
-        logits, cache = fn(P, pbatch)
+        (logits, cache), count = _counted(fn, P, pbatch)
         B, S = batch["tokens"].shape[:2]
         lspec, cspec = steps.prefill_out_shardings(cfg, mesh, B, S)
         _check(mesh, {"logits": logits, "cache": cache},
                {"logits": lspec, "cache": cspec}, None, f"{what} out", bad)
-        return {"out": _whole({"logits": logits, "cache": cache})}
+        return {"out": _whole({"logits": logits, "cache": cache}),
+                "count": count}
     # serve
     fn, ps = steps.make_serve_step(cfg, mesh, greedy=case["greedy"])
     P = sh.distribute(mesh, params, ps)
@@ -159,11 +174,11 @@ def _run_case(case, weights, meshes, bad):
     cspec, tspec = steps.serve_shardings(cfg, mesh, B, max_len)
     C = sh.distribute(mesh, cache, cspec)
     _check(mesh, C, cspec, cache, f"{what} cache", bad)
-    out, new_cache = fn(P, C, pbatch)
+    (out, new_cache), count = _counted(fn, P, C, pbatch)
     ospec = sh.batch_shardings(mesh, {"out": out}, policy=cfg.shard_policy)
     _check(mesh, {"out": out, "cache": new_cache},
            {"out": ospec["out"], "cache": cspec}, None, f"{what} out", bad)
-    return {"out": _whole({"out": out, "cache": new_cache})}
+    return {"out": _whole({"out": out, "cache": new_cache}), "count": count}
 
 
 def _worker(rank: int, world: int, port: int, src: str, dst: str) -> None:
