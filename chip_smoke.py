@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-twenty-six phases, then prints its result lines, exiting non-zero on any
+twenty-seven phases, then prints its result lines, exiting non-zero on any
 failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
@@ -72,7 +72,9 @@ failure:
    32 / 8 heads of 128) in the flash forward and both backward kernels,
    their fits (cola_fit f32: 1536 -> 1536, L 48, T 8192; 5120 -> 4096 and
    5120 -> 1024, L 40, T 2048) and multi_lora / multi_lora_q8 at 1536 ->
-   1536; each launched twice to the same bits. A softcap row has no library time (no library call takes a
+   1536; in bf16 mistral-large-123b's rank share on 16 "model" ranks (2 x
+   4096, 6 query heads and 1 KV head of 128) in the flash forward and both
+   backward kernels; each launched twice to the same bits. A softcap row has no library time (no library call takes a
    softcap); the row without one has it. The build lines report the
    registers and spills of every d_head 256 and 112 instantiation (the
    flash backward's at 256, the forward's and bf16 decode's at 112 and
@@ -327,7 +329,20 @@ failure:
    read once and outputs written once) and which bounds the step, the
    plain path's unfused bytes beside them, and the card's name and power
    limit; a share past 1.05 fails. No kernel launches.
-27. The last lines: the card's name and power limit, one JSON line with every
+27. Tensor parallelism over "model" (``[tensor-parallel]``), in a process of
+   its own (``chip_smoke.py --tensor-parallel OUT``): rank 0 of a fake
+   process group of 256 ranks (``init_process_group("fake")``: its
+   collectives return at once and move no data) on a 16 x 16 mesh of the
+   card, mistral-large-123b at full width and depth (88 layers, bf16, remat
+   "full", its ``microbatches=8``), every leaf the rank's block under the
+   rules drawn on the card from a seed (the 227.6 GiB tree never exists):
+   train_4k's rank share in Mode B (rank-16 qv adapters, 8 microbatches of
+   2 x 4096), a warm-up step and a timed one, then prefill_32k's (2 x
+   32768); each step's ms (the collectives' time left out), peak memory,
+   flash launches (exactly 1,408 / 704 / 704 a train step, 88 a prefill)
+   and the head counts they ran at (6 query heads, 1 KV head of 128, every
+   launch). The values are not checked: the fake group moves no data.
+28. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 The CPU halves of phases 12, 13 (b), 16, 18, 20 and 23 (the plain path on
@@ -733,6 +748,7 @@ def kernel_cases(cfg, dtype, dev, gen):
             flops=2 * T * (d * r + r * d_out))
 
 
+LARGE_RANK = "large rank of 16: G 6 d128, 2 x 4096"
 SOFTCAP_NOTE = ("no library call takes a softcap: the library time is on "
                 "the row without one")
 
@@ -780,7 +796,9 @@ def model_cases(dtype, dev, gen):
     128) in the flash forward and both backward kernels, their fits
     (cola_fit f32: musicgen 1536 -> 1536, L 48, T 8192; pixtral q 5120 ->
     4096 and v 5120 -> 1024, L 40, T 2048) and multi_lora / multi_lora_q8 at
-    musicgen's 1536 -> 1536."""
+    musicgen's 1536 -> 1536; and in bf16 the flash forward and both
+    backward kernels at mistral-large-123b's rank share on 16 "model" ranks
+    (2 x 4096, 6 query heads, 1 KV head, d_head 128)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cola_fit as cf
@@ -1075,6 +1093,12 @@ def model_cases(dtype, dev, gen):
                             ("pixtral G 4 d128: 1 x 2048", 1, 32, 8, 128)):
         yield flash(tag, B, 2048, H, K, D)
         yield from flash_bwd(tag, B, 2048, H, K, D)
+    # mistral-large-123b's rank share on 16 "model" ranks ([tensor-parallel]:
+    # 2 x 4096 a microbatch, 6 query heads and the 1 KV head they read,
+    # d_head 128), in the dtype it runs in
+    if dtype == torch.bfloat16:
+        yield flash(LARGE_RANK, 2, 4096, 6, 1, 128)
+        yield from flash_bwd(LARGE_RANK, 2, 4096, 6, 1, 128)
     if dtype == torch.float32:
         r = 8
         for model, L, T, d_in, d_out in (("musicgen", 48, 4 * 2048, 1536, 1536),
@@ -4541,7 +4565,8 @@ def phase_roofline(counts: dict, ms: dict) -> None:
         print(f"{tag} {label} ({mode if kind == 'train' else kind}, {shape}):"
               f" counted {c['flops']:.6e} FLOP (model_flops "
               f"{c['model_flops']:.6e}), inputs + outputs "
-              f"{rl.bytes_moved(c['memory']):.6e} bytes, unfused plain-path "
+              f"{rl.bytes_moved(c['memory'], c['gathered_leaf_bytes']):.6e} "
+              f"bytes, unfused plain-path "
               f"bytes {c['bytes_accessed']:.6e} (counted in "
               f"{c['count_s']:.1f} s on the host); measured {ms[key]:.2f}"
               f" ms: {c['flops'] / t:.6e} FLOP/s, {compute:.4f} of the bf16 "
@@ -4552,6 +4577,217 @@ def phase_roofline(counts: dict, ms: dict) -> None:
         check(compute <= 1.05 and mem <= 1.05,
               f"{tag} {label}: a share past 1.05 (compute {compute:.3f}, "
               f"bytes {mem:.3f}): the count or the clock is wrong")
+
+
+# ---------------------------------------------------------------------------
+# phase 27: one rank of mistral-large-123b's 16 x 16 mesh, tensor-parallel
+# ---------------------------------------------------------------------------
+
+# (label, ColA mode, step kind, the whole batch's rows, sequence): the
+# dry-run's train_4k (Mode B, as its fused_fit) and prefill_32k cells
+TP_CELLS = (("train_4k", "fused_fit", "train", 256, 4096),
+            ("prefill_32k", "fused_fit", "prefill", 32, 32768))
+TP_HEADS = (6, 1, 128)   # a rank's query heads, KV heads, d_head on 16
+ATTN_KERNELS = ("flash_attention", "bwd_dq", "bwd_dkv")
+
+
+def _rank_blocks(mesh, shaped: dict, specs: dict, gen, dev, std) -> dict:
+    """Rank 0's block of every leaf of ``shaped`` (meta) under its spec, as
+    DTensors of the whole leaf's shape: each block drawn on the card from
+    ``gen`` in f32 (``std(path, leaf)`` its scale, None: ones) and cast to
+    the leaf's dtype; the whole leaf never exists."""
+    from repro_torch.distributed import sharding as sh
+
+    mshape = sh.mesh_shape(mesh)
+    flat = {}
+    sh._map(lambda p, x: flat.__setitem__(p, x), specs)
+
+    def one(path, leaf):
+        spec = flat[path]
+        local = [n // sh._size(mshape, sh._entry_axes(e))
+                 for n, e in zip(leaf.shape, spec)]
+        scale = std(sh._path_str(path), leaf)
+        if scale is None:
+            x = torch.ones(local, dtype=leaf.dtype, device=dev)
+        else:
+            x = torch.randn(local, generator=gen, device=dev,
+                            dtype=torch.float32).mul_(scale).to(leaf.dtype)
+        return sh.wrap(mesh, x, spec, leaf.shape)
+
+    return sh._map(one, shaped)
+
+
+class _HeadRecorder:
+    """Records the (query heads, KV heads, d_head) of every flash launch
+    while active: each wrapper is replaced by one that notes its shapes and
+    calls it (its launch counter keeps counting: the wrapper reads its
+    counter by its module's name)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+
+        self.fa, self.seen = fa, collections.Counter()
+        self.orig = {n: getattr(fa, n) for n in ATTN_KERNELS}
+        for n, f in self.orig.items():
+            def rec(q, k, *a, _n=n, _f=f, **kw):
+                self.seen[_n, q.shape[2], k.shape[2], q.shape[3]] += 1
+                return _f(q, k, *a, **kw)
+            rec.launches = f.launches
+            setattr(fa, n, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            f.launches = getattr(self.fa, n).launches
+            setattr(self.fa, n, f)
+
+
+def tensor_parallel_main(out_path: str) -> int:
+    """Phase 27's process (``chip_smoke.py --tensor-parallel OUT.json``):
+    rank 0 of a fake process group of 256 ranks (its collectives return at
+    once and move no data) on a 16 x 16 mesh of the card, mistral-large-123b
+    at full width and depth, its leaves the rank's blocks drawn on the card;
+    each cell of ``TP_CELLS`` through the step builders, launches and peak
+    counted; the numbers written to ``out_path``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import steps
+    from repro_torch.launch.mesh import make_production_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tag = "[tensor-parallel]"
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=256)
+    res = {}
+    try:
+        mesh = make_production_mesh(device_type="cuda")
+        cfg = registry.get_config("mistral-large-123b")
+        check(cfg.n_layers == 88 and cfg.microbatches == 8
+              and cfg.remat == "full", f"{tag} config {cfg}")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        shaped = steps.shaped_params(cfg)
+        ps = sh.params_shardings(mesh, shaped, policy=cfg.shard_policy)
+
+        def std(path, leaf):
+            if path.endswith(".scale"):
+                return None
+            return 0.02 if path.endswith("emb") else leaf.shape[-2] ** -0.5
+
+        P = _rank_blocks(mesh, shaped, ps, gen, dev, std)
+        held = sum(x.numel() * x.element_size() for x in _local_leaves(P))
+        whole = sum(t.numel() * t.element_size()
+                    for t in _local_leaves(shaped))
+        print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, d_ff "
+              f"{cfg.d_ff}, bf16, remat {cfg.remat}; rank 0 of a fake group "
+              f"of 256 on the 16 x 16 mesh {mesh.mesh_dim_names}: its blocks "
+              f"{held / 2**30:.3f} GiB of the tree's {whole / 2**30:.1f} GiB",
+              flush=True)
+        for label, mode, kind, rows, seq in TP_CELLS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            if kind == "train":
+                cc = ColaConfig(mode=mode, family="lowrank", taps="qv",
+                                rank=16)
+                fn, (_, ash) = steps.make_train_step(cfg, cc, mesh)
+                A = _rank_blocks(
+                    mesh, steps.shaped_adapters(cfg, cc), ash, gen, dev,
+                    lambda p, leaf: (leaf.shape[-1] ** -0.5
+                                     if p.endswith(".A") else 0.01))
+                batch = _dist_batch(cfg, rows, seq, SEED + 40, dev)
+                step = (lambda: fn(P, A, batch))
+                fn(P, A, batch)   # warm-up
+            else:
+                fn, _ = steps.make_prefill_step(cfg, mesh)
+                toks = torch.as_tensor(np.random.default_rng(SEED + 41)
+                                       .integers(0, cfg.vocab_size,
+                                                 (rows, seq))
+                                       .astype(np.int32), device=dev)
+                step = (lambda: fn(P, {"tokens": toks}))
+            _free()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with _HeadRecorder() as heads:
+                t0 = time.perf_counter()
+                out, launches = _counted(step)
+                ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev)
+            del out
+            _free()
+            m = cfg.microbatches if kind == "train" else 1
+            res[label] = {
+                "ms": ms, "peak": peak, "launches": launches,
+                "heads": [list(k) + [v] for k, v in heads.seen.items()],
+                "rows": rows // 16 // m, "microbatches": m, "seq": seq}
+            print(f"{tag} {label} ({mode if kind == 'train' else kind}): the "
+                  f"rank's share, {m} x {rows // 16 // m} x {seq}: "
+                  f"{ms:.1f} ms (one step after a warm-up for train; the "
+                  f"collectives' time left out: the fake group moves "
+                  f"nothing); peak memory {peak / 2**30:.2f} GiB "
+                  f"(torch.cuda.max_memory_allocated); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }; flash "
+                  f"launches by (kernel, query heads, KV heads, d_head): "
+                  f"{dict(heads.seen)}; {card_line()}", flush=True)
+        print(f"{tag} values not checked: the fake group's collectives move "
+              f"no data, so the gathered leaves and activations are not the "
+              f"model's (numerics: world size 8 == 1 on the CPU's gloo "
+              f"groups, phases 24-25 at world size 1)", flush=True)
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(res))
+    return 0
+
+
+def _local_leaves(tree) -> list:
+    out: list = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        else:
+            out.append(x.to_local() if hasattr(x, "to_local") else x)
+    walk(tree)
+    return out
+
+
+def phase_tensor_parallel(dev) -> dict:
+    """Phase 27 in its own process (the process group is global): rank 0 of
+    mistral-large-123b's 16 x 16 mesh through the step builders. Checks that
+    each step's flash launches are exactly the rank's (train: M x L x 2
+    forwards with the recompute, M x L dq and dk/dv; prefill: L forwards),
+    every one at 6 query heads and 1 KV head of 128; returns the launches
+    of both steps."""
+    tag = "[tensor-parallel]"
+    out = ROOT / "build" / "chip_smoke_tp.json"
+    out.unlink(missing_ok=True)
+    _free()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--tensor-parallel", str(out)], cwd=ROOT,
+                          timeout=600)
+    check(proc.returncode == 0 and out.exists(),
+          f"{tag} the rank's process ended with rc {proc.returncode}")
+    res = json.loads(out.read_text())
+    L, total = 88, collections.Counter()
+    for label, mode, kind, rows, seq in TP_CELLS:
+        r = res[label]
+        m = r["microbatches"]
+        want = ({"flash_attention": 2 * m * L, "flash_attention_bwd_dq": m * L,
+                 "flash_attention_bwd_dkv": m * L} if kind == "train"
+                else {"flash_attention": L})
+        got = {k: v for k, v in r["launches"].items() if v}
+        check(got == want, f"{tag} {label} launched {got}, not {want}")
+        check(all(tuple(h[1:4]) == TP_HEADS for h in r["heads"])
+              and sum(h[4] for h in r["heads"]) == sum(want.values()),
+              f"{tag} {label}: flash ran at {r['heads']}, not {TP_HEADS}")
+        total.update(got)
+    return dict(total)
 
 
 # ---------------------------------------------------------------------------
@@ -4823,6 +5059,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_roofline(counts, dist_ms)
     print(f"[roofline] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tensor_parallel = phase_tensor_parallel(dev)
+    print(f"[tensor-parallel] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(f"[phases] done in {time.perf_counter() - start:.1f} s, the build "
           f"included", flush=True)
     _HALVES.close()
@@ -4843,7 +5083,8 @@ def main() -> int:
                "multi_lora_q8": "multi_lora"}
     # launches: the serving, training, serving-at-scale, store, runtime,
     # telemetry, gemma2, gemma2-train, configs, moe, ssm, hybrid, musicgen,
-    # pixtral and distributed runs' together (flash_attention runs on all thirteen
+    # pixtral, distributed and tensor-parallel runs' together (flash_attention
+    # runs on all fourteen
     # attention paths, none on the ssm path, which runs the multi-LoRA
     # kernels and cola_fit; the ring ticks count as the paged decode
     # kernel's, of which they are the ring addressing mode); the top-level numbers are the kernel's first row,
@@ -4860,7 +5101,8 @@ def main() -> int:
                               + runtime[n] + tele[n] + gemma2[n]
                               + gemma2_train[n] + configs[n] + moe[n]
                               + ssm[n] + hybrid[n] + musicgen.get(n, 0)
-                              + pixtral.get(n, 0) + distributed.get(n, 0)),
+                              + pixtral.get(n, 0) + distributed.get(n, 0)
+                              + tensor_parallel.get(n, 0)),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})
@@ -4876,4 +5118,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-halves"]:
         sys.exit(cpu_halves_main(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--tensor-parallel"]:
+        sys.exit(tensor_parallel_main(sys.argv[2]))
     sys.exit(main())

@@ -8,7 +8,9 @@ Terms per (arch, mesh), each one rank's:
 
 ``bytes_moved`` is what the step must move at least: its inputs read once
 and its outputs written once, an output that is an input (a cache updated
-in place) once, as ``memory_record``'s argument + output - alias. JAX's
+in place) once, as ``memory_record``'s argument + output - alias, and the
+leaves it gathers a layer at a time read once a gather (the record's
+``gathered_leaf_bytes``: a rank's inputs hold only its blocks). JAX's
 memory term reads XLA's ``bytes_accessed``, the fused program's traffic;
 the port's ``bytes_accessed`` is the plain path's, every op's inputs plus
 outputs unfused, which a fused kernel never moves. So it is kept beside
@@ -57,20 +59,23 @@ def memory_record(argument: int, output: int, alias: int,
     }
 
 
-def bytes_moved(memory: dict) -> int:
+def bytes_moved(memory: dict, gathered: int = 0) -> int:
     """The bytes a step must move at least, from ``memory_record``'s keys:
     its inputs read once, its outputs written once, an in-place output
-    once."""
+    once; and ``gathered``, the bytes of the leaves it gathers a layer at a
+    time (a record's ``gathered_leaf_bytes``), each read once a gather."""
     return (memory["argument_size_in_bytes"] + memory["output_size_in_bytes"]
-            - memory["alias_size_in_bytes"])
+            - memory["alias_size_in_bytes"] + gathered)
 
 
 def roofline_terms(rec: dict[str, Any]) -> dict[str, float]:
     """rec carries one rank's flops, memory (``memory_record``'s keys),
-    bytes_accessed and collective_bytes, so the terms are a card's, with no
-    division by the rank count."""
+    gathered_leaf_bytes (none where absent), bytes_accessed and
+    collective_bytes, so the terms are a card's, with no division by the
+    rank count."""
     t_compute = rec["flops"] / PEAK_FLOPS
-    t_memory = bytes_moved(rec["memory"]) / HBM_BW
+    t_memory = bytes_moved(rec["memory"],
+                           rec.get("gathered_leaf_bytes", 0)) / HBM_BW
     t_coll = rec["collective_bytes"] / LINK_BW
     terms = {"t_compute": t_compute, "t_memory": t_memory,
              "t_collective": t_coll}

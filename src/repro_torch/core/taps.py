@@ -106,15 +106,17 @@ def zero_delta_vars(spec: ColaSpec, sites: Mapping[str, TapSite],
 
 def apply_tap(spec: ColaSpec | None, name: str, x: torch.Tensor,
               y: torch.Tensor, adapters: Mapping[str, Any] | None = None,
-              deltas: Mapping[str, Any] | None = None
+              deltas: Mapping[str, Any] | None = None, layout=None
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Apply adapter/injection at a tap; returns (y', collected_aux).
-    ``adapters``/``deltas`` hold the per-call (already layer-sliced) vars."""
+    ``adapters``/``deltas`` hold the per-call (already layer-sliced) vars.
+    ``layout``: the tap's ``tensor_parallel.TapLayout`` under a step's plan
+    (the delta and the collected x are then the rank's blocks), or None."""
     if spec is None:
         return y, {}
     aux: dict[str, torch.Tensor] = {}
     if name in spec.collect:
-        aux[name] = x
+        aux[name] = x if layout is None else layout.collected(x)
     fam = spec.family_map.get(name)
     if fam is not None and adapters and name in adapters:
         g = adapters_lib.apply(fam, adapters[name], x)
@@ -122,5 +124,6 @@ def apply_tap(spec: ColaSpec | None, name: str, x: torch.Tensor,
         s = float(torch.tensor(spec.scale, dtype=y.dtype))
         y = y + s * g.to(y.dtype)
     if deltas and name in deltas and name in spec.inject:
-        y = y + deltas[name].to(y.dtype)
+        d = deltas[name].to(y.dtype)
+        y = y + (d if layout is None else layout.place_delta(d))
     return y, aux

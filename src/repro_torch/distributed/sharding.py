@@ -14,14 +14,19 @@ ranks without a process. On a ``DeviceMesh``:
   mesh's order, the more major dims are ``_StridedShard``, so a rank holds
   the block JAX gives it);
 - ``distribute`` places a tree, each leaf built from the rank's slice;
-- ``gathered`` gives a leaf back whole for compute.
+  ``wrap`` makes a DTensor of a rank's block as it is;
+- ``gathered`` gives a leaf back whole (the step builders gather only the
+  batch so; parameters and adapters reach compute a layer at a time through
+  ``distributed.tensor_parallel``).
 
-The activation side: ``constrain`` (the identity on a plain tensor and
-outside ``activation_rules``), and ``batch_sum`` / ``batch_mean``, through
-which the loss and the MoE router's statistics become the whole batch's when
-each rank holds only its own rows (``activation_rules(local_rows=True)``):
-the value is the batch's, the gradient the rank's own share, so a sum of
-the ranks' gradients is one device's.
+The activation side: ``activation_rules`` holds the mesh, the policy and a
+step's ``tensor_parallel.Plan`` (``plan``), which the model reads while it
+runs; ``constrain`` (the identity on a plain tensor and outside
+``activation_rules``), and ``batch_sum`` / ``batch_mean``, through which the
+loss and the MoE router's statistics become the whole batch's when each
+rank holds only its own rows (``activation_rules(local_rows=True)``): the
+value is the batch's, the gradient the rank's own share, so a sum of the
+ranks' gradients is one device's.
 """
 from __future__ import annotations
 
@@ -91,10 +96,14 @@ class ActivationRules:
     """The active mesh and policy. ``local_rows``: the computation holds only
     this rank's rows of the batch (a ``DeviceMesh`` is then required), so
     ``batch_sum`` / ``batch_mean`` reduce over the batch axes of more than
-    one rank (``reduce_axes``)."""
+    one rank (``reduce_axes``). ``plan``: the step's
+    ``tensor_parallel.Plan`` (how the model takes its leaves and splits its
+    products), or None (leaves used as they are)."""
 
-    def __init__(self, mesh, policy: str = "2d", *, local_rows: bool = False):
+    def __init__(self, mesh, policy: str = "2d", *, local_rows: bool = False,
+                 plan=None):
         self.mesh = mesh
+        self.plan = plan
         self.shape = mesh_shape(mesh)
         if policy == "dp":
             self.batch_axes = tuple(a for a in ("pod", "data", "model")
@@ -117,8 +126,10 @@ class ActivationRules:
 
 
 @contextlib.contextmanager
-def activation_rules(mesh, policy: str = "2d", *, local_rows: bool = False):
-    _RULES.append(ActivationRules(mesh, policy, local_rows=local_rows))
+def activation_rules(mesh, policy: str = "2d", *, local_rows: bool = False,
+                     plan=None):
+    _RULES.append(ActivationRules(mesh, policy, local_rows=local_rows,
+                                  plan=plan))
     try:
         yield _RULES[-1]
     finally:
@@ -466,6 +477,15 @@ def place(mesh: DeviceMesh, x: torch.Tensor, spec: Spec) -> DTensor:
                               stride=_contiguous_stride(x.shape))
 
 
+def wrap(mesh: DeviceMesh, local: torch.Tensor, spec: Spec,
+         shape) -> DTensor:
+    """This rank's block ``local`` of a whole tensor of ``shape`` placed at
+    ``spec``, as a DTensor (no copy, no move)."""
+    return DTensor.from_local(local, mesh, placements(mesh, spec),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
 def map_with_specs(fn, tree: PyTree, specs: PyTree) -> PyTree:
     """``fn(leaf, spec)`` over the leaves of ``tree``, each with its spec in
     ``specs`` (a tree of the same structure)."""
@@ -481,9 +501,9 @@ def distribute(mesh: DeviceMesh, tree: PyTree, specs: PyTree) -> PyTree:
 
 
 def gathered(x):
-    """A leaf whole, for compute: a DTensor split over more than one rank
-    is gathered (``full_tensor``), any other DTensor gives its local tensor
-    (no copy); a plain tensor is returned as it is."""
+    """A leaf whole: a DTensor split over more than one rank is gathered
+    (``full_tensor``), any other DTensor gives its local tensor (no copy); a
+    plain tensor is returned as it is."""
     if not isinstance(x, DTensor):
         return x
     mesh = x.device_mesh

@@ -12,18 +12,29 @@ Execution, as this port runs it:
   (micro)batch's rows. Where the rows do not divide over the batch ranks,
   every rank computes them all, as JAX replicates a batch that does not
   divide.
+- **Tensor parallel over "model"** under "2d", by the call's
+  ``tensor_parallel.Plan``: a rank computes its columns of the attention's
+  and the dense MLP's products (o and down by output columns over their
+  gathered inputs), attends over its own query heads, and holds its vocab
+  range of the embedding, the head and the CE. Where a split does not fit,
+  that part is replicated over "model" (the MoE and SSM blocks always; the
+  serve step's every product).
 - **Parameters, adapters, caches** come as DTensors at the rules' placements
-  (``sharding.distribute``) or as plain tensors. A leaf split over more than
-  one rank is gathered at use; any other is used as it is, so at one rank
-  the step runs on the tensors themselves, with no copy. Tensor-parallel
-  compute over "model" is not done: under "2d" the ranks along "model"
-  compute the same rows.
+  (``sharding.distribute``, or ``sharding.wrap`` of a rank's blocks) or as
+  plain tensors (whole: the rank's block is copied out). The model takes
+  each layer's leaves through the plan just before the layer runs,
+  gathered over their FSDP axis (and over "model" where the product keeps
+  no split), and drops them after it; at one rank it runs on the tensors
+  themselves, with no copy.
 - **Outputs** go back as DTensors at the rules' placements: Mode B, LoRA and
-  full-FT gradients summed over the batch ranks and placed as the adapters
-  or parameters are; Mode A's data by ``delta_shardings`` with a leading
-  microbatch axis; tokens or logits by ``batch_shardings``; caches by
-  ``cache_shardings``. The loss is a plain scalar, the whole batch's, on
-  every rank.
+  full-FT gradients, each rank's block summed over the ranks its gradient
+  is partial over (``Plan.finish``; the gathers' backward reduce-scatters
+  the rest); Mode A's data by ``delta_shardings`` with a leading
+  microbatch axis, each rank's block as the model collected it; tokens or
+  logits by ``batch_shardings`` (a prefill's logits the rank's vocab
+  columns); caches by ``cache_shardings`` (a prefill's K and V made whole
+  over the KV heads a layer at a time). The loss is a plain scalar, the
+  whole batch's, on every rank.
 - **The loss over split rows** is the whole batch's masked mean: the CE
   sums and counts (and the MoE router's statistics) are reduced over the
   batch ranks inside ``activation_rules(local_rows=True)``, and each rank
@@ -46,15 +57,15 @@ call, so it is never split. Otherwise the step raises ``ValueError``.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ColaConfig, ModelConfig
 from repro_torch.core import gl
 from repro_torch.distributed import sharding as sh
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import model as model_lib
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -132,16 +143,38 @@ def _check_groups(cfg: ModelConfig, rows: _Rows, seq: int) -> None:
 # ---------------------------------------------------------------------------
 
 def _use(tree):
-    """Every leaf whole for compute (``sharding.gathered``)."""
+    """Every leaf whole (``sharding.gathered``): the batch's."""
     return tree_map(sh.gathered, tree)
 
 
-def _compute_placements(mesh: DeviceMesh, rows: _Rows, bdim: int) -> tuple:
-    """Shard(bdim) on the batch axes where the rows are split, else
+def _blocks(mesh: DeviceMesh, tree, specs) -> dict:
+    """Each leaf's block on this rank under its spec: a DTensor's local
+    tensor, a plain (whole) tensor's block copied out (``sharding.place``;
+    at one rank the tensor itself)."""
+    return sh.map_with_specs(
+        lambda x, s: (x if isinstance(x, DTensor) else sh.place(mesh, x, s)
+                      ).to_local(), tree, specs)
+
+
+def _plan(cfg: ModelConfig, mesh: DeviceMesh, rows: "_Rows", ps, ash=None,
+          split: bool = True) -> tp.Plan:
+    """The call's tensor-parallel plan: gradients partial over the batch
+    axes where the rows are split."""
+    return tp.Plan(cfg, mesh, cfg.shard_policy,
+                   partial=rows.axes if rows.split else (), param_specs=ps,
+                   adapter_specs=ash, sites=model_lib.tap_sites(cfg),
+                   split=split)
+
+
+def _compute_placements(mesh: DeviceMesh, rows: _Rows, bdim: int,
+                        mdim: int | None = None) -> tuple:
+    """Shard(bdim) on the batch axes where the rows are split, Shard(mdim) on
+    "model" where the rank holds a block of dim ``mdim``, else
     replicated."""
     axes = rows.axes if rows.split else ()
-    return tuple(Shard(bdim) if a in axes else Replicate()
-                 for a in mesh.mesh_dim_names)
+    return tuple(Shard(bdim) if a in axes else
+                 Shard(mdim) if a == "model" and mdim is not None else
+                 Replicate() for a in mesh.mesh_dim_names)
 
 
 def _rows_of(mesh: DeviceMesh, x, rows: _Rows, bdim: int) -> torch.Tensor:
@@ -159,31 +192,26 @@ def _rows_of(mesh: DeviceMesh, x, rows: _Rows, bdim: int) -> torch.Tensor:
 
 
 def _place_rows(mesh: DeviceMesh, local: torch.Tensor, spec: tuple,
-                rows: _Rows, bdim: int | None) -> DTensor:
+                rows: _Rows, bdim: int | None,
+                mdim: int | None = None) -> DTensor:
     """This rank's computed rows (dim ``bdim``; None: the whole tensor) as a
-    DTensor at ``spec``."""
-    if bdim is None or not rows.split:   # ``local`` is the whole tensor
-        return sh.place(mesh, local, spec)
-    d = DTensor.from_local(local, mesh, _compute_placements(mesh, rows, bdim),
+    DTensor at ``spec``; ``mdim``: the dim of which it holds its block over
+    "model" (None: all of it)."""
+    if (bdim is None or not rows.split) and mdim is None:
+        return sh.place(mesh, local, spec)   # ``local`` is the whole tensor
+    d = DTensor.from_local(local, mesh,
+                           _compute_placements(mesh, rows, bdim, mdim),
                            run_check=False)
     return d.redistribute(mesh, sh.placements(mesh, spec))
 
 
-def _sum_over_rows(rows: _Rows, mesh: DeviceMesh, tree):
-    """Sum each leaf of a rank's gradient share over the batch ranks."""
-    if not rows.split:
-        return tree
-    shape = sh.mesh_shape(mesh)
-    for g in tree_leaves(tree):
-        for a in rows.axes:
-            if shape[a] > 1:
-                dist.all_reduce(g, group=mesh.get_group(a))
-    return tree
-
-
-def _place_tree(mesh, tree, specs, rows, bdim_of):
-    return sh.map_with_specs(
-        lambda x, s: _place_rows(mesh, x, s, rows, bdim_of(x)), tree, specs)
+def _wrap_tree(mesh, local, specs, shaped):
+    """Blocks of leaves at their specs as DTensors of ``shaped``'s shapes."""
+    flat_s, flat_w = {}, {}
+    sh._map(lambda p, s: flat_s.__setitem__(p, s), specs)
+    sh._map(lambda p, w: flat_w.__setitem__(p, w.shape), shaped)
+    return sh._map(lambda p, x: sh.wrap(mesh, x, flat_s[p], flat_w[p]),
+                   local)
 
 
 def _batch_rows(batch: dict) -> tuple[int, int]:
@@ -203,48 +231,55 @@ def make_train_step(cfg: ModelConfig, cc: ColaConfig, mesh: DeviceMesh):
       ft               : fn(params, batch) -> (loss, param_grads)
     """
     policy = cfg.shard_policy
-    ps = sh.params_shardings(mesh, shaped_params(cfg), policy=policy)
+    shaped = shaped_params(cfg)
+    ps = sh.params_shardings(mesh, shaped, policy=policy)
 
-    def rules(rows):
-        return sh.activation_rules(mesh, policy, local_rows=rows.split)
+    def rules(rows, plan):
+        return sh.activation_rules(mesh, policy, local_rows=rows.split,
+                                   plan=plan)
+
+    def rows_of(batch, m=1):
+        B, S = _batch_rows(batch)
+        rows = _Rows(mesh, policy, B, m)
+        _check_groups(cfg, rows, S)
+        return rows
 
     if cc.mode == "ft":
         def fn_ft(params, batch):
             batch = _use(batch)
-            B, S = _batch_rows(batch)
-            rows = _Rows(mesh, policy, B)
-            _check_groups(cfg, rows, S)
-            with rules(rows):
-                loss, grads, _ = gl.train_step_ft(cfg, _use(params),
-                                                  rows.take(batch))
-            grads = _sum_over_rows(rows, mesh, grads)
-            return loss, _place_tree(mesh, grads, ps, rows, lambda _: None)
+            rows = rows_of(batch)
+            plan = _plan(cfg, mesh, rows, ps)
+            with rules(rows, plan):
+                loss, grads, _ = gl.train_step_ft(
+                    cfg, _blocks(mesh, params, ps), rows.take(batch))
+            return loss, _wrap_tree(mesh, plan.finish(grads), ps, shaped)
 
         return fn_ft, (ps, None)
 
     spec = gl.make_spec(cfg, cc)
-    ash = sh.params_shardings(mesh, shaped_adapters(cfg, cc), adapter=True,
-                              policy=policy)
+    shaped_a = shaped_adapters(cfg, cc)
+    ash = sh.params_shardings(mesh, shaped_a, adapter=True, policy=policy)
+    sites = model_lib.tap_sites(cfg)
     m = cfg.microbatches
 
     def setup(params, adapters, batch):
         batch = _use(batch)
-        B, S = _batch_rows(batch)
-        rows = _Rows(mesh, policy, B, m)
-        _check_groups(cfg, rows, S)
-        return _use(params), _use(adapters), batch, rows
+        rows = rows_of(batch, m)
+        plan = _plan(cfg, mesh, rows, ps, ash)
+        return (_blocks(mesh, params, ps), _blocks(mesh, adapters, ash),
+                batch, rows, plan)
 
     if cc.mode == "faithful_offload":
         def fn_a(params, adapters, batch):
-            p, a, batch, rows = setup(params, adapters, batch)
+            p, a, batch, rows, plan = setup(params, adapters, batch)
             if m == 1:
-                with rules(rows):
+                with rules(rows, plan):
                     loss, data, _ = gl.server_step_a(cfg, spec, p, a,
                                                      rows.take(batch))
             else:
                 tot = data = None
                 for i in range(m):
-                    with rules(rows):
+                    with rules(rows, plan):
                         loss_i, data_i, _ = gl.server_step_a(
                             cfg, spec, p, a, rows.take(batch, i))
                     # data leaves (M, L?, b, S, d): per-microbatch adaptation
@@ -261,24 +296,32 @@ def make_train_step(cfg: ModelConfig, cc: ColaConfig, mesh: DeviceMesh):
                             dst[i].copy_(src)
                     del data_i
                 loss = tot / m
+            # each leaf holds this rank's rows and, where its last dim is
+            # split over "model", this rank's block of it
+            wide = {t: (sites[t].d_in, sites[t].d_out) for t in data}
             dspec = sh.delta_shardings(mesh, {
-                t: tuple(_global_shape(v, rows, v.dim() - 3) for v in xg)
+                t: tuple(_global_shape(v, rows, v.dim() - 3, w)
+                         for v, w in zip(xg, wide[t]))
                 for t, xg in data.items()})
-            return loss, _place_tree(mesh, data, dspec, rows,
-                                     lambda x: x.dim() - 3)
+            return loss, sh.map_with_specs(
+                lambda x, s: _place_rows(
+                    mesh, x, s, rows, x.dim() - 3,
+                    x.dim() - 1 if s[-1] == "model" and plan.n > 1
+                    else None),
+                data, dspec)
 
         return fn_a, (ps, ash)
 
     def fn_b(params, adapters, batch):
-        p, a, batch, rows = setup(params, adapters, batch)
+        p, a, batch, rows, plan = setup(params, adapters, batch)
         if m == 1:
-            with rules(rows):
+            with rules(rows, plan):
                 loss, grads, _ = gl.train_step_b(cfg, spec, p, a,
                                                  rows.take(batch))
         else:
             tot = acc = None
             for i in range(m):
-                with rules(rows):
+                with rules(rows, plan):
                     loss_i, g_i, _ = gl.train_step_b(cfg, spec, p, a,
                                                      rows.take(batch, i))
                 if acc is None:
@@ -289,8 +332,7 @@ def make_train_step(cfg: ModelConfig, cc: ColaConfig, mesh: DeviceMesh):
                 acc = tree_map(torch.add, acc, g_i)
             loss = tot / float(m)
             grads = tree_map(lambda g: g / float(m), acc)
-        grads = _sum_over_rows(rows, mesh, grads)
-        return loss, _place_tree(mesh, grads, ash, rows, lambda _: None)
+        return loss, _wrap_tree(mesh, plan.finish(grads), ash, shaped_a)
 
     return fn_b, (ps, ash)
 
@@ -299,11 +341,19 @@ def make_train_step(cfg: ModelConfig, cc: ColaConfig, mesh: DeviceMesh):
 # serve step (decode)
 # ---------------------------------------------------------------------------
 
+def _place_tree(mesh, tree, specs, rows, bdim_of):
+    return sh.map_with_specs(
+        lambda x, s: _place_rows(mesh, x, s, rows, bdim_of(x)), tree, specs)
+
+
 def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
-    """fn(params, cache, batch) -> (tokens | logits, new cache). The cache's
-    leaves (n, B, ...) are updated in place where the rank computes on them
-    as they are (one rank), else the new cache is placed anew."""
+    """fn(params, cache, batch) -> (tokens | logits, new cache). The
+    parameters are gathered a layer at a time and no product is split over
+    "model". The cache's leaves (n, B, ...) are updated in place where the
+    rank computes on them as they are (one rank), else the new cache is
+    placed anew."""
     policy = cfg.shard_policy
+    ps = sh.params_shardings(mesh, shaped_params(cfg), policy=policy)
 
     def fn(params, cache, batch):
         batch = _use(batch)
@@ -312,9 +362,11 @@ def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
         _check_groups(cfg, rows, 1)
         cspec = sh.cache_shardings(mesh, cache)
         local = tree_map(lambda c: _rows_of(mesh, c, rows, 1), cache)
-        with sh.activation_rules(mesh, policy, local_rows=rows.split):
-            logits, local = model_lib.decode_step(cfg, _use(params),
-                                                  rows.take(batch), local)
+        plan = _plan(cfg, mesh, rows, ps, split=False)
+        with sh.activation_rules(mesh, policy, local_rows=rows.split,
+                                 plan=plan):
+            logits, local = model_lib.decode_step(
+                cfg, _blocks(mesh, params, ps), rows.take(batch), local)
         out = (torch.argmax(logits, dim=-1).to(torch.int32) if greedy
                else logits)
         ospec = sh.batch_shardings(mesh, {"out": _global_shape(out, rows)},
@@ -322,16 +374,19 @@ def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
         return (_place_rows(mesh, out, ospec, rows, 0),
                 _place_tree(mesh, local, cspec, rows, lambda _: 1))
 
-    ps = sh.params_shardings(mesh, shaped_params(cfg), policy=policy)
     return fn, ps
 
 
-def _global_shape(x: torch.Tensor, rows: _Rows, bdim: int = 0):
+def _global_shape(x: torch.Tensor, rows: _Rows, bdim: int = 0,
+                  last: int | None = None):
     """(shape, dtype) of the whole batch's tensor of which ``x`` holds this
-    rank's computed rows (dim ``bdim``)."""
+    rank's computed rows (dim ``bdim``), its last dim ``last`` wide where
+    given."""
     shape = list(x.shape)
     if rows.split:
         shape[bdim] *= rows.n
+    if last is not None:
+        shape[-1] = last
     return (tuple(shape), x.dtype)
 
 
@@ -349,24 +404,55 @@ def serve_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int):
 # prefill step
 # ---------------------------------------------------------------------------
 
+def _place_kv(mesh, local: torch.Tensor, spec, rows: _Rows, plan: tp.Plan,
+              n_kv: int) -> DTensor:
+    """A prefill's K or V (n, b, S, Kl, Dh), the rank's rows and KV heads,
+    at the cache's ``spec``: each layer's heads made whole and the rank's
+    block of it kept, one layer at a time."""
+    # the rows are the rank's already where the spec splits them
+    layer = sh.Spec((None if rows.split else spec[1],) + tuple(spec[2:]))
+    out = None
+    for i in range(local.shape[0]):
+        blk = sh.local_slice(mesh, plan.whole_kv_heads(local[i]), layer)
+        if out is None:
+            out = blk.new_empty((local.shape[0],) + tuple(blk.shape))
+        out[i] = blk
+    shape = list(local.shape)
+    shape[1] *= rows.n if rows.split else 1
+    shape[3] = n_kv
+    return sh.wrap(mesh, out, spec, shape)
+
+
 def make_prefill_step(cfg: ModelConfig, mesh: DeviceMesh):
     """fn(params, batch) -> (logits, cache) at ``prefill_out_shardings`` of
     the batch's (B, S)."""
     policy = cfg.shard_policy
+    ps = sh.params_shardings(mesh, shaped_params(cfg), policy=policy)
 
     def fn(params, batch):
         batch = _use(batch)
         B, S = _batch_rows(batch)
         rows = _Rows(mesh, policy, B)
         _check_groups(cfg, rows, S)
-        with sh.activation_rules(mesh, policy, local_rows=rows.split):
-            logits, cache = model_lib.prefill(cfg, _use(params),
+        plan = _plan(cfg, mesh, rows, ps)
+        with sh.activation_rules(mesh, policy, local_rows=rows.split,
+                                 plan=plan):
+            logits, cache = model_lib.prefill(cfg, _blocks(mesh, params, ps),
                                               rows.take(batch))
         lspec, cspec = prefill_out_shardings(cfg, mesh, B, S)
-        return (_place_rows(mesh, logits, lspec, rows, 0),
-                _place_tree(mesh, cache, cspec, rows, lambda _: 1))
+        flat = {}
+        sh._map(lambda p, s: flat.__setitem__(p, s), cspec)
 
-    ps = sh.params_shardings(mesh, shaped_params(cfg), policy=policy)
+        def place(path, x):
+            if plan.attn is not None and path[-1] in ("k", "v"):
+                return _place_kv(mesh, x, flat[path], rows, plan,
+                                 cfg.n_kv_heads)
+            return _place_rows(mesh, x, flat[path], rows, 1)
+
+        return (_place_rows(mesh, logits, lspec, rows, 0,
+                            logits.dim() - 1 if plan.head else None),
+                sh._map(place, cache))
+
     return fn, ps
 
 

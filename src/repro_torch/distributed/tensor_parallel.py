@@ -1,0 +1,602 @@
+"""Tensor-parallel compute over "model" and the layer-at-a-time gather of
+the step builders (``distributed/steps.py``). The JAX package jits its
+steps with the rules' shardings and XLA splits the products; the port splits
+them by hand, Megatron-style, on the leaves the rules already place.
+
+A step makes one ``Plan`` a call and runs the model inside
+``sharding.activation_rules(..., plan=plan)``. The model takes its leaves
+through the plan one layer at a time (``take``, ``take_layer``) and asks it
+how each product is laid out (``current``, ``tap_layout``):
+
+- **The gather.** Every leaf comes as the rank's block under the rules. A
+  layer's leaves are all-gathered just before it runs, over every axis that
+  splits them but "model" where the product keeps that split, one layer's
+  slice at a time (never the stack), and dropped after it; under
+  ``remat="full"`` the gather runs inside the checkpointed layer, so the
+  recompute gathers again. The backward of a gather is a reduce-scatter
+  over each gathered axis along which the ranks' rows differ (the gradient
+  is partial there) and the rank's own block over any other. Axes over
+  which a gradient is partial but which no gather spans are summed once the
+  backward is done (``finish``).
+- **Attention** (``attn``, where the heads divide over "model" and a rank's
+  query heads read whole KV heads): a rank computes its columns of q / k /
+  v (the rules' blocks) and attends over its own query heads with the KV
+  heads they read. Where K % n == 0 its k / v block is its KV heads; where
+  n % K == 0 a KV head is shared by n / K ranks, so the k / v outputs are
+  all-gathered over "model" (reduce-scatter in the backward) and the rank
+  keeps its head.
+- **The dense MLP** (``mlp``): gate / up by columns.
+- **o and down by output columns.** The rules place o / down by rows. A
+  rank all-gathers the product's input over "model" (the heads, the MLP's
+  hidden; reduce-scatter in the backward), turns its weight's row block
+  into a column block with an all-to-all over "model", computes its output
+  columns and all-gathers them. So every output element is one rank's whole
+  sum, in one device's order: a row-parallel product's partial sums, added
+  over "model", would round otherwise (by up to 1.5e-6 at the reduced
+  configs' O(1) activations, past the tests' 1e-6).
+- **Vocab** (``embed``, ``head``): the embedding lookup is the rank's vocab
+  range, zero elsewhere, summed over "model"; the logits are the rank's
+  vocab columns, and the CE (``vocab_ce``) takes the max and the sum of
+  exponentials over "model" and the label's logit from the rank that holds
+  it.
+- **Megatron's f.** A split region's input is ``copy_in`` (the identity,
+  its gradient summed over "model"); its output is ``gather_out`` (the
+  columns all-gathered, the gradient's own columns kept).
+- **Adapters and taps** (``tap_layout``): every tap of a split part applies
+  ``x A B_rank`` to its own output columns (B's columns are split as its
+  product's). A Mode-A delta and a collected input are always the rank's
+  block under ``delta_shardings`` (last dim over "model" where it
+  divides), so the data leaves the step without a move.
+
+Where a split does not fit (the heads, d_model or the vocab do not divide,
+a split cuts a head or a GQA group, codebooks), the part's leaves are gathered over "model" too and its compute
+is replicated over "model", as every MoE and SSM block's is. A plan made
+with ``split=False`` (the serve step) gathers every leaf whole, a layer at
+a time, and splits no product. With one rank on every axis nothing is
+gathered or split: the model runs on the tensors themselves.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as sh
+
+# all_gather_single / reduce_scatter_single are the newer names of
+# all_gather_into_tensor / reduce_scatter_tensor
+_all_gather_into = getattr(dist, "all_gather_single",
+                           dist.all_gather_into_tensor)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+# the weights that the rules place by rows and a split part uses by columns
+_ROW_PLACED = (".attn.o.w", ".mlp.down.w")
+_METERS: list["gather_meter"] = []
+
+
+# ---------------------------------------------------------------------------
+# collectives along a dim
+# ---------------------------------------------------------------------------
+
+def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' blocks of ``x`` concatenated along ``dim`` in rank
+    order."""
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    _all_gather_into(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_sum(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the ranks' ``x`` summed."""
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    _reduce_scatter(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _own(x: torch.Tensor, dim: int, n: int, c: int) -> torch.Tensor:
+    size = x.shape[dim] // n
+    return x.narrow(dim, c * size, size)
+
+
+def _swap(x: torch.Tensor, split: int, whole: int, group, n: int
+          ) -> torch.Tensor:
+    """``x`` holds this rank's block along dim ``split`` and all of dim
+    ``whole``; returns all of ``split`` and this rank's block along
+    ``whole`` (an all-to-all: block j of ``whole`` goes to rank j)."""
+    xt = x.movedim(whole, 0)
+    xt = xt.reshape((n, xt.shape[0] // n) + tuple(xt.shape[1:])).contiguous()
+    out = torch.empty_like(xt)
+    dist.all_to_all_single(out, xt, group=group)
+    # out[i]: rank i's block of ``split`` for this rank's block of ``whole``
+    return torch.cat([out[i].movedim(0, whole) for i in range(n)], dim=split)
+
+
+class _Take(torch.autograd.Function):
+    """A leaf's gathers (``Recipe.steps``) and swap; backward: the swap
+    undone, then a reduce-scatter over each gathered axis in ``partial``,
+    the own block over the others."""
+
+    @staticmethod
+    def forward(ctx, x, plan, recipe):
+        ctx.plan, ctx.recipe = plan, recipe
+        return plan._gather(x, recipe)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan, recipe = ctx.plan, ctx.recipe
+        if recipe.swap is not None:
+            g = _swap(g, recipe.swap[1], recipe.swap[0], plan.group, plan.n)
+        for dim, axis in reversed(recipe.steps):
+            n = plan.shape[axis]
+            if axis in recipe.partial:
+                g = _scatter_sum(g, dim, plan.mesh.get_group(axis), n)
+            else:
+                g = _own(g, dim, n, plan.coord[axis])
+        return g, None, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Megatron's f: the identity; the gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Partial sums summed over the group (in place); the gradient passed as
+    it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.mark_dirty(x)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherCols(torch.autograd.Function):
+    """The ranks' blocks of the last dim gathered; the gradient
+    reduce-scattered."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _all_gather(x, -1, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, -1, ctx.group, ctx.n), None, None
+
+
+class _GatherOut(torch.autograd.Function):
+    """The ranks' output columns gathered; every rank's gradient is the
+    same, and each keeps its own columns of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, c):
+        ctx.n, ctx.c = n, c
+        return _all_gather(x, -1, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, -1, ctx.n, ctx.c), None, None, None
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Recipe:
+    """How a leaf reaches its compute layout: ``steps`` are the all-gathers
+    (dim counted from the end, so a layer's slice takes its stack's recipe;
+    axis), minor axis first; ``swap`` (split dim, whole dim): then its block
+    over "model" moves from the first dim to the second (``_swap``);
+    ``partial`` the axes over which its gradient is partial."""
+    steps: tuple[tuple[int, str], ...] = ()
+    partial: tuple[str, ...] = ()
+    swap: tuple[int, int] | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Attn:
+    """A rank's share of the attention: its query heads and the KV heads
+    they read; ``shared`` > 1 where n / K ranks share one KV head (the k /
+    v outputs are gathered over "model" and ``kv_head`` kept)."""
+    heads: int
+    kv_heads: int
+    shared: int = 1
+    kv_head: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TapLayout:
+    """One tap's Mode-A blocks on this rank: ``x_block``, (lo, hi) of x kept
+    for collection (None: all of it); ``delta_block``, (lo, hi, width) of
+    y's columns where the rank's delta block goes (None: all of y, which is
+    the rank's output columns in a split part)."""
+    x_block: tuple[int, int] | None
+    delta_block: tuple[int, int, int] | None
+
+    def collected(self, x: torch.Tensor) -> torch.Tensor:
+        if self.x_block is None:
+            return x
+        lo, hi = self.x_block
+        return x[..., lo:hi].contiguous()   # not a view of the whole x
+
+    def place_delta(self, d: torch.Tensor) -> torch.Tensor:
+        if self.delta_block is None:
+            return d
+        lo, hi, width = self.delta_block
+        return torch.nn.functional.pad(d, (lo, width - hi))
+
+
+def _model_major(entry) -> bool:
+    axes = sh._entry_axes(entry)
+    return bool(axes) and axes[0] == "model"
+
+
+class Plan:
+    """One step call's layout over ``mesh`` (see the module docstring).
+
+    ``partial``: the batch axes over which this call's rows are split (a
+    gradient is partial over them); ``param_specs`` / ``adapter_specs``: the
+    rules' specs of the parameter and adapter trees; ``sites``: the model's
+    tap sites; ``split``: whether the products are split over "model"
+    (False: every leaf gathered whole)."""
+
+    def __init__(self, cfg, mesh, policy: str, *, partial=(),
+                 param_specs=None, adapter_specs=None, sites=None,
+                 split: bool = True):
+        self.mesh = mesh
+        self.shape = sh.mesh_shape(mesh)
+        self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        self.partial = tuple(a for a in partial if self.shape[a] > 1)
+        n = self.shape.get("model", 1)
+        tp = split and policy != "dp" and n > 1
+        self.n = n if tp else 1
+        self.c = self.coord.get("model", 0) if tp else 0
+        self.group = mesh.get_group("model") if tp else None
+        self.sites = sites or {}
+        flat = {}
+        for specs in (param_specs, adapter_specs):
+            if specs is not None:
+                sh._map(lambda p, s: flat.__setitem__(sh._path_str(p), s),
+                        specs)
+        self.attn = self._attn(cfg, flat) if tp else None
+        self.mlp = tp and self._mlp(cfg, flat)
+        self.embed = self._vocab(cfg, flat, "embed") if tp else None
+        self.head = self._vocab(cfg, flat, "head") if tp else None
+        self._layouts: dict[str, TapLayout | None] = {}
+        self.recipes = {p: self._recipe(p, s) for p, s in flat.items()}
+
+    # -- which parts split ---------------------------------------------------
+
+    def _splits(self, flat, suffix: str, dim: int) -> bool:
+        """Every leaf of the stacks ending in ``suffix`` has "model" (alone)
+        on ``dim``."""
+        hits = [s for p, s in flat.items() if p.endswith(suffix)]
+        return bool(hits) and all(s[dim] == "model" for s in hits)
+
+    def _attn(self, cfg, flat) -> Attn | None:
+        H, K, n = cfg.n_heads, cfg.n_kv_heads, self.n
+        if (not H or H % n or cfg.d_model % n
+                or not (K % n == 0 or n % K == 0)):
+            return None
+        if not (all(self._splits(flat, f"attn.{w}.w", -1) for w in "qkv")
+                and self._splits(flat, "attn.o.w", -2)):
+            return None
+        if K % n == 0:
+            return Attn(H // n, K // n)
+        shared = n // K
+        return Attn(H // n, 1, shared, self.c // shared)
+
+    def _mlp(self, cfg, flat) -> bool:
+        return (bool(cfg.d_ff) and not cfg.n_experts
+                and cfg.d_model % self.n == 0
+                and self._splits(flat, "mlp.gate.w", -1)
+                and self._splits(flat, "mlp.up.w", -1)
+                and self._splits(flat, "mlp.down.w", -2))
+
+    def _vocab(self, cfg, flat, use: str) -> tuple[int, int] | None:
+        """(first id, ids) of this rank's vocab range for the embedding or
+        the head, where its leaf holds the vocab split over "model" (the
+        major axis): never with codebooks."""
+        if cfg.n_codebooks:
+            return None
+        if use == "embed":
+            path, dim = ("embed.emb", -2)
+        elif cfg.embed_input:
+            path, dim = ("unembed.emb", -2)
+        elif cfg.tie_embeddings:
+            path, dim = ("embed.emb", -2)
+        else:
+            path, dim = ("lm_head.w", -1)
+        if path not in flat or not _model_major(flat[path][dim]):
+            return None
+        size = cfg.vocab_size // self.n
+        return (self.c * size, size)
+
+    def _kept(self, path: str) -> int | None:
+        """The dim (from the end) a leaf keeps split over "model" for its
+        product (a row-placed weight's rows, which ``_recipe`` swaps to
+        columns), or None."""
+        if self._part(path) is not None and re.search(
+                r"\.(q|k|v|o|gate|up|down)\.w$", f".{path}"):
+            return -2 if f".{path}".endswith(_ROW_PLACED) else -1
+        if path == "embed.emb" and self.embed:
+            return -2
+        if path == "unembed.emb" and self.head:
+            return -2
+        if path == "lm_head.w" and self.head:
+            return -1
+        tap, _, leaf = path.rpartition(".")
+        if self._part(tap) is not None and leaf in ("B", "W", "W2"):
+            return -1
+        return None
+
+    def _part(self, name: str) -> str | None:
+        """"attn" or "mlp" where the tap or leaf ``name`` lies in a split
+        part."""
+        for part, on in (("attn", self.attn is not None), ("mlp", self.mlp)):
+            if on and f".{part}." in f".{name}":
+                return part
+        return None
+
+    def _recipe(self, path: str, spec) -> Recipe:
+        kept = self._kept(path)
+        nd = len(spec)
+        steps = []
+        for d, entry in enumerate(spec):
+            axes = sh._entry_axes(entry)
+            if d - nd == kept and axes and axes[0] != "model":
+                raise ValueError(f"{path}: spec {spec} does not hold "
+                                 f"\"model\" as the major axis of dim {d}")
+            for a in reversed(axes):
+                if self.shape[a] > 1 and not (a == "model"
+                                              and d - nd == kept):
+                    steps.append((d - nd, a))
+        partial = self.partial
+        # a leaf used inside a split part and not kept split over "model"
+        # sees only this rank's share of the part's gradient
+        if kept is None and self._part(path) is not None:
+            partial = partial + ("model",)
+        swap = (-2, -1) if kept == -2 and f".{path}".endswith(_ROW_PLACED) \
+            else None
+        return Recipe(tuple(steps), partial, swap)
+
+    # -- leaves ----------------------------------------------------------------
+
+    def _gather(self, x: torch.Tensor, recipe: Recipe) -> torch.Tensor:
+        for dim, axis in recipe.steps:
+            x = _all_gather(x, dim, self.mesh.get_group(axis),
+                            self.shape[axis])
+        if recipe.swap is not None:
+            x = _swap(x, *recipe.swap, self.group, self.n)
+        for m in _METERS:
+            m.bytes += x.numel() * x.element_size()
+        return x
+
+    def take(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        """Leaf ``path`` (its stack's path for a layer's slice) in its
+        compute layout."""
+        recipe = self.recipes.get(path)
+        if recipe is None or not (recipe.steps or recipe.swap):
+            return x
+        if _differentiable(x):
+            return _Take.apply(x, self, recipe)
+        return self._gather(x, recipe)
+
+    def take_tree(self, prefix: str, tree):
+        if isinstance(tree, dict):
+            return {k: self.take_tree(f"{prefix}.{k}" if prefix else k, v)
+                    for k, v in tree.items()}
+        return self.take(prefix, tree)
+
+    def finish(self, grads: dict) -> dict:
+        """Gradients of the rank's leaves (in their blocks) summed over each
+        axis they are partial over and no gather of theirs reduced, in
+        place."""
+        def one(p, g):
+            r = self.recipes[sh._path_str(p)]
+            gathered = {a for _, a in r.steps}
+            for a in r.partial:
+                if a not in gathered:
+                    dist.all_reduce(g, group=self.mesh.get_group(a))
+            return g
+
+        return sh._map(one, grads)
+
+    # -- activations -----------------------------------------------------------
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyIn.apply(x, self.group) if _differentiable(x) else x
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        if _differentiable(x):
+            return _ReduceOut.apply(x, self.group)
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def gather_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' blocks of x's last dim, gathered (the gradient
+        reduce-scattered: each rank's is a partial)."""
+        if _differentiable(x):
+            return _GatherCols.apply(x, self.group, self.n)
+        return _all_gather(x, -1, self.group, self.n)
+
+    def gather_out(self, y: torch.Tensor) -> torch.Tensor:
+        """A split part's output columns, gathered (the gradient's own
+        columns kept: every rank's is the same)."""
+        if _differentiable(y):
+            return _GatherOut.apply(y, self.group, self.n, self.c)
+        return _all_gather(y, -1, self.group, self.n)
+
+    def kv_heads(self, y: torch.Tensor, d_head: int) -> torch.Tensor:
+        """The k or v product's columns of this rank's KV heads (its own
+        block, or a copy of the shared head's out of the gathered columns:
+        the kernels take contiguous K and V)."""
+        a = self.attn
+        if a.shared == 1:
+            return y
+        return self.gather_cols(y).narrow(-1, a.kv_head * d_head,
+                                          d_head).contiguous()
+
+    def whole_kv_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """A prefill's (..., Kl, Dh) local K or V with every KV head, for the
+        cache's placement (no gradient)."""
+        t = _all_gather(t, -2, self.group, self.n)
+        if self.attn.shared > 1:
+            t = t[..., ::self.attn.shared, :]
+        return t
+
+    def tap_layout(self, tap: str) -> TapLayout | None:
+        """The tap's Mode-A blocks where the plan splits over "model"."""
+        if self.n == 1:
+            return None
+        if tap not in self._layouts:
+            self._layouts[tap] = self._tap_layout(tap)
+        return self._layouts[tap]
+
+    def _block(self, width: int) -> tuple[int, int] | None:
+        if width % self.n:
+            return None
+        size = width // self.n
+        return (self.c * size, (self.c + 1) * size)
+
+    def _tap_layout(self, tap: str) -> TapLayout:
+        site = self.sites[tap]
+        x_block = self._block(site.d_in)
+        if self._part(tap) is not None:   # y is this rank's block already
+            return TapLayout(x_block, None)
+        out = self._block(site.d_out)
+        return TapLayout(x_block, out and (out[0], out[1], site.d_out))
+
+    def delta_width(self, width: int) -> int:
+        """A Mode-A delta's last dim on this rank: its block under
+        ``delta_shardings``."""
+        if width % self.n:
+            return width
+        return width // self.n
+
+
+class gather_meter:
+    """While active, ``bytes`` counts every leaf gather's result: the
+    gathered leaves a step's products read."""
+
+    def __init__(self):
+        self.bytes = 0
+
+    def __enter__(self) -> "gather_meter":
+        _METERS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _METERS.remove(self)
+
+
+# ---------------------------------------------------------------------------
+# what the model asks
+# ---------------------------------------------------------------------------
+
+def current() -> Plan | None:
+    r = sh.current_rules()
+    return r.plan if r is not None else None
+
+
+def take(path: str, x: torch.Tensor) -> torch.Tensor:
+    p = current()
+    return x if p is None else p.take(path, x)
+
+
+def take_layer(prefix: str, params: dict, adapters: dict
+               ) -> tuple[dict, dict]:
+    """One layer's parameters (of stack ``prefix``) and adapters ({tap:
+    leaves}) in their compute layouts."""
+    p = current()
+    if p is None:
+        return params, adapters
+    return p.take_tree(prefix, params), p.take_tree("", adapters)
+
+
+def tap_layout(tap: str | None) -> TapLayout | None:
+    p = current()
+    return None if p is None or tap is None else p.tap_layout(tap)
+
+
+def attention() -> Plan | None:
+    """The plan where the attention is split over "model", else None."""
+    p = current()
+    return p if p is not None and p.attn is not None else None
+
+
+def mlp() -> Plan | None:
+    p = current()
+    return p if p is not None and p.mlp else None
+
+
+def embed_lookup(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``emb[ids]`` (``emb`` in its compute layout): over a vocab split, the
+    rank's range looked up, zero elsewhere, summed over "model" (exact: one
+    term is not zero)."""
+    p = current()
+    if p is None or p.embed is None:
+        return emb[ids.long()]
+    lo, size = p.embed
+    idx = ids.long() - lo
+    mine = (idx >= 0) & (idx < size)
+    x = emb[idx.clamp(0, size - 1)].masked_fill(~mine[..., None], 0)
+    return p.reduce_out(x)
+
+
+def head_input(h: torch.Tensor) -> torch.Tensor:
+    """The head's input: ``copy_in`` where the logits are the rank's vocab
+    columns."""
+    p = current()
+    return h if p is None or p.head is None else p.copy_in(h)
+
+
+def vocab_head() -> Plan | None:
+    p = current()
+    return p if p is not None and p.head is not None else None
+
+
+def vocab_ce(p: Plan, lf: torch.Tensor, labels: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``model._ce`` over logits split by vocab over "model": ``lf`` (...,
+    V / n) f32 the rank's columns. The max and the sum of exponentials are
+    taken over "model"; the label's logit comes from the rank that holds it.
+    The value is the whole vocab's, on every rank; the gradient is this
+    rank's columns'."""
+    lo, size = p.head
+    m = lf.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=p.group)
+    se = p.reduce_out(torch.exp(lf - m[..., None]).sum(dim=-1))
+    lse = torch.log(se) + m
+    idx = labels.long() - lo
+    mine = (idx >= 0) & (idx < size)
+    ll = torch.gather(lf, -1, idx.clamp(0, size - 1)[..., None])[..., 0]
+    ll = p.reduce_out(torch.where(mine, ll, torch.zeros_like(ll)))
+    valid = labels >= 0
+    ce = torch.where(valid, lse - ll, torch.zeros_like(lse))
+    return ce.sum(), valid.sum().to(torch.float32)

@@ -26,12 +26,14 @@ for 16 x 16, 512 for 2 x 16 x 16), and counts what it runs:
   counted twice, and the bytes by op.
 - ``memory``: the bytes rank 0 holds live, its inputs' local blocks
   included, at the most (``peak_bytes_per_device``), in JAX's keys
-  (``roofline.memory_record``).
+  (``roofline.memory_record``); ``gathered_leaf_bytes``: the bytes of the
+  leaves it gathers a layer at a time (every gather's result).
 - ``bytes_accessed``: computed, unfused: each op's tensor inputs plus its
   outputs, views, allocations and collectives excluded. A fused kernel
   reads and writes less, so the memory term reads the bytes the step must
   move instead (``roofline.bytes_moved``: inputs + outputs - in-place
-  outputs) and these stand beside it as ``t_memory_unfused``.
+  outputs + gathered leaves) and these stand beside it as
+  ``t_memory_unfused``.
 - ``model_flops``, ``useful_ratio`` and the roofline terms, as JAX has them.
 
 What the count is of:
@@ -46,9 +48,10 @@ What the count is of:
   (``models/attention.py``, every decode step) gets an unbacked size under
   ``FakeTensorMode(shape_env=ShapeEnv())``, counted at its upper bound,
   every write kept (B * c); the record lists such ops in ``bounded_ops``.
-- Rank 0 only; its rows come from the steps' ``_Rows``. The steps gather
-  every split leaf whole at use (``sharding.gathered``), so a rank's peak
-  holds the whole parameter tree.
+- Rank 0 only; its rows come from the steps' ``_Rows``, its share of the
+  products over "model" from the steps' ``tensor_parallel.Plan``, which
+  gathers the leaves a layer at a time: a rank's peak holds its blocks of
+  the tree and one layer's gathered leaves.
 - Every Python loop (layers, chunks, microbatches, the loss, the SSD scan)
   runs in full, so no layer extrapolation is needed and there is no
   ``--no-cost-pass``: one eager pass counts everything.
@@ -78,6 +81,7 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ColaConfig
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed import steps
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as model_lib
 from repro_torch.utils import canonical_dtype
@@ -251,7 +255,7 @@ def count_step(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
         counter = StepCounter(held)
         recorder = collectives.CollectiveRecorder()
         flops = FlopCounterMode(display=False)
-        with flops, recorder, counter:
+        with flops, recorder, counter, tp.gather_meter() as gathered:
             out = fn(*inputs)
         outs = _leaves(out)
         output = counter.storage_bytes(outs)
@@ -265,14 +269,16 @@ def count_step(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
             "collective_bytes": collectives.total_bytes(recorder.records),
             "collective_records": recorder.records,
             "memory": memory,
+            "gathered_leaf_bytes": gathered.bytes,
             "bounded_ops": sorted(counter.bounded_ops),
             "count_s": time.perf_counter() - t0}
 
 
 def count_by_layers(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
                     mesh) -> dict:
-    """``count_step``'s flops, bytes_accessed and collective_bytes, and the
-    bytes of its inputs, outputs and in-place outputs (``memory``, in
+    """``count_step``'s flops, bytes_accessed, collective_bytes and
+    gathered_leaf_bytes, and the bytes of its inputs, outputs and in-place
+    outputs (``memory``, in
     ``memory_record``'s keys, with no peak), of ``cfg`` at its depth L, from
     counts at 2, 3 and 4 layers of the uniform plan, through the quadratic
     on those three points: exact, since every layer runs the same ops and
@@ -289,7 +295,8 @@ def count_by_layers(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
                          f"plan only")
     memory_keys = ("argument_size_in_bytes", "output_size_in_bytes",
                    "alias_size_in_bytes")
-    count_keys = ("flops", "bytes_accessed", "collective_bytes")
+    count_keys = ("flops", "bytes_accessed", "collective_bytes",
+                  "gathered_leaf_bytes")
 
     def point(n):
         c = count_step(cfg.replace(n_layers=n), cc, kind, batch, seq, mesh)
@@ -331,6 +338,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "kind": spec.kind,
         "count_s": round(count["count_s"], 1),
         "memory": count["memory"],
+        "gathered_leaf_bytes": count["gathered_leaf_bytes"],
         "flops": count["flops"],
         "flops_counted": "products only (mm, bmm, einsum, sdpa)",
         "bytes_accessed": count["bytes_accessed"],
@@ -349,11 +357,12 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     rec["useful_ratio"] = (rec["model_flops"] / (rec["flops"] * rec["devices"])
                            if rec["flops"] else 0.0)
     if verbose:
+        moved = roofline.bytes_moved(rec["memory"], rec["gathered_leaf_bytes"])
         print(f"[dryrun] {arch} x {shape_name} ({rec['mesh']}, {cola_mode}) "
               f"counted in {rec['count_s']}s")
         print("  memory:", json.dumps(rec["memory"]))
         print(f"  flops={rec['flops']:.3e} "
-              f"moved={roofline.bytes_moved(rec['memory']):.3e} "
+              f"moved={moved:.3e} "
               f"unfused={rec['bytes_accessed']:.3e} "
               f"collective={rec['collective_bytes']:.3e} "
               f"{json.dumps(rec['collectives'])}")

@@ -3,12 +3,17 @@ reach the kernels). Two modes: prefill (full causal, returns K/V for the
 cache) and decode (c new tokens per row against a dense slot cache, a paged
 block pool or a per-slot ring: c == 1 is the decode tick, c > 1 a chunk of a
 chunked prefill). The inner attention goes through ``kernels.ops`` so the
-CUDA kernels replace the plain versions on the card.
+CUDA kernels replace the plain versions on the card. Under a step's plan
+that splits the attention over "model" (``distributed.tensor_parallel``), a
+rank's prefill computes its q / k / v columns, attends over its own query
+heads with the KV heads they read, and computes its output columns of o
+over the gathered heads.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers as L
 
@@ -21,11 +26,18 @@ def _project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                  n_heads: int, n_kv: int, d_head: int, rope_theta: float,
                  qk_norm: bool, tap_prefix: str, tap_ctx: tuple | None):
     """q, k, v per head, RoPE applied; with ``qk_norm`` q and k are
-    RMS-normed over d_head first (at ``QK_NORM_EPS``)."""
+    RMS-normed over d_head first (at ``QK_NORM_EPS``). Under a plan that
+    splits the attention, the rank's heads (``n_heads`` / ``n_kv`` are then
+    the rank's)."""
     B, S, _ = x.shape
+    plan = tp.attention()
+    if plan is not None:
+        x = plan.copy_in(x)
     q = L.dense(params["q"], x, tap=f"{tap_prefix}.q", tap_ctx=tap_ctx)
     k = L.dense(params["k"], x, tap=f"{tap_prefix}.k", tap_ctx=tap_ctx)
     v = L.dense(params["v"], x, tap=f"{tap_prefix}.v", tap_ctx=tap_ctx)
+    if plan is not None:
+        k, v = plan.kv_heads(k, d_head), plan.kv_heads(v, d_head)
     q = q.reshape(B, S, n_heads, d_head)
     k = k.reshape(B, S, n_kv, d_head)
     v = v.reshape(B, S, n_kv, d_head)
@@ -43,8 +55,12 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                       softcap: float | None = None, qk_norm: bool = False,
                       tap_prefix: str = "attn", tap_ctx: tuple | None = None):
     """Full-sequence causal attention; also returns (k, v) to seed the
-    decode cache."""
+    decode cache (under a plan that splits the attention, the rank's query
+    heads and the KV heads they read)."""
     B, S, _ = x.shape
+    plan = tp.attention()
+    if plan is not None:
+        n_heads, n_kv = plan.attn.heads, plan.attn.kv_heads
     q, k, v = _project_qkv(params, x, positions, n_heads=n_heads, n_kv=n_kv,
                            d_head=d_head, rope_theta=rope_theta,
                            qk_norm=qk_norm, tap_prefix=tap_prefix,
@@ -53,7 +69,11 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                         kv_positions=positions, causal=True, window=window,
                         softcap=softcap)
     o = o.reshape(B, S, n_heads * d_head)
-    y = L.dense(params["o"], o, tap=f"{tap_prefix}.o", tap_ctx=tap_ctx)
+    if plan is None:
+        y = L.dense(params["o"], o, tap=f"{tap_prefix}.o", tap_ctx=tap_ctx)
+    else:
+        y = plan.gather_out(L.dense(params["o"], plan.gather_cols(o),
+                                    tap=f"{tap_prefix}.o", tap_ctx=tap_ctx))
     return y, k, v
 
 

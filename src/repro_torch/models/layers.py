@@ -5,6 +5,8 @@
 - Every Dense call may carry a *tap name* (see ``core.taps``). ``tap_ctx`` is
   the 4-tuple ``(spec, adapters, deltas, aux)`` threaded by the model; ``aux``
   is a dict the caller owns.
+- Under a step's tensor-parallel plan (``distributed.tensor_parallel``) the
+  tap name also gives the tap's Mode-A blocks over "model".
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import taps as taps_lib
+from repro_torch.distributed import tensor_parallel as tp
 
 
 def dense(params: dict, x: torch.Tensor, *, tap: str | None = None,
@@ -20,13 +23,16 @@ def dense(params: dict, x: torch.Tensor, *, tap: str | None = None,
     y = x @ params["w"].to(x.dtype)
     if tap is not None and tap_ctx is not None:
         spec, adapters, deltas, aux = tap_ctx
-        y, collected = taps_lib.apply_tap(spec, tap, x, y, adapters, deltas)
+        y, collected = taps_lib.apply_tap(spec, tap, x, y, adapters, deltas,
+                                          layout=tp.tap_layout(tap))
         aux.update(collected)
     return y
 
 
 def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
-    return params["emb"][ids.long()]
+    """The rows of ``ids`` (over a vocab split, the rank's range summed over
+    "model": ``tensor_parallel.embed_lookup``)."""
+    return tp.embed_lookup(params["emb"], ids)
 
 
 def rmsnorm(params: dict, x: torch.Tensor, *, eps: float = 1e-5,
@@ -72,8 +78,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def mlp(params: dict, x: torch.Tensor, *, act: str = "silu",
         tap_prefix: str | None = None, tap_ctx: tuple | None = None
         ) -> torch.Tensor:
-    """Gated MLP (SwiGLU / GeGLU)."""
+    """Gated MLP (SwiGLU / GeGLU); split over "model" under a plan that
+    splits it: gate / up by columns, down by output columns over the
+    gathered hidden."""
     t = (lambda s: f"{tap_prefix}.{s}") if tap_prefix else (lambda s: None)
+    plan = tp.mlp()
+    if plan is not None:
+        x = plan.copy_in(x)
     g = dense(params["gate"], x, tap=t("gate"), tap_ctx=tap_ctx)
     u = dense(params["up"], x, tap=t("up"), tap_ctx=tap_ctx)
     if act == "silu":
@@ -82,4 +93,7 @@ def mlp(params: dict, x: torch.Tensor, *, act: str = "silu",
         h = F.gelu(g, approximate="tanh") * u
     else:
         raise ValueError(act)
-    return dense(params["down"], h, tap=t("down"), tap_ctx=tap_ctx)
+    if plan is None:
+        return dense(params["down"], h, tap=t("down"), tap_ctx=tap_ctx)
+    return plan.gather_out(dense(params["down"], plan.gather_cols(h),
+                                 tap=t("down"), tap_ctx=tap_ctx))

@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.taps import ColaSpec, TapSite
 from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -166,8 +167,12 @@ def delta_shape(cfg: ModelConfig, site: TapSite, batch: int, seq: int
                 ) -> tuple:
     """Shape of the Mode-A injected delta of one tap; stacked sites carry the
     layer axis, the hybrid plan's shared sites one delta a call (so each
-    call gets its own gradient, JAX's ``delta_shape``)."""
-    return site.lead() + (batch, seq, site.d_out)
+    call gets its own gradient, JAX's ``delta_shape``). Under a step's
+    tensor-parallel plan the last dim is the rank's block under
+    ``delta_shardings``."""
+    plan = tp.current()
+    width = site.d_out if plan is None else plan.delta_width(site.d_out)
+    return site.lead() + (batch, seq, width)
 
 
 def tap_sites(cfg: ModelConfig) -> dict[str, TapSite]:
@@ -305,36 +310,47 @@ def embed_tokens(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     codebook at a time, 0 first (JAX's order: in bf16 each add rounds);
     else the tokens' embeddings. With ``embed_scale`` times sqrt(d_model)
     rounded to that dtype first (59.75 in bf16 at gemma2's 3584), as JAX's
-    ``jnp.asarray(d_model ** 0.5, cdt)``."""
+    ``jnp.asarray(d_model ** 0.5, cdt)``. Under a step's plan the table is
+    taken in its compute layout (``tensor_parallel.take``)."""
     cdt = canonical_dtype(cfg.compute_dtype)
     if cfg.embed_input:
         x = batch["embeds"].to(cdt)
     elif cfg.n_codebooks:
-        toks, emb = batch["tokens"].long(), params["embed"]["emb"]
+        toks = batch["tokens"].long()
+        emb = tp.take("embed.emb", params["embed"]["emb"])
         x = torch.zeros(toks.shape[:2] + (cfg.d_model,), dtype=cdt,
                         device=emb.device)
         for cb in range(cfg.n_codebooks):
             x = x + emb[cb][toks[..., cb]].to(cdt)
     else:
-        x = L.embed(params["embed"], batch["tokens"]).to(cdt)
+        emb = {"emb": tp.take("embed.emb", params["embed"]["emb"])}
+        x = L.embed(emb, batch["tokens"]).to(cdt)
     if cfg.embed_scale:
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
     return x
 
 
-def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
-    """h (..., d) -> logits (..., V) in h's dtype (so bf16 at full width):
-    through the tied embedding, ``unembed`` (``embed_input``) or an untied
-    ``lm_head``; with codebooks (..., CB, V), column cb * V + v of
-    ``lm_head`` being codebook cb's token v. ``final_softcap`` takes the
-    tanh in f32 and casts back."""
+def head_weight(cfg: ModelConfig, params: dict) -> torch.Tensor:
+    """The head's (d, V) weight in its compute layout: the tied embedding's
+    or ``unembed``'s (``embed_input``) transpose, or an untied ``lm_head``
+    (under a vocab split, the rank's vocab columns)."""
     if cfg.embed_input:
-        w = params["unembed"]["emb"].T
-    elif cfg.n_codebooks or not cfg.tie_embeddings:
-        w = params["lm_head"]["w"]
-    else:
-        w = params["embed"]["emb"].T
-    logits = h @ w.to(h.dtype)
+        return tp.take("unembed.emb", params["unembed"]["emb"]).T
+    if cfg.n_codebooks or not cfg.tie_embeddings:
+        return tp.take("lm_head.w", params["lm_head"]["w"])
+    return tp.take("embed.emb", params["embed"]["emb"]).T
+
+
+def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                w: torch.Tensor | None = None) -> torch.Tensor:
+    """h (..., d) -> logits (..., V) in h's dtype (so bf16 at full width):
+    through ``head_weight`` (or ``w``, its result); with codebooks (..., CB,
+    V), column cb * V + v of ``lm_head`` being codebook cb's token v.
+    ``final_softcap`` takes the tanh in f32 and casts back. Under a vocab
+    split, the rank's vocab columns."""
+    if w is None:
+        w = head_weight(cfg, params)
+    logits = tp.head_input(h) @ w.to(h.dtype)
     if cfg.n_codebooks:
         logits = logits.reshape(h.shape[:-1] + (cfg.n_codebooks,
                                                 cfg.vocab_size))
@@ -353,7 +369,10 @@ def _block(cfg: ModelConfig, prefix: str, window: int | None, lp: dict,
            de_l: dict):
     """One layer of stack ``prefix``; returns (x, the MoE aux loss or None,
     the layer's cache leaves ({"k", "v"}, or a Mamba2 block's final
-    {"conv", "ssm"} state), {tap: hidden input x} collected)."""
+    {"conv", "ssm"} state), {tap: hidden input x} collected). Under a step's
+    plan the layer's leaves are gathered here, inside the checkpointed
+    function, so a recompute gathers them again and nothing keeps them."""
+    lp, ad_l = tp.take_layer(prefix, lp, ad_l)
     aux: dict = {}
     tap_ctx = (spec, ad_l, de_l, aux)
     if "ssm" in lp:
@@ -427,8 +446,12 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
 def _ce(logits: torch.Tensor, labels: torch.Tensor
         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sum of CE and count over valid (label >= 0) positions (with
-    codebooks, (position, codebook) pairs). f32 math."""
+    codebooks, (position, codebook) pairs). f32 math. Under a vocab split
+    the logits are the rank's columns (``tensor_parallel.vocab_ce``)."""
     lf = logits.to(torch.float32)
+    plan = tp.vocab_head()
+    if plan is not None:
+        return tp.vocab_ce(plan, lf, labels)
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.long().clamp(min=0)[..., None])[..., 0]
     valid = labels >= 0
@@ -444,14 +467,15 @@ def lm_loss_sum(cfg: ModelConfig, params: dict, h: torch.Tensor,
     exists at once."""
     S = h.shape[1]
     c = cfg.loss_chunk
+    w = head_weight(cfg, params)
     if c and S % c == 0 and S > c:
         tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(0, S, c):
-            s, n = _ce(head_logits(cfg, params, h[:, i:i + c]),
+            s, n = _ce(head_logits(cfg, params, h[:, i:i + c], w),
                        labels[:, i:i + c])
             tot, cnt = tot + s, cnt + n
         return tot, cnt
-    return _ce(head_logits(cfg, params, h), labels)
+    return _ce(head_logits(cfg, params, h, w), labels)
 
 
 def lm_loss(cfg: ModelConfig, params: dict, h: torch.Tensor,
@@ -646,6 +670,7 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
         layouts[prefix] = (table, horizon, plans[kind, width])
     for prefix, i, window in _walk(cfg):
         lp, ad_l, de_l = _site_vars(prefix, i, params, ad, de)
+        lp, ad_l = tp.take_layer(prefix, lp, ad_l)
         tap_ctx = (spec, ad_l, de_l, {})
         if _mamba_stack(cfg, prefix):
             x = _ssm_decode(cfg, lp, x, cache[prefix], i, tap_ctx, live)

@@ -22,6 +22,15 @@ the JAX package's, on the CPU.
   world size 1's; every rank's block of every placed leaf must be its slice
   under the rule, and a MoE batch whose dispatch groups would fall
   differently on a rank must raise.
+- Tensor parallelism over "model": at world size 8 rank 0's counted FLOPs
+  of nemo's train and prefill steps are at most 0.2 of world size 1's (the
+  rows split over the batch ranks and the attention, MLP and head over
+  "model"); a nemo with 6 heads on (2, 4) (heads that do not divide over 4
+  ranks: its attention is gathered and replicated over "model") and nemo's
+  Mode B and full-FT steps under ``remat="full"`` (the recompute gathers
+  again) equal world size 1 too; the vocab-parallel CE on each rank's
+  vocab columns equals ``_ce`` on the whole logits, whole and in chunks, in
+  value, count and gradient.
 - The dry-run (``repro_torch.launch.dryrun.count_step``, rank 0 of a fake
   group at the same world size and mesh) counts the same FLOPs and the same
   collective breakdown as rank 0's real step in the gloo groups, exactly,
@@ -31,7 +40,9 @@ the JAX package's, on the CPU.
 Bounds: the loss within 1e-5 relative; gradients and Mode A data rtol 5e-3
 / atol 1e-5 against JAX (JAX's own sharded-step test's bounds); logits and
 caches 1e-5; tokens equal. World size 8 against 1: rtol 1e-5, atol 1e-6
-(sums over ranks in another order).
+(sums over ranks in another order). The vocab-parallel CE: its sum within
+1e-6 relative, its count equal, its gradient within 1e-6 of its largest
+entry (max-shifted exponentials summed over ranks in another order).
 """
 import os
 import pickle
@@ -69,6 +80,8 @@ SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
              d_ff=128, vocab_size=128)
 CONFIGS = {
     "nemo": ("mistral-nemo-12b", SMALL),
+    # 6 heads (G 3): on 4 "model" ranks the heads do not divide
+    "nemo6": ("mistral-nemo-12b", dict(SMALL, n_heads=6)),
     "qwen": ("qwen3-moe-30b-a3b", dict(SMALL, moe_group=32)),
     "mamba": ("mamba2-370m", dict(n_layers=2, d_model=64, vocab_size=128)),
 }
@@ -81,6 +94,11 @@ W1_STEPS = {"nemo": STEPS, "qwen": STEPS[:2] + STEPS[4:],
             "mamba": STEPS[:2] + STEPS[4:]}
 W8 = (("nemo", (2, 4, 1)), ("nemo", (2, 2, 2)), ("qwen", (2, 4, 1)),
       ("qwen", (2, 2, 2)))
+# steps of the head-fallback config, at world sizes 1 and 8 (on (2, 4))
+FALLBACK = (("train", "faithful_offload", 2), ("train", "fused_fit", 2),
+            ("prefill", None, 1))
+# steps run under remat="full" on (2, 4), against world size 1's without
+REMAT = (("train", "fused_fit", 2), ("train", "ft", 1))
 
 
 # ---------------------------------------------------------------------------
@@ -321,12 +339,16 @@ def _case_name(key, step, mode, mesh=None):
     return f"{key}:{step}:{mode}{tail}"
 
 
-def _case(key, step, mode, m, mesh, inputs, policy=None, batch=None):
+def _case(key, step, mode, m, mesh, inputs, policy=None, batch=None,
+          remat=None):
     _, kw = _configs(key, m)
     if policy:
         kw = dict(kw, shard_policy=policy)
+    if remat:
+        kw = dict(kw, remat=remat)
     c = {"name": _case_name(key, step, mode, mesh) + (f":{policy}"
-                                                      if policy else ""),
+                                                      if policy else "")
+         + (":remat" if remat else ""),
          "config": CONFIGS[key][0], "overrides": kw, "mesh": mesh,
          "weights": key, "step": step}
     if step == "train":
@@ -364,7 +386,9 @@ def runs(tmp_path_factory):
     every W1_STEPS case; world size 8 for every W8 case, nemo's fused_fit on
     (2, 4) under "dp", and qwen's Mode A on (2, 2, 2) at 8 rows (2 of a
     microbatch's rows a rank: 16 tokens against groups of 32) and a
-    prefill under the sort dispatch on (2, 4), which must raise. Returns
+    prefill under the sort dispatch on (2, 4), which must raise; the
+    FALLBACK steps of nemo6 at both sizes, the REMAT steps of nemo on (2,
+    4) and the vocab-parallel CE case at world size 8. Returns
     the inputs, JAX's outputs and both runs' outputs, each run's with the
     dry-run's counts of its cases (``"dry"``), made while the groups
     run."""
@@ -387,6 +411,12 @@ def runs(tmp_path_factory):
     sort["overrides"] = dict(sort["overrides"], moe_impl="sort")
     sort.update(name="qwen:sort", raises="sort dispatch")
     eight.append(sort)
+    for s, mo, m in FALLBACK:
+        one.append(_case("nemo6", s, mo, m, (1, 1, 1), inputs["nemo6"]))
+        eight.append(_case("nemo6", s, mo, m, (2, 4, 1), inputs["nemo6"]))
+    eight += [_case("nemo", s, mo, m, (2, 4, 1), inputs["nemo"],
+                    remat="full") for s, mo, m in REMAT]
+    eight.append(_ce_case())
     p1, d1 = _spawn(tmp, 1, one, weights)
     p8, d8 = _spawn(tmp, 8, eight, weights)
     try:
@@ -402,6 +432,20 @@ def runs(tmp_path_factory):
                 p.communicate()
 
 
+def _ce_case():
+    """Whole logits (4 x 8 x 128, O(3)) and labels with masked positions,
+    for the vocab-parallel CE on (2, 4)."""
+    rng = np.random.default_rng(11)
+    V = SMALL["vocab_size"]
+    labels = rng.integers(0, V, (4, 8)).astype(np.int64)
+    labels[0, :3] = -1
+    labels[2] = -1
+    return {"name": "nemo:ce@2x4x1", "config": CONFIGS["nemo"][0],
+            "overrides": SMALL, "mesh": (2, 4, 1), "weights": "nemo",
+            "step": "ce", "labels": labels,
+            "logits": (rng.standard_normal((4, 8, V)) * 3).astype(np.float32)}
+
+
 def _dry_counts(world, cases):
     """The dry-run's count of each case that runs a step (no "raises"; the
     serve step greedy), as rank 0 of a fake group of ``world`` ranks on the
@@ -410,7 +454,8 @@ def _dry_counts(world, cases):
     with dryrun.fake_world(world):
         meshes = {}
         for c in cases:
-            if c.get("raises") or c.get("greedy") is False:
+            if (c.get("raises") or c.get("greedy") is False
+                    or c["step"] == "ce"):
                 continue
             key = tuple(c["mesh"])
             if key not in meshes:
@@ -531,7 +576,9 @@ def test_world1_placements_and_no_failures(runs):
 @pytest.mark.parametrize("name", [
     _case_name(k, s, mo, mesh) for k, mesh in W8
     for s, mo, _ in W1_STEPS[k]]
-    + ["nemo:train:fused_fit@2x4x1:dp"])
+    + ["nemo:train:fused_fit@2x4x1:dp"]
+    + [_case_name("nemo6", s, mo, (2, 4, 1)) for s, mo, _ in FALLBACK]
+    + [_case_name("nemo", s, mo, (2, 4, 1)) + ":remat" for s, mo, _ in REMAT])
 def test_world8_matches_world1(runs, name):
     _, _, one, eight = runs
     got = eight["results"][name]
@@ -540,6 +587,44 @@ def test_world8_matches_world1(runs, name):
     if "loss" in want:
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
     _agree(got["out"], want["out"], 1e-5, 1e-6, name)
+
+
+@pytest.mark.parametrize("name", [
+    _case_name("nemo", s, mo, mesh) for mesh in ((2, 4, 1), (2, 2, 2))
+    for s, mo, _ in STEPS if s in ("train", "prefill")])
+def test_world8_splits_the_products_over_model(runs, name):
+    """Rank 0 of 8 computes at most 0.2 of world size 1's FLOPs: its rows
+    (a half or a quarter) and its share over "model" (a quarter or a half)
+    of the attention, the MLP and the head; data parallelism alone gave
+    0.5 on (2, 4)."""
+    _, _, one, eight = runs
+    got = eight["results"][name]["count"]["flops"]
+    want = one["results"][name.split("@")[0] + "@1x1x1"]["count"]["flops"]
+    assert 0 < got <= 0.2 * want, (name, got / want)
+
+
+def test_fallback_splits_the_mlp_and_head_only(runs):
+    """nemo with 6 heads on (2, 4): the attention's products stay whole on
+    every rank of a row block; the MLP and the head split over 4."""
+    _, _, one, eight = runs
+    name = _case_name("nemo6", "prefill", None, (2, 4, 1))
+    got = eight["results"][name]["count"]["flops"]
+    want = one["results"][name.split("@")[0] + "@1x1x1"]["count"]["flops"]
+    assert 0.125 < got / want < 0.5, got / want
+
+
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_vocab_parallel_ce_equals_ce_on_the_gathered_logits(runs, chunk):
+    """Rank 0's ``_ce`` on its 32 vocab columns of 128, under the step's
+    plan on (2, 4), against ``_ce`` on the whole logits (every rank checks
+    its own; a gap past the bounds is in the run's failures)."""
+    _, _, _, eight = runs
+    got = eight["results"]["nemo:ce@2x4x1"][chunk]
+    np.testing.assert_allclose(got["sum"], got["want_sum"], rtol=1e-6)
+    assert got["count"] == got["want_count"] == 21.0
+    assert got["grad_gap"] <= 1e-6 * got["grad_scale"]
+    assert got["grad_scale"] > 0.1
+    assert not [b for b in eight["bad"] if "ce@" in b]
 
 
 def test_world8_placements_and_misaligned_moe_groups(runs):
@@ -573,7 +658,8 @@ def test_dry_run_counts_equal_the_real_steps(runs, world):
     _, _, one, eight = runs
     run = one if world == 1 else eight
     dry = run["dry"]
-    assert len(dry) == (14 if world == 1 else 21)
+    assert len(dry) == (14 + len(FALLBACK) if world == 1
+                        else 21 + len(FALLBACK) + len(REMAT))
     for name, want in dry.items():
         got = run["results"][name]["count"]
         assert got["flops"] == want["flops"] > 0, name

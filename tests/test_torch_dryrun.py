@@ -4,13 +4,18 @@ CPU: fake process groups, fake tensors, no card, no JAX.
 - Reduced cells: for each layer plan (uniform, pairs, MoE, SSM, hybrid)
   and each ``--mode``, at world sizes 1 and 8 on a fake group, the counted
   FLOPs of one rank's train step equal a count written out here from the
-  config's widths, product by product (``_train_flops``); so do a prefill
-  and a serve tick's (the uniform plan's).
+  config's widths, product by product (``_train_flops``; at 8 on (2, 4)
+  the attention, the dense MLP and the head are split over the 4 "model"
+  ranks); so do a prefill and a serve tick's (the uniform plan's).
 - The count is the plain path's and data-dependent sizes take their bound:
   a serve tick lists the KV write plan's ``nonzero`` in ``bounded_ops``,
   and the frozen mode (no adapters) counts a forward only.
 - ``count_by_layers`` (three depths, interpolated) equals the eager count
   at full depth, for each step ``chip_smoke.py``'s ``[roofline]`` counts.
+- The memory term (``roofline.bytes_moved``) grows by exactly the bytes of
+  the leaves a step gathers layer by layer (a reduced prefill at world
+  size 8: each leaf's compute layout once, the tied embedding twice), and
+  by none at world size 1.
 - One production cell: smollm-135m x decode_32k on the 16 x 16 fake mesh,
   with JAX's record keys, ``model_flops`` and the roofline terms; a MoE
   cell that ``steps._check_groups`` refuses fails with the step's text.
@@ -32,6 +37,9 @@ import torch.distributed as dist  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import ColaConfig  # noqa: E402
 from repro_torch.analysis import roofline  # noqa: E402
+from repro_torch.distributed import sharding as sh  # noqa: E402
+from repro_torch.distributed import steps  # noqa: E402
+from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
 from repro_torch.launch import dryrun, perf_probe  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import model  # noqa: E402
@@ -89,10 +97,15 @@ def _adapter(T, i, o, r, x_grad, w_grad):
 class _Count:
     """Products of one rank's (micro)batch of b rows x s on the plain path,
     forward and backward, layer by layer; ``live``: whether the residual
-    stream needs a gradient."""
+    stream needs a gradient. ``n``: the ranks along "model" over which the
+    attention, the dense MLP and the head are split (the reduced widths
+    divide): a rank computes its output columns of every product of those
+    parts (o and down over their gathered inputs) and attends over its own
+    heads; the MoE and SSM blocks and the adapters' x @ A stay whole."""
 
-    def __init__(self, cfg, mode, b, s, r):
+    def __init__(self, cfg, mode, b, s, r, n=1):
         self.cfg, self.b, self.s, self.r, self.T = cfg, b, s, r, b * s
+        self.n = n
         self.ft = mode == "ft"
         self.tapped = mode in ("fused_fit", "faithful_offload")
         self.fit = mode == "fused_fit"
@@ -100,21 +113,22 @@ class _Count:
         self.flops = 0
 
     def attn_block(self, ffn="mlp"):
-        c, T, b, s = self.cfg, self.T, self.b, self.s
+        c, T, b, s, n = self.cfg, self.T, self.b, self.s, self.n
         d, hq, hkv = c.d_model, c.n_heads * c.d_head, c.n_kv_heads * c.d_head
         x, w = self.live, self.ft
-        f = _dense(T, d, hq, x, w) + 2 * _dense(T, d, hkv, x, w)
+        f = _dense(T, d, hq // n, x, w) + 2 * _dense(T, d, hkv // n, x, w)
         if self.tapped:    # taps q and v: adapters, and Mode A's deltas
-            f += _adapter(T, d, hq, self.r, x, self.fit)
-            f += _adapter(T, d, hkv, self.r, x, self.fit)
+            f += _adapter(T, d, hq // n, self.r, x, self.fit)
+            f += _adapter(T, d, hkv // n, self.r, x, self.fit)
         qkv = x or w or self.tapped
-        core = 2 * b * s * s * c.n_heads * c.d_head
+        core = 2 * b * s * s * c.n_heads * c.d_head // n
         f += 2 * core + (5 * core if qkv else 0)   # sdpa; the plain backward
-        f += _dense(T, hq, d, qkv, w)
+        f += _dense(T, hq, d // n, qkv, w)
         self.live = x = self.live or qkv
         if ffn == "mlp":
             F = c.d_ff
-            f += 2 * _dense(T, d, F, x, w) + _dense(T, F, d, x or w, w)
+            f += (2 * _dense(T, d, F // n, x, w)
+                  + _dense(T, F, d // n, x or w, w))
         else:
             E, k, F = c.n_experts, c.moe_top_k, c.d_expert
             G = c.moe_group if T % c.moe_group == 0 else s
@@ -152,16 +166,16 @@ class _Count:
     def head(self):
         c = self.cfg
         self.flops += _dense(self.T, c.d_model,
-                             c.vocab_size * (c.n_codebooks or 1), self.live,
-                             self.ft)
+                             c.vocab_size * (c.n_codebooks or 1) // self.n,
+                             self.live, self.ft)
 
 
-def _train_flops(plan, cfg, mode, rows):
+def _train_flops(plan, cfg, mode, rows, n=1):
     """One rank's train step: M microbatches of ``rows`` rows (ft: one batch
-    of M * rows)."""
+    of M * rows), split over ``n`` ranks along "model"."""
     m = 1 if mode == "ft" else cfg.microbatches
     b = rows if mode != "ft" else rows * cfg.microbatches
-    c = _Count(cfg, mode, b, SEQ, RANK)
+    c = _Count(cfg, mode, b, SEQ, RANK, n)
     if plan == "ssm":
         for _ in range(cfg.n_layers):
             c.ssm_block(taps=True)
@@ -200,8 +214,8 @@ def test_reduced_train_cells_count_the_written_out_flops(plan):
                                 rank=RANK)
                 got = dryrun.count_step(cfg, cc, "train", B, SEQ, mesh)
                 rows = B // cfg.microbatches // (2 if world == 8 else 1)
-                assert got["flops"] == _train_flops(plan, cfg, mode, rows), \
-                    (plan, world, mode)
+                assert got["flops"] == _train_flops(
+                    plan, cfg, mode, rows, shape[1]), (plan, world, mode)
                 assert got["bounded_ops"] == []
                 assert (got["collective_bytes"] > 0) == (world > 1)
                 m = got["memory"]
@@ -275,6 +289,43 @@ MEMORY_KEYS = {"argument_size_in_bytes", "output_size_in_bytes",
                "peak_bytes_per_device"}
 
 
+def test_memory_term_counts_the_gathered_leaves():
+    """Reduced nemo's prefill on (2, 4): every leaf a gather reaches is
+    read once a use in its compute layout (the whole leaf, or its quarter
+    where the product keeps "model" split): the lookup and the tied head
+    use the embedding, each layer its slice of every stack."""
+    cfg = _cfg("uniform").replace(microbatches=1)
+    for world, shape in WORLDS:
+        with dryrun.fake_world(world):
+            mesh = make_mesh(*shape, device_type="cpu")
+            got = dryrun.count_step(cfg, ColaConfig(), "prefill", B, SEQ,
+                                    mesh)
+            shaped = steps.shaped_params(cfg)
+            ps = sh.params_shardings(mesh, shaped)
+            plan = tp.Plan(cfg, mesh, "2d", param_specs=ps)
+        flat = {}
+        sh._map(lambda p, x: flat.__setitem__(sh._path_str(p), x), shaped)
+        sp = {}
+        sh._map(lambda p, x: sp.__setitem__(sh._path_str(p), x), ps)
+        want = 0
+        for path, leaf in flat.items():
+            r = plan.recipes[path]
+            if not (r.steps or r.swap):
+                continue
+            kept = ("model" in {a for e in sp[path] for a in sh._entry_axes(e)}
+                    and "model" not in {a for _, a in r.steps})
+            uses = 2 if path == "embed.emb" else 1
+            want += (uses * leaf.numel() * leaf.element_size()
+                     // (shape[1] if kept else 1))
+        m, gathered = got["memory"], got["gathered_leaf_bytes"]
+        assert gathered == want and (want > 0) == (world > 1)
+        assert roofline.bytes_moved(m, gathered) == (
+            m["argument_size_in_bytes"] + m["output_size_in_bytes"]
+            - m["alias_size_in_bytes"] + want)
+        assert roofline.roofline_terms(got)["t_memory"] == \
+            roofline.bytes_moved(m, want) / roofline.HBM_BW
+
+
 def test_production_cell_smollm_decode_32k_on_16x16():
     """smollm-135m's serve tick at 128 slots of 32768 on the 16 x 16 fake
     mesh (train_4k takes ~22 s of host time here: ``--all`` counts it)."""
@@ -288,8 +339,8 @@ def test_production_cell_smollm_decode_32k_on_16x16():
     # 8 slots a rank (128 over "data"); the 16 ranks of "model" compute the
     # same slots (ROADMAP A.2), so the useful share is below 1/16
     assert 0 < rec["useful_ratio"] < 1 / 16
-    # every split leaf gathered whole: the peak holds the whole tree, and
-    # this rank's 8 slots of the cache, gathered over "model"
+    # the leaves gathered a layer at a time; the peak holds this rank's 8
+    # slots of the cache gathered over "model", more than the whole tree
     whole = sum(t.numel() * t.element_size()
                 for t in tree_leaves(model.init(cfg, device="meta")))
     kv = 2 * cfg.n_layers * 8 * spec.seq * cfg.n_kv_heads * cfg.d_head * 2

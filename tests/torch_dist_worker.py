@@ -13,7 +13,11 @@ outputs) is its slice under the rule (and, once a mesh, ``constrain``); rank 0 w
 gathered whole, and every rank's failed checks to OUT.pkl. A case with
 "raises" must raise ``ValueError`` matching it. Each step runs under
 ``FlopCounterMode`` and the dry-run's ``CollectiveRecorder``: rank 0's
-FLOPs and collective breakdown go with its outputs (``"count"``).
+FLOPs and collective breakdown go with its outputs (``"count"``). A "ce"
+case holds whole logits and labels instead of a step: each rank runs
+``model._ce`` on its vocab columns under the step's plan, whole and in
+chunks, against ``_ce`` on the whole logits (value, count, and the
+gradient's block), and rank 0 writes the largest gaps.
 """
 from __future__ import annotations
 
@@ -119,6 +123,53 @@ def _counted(fn, *args):
                  "breakdown": collectives.breakdown(rec.records, top=None)}
 
 
+def _ce_sum(logits, labels, chunk):
+    """``model._ce``'s sum and count over the sequence, in chunks of
+    ``chunk`` positions (0: whole), as ``lm_loss_sum`` takes them."""
+    from repro_torch.models import model
+
+    if not chunk:
+        return model._ce(logits, labels)
+    tot = cnt = 0.0
+    for i in range(0, logits.shape[1], chunk):
+        s, n = model._ce(logits[:, i:i + chunk], labels[:, i:i + chunk])
+        tot, cnt = tot + s, cnt + n
+    return tot, cnt
+
+
+def _vocab_ce(cfg, mesh, case, bad):
+    """The vocab-parallel CE against ``_ce`` on the whole logits."""
+    from repro_torch.distributed import tensor_parallel as tp
+
+    ps = sh.params_shardings(mesh, steps.shaped_params(cfg))
+    plan = tp.Plan(cfg, mesh, cfg.shard_policy, param_specs=ps)
+    if plan.head is None:
+        bad.append(f"{case['name']}: the plan splits no vocab")
+        return {}
+    lo, size = plan.head
+    logits = torch.from_numpy(case["logits"])
+    labels = torch.from_numpy(case["labels"])
+    out = {}
+    for chunk in (0, 4):
+        whole = logits.clone().requires_grad_()
+        s, n = _ce_sum(whole, labels, chunk)
+        s.backward()
+        mine = logits[..., lo:lo + size].clone().requires_grad_()
+        with sh.activation_rules(mesh, cfg.shard_policy, plan=plan):
+            s_l, n_l = _ce_sum(mine, labels, chunk)
+        s_l.backward()
+        want = whole.grad[..., lo:lo + size]
+        out[chunk] = {"sum": float(s_l), "want_sum": float(s),
+                      "count": float(n_l), "want_count": float(n),
+                      "grad_gap": float((mine.grad - want).abs().max()),
+                      "grad_scale": float(want.abs().max())}
+        if (abs(float(s_l) - float(s)) > 1e-6 * abs(float(s))
+                or float(n_l) != float(n)
+                or out[chunk]["grad_gap"] > 1e-6 * out[chunk]["grad_scale"]):
+            bad.append(f"{case['name']} chunk {chunk}: {out[chunk]}")
+    return out
+
+
 def _run_case(case, weights, meshes, bad):
     cfg = _config(case)
     key = tuple(case["mesh"])
@@ -127,6 +178,8 @@ def _run_case(case, weights, meshes, bad):
         meshes[key] = make_mesh(data, model, pods, device_type="cpu")
         _constrain(meshes[key], f"constrain on {key}", bad)
     mesh = meshes[key]
+    if case["step"] == "ce":
+        return _vocab_ce(cfg, mesh, case, bad)
     w = weights[case["weights"]]
     params = convert.params_from_numpy(cfg, w["params"], device="cpu")
     what = f"{case['name']} on {key}"
