@@ -74,7 +74,17 @@ failure:
    5120 -> 1024, L 40, T 2048) and multi_lora / multi_lora_q8 at 1536 ->
    1536; in bf16 mistral-large-123b's rank share on 16 "model" ranks (2 x
    4096, 6 query heads and 1 KV head of 128) in the flash forward and both
-   backward kernels; each launched twice to the same bits. A softcap row has no library time (no library call takes a
+   backward kernels; each launched twice to the same bits. Then the dense
+   decode kernel with its log-sum-exp (``return_lse``: o in f32, lse (B,
+   H)), in bf16 and f32: timed rows at mistral-large-123b's decode_32k rank
+   share (8 slots x 2,048 positions, 96 / 8 heads of 128) and at smollm's
+   tick on one 64-position block of 1,024, and the serve step's split and
+   merge (``lse_merge_checks``): one cache cut into 16 position blocks,
+   a launch a block at positions less its offset, merged by
+   ``tensor_parallel.merge``, against one launch over the whole cache, at
+   smollm's, mistral-large's (32,768 positions) and gemma2's heads (window
+   4096, softcap 50), with slots in the first block, at the last position
+   and dead. A softcap row has no library time (no library call takes a
    softcap); the row without one has it. The build lines report the
    registers and spills of every d_head 256 and 112 instantiation (the
    flash backward's at 256, the forward's and bf16 decode's at 112 and
@@ -338,10 +348,17 @@ failure:
    rules drawn on the card from a seed (the 227.6 GiB tree never exists):
    train_4k's rank share in Mode B (rank-16 qv adapters, 8 microbatches of
    2 x 4096), a warm-up step and a timed one, then prefill_32k's (2 x
-   32768); each step's ms (the collectives' time left out), peak memory,
-   flash launches (exactly 1,408 / 704 / 704 a train step, 88 a prefill)
-   and the head counts they ran at (6 query heads, 1 KV head of 128, every
-   launch). The values are not checked: the fake group moves no data.
+   32768), then decode_32k's through the serve step (8 slots, the rank's
+   2,048-position block of a 32,768-position cache, about 5.9 GB, drawn on
+   the card at ``cache_shardings``' placement; a tick under the collective
+   recorder, a warm-up, 5 timed ticks); each step's ms (the collectives'
+   time left out; the ticks' p50), peak memory, flash launches (exactly
+   1,408 / 704 / 704 a train step, 88 a prefill) and the head counts they
+   ran at (6 query heads, 1 KV head of 128, every launch), and every tick's
+   88 dense decode launches at 96 query / 8 KV heads of 128 over 2,048
+   positions and no other kernel, no collective moving a KV leaf, every
+   cache block updated in place, a peak below 20 GiB. The values are not
+   checked: the fake group moves no data.
 28. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
@@ -1184,6 +1201,114 @@ def model_cases(dtype, dev, gen):
                 flops=2 * T * (d_in * r + r * d_out))
 
 
+def lse_cases(dtype, dev, gen):
+    """Phase-1 rows of the dense decode kernel with its log-sum-exp
+    (``return_lse=True``: o in f32 and lse (B, H) f32), as the serve step
+    runs it on a rank's block of a KV cache split by sequence: mistral-large-
+    123b's decode_32k rank share on 16 "model" ranks (8 slots, rank 0's
+    2,048 positions of 32,768, 96 query / 8 KV heads of 128, every position
+    of the block live, as in phase 27) and smollm-135m's tick (16 slots
+    against block 7 of 16 of a 1,024-position cache, its 64 positions at
+    positions less the offset 448, the slots past its start)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    for tag, B, S, H, K, D, pos in (
+            ("large rank share: 8 slots x 2048 of 32768, 96 / 8 heads of 128",
+             8, 2048, 96, 8, 128, ints(30000, 32768, 8)),
+            ("smollm: 16 slots x block 7 of 16 (64 of 1024), 9 / 3 heads "
+             "of 64", 16, 64, 9, 3, 64, ints(448, 1024, 16) - 448)):
+        q, kb, vb = rnd(B, 1, H, D), rnd(B, S, K, D), rnd(B, S, K, D)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kb, vb))
+        mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])
+        n_read = int((pos.clamp(max=S - 1) + 1).sum())
+        yield dict(
+            name=f"decode_attention[lse: {tag} {dt}]", with_lse=True,
+            fn=lambda q=q, kb=kb, vb=vb, pos=pos: da.decode_attention(
+                q, kb, vb, pos, return_lse=True),
+            plain=lambda q=q, kb=kb, vb=vb, pos=pos: da.plain(
+                q, kb, vb, pos, return_lse=True),
+            lib=lambda qt=qt, kt=kt, vt=vt, mask=mask:
+                F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask[:, None, None],
+                    enable_gqa=True),
+            nbytes=(nbytes(q) + 2 * n_read * K * D * q.element_size()
+                    + B * H * (D + 1) * 4 + B * 4),
+            flops=4 * D * H * n_read)
+
+
+def lse_merge_checks(dtype, dev, gen) -> None:
+    """The serve step's split and merge on the card: one cache cut into 16
+    position blocks, one launch a block at positions less its offset
+    (``return_lse``), the blocks merged by ``tensor_parallel.merge``,
+    against one launch over the whole cache: o within TOL[dtype], lse
+    within it where finite and -inf at the same (slot, head)s, no NaN; at
+    smollm-135m's tick (16 slots of 1,024), mistral-large-123b's decode_32k
+    rank share (8 slots of 32,768, 96 / 8 heads of 128) and gemma2-9b's
+    heads (8 slots of 8,192, 16 / 8 heads of 256, window 4096, softcap 50);
+    a slot at position 0 and one inside the first block (every later block
+    empty), one at the last position, a dead slot. Every call launches the
+    kernel."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import decode_attention as da
+
+    n = 16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for tag, B, S, H, K, D, kw in (
+            ("smollm 16 x 1024, 9 / 3 x 64", 16, 1024, 9, 3, 64, {}),
+            ("large 8 x 32768, 96 / 8 x 128", 8, 32768, 96, 8, 128, {}),
+            ("gemma2 8 x 8192, 16 / 8 x 256, window 4096, softcap 50", 8,
+             8192, 16, 8, 256, dict(window=4096, softcap=50.0))):
+        q, kc, vc = rnd(B, 1, H, D), rnd(B, S, K, D), rnd(B, S, K, D)
+        pos = torch.randint(0, S, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pos[0], pos[1], pos[2] = 0, S - 1, S // n // 2
+        live = torch.arange(B, device=dev) != 3
+        before = da.decode_attention.launches
+        o_w, l_w = da.decode_attention(q, kc, vc, pos, live=live,
+                                       return_lse=True, **kw)
+        size = S // n
+        parts = [da.decode_attention(
+            q, kc[:, c * size:(c + 1) * size].contiguous(),
+            vc[:, c * size:(c + 1) * size].contiguous(), pos - c * size,
+            live=live, return_lse=True, **kw) for c in range(n)]
+        o_m, l_m = tp.merge(torch.stack([o for o, _ in parts]),
+                            torch.stack([lse for _, lse in parts]))
+        torch.cuda.synchronize()
+        check(da.decode_attention.launches - before == n + 1,
+              f"[kernels] lse merge {tag}: the kernel did not run each call")
+        err, scale = max_err(o_m, o_w)
+        tol = TOL[dtype] * (1 + scale)
+        fin = torch.isfinite(l_w)
+        same_empty = torch.equal(fin, torch.isfinite(l_m)) and \
+            not bool(fin[3].any()) and bool(torch.isfinite(o_m).all())
+        l_err, l_scale = max_err(l_m[fin], l_w[fin])
+        l_tol = TOL[dtype] * (1 + l_scale)
+        check(err <= tol and l_err <= l_tol and same_empty,
+              f"[kernels] lse merge {tag} {dtype}: o {err:.3g} (tol "
+              f"{tol:.3g}), lse {l_err:.3g} (tol {l_tol:.3g}), empty rows "
+              f"alike {same_empty}")
+        print(f"[kernels] decode_attention lse, 16 blocks merged against "
+              f"the whole cache, {tag} {str(dtype).replace('torch.', '')}: "
+              f"o max_abs_err {err:.3e} (tol {tol:.2e}), lse {l_err:.3e} "
+              f"(tol {l_tol:.2e}); the dead slot's lse -inf and o 0",
+              flush=True)
+        del q, kc, vc, parts
+
+
 def max_err(got, want) -> tuple[float, float]:
     """(max |got - want|, max |want|) over a tensor or a tuple of them."""
     if isinstance(got, torch.Tensor):
@@ -1277,6 +1402,14 @@ def phase_kernels(cfg, dev) -> dict:
               f"d_head 256 {dtype}: the ring tick differs from the dense tick")
         print(f"[kernels] d_head 256 {dtype}: the ring tick equals the dense "
               "tick with the same window, bit for bit", flush=True)
+    # the dense decode kernel with its log-sum-exp: the serve step's rank
+    # share and its split and merge
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        for c in lse_cases(dtype, dev, gen):
+            rows[c["name"]] = measure(c, dtype, timer)
+        lse_merge_checks(dtype, dev, gen)
+        _free()
     return rows
 
 
@@ -4584,10 +4717,15 @@ def phase_roofline(counts: dict, ms: dict) -> None:
 # ---------------------------------------------------------------------------
 
 # (label, ColA mode, step kind, the whole batch's rows, sequence): the
-# dry-run's train_4k (Mode B, as its fused_fit) and prefill_32k cells
+# dry-run's train_4k (Mode B, as its fused_fit), prefill_32k and decode_32k
+# cells (a serve-step tick against the 32,768-position cache)
 TP_CELLS = (("train_4k", "fused_fit", "train", 256, 4096),
-            ("prefill_32k", "fused_fit", "prefill", 32, 32768))
+            ("prefill_32k", "fused_fit", "prefill", 32, 32768),
+            ("decode_32k", None, "decode", 128, 32768))
 TP_HEADS = (6, 1, 128)   # a rank's query heads, KV heads, d_head on 16
+# a tick's decode launches: every head, over the rank's 2,048 positions
+TP_DECODE = (96, 8, 128, 2048)
+TP_TICKS = 5
 ATTN_KERNELS = ("flash_attention", "bwd_dq", "bwd_dkv")
 
 
@@ -4618,28 +4756,31 @@ def _rank_blocks(mesh, shaped: dict, specs: dict, gen, dev, std) -> dict:
 
 
 class _HeadRecorder:
-    """Records the (query heads, KV heads, d_head) of every flash launch
-    while active: each wrapper is replaced by one that notes its shapes and
-    calls it (its launch counter keeps counting: the wrapper reads its
-    counter by its module's name)."""
+    """Records the (query heads, KV heads, d_head, key positions) of every
+    flash and dense decode launch while active: each wrapper is replaced by
+    one that notes its shapes and calls it (its launch counter keeps
+    counting: the wrapper reads its counter by its module's name)."""
 
     def __enter__(self):
+        from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import flash_attention as fa
 
-        self.fa, self.seen = fa, collections.Counter()
-        self.orig = {n: getattr(fa, n) for n in ATTN_KERNELS}
-        for n, f in self.orig.items():
+        self.seen = collections.Counter()
+        self.orig = [(fa, n, getattr(fa, n)) for n in ATTN_KERNELS]
+        self.orig.append((da, "decode_attention", da.decode_attention))
+        for mod, n, f in self.orig:
             def rec(q, k, *a, _n=n, _f=f, **kw):
-                self.seen[_n, q.shape[2], k.shape[2], q.shape[3]] += 1
+                self.seen[_n, q.shape[2], k.shape[2], q.shape[3],
+                          k.shape[1]] += 1
                 return _f(q, k, *a, **kw)
             rec.launches = f.launches
-            setattr(fa, n, rec)
+            setattr(mod, n, rec)
         return self
 
     def __exit__(self, *exc):
-        for n, f in self.orig.items():
-            f.launches = getattr(self.fa, n).launches
-            setattr(self.fa, n, f)
+        for mod, n, f in self.orig:
+            f.launches = getattr(mod, n).launches
+            setattr(mod, n, f)
 
 
 def tensor_parallel_main(out_path: str) -> int:
@@ -4648,7 +4789,9 @@ def tensor_parallel_main(out_path: str) -> int:
     once and move no data) on a 16 x 16 mesh of the card, mistral-large-123b
     at full width and depth, its leaves the rank's blocks drawn on the card;
     each cell of ``TP_CELLS`` through the step builders, launches and peak
-    counted; the numbers written to ``out_path``."""
+    counted (the serve step: ``TP_TICKS`` timed ticks after a warm-up, the
+    collectives of a recorded tick and whether each cache block was updated
+    in place); the numbers written to ``out_path``."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -4704,6 +4847,10 @@ def tensor_parallel_main(out_path: str) -> int:
                 batch = _dist_batch(cfg, rows, seq, SEED + 40, dev)
                 step = (lambda: fn(P, A, batch))
                 fn(P, A, batch)   # warm-up
+            elif kind == "decode":
+                res[label] = _tp_decode(cfg, mesh, P, gen, dev, rows, seq,
+                                        tag)
+                continue
             else:
                 fn, _ = steps.make_prefill_step(cfg, mesh)
                 toks = torch.as_tensor(np.random.default_rng(SEED + 41)
@@ -4744,6 +4891,72 @@ def tensor_parallel_main(out_path: str) -> int:
     return 0
 
 
+def _tp_decode(cfg, mesh, P, gen, dev, rows: int, seq: int, tag: str
+               ) -> dict:
+    """decode_32k's rank share through ``make_serve_step``: the cache the
+    rank's block under ``cache_shardings`` (8 slots x 2,048 positions of
+    32,768, every layer) drawn on the card, every slot's position in the
+    last 2,048 (so rank 0's block is wholly live); a tick under the
+    collective recorder (no collective may move a KV leaf, every block must
+    come back as the same storage), a warm-up, then ``TP_TICKS`` ticks, each
+    timed and its launches and decode shapes counted."""
+    from repro_torch.analysis import collectives
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import steps
+    from repro_torch.models import model as model_lib
+
+    fn, _ = steps.make_serve_step(cfg, mesh)
+    cspec, _ = steps.serve_shardings(cfg, mesh, rows, seq)
+    shaped = {st: {n: torch.empty(shape, dtype=dt, device="meta")
+                   for n, (shape, dt) in leaves.items()}
+              for st, leaves in model_lib.cache_specs(cfg, rows,
+                                                      seq).items()}
+    C = _rank_blocks(mesh, shaped, cspec, gen, dev, lambda p, leaf: 0.5)
+    held = sum(x.numel() * x.element_size() for x in _local_leaves(C))
+    rng = np.random.default_rng(SEED + 42)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (rows, 1)).astype(np.int32), device=dev),
+        "positions": torch.as_tensor(rng.integers(
+            seq - 2048, seq, rows).astype(np.int32), device=dev)}
+    before = {(st, n): d.to_local().untyped_storage().data_ptr()
+              for st, leaves in C.items() for n, d in leaves.items()}
+    rec = collectives.CollectiveRecorder()
+    with rec:
+        _, new = fn(P, C, batch)
+    in_place = all(new[st][n].to_local().untyped_storage().data_ptr() == p
+                   and new[st][n].placements == sh.placements(
+                       mesh, cspec[st][n])
+                   for (st, n), p in before.items())
+    moves = collectives.by_leaf(rec.records)
+    del new, rec
+    fn(P, C, batch)   # warm-up
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms, per_tick = [], []
+    with _HeadRecorder() as heads:
+        for _ in range(TP_TICKS):
+            t0 = time.perf_counter()
+            out, launches = _counted(lambda: fn(P, C, batch))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per_tick.append({k: v for k, v in launches.items() if v})
+            del out
+    peak = torch.cuda.max_memory_allocated(dev)
+    p50 = statistics.median(ms)
+    print(f"{tag} decode_32k (serve step, greedy): the rank's share, "
+          f"{rows // 16} slots x 2,048 of {seq} positions, its cache blocks "
+          f"{held / 2**30:.3f} GiB: tick p50 {p50:.2f} ms over {TP_TICKS} "
+          f"ticks ({', '.join(f'{t:.2f}' for t in ms)}; the collectives' "
+          f"time left out); peak memory {peak / 2**30:.2f} GiB; launches a "
+          f"tick {per_tick[0]}; decode launches by (kernel, query heads, KV "
+          f"heads, d_head, positions): {dict(heads.seen)}; cache leaves "
+          f"moved by a collective: {moves or 'none'}; every block updated "
+          f"in place: {in_place}; {card_line()}", flush=True)
+    return {"ms": p50, "ticks": ms, "peak": peak, "launches": per_tick,
+            "heads": [list(k) + [v] for k, v in heads.seen.items()],
+            "rows": rows // 16, "seq": seq, "cache_bytes": held,
+            "moves": moves, "in_place": in_place}
+
+
 def _local_leaves(tree) -> list:
     out: list = []
 
@@ -4762,8 +4975,11 @@ def phase_tensor_parallel(dev) -> dict:
     mistral-large-123b's 16 x 16 mesh through the step builders. Checks that
     each step's flash launches are exactly the rank's (train: M x L x 2
     forwards with the recompute, M x L dq and dk/dv; prefill: L forwards),
-    every one at 6 query heads and 1 KV head of 128; returns the launches
-    of both steps."""
+    every one at 6 query heads and 1 KV head of 128, and that every serve
+    tick launches the dense decode kernel L times at 96 query / 8 KV heads
+    of 128 over the rank's 2,048 positions and nothing else, moves no KV
+    leaf and updates every cache block in place, at a peak below 20 GiB;
+    returns the launches of every step."""
     tag = "[tensor-parallel]"
     out = ROOT / "build" / "chip_smoke_tp.json"
     out.unlink(missing_ok=True)
@@ -4777,6 +4993,23 @@ def phase_tensor_parallel(dev) -> dict:
     L, total = 88, collections.Counter()
     for label, mode, kind, rows, seq in TP_CELLS:
         r = res[label]
+        if kind == "decode":
+            want = {"decode_attention": L}
+            check(all(t == want for t in r["launches"]),
+                  f"{tag} {label} launched {r['launches']}, not {want} a "
+                  f"tick")
+            check(all(tuple(h[1:5]) == TP_DECODE for h in r["heads"])
+                  and sum(h[5] for h in r["heads"]) == L * TP_TICKS,
+                  f"{tag} {label}: decode ran at {r['heads']}, not "
+                  f"{TP_DECODE}")
+            check(not [k for k in r["moves"] if k.endswith((".k", ".v"))]
+                  and r["in_place"],
+                  f"{tag} {label}: a KV leaf moved ({r['moves']}) or a block "
+                  f"came back other than in place ({r['in_place']})")
+            check(r["peak"] < 20 * 2**30,
+                  f"{tag} {label}: peak {r['peak'] / 2**30:.2f} GiB")
+            total.update({k: v * TP_TICKS for k, v in want.items()})
+            continue
         m = r["microbatches"]
         want = ({"flash_attention": 2 * m * L, "flash_attention_bwd_dq": m * L,
                  "flash_attention_bwd_dkv": m * L} if kind == "train"
@@ -4784,7 +5017,7 @@ def phase_tensor_parallel(dev) -> dict:
         got = {k: v for k, v in r["launches"].items() if v}
         check(got == want, f"{tag} {label} launched {got}, not {want}")
         check(all(tuple(h[1:4]) == TP_HEADS for h in r["heads"])
-              and sum(h[4] for h in r["heads"]) == sum(want.values()),
+              and sum(h[5] for h in r["heads"]) == sum(want.values()),
               f"{tag} {label}: flash ran at {r['heads']}, not {TP_HEADS}")
         total.update(got)
     return dict(total)

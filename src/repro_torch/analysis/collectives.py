@@ -10,10 +10,13 @@ A record is one issued collective: ``op`` in XLA's words (``all-gather``,
 whole gathered tensor, the bytes a ring all-gather moves through each
 rank's links; an all-reduce moves about twice its size (reduce-scatter +
 all-gather), which ``total_bytes`` and ``breakdown`` count, as JAX does.
+A record issued inside ``labelled(name)`` also carries ``"of": name`` (the
+serve step labels its moves of cache leaves so), which ``by_leaf`` sums.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -39,6 +42,20 @@ _XLA_NAMES = {
     "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
     "broadcast": "broadcast", "broadcast_": "broadcast",
 }
+
+
+_LABELS: list[str] = []
+
+
+@contextlib.contextmanager
+def labelled(name: str):
+    """Collectives recorded while active carry ``"of": name``: the leaf a
+    step moves."""
+    _LABELS.append(name)
+    try:
+        yield
+    finally:
+        _LABELS.pop()
 
 
 def _tensors(x):
@@ -86,10 +103,12 @@ class CollectiveRecorder(TorchDispatchMode):
         op = collective_name(func)
         if op is not None:
             res = list(_tensors(args[0] if func.namespace == "c10d" else out))
-            self.records.append({
-                "op": op, "shapes": [_sig(t) for t in res],
-                "bytes": sum(size_bound(t.numel()) * t.element_size()
-                             for t in res)})
+            rec = {"op": op, "shapes": [_sig(t) for t in res],
+                   "bytes": sum(size_bound(t.numel()) * t.element_size()
+                                for t in res)}
+            if _LABELS:
+                rec["of"] = _LABELS[-1]
+            self.records.append(rec)
         return out
 
 
@@ -106,6 +125,16 @@ def bytes_by_op(records: list[dict]) -> dict[str, float]:
     out: dict[str, float] = {}
     for r in records:
         out[r["op"]] = out.get(r["op"], 0.0) + _factor(r["op"]) * r["bytes"]
+    return out
+
+
+def by_leaf(records: list[dict]) -> dict[str, dict[str, float]]:
+    """{leaf: {op: bytes}} of the labelled records (``labelled``)."""
+    out: dict[str, dict[str, float]] = {}
+    for r in records:
+        if "of" in r:
+            ops = out.setdefault(r["of"], {})
+            ops[r["op"]] = ops.get(r["op"], 0.0) + _factor(r["op"]) * r["bytes"]
     return out
 
 

@@ -17,8 +17,10 @@ Execution, as this port runs it:
   and the dense MLP's products (o and down by output columns over their
   gathered inputs), attends over its own query heads, and holds its vocab
   range of the embedding, the head and the CE. Where a split does not fit,
-  that part is replicated over "model" (the MoE and SSM blocks always; the
-  serve step's every product).
+  that part is replicated over "model" (the MoE and SSM blocks always). The
+  serve step computes every head on every rank (q / k / v gathered) against
+  its block of a KV cache that the rules split by sequence, the ranks'
+  blocks merged (``tensor_parallel.merge``).
 - **Parameters, adapters, caches** come as DTensors at the rules' placements
   (``sharding.distribute``, or ``sharding.wrap`` of a rank's blocks) or as
   plain tensors (whole: the rank's block is copied out). The model takes
@@ -33,8 +35,9 @@ Execution, as this port runs it:
   microbatch axis, each rank's block as the model collected it; tokens or
   logits by ``batch_shardings`` (a prefill's logits the rank's vocab
   columns); caches by ``cache_shardings`` (a prefill's K and V made whole
-  over the KV heads a layer at a time). The loss is a plain scalar, the
-  whole batch's, on every rank.
+  over the KV heads a layer at a time; the serve step's KV blocks updated
+  in place and wrapped as they are). The loss is a plain scalar, the whole
+  batch's, on every rank.
 - **The loss over split rows** is the whole batch's masked mean: the CE
   sums and counts (and the MoE router's statistics) are reduced over the
   batch ranks inside ``activation_rules(local_rows=True)``, and each rank
@@ -60,6 +63,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.analysis import collectives
 from repro_torch.configs.base import ColaConfig, ModelConfig
 from repro_torch.core import gl
 from repro_torch.distributed import sharding as sh
@@ -147,23 +151,31 @@ def _use(tree):
     return tree_map(sh.gathered, tree)
 
 
-def _blocks(mesh: DeviceMesh, tree, specs) -> dict:
-    """Each leaf's block on this rank under its spec: a DTensor's local
-    tensor, a plain (whole) tensor's block copied out (``sharding.place``;
+def _block(mesh: DeviceMesh, x, spec) -> torch.Tensor:
+    """A leaf's block on this rank under ``spec``: a DTensor's local tensor
+    (itself where it comes at the spec's placements, else redistributed
+    first), a plain (whole) tensor's block copied out (``sharding.place``;
     at one rank the tensor itself)."""
-    return sh.map_with_specs(
-        lambda x, s: (x if isinstance(x, DTensor) else sh.place(mesh, x, s)
-                      ).to_local(), tree, specs)
+    if not isinstance(x, DTensor):
+        return sh.place(mesh, x, spec).to_local()
+    want = sh.placements(mesh, spec)
+    if tuple(x.placements) != want:
+        x = x.redistribute(mesh, want)
+    return x.to_local()
 
 
-def _plan(cfg: ModelConfig, mesh: DeviceMesh, rows: "_Rows", ps, ash=None,
-          split: bool = True) -> tp.Plan:
+def _blocks(mesh: DeviceMesh, tree, specs) -> dict:
+    """``_block`` of every leaf of ``tree`` at its spec in ``specs``."""
+    return sh.map_with_specs(lambda x, s: _block(mesh, x, s), tree, specs)
+
+
+def _plan(cfg: ModelConfig, mesh: DeviceMesh, rows: "_Rows", ps, ash=None
+          ) -> tp.Plan:
     """The call's tensor-parallel plan: gradients partial over the batch
     axes where the rows are split."""
     return tp.Plan(cfg, mesh, cfg.shard_policy,
                    partial=rows.axes if rows.split else (), param_specs=ps,
-                   adapter_specs=ash, sites=model_lib.tap_sites(cfg),
-                   split=split)
+                   adapter_specs=ash, sites=model_lib.tap_sites(cfg))
 
 
 def _compute_placements(mesh: DeviceMesh, rows: _Rows, bdim: int,
@@ -341,17 +353,42 @@ def make_train_step(cfg: ModelConfig, cc: ColaConfig, mesh: DeviceMesh):
 # serve step (decode)
 # ---------------------------------------------------------------------------
 
-def _place_tree(mesh, tree, specs, rows, bdim_of):
-    return sh.map_with_specs(
-        lambda x, s: _place_rows(mesh, x, s, rows, bdim_of(x)), tree, specs)
+def _cache_split(mesh: DeviceMesh, rows: _Rows, spec,
+                 whole: int) -> tp.CacheSplit | None:
+    """The rank's block of a KV leaf (n, B, S, K, Dh) at ``spec`` as a
+    sequence split: its rows are the rows the rank computes and no dim but
+    the sequence splits otherwise. None where the placement is not one (the
+    sequence unsplit and another dim split, or rows split over other axes,
+    as under "dp")."""
+    shape = sh.mesh_shape(mesh)
+
+    def axes(entry):
+        return tuple(a for a in sh._entry_axes(entry) if shape[a] > 1)
+
+    want_rows = tuple(a for a in rows.axes if shape[a] > 1) if rows.split \
+        else ()
+    if axes(spec[1]) != want_rows or any(axes(spec[d]) for d in (0, 3, 4)):
+        return None
+    seq = axes(spec[2])
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    n, idx = 1, 0
+    for a in seq:
+        idx, n = idx * shape[a] + coord[a], n * shape[a]
+    size = whole // n
+    return tp.CacheSplit(seq, n, idx * size, size, whole)
 
 
 def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
     """fn(params, cache, batch) -> (tokens | logits, new cache). The
-    parameters are gathered a layer at a time and no product is split over
-    "model". The cache's leaves (n, B, ...) are updated in place where the
-    rank computes on them as they are (one rank), else the new cache is
-    placed anew."""
+    parameters are gathered a layer at a time and the products split over
+    "model" as in the prefill (q / k / v then gathered to every head, the
+    vocab split for the embedding, the head and the greedy argmax). A KV
+    leaf that ``cache_shardings`` places with its sequence split (and its
+    rows the rank's computed rows) stays the rank's block: updated in place
+    and returned at its spec, never gathered; the ranks' attention over
+    their blocks is merged. Any other cache leaf (the SSM conv and state, a
+    KV leaf split otherwise) is taken to the rank's rows whole and placed
+    anew."""
     policy = cfg.shard_policy
     ps = sh.params_shardings(mesh, shaped_params(cfg), policy=policy)
 
@@ -361,18 +398,41 @@ def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
         rows = _Rows(mesh, policy, B)
         _check_groups(cfg, rows, 1)
         cspec = sh.cache_shardings(mesh, cache)
-        local = tree_map(lambda c: _rows_of(mesh, c, rows, 1), cache)
-        plan = _plan(cfg, mesh, rows, ps, split=False)
+        plan = _plan(cfg, mesh, rows, ps)
+        local = {}
+        for stack, leaves in cache.items():
+            split = (_cache_split(mesh, rows, cspec[stack]["k"],
+                                  leaves["k"].shape[2])
+                     if "k" in leaves else None)
+            if split is not None:
+                plan.cache_splits[stack] = split
+                local[stack] = _blocks(mesh, leaves, cspec[stack])
+                continue
+            local[stack] = {}
+            for n, c in leaves.items():
+                with collectives.labelled(f"cache.{stack}.{n}"):
+                    local[stack][n] = _rows_of(mesh, c, rows, 1)
         with sh.activation_rules(mesh, policy, local_rows=rows.split,
                                  plan=plan):
             logits, local = model_lib.decode_step(
                 cfg, _blocks(mesh, params, ps), rows.take(batch), local)
-        out = (torch.argmax(logits, dim=-1).to(torch.int32) if greedy
-               else logits)
+        vocab = plan.head is not None
+        if greedy:
+            out = (tp.vocab_argmax(plan, logits) if vocab else
+                   torch.argmax(logits, dim=-1).to(torch.int32))
+        else:
+            out = logits
+        mdim = out.dim() - 1 if vocab and not greedy else None
         ospec = sh.batch_shardings(mesh, {"out": _global_shape(out, rows)},
                                    policy=policy)["out"]
-        return (_place_rows(mesh, out, ospec, rows, 0),
-                _place_tree(mesh, local, cspec, rows, lambda _: 1))
+        new = {}
+        for stack, leaves in local.items():
+            new[stack] = {
+                n: (sh.wrap(mesh, x, cspec[stack][n], cache[stack][n].shape)
+                    if stack in plan.cache_splits else
+                    _place_rows(mesh, x, cspec[stack][n], rows, 1))
+                for n, x in leaves.items()}
+        return _place_rows(mesh, out, ospec, rows, 0, mdim), new
 
     return fn, ps
 

@@ -42,6 +42,18 @@ how each product is laid out (``current``, ``tap_layout``):
 - **Megatron's f.** A split region's input is ``copy_in`` (the identity,
   its gradient summed over "model"); its output is ``gather_out`` (the
   columns all-gathered, the gradient's own columns kept).
+- **Decode** (the serve step): q / k / v come from the split products and
+  are all-gathered to every head (a tick's B x H x d_head is small, so no
+  head count need divide over "model"). A KV cache whose sequence the rules
+  split (``cache_shardings``: over "model", or the batch axes and "model"
+  where the rows do not divide) stays the rank's block (``CacheSplit``):
+  the rank writes the new token's K / V only where its block holds the
+  position, attends its block for every head (the decode kernel at
+  positions shifted by the block's offset, with its log-sum-exp), and the
+  ranks' (o, lse) are all-gathered over the split's axes and merged
+  (``merge``): every rank merges the same tensors in rank order, so all get
+  the same bits. The merged heads feed the o product whole. The greedy
+  token is the argmax across the vocab ranks (``vocab_argmax``).
 - **Adapters and taps** (``tap_layout``): every tap of a split part applies
   ``x A B_rank`` to its own output columns (B's columns are split as its
   product's). A Mode-A delta and a collected input are always the rank's
@@ -50,10 +62,9 @@ how each product is laid out (``current``, ``tap_layout``):
 
 Where a split does not fit (the heads, d_model or the vocab do not divide,
 a split cuts a head or a GQA group, codebooks), the part's leaves are gathered over "model" too and its compute
-is replicated over "model", as every MoE and SSM block's is. A plan made
-with ``split=False`` (the serve step) gathers every leaf whole, a layer at
-a time, and splits no product. With one rank on every axis nothing is
-gathered or split: the model runs on the tensors themselves.
+is replicated over "model", as every MoE and SSM block's is. With one rank
+on every axis nothing is gathered or split: the model runs on the tensors
+themselves.
 """
 from __future__ import annotations
 
@@ -251,6 +262,35 @@ class TapLayout:
         return torch.nn.functional.pad(d, (lo, width - hi))
 
 
+@dataclasses.dataclass(frozen=True)
+class CacheSplit:
+    """A stack's KV cache as the rank holds it in the serve step: positions
+    [offset, offset + size) of a ``whole``-position cache, for the rows it
+    computes; the sequence split over ``axes`` (major first, ``n`` ranks in
+    all)."""
+    axes: tuple[str, ...]
+    n: int
+    offset: int
+    size: int
+    whole: int
+
+
+def merge(o: torch.Tensor, lse: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The n blocks' attention merged in rank order: o (n, B, 1, H, Dh) and
+    lse (n, B, H) f32 each block's normalised output and log-sum-exp;
+    lse = logsumexp_c lse_c and o = sum_c e^(lse_c - M) o_c / sum_c
+    e^(lse_c - M), M the largest lse_c. A block at -inf (no key it may see)
+    weighs zero; a row empty in every block gives o = 0, lse = -inf, no
+    NaN."""
+    m = lse.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)          # (n, B, H): 0 at -inf, 1 at the largest
+    s = w.sum(dim=0)                # >= 1, or 0 where every block is empty
+    out = (w[:, :, None, :, None] * o).sum(dim=0)
+    return out / s.clamp(min=1.0)[:, None, :, None], m + torch.log(s)
+
+
 def _model_major(entry) -> bool:
     axes = sh._entry_axes(entry)
     return bool(axes) and axes[0] == "model"
@@ -262,18 +302,17 @@ class Plan:
     ``partial``: the batch axes over which this call's rows are split (a
     gradient is partial over them); ``param_specs`` / ``adapter_specs``: the
     rules' specs of the parameter and adapter trees; ``sites``: the model's
-    tap sites; ``split``: whether the products are split over "model"
-    (False: every leaf gathered whole)."""
+    tap sites; ``cache_splits``: the serve step's KV caches held by
+    sequence block, by stack (set by the step)."""
 
     def __init__(self, cfg, mesh, policy: str, *, partial=(),
-                 param_specs=None, adapter_specs=None, sites=None,
-                 split: bool = True):
+                 param_specs=None, adapter_specs=None, sites=None):
         self.mesh = mesh
         self.shape = sh.mesh_shape(mesh)
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         self.partial = tuple(a for a in partial if self.shape[a] > 1)
         n = self.shape.get("model", 1)
-        tp = split and policy != "dp" and n > 1
+        tp = policy != "dp" and n > 1
         self.n = n if tp else 1
         self.c = self.coord.get("model", 0) if tp else 0
         self.group = mesh.get_group("model") if tp else None
@@ -283,6 +322,7 @@ class Plan:
             if specs is not None:
                 sh._map(lambda p, s: flat.__setitem__(sh._path_str(p), s),
                         specs)
+        self.cache_splits: dict[str, CacheSplit] = {}
         self.attn = self._attn(cfg, flat) if tp else None
         self.mlp = tp and self._mlp(cfg, flat)
         self.embed = self._vocab(cfg, flat, "embed") if tp else None
@@ -470,6 +510,23 @@ class Plan:
             t = t[..., ::self.attn.shared, :]
         return t
 
+    def whole_heads(self, y: torch.Tensor) -> torch.Tensor:
+        """A decode tick's q, k or v product (the rank's columns under a
+        split attention) with every head's columns."""
+        return y if self.attn is None else self.gather_cols(y)
+
+    def merge_blocks(self, o: torch.Tensor, lse: torch.Tensor,
+                     split: CacheSplit) -> torch.Tensor:
+        """Every rank's (o, lse) of its cache block, all-gathered over the
+        split's axes (the minor first, so block c lands at c) and merged
+        (``merge``): the whole cache's attention, o in f32."""
+        o, lse = o[None], lse[None]
+        for a in reversed(split.axes):
+            n, g = self.shape[a], self.mesh.get_group(a)
+            if n > 1:
+                o, lse = _all_gather(o, 0, g, n), _all_gather(lse, 0, g, n)
+        return merge(o, lse)[0]
+
     def tap_layout(self, tap: str) -> TapLayout | None:
         """The tap's Mode-A blocks where the plan splits over "model"."""
         if self.n == 1:
@@ -579,6 +636,26 @@ def head_input(h: torch.Tensor) -> torch.Tensor:
 def vocab_head() -> Plan | None:
     p = current()
     return p if p is not None and p.head is not None else None
+
+
+def cache_split(stack: str) -> CacheSplit | None:
+    """Stack ``stack``'s cache split by sequence in the serve step, else
+    None."""
+    p = current()
+    return None if p is None else p.cache_splits.get(stack)
+
+
+def vocab_argmax(p: Plan, logits: torch.Tensor) -> torch.Tensor:
+    """``torch.argmax(logits, -1)`` of the whole vocab, int32, from ``logits``
+    (..., V / n) the rank's columns: each rank's largest value and its first
+    index, all-gathered over "model"; the first rank holding the largest
+    value gives the index (the whole row's first, as ``torch.argmax``)."""
+    lo, _ = p.head
+    val, idx = logits.amax(dim=-1), logits.argmax(dim=-1)
+    vals = _all_gather(val[None], 0, p.group, p.n)
+    idxs = _all_gather((idx + lo).to(torch.int32)[None], 0, p.group, p.n)
+    first = (vals == vals.amax(dim=0)).to(torch.int8).argmax(dim=0)
+    return idxs.gather(0, first[None])[0]
 
 
 def vocab_ce(p: Plan, lf: torch.Tensor, labels: torch.Tensor

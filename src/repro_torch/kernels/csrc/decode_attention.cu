@@ -76,6 +76,16 @@
 // not a power of two, so a row takes the next power of two of lanes (16,
 // 32) and the lanes past its columns load nothing, add zeros to every sum
 // and write nothing; the reductions then never mix two rows' lanes.
+//
+// The log-sum-exp (dense entry only, when the caller gives lse (B, H) f32):
+// the block that finishes a slot (its one live split, or the merging block)
+// also writes lse = M + log(l) of each head, and o in f32 instead of T, so a
+// merge of several caches' results (a KV cache split by position across
+// ranks) never sees a rounded partial. An empty slot (dead, or hi < lo)
+// writes o = 0 and lse = -inf. A rank holding positions [c S_b, (c+1) S_b)
+// of a cache passes positions - c S_b: the causal and window masks depend on
+// differences only, a block past the query gets hi < lo (empty), and a block
+// wholly before it is live to its end through the clamp hi = min(p, Smax - 1).
 #include "common.cuh"
 
 // positions per split (one block) and warps per block. SPLIT 128 with 8
@@ -191,9 +201,9 @@ template <typename T, int DH, bool RING>
 __global__ void __launch_bounds__(NT) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
     const int* __restrict__ pos, const uint8_t* __restrict__ live,
-    const int* __restrict__ table, int bs, T* __restrict__ o, float* ws,
-    int* counters, int Smax, int H, int KH, float scale, int window,
-    float softcap) {
+    const int* __restrict__ table, int bs, T* __restrict__ o,
+    float* __restrict__ o32, float* __restrict__ lse, float* ws, int* counters,
+    int Smax, int H, int KH, float scale, int window, float softcap) {
   using W = Walk<T, DH>;
   extern __shared__ __align__(16) float smem[];
   __shared__ int last_s;
@@ -202,12 +212,23 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // q and o are (B, 1, H, DH): the group's G heads are contiguous
   const size_t base = ((size_t)b * H + (size_t)kh * G) * DH;
+  // with lse, o goes out in f32 (o32), and each head's lse beside it
+  auto put = [&](int f, float x) {
+    if (lse != nullptr)
+      o32[base + f] = x;
+    else
+      o[base + f] = from_f32<T>(x);
+  };
+  float* lse_g = lse == nullptr ? nullptr : lse + (size_t)b * H + (size_t)kh * G;
   const int p = pos[b];
   const int hi = min(p, Smax - 1);
   const int lo = window > 0 ? max(0, p - window + 1) : 0;
   if ((live != nullptr && live[b] == 0) || hi < lo) {
-    if (split == 0)
-      for (int f = tid; f < G * DH; f += NT) o[base + f] = from_f32<T>(0.f);
+    if (split == 0) {
+      for (int f = tid; f < G * DH; f += NT) put(f, 0.f);
+      if (lse_g != nullptr)
+        for (int g = tid; g < G; g += NT) lse_g[g] = __int_as_float(0xff800000);
+    }
     return;
   }
   // the live splits: every block of the slot computes the same range
@@ -360,7 +381,8 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       l = fmaf(e, l_s[w * G + g], l);
     }
     if (n_live == 1) {
-      o[base + f] = from_f32<T>(a / l);
+      put(f, a / l);
+      if (lse_g != nullptr && f % DH == 0) lse_g[g] = M + logf(l);
     } else {
       part[f] = a;
       if (f % DH == 0) {
@@ -396,14 +418,15 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       a = fmaf(e, __ldcg(ps + f), a);
       l = fmaf(e, __ldcg(ps + G * DH + G + g), l);
     }
-    o[base + f] = from_f32<T>(a / l);
+    put(f, a / l);
+    if (lse_g != nullptr && f % DH == 0) lse_g[g] = M + logf(l);
   }
 }
 
 template <typename T, int DH, bool RING>
 int launch(const void* q, const void* k, const void* v, const int* pos,
-           const uint8_t* live, const int* table, int bs, void* o, float* ws,
-           int* counters, int B, int Smax, int H, int KH, float scale,
+           const uint8_t* live, const int* table, int bs, void* o, float* lse,
+           float* ws, int* counters, int B, int Smax, int H, int KH, float scale,
            int window, float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / KH, DH);
   // the 48 KB a launch may take without the attribute holds the static
@@ -417,23 +440,24 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
   dim3 grid((Smax + SPLIT - 1) / SPLIT, KH, B);
   decode_split_kernel<T, DH, RING><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      pos, live, table, bs, static_cast<T*>(o), ws, counters, Smax, H, KH, scale,
-      window, softcap);
+      pos, live, table, bs, lse == nullptr ? static_cast<T*>(o) : nullptr,
+      lse == nullptr ? nullptr : static_cast<float*>(o), lse, ws, counters, Smax, H,
+      KH, scale, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool RING>
 int dispatch_dh(int DH, const void* q, const void* k, const void* v, const int* pos,
-                const uint8_t* live, const int* table, int bs, void* o, float* ws,
-                int* cnt, int B, int Smax, int H, int KH, float scale, int window,
-                float softcap, cudaStream_t s) {
+                const uint8_t* live, const int* table, int bs, void* o, float* lse,
+                float* ws, int* cnt, int B, int Smax, int H, int KH, float scale,
+                int window, float softcap, cudaStream_t s) {
   switch (DH) {
-    case 16: return launch<T, 16, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
-    case 32: return launch<T, 32, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
-    case 64: return launch<T, 64, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
-    case 112: return launch<T, 112, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
-    case 128: return launch<T, 128, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
-    case 256: return launch<T, 256, RING>(q, k, v, pos, live, table, bs, o, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 16: return launch<T, 16, RING>(q, k, v, pos, live, table, bs, o, lse, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 32: return launch<T, 32, RING>(q, k, v, pos, live, table, bs, o, lse, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 64: return launch<T, 64, RING>(q, k, v, pos, live, table, bs, o, lse, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 112: return launch<T, 112, RING>(q, k, v, pos, live, table, bs, o, lse, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 128: return launch<T, 128, RING>(q, k, v, pos, live, table, bs, o, lse, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
+    case 256: return launch<T, 256, RING>(q, k, v, pos, live, table, bs, o, lse, ws, cnt, B, Smax, H, KH, scale, window, softcap, s);
     default: return -1;
   }
 }
@@ -441,41 +465,44 @@ int dispatch_dh(int DH, const void* q, const void* k, const void* v, const int* 
 template <bool RING>
 int dispatch(int dtype, int DH, int split, const void* q, const void* k,
              const void* v, const void* positions, const void* live,
-             const void* table, int bs, void* o, void* ws, void* counters, int B,
-             int Smax, int H, int KH, float scale, int window, float softcap,
+             const void* table, int bs, void* o, void* lse, void* ws, void* counters,
+             int B, int Smax, int H, int KH, float scale, int window, float softcap,
              void* stream) {
   if (split != SPLIT || ws == nullptr || counters == nullptr) return -1;
   const int* pos = static_cast<const int*>(positions);
   const uint8_t* lv = static_cast<const uint8_t*>(live);
   const int* tb = static_cast<const int*>(table);
   float* w = static_cast<float*>(ws);
+  float* ls = static_cast<float*>(lse);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return dispatch_dh<float, RING>(DH, q, k, v, pos, lv, tb, bs, o, w, cnt, B, Smax, H,
-                                    KH, scale, window, softcap, s);
+    return dispatch_dh<float, RING>(DH, q, k, v, pos, lv, tb, bs, o, ls, w, cnt, B, Smax,
+                                    H, KH, scale, window, softcap, s);
   if (dtype == DT_BF16)
-    return dispatch_dh<__nv_bfloat16, RING>(DH, q, k, v, pos, lv, tb, bs, o, w, cnt, B,
-                                            Smax, H, KH, scale, window, softcap, s);
+    return dispatch_dh<__nv_bfloat16, RING>(DH, q, k, v, pos, lv, tb, bs, o, ls, w, cnt,
+                                            B, Smax, H, KH, scale, window, softcap, s);
   return -1;
 }
 
 }  // namespace
 
-// live may be null (every slot live). workspace: at least
-// B * KH * ceil(Smax / split) * (H / KH) * (DH + 2) floats; counters: B * KH
-// int32, all zero (every launch leaves them so). split must be the kernel's
-// SPLIT. Returns cudaGetLastError() after the launch (0 on success), or -1
-// for a head dim, dtype or split the kernel does not take.
+// live may be null (every slot live). lse may be null; given, it is (B, H)
+// f32 and o is then (B, 1, H, DH) f32 whatever the inputs' dtype. workspace:
+// at least B * KH * ceil(Smax / split) * (H / KH) * (DH + 2) floats;
+// counters: B * KH int32, all zero (every launch leaves them so). split must
+// be the kernel's SPLIT. Returns cudaGetLastError() after the launch (0 on
+// success), or -1 for a head dim, dtype or split the kernel does not take.
 extern "C" int decode_attention(const void* q, const void* k_cache,
                                 const void* v_cache, const void* positions,
-                                const void* live, void* o, void* workspace,
-                                void* counters, int B, int Smax, int H, int KH,
-                                int DH, int dtype, int split, float scale,
-                                int window, float softcap, void* stream) {
+                                const void* live, void* o, void* lse,
+                                void* workspace, void* counters, int B, int Smax,
+                                int H, int KH, int DH, int dtype, int split,
+                                float scale, int window, float softcap,
+                                void* stream) {
   return dispatch<false>(dtype, DH, split, q, k_cache, v_cache, positions, live,
-                         nullptr, 1, o, workspace, counters, B, Smax, H, KH, scale,
-                         window, softcap, stream);
+                         nullptr, 1, o, lse, workspace, counters, B, Smax, H, KH,
+                         scale, window, softcap, stream);
 }
 
 // The paged layout: pools (n_blocks, bs, KH, DH), block_table (B, max_blocks)
@@ -491,8 +518,8 @@ extern "C" int decode_attention_paged(const void* q, const void* k_pool,
                                       int window, float softcap, void* stream) {
   if (bs < 8 || bs % 8 != 0 || block_table == nullptr) return -1;
   return dispatch<false>(dtype, DH, split, q, k_pool, v_pool, positions, live,
-                         block_table, bs, o, workspace, counters, B, max_blocks * bs, H,
-                         KH, scale, window, softcap, stream);
+                         block_table, bs, o, nullptr, workspace, counters, B,
+                         max_blocks * bs, H, KH, scale, window, softcap, stream);
 }
 
 // The ring layout: rings (B, w_ring, KH, DH), position t of slot b at ring
@@ -510,6 +537,6 @@ extern "C" int decode_attention_ring(const void* q, const void* k_ring,
                                      void* stream) {
   if (w_ring < 1 || window < 1 || window > w_ring) return -1;
   return dispatch<true>(dtype, DH, split, q, k_ring, v_ring, positions, live,
-                        nullptr, w_ring, o, workspace, counters, B, horizon, H, KH,
-                        scale, window, softcap, stream);
+                        nullptr, w_ring, o, nullptr, workspace, counters, B, horizon,
+                        H, KH, scale, window, softcap, stream);
 }

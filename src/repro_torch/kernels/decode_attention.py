@@ -15,6 +15,11 @@ each block of a slot with more than one live split writes its partial
 the last block to arrive, told by an int32 counter per (slot, kv head), merges
 them in split order. The counters are kept per device, made zero once (anew
 when ``B * KH`` grows), and every launch leaves them at zero.
+
+``decode_attention(..., return_lse=True)`` also gives each head's
+log-sum-exp (B, H) f32 and o in f32: the partials of a cache split by
+position over ranks, each rank's block attended with its positions shifted
+by the block's offset and merged by ``distributed.tensor_parallel.merge``.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ def _fn(name: str = "decode_attention"):
     fn = getattr(_build.load("decode_attention"), name)
     paged = name.endswith("_paged")   # + block_table; + bs
     ring = name.endswith("_ring")     # + w_ring
-    fn.argtypes = ([ctypes.c_void_p] * (9 if paged else 8)
+    # the dense entry's ninth pointer is lse, the paged one's block_table
+    fn.argtypes = ([ctypes.c_void_p] * (8 if ring else 9)
                    + [ctypes.c_int] * (8 if paged or ring else 7)
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
@@ -93,14 +99,16 @@ def _check_common(name: str, q, k, v, positions, live):
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, positions: torch.Tensor, *,
                      live: torch.Tensor | None = None, window: int | None = None,
-                     softcap: float | None = None, scale: float | None = None
-                     ) -> torch.Tensor:
+                     softcap: float | None = None, scale: float | None = None,
+                     return_lse: bool = False):
     """q: (B, 1, H, Dh); caches: (B, Smax, K, Dh); positions: (B,) int;
-    live: (B,) bool or None (all live). Returns (B, 1, H, Dh). CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    live: (B,) bool or None (all live). Returns (B, 1, H, Dh); with
+    ``return_lse``, (o in f32, lse (B, H) f32), an empty slot's o 0 and lse
+    -inf. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, positions, live=live, window=window,
-                     softcap=softcap, scale=scale)
+                     softcap=softcap, scale=scale, return_lse=return_lse)
     B, _, H, Dh = q.shape
     Smax, K = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
@@ -110,17 +118,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _build.require(k_cache.shape[0] == B, name,
                    f"cache batch {k_cache.shape[0]} != {B}")
 
-    o = torch.empty_like(q)
+    o = torch.empty_like(q, dtype=torch.float32 if return_lse else q.dtype)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     ws, cnt = _scratch(q, Smax, K)
     rc = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                pos.data_ptr(), None if live is None else live.data_ptr(),
-               o.data_ptr(), ws.data_ptr(), cnt.data_ptr(), B, Smax, H, K, Dh,
+               o.data_ptr(), None if lse is None else lse.data_ptr(),
+               ws.data_ptr(), cnt.data_ptr(), B, Smax, H, K, Dh,
                _build.DTYPE_CODES[q.dtype], SPLIT, float(scale),
                int(window or 0), float(softcap or 0.0),
                _build.stream_ptr(q.device))
     _build.check_launch(rc, name)
     decode_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 decode_attention.launches = 0

@@ -46,14 +46,20 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def sdpa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 positions: torch.Tensor, *, live: torch.Tensor | None = None,
                 window: int | None = None, softcap: float | None = None,
-                scale: float | None = None) -> torch.Tensor:
+                scale: float | None = None, return_lse: bool = False):
     """Incremental attention against a dense slot KV cache (see
     ref.sdpa_decode): Sq == 1 is the decode tick (the decode kernel), Sq > 1
     one chunk of a chunked prefill, which on the card runs the flash forward
-    kernel (the JAX package has no Pallas kernel for chunks)."""
+    kernel (the JAX package has no Pallas kernel for chunks).
+    ``return_lse`` (a tick only): (o in f32, lse (B, H) f32), for a merge
+    of cache blocks (``decode_attention.decode_attention``)."""
     if q.shape[1] == 1:
         return da.decode_attention(q, k_cache, v_cache, positions, live=live,
-                                   window=window, softcap=softcap, scale=scale)
+                                   window=window, softcap=softcap, scale=scale,
+                                   return_lse=return_lse)
+    if return_lse:
+        raise ValueError(f"return_lse is a tick's (Sq == 1), got Sq="
+                         f"{q.shape[1]}")
     if q.device.type == "cpu":
         return ref.sdpa_decode(q, k_cache, v_cache, positions, live=live,
                                window=window, softcap=softcap, scale=scale)

@@ -141,22 +141,41 @@ def sdpa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def sdpa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 positions: torch.Tensor, *, live: torch.Tensor | None = None,
                 window: int | None = None, softcap: float | None = None,
-                scale: float | None = None) -> torch.Tensor:
+                scale: float | None = None, return_lse: bool = False):
     """Incremental attention against a slot KV cache (fused-kernel oracle).
     q: (B, Sq, H, Dh); caches: (B, Smax, K, Dh); positions: (B,) each row's
     first query position (query i sits at positions + i; the cache is valid at
     kv_pos <= that query's position). ``live``: (B,) bool; non-live slots
     return zeros.
+
+    ``return_lse`` (a tick, Sq == 1): (o in f32, lse (B, H) f32), a row with
+    no key it may see (dead, or every position masked: a cache block past
+    its query) o 0 and lse -inf. Positions may be negative or past Smax: a
+    block [c S_b, (c + 1) S_b) of a longer cache is attended at positions -
+    c S_b (``tensor_parallel.merge`` joins the blocks).
     """
     B, Sq = q.shape[0], q.shape[1]
     Smax = k_cache.shape[1]
     ar_q = torch.arange(Sq, dtype=torch.int32, device=q.device)
     q_pos = positions.to(torch.int32)[:, None] + ar_q[None]
     kv_pos = torch.arange(Smax, dtype=torch.int32, device=q.device)[None]
+    dead = None if live is None else ~live[:, None, None, None]
+    if return_lse:
+        if Sq != 1:
+            raise ValueError(f"return_lse is a tick's (Sq == 1), got Sq={Sq}")
+        o, lse = sdpa(q, k_cache, v_cache, q_positions=q_pos,
+                      kv_positions=kv_pos, causal=True, window=window,
+                      softcap=softcap, scale=scale, with_lse=True)
+        o, lse = o.to(torch.float32), lse[..., 0].to(torch.float32)
+        empty = lse <= NEG_INF / 2
+        if dead is not None:
+            o = o.masked_fill(dead, 0.0)
+            empty = empty | dead[:, 0, :, 0]
+        return o, lse.masked_fill(empty, float("-inf"))
     o = sdpa(q, k_cache, v_cache, q_positions=q_pos, kv_positions=kv_pos,
              causal=True, window=window, softcap=softcap, scale=scale)
-    if live is not None:
-        o = torch.where(live[:, None, None, None], o, torch.zeros_like(o))
+    if dead is not None:
+        o = torch.where(dead, torch.zeros_like(o), o)
     return o
 
 

@@ -23,7 +23,10 @@ for 16 x 16, 512 for 2 x 16 x 16), and counts what it runs:
   reductions or softmax.
 - ``collective_bytes`` and ``collectives``: every collective the step
   issues (``analysis.collectives.CollectiveRecorder``), an all-reduce
-  counted twice, and the bytes by op.
+  counted twice, and the bytes by op; ``cache_collectives``, a serve
+  step's: the bytes by op of each cache leaf it moves ({"cache.<stack>.<leaf>":
+  {op: bytes}}; a KV leaf split by sequence is never moved, so only the SSM
+  conv and state leaves, and KV leaves placed otherwise, appear).
 - ``memory``: the bytes rank 0 holds live, its inputs' local blocks
   included, at the most (``peak_bytes_per_device``), in JAX's keys
   (``roofline.memory_record``); ``gathered_leaf_bytes``: the bytes of the
@@ -346,6 +349,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                                   "outputs on the plain path",
         "collective_bytes": count["collective_bytes"],
         "collectives": collectives.bytes_by_op(count["collective_records"]),
+        "cache_collectives": collectives.by_leaf(count["collective_records"]),
         "collective_records": count["collective_records"],
         "bounded_ops": count["bounded_ops"],
         "devices": world,

@@ -7,7 +7,10 @@ CUDA kernels replace the plain versions on the card. Under a step's plan
 that splits the attention over "model" (``distributed.tensor_parallel``), a
 rank's prefill computes its q / k / v columns, attends over its own query
 heads with the KV heads they read, and computes its output columns of o
-over the gathered heads.
+over the gathered heads; its decode tick gathers q / k / v to every head,
+attends its block of a cache split by sequence (``CacheSplit``) and merges
+the ranks' blocks, and computes its output columns of o over the merged
+heads.
 """
 from __future__ import annotations
 
@@ -24,11 +27,13 @@ QK_NORM_EPS = 1e-6
 
 def _project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                  n_heads: int, n_kv: int, d_head: int, rope_theta: float,
-                 qk_norm: bool, tap_prefix: str, tap_ctx: tuple | None):
+                 qk_norm: bool, tap_prefix: str, tap_ctx: tuple | None,
+                 whole_heads: bool = False):
     """q, k, v per head, RoPE applied; with ``qk_norm`` q and k are
     RMS-normed over d_head first (at ``QK_NORM_EPS``). Under a plan that
     splits the attention, the rank's heads (``n_heads`` / ``n_kv`` are then
-    the rank's)."""
+    the rank's), or with ``whole_heads`` the rank's product columns gathered
+    to every head (the norm and RoPE run per head after the gather)."""
     B, S, _ = x.shape
     plan = tp.attention()
     if plan is not None:
@@ -36,7 +41,9 @@ def _project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     q = L.dense(params["q"], x, tap=f"{tap_prefix}.q", tap_ctx=tap_ctx)
     k = L.dense(params["k"], x, tap=f"{tap_prefix}.k", tap_ctx=tap_ctx)
     v = L.dense(params["v"], x, tap=f"{tap_prefix}.v", tap_ctx=tap_ctx)
-    if plan is not None:
+    if plan is not None and whole_heads:
+        q, k, v = (plan.whole_heads(t) for t in (q, k, v))
+    elif plan is not None:
         k, v = plan.kv_heads(k, d_head), plan.kv_heads(v, d_head)
     q = q.reshape(B, S, n_heads, d_head)
     k = k.reshape(B, S, n_kv, d_head)
@@ -80,7 +87,8 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
 def kv_write_plan(positions: torch.Tensor, c: int,
                   live: torch.Tensor | None, *, smax: int | None = None,
                   block_table: torch.Tensor | None = None,
-                  block: int | None = None, ring: int | None = None
+                  block: int | None = None, ring: int | None = None,
+                  seq_block: tuple[int, int] | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Where the K/V of a step's c new tokens per row go: (src, dst), flat
     indices into the (B * c) new rows and into the cache viewed as rows of
@@ -90,7 +98,11 @@ def kv_write_plan(positions: torch.Tensor, c: int,
     - dense (``smax``): cache (B, Smax, K, Dh); row b's token i goes to
       position positions[b] + i. A single token (c == 1) is clamped into the
       cache like JAX's ``dynamic_update_slice``; a chunk's tail at or past
-      Smax is dropped, never clamped back over real KV.
+      Smax is dropped, never clamped back over real KV. ``seq_block``
+      (offset, size): the cache is a rank's block of positions [offset,
+      offset + size) of the Smax (B, size, K, Dh), and only the writes
+      that land in it are kept, at position - offset (the clamp stays
+      Smax's).
     - paged (``block_table`` (B, max_blocks), ``block``): pool
       (n_blocks, block, K, Dh); position p goes to pool row
       ``block_table[b, p // block]``, offset ``p % block``; positions at or
@@ -113,7 +125,11 @@ def kv_write_plan(positions: torch.Tensor, c: int,
         if c == 1:
             pos = pos.clamp(0, smax - 1)
         ok = pos < smax
-        dst = torch.arange(B, device=dev)[:, None] * smax + pos
+        width = smax
+        if seq_block is not None:
+            pos, width = pos - seq_block[0], seq_block[1]
+            ok = ok & (pos >= 0) & (pos < width)
+        dst = torch.arange(B, device=dev)[:, None] * width + pos
     else:
         nb = block_table.shape[1]
         ok = pos < nb * block
@@ -134,7 +150,8 @@ def attention_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
                      kv_write: tuple[torch.Tensor, torch.Tensor],
                      live: torch.Tensor | None = None,
                      block_table: torch.Tensor | None = None,
-                     ring_horizon: int | None = None) -> torch.Tensor:
+                     ring_horizon: int | None = None,
+                     seq_split: tp.CacheSplit | None = None) -> torch.Tensor:
     """Incremental step: write c new tokens per row into the cache, then
     attend causally against everything written so far. x: (B, c, d_model);
     positions: (B,) each row's first position (tokens already in its cache).
@@ -150,19 +167,32 @@ def attention_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
     ``kv_write`` is the step's ``kv_write_plan``: dead rows' writes and
     out-of-range chunk tails are dropped. The cache is updated in place (the
     JAX version returns a new cache); dead rows' attention output is zero.
+
+    Under the serve step's plan every rank computes every head (q / k / v
+    gathered from the split products); ``seq_split``: the dense cache is
+    the rank's block of positions (``kv_write`` then lists only the writes
+    that fall in it), attended at positions shifted by its offset and
+    merged with the other ranks' blocks.
     """
     B, c, _ = x.shape
     pos2d = positions[:, None] + torch.arange(c, dtype=positions.dtype,
                                               device=x.device)[None]
+    plan = tp.attention()
     q, k, v = _project_qkv(params, x, pos2d, n_heads=n_heads, n_kv=n_kv,
                            d_head=d_head, rope_theta=rope_theta,
                            qk_norm=qk_norm, tap_prefix=tap_prefix,
-                           tap_ctx=tap_ctx)
+                           tap_ctx=tap_ctx, whole_heads=True)
     src, dst = kv_write
     for cache, new in ((k_cache, k), (v_cache, v)):
         cache.view(-1, n_kv, d_head).index_copy_(
             0, dst, new.reshape(B * c, n_kv, d_head).index_select(0, src))
-    if ring_horizon is not None:
+    if seq_split is not None and seq_split.n > 1:
+        o, lse = kernel_ops.sdpa_decode(q, k_cache, v_cache,
+                                        positions - seq_split.offset,
+                                        live=live, window=window,
+                                        softcap=softcap, return_lse=True)
+        o = tp.current().merge_blocks(o, lse, seq_split).to(q.dtype)
+    elif ring_horizon is not None:
         o = kernel_ops.sdpa_decode_ring(q, k_cache, v_cache, positions,
                                         live=live, window=window,
                                         softcap=softcap, horizon=ring_horizon)
@@ -174,4 +204,5 @@ def attention_decode(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
                                          block_table, live=live, window=window,
                                          softcap=softcap)
     o = o.reshape(B, c, n_heads * d_head)
-    return L.dense(params["o"], o, tap=f"{tap_prefix}.o", tap_ctx=tap_ctx)
+    y = L.dense(params["o"], o, tap=f"{tap_prefix}.o", tap_ctx=tap_ctx)
+    return y if plan is None else plan.gather_out(y)

@@ -70,14 +70,16 @@ def attn_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
                       kv_write: tuple[torch.Tensor, torch.Tensor],
                       live: torch.Tensor | None = None,
                       block_table: torch.Tensor | None = None,
-                      ring_horizon: int | None = None) -> torch.Tensor:
+                      ring_horizon: int | None = None,
+                      seq_split=None) -> torch.Tensor:
     """Decode-tick (or prefill-chunk) block; writes the new tokens' K/V into
-    the caches in place (see attention.attention_decode). The MoE aux loss
-    is dropped, as JAX's decode drops it."""
+    the caches in place (see attention.attention_decode; ``seq_split``: the
+    caches are the rank's block of positions). The MoE aux loss is dropped,
+    as JAX's decode drops it."""
     h = A.attention_decode(params["attn"], _norm(cfg, params["ln1"], x),
                            k_cache, v_cache, positions, live=live,
                            block_table=block_table, kv_write=kv_write,
-                           ring_horizon=ring_horizon,
+                           ring_horizon=ring_horizon, seq_split=seq_split,
                            **_attn_kwargs(cfg, window, tap_prefix, tap_ctx))
     return _ffn_half(cfg, params, x, h, tap_prefix=tap_prefix,
                      tap_ctx=tap_ctx)[0]

@@ -641,6 +641,11 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
     ``block_table`` are not read. Each attention stack gets one KV write
     plan a step (the hybrid plan's shared block one for all its calls),
     never one a layer.
+
+    Under the serve step's plan a stack may hold its cache split by
+    sequence (``tensor_parallel.cache_split``): its leaves are the rank's
+    block of positions, its write plan keeps only the writes in that block,
+    and its attention merges the ranks' blocks.
     """
     stacks = _stacks(cfg)
     ad = {p: _subvars((cola_vars or {}).get("adapters", {}), p) for p in stacks}
@@ -657,7 +662,11 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
             continue
         width = cache[prefix]["k"].shape[2]   # Smax, W_ring or kv_block
         table = horizon = None
-        if _ring_stack(cfg, prefix, block_table is not None):
+        split = tp.cache_split(prefix)
+        if split is not None:
+            kind, kw = "dense", dict(smax=split.whole,
+                                     seq_block=(split.offset, split.size))
+        elif _ring_stack(cfg, prefix, block_table is not None):
             kind, kw = "ring", dict(ring=width)
             horizon = block_table.shape[1] * cache["layers_b"]["k"].shape[2]
         elif block_table is not None:
@@ -665,9 +674,10 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
             table = block_table
         else:
             kind, kw = "dense", dict(smax=width)
-        if (kind, width) not in plans:
-            plans[kind, width] = A.kv_write_plan(positions, c, live, **kw)
-        layouts[prefix] = (table, horizon, plans[kind, width])
+        key = (kind, width, split)
+        if key not in plans:
+            plans[key] = A.kv_write_plan(positions, c, live, **kw)
+        layouts[prefix] = (table, horizon, plans[key], split)
     for prefix, i, window in _walk(cfg):
         lp, ad_l, de_l = _site_vars(prefix, i, params, ad, de)
         lp, ad_l = tp.take_layer(prefix, lp, ad_l)
@@ -675,12 +685,13 @@ def decode_step(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
         if _mamba_stack(cfg, prefix):
             x = _ssm_decode(cfg, lp, x, cache[prefix], i, tap_ctx, live)
             continue
-        table, horizon, write = layouts[prefix]
+        table, horizon, write, split = layouts[prefix]
         x = B.attn_block_decode(cfg, lp, x, cache[prefix]["k"][i],
                                 cache[prefix]["v"][i], positions,
                                 window=window, tap_prefix=prefix,
                                 tap_ctx=tap_ctx, live=live, block_table=table,
-                                kv_write=write, ring_horizon=horizon)
+                                kv_write=write, ring_horizon=horizon,
+                                seq_split=split)
     x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps,
                   plus_one=cfg.norm_plus_one)
     return head_logits(cfg, params, x), cache

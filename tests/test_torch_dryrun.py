@@ -17,8 +17,13 @@ CPU: fake process groups, fake tensors, no card, no JAX.
   size 8: each leaf's compute layout once, the tied embedding twice), and
   by none at world size 1.
 - One production cell: smollm-135m x decode_32k on the 16 x 16 fake mesh,
-  with JAX's record keys, ``model_flops`` and the roofline terms; a MoE
-  cell that ``steps._check_groups`` refuses fails with the step's text.
+  with JAX's record keys, ``model_flops`` and the roofline terms, its KV
+  cache the rank's block of positions, updated in place and never moved;
+  a MoE cell that ``steps._check_groups`` refuses fails with the step's
+  text.
+- No serve tick of any plan, at world sizes 1 and 8, moves a KV leaf: the
+  collectives labelled with a cache leaf are the SSM conv and state
+  leaves' alone (ROADMAP A.5).
 - ``perf_probe --breakdown`` writes a record with every JAX key the port
   keeps and prints every collective.
 - No test leaves a process group behind.
@@ -36,6 +41,7 @@ import torch.distributed as dist  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import ColaConfig  # noqa: E402
+from repro_torch.analysis import collectives as tcoll  # noqa: E402
 from repro_torch.analysis import roofline  # noqa: E402
 from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.distributed import steps  # noqa: E402
@@ -326,6 +332,38 @@ def test_memory_term_counts_the_gathered_leaves():
             roofline.bytes_moved(m, want) / roofline.HBM_BW
 
 
+@pytest.mark.parametrize("plan", list(PLANS))
+def test_no_serve_tick_moves_a_kv_leaf(plan):
+    """A tick of 8 rows against 64 positions at world sizes 1 and 8: no
+    collective is labelled with a KV leaf (the cache is the rank's block of
+    positions, updated in place: its bytes are the in-place outputs), and
+    the SSM conv and state leaves, still gathered to the rank's rows, are
+    the only cache leaves moved at 8."""
+    cfg = _cfg(plan)
+    cache = model.cache_specs(cfg, B, 64)
+    kv = sum(_numel(leaf[0]) * leaf[1].itemsize
+             for st in cache.values() for n, leaf in st.items()
+             if n in ("k", "v"))
+    for world, shape in WORLDS:
+        with dryrun.fake_world(world):
+            mesh = make_mesh(*shape, device_type="cpu")
+            got = dryrun.count_step(cfg, ColaConfig(), "decode", B, 64, mesh)
+        moved = set(tcoll.by_leaf(got["collective_records"]))
+        ssm = ({"cache.layers.conv", "cache.layers.ssm"}
+               if plan in ("ssm", "hybrid") and world > 1 else set())
+        assert moved == ssm, (plan, world, moved)
+        # the rank's blocks: rows over "data" (2), positions over "model" (4)
+        share = 1 if world == 1 else 8
+        assert got["memory"]["alias_size_in_bytes"] >= kv // share, plan
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
 def test_production_cell_smollm_decode_32k_on_16x16():
     """smollm-135m's serve tick at 128 slots of 32768 on the 16 x 16 fake
     mesh (train_4k takes ~22 s of host time here: ``--all`` counts it)."""
@@ -336,18 +374,25 @@ def test_production_cell_smollm_decode_32k_on_16x16():
     spec = registry.SHAPES["decode_32k"]
     assert rec["model_flops"] == roofline.model_flops(cfg, spec) == \
         2.0 * roofline.param_count(cfg)[1] * 128
-    # 8 slots a rank (128 over "data"); the 16 ranks of "model" compute the
-    # same slots (ROADMAP A.2), so the useful share is below 1/16
-    assert 0 < rec["useful_ratio"] < 1 / 16
-    # the leaves gathered a layer at a time; the peak holds this rank's 8
-    # slots of the cache gathered over "model", more than the whole tree
+    # 8 slots a rank (128 over "data"); the 16 ranks of "model" split the
+    # MLP and the head, and each attends its 2,048 positions of 32,768 for
+    # the 9 heads, which it computes whole (9 does not divide over 16)
+    assert 1 / 16 < rec["useful_ratio"] < 1
+    # the cache stays the rank's block (8 slots x 2,048 positions), updated
+    # in place and never gathered: no collective moves a cache leaf, the
+    # peak holds the block and at most the tree gathered beside it
     whole = sum(t.numel() * t.element_size()
                 for t in tree_leaves(model.init(cfg, device="meta")))
-    kv = 2 * cfg.n_layers * 8 * spec.seq * cfg.n_kv_heads * cfg.d_head * 2
-    assert rec["memory"]["peak_bytes_per_device"] > whole + kv
-    assert rec["memory"]["argument_size_in_bytes"] < (whole + kv) / 8
-    assert set(rec["collectives"]) == {"all-gather"}
-    assert rec["collective_bytes"] == sum(rec["collectives"].values()) > kv
+    kv = 2 * cfg.n_layers * 8 * (spec.seq // 16) * cfg.n_kv_heads \
+        * cfg.d_head * 2
+    m = rec["memory"]
+    assert m["alias_size_in_bytes"] >= kv and rec["cache_collectives"] == {}
+    assert kv < m["argument_size_in_bytes"] < kv + whole / 16
+    assert m["peak_bytes_per_device"] < m["argument_size_in_bytes"] + whole
+    assert m["peak_bytes_per_device"] < 2e9
+    assert set(rec["collectives"]) == {"all-gather", "all-reduce",
+                                       "all-to-all"}
+    assert rec["collective_bytes"] == sum(rec["collectives"].values()) < kv
     assert "aten.nonzero.default" in rec["bounded_ops"]
     assert rec["bottleneck"] in ("compute", "memory", "collective")
     assert rec["t_collective_nic"] == pytest.approx(9 * rec["t_collective"],

@@ -18,6 +18,15 @@ case holds whole logits and labels instead of a step: each rank runs
 ``model._ce`` on its vocab columns under the step's plan, whole and in
 chunks, against ``_ce`` on the whole logits (value, count, and the
 gradient's block), and rank 0 writes the largest gaps.
+
+A "tp_serve" case runs the serve step twice on one cache (greedy tokens,
+then logits), the cache placed at ``serve_shardings`` or, with "prefill",
+made by the prefill step from those tokens at ``prefill_out_shardings``; it
+records, leaf by leaf, whether each rank's new cache block is the input's
+own storage (updated in place, no move), and the collectives labelled with
+a cache leaf. An "argmax" case holds whole logits: each rank takes
+``vocab_argmax`` of its vocab columns under the step's plan, against
+``torch.argmax`` of the whole rows.
 """
 from __future__ import annotations
 
@@ -115,12 +124,14 @@ def _constrain(mesh, what, bad):
 
 
 def _counted(fn, *args):
-    """fn(*args), and its FLOPs and collective breakdown on this rank."""
+    """fn(*args), and its FLOPs, collective breakdown and moves of cache
+    leaves (``collectives.by_leaf``) on this rank."""
     flops, rec = FlopCounterMode(display=False), collectives.CollectiveRecorder()
     with flops, rec:
         out = fn(*args)
     return out, {"flops": flops.get_total_flops(),
-                 "breakdown": collectives.breakdown(rec.records, top=None)}
+                 "breakdown": collectives.breakdown(rec.records, top=None),
+                 "cache_moves": collectives.by_leaf(rec.records)}
 
 
 def _ce_sum(logits, labels, chunk):
@@ -170,6 +181,69 @@ def _vocab_ce(cfg, mesh, case, bad):
     return out
 
 
+def _vocab_argmax(cfg, mesh, case, bad):
+    """``vocab_argmax`` on this rank's vocab columns against the whole
+    rows' ``torch.argmax``."""
+    from repro_torch.distributed import tensor_parallel as tp
+
+    ps = sh.params_shardings(mesh, steps.shaped_params(cfg))
+    plan = tp.Plan(cfg, mesh, cfg.shard_policy, param_specs=ps)
+    lo, size = plan.head
+    logits = torch.from_numpy(case["logits"])
+    got = tp.vocab_argmax(plan, logits[..., lo:lo + size].contiguous())
+    want = torch.argmax(logits, dim=-1).to(torch.int32)
+    if not torch.equal(got, want):
+        bad.append(f"{case['name']}: {got.tolist()} != {want.tolist()}")
+    return {"tokens": got.numpy()}
+
+
+def _copy_cache(mesh, cache, specs):
+    """A copy of a placed cache: every rank's block cloned, same specs."""
+    return sh.map_with_specs(
+        lambda d, s: sh.wrap(mesh, d.to_local().clone(), s, d.shape),
+        cache, specs)
+
+
+def _tp_serve(cfg, mesh, case, params, pbatch, what, bad):
+    """The serve step's greedy tokens and logits on one cache (see the
+    module docstring)."""
+    B = case["batch"]["positions"].shape[0]
+    max_len = case["max_len"]
+    cspec, _ = steps.serve_shardings(cfg, mesh, B, max_len)
+    if case.get("prefill") is not None:
+        pre, ps = steps.make_prefill_step(cfg, mesh)
+        P = sh.distribute(mesh, params, ps)
+        toks = {"tokens": torch.from_numpy(np.array(case["prefill"]))}
+        _, C = pre(P, sh.distribute(mesh, toks, sh.batch_shardings(
+            mesh, toks, policy=cfg.shard_policy)))
+    else:
+        _, ps = steps.make_serve_step(cfg, mesh)
+        P = sh.distribute(mesh, params, ps)
+        C = sh.distribute(mesh, _tensors(case["cache"]), cspec)
+    _check(mesh, C, cspec, None, f"{what} cache in", bad)
+    res, kept = {}, {}
+    for greedy in (True, False):
+        fn, _ = steps.make_serve_step(cfg, mesh, greedy=greedy)
+        cin = _copy_cache(mesh, C, cspec) if greedy else C
+        before = {p: d.to_local().untyped_storage().data_ptr()
+                  for p, d in _leaves(cin)}
+        (out, new), count = _counted(fn, P, cin, pbatch)
+        ospec = sh.batch_shardings(mesh, {"out": out},
+                                   policy=cfg.shard_policy)
+        _check(mesh, {"out": out, "cache": new},
+               {"out": ospec["out"], "cache": cspec}, None,
+               f"{what} out", bad)
+        for p, d in _leaves(new):
+            same = d.to_local().untyped_storage().data_ptr() == before[p]
+            kept[".".join(p)] = kept.get(".".join(p), True) and same
+        res["tokens" if greedy else "logits"] = out
+        res["cache"] = new
+        if greedy:
+            res["count"] = count
+    return {"out": _whole({k: res[k] for k in ("tokens", "logits", "cache")}),
+            "count": res["count"], "in_place": kept}
+
+
 def _run_case(case, weights, meshes, bad):
     cfg = _config(case)
     key = tuple(case["mesh"])
@@ -180,6 +254,8 @@ def _run_case(case, weights, meshes, bad):
     mesh = meshes[key]
     if case["step"] == "ce":
         return _vocab_ce(cfg, mesh, case, bad)
+    if case["step"] == "argmax":
+        return _vocab_argmax(cfg, mesh, case, bad)
     w = weights[case["weights"]]
     params = convert.params_from_numpy(cfg, w["params"], device="cpu")
     what = f"{case['name']} on {key}"
@@ -187,6 +263,8 @@ def _run_case(case, weights, meshes, bad):
     bspec = sh.batch_shardings(mesh, batch, policy=cfg.shard_policy)
     pbatch = sh.distribute(mesh, batch, bspec)
     _check(mesh, pbatch, bspec, batch, f"{what} batch", bad)
+    if case["step"] == "tp_serve":
+        return _tp_serve(cfg, mesh, case, params, pbatch, what, bad)
     if case["step"] == "train":
         cc = ColaConfig(mode=case["mode"], family="lowrank", taps="qv",
                         rank=4)
