@@ -357,8 +357,13 @@ failure:
    ran at (6 query heads, 1 KV head of 128, every launch), and every tick's
    88 dense decode launches at 96 query / 8 KV heads of 128 over 2,048
    positions and no other kernel, no collective moving a KV leaf, every
-   cache block updated in place, a peak below 20 GiB. The values are not
-   checked: the fake group moves no data.
+   cache block updated in place, a peak below 20 GiB. The train and
+   prefill steps hold the residual stream split by sequence over the 16
+   "model" ranks: every layer input (what remat saves; its bytes printed,
+   counted as each is passed) must be the rank's (2, S / 16, 12288) rows,
+   and each step's peak within 10 % of the dry-run's count
+   (``TP_DRYRUN_PEAK``, from the record ``TP_DRYRUN_RECORD`` names). The
+   values are not checked: the fake group moves no data.
 28. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
@@ -4727,6 +4732,15 @@ TP_HEADS = (6, 1, 128)   # a rank's query heads, KV heads, d_head on 16
 TP_DECODE = (96, 8, 128, 2048)
 TP_TICKS = 5
 ATTN_KERNELS = ("flash_attention", "bwd_dq", "bwd_dkv")
+# the dry-run's peak a rank in bytes, copied from the record that
+# TP_DRYRUN_RECORD names (with the sequence split); the measured peak must
+# lie within 10 % of it. A change to the step builders or the models moves
+# it: recount with that command and copy the new value here.
+TP_DRYRUN_PEAK = {"train_4k": 3659634712, "prefill_32k": 10867466240}
+TP_DRYRUN_RECORD = ("memory.peak_bytes_per_device of the {label} record of "
+                    "`python -m repro_torch.launch.dryrun --arch "
+                    "mistral-large-123b --shape {label} --mesh single` "
+                    "(mesh pod16x16, mode fused_fit)")
 
 
 def _rank_blocks(mesh, shaped: dict, specs: dict, gen, dev, std) -> dict:
@@ -4801,6 +4815,7 @@ def tensor_parallel_main(out_path: str) -> int:
     from repro_torch.distributed import sharding as sh
     from repro_torch.distributed import steps
     from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import model as model_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -4860,7 +4875,8 @@ def tensor_parallel_main(out_path: str) -> int:
                 step = (lambda: fn(P, {"tokens": toks}))
             _free()
             torch.cuda.reset_peak_memory_stats(dev)
-            with _HeadRecorder() as heads:
+            with _HeadRecorder() as heads, \
+                    model_lib.layer_input_meter() as saved:
                 t0 = time.perf_counter()
                 out, launches = _counted(step)
                 ms = (time.perf_counter() - t0) * 1e3
@@ -4871,7 +4887,9 @@ def tensor_parallel_main(out_path: str) -> int:
             res[label] = {
                 "ms": ms, "peak": peak, "launches": launches,
                 "heads": [list(k) + [v] for k, v in heads.seen.items()],
-                "rows": rows // 16 // m, "microbatches": m, "seq": seq}
+                "rows": rows // 16 // m, "microbatches": m, "seq": seq,
+                "layer_inputs": sorted(set(saved.shapes)),
+                "layer_input_bytes": saved.bytes}
             print(f"{tag} {label} ({mode if kind == 'train' else kind}): the "
                   f"rank's share, {m} x {rows // 16 // m} x {seq}: "
                   f"{ms:.1f} ms (one step after a warm-up for train; the "
@@ -4881,6 +4899,15 @@ def tensor_parallel_main(out_path: str) -> int:
                   f"{ {k: v for k, v in launches.items() if v} }; flash "
                   f"launches by (kernel, query heads, KV heads, d_head): "
                   f"{dict(heads.seen)}; {card_line()}", flush=True)
+            held = ("what remat saves for the recompute" if kind == "train"
+                    else "none saved: a prefill takes no gradient")
+            print(f"{tag} {label}: the residual stream between blocks "
+                  f"(sequence split over the 16 \"model\" ranks): layer "
+                  f"inputs {sorted(set(saved.shapes))}, {len(saved.shapes)} "
+                  f"of them, {saved.bytes / m / 2**30:.3f} GiB a "
+                  f"(micro)batch ({held}), {saved.bytes / 2**30:.3f} GiB "
+                  f"in all, counted as each layer's input is passed",
+                  flush=True)
         print(f"{tag} values not checked: the fake group's collectives move "
               f"no data, so the gathered leaves and activations are not the "
               f"model's (numerics: world size 8 == 1 on the CPU's gloo "
@@ -5019,6 +5046,21 @@ def phase_tensor_parallel(dev) -> dict:
         check(all(tuple(h[1:4]) == TP_HEADS for h in r["heads"])
               and sum(h[5] for h in r["heads"]) == sum(want.values()),
               f"{tag} {label}: flash ran at {r['heads']}, not {TP_HEADS}")
+        # the rank's rows of the sequence between blocks: S / 16
+        rows_in = (r["rows"], seq // 16, 12288)
+        check(r["layer_inputs"] == [list(rows_in)],
+              f"{tag} {label}: layer inputs {r['layer_inputs']}, not "
+              f"{rows_in}")
+        dry = TP_DRYRUN_PEAK[label]
+        source = (f"TP_DRYRUN_PEAK[{label!r}] = {dry} B, "
+                  + TP_DRYRUN_RECORD.format(label=label))
+        check(abs(r["peak"] / dry - 1) <= 0.10,
+              f"{tag} {label}: peak {r['peak'] / 2**30:.2f} GiB, not "
+              f"within 10 % of the dry-run's {dry / 2**30:.2f} GiB "
+              f"({source}; recount it if the step has changed)")
+        print(f"{tag} {label}: peak {r['peak'] / 2**30:.2f} GiB, the "
+              f"dry-run's {dry / 2**30:.2f} GiB ({r['peak'] / dry - 1:+.1%}; "
+              f"{source})", flush=True)
         total.update(got)
     return dict(total)
 

@@ -11,7 +11,9 @@ whole gathered tensor, the bytes a ring all-gather moves through each
 rank's links; an all-reduce moves about twice its size (reduce-scatter +
 all-gather), which ``total_bytes`` and ``breakdown`` count, as JAX does.
 A record issued inside ``labelled(name)`` also carries ``"of": name`` (the
-serve step labels its moves of cache leaves so), which ``by_leaf`` sums.
+serve step labels its moves of cache leaves "cache.<stack>.<leaf>"; the
+train and prefill steps' sequence split labels its collectives
+"seq.<part>"), which ``by_leaf`` sums.
 """
 from __future__ import annotations
 
@@ -128,11 +130,13 @@ def bytes_by_op(records: list[dict]) -> dict[str, float]:
     return out
 
 
-def by_leaf(records: list[dict]) -> dict[str, dict[str, float]]:
-    """{leaf: {op: bytes}} of the labelled records (``labelled``)."""
+def by_leaf(records: list[dict], prefix: str = ""
+            ) -> dict[str, dict[str, float]]:
+    """{label: {op: bytes}} of the labelled records (``labelled``) whose
+    label starts with ``prefix``."""
     out: dict[str, dict[str, float]] = {}
     for r in records:
-        if "of" in r:
+        if "of" in r and r["of"].startswith(prefix):
             ops = out.setdefault(r["of"], {})
             ops[r["op"]] = ops.get(r["op"], 0.0) + _factor(r["op"]) * r["bytes"]
     return out

@@ -18,7 +18,12 @@ Execution, as this port runs it:
   gathered inputs), attends over its own query heads, and holds its vocab
   range of the embedding, the head and the CE. Where a split does not fit,
   that part is replicated over "model" (the MoE and SSM blocks always). The
-  serve step computes every head on every rank (q / k / v gathered) against
+  train and prefill steps hold the residual stream between blocks as the
+  rank's (b, S / n, d) rows where the n "model" ranks divide S (sequence
+  parallelism, ``Plan.seq``: the norms and adds on the rows, the split
+  parts' inputs gathered over the sequence and their output columns turned
+  into rows by an all-to-all; the whole stream where S does not divide).
+  The serve step computes every head on every rank (q / k / v gathered) against
   its block of a KV cache that the rules split by sequence, the ranks'
   blocks merged (``tensor_parallel.merge``).
 - **Parameters, adapters, caches** come as DTensors at the rules' placements
@@ -169,13 +174,16 @@ def _blocks(mesh: DeviceMesh, tree, specs) -> dict:
     return sh.map_with_specs(lambda x, s: _block(mesh, x, s), tree, specs)
 
 
-def _plan(cfg: ModelConfig, mesh: DeviceMesh, rows: "_Rows", ps, ash=None
-          ) -> tp.Plan:
+def _plan(cfg: ModelConfig, mesh: DeviceMesh, rows: "_Rows", ps, ash=None,
+          seq: int | None = None) -> tp.Plan:
     """The call's tensor-parallel plan: gradients partial over the batch
-    axes where the rows are split."""
+    axes where the rows are split; ``seq``: the sequence length of a train
+    or prefill step, whose residual stream the plan holds by sequence where
+    "model"'s ranks divide it (the serve step passes none)."""
     return tp.Plan(cfg, mesh, cfg.shard_policy,
                    partial=rows.axes if rows.split else (), param_specs=ps,
-                   adapter_specs=ash, sites=model_lib.tap_sites(cfg))
+                   adapter_specs=ash, sites=model_lib.tap_sites(cfg),
+                   seq=seq)
 
 
 def _compute_placements(mesh: DeviceMesh, rows: _Rows, bdim: int,
@@ -260,7 +268,7 @@ def make_train_step(cfg: ModelConfig, cc: ColaConfig, mesh: DeviceMesh):
         def fn_ft(params, batch):
             batch = _use(batch)
             rows = rows_of(batch)
-            plan = _plan(cfg, mesh, rows, ps)
+            plan = _plan(cfg, mesh, rows, ps, seq=_batch_rows(batch)[1])
             with rules(rows, plan):
                 loss, grads, _ = gl.train_step_ft(
                     cfg, _blocks(mesh, params, ps), rows.take(batch))
@@ -277,7 +285,7 @@ def make_train_step(cfg: ModelConfig, cc: ColaConfig, mesh: DeviceMesh):
     def setup(params, adapters, batch):
         batch = _use(batch)
         rows = rows_of(batch, m)
-        plan = _plan(cfg, mesh, rows, ps, ash)
+        plan = _plan(cfg, mesh, rows, ps, ash, seq=_batch_rows(batch)[1])
         return (_blocks(mesh, params, ps), _blocks(mesh, adapters, ash),
                 batch, rows, plan)
 
@@ -494,7 +502,7 @@ def make_prefill_step(cfg: ModelConfig, mesh: DeviceMesh):
         B, S = _batch_rows(batch)
         rows = _Rows(mesh, policy, B)
         _check_groups(cfg, rows, S)
-        plan = _plan(cfg, mesh, rows, ps)
+        plan = _plan(cfg, mesh, rows, ps, seq=S)
         with sh.activation_rules(mesh, policy, local_rows=rows.split,
                                  plan=plan):
             logits, cache = model_lib.prefill(cfg, _blocks(mesh, params, ps),

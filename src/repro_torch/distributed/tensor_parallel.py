@@ -42,6 +42,27 @@ how each product is laid out (``current``, ``tap_layout``):
 - **Megatron's f.** A split region's input is ``copy_in`` (the identity,
   its gradient summed over "model"); its output is ``gather_out`` (the
   columns all-gathered, the gradient's own columns kept).
+- **Sequence parallelism between blocks** (``Plan.seq``: the train and
+  prefill steps, where "model" splits the products and its n ranks divide
+  the sequence S, as JAX's ``constrain(x, "batch", "model", None)`` at every
+  block boundary; else the stream stays whole, as ``constrain`` replicates
+  a dim that does not divide). A rank holds its (b, S / n, d) rows of the
+  residual stream and runs every norm and residual add on them; remat
+  saves those rows. A split part's input is all-gathered over the sequence
+  (``seq_in``; backward: a reduce-scatter of the ranks' partial
+  gradients) and its output columns (b, S, d / n) turn into the rank's rows
+  (b, S / n, d) by an all-to-all (``seq_out``; backward: the inverse), so
+  every element stays one rank's whole sum. A part replicated over "model"
+  (an attention or MLP that does not split, every MoE and Mamba2 block,
+  a head that keeps the whole vocab) gathers its input (``gather_rows``;
+  backward: the rank's own rows, every rank's gradient being the same) and
+  keeps its rows of the output (``keep_rows``; backward: the rows'
+  gradients all-gathered). The vocab-split embedding's sum is a
+  reduce-scatter over the sequence (``scatter_rows``), the loss and the
+  head see the whole sequence (``whole_sequence``), and a prefill takes
+  its last positions from the rank that holds them (``take_positions``).
+  A norm scale's gradient is then partial over "model". The collectives
+  carry ``analysis.collectives.labelled("seq.<part>")``.
 - **Decode** (the serve step): q / k / v come from the split products and
   are all-gathered to every head (a tick's B x H x d_head is small, so no
   head count need divide over "model"). A KV cache whose sequence the rules
@@ -74,6 +95,7 @@ import re
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import collectives
 from repro_torch.distributed import sharding as sh
 
 # all_gather_single / reduce_scatter_single are the newer names of
@@ -85,6 +107,10 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single",
 
 # the weights that the rules place by rows and a split part uses by columns
 _ROW_PLACED = (".attn.o.w", ".mlp.down.w")
+# the norm scales applied to the residual stream's rows (their gradient is
+# partial over "model" under a sequence split)
+_ROW_WISE = re.compile(r"(^|\.)(ln|ln1|ln2|post_ln1|post_ln2|final_norm)"
+                       r"\.scale$")
 _METERS: list["gather_meter"] = []
 
 
@@ -209,6 +235,73 @@ class _GatherOut(torch.autograd.Function):
         return _own(g, -1, ctx.n, ctx.c), None, None, None
 
 
+# the sequence dim of the residual stream (b, S, d)
+_SEQ = 1
+
+
+class _SeqGather(torch.autograd.Function):
+    """The ranks' rows gathered over the sequence; the gradient
+    reduce-scattered (``summed``: each rank's is a partial) or the own rows
+    kept (every rank's is the same)."""
+
+    @staticmethod
+    def forward(ctx, x, plan, summed, label):
+        ctx.plan, ctx.summed, ctx.label = plan, summed, label
+        return plan._seq_gather(x, label)
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.plan
+        if not ctx.summed:
+            return _own(g, _SEQ, p.n, p.c), None, None, None
+        with collectives.labelled(ctx.label):
+            return _scatter_sum(g, _SEQ, p.group, p.n), None, None, None
+
+
+class _SeqKeep(torch.autograd.Function):
+    """The rank's own rows of a tensor every rank holds whole; the rows'
+    gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, y, plan):
+        ctx.plan = plan
+        return _own(y, _SEQ, plan.n, plan.c).clone()   # not a view of y
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan._seq_gather(g, "seq.keep"), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """The ranks' partial sums, the rank's rows of their sum (a
+    reduce-scatter over the sequence); the gradient all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return plan._seq_scatter(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan._seq_gather(g, "seq.embed"), None
+
+
+class _ColsToRows(torch.autograd.Function):
+    """A split part's output columns (b, S, d / n) as the rank's rows (b,
+    S / n, d), by an all-to-all; backward: the inverse."""
+
+    @staticmethod
+    def forward(ctx, y, plan):
+        ctx.plan = plan
+        return plan._cols_to_rows(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.plan
+        with collectives.labelled("seq.out"):
+            return _swap(g, _SEQ, -1, p.group, p.n), None
+
+
 def _differentiable(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -302,11 +395,14 @@ class Plan:
     ``partial``: the batch axes over which this call's rows are split (a
     gradient is partial over them); ``param_specs`` / ``adapter_specs``: the
     rules' specs of the parameter and adapter trees; ``sites``: the model's
-    tap sites; ``cache_splits``: the serve step's KV caches held by
+    tap sites; ``seq``: the call's sequence length where the step may hold
+    the residual stream by sequence (train and prefill; ``self.seq`` says
+    whether it does); ``cache_splits``: the serve step's KV caches held by
     sequence block, by stack (set by the step)."""
 
     def __init__(self, cfg, mesh, policy: str, *, partial=(),
-                 param_specs=None, adapter_specs=None, sites=None):
+                 param_specs=None, adapter_specs=None, sites=None,
+                 seq: int | None = None):
         self.mesh = mesh
         self.shape = sh.mesh_shape(mesh)
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
@@ -316,6 +412,8 @@ class Plan:
         self.n = n if tp else 1
         self.c = self.coord.get("model", 0) if tp else 0
         self.group = mesh.get_group("model") if tp else None
+        # the residual stream between blocks as the rank's (b, S / n, d)
+        self.seq = tp and bool(seq) and seq % n == 0
         self.sites = sites or {}
         flat = {}
         for specs in (param_specs, adapter_specs):
@@ -421,6 +519,9 @@ class Plan:
         # sees only this rank's share of the part's gradient
         if kept is None and self._part(path) is not None:
             partial = partial + ("model",)
+        # a norm scale applied to the rank's rows of the stream
+        elif self.seq and _ROW_WISE.search(path):
+            partial = partial + ("model",)
         swap = (-2, -1) if kept == -2 and f".{path}".endswith(_ROW_PLACED) \
             else None
         return Recipe(tuple(steps), partial, swap)
@@ -491,6 +592,70 @@ class Plan:
         if _differentiable(y):
             return _GatherOut.apply(y, self.group, self.n, self.c)
         return _all_gather(y, -1, self.group, self.n)
+
+    # -- the residual stream by sequence (``seq``) -----------------------------
+
+    def _seq_gather(self, x: torch.Tensor, label: str) -> torch.Tensor:
+        with collectives.labelled(label):
+            return _all_gather(x, _SEQ, self.group, self.n)
+
+    def _seq_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        with collectives.labelled("seq.embed"):
+            return _scatter_sum(x, _SEQ, self.group, self.n)
+
+    def _cols_to_rows(self, y: torch.Tensor) -> torch.Tensor:
+        with collectives.labelled("seq.out"):
+            return _swap(y, -1, _SEQ, self.group, self.n)
+
+    def _gathered(self, x: torch.Tensor, summed: bool, label: str
+                  ) -> torch.Tensor:
+        """The rank's rows gathered over the sequence (``_SeqGather``)."""
+        if _differentiable(x):
+            return _SeqGather.apply(x, self, summed, label)
+        return self._seq_gather(x, label)
+
+    def seq_in(self, x: torch.Tensor) -> torch.Tensor:
+        """A split part's input: under ``seq`` the rank's rows all-gathered
+        over the sequence (the gradient reduce-scattered: each rank's
+        columns give a partial), else ``copy_in``."""
+        if not self.seq:
+            return self.copy_in(x)
+        return self._gathered(x, True, "seq.in")
+
+    def seq_out(self, y: torch.Tensor) -> torch.Tensor:
+        """A split part's output columns: under ``seq`` the rank's rows of
+        every column (an all-to-all), else ``gather_out``."""
+        if not self.seq:
+            return self.gather_out(y)
+        if _differentiable(y):
+            return _ColsToRows.apply(y, self)
+        return self._cols_to_rows(y)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated part's input: under ``seq`` the rank's rows
+        all-gathered over the sequence (the gradient's own rows kept: every
+        rank's is the same), else ``x``."""
+        return self._gathered(x, False, "seq.gather") if self.seq else x
+
+    def keep_rows(self, y: torch.Tensor) -> torch.Tensor:
+        """A replicated part's (whole) output: under ``seq`` the rank's rows
+        (the rows' gradients all-gathered), else ``y``."""
+        if not self.seq:
+            return y
+        if _differentiable(y):
+            return _SeqKeep.apply(y, self)
+        return _own(y, _SEQ, self.n, self.c)
+
+    def scatter_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The vocab-split embedding's partial lookups summed over "model":
+        under ``seq`` the rank's rows of the sum (a reduce-scatter over the
+        sequence, the gradient all-gathered), else all of it
+        (``reduce_out``)."""
+        if not self.seq:
+            return self.reduce_out(x)
+        if _differentiable(x):
+            return _SeqScatter.apply(x, self)
+        return self._seq_scatter(x)
 
     def kv_heads(self, y: torch.Tensor, d_head: int) -> torch.Tensor:
         """The k or v product's columns of this rank's KV heads (its own
@@ -615,22 +780,68 @@ def mlp() -> Plan | None:
 def embed_lookup(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``emb[ids]`` (``emb`` in its compute layout): over a vocab split, the
     rank's range looked up, zero elsewhere, summed over "model" (exact: one
-    term is not zero)."""
+    term is not zero). Under a sequence split, the rank's rows of it."""
     p = current()
-    if p is None or p.embed is None:
+    if p is None:
         return emb[ids.long()]
+    if p.embed is None:
+        return p.keep_rows(emb[ids.long()])
     lo, size = p.embed
     idx = ids.long() - lo
     mine = (idx >= 0) & (idx < size)
     x = emb[idx.clamp(0, size - 1)].masked_fill(~mine[..., None], 0)
-    return p.reduce_out(x)
+    return p.scatter_rows(x)
+
+
+def replicated_in(x: torch.Tensor) -> torch.Tensor:
+    """The input of a part that every rank of "model" computes whole: the
+    whole sequence (``Plan.gather_rows``)."""
+    p = current()
+    return x if p is None else p.gather_rows(x)
+
+
+def replicated_out(y: torch.Tensor) -> torch.Tensor:
+    """The output of such a part, or any tensor every rank holds whole: the
+    rank's rows (``Plan.keep_rows``)."""
+    p = current()
+    return y if p is None else p.keep_rows(y)
+
+
+def whole_sequence(h: torch.Tensor) -> torch.Tensor:
+    """The final norm's output for the head and the loss, which see the
+    whole sequence: under a sequence split the rank's rows all-gathered
+    (the gradient reduce-scattered where the head splits the vocab, each
+    rank's columns giving a partial; the own rows kept where every rank
+    computes the whole head), else ``h``."""
+    p = current()
+    if p is None or not p.seq:
+        return h
+    return p._gathered(h, p.head is not None, "seq.head")
+
+
+def take_positions(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, 1, d): row b's hidden state at whole-sequence position idx[b].
+    Under a sequence split ``h`` is the rank's rows: each rank takes the
+    positions its block holds, zero elsewhere, summed over "model" (exact:
+    one term is not zero)."""
+    rows = torch.arange(h.shape[0], device=h.device)
+    p = current()
+    if p is None or not p.seq:
+        return h[rows, idx][:, None]
+    size = h.shape[_SEQ]
+    j = idx - p.c * size
+    mine = (j >= 0) & (j < size)
+    x = h[rows, j.clamp(0, size - 1)].masked_fill(~mine[:, None], 0)
+    with collectives.labelled("seq.pick"):
+        return p.reduce_out(x[:, None])
 
 
 def head_input(h: torch.Tensor) -> torch.Tensor:
     """The head's input: ``copy_in`` where the logits are the rank's vocab
-    columns."""
+    columns (under a sequence split ``whole_sequence`` has reduced the
+    gradient already)."""
     p = current()
-    return h if p is None or p.head is None else p.copy_in(h)
+    return h if p is None or p.head is None or p.seq else p.copy_in(h)
 
 
 def vocab_head() -> Plan | None:

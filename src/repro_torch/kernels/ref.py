@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+# query rows a block of ``sdpa`` and ``sdpa_bwd`` where Sq is large
+Q_BLOCK = 512
 
 
 # ---------------------------------------------------------------------------
@@ -19,7 +21,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          q_positions: torch.Tensor, kv_positions: torch.Tensor,
          causal: bool = True, window: int | None = None,
          softcap: float | None = None, scale: float | None = None,
-         q_block: int = 512, with_lse: bool = False):
+         with_lse: bool = False):
     """Reference GQA attention. Runs query blocks one at a time when Sq is
     large, so the full (Sq, Sk) score matrix is never materialised.
 
@@ -30,14 +32,14 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (NEG_INF for a fully masked row), as the flash kernel does.
     """
     B, Sq = q.shape[0], q.shape[1]
-    if Sq > 2 * q_block and Sq % q_block == 0:
+    if Sq > 2 * Q_BLOCK and Sq % Q_BLOCK == 0:
         qp = q_positions.expand(B, Sq)
-        outs = [_sdpa_dense(q[:, i:i + q_block], k, v,
-                            q_positions=qp[:, i:i + q_block],
+        outs = [_sdpa_dense(q[:, i:i + Q_BLOCK], k, v,
+                            q_positions=qp[:, i:i + Q_BLOCK],
                             kv_positions=kv_positions, causal=causal,
                             window=window, softcap=softcap, scale=scale,
                             with_lse=with_lse)
-                for i in range(0, Sq, q_block)]
+                for i in range(0, Sq, Q_BLOCK)]
         if with_lse:
             return (torch.cat([o for o, _ in outs], dim=1),
                     torch.cat([l for _, l in outs], dim=2))
@@ -99,8 +101,35 @@ def sdpa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = rowsum(do * o), p = exp(s - lse) under the mask,
     ds = p * (dp - delta) (times 1 - tanh^2 under softcap); dk and dv are
     summed over the G q-heads of each kv head. f32 math; each gradient in
-    its input's dtype. Shapes and masking as ``sdpa``.
+    its input's dtype. Shapes and masking as ``sdpa``. Where Sq is large it
+    runs query blocks one at a time, as ``sdpa`` does (dk and dv summed over
+    the blocks in f32, in block order), so the (Sq, Sk) score matrix is
+    never materialised.
     """
+    kw = dict(kv_positions=kv_positions, causal=causal, window=window,
+              softcap=softcap, scale=scale)
+    B, Sq = q.shape[0], q.shape[1]
+    if Sq > 2 * Q_BLOCK and Sq % Q_BLOCK == 0:
+        qp = q_positions.expand(B, Sq)
+        dq, dk, dv = [], None, None
+        for i in range(0, Sq, Q_BLOCK):
+            blk = slice(i, i + Q_BLOCK)
+            dq_i, dk_i, dv_i = _sdpa_bwd_dense(
+                q[:, blk], k, v, o[:, blk], lse[:, :, blk], do[:, blk],
+                q_positions=qp[:, blk], **kw)
+            dq.append(dq_i)
+            dk = dk_i if dk is None else dk + dk_i
+            dv = dv_i if dv is None else dv + dv_i
+        dq = torch.cat(dq, dim=1)
+    else:
+        dq, dk, dv = _sdpa_bwd_dense(q, k, v, o, lse, do,
+                                     q_positions=q_positions, **kw)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _sdpa_bwd_dense(q, k, v, o, lse, do, *, q_positions, kv_positions,
+                    causal, window, softcap, scale):
+    """``sdpa_bwd`` over the whole of q at once; the gradients in f32."""
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -135,7 +164,7 @@ def sdpa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ds = ds * dcap
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(B, Sq, H, Dh) * scale
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
 
 
 def sdpa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -26,7 +26,17 @@ for 16 x 16, 512 for 2 x 16 x 16), and counts what it runs:
   counted twice, and the bytes by op; ``cache_collectives``, a serve
   step's: the bytes by op of each cache leaf it moves ({"cache.<stack>.<leaf>":
   {op: bytes}}; a KV leaf split by sequence is never moved, so only the SSM
-  conv and state leaves, and KV leaves placed otherwise, appear).
+  conv and state leaves, and KV leaves placed otherwise, appear);
+  ``seq_collectives``, a train or prefill step's under its sequence split:
+  the bytes by op of each "seq.<part>" label (``tensor_parallel``: "seq.in"
+  a split part's input gathered and its gradient reduce-scattered,
+  "seq.out" its output columns to rows and back, "seq.gather" /
+  "seq.keep" a replicated part's input gathered and its output rows'
+  gradients gathered, "seq.embed", "seq.head", "seq.pick").
+- ``layer_input_bytes``: the bytes of every layer's input as
+  ``hidden_states`` passes it (``model.layer_input_meter``): what
+  ``remat="full"`` saves for the recompute, the rank's (b, S / n, d) rows
+  under a sequence split; counted in ``peak`` as they live.
 - ``memory``: the bytes rank 0 holds live, its inputs' local blocks
   included, at the most (``peak_bytes_per_device``), in JAX's keys
   (``roofline.memory_record``); ``gathered_leaf_bytes``: the bytes of the
@@ -258,7 +268,8 @@ def count_step(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
         counter = StepCounter(held)
         recorder = collectives.CollectiveRecorder()
         flops = FlopCounterMode(display=False)
-        with flops, recorder, counter, tp.gather_meter() as gathered:
+        with (flops, recorder, counter, tp.gather_meter() as gathered,
+              model_lib.layer_input_meter() as saved):
             out = fn(*inputs)
         outs = _leaves(out)
         output = counter.storage_bytes(outs)
@@ -273,6 +284,7 @@ def count_step(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
             "collective_records": recorder.records,
             "memory": memory,
             "gathered_leaf_bytes": gathered.bytes,
+            "layer_input_bytes": saved.bytes,
             "bounded_ops": sorted(counter.bounded_ops),
             "count_s": time.perf_counter() - t0}
 
@@ -349,7 +361,11 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                                   "outputs on the plain path",
         "collective_bytes": count["collective_bytes"],
         "collectives": collectives.bytes_by_op(count["collective_records"]),
-        "cache_collectives": collectives.by_leaf(count["collective_records"]),
+        "cache_collectives": collectives.by_leaf(count["collective_records"],
+                                                 "cache."),
+        "seq_collectives": collectives.by_leaf(count["collective_records"],
+                                               "seq."),
+        "layer_input_bytes": count["layer_input_bytes"],
         "collective_records": count["collective_records"],
         "bounded_ops": count["bounded_ops"],
         "devices": world,
@@ -370,6 +386,10 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"unfused={rec['bytes_accessed']:.3e} "
               f"collective={rec['collective_bytes']:.3e} "
               f"{json.dumps(rec['collectives'])}")
+        if rec["seq_collectives"]:
+            print(f"  sequence split: layer inputs "
+                  f"{rec['layer_input_bytes']:.3e} B, collectives "
+                  f"{json.dumps(rec['seq_collectives'])}")
         print(f"  terms(s): compute={rec['t_compute']:.4e} "
               f"memory={rec['t_memory']:.4e} collective={rec['t_collective']:.4e}"
               f" (unfused {rec['t_memory_unfused']:.4e}, NIC "

@@ -7,7 +7,9 @@ CUDA kernels replace the plain versions on the card. Under a step's plan
 that splits the attention over "model" (``distributed.tensor_parallel``), a
 rank's prefill computes its q / k / v columns, attends over its own query
 heads with the KV heads they read, and computes its output columns of o
-over the gathered heads; its decode tick gathers q / k / v to every head,
+over the gathered heads (under the step's sequence split the input is
+gathered over the sequence and the output columns turned into the rank's
+rows); its decode tick gathers q / k / v to every head,
 attends its block of a cache split by sequence (``CacheSplit``) and merges
 the ranks' blocks, and computes its output columns of o over the merged
 heads.
@@ -33,11 +35,13 @@ def _project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     RMS-normed over d_head first (at ``QK_NORM_EPS``). Under a plan that
     splits the attention, the rank's heads (``n_heads`` / ``n_kv`` are then
     the rank's), or with ``whole_heads`` the rank's product columns gathered
-    to every head (the norm and RoPE run per head after the gather)."""
-    B, S, _ = x.shape
+    to every head (the norm and RoPE run per head after the gather); under
+    its sequence split ``x`` is the rank's rows, gathered over the sequence
+    first (``Plan.seq_in``)."""
     plan = tp.attention()
     if plan is not None:
-        x = plan.copy_in(x)
+        x = plan.seq_in(x)
+    B, S, _ = x.shape
     q = L.dense(params["q"], x, tap=f"{tap_prefix}.q", tap_ctx=tap_ctx)
     k = L.dense(params["k"], x, tap=f"{tap_prefix}.k", tap_ctx=tap_ctx)
     v = L.dense(params["v"], x, tap=f"{tap_prefix}.v", tap_ctx=tap_ctx)
@@ -63,11 +67,15 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                       tap_prefix: str = "attn", tap_ctx: tuple | None = None):
     """Full-sequence causal attention; also returns (k, v) to seed the
     decode cache (under a plan that splits the attention, the rank's query
-    heads and the KV heads they read)."""
-    B, S, _ = x.shape
+    heads and the KV heads they read). Under a step's sequence split ``x``
+    and the output are the rank's rows of the sequence; k and v are the
+    whole sequence's."""
     plan = tp.attention()
     if plan is not None:
         n_heads, n_kv = plan.attn.heads, plan.attn.kv_heads
+    else:   # replicated over "model": the whole sequence on every rank
+        x = tp.replicated_in(x)
+    B, S = x.shape[0], positions.shape[-1]
     q, k, v = _project_qkv(params, x, positions, n_heads=n_heads, n_kv=n_kv,
                            d_head=d_head, rope_theta=rope_theta,
                            qk_norm=qk_norm, tap_prefix=tap_prefix,
@@ -77,10 +85,11 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                         softcap=softcap)
     o = o.reshape(B, S, n_heads * d_head)
     if plan is None:
-        y = L.dense(params["o"], o, tap=f"{tap_prefix}.o", tap_ctx=tap_ctx)
+        y = tp.replicated_out(L.dense(params["o"], o, tap=f"{tap_prefix}.o",
+                                      tap_ctx=tap_ctx))
     else:
-        y = plan.gather_out(L.dense(params["o"], plan.gather_cols(o),
-                                    tap=f"{tap_prefix}.o", tap_ctx=tap_ctx))
+        y = plan.seq_out(L.dense(params["o"], plan.gather_cols(o),
+                                 tap=f"{tap_prefix}.o", tap_ctx=tap_ctx))
     return y, k, v
 
 

@@ -4,12 +4,19 @@ a gated-MLP FFN, or a routed-expert FFN where the config has experts
 norms and attention logit softcap, and QK-norm, when the config asks for
 them; and the Mamba2 block of the SSM plan (mamba2-370m): a pre-norm
 ``ln`` and the SSD mixer of ``models/ssm.py``, with no FFN.
+
+Under a step's sequence split (``distributed.tensor_parallel``) a block's
+input and output are the rank's rows of the sequence: the norms and the
+residual adds run on them, the attention and the dense MLP gather the
+sequence themselves, and the MoE FFN and the Mamba2 mixer, replicated over
+"model", take the whole sequence and keep the rank's rows of their output.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -39,9 +46,13 @@ def _ffn_half(cfg: ModelConfig, params: dict, x: torch.Tensor, h, *,
     h = _norm(cfg, params["ln2"], x)
     aux = None
     if cfg.n_experts:
-        h, aux = M.moe_block(params["moe"], h, top_k=cfg.moe_top_k,
-                             impl=cfg.moe_impl, group=cfg.moe_group,
+        # replicated over "model": its dispatch groups and capacities are
+        # the whole (micro)batch's
+        h, aux = M.moe_block(params["moe"], tp.replicated_in(h),
+                             top_k=cfg.moe_top_k, impl=cfg.moe_impl,
+                             group=cfg.moe_group,
                              capacity_factor=cfg.capacity_factor)
+        h = tp.replicated_out(h)
     else:
         h = L.mlp(params["mlp"], h, act=cfg.act,
                   tap_prefix=f"{tap_prefix}.mlp", tap_ctx=tap_ctx)
@@ -110,10 +121,12 @@ def ssm_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
               tap_prefix: str, tap_ctx: tuple | None):
     """Full-sequence block (prefill, training). Returns (x, the layer's
     final {"conv", "ssm"} state)."""
-    y, st = S.ssm_block(params["ssm"], _norm(cfg, params["ln"], x),
+    # replicated over "model": the scan runs over the whole sequence
+    y, st = S.ssm_block(params["ssm"],
+                        tp.replicated_in(_norm(cfg, params["ln"], x)),
                         chunk=cfg.ssd_chunk,
                         **_ssm_kwargs(cfg, tap_prefix, tap_ctx))
-    return x + y, st
+    return x + tp.replicated_out(y), st
 
 
 def ssm_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,

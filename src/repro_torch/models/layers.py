@@ -80,11 +80,12 @@ def mlp(params: dict, x: torch.Tensor, *, act: str = "silu",
         ) -> torch.Tensor:
     """Gated MLP (SwiGLU / GeGLU); split over "model" under a plan that
     splits it: gate / up by columns, down by output columns over the
-    gathered hidden."""
+    gathered hidden. Under a step's sequence split ``x`` and the output are
+    the rank's rows; the products run on the whole sequence (``seq_in`` /
+    ``seq_out``, or gathered and kept where the MLP is replicated)."""
     t = (lambda s: f"{tap_prefix}.{s}") if tap_prefix else (lambda s: None)
     plan = tp.mlp()
-    if plan is not None:
-        x = plan.copy_in(x)
+    x = tp.replicated_in(x) if plan is None else plan.seq_in(x)
     g = dense(params["gate"], x, tap=t("gate"), tap_ctx=tap_ctx)
     u = dense(params["up"], x, tap=t("up"), tap_ctx=tap_ctx)
     if act == "silu":
@@ -94,6 +95,7 @@ def mlp(params: dict, x: torch.Tensor, *, act: str = "silu",
     else:
         raise ValueError(act)
     if plan is None:
-        return dense(params["down"], h, tap=t("down"), tap_ctx=tap_ctx)
-    return plan.gather_out(dense(params["down"], plan.gather_cols(h),
-                                 tap=t("down"), tap_ctx=tap_ctx))
+        return tp.replicated_out(dense(params["down"], h, tap=t("down"),
+                                       tap_ctx=tap_ctx))
+    return plan.seq_out(dense(params["down"], plan.gather_cols(h),
+                              tap=t("down"), tap_ctx=tap_ctx))

@@ -311,10 +311,12 @@ def embed_tokens(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     else the tokens' embeddings. With ``embed_scale`` times sqrt(d_model)
     rounded to that dtype first (59.75 in bf16 at gemma2's 3584), as JAX's
     ``jnp.asarray(d_model ** 0.5, cdt)``. Under a step's plan the table is
-    taken in its compute layout (``tensor_parallel.take``)."""
+    taken in its compute layout (``tensor_parallel.take``); under its
+    sequence split (``Plan.seq``) the result is the rank's (B, S / n, d)
+    rows."""
     cdt = canonical_dtype(cfg.compute_dtype)
     if cfg.embed_input:
-        x = batch["embeds"].to(cdt)
+        x = tp.replicated_out(batch["embeds"].to(cdt))
     elif cfg.n_codebooks:
         toks = batch["tokens"].long()
         emb = tp.take("embed.emb", params["embed"]["emb"])
@@ -322,6 +324,7 @@ def embed_tokens(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
                         device=emb.device)
         for cb in range(cfg.n_codebooks):
             x = x + emb[cb][toks[..., cb]].to(cdt)
+        x = tp.replicated_out(x)
     else:
         emb = {"emb": tp.take("embed.emb", params["embed"]["emb"])}
         x = L.embed(emb, batch["tokens"]).to(cdt)
@@ -364,6 +367,35 @@ def head_logits(cfg: ModelConfig, params: dict, h: torch.Tensor,
 # full sequence
 # ---------------------------------------------------------------------------
 
+def _seq_len(batch: dict) -> int:
+    """The sequence length S of a batch's tokens or embeddings."""
+    return batch.get("tokens", batch.get("embeds")).shape[1]
+
+
+_INPUT_METERS: list["layer_input_meter"] = []
+
+
+class layer_input_meter:
+    """While active, ``shapes`` and ``bytes`` record every layer input that
+    ``hidden_states`` passes to a layer (the tensor ``remat="full"`` saves
+    for the layer's recompute): its shape, and its bytes summed."""
+
+    def __init__(self):
+        self.shapes: list[tuple[int, ...]] = []
+        self.bytes = 0
+
+    def saw(self, x: torch.Tensor) -> None:
+        self.shapes.append(tuple(x.shape))
+        self.bytes += x.numel() * x.element_size()
+
+    def __enter__(self) -> "layer_input_meter":
+        _INPUT_METERS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _INPUT_METERS.remove(self)
+
+
 def _block(cfg: ModelConfig, prefix: str, window: int | None, lp: dict,
            x: torch.Tensor, positions: torch.Tensor, spec, ad_l: dict,
            de_l: dict):
@@ -395,7 +427,12 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
     stack, {stack: {"k", "v": (n, B, S, K, Dh)}} (on the ssm plan the final
     {"conv": (n, B, W-1, C), "ssm": (n, B, H, P, N)} state; on the hybrid
     plan both, "shared" one K/V a call), written into one tensor as the
-    layers run (never a list and a stacked copy at once)."""
+    layers run (never a list and a stacked copy at once).
+
+    Under a step's sequence split (``tensor_parallel.Plan.seq``) the
+    residual stream between blocks, each layer's (checkpointed) input and
+    the returned h are the rank's (B, S / n, d) rows; K / V, states and
+    collected inputs are the whole sequence's, as without it."""
     stacks = _stacks(cfg)
     ad = {p: _subvars((cola_vars or {}).get("adapters", {}), p) for p in stacks}
     de = {p: _subvars((cola_vars or {}).get("deltas", {}), p) for p in stacks}
@@ -403,13 +440,15 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
         t.requires_grad for t in tree_leaves([params, cola_vars or {}]))
     layer = _checkpointed(cfg, _block, needs_grad)
     x = embed_tokens(cfg, params, batch)
-    positions = torch.arange(x.shape[1], dtype=torch.int32,
+    positions = torch.arange(_seq_len(batch), dtype=torch.int32,
                              device=x.device)[None, :]
     kv_out: dict[str, dict] = {}
     collected: dict[str, list] = {}
     moe_aux = []
     for prefix, i, window in _walk(cfg):
         lp, ad_l, de_l = _site_vars(prefix, i, params, ad, de)
+        for m in _INPUT_METERS:
+            m.saw(x)
         x, layer_aux, leaves, got = layer(cfg, prefix, window, lp, x,
                                           positions, spec, ad_l, de_l)
         for tap, xin in got.items():
@@ -436,7 +475,7 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
 def forward(cfg: ModelConfig, params: dict, batch: dict,
             spec: ColaSpec | None = None, cola_vars: dict | None = None):
     h, aux = hidden_states(cfg, params, batch, spec, cola_vars)
-    return head_logits(cfg, params, h), aux
+    return head_logits(cfg, params, tp.whole_sequence(h)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -464,7 +503,9 @@ def lm_loss_sum(cfg: ModelConfig, params: dict, h: torch.Tensor,
     """(sum of CE, count of valid labels) from hidden states against labels
     (B, S) or, with codebooks, (B, S, CB); with ``cfg.loss_chunk`` the
     sequence is taken in chunks, so the full (B, S, V) logits tensor never
-    exists at once."""
+    exists at once. Under a sequence split ``h`` is the rank's rows, made
+    whole first (``tensor_parallel.whole_sequence``)."""
+    h = tp.whole_sequence(h)
     S = h.shape[1]
     c = cfg.loss_chunk
     w = head_weight(cfg, params)
@@ -517,11 +558,11 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
     """
     h, aux = hidden_states(cfg, params, batch, spec, cola_vars,
                            collect_kv=True)
-    if lengths is None:
-        h_last = h[:, -1:]
-    else:
-        idx = (lengths.to(device=h.device, dtype=torch.long) - 1).clamp(min=0)
-        h_last = h[torch.arange(h.shape[0], device=h.device), idx][:, None]
+    ends = (torch.full((h.shape[0],), _seq_len(batch), dtype=torch.long,
+                       device=h.device) if lengths is None
+            else lengths.to(device=h.device, dtype=torch.long))
+    # under a sequence split h is the rank's rows (take_positions)
+    h_last = tp.take_positions(h, (ends - 1).clamp(min=0))
     logits = head_logits(cfg, params, h_last)
     return logits, aux["stacked"]
 

@@ -31,6 +31,14 @@ the JAX package's, on the CPU.
   again) equal world size 1 too; the vocab-parallel CE on each rank's
   vocab columns equals ``_ce`` on the whole logits, whole and in chunks, in
   value, count and gradient.
+- Sequence parallelism between blocks: under "2d" at S 16 on (2, 4) and
+  (2, 2, 2) every train and prefill step holds the residual stream as the
+  rank's (b, S / n, d) rows (rank 0's layer inputs, what remat saves, and
+  its "seq.*" collectives), every case above included; mamba's steps (its
+  Mamba2 blocks replicated), gemma2's pairs plan and zamba2's hybrid plan
+  on (2, 4) equal world size 1 under it; at S 18 (4 does not divide it),
+  under "dp" and at world size 1 the stream is whole and no such
+  collective is issued.
 - The dry-run (``repro_torch.launch.dryrun.count_step``, rank 0 of a fake
   group at the same world size and mesh) counts the same FLOPs and the same
   collective breakdown as rank 0's real step in the gloo groups, exactly,
@@ -84,8 +92,16 @@ CONFIGS = {
     "nemo6": ("mistral-nemo-12b", dict(SMALL, n_heads=6)),
     "qwen": ("qwen3-moe-30b-a3b", dict(SMALL, moe_group=32)),
     "mamba": ("mamba2-370m", dict(n_layers=2, d_model=64, vocab_size=128)),
+    # the pairs plan (post-norms, softcaps, a window that bites at S 16)
+    # and the hybrid plan (a shared attention block before each 2 Mamba2
+    # layers)
+    "gemma2": ("gemma2-9b", dict(SMALL, local_window=8)),
+    "zamba2": ("zamba2-7b", dict(SMALL, n_layers=4, n_kv_heads=4,
+                                 shared_attn_every=2)),
 }
 B_TRAIN, S_TRAIN, B_DEC, S_PRE, MAX_LEN = 16, 16, 8, 16, 32
+# a sequence that 4 "model" ranks do not divide: the stream stays whole
+S_ODD = 18
 # (step, mode, microbatches); the serve step with and without greedy
 STEPS = (("train", "faithful_offload", 2), ("train", "fused_fit", 2),
          ("train", "lora", 1), ("train", "ft", 1), ("prefill", None, 1),
@@ -99,6 +115,14 @@ FALLBACK = (("train", "faithful_offload", 2), ("train", "fused_fit", 2),
             ("prefill", None, 1))
 # steps run under remat="full" on (2, 4), against world size 1's without
 REMAT = (("train", "fused_fit", 2), ("train", "ft", 1))
+# mamba's steps on (2, 4) (its Mamba2 blocks replicated under the sequence
+# split), and nemo's at S_ODD at world sizes 1 and 8 (on (2, 4))
+SSM_W8 = (("train", "fused_fit", 2), ("prefill", None, 1))
+ODD = (("train", "fused_fit", 2), ("prefill", None, 1))
+# the pairs and hybrid plans under the sequence split, at world sizes 1
+# and 8 (on (2, 4))
+PLAN_W8 = tuple((k, s) for k in ("gemma2", "zamba2")
+                for s in (("train", "fused_fit", 2), ("prefill", None, 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -325,13 +349,18 @@ def _inputs(key):
     train = {"tokens": rng.integers(0, V, (B_TRAIN, S_TRAIN)).astype(np.int32),
              "labels": _labels(rng, V, B_TRAIN, S_TRAIN)}
     pre = {"tokens": rng.integers(0, V, (B_DEC, S_PRE)).astype(np.int32)}
+    odd = {"train": {
+        "tokens": rng.integers(0, V, (B_TRAIN, S_ODD)).astype(np.int32),
+        "labels": _labels(rng, V, B_TRAIN, S_ODD)},
+        "prefill": {"tokens": rng.integers(0, V, (B_DEC, S_ODD))
+                    .astype(np.int32)}}
     cache = jax.tree.map(
         lambda s: (rng.standard_normal(s.shape) * 0.5).astype(s.dtype),
         JM.cache_specs(jcfg, B_DEC, MAX_LEN))
     dec = {"tokens": rng.integers(0, V, (B_DEC, 1)).astype(np.int32),
            "positions": rng.integers(0, MAX_LEN - 1, B_DEC).astype(np.int32)}
     return {"params": params, "adapters": adapters, "train": train,
-            "prefill": pre, "cache": cache, "decode": dec}
+            "prefill": pre, "cache": cache, "decode": dec, "odd": odd}
 
 
 def _case_name(key, step, mode, mesh=None):
@@ -340,21 +369,26 @@ def _case_name(key, step, mode, mesh=None):
 
 
 def _case(key, step, mode, m, mesh, inputs, policy=None, batch=None,
-          remat=None):
+          remat=None, odd=False):
+    """One worker case; ``odd``: at S_ODD positions (named ":s18")."""
     _, kw = _configs(key, m)
     if policy:
         kw = dict(kw, shard_policy=policy)
     if remat:
         kw = dict(kw, remat=remat)
-    c = {"name": _case_name(key, step, mode, mesh) + (f":{policy}"
-                                                      if policy else "")
+    named = f"{mode}:s{S_ODD}" if odd else mode
+    c = {"name": _case_name(key, step, named, mesh) + (f":{policy}"
+                                                       if policy else "")
          + (":remat" if remat else ""),
          "config": CONFIGS[key][0], "overrides": kw, "mesh": mesh,
          "weights": key, "step": step}
+    src = inputs["odd"] if odd else inputs
+    if odd:
+        c["seq"] = S_ODD
     if step == "train":
-        c.update(mode=mode, batch=batch or inputs["train"])
+        c.update(mode=mode, batch=batch or src["train"])
     elif step == "prefill":
-        c.update(batch=inputs["prefill"])
+        c.update(batch=src["prefill"])
     else:
         c.update(greedy=mode, batch=inputs["decode"], cache=inputs["cache"],
                  max_len=MAX_LEN)
@@ -416,6 +450,16 @@ def runs(tmp_path_factory):
         eight.append(_case("nemo6", s, mo, m, (2, 4, 1), inputs["nemo6"]))
     eight += [_case("nemo", s, mo, m, (2, 4, 1), inputs["nemo"],
                     remat="full") for s, mo, m in REMAT]
+    eight += [_case("mamba", s, mo, m, (2, 4, 1), inputs["mamba"])
+              for s, mo, m in SSM_W8]
+    for k, (s, mo, m) in PLAN_W8:
+        one.append(_case(k, s, mo, m, (1, 1, 1), inputs[k]))
+        eight.append(_case(k, s, mo, m, (2, 4, 1), inputs[k]))
+    for s, mo, m in ODD:
+        one.append(_case("nemo", s, mo, m, (1, 1, 1), inputs["nemo"],
+                         odd=True))
+        eight.append(_case("nemo", s, mo, m, (2, 4, 1), inputs["nemo"],
+                           odd=True))
     eight.append(_ce_case())
     p1, d1 = _spawn(tmp, 1, one, weights)
     p8, d8 = _spawn(tmp, 8, eight, weights)
@@ -466,9 +510,9 @@ def _dry_counts(world, cases):
             cc = tbase.ColaConfig(mode=c.get("mode") or "fused_fit",
                                   family="lowrank", taps="qv", rank=4)
             if c["step"] == "train":
-                args = ("train", B_TRAIN, S_TRAIN)
+                args = ("train", B_TRAIN, c.get("seq", S_TRAIN))
             elif c["step"] == "prefill":
-                args = ("prefill", B_DEC, S_PRE)
+                args = ("prefill", B_DEC, c.get("seq", S_PRE))
             else:
                 args = ("decode", B_DEC, MAX_LEN)
             count = dryrun.count_step(cfg, cc, *args, meshes[key])
@@ -578,7 +622,11 @@ def test_world1_placements_and_no_failures(runs):
     for s, mo, _ in W1_STEPS[k]]
     + ["nemo:train:fused_fit@2x4x1:dp"]
     + [_case_name("nemo6", s, mo, (2, 4, 1)) for s, mo, _ in FALLBACK]
-    + [_case_name("nemo", s, mo, (2, 4, 1)) + ":remat" for s, mo, _ in REMAT])
+    + [_case_name("nemo", s, mo, (2, 4, 1)) + ":remat" for s, mo, _ in REMAT]
+    + [_case_name("mamba", s, mo, (2, 4, 1)) for s, mo, _ in SSM_W8]
+    + [_case_name(k, s, mo, (2, 4, 1)) for k, (s, mo, _) in PLAN_W8]
+    + [_case_name("nemo", s, f"{mo}:s{S_ODD}", (2, 4, 1))
+       for s, mo, _ in ODD])
 def test_world8_matches_world1(runs, name):
     _, _, one, eight = runs
     got = eight["results"][name]
@@ -611,6 +659,56 @@ def test_fallback_splits_the_mlp_and_head_only(runs):
     got = eight["results"][name]["count"]["flops"]
     want = one["results"][name.split("@")[0] + "@1x1x1"]["count"]["flops"]
     assert 0.125 < got / want < 0.5, got / want
+
+
+# rank 0's layer inputs (rows, positions, d_model): a train step's M = 2
+# microbatches of 8 rows, a prefill's 8 rows; on (2, 4) 2 row blocks and 4
+# "model" ranks, on (2, 2, 2) 4 row blocks and 2 "model" ranks, under "dp"
+# 8 row blocks
+LAYER_INPUTS = {
+    "nemo:train:fused_fit@1x1x1": (8, 16, 64),
+    "nemo:train:fused_fit@2x4x1": (4, 4, 64),
+    "nemo:train:fused_fit@2x4x1:remat": (4, 4, 64),
+    "nemo:train:ft@2x4x1:remat": (8, 4, 64),
+    "nemo:prefill:None@2x4x1": (4, 4, 64),
+    "nemo:train:fused_fit@2x2x2": (2, 8, 64),
+    "qwen:train:fused_fit@2x4x1": (4, 4, 64),
+    "nemo6:train:fused_fit@2x4x1": (4, 4, 64),
+    "mamba:train:fused_fit@2x4x1": (4, 4, 64),
+    "mamba:prefill:None@2x4x1": (4, 4, 64),
+    "gemma2:train:fused_fit@2x4x1": (4, 4, 64),
+    "zamba2:prefill:None@2x4x1": (4, 4, 64),
+    f"nemo:train:fused_fit:s{S_ODD}@2x4x1": (4, S_ODD, 64),
+    f"nemo:prefill:None:s{S_ODD}@2x4x1": (4, S_ODD, 64),
+    "nemo:train:fused_fit@2x4x1:dp": (1, 16, 64),
+}
+
+
+@pytest.mark.parametrize("name", list(LAYER_INPUTS))
+def test_residual_stream_is_split_by_sequence(runs, name):
+    """Under "2d" with n "model" ranks dividing S, every layer's input (what
+    remat="full" saves) is rank 0's (b, S / n, d) rows, and the step issues
+    the sequence split's collectives ("seq.*"); at S = 18 on 4 ranks, under
+    "dp" and at world size 1 it is the whole (b, S, d) and none is issued."""
+    _, _, one, eight = runs
+    run = one if name.endswith("@1x1x1") else eight
+    count = run["results"][name]["count"]
+    assert count["layer_inputs"] == [LAYER_INPUTS[name]], name
+    whole = S_ODD if f":s{S_ODD}" in name else S_TRAIN   # S_PRE alike
+    split = LAYER_INPUTS[name][1] < whole
+    assert bool(count["seq_moves"]) == split, (name, count["seq_moves"])
+    if split:
+        # the vocab-split embedding's reduce-scatter; the split parts' entry
+        # and exit (the Mamba2 blocks' gather); the head's gather (a
+        # prefill's last positions instead)
+        want = {"seq.embed"}
+        want |= {"seq.gather"} if name.startswith(("mamba", "zamba2")) \
+            else set()
+        want |= set() if name.startswith("mamba") else {"seq.in", "seq.out"}
+        want |= {"seq.head"} if ":train:" in name else {"seq.pick"}
+        assert want <= set(count["seq_moves"]), (name, count["seq_moves"])
+        assert set(count["seq_moves"].get("seq.out", {"all-to-all": 0})) \
+            == {"all-to-all"}, count["seq_moves"]
 
 
 @pytest.mark.parametrize("chunk", [0, 4])
@@ -658,8 +756,10 @@ def test_dry_run_counts_equal_the_real_steps(runs, world):
     _, _, one, eight = runs
     run = one if world == 1 else eight
     dry = run["dry"]
-    assert len(dry) == (14 + len(FALLBACK) if world == 1
-                        else 21 + len(FALLBACK) + len(REMAT))
+    assert len(dry) == (14 + len(FALLBACK) + len(ODD) + len(PLAN_W8)
+                        if world == 1
+                        else 21 + len(FALLBACK) + len(REMAT) + len(SSM_W8)
+                        + len(ODD) + len(PLAN_W8))
     for name, want in dry.items():
         got = run["results"][name]["count"]
         assert got["flops"] == want["flops"] > 0, name

@@ -140,6 +140,28 @@ def test_flash_backward_takes_non_uniform_positions():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **KTOL)
 
 
+@pytest.mark.parametrize("window,softcap", [(None, None), (700, 20.0)])
+def test_plain_backward_by_query_blocks_equals_the_whole(window, softcap):
+    """``ref.sdpa_bwd`` at S 2048 runs four query blocks of 512 (dk and dv
+    summed over the blocks in f32): dq bit for bit ``_sdpa_bwd_dense``'s
+    over the whole of q, dk and dv within f32 rounding of its largest
+    entry, non-uniform rows."""
+    rng = np.random.default_rng(3)
+    B, S, H, K, D = 2, 2048, 4, 2, 16
+    q, k, v, do = (_t(rng.standard_normal((B, S, n, D)).astype(np.float32))
+                   for n in (H, K, K, H))
+    pos = torch.stack([torch.arange(S), torch.arange(S) + 5]).to(torch.int32)
+    kw = dict(q_positions=pos, kv_positions=pos, window=window,
+              softcap=softcap)
+    o, lse = ref.sdpa(q, k, v, with_lse=True, **kw)
+    blocked = ref.sdpa_bwd(q, k, v, o, lse, do, **kw)
+    whole = [g.to(q.dtype) for g in ref._sdpa_bwd_dense(
+        q, k, v, o, lse, do, causal=True, scale=None, **kw)]
+    assert torch.equal(blocked[0], whole[0])
+    for a, b in zip(blocked[1:], whole[1:]):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
 def test_plain_sdpa_gradients_match_an_f64_reference():
     """The CPU's f32 gradients through ops.sdpa (the plain forward and
     backward behind the autograd Function) against ``ref.sdpa`` in f64 under

@@ -13,7 +13,8 @@ outputs) is its slice under the rule (and, once a mesh, ``constrain``); rank 0 w
 gathered whole, and every rank's failed checks to OUT.pkl. A case with
 "raises" must raise ``ValueError`` matching it. Each step runs under
 ``FlopCounterMode`` and the dry-run's ``CollectiveRecorder``: rank 0's
-FLOPs and collective breakdown go with its outputs (``"count"``). A "ce"
+FLOPs, collective breakdown, sequence-split collectives by label and the
+shapes of the layer inputs it saw go with its outputs (``"count"``). A "ce"
 case holds whole logits and labels instead of a step: each rank runs
 ``model._ce`` on its vocab columns under the step's plan, whole and in
 chunks, against ``_ce`` on the whole logits (value, count, and the
@@ -124,14 +125,19 @@ def _constrain(mesh, what, bad):
 
 
 def _counted(fn, *args):
-    """fn(*args), and its FLOPs, collective breakdown and moves of cache
-    leaves (``collectives.by_leaf``) on this rank."""
+    """fn(*args), and its FLOPs, collective breakdown, moves of cache
+    leaves (``collectives.by_leaf``) and layer inputs' shapes
+    (``model.layer_input_meter``: what remat saves) on this rank."""
+    from repro_torch.models import model
+
     flops, rec = FlopCounterMode(display=False), collectives.CollectiveRecorder()
-    with flops, rec:
+    with flops, rec, model.layer_input_meter() as saved:
         out = fn(*args)
     return out, {"flops": flops.get_total_flops(),
                  "breakdown": collectives.breakdown(rec.records, top=None),
-                 "cache_moves": collectives.by_leaf(rec.records)}
+                 "cache_moves": collectives.by_leaf(rec.records, "cache."),
+                 "seq_moves": collectives.by_leaf(rec.records, "seq."),
+                 "layer_inputs": sorted(set(saved.shapes))}
 
 
 def _ce_sum(logits, labels, chunk):
