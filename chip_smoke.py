@@ -364,7 +364,28 @@ failure:
    and each step's peak within 10 % of the dry-run's count
    (``TP_DRYRUN_PEAK``, from the record ``TP_DRYRUN_RECORD`` names). The
    values are not checked: the fake group moves no data.
-28. The last lines: the card's name and power limit, one JSON line with every
+28. The Mamba2 heads over "model" (``[ssm-parallel]``), in a process of its
+   own as phase 27 (``chip_smoke.py --ssm-parallel OUT``): rank 0 of a fake
+   group of 256 on the 16 x 16 mesh, zamba2-7b at full width and depth (81
+   Mamba2 layers at d_model 3,584, a shared block every 6: 14 calls; bf16,
+   remat "full", ``microbatches=8``), every leaf the rank's block drawn on
+   the card: train_4k's rank share in Mode B cut to 1 of its 8
+   microbatches (2 x 4096: all 8 take about three minutes a step),
+   prefill_32k's (2 x 32768) and decode_32k's tick (8 slots, 2,048 of
+   32,768 positions; a warm-up, 5 timed ticks), as phase 27 runs them. Each
+   Mamba2 mixer scans the rank's 7 of the 112 SSD heads (every
+   ``ops.ssd`` / ``ssd_decode_step`` call recorded), the shared block's
+   flash launches run 2 query / 2 KV heads of 112 (exactly 28 / 14 / 14
+   a microbatch, 14 a prefill), a tick's 14 dense decode launches (the
+   log-sum-exp entry) run 32 / 32 heads over 2,048 positions; the serve
+   step's SSM state stays the rank's (8, 7, 64, 64) block a layer and its
+   conv state the rank's 456-channel block, both updated in place, no
+   collective labelled with the state, the conv state gathered a layer at
+   a time (its bytes printed); layer inputs the rank's (2, S / 16, 3584)
+   rows; each peak within 10 % of the dry-run's (``SSM_DRYRUN_PEAK``, from
+   the records ``SSM_DRYRUN_RECORD`` names; train_4k's of all 8
+   microbatches, whose peak is one microbatch's).
+29. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 The CPU halves of phases 12, 13 (b), 16, 18, 20 and 23 (the plain path on
@@ -771,6 +792,7 @@ def kernel_cases(cfg, dtype, dev, gen):
 
 
 LARGE_RANK = "large rank of 16: G 6 d128, 2 x 4096"
+ZAMBA2_RANK = "zamba2 rank of 16: G 1 d112, 2 / 2 heads, 2 x 4096"
 SOFTCAP_NOTE = ("no library call takes a softcap: the library time is on "
                 "the row without one")
 
@@ -1121,6 +1143,10 @@ def model_cases(dtype, dev, gen):
     if dtype == torch.bfloat16:
         yield flash(LARGE_RANK, 2, 4096, 6, 1, 128)
         yield from flash_bwd(LARGE_RANK, 2, 4096, 6, 1, 128)
+        # zamba2-7b's ([ssm-parallel]): its shared block's 2 query and 2 KV
+        # heads of 112 a rank
+        yield flash(ZAMBA2_RANK, 2, 4096, 2, 2, 112)
+        yield from flash_bwd(ZAMBA2_RANK, 2, 4096, 2, 2, 112)
     if dtype == torch.float32:
         r = 8
         for model, L, T, d_in, d_out in (("musicgen", 48, 4 * 2048, 1536, 1536),
@@ -1212,7 +1238,9 @@ def lse_cases(dtype, dev, gen):
     runs it on a rank's block of a KV cache split by sequence: mistral-large-
     123b's decode_32k rank share on 16 "model" ranks (8 slots, rank 0's
     2,048 positions of 32,768, 96 query / 8 KV heads of 128, every position
-    of the block live, as in phase 27) and smollm-135m's tick (16 slots
+    of the block live, as in phase 27), zamba2-7b's (the same block, its
+    shared block's 32 / 32 heads of 112, as in phase 28) and smollm-135m's
+    tick (16 slots
     against block 7 of 16 of a 1,024-position cache, its 64 positions at
     positions less the offset 448, the slots past its start)."""
     import torch.nn.functional as F
@@ -1231,6 +1259,8 @@ def lse_cases(dtype, dev, gen):
     for tag, B, S, H, K, D, pos in (
             ("large rank share: 8 slots x 2048 of 32768, 96 / 8 heads of 128",
              8, 2048, 96, 8, 128, ints(30000, 32768, 8)),
+            ("zamba2 rank share: 8 slots x 2048 of 32768, 32 / 32 heads of "
+             "112", 8, 2048, 32, 32, 112, ints(30000, 32768, 8)),
             ("smollm: 16 slots x block 7 of 16 (64 of 1024), 9 / 3 heads "
              "of 64", 16, 64, 9, 3, 64, ints(448, 1024, 16) - 448)):
         q, kb, vb = rnd(B, 1, H, D), rnd(B, S, K, D), rnd(B, S, K, D)
@@ -4743,6 +4773,32 @@ TP_DRYRUN_RECORD = ("memory.peak_bytes_per_device of the {label} record of "
                     "(mesh pod16x16, mode fused_fit)")
 
 
+# phase 28: one rank of zamba2-7b's 16 x 16 mesh, its Mamba2 heads split:
+# the same three cells, train_4k cut to 1 of its 8 microbatches (32 rows:
+# the rank's 2 x 4096); its 8 took 172.6 s a step on the card, past the
+# script's time (ROADMAP, "Budget of the chip script")
+SSM_CELLS = (("train_4k", "fused_fit", "train", 32, 4096),
+             ("prefill_32k", "fused_fit", "prefill", 32, 32768),
+             ("decode_32k", None, "decode", 128, 32768))
+SSM_LAYERS, SSM_CALLS = 81, 14    # Mamba2 layers, shared-block calls
+SSM_HEADS = 7                     # a rank's SSD heads: 112 over 16
+SSM_ATTN = (2, 2, 112)            # the shared block's heads a rank
+SSM_DECODE = (32, 32, 112, 2048)  # a tick's decode: every head, 2,048
+# a rank's state blocks in the serve step: (layers, slots, heads, P, N)
+# and (layers, slots, W - 1, channels: 7,296 over 16)
+SSM_BLOCKS = {"layers.ssm": [81, 8, 7, 64, 64],
+              "layers.conv": [81, 8, 3, 456]}
+# the dry-run's peak a rank in bytes, as TP_DRYRUN_PEAK, from the records
+# SSM_DRYRUN_RECORD names (train_4k's of all 8 microbatches, counted by
+# layers: its three depths' peaks grow linearly)
+SSM_DRYRUN_PEAK = {"train_4k": 2676863712, "prefill_32k": 11668577408,
+                   "decode_32k": 4422185196}
+SSM_DRYRUN_RECORD = ("memory.peak_bytes_per_device of the {label} record of "
+                     "`python -m repro_torch.launch.dryrun --arch zamba2-7b "
+                     "--shape {label} --mesh single{flags}` (mesh pod16x16, "
+                     "mode fused_fit)")
+
+
 def _rank_blocks(mesh, shaped: dict, specs: dict, gen, dev, std) -> dict:
     """Rank 0's block of every leaf of ``shaped`` (meta) under its spec, as
     DTensors of the whole leaf's shape: each block drawn on the card from
@@ -4797,15 +4853,56 @@ class _HeadRecorder:
             setattr(mod, n, f)
 
 
-def tensor_parallel_main(out_path: str) -> int:
-    """Phase 27's process (``chip_smoke.py --tensor-parallel OUT.json``):
-    rank 0 of a fake process group of 256 ranks (its collectives return at
-    once and move no data) on a 16 x 16 mesh of the card, mistral-large-123b
-    at full width and depth, its leaves the rank's blocks drawn on the card;
-    each cell of ``TP_CELLS`` through the step builders, launches and peak
-    counted (the serve step: ``TP_TICKS`` timed ticks after a warm-up, the
-    collectives of a recorded tick and whether each cache block was updated
-    in place); the numbers written to ``out_path``."""
+class _SsdRecorder:
+    """Records the head count of every SSD scan and recurrence step while
+    active (``kernels.ops.ssd`` / ``ssd_decode_step``, which the Mamba2
+    mixer calls through the module)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.seen = collections.Counter()
+        self.ops, self.orig = ops, (ops.ssd, ops.ssd_decode_step)
+        ssd, step = self.orig
+
+        def ssd_seen(x, *a, **kw):
+            self.seen["ssd", x.shape[2]] += 1
+            return ssd(x, *a, **kw)
+
+        def step_seen(x, *a, **kw):
+            self.seen["ssd_decode_step", x.shape[1]] += 1
+            return step(x, *a, **kw)
+
+        ops.ssd, ops.ssd_decode_step = ssd_seen, step_seen
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.ssd, self.ops.ssd_decode_step = self.orig
+
+
+# the rank shares run in a process of their own: phase 27's
+# mistral-large-123b (``--tensor-parallel``) and phase 28's zamba2-7b
+# (``--ssm-parallel``): (tag, arch, cells, its layers, microbatches and
+# remat)
+RANK_SHARES = {
+    "--tensor-parallel": ("[tensor-parallel]", "mistral-large-123b",
+                          TP_CELLS, (88, 8, "full")),
+    "--ssm-parallel": ("[ssm-parallel]", "zamba2-7b", SSM_CELLS,
+                       (81, 8, "full")),
+}
+
+
+def tensor_parallel_main(out_path: str, which: str) -> int:
+    """Phase 27's and phase 28's process (``chip_smoke.py
+    --tensor-parallel OUT.json``, ``--ssm-parallel OUT.json``): rank 0 of a
+    fake process group of 256 ranks (its collectives return at once and
+    move no data) on a 16 x 16 mesh of the card, the share's config
+    (``RANK_SHARES``) at full width and depth, its leaves the rank's blocks
+    drawn on the card; each of its cells through the step builders,
+    launches, SSD head counts and peak counted (the serve step:
+    ``TP_TICKS`` timed ticks after a warm-up, the collectives of a recorded
+    tick and whether each cache block was updated in place); the numbers
+    written to ``out_path``."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -4820,15 +4917,15 @@ def tensor_parallel_main(out_path: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    tag = "[tensor-parallel]"
+    tag, arch, cells, expect = RANK_SHARES[which]
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=256)
     res = {}
     try:
         mesh = make_production_mesh(device_type="cuda")
-        cfg = registry.get_config("mistral-large-123b")
-        check(cfg.n_layers == 88 and cfg.microbatches == 8
-              and cfg.remat == "full", f"{tag} config {cfg}")
+        cfg = registry.get_config(arch)
+        check((cfg.n_layers, cfg.microbatches, cfg.remat) == expect,
+              f"{tag} config {cfg}")
         gen = torch.Generator(device=dev).manual_seed(SEED)
         shaped = steps.shaped_params(cfg)
         ps = sh.params_shardings(mesh, shaped, policy=cfg.shard_policy)
@@ -4842,19 +4939,28 @@ def tensor_parallel_main(out_path: str) -> int:
         held = sum(x.numel() * x.element_size() for x in _local_leaves(P))
         whole = sum(t.numel() * t.element_size()
                     for t in _local_leaves(shaped))
+        mixer = (f", {cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} SSD "
+                 f"heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, a "
+                 f"shared block every {cfg.shared_attn_every} layers"
+                 if cfg.ssm_state else "")
         print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model "
-              f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, d_ff "
-              f"{cfg.d_ff}, bf16, remat {cfg.remat}; rank 0 of a fake group "
-              f"of 256 on the 16 x 16 mesh {mesh.mesh_dim_names}: its blocks "
+              f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+              f"{cfg.d_head}, d_ff {cfg.d_ff}{mixer}, bf16, remat "
+              f"{cfg.remat}; rank 0 of a fake group of 256 on the 16 x 16 "
+              f"mesh {mesh.mesh_dim_names}: its blocks "
               f"{held / 2**30:.3f} GiB of the tree's {whole / 2**30:.1f} GiB",
               flush=True)
-        for label, mode, kind, rows, seq in TP_CELLS:
+        for label, mode, kind, rows, seq in cells:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
+            m = 1
             if kind == "train":
                 cc = ColaConfig(mode=mode, family="lowrank", taps="qv",
                                 rank=16)
-                fn, (_, ash) = steps.make_train_step(cfg, cc, mesh)
+                # a cut batch keeps a microbatch's rows: fewer of them
+                m = rows // 16 // (256 // 16 // cfg.microbatches)
+                fn, (_, ash) = steps.make_train_step(
+                    cfg.replace(microbatches=m), cc, mesh)
                 A = _rank_blocks(
                     mesh, steps.shaped_adapters(cfg, cc), ash, gen, dev,
                     lambda p, leaf: (leaf.shape[-1] ** -0.5
@@ -4875,7 +4981,7 @@ def tensor_parallel_main(out_path: str) -> int:
                 step = (lambda: fn(P, {"tokens": toks}))
             _free()
             torch.cuda.reset_peak_memory_stats(dev)
-            with _HeadRecorder() as heads, \
+            with _HeadRecorder() as heads, _SsdRecorder() as ssd, \
                     model_lib.layer_input_meter() as saved:
                 t0 = time.perf_counter()
                 out, launches = _counted(step)
@@ -4883,10 +4989,10 @@ def tensor_parallel_main(out_path: str) -> int:
             peak = torch.cuda.max_memory_allocated(dev)
             del out
             _free()
-            m = cfg.microbatches if kind == "train" else 1
             res[label] = {
                 "ms": ms, "peak": peak, "launches": launches,
                 "heads": [list(k) + [v] for k, v in heads.seen.items()],
+                "ssd": [list(k) + [v] for k, v in ssd.seen.items()],
                 "rows": rows // 16 // m, "microbatches": m, "seq": seq,
                 "layer_inputs": sorted(set(saved.shapes)),
                 "layer_input_bytes": saved.bytes}
@@ -4898,14 +5004,16 @@ def tensor_parallel_main(out_path: str) -> int:
                   f"(torch.cuda.max_memory_allocated); launches "
                   f"{ {k: v for k, v in launches.items() if v} }; flash "
                   f"launches by (kernel, query heads, KV heads, d_head): "
-                  f"{dict(heads.seen)}; {card_line()}", flush=True)
-            held = ("what remat saves for the recompute" if kind == "train"
+                  f"{dict(heads.seen)}"
+                  + (f"; SSD calls by (op, heads): {dict(ssd.seen)}"
+                     if ssd.seen else "") + f"; {card_line()}", flush=True)
+            kept = ("what remat saves for the recompute" if kind == "train"
                     else "none saved: a prefill takes no gradient")
             print(f"{tag} {label}: the residual stream between blocks "
                   f"(sequence split over the 16 \"model\" ranks): layer "
                   f"inputs {sorted(set(saved.shapes))}, {len(saved.shapes)} "
                   f"of them, {saved.bytes / m / 2**30:.3f} GiB a "
-                  f"(micro)batch ({held}), {saved.bytes / 2**30:.3f} GiB "
+                  f"(micro)batch ({kept}), {saved.bytes / 2**30:.3f} GiB "
                   f"in all, counted as each layer's input is passed",
                   flush=True)
         print(f"{tag} values not checked: the fake group's collectives move "
@@ -4955,12 +5063,14 @@ def _tp_decode(cfg, mesh, P, gen, dev, rows: int, seq: int, tag: str
                        mesh, cspec[st][n])
                    for (st, n), p in before.items())
     moves = collectives.by_leaf(rec.records)
+    blocks = {f"{st}.{n}": list(d.to_local().shape)
+              for st, leaves in new.items() for n, d in leaves.items()}
     del new, rec
     fn(P, C, batch)   # warm-up
     _free()
     torch.cuda.reset_peak_memory_stats(dev)
     ms, per_tick = [], []
-    with _HeadRecorder() as heads:
+    with _HeadRecorder() as heads, _SsdRecorder() as ssd:
         for _ in range(TP_TICKS):
             t0 = time.perf_counter()
             out, launches = _counted(lambda: fn(P, C, batch))
@@ -4975,13 +5085,17 @@ def _tp_decode(cfg, mesh, P, gen, dev, rows: int, seq: int, tag: str
           f"ticks ({', '.join(f'{t:.2f}' for t in ms)}; the collectives' "
           f"time left out); peak memory {peak / 2**30:.2f} GiB; launches a "
           f"tick {per_tick[0]}; decode launches by (kernel, query heads, KV "
-          f"heads, d_head, positions): {dict(heads.seen)}; cache leaves "
-          f"moved by a collective: {moves or 'none'}; every block updated "
-          f"in place: {in_place}; {card_line()}", flush=True)
+          f"heads, d_head, positions): {dict(heads.seen)}"
+          + (f"; SSD steps by (op, heads): {dict(ssd.seen)}" if ssd.seen
+             else "")
+          + f"; collectives by label: {moves or 'none'}; cache blocks "
+          f"{blocks}; every block updated in place: {in_place}; "
+          f"{card_line()}", flush=True)
     return {"ms": p50, "ticks": ms, "peak": peak, "launches": per_tick,
             "heads": [list(k) + [v] for k, v in heads.seen.items()],
+            "ssd": [list(k) + [v] for k, v in ssd.seen.items()],
             "rows": rows // 16, "seq": seq, "cache_bytes": held,
-            "moves": moves, "in_place": in_place}
+            "moves": moves, "in_place": in_place, "blocks": blocks}
 
 
 def _local_leaves(tree) -> list:
@@ -4997,6 +5111,19 @@ def _local_leaves(tree) -> list:
     return out
 
 
+def _rank_share(tag: str, which: str) -> dict:
+    """A rank share's process (``tensor_parallel_main``) run to its end and
+    its numbers read back."""
+    out = ROOT / "build" / f"chip_smoke{which.replace('-', '_')}.json"
+    out.unlink(missing_ok=True)
+    _free()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           which, str(out)], cwd=ROOT, timeout=600)
+    check(proc.returncode == 0 and out.exists(),
+          f"{tag} the rank's process ended with rc {proc.returncode}")
+    return json.loads(out.read_text())
+
+
 def phase_tensor_parallel(dev) -> dict:
     """Phase 27 in its own process (the process group is global): rank 0 of
     mistral-large-123b's 16 x 16 mesh through the step builders. Checks that
@@ -5008,15 +5135,7 @@ def phase_tensor_parallel(dev) -> dict:
     leaf and updates every cache block in place, at a peak below 20 GiB;
     returns the launches of every step."""
     tag = "[tensor-parallel]"
-    out = ROOT / "build" / "chip_smoke_tp.json"
-    out.unlink(missing_ok=True)
-    _free()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           "--tensor-parallel", str(out)], cwd=ROOT,
-                          timeout=600)
-    check(proc.returncode == 0 and out.exists(),
-          f"{tag} the rank's process ended with rc {proc.returncode}")
-    res = json.loads(out.read_text())
+    res = _rank_share(tag, "--tensor-parallel")
     L, total = 88, collections.Counter()
     for label, mode, kind, rows, seq in TP_CELLS:
         r = res[label]
@@ -5062,6 +5181,90 @@ def phase_tensor_parallel(dev) -> dict:
               f"dry-run's {dry / 2**30:.2f} GiB ({r['peak'] / dry - 1:+.1%}; "
               f"{source})", flush=True)
         total.update(got)
+    return dict(total)
+
+
+def phase_ssm_parallel(dev) -> dict:
+    """Phase 28 in its own process: rank 0 of zamba2-7b's 16 x 16 mesh
+    through the step builders, its Mamba2 mixers scanning 7 of the 112 SSD
+    heads. Checks every step's flash launches (train: M x 14 x 2 forwards
+    with the recompute, M x 14 dq and dk/dv; prefill: 14 forwards) at the
+    shared block's 2 query / 2 KV heads of 112, every SSD scan at 7 heads,
+    the layer inputs the rank's (2, S / 16, 3584) rows; every tick's 14
+    dense decode launches (the log-sum-exp entry) at 32 / 32 heads of 112
+    over the rank's 2,048 positions and 81 SSD steps at 7 heads, no KV or
+    SSM state leaf moved, the conv state gathered a layer at a time, every
+    cache block (the state's (8, 7, 64, 64) a layer) updated in place;
+    each peak within 10 % of the dry-run's; returns the launches of every
+    step."""
+    tag = "[ssm-parallel]"
+    res = _rank_share(tag, "--ssm-parallel")
+    total = collections.Counter()
+    for label, mode, kind, rows, seq in SSM_CELLS:
+        r = res[label]
+        if kind == "decode":
+            want = {"decode_attention": SSM_CALLS}
+            check(all(t == want for t in r["launches"]),
+                  f"{tag} {label} launched {r['launches']}, not {want} a "
+                  f"tick")
+            check(all(tuple(h[1:5]) == SSM_DECODE for h in r["heads"])
+                  and sum(h[5] for h in r["heads"]) == SSM_CALLS * TP_TICKS,
+                  f"{tag} {label}: decode ran at {r['heads']}, not "
+                  f"{SSM_DECODE}")
+            check(r["ssd"] == [["ssd_decode_step", SSM_HEADS,
+                                SSM_LAYERS * TP_TICKS]],
+                  f"{tag} {label}: SSD steps {r['ssd']}, not "
+                  f"{SSM_LAYERS} a tick at {SSM_HEADS} heads")
+            moved = {k for k in r["moves"] if k.startswith("cache.")}
+            conv = r["moves"].get("cache.layers.conv", {})
+            check(moved == {"cache.layers.conv"}
+                  and set(conv) == {"all-gather"},
+                  f"{tag} {label}: cache collectives {r['moves']}, not the "
+                  f"conv state's gathers alone")
+            check(r["in_place"] and all(r["blocks"][k] == v
+                                        for k, v in SSM_BLOCKS.items()),
+                  f"{tag} {label}: a block came back other than in place "
+                  f"({r['in_place']}) or not the rank's ({r['blocks']})")
+            print(f"{tag} {label}: the SSM state stays the rank's heads "
+                  f"block {r['blocks']['layers.ssm']} (no collective "
+                  f"labelled with it), the conv state's channel block "
+                  f"{r['blocks']['layers.conv']} gathered a layer at a time: "
+                  f"{conv['all-gather'] / 1e6:.2f} MB a tick (all-gather)",
+                  flush=True)
+        else:
+            m = r["microbatches"]
+            want = ({"flash_attention": 2 * m * SSM_CALLS,
+                     "flash_attention_bwd_dq": m * SSM_CALLS,
+                     "flash_attention_bwd_dkv": m * SSM_CALLS}
+                    if kind == "train" else {"flash_attention": SSM_CALLS})
+            got = {k: v for k, v in r["launches"].items() if v}
+            check(got == want, f"{tag} {label} launched {got}, not {want}")
+            check(all(tuple(h[1:4]) == SSM_ATTN for h in r["heads"])
+                  and sum(h[5] for h in r["heads"]) == sum(want.values()),
+                  f"{tag} {label}: flash ran at {r['heads']}, not "
+                  f"{SSM_ATTN}")
+            scans = (2 if kind == "train" else 1) * m * SSM_LAYERS
+            check(all(h[:2] == ["ssd", SSM_HEADS] for h in r["ssd"])
+                  and sum(h[2] for h in r["ssd"]) == scans,
+                  f"{tag} {label}: SSD scans {r['ssd']}, not {SSM_HEADS} "
+                  f"heads")
+            rows_in = (r["rows"], seq // 16, 3584)
+            check(r["layer_inputs"] == [list(rows_in)],
+                  f"{tag} {label}: layer inputs {r['layer_inputs']}, not "
+                  f"{rows_in}")
+        total.update(want if kind != "decode" else
+                     {k: v * TP_TICKS for k, v in want.items()})
+        dry = SSM_DRYRUN_PEAK[label]
+        flags = " --by-layers --jobs 3" if kind == "train" else ""
+        source = (f"SSM_DRYRUN_PEAK[{label!r}] = {dry} B, "
+                  + SSM_DRYRUN_RECORD.format(label=label, flags=flags))
+        check(abs(r["peak"] / dry - 1) <= 0.10,
+              f"{tag} {label}: peak {r['peak'] / 2**30:.2f} GiB, not "
+              f"within 10 % of the dry-run's {dry / 2**30:.2f} GiB "
+              f"({source}; recount it if the step has changed)")
+        print(f"{tag} {label}: peak {r['peak'] / 2**30:.2f} GiB, the "
+              f"dry-run's {dry / 2**30:.2f} GiB ({r['peak'] / dry - 1:+.1%}; "
+              f"{source})", flush=True)
     return dict(total)
 
 
@@ -5338,6 +5541,10 @@ def main() -> int:
     tensor_parallel = phase_tensor_parallel(dev)
     print(f"[tensor-parallel] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    ssm_parallel = phase_ssm_parallel(dev)
+    print(f"[ssm-parallel] done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(f"[phases] done in {time.perf_counter() - start:.1f} s, the build "
           f"included", flush=True)
     _HALVES.close()
@@ -5358,12 +5565,11 @@ def main() -> int:
                "multi_lora_q8": "multi_lora"}
     # launches: the serving, training, serving-at-scale, store, runtime,
     # telemetry, gemma2, gemma2-train, configs, moe, ssm, hybrid, musicgen,
-    # pixtral, distributed and tensor-parallel runs' together (flash_attention
-    # runs on all fourteen
-    # attention paths, none on the ssm path, which runs the multi-LoRA
-    # kernels and cola_fit; the ring ticks count as the paged decode
-    # kernel's, of which they are the ring addressing mode); the top-level numbers are the kernel's first row,
-    # "rows" holds every phase-1 row of the kernel (both cola_fit taps,
+    # pixtral, distributed, tensor-parallel and ssm-parallel runs' together
+    # (flash_attention runs on every attention path, none on the ssm path,
+    # which runs the multi-LoRA kernels and cola_fit; the ring ticks count
+    # as the paged decode kernel's, of which they are the ring addressing
+    # mode); the top-level numbers are the kernel's first row, "rows" holds every phase-1 row of the kernel (both cola_fit taps,
     # multi_lora at a tick, the d_head 256 and 112 rows and the other
     # configs' shapes)
     for extra in (gemma2, configs, moe, ssm, hybrid, musicgen, pixtral,
@@ -5377,7 +5583,8 @@ def main() -> int:
                               + gemma2_train[n] + configs[n] + moe[n]
                               + ssm[n] + hybrid[n] + musicgen.get(n, 0)
                               + pixtral.get(n, 0) + distributed.get(n, 0)
-                              + tensor_parallel.get(n, 0)),
+                              + tensor_parallel.get(n, 0)
+                              + ssm_parallel.get(n, 0)),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})
@@ -5393,6 +5600,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-halves"]:
         sys.exit(cpu_halves_main(sys.argv[2], int(sys.argv[3])))
-    if sys.argv[1:2] == ["--tensor-parallel"]:
-        sys.exit(tensor_parallel_main(sys.argv[2]))
+    if sys.argv[1:2] and sys.argv[1] in RANK_SHARES:
+        sys.exit(tensor_parallel_main(sys.argv[2], sys.argv[1]))
     sys.exit(main())

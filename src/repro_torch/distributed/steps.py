@@ -17,15 +17,17 @@ Execution, as this port runs it:
   and the dense MLP's products (o and down by output columns over their
   gathered inputs), attends over its own query heads, and holds its vocab
   range of the embedding, the head and the CE. Where a split does not fit,
-  that part is replicated over "model" (the MoE and SSM blocks always). The
+  that part is replicated over "model" (the MoE FFN always). The
   train and prefill steps hold the residual stream between blocks as the
   rank's (b, S / n, d) rows where the n "model" ranks divide S (sequence
   parallelism, ``Plan.seq``: the norms and adds on the rows, the split
   parts' inputs gathered over the sequence and their output columns turned
   into rows by an all-to-all; the whole stream where S does not divide).
-  The serve step computes every head on every rank (q / k / v gathered) against
-  its block of a KV cache that the rules split by sequence, the ranks'
-  blocks merged (``tensor_parallel.merge``).
+  The Mamba2 mixer scans the rank's SSD heads where they divide. The serve
+  step computes every attention head on every rank (q / k / v gathered)
+  against its block of a KV cache that the rules split by sequence, the
+  ranks' blocks merged (``tensor_parallel.merge``), and keeps the SSM state
+  as the rank's heads block.
 - **Parameters, adapters, caches** come as DTensors at the rules' placements
   (``sharding.distribute``, or ``sharding.wrap`` of a rank's blocks) or as
   plain tensors (whole: the rank's block is copied out). The model takes
@@ -175,15 +177,16 @@ def _blocks(mesh: DeviceMesh, tree, specs) -> dict:
 
 
 def _plan(cfg: ModelConfig, mesh: DeviceMesh, rows: "_Rows", ps, ash=None,
-          seq: int | None = None) -> tp.Plan:
+          seq: int | None = None, ssm: bool = True) -> tp.Plan:
     """The call's tensor-parallel plan: gradients partial over the batch
     axes where the rows are split; ``seq``: the sequence length of a train
     or prefill step, whose residual stream the plan holds by sequence where
-    "model"'s ranks divide it (the serve step passes none)."""
+    "model"'s ranks divide it (the serve step passes none); ``ssm``: whether
+    the Mamba2 heads may split."""
     return tp.Plan(cfg, mesh, cfg.shard_policy,
                    partial=rows.axes if rows.split else (), param_specs=ps,
                    adapter_specs=ash, sites=model_lib.tap_sites(cfg),
-                   seq=seq)
+                   seq=seq, ssm=ssm)
 
 
 def _compute_placements(mesh: DeviceMesh, rows: _Rows, bdim: int,
@@ -386,6 +389,26 @@ def _cache_split(mesh: DeviceMesh, rows: _Rows, spec,
     return tp.CacheSplit(seq, n, idx * size, size, whole)
 
 
+def _held_block(mesh: DeviceMesh, rows: _Rows, spec,
+                dim: int) -> tuple[str, ...] | None:
+    """The axes (major first) over which a per-row state leaf (n, B, ...) at
+    ``spec`` splits dim ``dim``, where on this rank it is the rows the rank
+    computes and its block of dim ``dim``, no other dim split; else None.
+    The serve step's SSM state by heads (dim 2, over "model" alone: the
+    heads the rank scans), its conv state by channels (dim 3)."""
+    shape = sh.mesh_shape(mesh)
+
+    def axes(entry):
+        return tuple(a for a in sh._entry_axes(entry) if shape[a] > 1)
+
+    want_rows = tuple(a for a in rows.axes if shape[a] > 1) if rows.split \
+        else ()
+    if axes(spec[1]) != want_rows or any(
+            axes(e) for d, e in enumerate(spec) if d not in (1, dim)):
+        return None
+    return axes(spec[dim])
+
+
 def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
     """fn(params, cache, batch) -> (tokens | logits, new cache). The
     parameters are gathered a layer at a time and the products split over
@@ -394,9 +417,13 @@ def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
     leaf that ``cache_shardings`` places with its sequence split (and its
     rows the rank's computed rows) stays the rank's block: updated in place
     and returned at its spec, never gathered; the ranks' attention over
-    their blocks is merged. Any other cache leaf (the SSM conv and state, a
-    KV leaf split otherwise) is taken to the rank's rows whole and placed
-    anew."""
+    their blocks is merged. Where every SSM state leaf is the rank's rows
+    and heads block, the Mamba2 heads split as in the prefill and the state
+    stays that block, updated in place and never moved; its conv state, if
+    the rank's channel block, is gathered one layer at a time inside the
+    tick and only the block written back. Any other cache leaf (the state
+    where the heads stay replicated, a KV leaf split otherwise) is taken to
+    the rank's rows whole and placed anew."""
     policy = cfg.shard_policy
     ps = sh.params_shardings(mesh, shaped_params(cfg), policy=policy)
 
@@ -406,7 +433,18 @@ def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
         rows = _Rows(mesh, policy, B)
         _check_groups(cfg, rows, 1)
         cspec = sh.cache_shardings(mesh, cache)
-        plan = _plan(cfg, mesh, rows, ps)
+        states = [st for st, leaves in cache.items() if "ssm" in leaves]
+        plan = _plan(cfg, mesh, rows, ps,
+                     ssm=all(_held_block(mesh, rows, cspec[st]["ssm"], 2)
+                             == ("model",) for st in states))
+        held: dict[str, set] = {}
+        for st in states:
+            if plan.ssm is not None:
+                held[st] = {"ssm"}
+                conv = _held_block(mesh, rows, cspec[st]["conv"], 3)
+                if conv is not None:
+                    held[st].add("conv")
+                    plan.conv_blocks[st] = conv
         local = {}
         for stack, leaves in cache.items():
             split = (_cache_split(mesh, rows, cspec[stack]["k"],
@@ -414,10 +452,12 @@ def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
                      if "k" in leaves else None)
             if split is not None:
                 plan.cache_splits[stack] = split
-                local[stack] = _blocks(mesh, leaves, cspec[stack])
-                continue
+                held[stack] = set(leaves)
             local[stack] = {}
             for n, c in leaves.items():
+                if n in held.get(stack, ()):
+                    local[stack][n] = _block(mesh, c, cspec[stack][n])
+                    continue
                 with collectives.labelled(f"cache.{stack}.{n}"):
                     local[stack][n] = _rows_of(mesh, c, rows, 1)
         with sh.activation_rules(mesh, policy, local_rows=rows.split,
@@ -437,7 +477,7 @@ def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
         for stack, leaves in local.items():
             new[stack] = {
                 n: (sh.wrap(mesh, x, cspec[stack][n], cache[stack][n].shape)
-                    if stack in plan.cache_splits else
+                    if n in held.get(stack, ()) else
                     _place_rows(mesh, x, cspec[stack][n], rows, 1))
                 for n, x in leaves.items()}
         return _place_rows(mesh, out, ospec, rows, 0, mdim), new
@@ -515,7 +555,10 @@ def make_prefill_step(cfg: ModelConfig, mesh: DeviceMesh):
             if plan.attn is not None and path[-1] in ("k", "v"):
                 return _place_kv(mesh, x, flat[path], rows, plan,
                                  cfg.n_kv_heads)
-            return _place_rows(mesh, x, flat[path], rows, 1)
+            # a split mixer's final state is the rank's heads; its conv tail
+            # has every channel
+            heads = 2 if plan.ssm is not None and path[-1] == "ssm" else None
+            return _place_rows(mesh, x, flat[path], rows, 1, heads)
 
         return (_place_rows(mesh, logits, lspec, rows, 0,
                             logits.dim() - 1 if plan.head else None),

@@ -39,6 +39,25 @@ how each product is laid out (``current``, ``tap_layout``):
   vocab columns, and the CE (``vocab_ce``) takes the max and the sum of
   exponentials over "model" and the label's logit from the rank that holds
   it.
+- **The Mamba2 mixer** (``ssm``, where its SSD heads divide over "model"
+  and so does d_model, as JAX's ``constrain(xh, "batch", None, "model",
+  None)``): a split part, its input ``seq_in``'s and its output columns
+  ``seq_out``'s. ``in_proj`` is computed whole on every rank (the rules
+  leave its leaf whole over "model"); the rank takes its heads' columns of z, x
+  and dt and the shared B and C, convolves its x channels and B, C, and
+  scans its own heads with its slices of ``dt_bias``, ``A_log`` and ``D``.
+  ``y * silu(z)`` is gathered by columns (``gather_cols``), the norm runs
+  over the whole d_inner, and ``out_proj`` (placed by rows) by output
+  columns, as o is. Every leaf the mixer uses whole or sliced (``in_proj``,
+  the conv, ``dt_bias``, ``A_log``, ``D``, the norm's scale) has a gradient
+  partial over "model"; so do the ``ssm.in`` tap's adapters and its Mode-A
+  delta, whose layout stays a whole part's (``TapLayout.summed``). The
+  serve step keeps the SSM state as the rank's (b, H / n, P, N) heads
+  block, updated in place and never moved; the conv state's channel block
+  does not line up with the rank's heads, so it is gathered one layer at a
+  time inside the tick (``conv_state``, labelled "cache.<stack>.conv") and
+  only the rank's block of the new state is written back
+  (``own_channels``).
 - **Megatron's f.** A split region's input is ``copy_in`` (the identity,
   its gradient summed over "model"); its output is ``gather_out`` (the
   columns all-gathered, the gradient's own columns kept).
@@ -53,7 +72,7 @@ how each product is laid out (``current``, ``tap_layout``):
   gradients) and its output columns (b, S, d / n) turn into the rank's rows
   (b, S / n, d) by an all-to-all (``seq_out``; backward: the inverse), so
   every element stays one rank's whole sum. A part replicated over "model"
-  (an attention or MLP that does not split, every MoE and Mamba2 block,
+  (an attention, MLP or Mamba2 mixer that does not split, every MoE FFN,
   a head that keeps the whole vocab) gathers its input (``gather_rows``;
   backward: the rank's own rows, every rank's gradient being the same) and
   keeps its rows of the output (``keep_rows``; backward: the rows'
@@ -82,13 +101,16 @@ how each product is laid out (``current``, ``tap_layout``):
   divides), so the data leaves the step without a move.
 
 Where a split does not fit (the heads, d_model or the vocab do not divide,
-a split cuts a head or a GQA group, codebooks), the part's leaves are gathered over "model" too and its compute
-is replicated over "model", as every MoE and SSM block's is. With one rank
+a split cuts a head or a GQA group, codebooks; the SSD heads or d_model do
+not divide, or the serve step's SSM state is not the rank's heads block),
+the part's leaves are gathered over "model" too and its compute is
+replicated over "model", as every MoE FFN's is. With one rank
 on every axis nothing is gathered or split: the model runs on the tensors
 themselves.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 
@@ -106,7 +128,10 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
 
 # the weights that the rules place by rows and a split part uses by columns
-_ROW_PLACED = (".attn.o.w", ".mlp.down.w")
+_ROW_PLACED = (".attn.o.w", ".mlp.down.w", ".ssm.out_proj.w")
+# the Mamba2 mixer's input tap: computed whole on every rank, its gradient
+# partial over "model"
+_SSM_IN = ".ssm.in"
 # the norm scales applied to the residual stream's rows (their gradient is
 # partial over "model" under a sequence split)
 _ROW_WISE = re.compile(r"(^|\.)(ln|ln1|ln2|post_ln1|post_ln2|final_norm)"
@@ -192,6 +217,21 @@ class _CopyIn(torch.autograd.Function):
         return g, None
 
 
+class _PadScatter(torch.autograd.Function):
+    """The rank's block of a delta's columns padded to the whole width; the
+    gradient, each rank's partial of the whole width, reduce-scattered:
+    the rank's block of the sum."""
+
+    @staticmethod
+    def forward(ctx, d, lo, width, group):
+        ctx.group, ctx.n = group, width // d.shape[-1]
+        return torch.nn.functional.pad(d, (lo, width - lo - d.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, -1, ctx.group, ctx.n), None, None, None
+
+
 class _ReduceOut(torch.autograd.Function):
     """Partial sums summed over the group (in place); the gradient passed as
     it is."""
@@ -207,18 +247,25 @@ class _ReduceOut(torch.autograd.Function):
         return g, None
 
 
+def _label(name: str | None):
+    return contextlib.nullcontext() if name is None else \
+        collectives.labelled(name)
+
+
 class _GatherCols(torch.autograd.Function):
     """The ranks' blocks of the last dim gathered; the gradient
-    reduce-scattered."""
+    reduce-scattered (both under ``label``, where given)."""
 
     @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.group, ctx.n = group, n
-        return _all_gather(x, -1, group, n)
+    def forward(ctx, x, group, n, label):
+        ctx.group, ctx.n, ctx.label = group, n, label
+        with _label(label):
+            return _all_gather(x, -1, group, n)
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter_sum(g, -1, ctx.group, ctx.n), None, None
+        with _label(ctx.label):
+            return _scatter_sum(g, -1, ctx.group, ctx.n), None, None, None
 
 
 class _GatherOut(torch.autograd.Function):
@@ -334,13 +381,26 @@ class Attn:
 
 
 @dataclasses.dataclass(frozen=True)
+class Ssm:
+    """A rank's share of a Mamba2 mixer: ``heads`` SSD heads from head
+    ``first`` on."""
+    heads: int
+    first: int
+
+
+@dataclasses.dataclass(frozen=True)
 class TapLayout:
     """One tap's Mode-A blocks on this rank: ``x_block``, (lo, hi) of x kept
     for collection (None: all of it); ``delta_block``, (lo, hi, width) of
     y's columns where the rank's delta block goes (None: all of y, which is
-    the rank's output columns in a split part)."""
+    the rank's output columns in a split part); ``summed``: the group over
+    which the delta's gradient is partial (a whole y whose gradient each
+    rank gives its share of, the ``ssm.in`` tap's), summed there: the
+    rank's block of the summed whole, or the whole delta's summed
+    gradient where the block is all of y."""
     x_block: tuple[int, int] | None
     delta_block: tuple[int, int, int] | None
+    summed: object = None
 
     def collected(self, x: torch.Tensor) -> torch.Tensor:
         if self.x_block is None:
@@ -350,8 +410,13 @@ class TapLayout:
 
     def place_delta(self, d: torch.Tensor) -> torch.Tensor:
         if self.delta_block is None:
+            # every rank's delta is the whole one: its gradient summed
+            if self.summed is not None and _differentiable(d):
+                return _CopyIn.apply(d, self.summed)
             return d
         lo, hi, width = self.delta_block
+        if self.summed is not None and _differentiable(d):
+            return _PadScatter.apply(d, lo, width, self.summed)
         return torch.nn.functional.pad(d, (lo, width - hi))
 
 
@@ -397,12 +462,16 @@ class Plan:
     rules' specs of the parameter and adapter trees; ``sites``: the model's
     tap sites; ``seq``: the call's sequence length where the step may hold
     the residual stream by sequence (train and prefill; ``self.seq`` says
-    whether it does); ``cache_splits``: the serve step's KV caches held by
-    sequence block, by stack (set by the step)."""
+    whether it does); ``ssm``: whether the call may split the Mamba2 heads
+    (the serve step does where its SSM state is the rank's heads block);
+    ``cache_splits``: the serve step's KV caches held by sequence block, by
+    stack, and ``conv_blocks``: the stacks whose conv state it holds as the
+    rank's channel block, with the axes (major first) that split the
+    channels (set by the step)."""
 
     def __init__(self, cfg, mesh, policy: str, *, partial=(),
                  param_specs=None, adapter_specs=None, sites=None,
-                 seq: int | None = None):
+                 seq: int | None = None, ssm: bool = True):
         self.mesh = mesh
         self.shape = sh.mesh_shape(mesh)
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
@@ -421,7 +490,9 @@ class Plan:
                 sh._map(lambda p, s: flat.__setitem__(sh._path_str(p), s),
                         specs)
         self.cache_splits: dict[str, CacheSplit] = {}
+        self.conv_blocks: dict[str, tuple[str, ...]] = {}
         self.attn = self._attn(cfg, flat) if tp else None
+        self.ssm = self._ssm(cfg, flat) if tp and ssm else None
         self.mlp = tp and self._mlp(cfg, flat)
         self.embed = self._vocab(cfg, flat, "embed") if tp else None
         self.head = self._vocab(cfg, flat, "head") if tp else None
@@ -456,6 +527,17 @@ class Plan:
                 and self._splits(flat, "mlp.up.w", -1)
                 and self._splits(flat, "mlp.down.w", -2))
 
+    def _ssm(self, cfg, flat) -> Ssm | None:
+        """The rank's SSD heads, where they and d_model divide over "model"
+        and the rules place ``out_proj`` by rows over it."""
+        if not cfg.ssm_state:
+            return None
+        heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+        if heads % self.n or cfg.d_model % self.n or not self._splits(
+                flat, "ssm.out_proj.w", -2):
+            return None
+        return Ssm(heads // self.n, self.c * (heads // self.n))
+
     def _vocab(self, cfg, flat, use: str) -> tuple[int, int] | None:
         """(first id, ids) of this rank's vocab range for the embedding or
         the head, where its leaf holds the vocab split over "model" (the
@@ -480,7 +562,7 @@ class Plan:
         product (a row-placed weight's rows, which ``_recipe`` swaps to
         columns), or None."""
         if self._part(path) is not None and re.search(
-                r"\.(q|k|v|o|gate|up|down)\.w$", f".{path}"):
+                r"\.(q|k|v|o|gate|up|down|out_proj)\.w$", f".{path}"):
             return -2 if f".{path}".endswith(_ROW_PLACED) else -1
         if path == "embed.emb" and self.embed:
             return -2
@@ -489,14 +571,16 @@ class Plan:
         if path == "lm_head.w" and self.head:
             return -1
         tap, _, leaf = path.rpartition(".")
-        if self._part(tap) is not None and leaf in ("B", "W", "W2"):
+        if (self._part(tap) is not None and leaf in ("B", "W", "W2")
+                and not f".{tap}".endswith(_SSM_IN)):
             return -1
         return None
 
     def _part(self, name: str) -> str | None:
-        """"attn" or "mlp" where the tap or leaf ``name`` lies in a split
-        part."""
-        for part, on in (("attn", self.attn is not None), ("mlp", self.mlp)):
+        """"attn", "mlp" or "ssm" where the tap or leaf ``name`` lies in a
+        split part."""
+        for part, on in (("attn", self.attn is not None), ("mlp", self.mlp),
+                         ("ssm", self.ssm is not None)):
             if on and f".{part}." in f".{name}":
                 return part
         return None
@@ -579,12 +663,15 @@ class Plan:
         dist.all_reduce(x, group=self.group)
         return x
 
-    def gather_cols(self, x: torch.Tensor) -> torch.Tensor:
+    def gather_cols(self, x: torch.Tensor, label: str | None = None
+                    ) -> torch.Tensor:
         """The ranks' blocks of x's last dim, gathered (the gradient
-        reduce-scattered: each rank's is a partial)."""
+        reduce-scattered: each rank's is a partial), both under ``label``
+        where given."""
         if _differentiable(x):
-            return _GatherCols.apply(x, self.group, self.n)
-        return _all_gather(x, -1, self.group, self.n)
+            return _GatherCols.apply(x, self.group, self.n, label)
+        with _label(label):
+            return _all_gather(x, -1, self.group, self.n)
 
     def gather_out(self, y: torch.Tensor) -> torch.Tensor:
         """A split part's output columns, gathered (the gradient's own
@@ -709,10 +796,12 @@ class Plan:
     def _tap_layout(self, tap: str) -> TapLayout:
         site = self.sites[tap]
         x_block = self._block(site.d_in)
-        if self._part(tap) is not None:   # y is this rank's block already
-            return TapLayout(x_block, None)
+        part = self._part(tap)
+        if part is not None and not f".{tap}".endswith(_SSM_IN):
+            return TapLayout(x_block, None)   # y is this rank's block already
         out = self._block(site.d_out)
-        return TapLayout(x_block, out and (out[0], out[1], site.d_out))
+        return TapLayout(x_block, out and (out[0], out[1], site.d_out),
+                         self.group if part is not None else None)
 
     def delta_width(self, width: int) -> int:
         """A Mode-A delta's last dim on this rank: its block under
@@ -842,6 +931,37 @@ def head_input(h: torch.Tensor) -> torch.Tensor:
     gradient already)."""
     p = current()
     return h if p is None or p.head is None or p.seq else p.copy_in(h)
+
+
+def ssm() -> Plan | None:
+    """The plan where the Mamba2 mixer's heads are split over "model", else
+    None."""
+    p = current()
+    return p if p is not None and p.ssm is not None else None
+
+
+def conv_state(stack: str, conv: torch.Tensor) -> torch.Tensor:
+    """A Mamba2 layer's conv state (b, W - 1, C) with every channel: where
+    the serve step holds the rank's channel block of stack ``stack``'s, the
+    ranks' blocks gathered over the axes that split them, the minor first
+    (labelled "cache.<stack>.conv"), else ``conv`` itself."""
+    p = current()
+    axes = () if p is None else p.conv_blocks.get(stack, ())
+    with collectives.labelled(f"cache.{stack}.conv"):
+        for a in reversed(axes):
+            conv = _all_gather(conv, -1, p.mesh.get_group(a), p.shape[a])
+    return conv
+
+
+def own_channels(stack: str, conv: torch.Tensor) -> torch.Tensor:
+    """The rank's block of a whole conv state where ``conv_state`` gathered
+    it, else ``conv``."""
+    p = current()
+    axes = () if p is None else p.conv_blocks.get(stack, ())
+    n, idx = 1, 0
+    for a in axes:
+        idx, n = idx * p.shape[a] + p.coord[a], n * p.shape[a]
+    return _own(conv, -1, n, idx) if n > 1 else conv
 
 
 def vocab_head() -> Plan | None:

@@ -7,6 +7,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out out.jsonl
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \
       --shape train_4k --override shard_policy=dp --tag dp_only --breakdown
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch zamba2-7b \
+      --shape train_4k --mesh both --by-layers --jobs 3
 
 ``--tag`` writes the tag and the overrides into each record; ``--breakdown``
 prints each cell's collectives as the step issued them (``launch/perf_probe``
@@ -25,14 +27,18 @@ for 16 x 16, 512 for 2 x 16 x 16), and counts what it runs:
   issues (``analysis.collectives.CollectiveRecorder``), an all-reduce
   counted twice, and the bytes by op; ``cache_collectives``, a serve
   step's: the bytes by op of each cache leaf it moves ({"cache.<stack>.<leaf>":
-  {op: bytes}}; a KV leaf split by sequence is never moved, so only the SSM
-  conv and state leaves, and KV leaves placed otherwise, appear);
+  {op: bytes}}; a KV leaf split by sequence and an SSM state split by heads
+  are never moved, so only the conv state's per-layer gathers, and leaves
+  placed otherwise, appear);
   ``seq_collectives``, a train or prefill step's under its sequence split:
   the bytes by op of each "seq.<part>" label (``tensor_parallel``: "seq.in"
   a split part's input gathered and its gradient reduce-scattered,
   "seq.out" its output columns to rows and back, "seq.gather" /
   "seq.keep" a replicated part's input gathered and its output rows'
-  gradients gathered, "seq.embed", "seq.head", "seq.pick").
+  gradients gathered, "seq.embed", "seq.head", "seq.pick");
+  ``ssm_collectives``, the Mamba2 mixer's under a split of its heads
+  ("ssm.norm": the rank's columns of ``y * silu(z)`` gathered for the norm,
+  the gradient reduce-scattered).
 - ``layer_input_bytes``: the bytes of every layer's input as
   ``hidden_states`` passes it (``model.layer_input_meter``): what
   ``remat="full"`` saves for the recompute, the rank's (b, S / n, d) rows
@@ -66,8 +72,13 @@ What the count is of:
   gathers the leaves a layer at a time: a rank's peak holds its blocks of
   the tree and one layer's gathered leaves.
 - Every Python loop (layers, chunks, microbatches, the loss, the SSD scan)
-  runs in full, so no layer extrapolation is needed and there is no
-  ``--no-cost-pass``: one eager pass counts everything.
+  runs in full, so one eager pass counts everything and there is no
+  ``--no-cost-pass``. ``--by-layers`` (``count_by_layers``) instead counts
+  three depths of the uniform or hybrid plan and extrapolates, exactly,
+  for a cell whose eager count outlasts its host time (zamba2-7b's
+  train_4k: over an hour at 81 layers); ``--jobs 3`` counts the depths
+  side by side. Such a record gives its peak only where the depths' peaks
+  grow linearly.
 
 A cell that a step refuses (a MoE batch whose dispatch groups would not be
 one device's, ``steps._check_groups``) fails with the step's text.
@@ -95,7 +106,7 @@ from repro_torch.configs.base import ColaConfig
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed import steps
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import model as model_lib
 from repro_torch.utils import canonical_dtype
 
@@ -289,53 +300,136 @@ def count_step(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
             "count_s": time.perf_counter() - t0}
 
 
-def count_by_layers(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
-                    mesh) -> dict:
-    """``count_step``'s flops, bytes_accessed, collective_bytes and
-    gathered_leaf_bytes, and the bytes of its inputs, outputs and in-place
-    outputs (``memory``, in
-    ``memory_record``'s keys, with no peak), of ``cfg`` at its depth L, from
-    counts at 2, 3 and 4 layers of the uniform plan, through the quadratic
-    on those three points: exact, since every layer runs the same ops and
-    the embedding, head and loss run once. FLOPs, collectives, inputs and
-    outputs grow linearly in L; the bytes accessed also carry an L^2 term
-    (each layer's backward through its view of a tap's stacked (L, ...)
-    delta or adapter leaf fills and adds a gradient of the whole stack). One
-    layer is not a point: a stacked leaf of one layer may be placed
-    otherwise. JAX's dry-run extrapolates from two depths for the same
-    reason of time; this serves a count whose host time is bounded
-    (``chip_smoke.py``'s ``[roofline]``), and gives no peak."""
-    if model_lib.layer_plan(cfg)[0] != "uniform":
+def layer_points(cfg) -> tuple[tuple[int, int, int], int]:
+    """The three depths ``count_by_layers`` counts and the number of periods
+    it extrapolates to. A period is one layer of the uniform plan, and
+    ``shared_attn_every`` layers of the hybrid plan (its shared block runs
+    once a period, and once more before a tail of fewer layers); the depths
+    are 2, 3 and 4 periods with ``cfg.n_layers``' tail (81 = 13 x 6 + 3:
+    15, 21 and 27 layers, and 13 periods)."""
+    plan = model_lib.layer_plan(cfg)[0]
+    if plan == "uniform":
+        every = 1
+    elif plan == "hybrid":
+        every = cfg.shared_attn_every
+    else:
         raise ValueError(f"{cfg.name}: layer extrapolation takes the uniform "
-                         f"plan only")
-    memory_keys = ("argument_size_in_bytes", "output_size_in_bytes",
-                   "alias_size_in_bytes")
-    count_keys = ("flops", "bytes_accessed", "collective_bytes",
-                  "gathered_leaf_bytes")
+                         f"and hybrid plans only")
+    k, tail = divmod(cfg.n_layers, every)
+    return tuple(j * every + tail for j in (2, 3, 4)), k
 
-    def point(n):
-        c = count_step(cfg.replace(n_layers=n), cc, kind, batch, seq, mesh)
-        return {**c["memory"], **c}
 
-    f2, f3, f4 = (point(n) for n in (2, 3, 4))
-    L = cfg.n_layers
+_MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
+                "alias_size_in_bytes")
+_COUNT_KEYS = ("flops", "bytes_accessed", "collective_bytes",
+               "gathered_leaf_bytes", "layer_input_bytes")
+
+
+def _numbers(count: dict) -> dict:
+    """``count_step``'s counts that grow with the depth, as integers: its
+    ``_COUNT_KEYS``, its memory's bytes and peak, and its collectives' bytes
+    by op and by label and op."""
+    out = {k: round(count[k]) for k in _COUNT_KEYS}
+    out.update({("memory", k): count["memory"][k]
+                for k in _MEMORY_KEYS + ("peak_bytes_per_device",)})
+    recs = count["collective_records"]
+    out.update({("op", op): round(b)
+                for op, b in collectives.bytes_by_op(recs).items()})
+    out.update({("of", label, op): round(b)
+                for label, ops in collectives.by_leaf(recs).items()
+                for op, b in ops.items()})
+    out["bounded_ops"] = count["bounded_ops"]
+    out["count_s"] = count["count_s"]
+    return out
+
+
+def _point(cfg, cc, kind, batch, seq, mesh_shape, n) -> dict:
+    """``_numbers`` of one depth, counted in a fake group of its own (a
+    worker process's)."""
+    world = 1
+    for v in mesh_shape.values():
+        world *= v
+    with fake_world(world):
+        mesh = make_mesh(mesh_shape["data"], mesh_shape["model"],
+                         mesh_shape.get("pod", 1), device_type="cpu")
+        return _numbers(count_step(cfg.replace(n_layers=n), cc, kind, batch,
+                                   seq, mesh))
+
+
+def count_by_layers(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
+                    mesh, jobs: int = 1) -> dict:
+    """``count_step``'s counts of ``cfg`` at its depth from counts at three
+    depths (``layer_points``: 2, 3 and 4 layers of the uniform plan, or
+    periods of the hybrid plan with the depth's tail), through the
+    quadratic on those three points: exact, since every period runs the
+    same ops and the embedding, head, loss and tail run once. FLOPs,
+    collectives, inputs and outputs grow linearly in the periods; the bytes
+    accessed also carry a quadratic term (each layer's backward through its
+    view of a tap's stacked (L, ...) delta or adapter leaf fills and adds a
+    gradient of the whole stack). One period is not a point: a stacked leaf
+    of one layer may be placed otherwise. JAX's dry-run extrapolates from
+    two depths for the same reason of time.
+
+    Returns the flops, bytes_accessed, collective_bytes,
+    gathered_leaf_bytes and layer_input_bytes; ``memory``, the inputs',
+    outputs' and in-place outputs' bytes in ``memory_record``'s keys;
+    ``collectives``, the bytes by op, and ``labelled``, by label and op
+    (``collectives.by_leaf``); ``peak``, the peak where the three points'
+    peaks grow linearly (the checkpointed layer inputs, one a layer), else
+    None; the ``depths`` counted, their ``bounded_ops`` and ``count_s``.
+    ``jobs`` > 1 counts the depths side by side, each in a spawned process
+    with a fake group of its own (``mesh``'s shape)."""
+    depths, k = layer_points(cfg)
+    if jobs > 1:
+        import concurrent.futures
+        import multiprocessing
+
+        shape = sh.mesh_shape(mesh)
+        with concurrent.futures.ProcessPoolExecutor(
+                min(jobs, 3), mp_context=multiprocessing.get_context(
+                    "spawn")) as ex:
+            pts = list(ex.map(_point, *zip(*[
+                (cfg, cc, kind, batch, seq, shape, n) for n in depths])))
+    else:
+        pts = [_numbers(count_step(cfg.replace(n_layers=n), cc, kind, batch,
+                                   seq, mesh)) for n in depths]
+    f2, f3, f4 = pts
+    keys = (set(f2) | set(f3) | set(f4)) - {"bounded_ops", "count_s"}
     # Lagrange on 2, 3, 4 in integers (each product of two consecutive
     # integers is even)
-    at = {k: (round(f2[k]) * (L - 3) * (L - 4) // 2
-              - round(f3[k]) * (L - 2) * (L - 4)
-              + round(f4[k]) * (L - 2) * (L - 3) // 2)
-          for k in count_keys + memory_keys}
-    return {**{k: at[k] for k in count_keys},
-            "memory": {k: at[k] for k in memory_keys},
-            "count_s": f2["count_s"] + f3["count_s"] + f4["count_s"]}
+    at = {key: (f2.get(key, 0) * (k - 3) * (k - 4) // 2
+                - f3.get(key, 0) * (k - 2) * (k - 4)
+                + f4.get(key, 0) * (k - 2) * (k - 3) // 2)
+          for key in keys}
+    peak = ("memory", "peak_bytes_per_device")
+    linear = f3[peak] - f2[peak] == f4[peak] - f3[peak]
+    keyed = sorted(key for key in keys if isinstance(key, tuple))
+    labelled: dict = {}
+    for key in keyed:
+        if key[0] == "of":
+            labelled.setdefault(key[1], {})[key[2]] = float(at[key])
+    return {**{key: at[key] for key in _COUNT_KEYS},
+            "memory": {key: at[("memory", key)] for key in _MEMORY_KEYS},
+            "collectives": {key[1]: float(at[key]) for key in keyed
+                            if key[0] == "op"},
+            "labelled": labelled,
+            "peak": at[peak] if linear else None,
+            "depths": depths,
+            "bounded_ops": sorted(set().union(*(p["bounded_ops"]
+                                                for p in pts))),
+            "count_s": sum(p["count_s"] for p in pts)}
 
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                cola_mode: str = "fused_fit", overrides: dict | None = None,
-               verbose: bool = True) -> dict:
+               verbose: bool = True, by_layers: bool = False,
+               jobs: int = 1) -> dict:
     """Count one (arch, shape) cell on a fake production mesh; return the
     §Dry-run / §Roofline record (``collective_records`` holds every
-    collective as issued)."""
+    collective as issued). ``by_layers``: extrapolate from three depths
+    (``count_by_layers``, ``jobs`` of them side by side): the record then
+    holds no ``collective_records``, its ``by_layers`` the depths counted,
+    and its peak only where the depths' peaks grow linearly (else None)."""
     cfg = registry.get_config(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
@@ -344,7 +438,22 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     world = 512 if multi_pod else 256
     with fake_world(world):
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
-        count = count_step(cfg, cc, spec.kind, spec.batch, spec.seq, mesh)
+        count = (count_by_layers if by_layers else count_step)(
+            cfg, cc, spec.kind, spec.batch, spec.seq, mesh,
+            **({"jobs": jobs} if by_layers else {}))
+    if by_layers:
+        labelled = count["labelled"]
+        mem = dict(count["memory"])
+        peak = count["peak"]
+        mem.update(roofline.memory_record(
+            mem["argument_size_in_bytes"], mem["output_size_in_bytes"],
+            mem["alias_size_in_bytes"], peak) if peak is not None
+            else {"temp_size_in_bytes": None, "peak_bytes_per_device": None})
+        count = dict(count, memory=mem, collective_records=[])
+        by_op = count["collectives"]
+    else:
+        labelled = collectives.by_leaf(count["collective_records"])
+        by_op = collectives.bytes_by_op(count["collective_records"])
     rec = {
         "arch": arch,
         "shape": shape_name,
@@ -360,17 +469,21 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "bytes_accessed_counted": "computed, unfused: each op's inputs plus "
                                   "outputs on the plain path",
         "collective_bytes": count["collective_bytes"],
-        "collectives": collectives.bytes_by_op(count["collective_records"]),
-        "cache_collectives": collectives.by_leaf(count["collective_records"],
-                                                 "cache."),
-        "seq_collectives": collectives.by_leaf(count["collective_records"],
-                                               "seq."),
+        "collectives": by_op,
+        "cache_collectives": {k: v for k, v in labelled.items()
+                              if k.startswith("cache.")},
+        "seq_collectives": {k: v for k, v in labelled.items()
+                            if k.startswith("seq.")},
+        "ssm_collectives": {k: v for k, v in labelled.items()
+                            if k.startswith("ssm.")},
         "layer_input_bytes": count["layer_input_bytes"],
         "collective_records": count["collective_records"],
         "bounded_ops": count["bounded_ops"],
         "devices": world,
         "exact_costs": True,
     }
+    if by_layers:
+        rec["by_layers"] = list(count["depths"])
     rec.update(roofline.roofline_terms(rec))
     rec["model_flops"] = roofline.model_flops(cfg, spec)
     # flops are one rank's; model_flops is the whole step's
@@ -379,7 +492,9 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if verbose:
         moved = roofline.bytes_moved(rec["memory"], rec["gathered_leaf_bytes"])
         print(f"[dryrun] {arch} x {shape_name} ({rec['mesh']}, {cola_mode}) "
-              f"counted in {rec['count_s']}s")
+              f"counted in {rec['count_s']}s"
+              + (f" (by layers: depths {rec['by_layers']})" if by_layers
+                 else ""))
         print("  memory:", json.dumps(rec["memory"]))
         print(f"  flops={rec['flops']:.3e} "
               f"moved={moved:.3e} "
@@ -390,6 +505,9 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             print(f"  sequence split: layer inputs "
                   f"{rec['layer_input_bytes']:.3e} B, collectives "
                   f"{json.dumps(rec['seq_collectives'])}")
+        for key in ("cache_collectives", "ssm_collectives"):
+            if rec[key]:
+                print(f"  {key}: {json.dumps(rec[key])}")
         print(f"  terms(s): compute={rec['t_compute']:.4e} "
               f"memory={rec['t_memory']:.4e} collective={rec['t_collective']:.4e}"
               f" (unfused {rec['t_memory_unfused']:.4e}, NIC "
@@ -432,6 +550,12 @@ def main(argv=None) -> int:
     p.add_argument("--breakdown", action="store_true",
                    help="print each cell's collectives as the step issued "
                         "them, one rank's")
+    p.add_argument("--by-layers", action="store_true",
+                   help="extrapolate each cell from three depths "
+                        "(count_by_layers: the uniform and hybrid plans)")
+    p.add_argument("--jobs", type=int, default=1,
+                   help="with --by-layers, count the depths side by side in "
+                        "this many processes (at most 3)")
     args = p.parse_args(argv)
     # DTensor warns at every leaf gathered from a strided placement (two
     # all-gathers where one would do); the records count both
@@ -465,7 +589,8 @@ def main(argv=None) -> int:
                 continue
             try:
                 rec = lower_cell(arch, shape, multi_pod=mp, cola_mode=args.mode,
-                                 overrides=overrides or None)
+                                 overrides=overrides or None,
+                                 by_layers=args.by_layers, jobs=args.jobs)
                 if args.tag is not None:
                     rec.update(tag=args.tag, overrides=overrides)
                 if args.breakdown:

@@ -7,9 +7,10 @@ them; and the Mamba2 block of the SSM plan (mamba2-370m): a pre-norm
 
 Under a step's sequence split (``distributed.tensor_parallel``) a block's
 input and output are the rank's rows of the sequence: the norms and the
-residual adds run on them, the attention and the dense MLP gather the
-sequence themselves, and the MoE FFN and the Mamba2 mixer, replicated over
-"model", take the whole sequence and keep the rank's rows of their output.
+residual adds run on them, the attention, the dense MLP and a Mamba2
+mixer split by heads gather the sequence themselves, and the MoE FFN and a
+mixer replicated over "model" take the whole sequence and keep the rank's
+rows of their output.
 """
 from __future__ import annotations
 
@@ -120,13 +121,20 @@ def _ssm_kwargs(cfg: ModelConfig, tap_prefix: str, tap_ctx) -> dict:
 def ssm_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
               tap_prefix: str, tap_ctx: tuple | None):
     """Full-sequence block (prefill, training). Returns (x, the layer's
-    final {"conv", "ssm"} state)."""
-    # replicated over "model": the scan runs over the whole sequence
+    final {"conv", "ssm"} state: under a plan that splits the heads, the
+    rank's heads of the SSM state). The scan runs over the whole sequence:
+    a mixer split by heads takes it through ``seq_in`` and gives its output
+    columns through ``seq_out``; a replicated one gathers it and keeps its
+    rows."""
+    h = _norm(cfg, params["ln"], x)
+    plan = tp.ssm()
     y, st = S.ssm_block(params["ssm"],
-                        tp.replicated_in(_norm(cfg, params["ln"], x)),
+                        tp.replicated_in(h) if plan is None
+                        else plan.seq_in(h),
                         chunk=cfg.ssd_chunk,
                         **_ssm_kwargs(cfg, tap_prefix, tap_ctx))
-    return x + tp.replicated_out(y), st
+    return x + (tp.replicated_out(y) if plan is None
+                else plan.seq_out(y)), st
 
 
 def ssm_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -136,13 +144,22 @@ def ssm_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     x: (B, c, d) runs one prefill chunk through the full-sequence block with
     both states carried in and out, exact length, so no padding ever reaches
     the recurrent state. Returns (x, conv_state, ssm_state); the caches are
-    not touched."""
+    not touched. Under a plan that splits the heads the conv state in and
+    out has every channel and the SSM state is the rank's heads', and the
+    mixer's output columns are gathered (``seq_out``: the serve step holds
+    no sequence split)."""
     h = _norm(cfg, params["ln"], x)
     kw = _ssm_kwargs(cfg, tap_prefix, tap_ctx)
+    plan = tp.ssm()
+    if plan is not None:
+        h = plan.seq_in(h)
     if x.shape[1] > 1:
         y, st = S.ssm_block(params["ssm"], h, chunk=cfg.ssd_chunk,
                             init_state=ssm_state, conv_state=conv_state, **kw)
-        return x + y, st["conv"], st["ssm"]
-    y, conv_state, ssm_state = S.ssm_decode_step(params["ssm"], h, conv_state,
-                                                 ssm_state, **kw)
+        conv_state, ssm_state = st["conv"], st["ssm"]
+    else:
+        y, conv_state, ssm_state = S.ssm_decode_step(
+            params["ssm"], h, conv_state, ssm_state, **kw)
+    if plan is not None:
+        y = plan.seq_out(y)
     return x + y, conv_state, ssm_state

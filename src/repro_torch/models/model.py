@@ -743,11 +743,16 @@ def _ssm_decode(cfg: ModelConfig, lp: dict, x: torch.Tensor, cache: dict,
                 ) -> torch.Tensor:
     """Mamba2 layer i of a decode step (parameters ``lp``), its state
     written back into ``cache`` in place; rows where ``live`` is False get
-    their old state back (a select against the old state, no host sync)."""
+    their old state back (a select against the old state, no host sync).
+    Under the serve step's plan the SSM state may be the rank's heads block
+    and the conv state its channel block, gathered for the layer
+    (``tensor_parallel.conv_state``) and written back as the block."""
     conv, st = cache["conv"][i], cache["ssm"][i]
-    x, new_conv, new_st = B.ssm_block_decode(cfg, lp, x, conv, st,
-                                             tap_prefix="layers",
+    x, new_conv, new_st = B.ssm_block_decode(cfg, lp, x,
+                                             tp.conv_state("layers", conv),
+                                             st, tap_prefix="layers",
                                              tap_ctx=tap_ctx)
+    new_conv = tp.own_channels("layers", new_conv)
     if live is not None:
         new_conv = torch.where(live[:, None, None], new_conv, conv)
         new_st = torch.where(live[:, None, None, None], new_st, st)

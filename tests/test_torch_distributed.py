@@ -61,6 +61,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_flops  # noqa: E402
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -91,7 +93,19 @@ CONFIGS = {
     # 6 heads (G 3): on 4 "model" ranks the heads do not divide
     "nemo6": ("mistral-nemo-12b", dict(SMALL, n_heads=6)),
     "qwen": ("qwen3-moe-30b-a3b", dict(SMALL, moe_group=32)),
+    # 8 SSD heads of 16 (d_inner 128): they divide over 4 and 2 "model"
+    # ranks; the conv's 160 channels (x | B | C = 128 | 16 | 16) split in
+    # blocks of 40 or 80, across the rank's heads' x channels (32 or 64)
     "mamba": ("mamba2-370m", dict(n_layers=2, d_model=64, vocab_size=128)),
+    # 2 SSD heads of 64: on 4 "model" ranks the heads do not divide, so the
+    # mixer is replicated (and the serve step's state moved to the rows)
+    "mamba2h": ("mamba2-370m", dict(n_layers=2, d_model=64, vocab_size=128,
+                                    ssm_headdim=64)),
+    # 4 SSD heads of 32, served at 3 rows on (2, 4) (as long_500k's one
+    # row): the rows do not divide, the state's heads split over "model"
+    # and the conv's 160 channels over "data" and "model" (20 a rank)
+    "mamba4h": ("mamba2-370m", dict(n_layers=2, d_model=64, vocab_size=128,
+                                    ssm_headdim=32)),
     # the pairs plan (post-norms, softcaps, a window that bites at S 16)
     # and the hybrid plan (a shared attention block before each 2 Mamba2
     # layers)
@@ -115,10 +129,18 @@ FALLBACK = (("train", "faithful_offload", 2), ("train", "fused_fit", 2),
             ("prefill", None, 1))
 # steps run under remat="full" on (2, 4), against world size 1's without
 REMAT = (("train", "fused_fit", 2), ("train", "ft", 1))
-# mamba's steps on (2, 4) (its Mamba2 blocks replicated under the sequence
-# split), and nemo's at S_ODD at world sizes 1 and 8 (on (2, 4))
-SSM_W8 = (("train", "fused_fit", 2), ("prefill", None, 1))
+# mamba's steps on (2, 4) and (2, 2, 2) (the SSD heads split over "model"),
+# mamba2h's at world sizes 1 and 8 (on (2, 4): the mixer replicated), and
+# nemo's at S_ODD at world sizes 1 and 8 (on (2, 4))
+SSM_W8 = (("train", "faithful_offload", 2), ("train", "fused_fit", 2),
+          ("prefill", None, 1), ("serve", True, 1))
+SSM_MESHES = ((2, 4, 1), (2, 2, 2))
+SSM_FALLBACK = (("train", "fused_fit", 2), ("prefill", None, 1),
+                ("serve", True, 1))
 ODD = (("train", "fused_fit", 2), ("prefill", None, 1))
+# the greedy serve step fed by a prefill step's cache for TICKS ticks
+# (mamba, at world size 1 and on (2, 4))
+TICKS = 3
 # the pairs and hybrid plans under the sequence split, at world sizes 1
 # and 8 (on (2, 4))
 PLAN_W8 = tuple((k, s) for k in ("gemma2", "zamba2")
@@ -450,8 +472,17 @@ def runs(tmp_path_factory):
         eight.append(_case("nemo6", s, mo, m, (2, 4, 1), inputs["nemo6"]))
     eight += [_case("nemo", s, mo, m, (2, 4, 1), inputs["nemo"],
                     remat="full") for s, mo, m in REMAT]
-    eight += [_case("mamba", s, mo, m, (2, 4, 1), inputs["mamba"])
-              for s, mo, m in SSM_W8]
+    eight += [_case("mamba", s, mo, m, mesh, inputs["mamba"])
+              for mesh in SSM_MESHES for s, mo, m in SSM_W8]
+    for s, mo, m in SSM_FALLBACK:
+        one.append(_case("mamba2h", s, mo, m, (1, 1, 1), inputs["mamba2h"]))
+        eight.append(_case("mamba2h", s, mo, m, (2, 4, 1),
+                           inputs["mamba2h"]))
+    one.append(_ticks_case((1, 1, 1), inputs["mamba"]))
+    eight.append(_ticks_case((2, 4, 1), inputs["mamba"]))
+    for mesh, run in (((1, 1, 1), one), ((2, 4, 1), eight)):
+        run.append(_three_rows(_case("mamba4h", "serve", True, 1, mesh,
+                                     inputs["mamba4h"])))
     for k, (s, mo, m) in PLAN_W8:
         one.append(_case(k, s, mo, m, (1, 1, 1), inputs[k]))
         eight.append(_case(k, s, mo, m, (2, 4, 1), inputs[k]))
@@ -474,6 +505,24 @@ def runs(tmp_path_factory):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+
+
+def _three_rows(case):
+    """A serve case at the first 3 of its 8 rows (named ":3rows")."""
+    case = dict(case, name=case["name"].replace("@", ":3rows@"))
+    case["batch"] = {k: v[:3] for k, v in case["batch"].items()}
+    case["cache"] = {st: {n: v[:, :3] for n, v in leaves.items()}
+                     for st, leaves in case["cache"].items()}
+    return case
+
+
+def _ticks_case(mesh, inputs):
+    return {"name": _case_name("mamba", "ticks", TICKS, mesh),
+            "config": CONFIGS["mamba"][0],
+            "overrides": _configs("mamba", 1)[1], "mesh": mesh,
+            "weights": "mamba", "step": "ticks", "ticks": TICKS,
+            "prefill": inputs["prefill"]["tokens"],
+            "batch": inputs["prefill"]}
 
 
 def _ce_case():
@@ -499,7 +548,7 @@ def _dry_counts(world, cases):
         meshes = {}
         for c in cases:
             if (c.get("raises") or c.get("greedy") is False
-                    or c["step"] == "ce"):
+                    or c["step"] in ("ce", "ticks")):
                 continue
             key = tuple(c["mesh"])
             if key not in meshes:
@@ -514,7 +563,7 @@ def _dry_counts(world, cases):
             elif c["step"] == "prefill":
                 args = ("prefill", B_DEC, c.get("seq", S_PRE))
             else:
-                args = ("decode", B_DEC, MAX_LEN)
+                args = ("decode", len(c["batch"]["positions"]), MAX_LEN)
             count = dryrun.count_step(cfg, cc, *args, meshes[key])
             out[c["name"]] = {"flops": count["flops"],
                               "breakdown": tcoll.breakdown(
@@ -623,7 +672,10 @@ def test_world1_placements_and_no_failures(runs):
     + ["nemo:train:fused_fit@2x4x1:dp"]
     + [_case_name("nemo6", s, mo, (2, 4, 1)) for s, mo, _ in FALLBACK]
     + [_case_name("nemo", s, mo, (2, 4, 1)) + ":remat" for s, mo, _ in REMAT]
-    + [_case_name("mamba", s, mo, (2, 4, 1)) for s, mo, _ in SSM_W8]
+    + [_case_name("mamba", s, mo, mesh) for mesh in SSM_MESHES
+       for s, mo, _ in SSM_W8]
+    + [_case_name("mamba2h", s, mo, (2, 4, 1)) for s, mo, _ in SSM_FALLBACK]
+    + ["mamba4h:serve:True:3rows@2x4x1"]
     + [_case_name(k, s, mo, (2, 4, 1)) for k, (s, mo, _) in PLAN_W8]
     + [_case_name("nemo", s, f"{mo}:s{S_ODD}", (2, 4, 1))
        for s, mo, _ in ODD])
@@ -699,14 +751,15 @@ def test_residual_stream_is_split_by_sequence(runs, name):
     assert bool(count["seq_moves"]) == split, (name, count["seq_moves"])
     if split:
         # the vocab-split embedding's reduce-scatter; the split parts' entry
-        # and exit (the Mamba2 blocks' gather); the head's gather (a
-        # prefill's last positions instead)
-        want = {"seq.embed"}
-        want |= {"seq.gather"} if name.startswith(("mamba", "zamba2")) \
-            else set()
-        want |= set() if name.startswith("mamba") else {"seq.in", "seq.out"}
+        # and exit (the MoE FFN's gather); the head's gather (a prefill's
+        # last positions instead)
+        want = {"seq.embed", "seq.in", "seq.out"}
         want |= {"seq.head"} if ":train:" in name else {"seq.pick"}
         assert want <= set(count["seq_moves"]), (name, count["seq_moves"])
+        # a replicated part gathers the rows (the MoE FFN, nemo6's
+        # attention); the Mamba2 mixers split their heads
+        assert ("seq.gather" in count["seq_moves"]) == name.startswith(
+            ("qwen", "nemo6")), (name, count["seq_moves"])
         assert set(count["seq_moves"].get("seq.out", {"all-to-all": 0})) \
             == {"all-to-all"}, count["seq_moves"]
 
@@ -756,12 +809,127 @@ def test_dry_run_counts_equal_the_real_steps(runs, world):
     _, _, one, eight = runs
     run = one if world == 1 else eight
     dry = run["dry"]
-    assert len(dry) == (14 + len(FALLBACK) + len(ODD) + len(PLAN_W8)
-                        if world == 1
-                        else 21 + len(FALLBACK) + len(REMAT) + len(SSM_W8)
+    assert len(dry) == (15 + len(FALLBACK) + len(ODD) + len(PLAN_W8)
+                        + len(SSM_FALLBACK) if world == 1
+                        else 22 + len(FALLBACK) + len(REMAT)
+                        + len(SSM_MESHES) * len(SSM_W8) + len(SSM_FALLBACK)
                         + len(ODD) + len(PLAN_W8))
     for name, want in dry.items():
         got = run["results"][name]["count"]
         assert got["flops"] == want["flops"] > 0, name
         assert list(got["breakdown"]) == list(want["breakdown"]), name
         assert bool(want["breakdown"]) == (world > 1), name
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 heads over "model"
+# ---------------------------------------------------------------------------
+
+# the head count of every SSD scan or recurrence step rank 0 runs: mamba's
+# and zamba2's 8 heads split over 4 or 2 "model" ranks; mamba2h's 2 heads
+# do not divide over 4, so they stay whole
+SSD_HEADS = {
+    **{_case_name("mamba", s, mo, (1, 1, 1)): 8
+       for s, mo, _ in W1_STEPS["mamba"]},
+    **{_case_name("mamba", s, mo, (2, 4, 1)): 2 for s, mo, _ in SSM_W8},
+    **{_case_name("mamba", s, mo, (2, 2, 2)): 4 for s, mo, _ in SSM_W8},
+    **{_case_name("mamba2h", s, mo, mesh): 2 for s, mo, _ in SSM_FALLBACK
+       for mesh in ((1, 1, 1), (2, 4, 1))},
+    **{_case_name("zamba2", s, mo, (2, 4, 1)): 2 for s, mo, _ in
+       (x for k, x in PLAN_W8 if k == "zamba2")},
+}
+
+
+@pytest.mark.parametrize("name", list(SSD_HEADS))
+def test_ssd_scans_the_ranks_heads(runs, name):
+    """Rank 0's SSD scans (train, prefill) and recurrence steps (serve) run
+    H / n heads where the heads divide over n "model" ranks, all H where
+    they do not (the mixer replicated)."""
+    _, _, one, eight = runs
+    run = one if name.endswith("@1x1x1") else eight
+    assert run["results"][name]["count"]["ssd_heads"] == [SSD_HEADS[name]]
+
+
+@pytest.mark.parametrize("mesh", SSM_MESHES)
+def test_serve_step_keeps_the_ssm_state_as_the_ranks_block(runs, mesh):
+    """mamba's greedy tick at world size 8: every rank's SSM state block
+    (its rows and heads) and conv block (its rows and channels) is the
+    input's storage, updated in place; no collective is labelled with the
+    state, and the conv state is gathered over "model" one layer at a time
+    (2 layers of 4 or 2 rows, W - 1 = 3 positions, 160 channels, f32).
+    mamba2h's state, which ``cache_shardings`` splits by its head dim P (its
+    2 heads do not divide over 4), is taken to the rows and placed anew."""
+    _, _, _, eight = runs
+    got = eight["results"][_case_name("mamba", "serve", True, mesh)]
+    assert got["in_place"] == {"layers.conv": True, "layers.ssm": True}
+    rows = 8 // (2 if mesh == (2, 4, 1) else 4)
+    assert got["count"]["cache_moves"] == {
+        "cache.layers.conv": {"all-gather": 2 * rows * 3 * 160 * 4.0}}
+    fallback = eight["results"][_case_name("mamba2h", "serve", True,
+                                           (2, 4, 1))]
+    assert set(fallback["count"]["cache_moves"]) == {"cache.layers.conv",
+                                                     "cache.layers.ssm"}
+
+
+def test_serve_step_at_rows_that_do_not_divide(runs):
+    """mamba4h's tick at 3 rows on (2, 4): every rank computes the 3 rows,
+    scans its 1 of the 4 heads against its heads block of the state, and
+    holds the conv state's 20 channels of 160, split over "data" and
+    "model": gathered over both a layer at a time (2 layers of 3 rows, W
+    - 1 = 3 positions, 160 channels, f32), the block written back in
+    place; equal to world size 1 (``test_world8_matches_world1``)."""
+    _, _, one, eight = runs
+    got = eight["results"]["mamba4h:serve:True:3rows@2x4x1"]
+    assert got["in_place"] == {"layers.conv": True, "layers.ssm": True}
+    assert got["count"]["ssd_heads"] == [1]
+    assert got["count"]["cache_moves"] == {
+        "cache.layers.conv": {"all-gather": 2 * 3 * 3 * (80 + 160) * 4.0}}
+    assert one["results"]["mamba4h:serve:True:3rows@1x1x1"]["count"][
+        "ssd_heads"] == [4]
+
+
+@pytest.mark.parametrize("mesh", SSM_MESHES)
+def test_world8_splits_the_ssd_heads(runs, mesh):
+    """Rank 0's counted FLOPs of mamba's Mode B step (M = 2) are its rows'
+    share with the SSD heads, out_proj and the head split over the "model"
+    ranks (in_proj, C B^T and the adapters' x @ A whole), and world size
+    1's the whole step's, both as ``torch_flops.train_flops`` writes them
+    out from the widths: on (2, 4) 4 rows a microbatch over 4 ranks, on
+    (2, 2, 2) 2 rows over 2, against 8 rows at world size 1."""
+    _, _, one, eight = runs
+    name = _case_name("mamba", "train", "fused_fit", mesh)
+    got = eight["results"][name]["count"]["flops"]
+    want = one["results"][name.split("@")[0] + "@1x1x1"]["count"]["flops"]
+    cfg = tregistry.reduced_config("mamba2-370m").replace(
+        **_configs("mamba", 2)[1])
+    n = mesh[1]
+    rows = B_TRAIN // 2 // (mesh[0] * mesh[2])
+    assert want == torch_flops.train_flops("ssm", cfg, "fused_fit",
+                                           B_TRAIN // 2, S_TRAIN, 4)
+    assert got == torch_flops.train_flops("ssm", cfg, "fused_fit", rows,
+                                          S_TRAIN, 4, n)
+    assert got / want < 1 / mesh[0] / mesh[2], got / want
+
+
+def test_conv_state_after_three_ticks_equals_world1(runs):
+    """mamba's prefill step (8 x 16) feeds the greedy serve step, then three
+    ticks, each token fed back, on (2, 4) and at world size 1. The conv
+    state, whose 40-channel block on a rank is not its heads' 32 x
+    channels, equals world size 1's bit for bit after the three ticks; the
+    tokens are equal and the SSM state within the step bounds. The
+    prefill's cache arrives at the serve step's placement: no tick moves a
+    state leaf (only the per-layer conv gathers), every rank's blocks keep
+    their storage through the three ticks, and each tick's SSD steps run 2
+    heads."""
+    _, _, one, eight = runs
+    got = eight["results"][_case_name("mamba", "ticks", TICKS, (2, 4, 1))]
+    want = one["results"][_case_name("mamba", "ticks", TICKS, (1, 1, 1))]
+    assert "error" not in got and "error" not in want, (got, want)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    conv = ("cache", "layers", "conv")
+    np.testing.assert_array_equal(got["out"][conv], want["out"][conv])
+    _agree(got["out"], want["out"], 1e-5, 1e-6, "ticks")
+    assert got["in_place"] == {"layers.conv": True, "layers.ssm": True}
+    assert got["cache_moves"] == {
+        "cache.layers.conv": {"all-gather": TICKS * 2 * 4 * 3 * 160 * 4.0}}
+    assert got["ssd_heads"] == [2] and want["ssd_heads"] == [8]

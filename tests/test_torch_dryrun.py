@@ -3,15 +3,20 @@ CPU: fake process groups, fake tensors, no card, no JAX.
 
 - Reduced cells: for each layer plan (uniform, pairs, MoE, SSM, hybrid)
   and each ``--mode``, at world sizes 1 and 8 on a fake group, the counted
-  FLOPs of one rank's train step equal a count written out here from the
-  config's widths, product by product (``_train_flops``; at 8 on (2, 4)
-  the attention, the dense MLP and the head are split over the 4 "model"
-  ranks); so do a prefill and a serve tick's (the uniform plan's).
+  FLOPs of one rank's train step equal a count written out from the
+  config's widths, product by product (``tests/torch_flops.py``; at 8 on
+  (2, 4) the attention, the dense MLP, the head and the Mamba2 mixer's
+  SSD heads are split over the 4 "model" ranks); so do a prefill and a
+  serve tick's (the uniform plan's).
 - The count is the plain path's and data-dependent sizes take their bound:
   a serve tick lists the KV write plan's ``nonzero`` in ``bounded_ops``,
   and the frozen mode (no adapters) counts a forward only.
 - ``count_by_layers`` (three depths, interpolated) equals the eager count
-  at full depth, for each step ``chip_smoke.py``'s ``[roofline]`` counts.
+  at full depth, for each step ``chip_smoke.py``'s ``[roofline]`` counts,
+  and, for the hybrid plan (three depths of whole periods of the shared
+  block with the depth's tail), a reduced zamba2's train step at a fourth
+  depth, at world sizes 1 and 8: FLOPs, bytes, collectives by op and by
+  label, inputs and outputs, exactly.
 - The memory term (``roofline.bytes_moved``) grows by exactly the bytes of
   the leaves a step gathers layer by layer (a reduced prefill at world
   size 8: each leaf's compute layout once, the tied embedding twice), and
@@ -21,9 +26,10 @@ CPU: fake process groups, fake tensors, no card, no JAX.
   cache the rank's block of positions, updated in place and never moved;
   a MoE cell that ``steps._check_groups`` refuses fails with the step's
   text.
-- No serve tick of any plan, at world sizes 1 and 8, moves a KV leaf: the
-  collectives labelled with a cache leaf are the SSM conv and state
-  leaves' alone (ROADMAP A.5).
+- No serve tick of any plan, at world sizes 1 and 8, moves a KV leaf or an
+  SSM state leaf: the only collectives labelled with a cache leaf are the
+  conv state's gathers over "model", one layer at a time, where the SSD
+  heads split.
 - ``perf_probe --breakdown`` writes a record with every JAX key the port
   keeps and prints every collective.
 - No test leaves a process group behind.
@@ -37,6 +43,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_flops  # noqa: E402
+
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
@@ -49,7 +57,6 @@ from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
 from repro_torch.launch import dryrun, perf_probe  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import model  # noqa: E402
-from repro_torch.models import ssm as S  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
 
 SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
@@ -79,123 +86,17 @@ def _no_group_left():
 
 
 # ---------------------------------------------------------------------------
-# the count written out from the widths
+# the count written out from the widths (``torch_flops``)
 # ---------------------------------------------------------------------------
 
-def _lin(T, i, o):
-    return 2 * T * i * o
-
-
-def _dense(T, i, o, x_grad, w_grad):
-    """x @ W: the product, dX where x needs a gradient, dW where W does."""
-    return _lin(T, i, o) * (1 + x_grad + w_grad)
-
-
-def _adapter(T, i, o, r, x_grad, w_grad):
-    """(x @ A) @ B: both products; d(xA) where x or A needs a gradient,
-    dB and dA where the adapter does, dx where x does."""
-    f = _lin(T, i, r) + _lin(T, r, o)
-    f += _lin(T, r, o) * ((x_grad or w_grad) + w_grad)
-    f += _lin(T, i, r) * (x_grad + w_grad)
-    return f
-
-
-class _Count:
-    """Products of one rank's (micro)batch of b rows x s on the plain path,
-    forward and backward, layer by layer; ``live``: whether the residual
-    stream needs a gradient. ``n``: the ranks along "model" over which the
-    attention, the dense MLP and the head are split (the reduced widths
-    divide): a rank computes its output columns of every product of those
-    parts (o and down over their gathered inputs) and attends over its own
-    heads; the MoE and SSM blocks and the adapters' x @ A stay whole."""
-
-    def __init__(self, cfg, mode, b, s, r, n=1):
-        self.cfg, self.b, self.s, self.r, self.T = cfg, b, s, r, b * s
-        self.n = n
-        self.ft = mode == "ft"
-        self.tapped = mode in ("fused_fit", "faithful_offload")
-        self.fit = mode == "fused_fit"
-        self.live = self.ft            # the embedding needs a gradient in ft
-        self.flops = 0
-
-    def attn_block(self, ffn="mlp"):
-        c, T, b, s, n = self.cfg, self.T, self.b, self.s, self.n
-        d, hq, hkv = c.d_model, c.n_heads * c.d_head, c.n_kv_heads * c.d_head
-        x, w = self.live, self.ft
-        f = _dense(T, d, hq // n, x, w) + 2 * _dense(T, d, hkv // n, x, w)
-        if self.tapped:    # taps q and v: adapters, and Mode A's deltas
-            f += _adapter(T, d, hq // n, self.r, x, self.fit)
-            f += _adapter(T, d, hkv // n, self.r, x, self.fit)
-        qkv = x or w or self.tapped
-        core = 2 * b * s * s * c.n_heads * c.d_head // n
-        f += 2 * core + (5 * core if qkv else 0)   # sdpa; the plain backward
-        f += _dense(T, hq, d // n, qkv, w)
-        self.live = x = self.live or qkv
-        if ffn == "mlp":
-            F = c.d_ff
-            f += (2 * _dense(T, d, F // n, x, w)
-                  + _dense(T, F, d // n, x or w, w))
-        else:
-            E, k, F = c.n_experts, c.moe_top_k, c.d_expert
-            G = c.moe_group if T % c.moe_group == 0 else s
-            C = max(k, -(-int(G * k * c.capacity_factor) // E))
-            g = x or w                          # router logits, combine
-            f += _dense(T, d, E, x, w)          # router
-            f += _lin(T, E * C, d) * (1 + x)    # dispatch (one-hot, x)
-            f += 2 * _dense(T // G * E * C, d, F, x, w)   # experts' gate, up
-            f += _dense(T // G * E * C, F, d, x or w, w)  # down
-            f += _lin(T, E * C, d) * (1 + g + g)  # combine (weights, y)
-        self.flops += f
-
-    def ssm_block(self, taps):
-        c, T, b, s, r = self.cfg, self.T, self.b, self.s, self.r
-        dims = S.ssm_dims(c.d_model, expand=c.ssm_expand,
-                          headdim=c.ssm_headdim, state=c.ssm_state)
-        d, di, H = c.d_model, dims["d_inner"], dims["nheads"]
-        P, N, dip = c.ssm_headdim, c.ssm_state, S.d_in_proj(dims)
-        x, w = self.live, self.ft
-        tapped = taps and self.tapped
-        f = _dense(T, d, dip, x, w)
-        if tapped:
-            f += _adapter(T, d, dip, r, x, self.fit)
-        g = x or w or tapped
-        # SSD in one chunk (s <= ssd_chunk): C B^T, (w dt) x, the final
-        # state (unused by the loss: no backward)
-        cb, y = 2 * b * s * s * N, 2 * b * H * s * s * P
-        f += cb + y + 2 * b * H * P * N * s + (2 * cb + 2 * y if g else 0)
-        f += _dense(T, di, d, g, w)
-        if tapped:
-            f += _adapter(T, di, d, r, g, self.fit)
-        self.live = self.live or g
-        self.flops += f
-
-    def head(self):
-        c = self.cfg
-        self.flops += _dense(self.T, c.d_model,
-                             c.vocab_size * (c.n_codebooks or 1) // self.n,
-                             self.live, self.ft)
+_lin = torch_flops.lin
+_Count = torch_flops.Count
 
 
 def _train_flops(plan, cfg, mode, rows, n=1):
     """One rank's train step: M microbatches of ``rows`` rows (ft: one batch
     of M * rows), split over ``n`` ranks along "model"."""
-    m = 1 if mode == "ft" else cfg.microbatches
-    b = rows if mode != "ft" else rows * cfg.microbatches
-    c = _Count(cfg, mode, b, SEQ, RANK, n)
-    if plan == "ssm":
-        for _ in range(cfg.n_layers):
-            c.ssm_block(taps=True)
-    elif plan == "hybrid":
-        for start in range(0, cfg.n_layers, cfg.shared_attn_every):
-            c.attn_block()
-            for _ in range(min(cfg.shared_attn_every,
-                               cfg.n_layers - start)):
-                c.ssm_block(taps=False)
-    else:
-        for _ in range(cfg.n_layers):
-            c.attn_block("moe" if plan == "moe" else "mlp")
-    c.head()
-    return m * c.flops
+    return torch_flops.train_flops(plan, cfg, mode, rows, SEQ, RANK, n)
 
 
 def _prefill_flops(plan, cfg, b, s):
@@ -271,7 +172,7 @@ def test_count_by_layers_equals_the_eager_count(mode, kind, world):
         mesh = make_mesh(*dict(WORLDS)[world], device_type="cpu")
         eager = dryrun.count_step(cfg, cc, kind, B, SEQ, mesh)
         three = dryrun.count_by_layers(cfg, cc, kind, B, SEQ, mesh)
-        with pytest.raises(ValueError, match="uniform"):
+        with pytest.raises(ValueError, match="uniform and hybrid"):
             dryrun.count_by_layers(_cfg("pairs"), cc, kind, B, SEQ, mesh)
     for k in ("flops", "bytes_accessed", "collective_bytes"):
         assert three[k] == eager[k], k
@@ -280,6 +181,40 @@ def test_count_by_layers_equals_the_eager_count(mode, kind, world):
         assert three["memory"][k] == eager["memory"][k], k
     assert roofline.bytes_moved(three["memory"]) == \
         roofline.bytes_moved(eager["memory"]) > 0
+
+
+@pytest.mark.parametrize("world", [1, 8])
+def test_count_by_layers_by_segments_of_the_hybrid_plan(world):
+    """Reduced zamba2 (a shared block every 2 layers, d_model 64: 8 SSD
+    heads over 4 "model" ranks at 8) at 11 layers = 5 periods and a tail of
+    1, from its three depths of 2, 3 and 4 periods with the same tail (5, 7
+    and 9 layers: ``layer_points``), against the eager count at 11: Mode B's
+    train step, one microbatch. Every count equals the eager one exactly;
+    the peak is given only where the three depths' peaks grow linearly, and
+    then equals it too."""
+    cfg = _cfg("hybrid").replace(n_layers=11, shared_attn_every=2,
+                                 microbatches=1)
+    assert dryrun.layer_points(cfg) == ((5, 7, 9), 5)
+    assert dryrun.layer_points(registry.get_config("zamba2-7b")) == \
+        ((15, 21, 27), 13)
+    cc = ColaConfig(mode="fused_fit", family="lowrank", taps="qv", rank=8)
+    with dryrun.fake_world(world):
+        mesh = make_mesh(*dict(WORLDS)[world], device_type="cpu")
+        eager = dryrun.count_step(cfg, cc, "train", B, SEQ, mesh)
+        three = dryrun.count_by_layers(cfg, cc, "train", B, SEQ, mesh)
+    assert three["depths"] == (5, 7, 9)
+    for k in ("flops", "bytes_accessed", "collective_bytes",
+              "gathered_leaf_bytes", "layer_input_bytes"):
+        assert three[k] == eager[k], k
+    assert three["flops"] > 0
+    for k in three["memory"]:
+        assert three["memory"][k] == eager["memory"][k], k
+    recs = eager["collective_records"]
+    assert three["collectives"] == tcoll.bytes_by_op(recs)
+    assert three["labelled"] == tcoll.by_leaf(recs)
+    assert bool(three["labelled"]) == (world > 1)
+    if three["peak"] is not None:
+        assert three["peak"] == eager["memory"]["peak_bytes_per_device"]
 
 
 # ---------------------------------------------------------------------------
@@ -335,26 +270,33 @@ def test_memory_term_counts_the_gathered_leaves():
 @pytest.mark.parametrize("plan", list(PLANS))
 def test_no_serve_tick_moves_a_kv_leaf(plan):
     """A tick of 8 rows against 64 positions at world sizes 1 and 8: no
-    collective is labelled with a KV leaf (the cache is the rank's block of
-    positions, updated in place: its bytes are the in-place outputs), and
-    the SSM conv and state leaves, still gathered to the rank's rows, are
-    the only cache leaves moved at 8."""
+    collective is labelled with a KV leaf or an SSM state leaf (the cache is
+    the rank's block of positions, the state its block of heads, updated in
+    place: their bytes are the in-place outputs); the conv state's gathers
+    over "model", one layer at a time, are the only cache collectives at 8
+    (8 rows' W - 1 positions of every channel, a layer)."""
     cfg = _cfg(plan)
     cache = model.cache_specs(cfg, B, 64)
-    kv = sum(_numel(leaf[0]) * leaf[1].itemsize
-             for st in cache.values() for n, leaf in st.items()
-             if n in ("k", "v"))
+    held = sum(_numel(leaf[0]) * leaf[1].itemsize
+               for st in cache.values() for n, leaf in st.items()
+               if n in ("k", "v", "ssm", "conv"))
     for world, shape in WORLDS:
         with dryrun.fake_world(world):
             mesh = make_mesh(*shape, device_type="cpu")
             got = dryrun.count_step(cfg, ColaConfig(), "decode", B, 64, mesh)
-        moved = set(tcoll.by_leaf(got["collective_records"]))
-        ssm = ({"cache.layers.conv", "cache.layers.ssm"}
-               if plan in ("ssm", "hybrid") and world > 1 else set())
-        assert moved == ssm, (plan, world, moved)
-        # the rank's blocks: rows over "data" (2), positions over "model" (4)
+        moved = tcoll.by_leaf(got["collective_records"], "cache.")
+        mamba = plan in ("ssm", "hybrid") and world > 1
+        assert set(moved) == ({"cache.layers.conv"} if mamba else set()), \
+            (plan, world, moved)
+        if mamba:
+            conv = cache["layers"]["conv"]
+            # each layer's (4 rows, W - 1, C) whole, in f32
+            assert moved["cache.layers.conv"] == {
+                "all-gather": _numel(conv[0]) // 2 * conv[1].itemsize}
+        # the rank's blocks: rows over "data" (2), positions, heads and
+        # channels over "model" (4)
         share = 1 if world == 1 else 8
-        assert got["memory"]["alias_size_in_bytes"] >= kv // share, plan
+        assert got["memory"]["alias_size_in_bytes"] == held // share, plan
 
 
 def _numel(shape) -> int:
@@ -421,6 +363,9 @@ def test_perf_probe_breakdown_writes_a_record(tmp_path, capsys):
     text = capsys.readouterr().out
     rows = [line for line in text.splitlines() if " GB  x" in line]
     assert "[collective breakdown" in text and 0 < len(rows) <= 15
-    assert all(" all-gather " in r or " all-reduce " in r for r in rows)
+    # the leaves' gathers, out_proj's rows turned to columns, the conv
+    # state's gathers and the vocab argmax's
+    assert all(any(f" {op} " in r for op in ("all-gather", "all-reduce",
+                                               "all-to-all")) for r in rows)
     assert sum(int(r.split(" x")[1].split()[0]) for r in rows) <= len(
         rec["collective_records"])

@@ -12,18 +12,21 @@ against the JAX package, on the CPU.
 - The serve step in spawned gloo groups (``tests/torch_dist_worker.py``,
   no JAX there): reduced f32 nemo (GQA), gemma2 (pairs, window 8,
   attention softcap 2), smollm with 9 heads (its attention replicated over
-  "model") and zamba2 (hybrid: the SSM state replicated) at world size 1 on
+  "model") and zamba2 (hybrid: its SSD heads split over "model", the SSM
+  state the rank's heads block) at world size 1 on
   (1, 1) and world size 8 on (2, 4) and (2, 2, 2), against JAX's
   ``steps.make_serve_step`` on a (1, 1) mesh with ``Auto`` axes and against
   each other: greedy tokens equal, logits and every rank's new cache block
   within the bounds below. nemo also at 3 rows on (2, 4) (rows that do not
   divide: the sequence split over "data" and "model", 4 positions a rank),
   and a prefill step's cache fed to the serve step.
-- No move: at world size 8 every KV leaf's new block is the rank's input
-  block, updated in place, and no collective of the step is labelled with
-  a KV leaf (only zamba2's SSM conv and state leaves are moved, ROADMAP
-  A.5); the cache arrives and leaves at ``cache_shardings``' placement
-  (the worker checks every rank's block against its slice).
+- No move: at world size 8 every KV leaf's new block and every one of
+  zamba2's SSM state and conv blocks is the rank's input block, updated in
+  place, and no collective of the step is labelled with a KV or state leaf
+  (zamba2's conv state is gathered over "model" one layer at a time,
+  labelled "cache.layers.conv"); the cache arrives and leaves at
+  ``cache_shardings``' placement (the worker checks every rank's block
+  against its slice).
 - The dry-run counts (``count_step`` on a fake group at the same world size
   and mesh) the same FLOPs and collective breakdown as rank 0's real greedy
   step, exactly.
@@ -379,16 +382,21 @@ def test_world8_serve_step_matches_jax_and_world1(runs, name):
 @pytest.mark.parametrize("name", [_name(k, r, p, m) for k, r, p, m in W8])
 def test_world8_kv_blocks_stay_in_place(runs, name):
     """Every KV leaf's new block is the rank's input block (updated in
-    place: the sequence split holds for 8 rows and for 3); no collective
-    is labelled with a KV leaf; zamba2's SSM leaves are moved (A.5)."""
+    place: the sequence split holds for 8 rows and for 3), and so is each
+    of zamba2's SSM state (heads) and conv (channels) blocks; no
+    collective is labelled with a KV or SSM state leaf; zamba2's conv
+    state is gathered a layer at a time (its channel block does not line
+    up with the rank's heads)."""
     _, _, eight, _ = runs
     got = _result(eight, name)
     kv = {p for p in got["in_place"] if p.endswith((".k", ".v"))}
     assert kv and all(got["in_place"][p] for p in kv), got["in_place"]
+    assert all(got["in_place"].values()), got["in_place"]
     moved = set(got["count"]["cache_moves"])
-    assert not {m for m in moved if m.endswith((".k", ".v"))}, moved
-    ssm = {f"cache.layers.{n}" for n in ("conv", "ssm")}
-    assert moved == (ssm if name.startswith("zamba2") else set()), moved
+    assert not {m for m in moved if m.endswith((".k", ".v", ".ssm"))}, moved
+    zamba2 = name.startswith("zamba2")
+    assert moved == ({"cache.layers.conv"} if zamba2 else set()), moved
+    assert ({"layers.ssm", "layers.conv"} <= set(got["in_place"])) == zamba2
 
 
 def test_world_placements_and_no_failures(runs):

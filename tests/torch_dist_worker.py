@@ -20,6 +20,13 @@ case holds whole logits and labels instead of a step: each rank runs
 chunks, against ``_ce`` on the whole logits (value, count, and the
 gradient's block), and rank 0 writes the largest gaps.
 
+A "ticks" case makes a cache with the prefill step and runs the greedy
+serve step on it for a few ticks, each token fed back: the tokens, the
+cache after the last tick, whether each rank's cache blocks kept their
+storage, the cache leaves' moves and the SSD head counts. A serve case
+also records, leaf by leaf, whether each rank's new cache block is the
+input's own storage; every step records the head counts its SSD calls see.
+
 A "tp_serve" case runs the serve step twice on one cache (greedy tokens,
 then logits), the cache placed at ``serve_shardings`` or, with "prefill",
 made by the prefill step from those tokens at ``prefill_out_shardings``; it
@@ -124,20 +131,94 @@ def _constrain(mesh, what, bad):
         bad.append(f"{what}: constrain changed the values or the blocks")
 
 
+class _SsdHeads:
+    """While active, the head counts of every SSD scan and recurrence step
+    this rank runs (``kernels.ops.ssd`` / ``ssd_decode_step``, which the
+    Mamba2 mixer calls through the module)."""
+
+    def __init__(self):
+        self.heads: set[int] = set()
+
+    def __enter__(self) -> "_SsdHeads":
+        from repro_torch.kernels import ops
+
+        self._ops, self._saved = ops, (ops.ssd, ops.ssd_decode_step)
+        ssd, step = self._saved
+
+        def ssd_seen(x, *a, **k):
+            self.heads.add(x.shape[2])
+            return ssd(x, *a, **k)
+
+        def step_seen(x, *a, **k):
+            self.heads.add(x.shape[1])
+            return step(x, *a, **k)
+
+        ops.ssd, ops.ssd_decode_step = ssd_seen, step_seen
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._ops.ssd, self._ops.ssd_decode_step = self._saved
+
+
 def _counted(fn, *args):
     """fn(*args), and its FLOPs, collective breakdown, moves of cache
-    leaves (``collectives.by_leaf``) and layer inputs' shapes
-    (``model.layer_input_meter``: what remat saves) on this rank."""
+    leaves (``collectives.by_leaf``), layer inputs' shapes
+    (``model.layer_input_meter``: what remat saves) and SSD head counts on
+    this rank."""
     from repro_torch.models import model
 
     flops, rec = FlopCounterMode(display=False), collectives.CollectiveRecorder()
-    with flops, rec, model.layer_input_meter() as saved:
+    with flops, rec, model.layer_input_meter() as saved, _SsdHeads() as ssd:
         out = fn(*args)
     return out, {"flops": flops.get_total_flops(),
                  "breakdown": collectives.breakdown(rec.records, top=None),
                  "cache_moves": collectives.by_leaf(rec.records, "cache."),
                  "seq_moves": collectives.by_leaf(rec.records, "seq."),
-                 "layer_inputs": sorted(set(saved.shapes))}
+                 "layer_inputs": sorted(set(saved.shapes)),
+                 "ssd_heads": sorted(ssd.heads)}
+
+
+def _storages(tree) -> dict:
+    return {".".join(p): d.to_local().untyped_storage().data_ptr()
+            for p, d in _leaves(tree)}
+
+
+def _ticks(cfg, mesh, case, params, what, bad):
+    """A prefill step's cache (at ``prefill_out_shardings``) fed to the
+    greedy serve step, then ``case["ticks"]`` ticks, each token fed back:
+    each tick's tokens, the cache after the last, whether every rank's
+    cache blocks kept their storage through every tick, and the cache
+    leaves' moves of every tick."""
+    pre, ps = steps.make_prefill_step(cfg, mesh)
+    P = sh.distribute(mesh, params, ps)
+    toks = {"tokens": torch.from_numpy(np.array(case["prefill"]))}
+    _, cache = pre(P, sh.distribute(mesh, toks, sh.batch_shardings(
+        mesh, toks, policy=cfg.shard_policy)))
+    B, S = case["prefill"].shape
+    cspec, tspec = steps.serve_shardings(cfg, mesh, B, S)
+    _check(mesh, cache, cspec, None, f"{what} prefill cache", bad)
+    fn, _ = steps.make_serve_step(cfg, mesh)
+    before = _storages(cache)
+    tok = torch.from_numpy(np.array(case["prefill"][:, -1:]))
+    tokens, moves, heads = [], {}, set()
+    for t in range(case["ticks"]):
+        batch = {"tokens": tok,
+                 "positions": torch.full((B,), S + t, dtype=torch.int32)}
+        (out, cache), count = _counted(fn, P, cache, sh.distribute(
+            mesh, batch, sh.batch_shardings(mesh, batch,
+                                            policy=cfg.shard_policy)))
+        for k, ops in count["cache_moves"].items():
+            for op, b in ops.items():
+                moves.setdefault(k, {}).setdefault(op, 0.0)
+                moves[k][op] += b
+        heads |= set(count["ssd_heads"])
+        tok = out.full_tensor()
+        tokens.append(tok.numpy())
+    _check(mesh, cache, cspec, None, f"{what} cache out", bad)
+    after = _storages(cache)
+    return {"tokens": np.stack(tokens), "out": _whole({"cache": cache}),
+            "in_place": {k: after[k] == before[k] for k in before},
+            "cache_moves": moves, "ssd_heads": sorted(heads)}
 
 
 def _ce_sum(logits, labels, chunk):
@@ -265,6 +346,8 @@ def _run_case(case, weights, meshes, bad):
     w = weights[case["weights"]]
     params = convert.params_from_numpy(cfg, w["params"], device="cpu")
     what = f"{case['name']} on {key}"
+    if case["step"] == "ticks":
+        return _ticks(cfg, mesh, case, params, what, bad)
     batch = _tensors(case["batch"])
     bspec = sh.batch_shardings(mesh, batch, policy=cfg.shard_policy)
     pbatch = sh.distribute(mesh, batch, bspec)
@@ -311,11 +394,14 @@ def _run_case(case, weights, meshes, bad):
     cspec, tspec = steps.serve_shardings(cfg, mesh, B, max_len)
     C = sh.distribute(mesh, cache, cspec)
     _check(mesh, C, cspec, cache, f"{what} cache", bad)
+    before = _storages(C)
     (out, new_cache), count = _counted(fn, P, C, pbatch)
     ospec = sh.batch_shardings(mesh, {"out": out}, policy=cfg.shard_policy)
     _check(mesh, {"out": out, "cache": new_cache},
            {"out": ospec["out"], "cache": cspec}, None, f"{what} out", bad)
-    return {"out": _whole({"out": out, "cache": new_cache}), "count": count}
+    after = _storages(new_cache)
+    return {"out": _whole({"out": out, "cache": new_cache}), "count": count,
+            "in_place": {k: after[k] == before[k] for k in before}}
 
 
 def _worker(rank: int, world: int, port: int, src: str, dst: str) -> None:
