@@ -4,7 +4,7 @@
 Run from the repo root on a machine with one NVIDIA H100 (and the CUDA
 toolkit): ``python3 chip_smoke.py``. It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and runs
-twenty-seven phases, then prints its result lines, exiting non-zero on any
+twenty-nine phases, then prints its result lines, exiting non-zero on any
 failure:
 
 1. Kernels against their plain PyTorch versions, on the card, at the
@@ -72,12 +72,14 @@ failure:
    32 / 8 heads of 128) in the flash forward and both backward kernels,
    their fits (cola_fit f32: 1536 -> 1536, L 48, T 8192; 5120 -> 4096 and
    5120 -> 1024, L 40, T 2048) and multi_lora / multi_lora_q8 at 1536 ->
-   1536; in bf16 mistral-large-123b's rank share on 16 "model" ranks (2 x
-   4096, 6 query heads and 1 KV head of 128) in the flash forward and both
+   1536; in bf16 the rank shares on 16 "model" ranks (2 x 4096) of
+   mistral-large-123b (6 query heads and 1 KV head of 128), zamba2-7b (2 /
+   2 of 112) and dbrx-132b (3 / 1 of 128) in the flash forward and both
    backward kernels; each launched twice to the same bits. Then the dense
    decode kernel with its log-sum-exp (``return_lse``: o in f32, lse (B,
-   H)), in bf16 and f32: timed rows at mistral-large-123b's decode_32k rank
-   share (8 slots x 2,048 positions, 96 / 8 heads of 128) and at smollm's
+   H)), in bf16 and f32: timed rows at the decode_32k rank shares (8 slots
+   x 2,048 positions) of mistral-large-123b (96 / 8 heads of 128), zamba2-7b
+   (32 / 32 of 112) and dbrx-132b (48 / 8 of 128) and at smollm's
    tick on one 64-position block of 1,024, and the serve step's split and
    merge (``lse_merge_checks``): one cache cut into 16 position blocks,
    a launch a block at positions less its offset, merged by
@@ -364,13 +366,15 @@ failure:
    and each step's peak within 10 % of the dry-run's count
    (``TP_DRYRUN_PEAK``, from the record ``TP_DRYRUN_RECORD`` names). The
    values are not checked: the fake group moves no data.
-28. The Mamba2 heads over "model" (``[ssm-parallel]``), in a process of its
-   own as phase 27 (``chip_smoke.py --ssm-parallel OUT``): rank 0 of a fake
+28. The Mamba2 heads over "model" (``[ssm-parallel]``), in a process it
+   shares with phase 29, run before it (``chip_smoke.py --ssm-parallel OUT
+   --expert-parallel OUT``): rank 0 of a fake
    group of 256 on the 16 x 16 mesh, zamba2-7b at full width and depth (81
    Mamba2 layers at d_model 3,584, a shared block every 6: 14 calls; bf16,
    remat "full", ``microbatches=8``), every leaf the rank's block drawn on
    the card: train_4k's rank share in Mode B cut to 1 of its 8
-   microbatches (2 x 4096: all 8 take about three minutes a step),
+   microbatches (2 x 4096: all 8 take about three minutes a step), one
+   step with no warm-up step,
    prefill_32k's (2 x 32768) and decode_32k's tick (8 slots, 2,048 of
    32,768 positions; a warm-up, 5 timed ticks), as phase 27 runs them. Each
    Mamba2 mixer scans the rank's 7 of the 112 SSD heads (every
@@ -385,7 +389,27 @@ failure:
    rows; each peak within 10 % of the dry-run's (``SSM_DRYRUN_PEAK``, from
    the records ``SSM_DRYRUN_RECORD`` names; train_4k's of all 8
    microbatches, whose peak is one microbatch's).
-29. The last lines: the card's name and power limit, one JSON line with every
+29. Expert parallelism (``[expert-parallel]``), in phase 28's process after
+   it, on its fake group and mesh: dbrx-132b at full width and depth (40
+   layers, d_model 6,144, 48 / 8 heads of 128, 16 experts of 10,752, top
+   4, the einsum dispatch in groups of 512; bf16, remat "full",
+   ``microbatches=8``), every leaf the rank's block drawn on the card (its
+   1 expert of 16 a layer): train_4k's rank share in Mode B at all 8
+   microbatches of 2 x 4096 (one step, no warm-up step), prefill_32k's (2
+   x 32768) and decode_32k's tick (8 slots, 2,048 of 32,768 positions; a
+   warm-up, 5 timed ticks). Every expert MLP call (forward and recompute)
+   runs the rank's 1 of 16 experts (``_ExpertRecorder``), every expert
+   leaf is gathered as its 1-expert block (d_model over "data"; the bytes
+   printed against the 16 experts'), the flash launches run 3 query / 1
+   KV head of 128 (exactly 640 / 320 / 320 a train step, 40 a prefill; a
+   KV head shared by 2 ranks), a tick's 40 dense decode launches (the
+   log-sum-exp entry) 48 / 8 heads over 2,048 positions, no KV leaf moved,
+   every block in place; layer inputs the rank's (2, S / 16, 6144) rows;
+   each peak within 10 % of the dry-run's (``EP_DRYRUN_PEAK``, from the
+   records ``EP_DRYRUN_RECORD`` names). The values are not checked: the
+   fake group moves no data, so the gathered tokens are not the model's
+   (the accounting stays in range on any routing).
+30. The last lines: the card's name and power limit, one JSON line with every
    kernel's numbers, and ``{"ok": true, "device": {...}}`` last.
 
 The CPU halves of phases 12, 13 (b), 16, 18, 20 and 23 (the plain path on
@@ -793,6 +817,7 @@ def kernel_cases(cfg, dtype, dev, gen):
 
 LARGE_RANK = "large rank of 16: G 6 d128, 2 x 4096"
 ZAMBA2_RANK = "zamba2 rank of 16: G 1 d112, 2 / 2 heads, 2 x 4096"
+DBRX_RANK = "dbrx rank of 16: G 3 d128, 3 / 1 heads, 2 x 4096"
 SOFTCAP_NOTE = ("no library call takes a softcap: the library time is on "
                 "the row without one")
 
@@ -1147,6 +1172,10 @@ def model_cases(dtype, dev, gen):
         # heads of 112 a rank
         yield flash(ZAMBA2_RANK, 2, 4096, 2, 2, 112)
         yield from flash_bwd(ZAMBA2_RANK, 2, 4096, 2, 2, 112)
+        # dbrx-132b's ([expert-parallel]): 3 query heads and the 1 KV head
+        # they read (its 8 KV heads shared by 2 ranks each) of 128
+        yield flash(DBRX_RANK, 2, 4096, 3, 1, 128)
+        yield from flash_bwd(DBRX_RANK, 2, 4096, 3, 1, 128)
     if dtype == torch.float32:
         r = 8
         for model, L, T, d_in, d_out in (("musicgen", 48, 4 * 2048, 1536, 1536),
@@ -1261,6 +1290,8 @@ def lse_cases(dtype, dev, gen):
              8, 2048, 96, 8, 128, ints(30000, 32768, 8)),
             ("zamba2 rank share: 8 slots x 2048 of 32768, 32 / 32 heads of "
              "112", 8, 2048, 32, 32, 112, ints(30000, 32768, 8)),
+            ("dbrx rank share: 8 slots x 2048 of 32768, 48 / 8 heads of 128",
+             8, 2048, 48, 8, 128, ints(30000, 32768, 8)),
             ("smollm: 16 slots x block 7 of 16 (64 of 1024), 9 / 3 heads "
              "of 64", 16, 64, 9, 3, 64, ints(448, 1024, 16) - 448)):
         q, kb, vb = rnd(B, 1, H, D), rnd(B, S, K, D), rnd(B, S, K, D)
@@ -4799,6 +4830,27 @@ SSM_DRYRUN_RECORD = ("memory.peak_bytes_per_device of the {label} record of "
                      "mode fused_fit)")
 
 
+# phase 29: one rank of dbrx-132b's 16 x 16 mesh, its experts split over
+# "model": the same three cells, train_4k at all 8 microbatches (the rank's
+# 2 x 4096 each)
+EP_LAYERS = 40
+EP_HEADS = (3, 1, 128)             # 48 / 16 query heads, a KV head of 8 shared
+EP_DECODE = (48, 8, 128, 2048)     # a tick's decode: every head, 2,048
+# every expert leaf as the rank gathers it: its 1 expert of 16, d_model
+# gathered over "data" (gate, up; down's (1, 10752, 6144))
+EP_EXPERTS = {"layers.moe.gate": [1, 6144, 10752],
+              "layers.moe.up": [1, 6144, 10752],
+              "layers.moe.down": [1, 10752, 6144]}
+# the dry-run's peak a rank in bytes, as TP_DRYRUN_PEAK, from the records
+# EP_DRYRUN_RECORD names
+EP_DRYRUN_PEAK = {"train_4k": 2599483644, "prefill_32k": 6744617120,
+                  "decode_32k": 4268234028}
+EP_DRYRUN_RECORD = ("memory.peak_bytes_per_device of the {label} record of "
+                    "`python -m repro_torch.launch.dryrun --arch dbrx-132b "
+                    "--shape {label} --mesh single` (mesh pod16x16, mode "
+                    "fused_fit)")
+
+
 def _rank_blocks(mesh, shaped: dict, specs: dict, gen, dev, std) -> dict:
     """Rank 0's block of every leaf of ``shaped`` (meta) under its spec, as
     DTensors of the whole leaf's shape: each block drawn on the card from
@@ -4880,150 +4932,207 @@ class _SsdRecorder:
         self.ops.ssd, self.ops.ssd_decode_step = self.orig
 
 
-# the rank shares run in a process of their own: phase 27's
-# mistral-large-123b (``--tensor-parallel``) and phase 28's zamba2-7b
-# (``--ssm-parallel``): (tag, arch, cells, its layers, microbatches and
-# remat)
+class _ExpertRecorder:
+    """Records, while active, the experts of every expert MLP call (the
+    dispatched activations' and the expert leaves' expert dims: the MoE
+    blocks call ``models.moe._expert_ffn`` through the module)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.seen = collections.Counter()
+        self.moe, self.orig = moe, moe._expert_ffn
+
+        def ffn(params, h):
+            self.seen[h.shape[-3], params["gate"].shape[-3]] += 1
+            return self.orig(params, h)
+
+        moe._expert_ffn = ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._expert_ffn = self.orig
+
+
+# the rank shares run in processes of their own: phase 27's
+# mistral-large-123b (``--tensor-parallel``), and phase 28's zamba2-7b
+# (``--ssm-parallel``) and phase 29's dbrx-132b (``--expert-parallel``) in
+# one: (tag, arch, cells, its layers, microbatches and remat, whether the
+# train step is timed after a warm-up step)
 RANK_SHARES = {
     "--tensor-parallel": ("[tensor-parallel]", "mistral-large-123b",
-                          TP_CELLS, (88, 8, "full")),
+                          TP_CELLS, (88, 8, "full"), True),
     "--ssm-parallel": ("[ssm-parallel]", "zamba2-7b", SSM_CELLS,
-                       (81, 8, "full")),
+                       (81, 8, "full"), False),
+    "--expert-parallel": ("[expert-parallel]", "dbrx-132b", TP_CELLS,
+                          (40, 8, "full"), False),
 }
 
 
-def tensor_parallel_main(out_path: str, which: str) -> int:
-    """Phase 27's and phase 28's process (``chip_smoke.py
-    --tensor-parallel OUT.json``, ``--ssm-parallel OUT.json``): rank 0 of a
-    fake process group of 256 ranks (its collectives return at once and
-    move no data) on a 16 x 16 mesh of the card, the share's config
-    (``RANK_SHARES``) at full width and depth, its leaves the rank's blocks
-    drawn on the card; each of its cells through the step builders,
-    launches, SSD head counts and peak counted (the serve step:
-    ``TP_TICKS`` timed ticks after a warm-up, the collectives of a recorded
-    tick and whether each cache block was updated in place); the numbers
-    written to ``out_path``."""
+def tensor_parallel_main(shares: list[tuple[str, str]]) -> int:
+    """The rank shares' process (``chip_smoke.py --tensor-parallel
+    OUT.json``; ``--ssm-parallel OUT.json --expert-parallel OUT.json``):
+    rank 0 of a fake process group of 256 ranks (its collectives return at
+    once and move no data) on a 16 x 16 mesh of the card; for each (flag,
+    path) of ``shares`` in turn, its config (``RANK_SHARES``) at full width
+    and depth, its leaves the rank's blocks drawn on the card
+    (``_rank_share_run``), the numbers written to the path."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import registry
-    from repro_torch.configs.base import ColaConfig
-    from repro_torch.distributed import sharding as sh
-    from repro_torch.distributed import steps
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.models import model as model_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    tag, arch, cells, expect = RANK_SHARES[which]
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=256)
-    res = {}
     try:
         mesh = make_production_mesh(device_type="cuda")
-        cfg = registry.get_config(arch)
-        check((cfg.n_layers, cfg.microbatches, cfg.remat) == expect,
-              f"{tag} config {cfg}")
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        shaped = steps.shaped_params(cfg)
-        ps = sh.params_shardings(mesh, shaped, policy=cfg.shard_policy)
-
-        def std(path, leaf):
-            if path.endswith(".scale"):
-                return None
-            return 0.02 if path.endswith("emb") else leaf.shape[-2] ** -0.5
-
-        P = _rank_blocks(mesh, shaped, ps, gen, dev, std)
-        held = sum(x.numel() * x.element_size() for x in _local_leaves(P))
-        whole = sum(t.numel() * t.element_size()
-                    for t in _local_leaves(shaped))
-        mixer = (f", {cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} SSD "
-                 f"heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, a "
-                 f"shared block every {cfg.shared_attn_every} layers"
-                 if cfg.ssm_state else "")
-        print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model "
-              f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
-              f"{cfg.d_head}, d_ff {cfg.d_ff}{mixer}, bf16, remat "
-              f"{cfg.remat}; rank 0 of a fake group of 256 on the 16 x 16 "
-              f"mesh {mesh.mesh_dim_names}: its blocks "
-              f"{held / 2**30:.3f} GiB of the tree's {whole / 2**30:.1f} GiB",
-              flush=True)
-        for label, mode, kind, rows, seq in cells:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            m = 1
-            if kind == "train":
-                cc = ColaConfig(mode=mode, family="lowrank", taps="qv",
-                                rank=16)
-                # a cut batch keeps a microbatch's rows: fewer of them
-                m = rows // 16 // (256 // 16 // cfg.microbatches)
-                fn, (_, ash) = steps.make_train_step(
-                    cfg.replace(microbatches=m), cc, mesh)
-                A = _rank_blocks(
-                    mesh, steps.shaped_adapters(cfg, cc), ash, gen, dev,
-                    lambda p, leaf: (leaf.shape[-1] ** -0.5
-                                     if p.endswith(".A") else 0.01))
-                batch = _dist_batch(cfg, rows, seq, SEED + 40, dev)
-                step = (lambda: fn(P, A, batch))
-                fn(P, A, batch)   # warm-up
-            elif kind == "decode":
-                res[label] = _tp_decode(cfg, mesh, P, gen, dev, rows, seq,
-                                        tag)
-                continue
-            else:
-                fn, _ = steps.make_prefill_step(cfg, mesh)
-                toks = torch.as_tensor(np.random.default_rng(SEED + 41)
-                                       .integers(0, cfg.vocab_size,
-                                                 (rows, seq))
-                                       .astype(np.int32), device=dev)
-                step = (lambda: fn(P, {"tokens": toks}))
+        for which, out_path in shares:
+            t0 = time.perf_counter()
+            res = _rank_share_run(which, mesh, dev)
+            res["seconds"] = time.perf_counter() - t0
+            Path(out_path).write_text(json.dumps(res))
             _free()
-            torch.cuda.reset_peak_memory_stats(dev)
-            with _HeadRecorder() as heads, _SsdRecorder() as ssd, \
-                    model_lib.layer_input_meter() as saved:
-                t0 = time.perf_counter()
-                out, launches = _counted(step)
-                ms = (time.perf_counter() - t0) * 1e3
-            peak = torch.cuda.max_memory_allocated(dev)
-            del out
-            _free()
-            res[label] = {
-                "ms": ms, "peak": peak, "launches": launches,
-                "heads": [list(k) + [v] for k, v in heads.seen.items()],
-                "ssd": [list(k) + [v] for k, v in ssd.seen.items()],
-                "rows": rows // 16 // m, "microbatches": m, "seq": seq,
-                "layer_inputs": sorted(set(saved.shapes)),
-                "layer_input_bytes": saved.bytes}
-            print(f"{tag} {label} ({mode if kind == 'train' else kind}): the "
-                  f"rank's share, {m} x {rows // 16 // m} x {seq}: "
-                  f"{ms:.1f} ms (one step after a warm-up for train; the "
-                  f"collectives' time left out: the fake group moves "
-                  f"nothing); peak memory {peak / 2**30:.2f} GiB "
-                  f"(torch.cuda.max_memory_allocated); launches "
-                  f"{ {k: v for k, v in launches.items() if v} }; flash "
-                  f"launches by (kernel, query heads, KV heads, d_head): "
-                  f"{dict(heads.seen)}"
-                  + (f"; SSD calls by (op, heads): {dict(ssd.seen)}"
-                     if ssd.seen else "") + f"; {card_line()}", flush=True)
-            kept = ("what remat saves for the recompute" if kind == "train"
-                    else "none saved: a prefill takes no gradient")
-            print(f"{tag} {label}: the residual stream between blocks "
-                  f"(sequence split over the 16 \"model\" ranks): layer "
-                  f"inputs {sorted(set(saved.shapes))}, {len(saved.shapes)} "
-                  f"of them, {saved.bytes / m / 2**30:.3f} GiB a "
-                  f"(micro)batch ({kept}), {saved.bytes / 2**30:.3f} GiB "
-                  f"in all, counted as each layer's input is passed",
-                  flush=True)
-        print(f"{tag} values not checked: the fake group's collectives move "
-              f"no data, so the gathered leaves and activations are not the "
-              f"model's (numerics: world size 8 == 1 on the CPU's gloo "
-              f"groups, phases 24-25 at world size 1)", flush=True)
     finally:
         dist.destroy_process_group()
-    Path(out_path).write_text(json.dumps(res))
     return 0
+
+
+def _rank_share_run(which: str, mesh, dev) -> dict:
+    """One rank share: each of its cells through the step builders,
+    launches, SSD head counts, expert counts and peak counted, the train
+    step timed after a warm-up step where the share asks for one (the
+    serve step: ``TP_TICKS`` timed ticks after a warm-up, the collectives
+    of a recorded tick and whether each cache block was updated in
+    place)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ColaConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import steps
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import model as model_lib
+
+    tag, arch, cells, expect, warm = RANK_SHARES[which]
+    res = {}
+    cfg = registry.get_config(arch)
+    check((cfg.n_layers, cfg.microbatches, cfg.remat) == expect,
+          f"{tag} config {cfg}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shaped = steps.shaped_params(cfg)
+    ps = sh.params_shardings(mesh, shaped, policy=cfg.shard_policy)
+
+    def std(path, leaf):
+        if path.endswith(".scale"):
+            return None
+        return 0.02 if path.endswith("emb") else leaf.shape[-2] ** -0.5
+
+    P = _rank_blocks(mesh, shaped, ps, gen, dev, std)
+    held = sum(x.numel() * x.element_size() for x in _local_leaves(P))
+    whole = sum(t.numel() * t.element_size()
+                for t in _local_leaves(shaped))
+    mixer = (f", {cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} SSD "
+             f"heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, a "
+             f"shared block every {cfg.shared_attn_every} layers"
+             if cfg.ssm_state else "")
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}{mixer}, bf16, remat "
+          f"{cfg.remat}; rank 0 of a fake group of 256 on the 16 x 16 "
+          f"mesh {mesh.mesh_dim_names}: its blocks "
+          f"{held / 2**30:.3f} GiB of the tree's {whole / 2**30:.1f} GiB",
+          flush=True)
+    for label, mode, kind, rows, seq in cells:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        m = 1
+        if kind == "train":
+            cc = ColaConfig(mode=mode, family="lowrank", taps="qv",
+                            rank=16)
+            # a cut batch keeps a microbatch's rows: fewer of them
+            m = rows // 16 // (256 // 16 // cfg.microbatches)
+            fn, (_, ash) = steps.make_train_step(
+                cfg.replace(microbatches=m), cc, mesh)
+            A = _rank_blocks(
+                mesh, steps.shaped_adapters(cfg, cc), ash, gen, dev,
+                lambda p, leaf: (leaf.shape[-1] ** -0.5
+                                 if p.endswith(".A") else 0.01))
+            batch = _dist_batch(cfg, rows, seq, SEED + 40, dev)
+            step = (lambda: fn(P, A, batch))
+            if warm:
+                fn(P, A, batch)
+        elif kind == "decode":
+            res[label] = _tp_decode(cfg, mesh, P, gen, dev, rows, seq,
+                                    tag)
+            continue
+        else:
+            fn, _ = steps.make_prefill_step(cfg, mesh)
+            toks = torch.as_tensor(np.random.default_rng(SEED + 41)
+                                   .integers(0, cfg.vocab_size,
+                                             (rows, seq))
+                                   .astype(np.int32), device=dev)
+            step = (lambda: fn(P, {"tokens": toks}))
+        _free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _HeadRecorder() as heads, _SsdRecorder() as ssd, \
+                _ExpertRecorder() as experts, tp.gather_meter() as leaves, \
+                model_lib.layer_input_meter() as saved:
+            t0 = time.perf_counter()
+            out, launches = _counted(step)
+            ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        del out
+        _free()
+        res[label] = {
+            "ms": ms, "peak": peak, "launches": launches,
+            "heads": [list(k) + [v] for k, v in heads.seen.items()],
+            "ssd": [list(k) + [v] for k, v in ssd.seen.items()],
+            "rows": rows // 16 // m, "microbatches": m, "seq": seq,
+            "layer_inputs": sorted(set(saved.shapes)),
+            "layer_input_bytes": saved.bytes, **_expert_numbers(experts,
+                                                                 leaves)}
+        timed = ("one step, no warm-up" if kind == "train" and not warm
+                 else "one step after a warm-up" if kind == "train"
+                 else "one call")
+        print(f"{tag} {label} ({mode if kind == 'train' else kind}): the "
+              f"rank's share, {m} x {rows // 16 // m} x {seq}: "
+              f"{ms:.1f} ms ({timed}; the "
+              f"collectives' time left out: the fake group moves "
+              f"nothing); peak memory {peak / 2**30:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated); launches "
+              f"{ {k: v for k, v in launches.items() if v} }; flash "
+              f"launches by (kernel, query heads, KV heads, d_head): "
+              f"{dict(heads.seen)}"
+              + (f"; SSD calls by (op, heads): {dict(ssd.seen)}"
+                 if ssd.seen else "") + f"; {card_line()}", flush=True)
+        kept = ("what remat saves for the recompute" if kind == "train"
+                else "none saved: a prefill takes no gradient")
+        print(f"{tag} {label}: the residual stream between blocks "
+              f"(sequence split over the 16 \"model\" ranks): layer "
+              f"inputs {sorted(set(saved.shapes))}, {len(saved.shapes)} "
+              f"of them, {saved.bytes / m / 2**30:.3f} GiB a "
+              f"(micro)batch ({kept}), {saved.bytes / 2**30:.3f} GiB "
+              f"in all, counted as each layer's input is passed",
+              flush=True)
+    print(f"{tag} values not checked: the fake group's collectives move "
+          f"no data, so the gathered leaves and activations are not the "
+          f"model's (numerics: world size 8 == 1 on the CPU's gloo "
+          f"groups, phases 24-25 at world size 1)", flush=True)
+    return res
+
+
+def _expert_numbers(experts: "_ExpertRecorder", leaves) -> dict:
+    """An MoE step's expert MLP calls by (dispatched experts, the leaves'
+    experts) and the expert leaves as gathered: their shapes and bytes
+    (``tensor_parallel.gather_meter``)."""
+    if not experts.seen:
+        return {}
+    moe = {p: b for p, b in leaves.by_leaf.items() if ".moe." in f".{p}"}
+    return {"experts": [list(k) + [v] for k, v in experts.seen.items()],
+            "expert_leaves": {p: sorted(leaves.shapes[p]) for p in moe},
+            "expert_bytes": sum(moe.values())}
 
 
 def _tp_decode(cfg, mesh, P, gen, dev, rows: int, seq: int, tag: str
@@ -5038,6 +5147,7 @@ def _tp_decode(cfg, mesh, P, gen, dev, rows: int, seq: int, tag: str
     from repro_torch.analysis import collectives
     from repro_torch.distributed import sharding as sh
     from repro_torch.distributed import steps
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import model as model_lib
 
     fn, _ = steps.make_serve_step(cfg, mesh)
@@ -5070,7 +5180,8 @@ def _tp_decode(cfg, mesh, P, gen, dev, rows: int, seq: int, tag: str
     _free()
     torch.cuda.reset_peak_memory_stats(dev)
     ms, per_tick = [], []
-    with _HeadRecorder() as heads, _SsdRecorder() as ssd:
+    with _HeadRecorder() as heads, _SsdRecorder() as ssd, \
+            _ExpertRecorder() as experts, tp.gather_meter() as leaves:
         for _ in range(TP_TICKS):
             t0 = time.perf_counter()
             out, launches = _counted(lambda: fn(P, C, batch))
@@ -5095,7 +5206,8 @@ def _tp_decode(cfg, mesh, P, gen, dev, rows: int, seq: int, tag: str
             "heads": [list(k) + [v] for k, v in heads.seen.items()],
             "ssd": [list(k) + [v] for k, v in ssd.seen.items()],
             "rows": rows // 16, "seq": seq, "cache_bytes": held,
-            "moves": moves, "in_place": in_place, "blocks": blocks}
+            "moves": moves, "in_place": in_place, "blocks": blocks,
+            **_expert_numbers(experts, leaves)}
 
 
 def _local_leaves(tree) -> list:
@@ -5111,17 +5223,22 @@ def _local_leaves(tree) -> list:
     return out
 
 
-def _rank_share(tag: str, which: str) -> dict:
-    """A rank share's process (``tensor_parallel_main``) run to its end and
-    its numbers read back."""
-    out = ROOT / "build" / f"chip_smoke{which.replace('-', '_')}.json"
-    out.unlink(missing_ok=True)
+def _rank_shares(*whiches: str) -> dict:
+    """The rank shares ``whiches`` in one process (``tensor_parallel_main``)
+    run to its end and their numbers read back, by flag."""
+    outs = {w: ROOT / "build" / f"chip_smoke{w.replace('-', '_')}.json"
+            for w in whiches}
+    args = []
+    for w, out in outs.items():
+        out.unlink(missing_ok=True)
+        args += [w, str(out)]
     _free()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           which, str(out)], cwd=ROOT, timeout=600)
-    check(proc.returncode == 0 and out.exists(),
-          f"{tag} the rank's process ended with rc {proc.returncode}")
-    return json.loads(out.read_text())
+                           *args], cwd=ROOT, timeout=600)
+    tags = " ".join(RANK_SHARES[w][0] for w in whiches)
+    check(proc.returncode == 0 and all(o.exists() for o in outs.values()),
+          f"{tags} the ranks' process ended with rc {proc.returncode}")
+    return {w: json.loads(out.read_text()) for w, out in outs.items()}
 
 
 def phase_tensor_parallel(dev) -> dict:
@@ -5135,7 +5252,7 @@ def phase_tensor_parallel(dev) -> dict:
     leaf and updates every cache block in place, at a peak below 20 GiB;
     returns the launches of every step."""
     tag = "[tensor-parallel]"
-    res = _rank_share(tag, "--tensor-parallel")
+    res = _rank_shares("--tensor-parallel")["--tensor-parallel"]
     L, total = 88, collections.Counter()
     for label, mode, kind, rows, seq in TP_CELLS:
         r = res[label]
@@ -5184,8 +5301,9 @@ def phase_tensor_parallel(dev) -> dict:
     return dict(total)
 
 
-def phase_ssm_parallel(dev) -> dict:
-    """Phase 28 in its own process: rank 0 of zamba2-7b's 16 x 16 mesh
+def phase_ssm_parallel(res: dict) -> dict:
+    """Phase 28 (``res``: its numbers from the process it shares with phase
+    29, ``_rank_shares``): rank 0 of zamba2-7b's 16 x 16 mesh
     through the step builders, its Mamba2 mixers scanning 7 of the 112 SSD
     heads. Checks every step's flash launches (train: M x 14 x 2 forwards
     with the recompute, M x 14 dq and dk/dv; prefill: 14 forwards) at the
@@ -5198,7 +5316,6 @@ def phase_ssm_parallel(dev) -> dict:
     each peak within 10 % of the dry-run's; returns the launches of every
     step."""
     tag = "[ssm-parallel]"
-    res = _rank_share(tag, "--ssm-parallel")
     total = collections.Counter()
     for label, mode, kind, rows, seq in SSM_CELLS:
         r = res[label]
@@ -5258,6 +5375,87 @@ def phase_ssm_parallel(dev) -> dict:
         flags = " --by-layers --jobs 3" if kind == "train" else ""
         source = (f"SSM_DRYRUN_PEAK[{label!r}] = {dry} B, "
                   + SSM_DRYRUN_RECORD.format(label=label, flags=flags))
+        check(abs(r["peak"] / dry - 1) <= 0.10,
+              f"{tag} {label}: peak {r['peak'] / 2**30:.2f} GiB, not "
+              f"within 10 % of the dry-run's {dry / 2**30:.2f} GiB "
+              f"({source}; recount it if the step has changed)")
+        print(f"{tag} {label}: peak {r['peak'] / 2**30:.2f} GiB, the "
+              f"dry-run's {dry / 2**30:.2f} GiB ({r['peak'] / dry - 1:+.1%}; "
+              f"{source})", flush=True)
+    return dict(total)
+
+
+def phase_expert_parallel(res: dict) -> dict:
+    """Phase 29 (``res``: its numbers from the process it shares with phase
+    28): rank 0 of dbrx-132b's 16 x 16 mesh through the step builders, its
+    MoE FFN split by experts over "model". Checks every expert MLP call
+    (forward and recompute) at the rank's 1 of the 16 experts, every
+    expert leaf gathered as its 1-expert block (d_model gathered over
+    "data", never a whole layer's experts), every step's flash launches
+    (train: M x 40 x 2 forwards with the recompute, M x 40 dq and dk/dv;
+    prefill: 40 forwards) at 3 query heads and the 1 KV head they read, of
+    128, the layer inputs the rank's (2, S / 16, 6144) rows; every tick's
+    40 dense decode launches (the log-sum-exp entry) at 48 / 8 heads over
+    2,048 positions, no KV leaf moved, every cache block in place; each
+    peak within 10 % of the dry-run's (``EP_DRYRUN_PEAK``); returns the
+    launches of every step."""
+    tag = "[expert-parallel]"
+    L, total = EP_LAYERS, collections.Counter()
+    # one layer's expert leaves, bf16: the rank's 1 expert, and all 16 (what
+    # a replicated FFN gathers)
+    one = sum(int(np.prod(v)) for v in EP_EXPERTS.values()) * 2
+    for label, mode, kind, rows, seq in TP_CELLS:
+        r = res[label]
+        if kind == "decode":
+            want = {"decode_attention": L}
+            check(all(t == want for t in r["launches"]),
+                  f"{tag} {label} launched {r['launches']}, not {want} a "
+                  f"tick")
+            check(all(tuple(h[1:5]) == EP_DECODE for h in r["heads"])
+                  and sum(h[5] for h in r["heads"]) == L * TP_TICKS,
+                  f"{tag} {label}: decode ran at {r['heads']}, not "
+                  f"{EP_DECODE}")
+            check(not [k for k in r["moves"] if k.endswith((".k", ".v"))]
+                  and r["in_place"],
+                  f"{tag} {label}: a KV leaf moved ({r['moves']}) or a block "
+                  f"came back other than in place ({r['in_place']})")
+            calls = L * TP_TICKS
+            total.update({k: v * TP_TICKS for k, v in want.items()})
+        else:
+            m = r["microbatches"]
+            want = ({"flash_attention": 2 * m * L,
+                     "flash_attention_bwd_dq": m * L,
+                     "flash_attention_bwd_dkv": m * L} if kind == "train"
+                    else {"flash_attention": L})
+            got = {k: v for k, v in r["launches"].items() if v}
+            check(got == want, f"{tag} {label} launched {got}, not {want}")
+            check(all(tuple(h[1:4]) == EP_HEADS for h in r["heads"])
+                  and sum(h[5] for h in r["heads"]) == sum(want.values()),
+                  f"{tag} {label}: flash ran at {r['heads']}, not "
+                  f"{EP_HEADS}")
+            rows_in = (r["rows"], seq // 16, 6144)
+            check(r["layer_inputs"] == [list(rows_in)],
+                  f"{tag} {label}: layer inputs {r['layer_inputs']}, not "
+                  f"{rows_in}")
+            calls = (2 * m if kind == "train" else 1) * L
+            total.update(want)
+        check(r["experts"] == [[1, 1, calls]],
+              f"{tag} {label}: expert MLP calls by (dispatched experts, "
+              f"leaves' experts) {r['experts']}, not {calls} at 1 of 16")
+        check(r["expert_leaves"] == {p: [v] for p, v in EP_EXPERTS.items()}
+              and r["expert_bytes"] == calls * one,
+              f"{tag} {label}: expert leaves gathered as "
+              f"{r['expert_leaves']}, {r['expert_bytes']} B, not the rank's "
+              f"1-expert blocks {EP_EXPERTS}, {calls} x {one} B")
+        print(f"{tag} {label}: {calls} expert MLP calls, every one at the "
+              f"rank's 1 of 16 experts; its expert leaves gathered as "
+              f"{ {p: v[0] for p, v in r['expert_leaves'].items()} }: "
+              f"{r['expert_bytes'] / 1e9:.3f} GB in all, {one / 1e6:.1f} MB "
+              f"a layer against the 16 experts' {16 * one / 1e9:.3f} GB "
+              f"(1/16)", flush=True)
+        dry = EP_DRYRUN_PEAK[label]
+        source = (f"EP_DRYRUN_PEAK[{label!r}] = {dry} B, "
+                  + EP_DRYRUN_RECORD.format(label=label))
         check(abs(r["peak"] / dry - 1) <= 0.10,
               f"{tag} {label}: peak {r['peak'] / 2**30:.2f} GiB, not "
               f"within 10 % of the dry-run's {dry / 2**30:.2f} GiB "
@@ -5542,9 +5740,14 @@ def main() -> int:
     print(f"[tensor-parallel] done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
-    ssm_parallel = phase_ssm_parallel(dev)
-    print(f"[ssm-parallel] done in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    shares = _rank_shares("--ssm-parallel", "--expert-parallel")
+    secs = {w: r["seconds"] for w, r in shares.items()}
+    ssm_parallel = phase_ssm_parallel(shares["--ssm-parallel"])
+    expert_parallel = phase_expert_parallel(shares["--expert-parallel"])
+    print(f"[ssm-parallel] [expert-parallel] done in "
+          f"{time.perf_counter() - t0:.1f} s, one process: its phase 28 "
+          f"{secs['--ssm-parallel']:.1f} s, phase 29 "
+          f"{secs['--expert-parallel']:.1f} s", flush=True)
     print(f"[phases] done in {time.perf_counter() - start:.1f} s, the build "
           f"included", flush=True)
     _HALVES.close()
@@ -5565,7 +5768,8 @@ def main() -> int:
                "multi_lora_q8": "multi_lora"}
     # launches: the serving, training, serving-at-scale, store, runtime,
     # telemetry, gemma2, gemma2-train, configs, moe, ssm, hybrid, musicgen,
-    # pixtral, distributed, tensor-parallel and ssm-parallel runs' together
+    # pixtral, distributed, tensor-parallel, ssm-parallel and
+    # expert-parallel runs' together
     # (flash_attention runs on every attention path, none on the ssm path,
     # which runs the multi-LoRA kernels and cola_fit; the ring ticks count
     # as the paged decode kernel's, of which they are the ring addressing
@@ -5584,7 +5788,8 @@ def main() -> int:
                               + ssm[n] + hybrid[n] + musicgen.get(n, 0)
                               + pixtral.get(n, 0) + distributed.get(n, 0)
                               + tensor_parallel.get(n, 0)
-                              + ssm_parallel.get(n, 0)),
+                              + ssm_parallel.get(n, 0)
+                              + expert_parallel.get(n, 0)),
                     **rows[n],
                     rows={k: v for k, v in rows.items()
                           if k == n or k.startswith(n + "[")})
@@ -5601,5 +5806,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-halves"]:
         sys.exit(cpu_halves_main(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] and sys.argv[1] in RANK_SHARES:
-        sys.exit(tensor_parallel_main(sys.argv[2], sys.argv[1]))
+        sys.exit(tensor_parallel_main(list(zip(sys.argv[1::2],
+                                               sys.argv[2::2]))))
     sys.exit(main())

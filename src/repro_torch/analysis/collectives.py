@@ -13,7 +13,8 @@ all-gather), which ``total_bytes`` and ``breakdown`` count, as JAX does.
 A record issued inside ``labelled(name)`` also carries ``"of": name`` (the
 serve step labels its moves of cache leaves "cache.<stack>.<leaf>"; the
 train and prefill steps' sequence split labels its collectives
-"seq.<part>"), which ``by_leaf`` sums.
+"seq.<part>", the Mamba2 mixer's norm gather "ssm.norm" and the MoE FFN's
+"moe.<part>"), which ``by_leaf`` sums.
 """
 from __future__ import annotations
 

@@ -17,13 +17,16 @@ Execution, as this port runs it:
   and the dense MLP's products (o and down by output columns over their
   gathered inputs), attends over its own query heads, and holds its vocab
   range of the embedding, the head and the CE. Where a split does not fit,
-  that part is replicated over "model" (the MoE FFN always). The
+  that part is replicated over "model". The
   train and prefill steps hold the residual stream between blocks as the
   rank's (b, S / n, d) rows where the n "model" ranks divide S (sequence
   parallelism, ``Plan.seq``: the norms and adds on the rows, the split
   parts' inputs gathered over the sequence and their output columns turned
   into rows by an all-to-all; the whole stream where S does not divide).
-  The Mamba2 mixer scans the rank's SSD heads where they divide. The serve
+  The Mamba2 mixer scans the rank's SSD heads where they divide, and the
+  MoE FFN runs the rank's E / n experts where they divide (each rank
+  routing its batch rank's tokens, the experts' shares summed over
+  "model"). The serve
   step computes every attention head on every rank (q / k / v gathered)
   against its block of a KV cache that the rules split by sequence, the
   ranks' blocks merged (``tensor_parallel.merge``), and keeps the SSM state
@@ -59,10 +62,11 @@ stacked (M, L?, b, S, d), to stream to the offloader as M pushes; Mode B
 and LoRA sum the gradients over the microbatches and divide by M; full FT
 takes no microbatches.
 
-A MoE batch is split over ranks only where each rank's dispatch groups are
-one device's: the einsum dispatch's groups of ``moe_group`` tokens (or rows)
-must fall alike, and the sort dispatch's capacity counts every token of the
-call, so it is never split. Otherwise the step raises ``ValueError``.
+A MoE call's dispatch groups and expert capacities are its whole
+(micro)batch's, as one device forms them, however its rows split over the
+batch ranks: where a rank's rows do not hold whole groups, or under the
+sort dispatch, the ranks' expert counts are exchanged
+(``tensor_parallel``, ``models.moe.Split``).
 """
 from __future__ import annotations
 
@@ -129,26 +133,6 @@ class _Rows:
         return {k: v[s:s + self.rows] for k, v in batch.items()}
 
 
-def _check_groups(cfg: ModelConfig, rows: _Rows, seq: int) -> None:
-    """Raise where splitting the rows would give a rank other MoE dispatch
-    groups (or capacities) than one device's."""
-    if not cfg.n_experts or not rows.split:
-        return
-    if cfg.moe_impl == "sort":
-        raise ValueError(
-            "the sort dispatch's expert capacity counts every token of the "
-            f"call; split over {rows.n} batch ranks it would not be one "
-            "device's")
-    if cfg.moe_impl == "einsum":
-        whole, local, g = rows.micro * seq, rows.rows * seq, cfg.moe_group
-        if whole % g == 0 and local % g:
-            raise ValueError(
-                f"MoE dispatch groups of {g} tokens: one device groups the "
-                f"{whole} tokens of a (micro)batch by {g}, a rank's {local} "
-                f"would be grouped by row; use a batch whose rows a rank "
-                f"hold a multiple of {g} tokens")
-
-
 # ---------------------------------------------------------------------------
 # moving leaves between the rules' placements and the compute layout
 # ---------------------------------------------------------------------------
@@ -179,7 +163,8 @@ def _blocks(mesh: DeviceMesh, tree, specs) -> dict:
 def _plan(cfg: ModelConfig, mesh: DeviceMesh, rows: "_Rows", ps, ash=None,
           seq: int | None = None, ssm: bool = True) -> tp.Plan:
     """The call's tensor-parallel plan: gradients partial over the batch
-    axes where the rows are split; ``seq``: the sequence length of a train
+    axes where the rows are split (the MoE dispatch's groups formed across
+    them); ``seq``: the sequence length of a train
     or prefill step, whose residual stream the plan holds by sequence where
     "model"'s ranks divide it (the serve step passes none); ``ssm``: whether
     the Mamba2 heads may split."""
@@ -262,10 +247,7 @@ def make_train_step(cfg: ModelConfig, cc: ColaConfig, mesh: DeviceMesh):
                                    plan=plan)
 
     def rows_of(batch, m=1):
-        B, S = _batch_rows(batch)
-        rows = _Rows(mesh, policy, B, m)
-        _check_groups(cfg, rows, S)
-        return rows
+        return _Rows(mesh, policy, _batch_rows(batch)[0], m)
 
     if cc.mode == "ft":
         def fn_ft(params, batch):
@@ -431,7 +413,6 @@ def make_serve_step(cfg: ModelConfig, mesh: DeviceMesh, greedy: bool = True):
         batch = _use(batch)
         B = batch["positions"].shape[0]
         rows = _Rows(mesh, policy, B)
-        _check_groups(cfg, rows, 1)
         cspec = sh.cache_shardings(mesh, cache)
         states = [st for st, leaves in cache.items() if "ssm" in leaves]
         plan = _plan(cfg, mesh, rows, ps,
@@ -541,7 +522,6 @@ def make_prefill_step(cfg: ModelConfig, mesh: DeviceMesh):
         batch = _use(batch)
         B, S = _batch_rows(batch)
         rows = _Rows(mesh, policy, B)
-        _check_groups(cfg, rows, S)
         plan = _plan(cfg, mesh, rows, ps, seq=S)
         with sh.activation_rules(mesh, policy, local_rows=rows.split,
                                  plan=plan):

@@ -58,6 +58,32 @@ how each product is laid out (``current``, ``tap_layout``):
   time inside the tick (``conv_state``, labelled "cache.<stack>.conv") and
   only the rank's block of the new state is written back
   (``own_channels``).
+- **The MoE FFN by experts** (``moe``, where the experts divide over
+  "model" and the rules place ``moe.gate`` / ``up`` / ``down`` by experts
+  over it, as JAX's ``constrain(h, "batch", "model", None, None)`` on the
+  dispatched (groups, E, C, d) activations): Megatron's all-gather
+  dispatcher. The part's input is ``seq_in``'s (the stream's rows gathered
+  over the sequence; backward a reduce-scatter) or ``copy_in``, so every
+  rank of a "model" group holds its batch rank's tokens; each routes them
+  all (the router and the accounting whole, ``router.w``'s gradient
+  partial over "model"), dispatches them into its own E / n experts'
+  slots, runs those experts (their leaves the rank's expert block,
+  gathered over FSDP only) and combines its experts' share of every
+  token's output, which the output sums over "model" (a reduce-scatter
+  over the sequence, else an all-reduce). Every collective keeps a static
+  shape and a slot has one source token; a token's k expert terms are
+  added in another order than one device's (the last bit). The aux loss,
+  which every rank of the group computes on the same tokens, takes its
+  gradient from "model" rank 0 alone. The collectives are labelled
+  "moe.in" / "moe.out".
+- **MoE groups across batch ranks** (every MoE step, split over "model"
+  or not): a call's dispatch groups and capacities are its whole
+  (micro)batch's, over the batch axes that split its rows (``partial``),
+  as one device forms them. Where a rank's
+  rows do not hold whole groups (or under the sort dispatch, whose order
+  is the call's), its per-expert counts are all-gathered over the batch
+  axes ("moe.counts", small ints) and each rank counts the others' into
+  its positions (``models.moe.Split``).
 - **Megatron's f.** A split region's input is ``copy_in`` (the identity,
   its gradient summed over "model"); its output is ``gather_out`` (the
   columns all-gathered, the gradient's own columns kept).
@@ -104,7 +130,9 @@ Where a split does not fit (the heads, d_model or the vocab do not divide,
 a split cuts a head or a GQA group, codebooks; the SSD heads or d_model do
 not divide, or the serve step's SSM state is not the rank's heads block),
 the part's leaves are gathered over "model" too and its compute is
-replicated over "model", as every MoE FFN's is. With one rank
+replicated over "model"; so is an MoE FFN's where the experts do not divide
+over "model", under the "dp" policy or with ``moe_impl="dense"``. With one
+rank
 on every axis nothing is gathered or split: the model runs on the tensors
 themselves.
 """
@@ -119,6 +147,7 @@ import torch.distributed as dist
 
 from repro_torch.analysis import collectives
 from repro_torch.distributed import sharding as sh
+from repro_torch.models import moe as M
 
 # all_gather_single / reduce_scatter_single are the newer names of
 # all_gather_into_tensor / reduce_scatter_tensor
@@ -127,6 +156,8 @@ _all_gather_into = getattr(dist, "all_gather_single",
 _reduce_scatter = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
 
+# the expert leaves, each (L, E, d_in, d_out) with its experts on dim -3
+_EXPERTS = re.compile(r"\.moe\.(gate|up|down)$")
 # the weights that the rules place by rows and a split part uses by columns
 _ROW_PLACED = (".attn.o.w", ".mlp.down.w", ".ssm.out_proj.w")
 # the Mamba2 mixer's input tap: computed whole on every rank, its gradient
@@ -184,9 +215,9 @@ class _Take(torch.autograd.Function):
     the own block over the others."""
 
     @staticmethod
-    def forward(ctx, x, plan, recipe):
+    def forward(ctx, x, plan, recipe, path):
         ctx.plan, ctx.recipe = plan, recipe
-        return plan._gather(x, recipe)
+        return plan._gather(x, recipe, path)
 
     @staticmethod
     def backward(ctx, g):
@@ -199,22 +230,24 @@ class _Take(torch.autograd.Function):
                 g = _scatter_sum(g, dim, plan.mesh.get_group(axis), n)
             else:
                 g = _own(g, dim, n, plan.coord[axis])
-        return g, None, None
+        return g, None, None, None
 
 
 class _CopyIn(torch.autograd.Function):
-    """Megatron's f: the identity; the gradient summed over the group."""
+    """Megatron's f: the identity; the gradient summed over the group
+    (under ``label``, where given)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, label=None):
+        ctx.group, ctx.label = group, label
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        with _label(ctx.label):
+            dist.all_reduce(g, group=ctx.group)
+        return g, None, None
 
 
 class _PadScatter(torch.autograd.Function):
@@ -321,16 +354,17 @@ class _SeqKeep(torch.autograd.Function):
 
 class _SeqScatter(torch.autograd.Function):
     """The ranks' partial sums, the rank's rows of their sum (a
-    reduce-scatter over the sequence); the gradient all-gathered."""
+    reduce-scatter over the sequence); the gradient all-gathered (both under
+    ``label``)."""
 
     @staticmethod
-    def forward(ctx, x, plan):
-        ctx.plan = plan
-        return plan._seq_scatter(x)
+    def forward(ctx, x, plan, label):
+        ctx.plan, ctx.label = plan, label
+        return plan._seq_scatter(x, label)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.plan._seq_gather(g, "seq.embed"), None
+        return ctx.plan._seq_gather(g, ctx.label), None, None
 
 
 class _ColsToRows(torch.autograd.Function):
@@ -494,6 +528,7 @@ class Plan:
         self.attn = self._attn(cfg, flat) if tp else None
         self.ssm = self._ssm(cfg, flat) if tp and ssm else None
         self.mlp = tp and self._mlp(cfg, flat)
+        self.moe = self._moe(cfg, flat) if tp else None
         self.embed = self._vocab(cfg, flat, "embed") if tp else None
         self.head = self._vocab(cfg, flat, "head") if tp else None
         self._layouts: dict[str, TapLayout | None] = {}
@@ -538,6 +573,17 @@ class Plan:
             return None
         return Ssm(heads // self.n, self.c * (heads // self.n))
 
+    def _moe(self, cfg, flat) -> tuple[int, int] | None:
+        """(experts a rank, the first) of the rank's experts, where they
+        divide over "model", the rules place every expert leaf by experts
+        over it and the dispatch forms slots (einsum, sort)."""
+        E = cfg.n_experts
+        if not E or E % self.n or cfg.moe_impl == "dense" or not all(
+                self._splits(flat, f"moe.{w}", -3)
+                for w in ("gate", "up", "down")):
+            return None
+        return (E // self.n, self.c * (E // self.n))
+
     def _vocab(self, cfg, flat, use: str) -> tuple[int, int] | None:
         """(first id, ids) of this rank's vocab range for the embedding or
         the head, where its leaf holds the vocab split over "model" (the
@@ -564,6 +610,8 @@ class Plan:
         if self._part(path) is not None and re.search(
                 r"\.(q|k|v|o|gate|up|down|out_proj)\.w$", f".{path}"):
             return -2 if f".{path}".endswith(_ROW_PLACED) else -1
+        if self.moe and _EXPERTS.search(f".{path}"):
+            return -3
         if path == "embed.emb" and self.embed:
             return -2
         if path == "unembed.emb" and self.head:
@@ -577,10 +625,11 @@ class Plan:
         return None
 
     def _part(self, name: str) -> str | None:
-        """"attn", "mlp" or "ssm" where the tap or leaf ``name`` lies in a
-        split part."""
+        """"attn", "mlp", "ssm" or "moe" where the tap or leaf ``name`` lies
+        in a split part."""
         for part, on in (("attn", self.attn is not None), ("mlp", self.mlp),
-                         ("ssm", self.ssm is not None)):
+                         ("ssm", self.ssm is not None),
+                         ("moe", self.moe is not None)):
             if on and f".{part}." in f".{name}":
                 return part
         return None
@@ -612,14 +661,15 @@ class Plan:
 
     # -- leaves ----------------------------------------------------------------
 
-    def _gather(self, x: torch.Tensor, recipe: Recipe) -> torch.Tensor:
+    def _gather(self, x: torch.Tensor, recipe: Recipe, path: str
+                ) -> torch.Tensor:
         for dim, axis in recipe.steps:
             x = _all_gather(x, dim, self.mesh.get_group(axis),
                             self.shape[axis])
         if recipe.swap is not None:
             x = _swap(x, *recipe.swap, self.group, self.n)
         for m in _METERS:
-            m.bytes += x.numel() * x.element_size()
+            m.saw(path, x)
         return x
 
     def take(self, path: str, x: torch.Tensor) -> torch.Tensor:
@@ -629,8 +679,8 @@ class Plan:
         if recipe is None or not (recipe.steps or recipe.swap):
             return x
         if _differentiable(x):
-            return _Take.apply(x, self, recipe)
-        return self._gather(x, recipe)
+            return _Take.apply(x, self, recipe, path)
+        return self._gather(x, recipe, path)
 
     def take_tree(self, prefix: str, tree):
         if isinstance(tree, dict):
@@ -654,14 +704,18 @@ class Plan:
 
     # -- activations -----------------------------------------------------------
 
-    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
-        return _CopyIn.apply(x, self.group) if _differentiable(x) else x
+    def copy_in(self, x: torch.Tensor, label: str | None = None
+                ) -> torch.Tensor:
+        return (_CopyIn.apply(x, self.group, label) if _differentiable(x)
+                else x)
 
-    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
-        if _differentiable(x):
-            return _ReduceOut.apply(x, self.group)
-        dist.all_reduce(x, group=self.group)
-        return x
+    def reduce_out(self, x: torch.Tensor, label: str | None = None
+                   ) -> torch.Tensor:
+        with _label(label):
+            if _differentiable(x):
+                return _ReduceOut.apply(x, self.group)
+            dist.all_reduce(x, group=self.group)
+            return x
 
     def gather_cols(self, x: torch.Tensor, label: str | None = None
                     ) -> torch.Tensor:
@@ -686,8 +740,8 @@ class Plan:
         with collectives.labelled(label):
             return _all_gather(x, _SEQ, self.group, self.n)
 
-    def _seq_scatter(self, x: torch.Tensor) -> torch.Tensor:
-        with collectives.labelled("seq.embed"):
+    def _seq_scatter(self, x: torch.Tensor, label: str) -> torch.Tensor:
+        with collectives.labelled(label):
             return _scatter_sum(x, _SEQ, self.group, self.n)
 
     def _cols_to_rows(self, y: torch.Tensor) -> torch.Tensor:
@@ -733,16 +787,64 @@ class Plan:
             return _SeqKeep.apply(y, self)
         return _own(y, _SEQ, self.n, self.c)
 
-    def scatter_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """The vocab-split embedding's partial lookups summed over "model":
-        under ``seq`` the rank's rows of the sum (a reduce-scatter over the
-        sequence, the gradient all-gathered), else all of it
+    def scatter_rows(self, x: torch.Tensor, label: str = "seq.embed"
+                     ) -> torch.Tensor:
+        """Partial sums over "model" (the vocab-split embedding's lookups,
+        the experts' shares of the MoE output): under ``seq`` the rank's
+        rows of the sum (a reduce-scatter over the sequence, the gradient
+        all-gathered, both under ``label``), else all of it
         (``reduce_out``)."""
         if not self.seq:
             return self.reduce_out(x)
         if _differentiable(x):
-            return _SeqScatter.apply(x, self)
-        return self._seq_scatter(x)
+            return _SeqScatter.apply(x, self, label)
+        return self._seq_scatter(x, label)
+
+    # -- the MoE FFN -------------------------------------------------------------
+
+    def moe_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The MoE FFN's input: its batch rank's tokens on every rank of
+        "model" (``seq_in``'s under the sequence split, else ``copy_in``);
+        the gradient, each rank's experts' partial, summed."""
+        if self.moe is None:
+            return self.gather_rows(x)
+        if self.seq:
+            return self._gathered(x, True, "moe.in")
+        return self.copy_in(x, "moe.in")
+
+    def moe_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The MoE FFN's output, each rank's experts' share: summed over
+        "model" (the rank's rows under the sequence split)."""
+        if self.moe is None:
+            return self.keep_rows(y)
+        if not self.seq:
+            return self.reduce_out(y, "moe.out")
+        return self.scatter_rows(y, "moe.out")
+
+    def moe_split(self) -> M.Split | None:
+        """The MoE call's place across ranks (``models.moe.Split``): the
+        batch ranks over which its rows are split (``partial``, major axis
+        first) and this rank's index among them, and its experts; None
+        where the rank holds every row and every expert."""
+        if not self.partial and self.moe is None:
+            return None
+        ranks, index = 1, 0
+        for a in self.partial:
+            ranks, index = ranks * self.shape[a], index * self.shape[a] \
+                + self.coord[a]
+        return M.Split(ranks=ranks, index=index,
+                       gather=self._batch_gather if self.partial else None,
+                       expert0=self.moe[1] if self.moe else 0,
+                       aux_grad=self.moe is None or self.c == 0)
+
+    def _batch_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of every batch rank, stacked on a new dim 0 in their order
+        (the minor axis gathered first)."""
+        t = t[None]
+        with collectives.labelled("moe.counts"):
+            for a in reversed(self.partial):
+                t = _all_gather(t, 0, self.mesh.get_group(a), self.shape[a])
+        return t
 
     def kv_heads(self, y: torch.Tensor, d_head: int) -> torch.Tensor:
         """The k or v product's columns of this rank's KV heads (its own
@@ -813,10 +915,19 @@ class Plan:
 
 class gather_meter:
     """While active, ``bytes`` counts every leaf gather's result: the
-    gathered leaves a step's products read."""
+    gathered leaves a step's products read; ``shapes``, {leaf path: the
+    shapes it was gathered to}, and ``by_leaf``, {leaf path: bytes}."""
 
     def __init__(self):
         self.bytes = 0
+        self.shapes: dict[str, set] = {}
+        self.by_leaf: dict[str, int] = {}
+
+    def saw(self, path: str, x: torch.Tensor) -> None:
+        n = x.numel() * x.element_size()
+        self.bytes += n
+        self.by_leaf[path] = self.by_leaf.get(path, 0) + n
+        self.shapes.setdefault(path, set()).add(tuple(x.shape))
 
     def __enter__(self) -> "gather_meter":
         _METERS.append(self)
@@ -880,6 +991,22 @@ def embed_lookup(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     mine = (idx >= 0) & (idx < size)
     x = emb[idx.clamp(0, size - 1)].masked_fill(~mine[..., None], 0)
     return p.scatter_rows(x)
+
+
+def moe_in(x: torch.Tensor) -> torch.Tensor:
+    """The MoE FFN's input (``Plan.moe_in``), or ``x`` without a plan."""
+    p = current()
+    return x if p is None else p.moe_in(x)
+
+
+def moe_out(y: torch.Tensor) -> torch.Tensor:
+    p = current()
+    return y if p is None else p.moe_out(y)
+
+
+def moe_split() -> M.Split | None:
+    p = current()
+    return None if p is None else p.moe_split()
 
 
 def replicated_in(x: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,11 @@ for 16 x 16, 512 for 2 x 16 x 16), and counts what it runs:
   gradients gathered, "seq.embed", "seq.head", "seq.pick");
   ``ssm_collectives``, the Mamba2 mixer's under a split of its heads
   ("ssm.norm": the rank's columns of ``y * silu(z)`` gathered for the norm,
-  the gradient reduce-scattered).
+  the gradient reduce-scattered); ``moe_collectives``, the MoE FFN's
+  ("moe.in" its input gathered and its gradient summed where a rank runs
+  its experts, "moe.out" the experts' shares summed, "moe.counts" the
+  batch ranks' expert counts where a rank's rows do not hold whole
+  dispatch groups, or under the sort dispatch).
 - ``layer_input_bytes``: the bytes of every layer's input as
   ``hidden_states`` passes it (``model.layer_input_meter``): what
   ``remat="full"`` saves for the recompute, the rank's (b, S / n, d) rows
@@ -80,8 +84,6 @@ What the count is of:
   side by side. Such a record gives its peak only where the depths' peaks
   grow linearly.
 
-A cell that a step refuses (a MoE batch whose dispatch groups would not be
-one device's, ``steps._check_groups``) fails with the step's text.
 """
 from __future__ import annotations
 
@@ -476,6 +478,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                             if k.startswith("seq.")},
         "ssm_collectives": {k: v for k, v in labelled.items()
                             if k.startswith("ssm.")},
+        "moe_collectives": {k: v for k, v in labelled.items()
+                            if k.startswith("moe.")},
         "layer_input_bytes": count["layer_input_bytes"],
         "collective_records": count["collective_records"],
         "bounded_ops": count["bounded_ops"],
@@ -505,7 +509,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             print(f"  sequence split: layer inputs "
                   f"{rec['layer_input_bytes']:.3e} B, collectives "
                   f"{json.dumps(rec['seq_collectives'])}")
-        for key in ("cache_collectives", "ssm_collectives"):
+        for key in ("cache_collectives", "ssm_collectives",
+                    "moe_collectives"):
             if rec[key]:
                 print(f"  {key}: {json.dumps(rec[key])}")
         print(f"  terms(s): compute={rec['t_compute']:.4e} "

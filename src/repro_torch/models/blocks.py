@@ -7,10 +7,10 @@ them; and the Mamba2 block of the SSM plan (mamba2-370m): a pre-norm
 
 Under a step's sequence split (``distributed.tensor_parallel``) a block's
 input and output are the rank's rows of the sequence: the norms and the
-residual adds run on them, the attention, the dense MLP and a Mamba2
-mixer split by heads gather the sequence themselves, and the MoE FFN and a
-mixer replicated over "model" take the whole sequence and keep the rank's
-rows of their output.
+residual adds run on them, the attention, the dense MLP, a Mamba2 mixer
+split by heads and an MoE FFN split by experts gather the sequence
+themselves, and a mixer or an MoE FFN replicated over "model" takes the
+whole sequence and keeps the rank's rows of its output.
 """
 from __future__ import annotations
 
@@ -47,13 +47,15 @@ def _ffn_half(cfg: ModelConfig, params: dict, x: torch.Tensor, h, *,
     h = _norm(cfg, params["ln2"], x)
     aux = None
     if cfg.n_experts:
-        # replicated over "model": its dispatch groups and capacities are
-        # the whole (micro)batch's
-        h, aux = M.moe_block(params["moe"], tp.replicated_in(h),
+        # the rank's experts on its batch rank's tokens, or every expert
+        # (replicated over "model"); the dispatch groups and capacities are
+        # the whole (micro)batch's either way
+        h, aux = M.moe_block(params["moe"], tp.moe_in(h),
                              top_k=cfg.moe_top_k, impl=cfg.moe_impl,
                              group=cfg.moe_group,
-                             capacity_factor=cfg.capacity_factor)
-        h = tp.replicated_out(h)
+                             capacity_factor=cfg.capacity_factor,
+                             split=tp.moe_split())
+        h = tp.moe_out(h)
     else:
         h = L.mlp(params["mlp"], h, act=cfg.act,
                   tap_prefix=f"{tap_prefix}.mlp", tap_ctx=tap_ctx)

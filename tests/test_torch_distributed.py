@@ -20,8 +20,7 @@ the JAX package's, on the CPU.
   (``tests/torch_dist_worker.py``): world size 1, and world size 8 on
   (2, 4) and (2, 2, 2) (and (2, 4) under "dp"), whose results must equal
   world size 1's; every rank's block of every placed leaf must be its slice
-  under the rule, and a MoE batch whose dispatch groups would fall
-  differently on a rank must raise.
+  under the rule.
 - Tensor parallelism over "model": at world size 8 rank 0's counted FLOPs
   of nemo's train and prefill steps are at most 0.2 of world size 1's (the
   rows split over the batch ranks and the attention, MLP and head over
@@ -39,6 +38,16 @@ the JAX package's, on the CPU.
   on (2, 4) equal world size 1 under it; at S 18 (4 does not divide it),
   under "dp" and at world size 1 the stream is whole and no such
   collective is issued.
+- Expert parallelism (qwen's 8 experts over the "model" ranks): every
+  qwen step on (2, 4) and (2, 2, 2), full FT on (2, 2, 2) (against JAX at
+  world size 1), equals world size 1, and so do the batches whose dispatch
+  groups span batch ranks (Mode A at 8 rows on (2, 2, 2)), the sort
+  dispatch's prefill on (2, 4) and Mode A on (2, 2, 2) (the ranks' expert
+  counts exchanged), a 6-expert qwen on (2, 4) (the experts do not divide:
+  the FFN replicated) and a prefill at S 18 (no sequence split); rank 0's
+  expert leaves arrive as its E / n block, gathered over "data" only, its
+  FLOPs of the train and prefill steps are at most 0.2 of world size 1's,
+  and its MoE collectives carry their labels.
 - The dry-run (``repro_torch.launch.dryrun.count_step``, rank 0 of a fake
   group at the same world size and mesh) counts the same FLOPs and the same
   collective breakdown as rank 0's real step in the gloo groups, exactly,
@@ -93,6 +102,9 @@ CONFIGS = {
     # 6 heads (G 3): on 4 "model" ranks the heads do not divide
     "nemo6": ("mistral-nemo-12b", dict(SMALL, n_heads=6)),
     "qwen": ("qwen3-moe-30b-a3b", dict(SMALL, moe_group=32)),
+    # 6 experts: on 4 "model" ranks they do not divide, so the MoE FFN is
+    # replicated over "model"
+    "qwen6e": ("qwen3-moe-30b-a3b", dict(SMALL, moe_group=32, n_experts=6)),
     # 8 SSD heads of 16 (d_inner 128): they divide over 4 and 2 "model"
     # ranks; the conv's 160 channels (x | B | C = 128 | 16 | 16) split in
     # blocks of 40 or 80, across the rank's heads' x channels (32 or 64)
@@ -120,10 +132,33 @@ S_ODD = 18
 STEPS = (("train", "faithful_offload", 2), ("train", "fused_fit", 2),
          ("train", "lora", 1), ("train", "ft", 1), ("prefill", None, 1),
          ("serve", True, 1), ("serve", False, 1))
-W1_STEPS = {"nemo": STEPS, "qwen": STEPS[:2] + STEPS[4:],
+W1_STEPS = {"nemo": STEPS, "qwen": STEPS[:2] + STEPS[3:],
             "mamba": STEPS[:2] + STEPS[4:]}
 W8 = (("nemo", (2, 4, 1)), ("nemo", (2, 2, 2)), ("qwen", (2, 4, 1)),
       ("qwen", (2, 2, 2)))
+
+
+def _w8_steps(key, mesh):
+    """W1_STEPS[key] as world size 8 runs them on ``mesh``: qwen's full FT
+    (the one step that trains the router and the expert leaves) on (2, 2, 2)
+    alone."""
+    return tuple(s for s in W1_STEPS[key]
+                 if not (key == "qwen" and s[1] == "ft" and mesh != (2, 2, 2)))
+
+
+# qwen's MoE cases at world sizes 1 and 8 (name, step, mode, microbatches,
+# mesh, overrides, inputs): Mode A at 8 rows on (2, 2, 2), a microbatch's
+# 16 tokens a rank against groups of 32 (each group spans two batch ranks);
+# the sort dispatch's prefill on (2, 4) and Mode A on (2, 2, 2); 6 experts
+# on (2, 4), Mode A; a prefill at S_ODD on (2, 4)
+MOE_CASES = (
+    ("qwen:misaligned", "train", "faithful_offload", 2, (2, 2, 2), {},
+     "small"),
+    ("qwen:sort", "prefill", None, 1, (2, 4, 1), {"moe_impl": "sort"}, None),
+    ("qwen:train:faithful_offload:sort", "train", "faithful_offload", 2,
+     (2, 2, 2), {"moe_impl": "sort"}, None),
+    (None, "train", "faithful_offload", 2, (2, 4, 1), {}, "qwen6e"),
+    (None, "prefill", None, 1, (2, 4, 1), {}, "odd"))
 # steps of the head-fallback config, at world sizes 1 and 8 (on (2, 4))
 FALLBACK = (("train", "faithful_offload", 2), ("train", "fused_fit", 2),
             ("prefill", None, 1))
@@ -440,11 +475,9 @@ def _collect(proc, dst):
 def runs(tmp_path_factory):
     """Both spawned groups, started together: world size 1 on (1, 1) for
     every W1_STEPS case; world size 8 for every W8 case, nemo's fused_fit on
-    (2, 4) under "dp", and qwen's Mode A on (2, 2, 2) at 8 rows (2 of a
-    microbatch's rows a rank: 16 tokens against groups of 32) and a
-    prefill under the sort dispatch on (2, 4), which must raise; the
-    FALLBACK steps of nemo6 at both sizes, the REMAT steps of nemo on (2,
-    4) and the vocab-parallel CE case at world size 8. Returns
+    (2, 4) under "dp"; qwen's MOE_CASES at both sizes; the FALLBACK steps of
+    nemo6 at both sizes, the REMAT steps of nemo on (2, 4) and the
+    vocab-parallel CE case at world size 8. Returns
     the inputs, JAX's outputs and both runs' outputs, each run's with the
     dry-run's counts of its cases (``"dry"``), made while the groups
     run."""
@@ -455,18 +488,11 @@ def runs(tmp_path_factory):
     one = [_case(k, s, mo, m, (1, 1, 1), inputs[k])
            for k, steps in W1_STEPS.items() for s, mo, m in steps]
     eight = [_case(k, s, mo, m, mesh, inputs[k])
-             for k, mesh in W8 for s, mo, m in W1_STEPS[k]]
+             for k, mesh in W8 for s, mo, m in _w8_steps(k, mesh)]
     eight.append(_case("nemo", "train", "fused_fit", 2, (2, 4, 1),
                        inputs["nemo"], policy="dp"))
-    small = {k: v[:8] for k, v in inputs["qwen"]["train"].items()}
-    bad = _case("qwen", "train", "faithful_offload", 2, (2, 2, 2),
-                inputs["qwen"], batch=small)
-    bad.update(name="qwen:misaligned", raises="dispatch groups")
-    eight.append(bad)
-    sort = _case("qwen", "prefill", None, 1, (2, 4, 1), inputs["qwen"])
-    sort["overrides"] = dict(sort["overrides"], moe_impl="sort")
-    sort.update(name="qwen:sort", raises="sort dispatch")
-    eight.append(sort)
+    for mesh, run in (((1, 1, 1), one), (None, eight)):
+        run += [_moe_case(c, mesh, inputs) for c in MOE_CASES]
     for s, mo, m in FALLBACK:
         one.append(_case("nemo6", s, mo, m, (1, 1, 1), inputs["nemo6"]))
         eight.append(_case("nemo6", s, mo, m, (2, 4, 1), inputs["nemo6"]))
@@ -507,6 +533,21 @@ def runs(tmp_path_factory):
                 p.communicate()
 
 
+def _moe_case(c, mesh, inputs):
+    """MOE_CASES' case ``c`` on ``mesh`` (None: its own)."""
+    name, step, mode, m, own, overrides, which = c
+    key = "qwen6e" if which == "qwen6e" else "qwen"
+    mesh = mesh or own
+    batch = ({k: v[:8] for k, v in inputs["qwen"]["train"].items()}
+             if which == "small" else None)
+    case = _case(key, step, mode, m, mesh, inputs[key], batch=batch,
+                 odd=which == "odd")
+    case["overrides"] = dict(case["overrides"], **overrides)
+    if name:
+        case["name"] = f"{name}@{'x'.join(map(str, mesh))}"
+    return case
+
+
 def _three_rows(case):
     """A serve case at the first 3 of its 8 rows (named ":3rows")."""
     case = dict(case, name=case["name"].replace("@", ":3rows@"))
@@ -540,15 +581,14 @@ def _ce_case():
 
 
 def _dry_counts(world, cases):
-    """The dry-run's count of each case that runs a step (no "raises"; the
-    serve step greedy), as rank 0 of a fake group of ``world`` ranks on the
-    case's mesh: {case name: {"flops", "breakdown"}}."""
+    """The dry-run's count of each case that runs a step (the serve step
+    greedy), as rank 0 of a fake group of ``world`` ranks on the case's
+    mesh: {case name: {"flops", "breakdown"}}."""
     out = {}
     with dryrun.fake_world(world):
         meshes = {}
         for c in cases:
-            if (c.get("raises") or c.get("greedy") is False
-                    or c["step"] in ("ce", "ticks")):
+            if c.get("greedy") is False or c["step"] in ("ce", "ticks"):
                 continue
             key = tuple(c["mesh"])
             if key not in meshes:
@@ -559,9 +599,11 @@ def _dry_counts(world, cases):
             cc = tbase.ColaConfig(mode=c.get("mode") or "fused_fit",
                                   family="lowrank", taps="qv", rank=4)
             if c["step"] == "train":
-                args = ("train", B_TRAIN, c.get("seq", S_TRAIN))
+                args = ("train", len(c["batch"]["tokens"]),
+                        c.get("seq", S_TRAIN))
             elif c["step"] == "prefill":
-                args = ("prefill", B_DEC, c.get("seq", S_PRE))
+                args = ("prefill", len(c["batch"]["tokens"]),
+                        c.get("seq", S_PRE))
             else:
                 args = ("decode", len(c["batch"]["positions"]), MAX_LEN)
             count = dryrun.count_step(cfg, cc, *args, meshes[key])
@@ -666,10 +708,25 @@ def test_world1_placements_and_no_failures(runs):
     assert one["bad"] == []
 
 
+def _moe_names(mesh=None):
+    """The names of MOE_CASES on ``mesh`` (None: each on its own)."""
+    names = []
+    for c in MOE_CASES:
+        on = mesh or c[4]
+        tail = "x".join(map(str, on))
+        if c[0]:
+            names.append(f"{c[0]}@{tail}")
+        else:
+            key = "qwen6e" if c[6] == "qwen6e" else "qwen"
+            mode = f"{c[2]}:s{S_ODD}" if c[6] == "odd" else c[2]
+            names.append(_case_name(key, c[1], mode, on))
+    return names
+
+
 @pytest.mark.parametrize("name", [
     _case_name(k, s, mo, mesh) for k, mesh in W8
-    for s, mo, _ in W1_STEPS[k]]
-    + ["nemo:train:fused_fit@2x4x1:dp"]
+    for s, mo, _ in _w8_steps(k, mesh)]
+    + ["nemo:train:fused_fit@2x4x1:dp"] + _moe_names()
     + [_case_name("nemo6", s, mo, (2, 4, 1)) for s, mo, _ in FALLBACK]
     + [_case_name("nemo", s, mo, (2, 4, 1)) + ":remat" for s, mo, _ in REMAT]
     + [_case_name("mamba", s, mo, mesh) for mesh in SSM_MESHES
@@ -690,13 +747,15 @@ def test_world8_matches_world1(runs, name):
 
 
 @pytest.mark.parametrize("name", [
-    _case_name("nemo", s, mo, mesh) for mesh in ((2, 4, 1), (2, 2, 2))
-    for s, mo, _ in STEPS if s in ("train", "prefill")])
+    _case_name(k, s, mo, mesh) for k in ("nemo", "qwen")
+    for mesh in ((2, 4, 1), (2, 2, 2))
+    for s, mo, _ in _w8_steps(k, mesh) if s in ("train", "prefill")])
 def test_world8_splits_the_products_over_model(runs, name):
     """Rank 0 of 8 computes at most 0.2 of world size 1's FLOPs: its rows
     (a half or a quarter) and its share over "model" (a quarter or a half)
-    of the attention, the MLP and the head; data parallelism alone gave
-    0.5 on (2, 4)."""
+    of the attention, the MLP or the experts, and the head; data
+    parallelism alone gave 0.5 on (2, 4), and qwen's MoE FFN replicated
+    over "model" 0.39."""
     _, _, one, eight = runs
     got = eight["results"][name]["count"]["flops"]
     want = one["results"][name.split("@")[0] + "@1x1x1"]["count"]["flops"]
@@ -756,10 +815,10 @@ def test_residual_stream_is_split_by_sequence(runs, name):
         want = {"seq.embed", "seq.in", "seq.out"}
         want |= {"seq.head"} if ":train:" in name else {"seq.pick"}
         assert want <= set(count["seq_moves"]), (name, count["seq_moves"])
-        # a replicated part gathers the rows (the MoE FFN, nemo6's
-        # attention); the Mamba2 mixers split their heads
+        # a replicated part gathers the rows (nemo6's attention); the
+        # Mamba2 mixers split their heads, the MoE FFN its experts
         assert ("seq.gather" in count["seq_moves"]) == name.startswith(
-            ("qwen", "nemo6")), (name, count["seq_moves"])
+            "nemo6"), (name, count["seq_moves"])
         assert set(count["seq_moves"].get("seq.out", {"all-to-all": 0})) \
             == {"all-to-all"}, count["seq_moves"]
 
@@ -779,10 +838,71 @@ def test_vocab_parallel_ce_equals_ce_on_the_gathered_logits(runs, chunk):
 
 
 def test_world8_placements_and_misaligned_moe_groups(runs):
-    _, _, _, eight = runs
+    """Every rank's blocks are their slices; a batch whose dispatch groups
+    span batch ranks and the sort dispatch's prefill equal world size 1
+    (one device's groups and capacities)."""
+    _, _, one, eight = runs
     assert eight["bad"] == []
-    assert "dispatch groups" in eight["results"]["qwen:misaligned"]["raised"]
-    assert "sort dispatch" in eight["results"]["qwen:sort"]["raised"]
+    for name in ("qwen:misaligned@2x2x2", "qwen:sort@2x4x1"):
+        got = eight["results"][name]
+        assert "error" not in got, got
+        want = one["results"][name.split("@")[0] + "@1x1x1"]
+        if "loss" in want:
+            np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        _agree(got["out"], want["out"], 1e-5, 1e-6, name)
+
+
+# the experts of rank 0's expert leaves as it gathered them (d_model 64
+# gathered over "data", d_expert 64): its E / n block of qwen's 8 over 4 or
+# 2 "model" ranks; all 6 of qwen6e's, which do not divide over 4; none
+# gathered at world size 1
+EXPERT_BLOCKS = {
+    "qwen:train:fused_fit@2x4x1": 2, "qwen:train:fused_fit@2x2x2": 4,
+    "qwen:train:ft@2x2x2": 4, "qwen:serve:True@2x4x1": 2,
+    "qwen:misaligned@2x2x2": 4, "qwen6e:train:faithful_offload@2x4x1": 6,
+    "qwen:train:fused_fit@1x1x1": None}
+
+
+@pytest.mark.parametrize("name", list(EXPERT_BLOCKS))
+def test_rank_gathers_its_experts_over_fsdp_only(runs, name):
+    """Each expert leaf reaches rank 0 as its block of experts, whole over
+    d_model (its "data" block gathered, a layer at a time) and never
+    gathered over "model" where the experts split over it."""
+    _, _, one, eight = runs
+    run = one if name.endswith("@1x1x1") else eight
+    got = run["results"][name]["count"]["experts"]
+    E = EXPERT_BLOCKS[name]
+    assert got == ({} if E is None else {
+        f"layers.moe.{w}": [(E, 64, 64)] for w in ("gate", "up", "down")}), \
+        (name, got)
+
+
+_EP = {"moe.in": {"all-gather", "reduce-scatter"},
+       "moe.out": {"reduce-scatter", "all-gather"}}
+# rank 0's MoE collectives by label and op: the input gathered over the
+# sequence (its gradient reduce-scattered) and the experts' shares
+# reduce-scattered (the gradient gathered); without the sequence split (S
+# 18, the serve step) a prefill's and a tick's shares all-reduced; the
+# batch ranks' expert counts where the groups span them and under the sort
+# dispatch; none where the FFN is replicated
+MOE_LABELS = {
+    "qwen:train:fused_fit@2x4x1": _EP, "qwen:train:ft@2x2x2": _EP,
+    "qwen:misaligned@2x2x2": dict(_EP, **{"moe.counts": {"all-gather"}}),
+    "qwen:train:faithful_offload:sort@2x2x2": dict(
+        _EP, **{"moe.counts": {"all-gather"}}),
+    "qwen:sort@2x4x1": {"moe.in": {"all-gather"},
+                        "moe.out": {"reduce-scatter"},
+                        "moe.counts": {"all-gather"}},
+    f"qwen:prefill:None:s{S_ODD}@2x4x1": {"moe.out": {"all-reduce"}},
+    "qwen:serve:True@2x4x1": {"moe.out": {"all-reduce"}},
+    "qwen6e:train:faithful_offload@2x4x1": {}}
+
+
+@pytest.mark.parametrize("name", list(MOE_LABELS))
+def test_moe_collectives_by_label(runs, name):
+    _, _, _, eight = runs
+    got = eight["results"][name]["count"]["moe_moves"]
+    assert {k: set(v) for k, v in got.items()} == MOE_LABELS[name], got
 
 
 def test_lm_loss_is_its_sum_over_its_count():
@@ -809,11 +929,11 @@ def test_dry_run_counts_equal_the_real_steps(runs, world):
     _, _, one, eight = runs
     run = one if world == 1 else eight
     dry = run["dry"]
-    assert len(dry) == (15 + len(FALLBACK) + len(ODD) + len(PLAN_W8)
-                        + len(SSM_FALLBACK) if world == 1
-                        else 22 + len(FALLBACK) + len(REMAT)
+    assert len(dry) == (16 + len(FALLBACK) + len(ODD) + len(PLAN_W8)
+                        + len(SSM_FALLBACK) + len(MOE_CASES) if world == 1
+                        else 23 + len(FALLBACK) + len(REMAT)
                         + len(SSM_MESHES) * len(SSM_W8) + len(SSM_FALLBACK)
-                        + len(ODD) + len(PLAN_W8))
+                        + len(ODD) + len(PLAN_W8) + len(MOE_CASES))
     for name, want in dry.items():
         got = run["results"][name]["count"]
         assert got["flops"] == want["flops"] > 0, name

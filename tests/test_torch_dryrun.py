@@ -24,8 +24,9 @@ CPU: fake process groups, fake tensors, no card, no JAX.
 - One production cell: smollm-135m x decode_32k on the 16 x 16 fake mesh,
   with JAX's record keys, ``model_flops`` and the roofline terms, its KV
   cache the rank's block of positions, updated in place and never moved;
-  a MoE cell that ``steps._check_groups`` refuses fails with the step's
-  text.
+  a MoE cell whose dispatch groups span the batch ranks counts the
+  exchange of their expert counts ("moe.counts"), and one whose ranks hold
+  whole groups none.
 - No serve tick of any plan, at world sizes 1 and 8, moves a KV leaf or an
   SSM state leaf: the only collectives labelled with a cache leaf are the
   conv state's gathers over "model", one layer at a time, where the SSD
@@ -341,13 +342,24 @@ def test_production_cell_smollm_decode_32k_on_16x16():
                                                     rel=1e-12)
 
 
-def test_moe_cell_refused_by_the_group_check_fails_with_its_text():
-    cfg = _cfg("moe").replace(moe_group=64)
+@pytest.mark.parametrize("group", [32, 64])
+def test_moe_cell_exchanges_counts_where_groups_span_ranks(group):
+    """Mode B at 8 x 16, 2 microbatches, on (2, 4): a microbatch's 64
+    tokens, 32 a batch rank. In groups of 64 a group spans both batch
+    ranks: each layer's call all-gathers the ranks' counts of its group's
+    choices (2 of them) of its 2 of the 8 experts, f32, over "data"; in
+    groups of 32 every rank holds whole groups and nothing is
+    exchanged."""
+    cfg = _cfg("moe").replace(moe_group=group)
     with dryrun.fake_world(8):
         mesh = make_mesh(2, 4, device_type="cpu")
-        with pytest.raises(ValueError, match="dispatch groups of 64"):
-            dryrun.count_step(cfg, ColaConfig(rank=RANK), "train", B, SEQ,
-                              mesh)
+        got = dryrun.count_step(cfg, ColaConfig(rank=RANK), "train", B, SEQ,
+                                mesh)
+    moves = tcoll.by_leaf(got["collective_records"], "moe.counts")
+    per_call = 2 * 1 * cfg.moe_top_k * 2 * 4      # (ranks, groups, k, E / n)
+    calls = cfg.n_layers * cfg.microbatches
+    assert moves == ({} if group == 32 else
+                     {"moe.counts": {"all-gather": calls * per_call}})
 
 
 def test_perf_probe_breakdown_writes_a_record(tmp_path, capsys):

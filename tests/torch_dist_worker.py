@@ -10,11 +10,11 @@ mode, "prefill", "serve") and its inputs. Every rank places the weights
 with ``sharding.distribute`` and the batch at ``batch_shardings``, runs the
 step and checks that its local block of every placed leaf (weights and
 outputs) is its slice under the rule (and, once a mesh, ``constrain``); rank 0 writes each case's outputs,
-gathered whole, and every rank's failed checks to OUT.pkl. A case with
-"raises" must raise ``ValueError`` matching it. Each step runs under
+gathered whole, and every rank's failed checks to OUT.pkl. Each step runs under
 ``FlopCounterMode`` and the dry-run's ``CollectiveRecorder``: rank 0's
-FLOPs, collective breakdown, sequence-split collectives by label and the
-shapes of the layer inputs it saw go with its outputs (``"count"``). A "ce"
+FLOPs, collective breakdown, sequence-split and MoE collectives by label,
+the shapes of the layer inputs it saw and of the expert leaves it gathered
+go with its outputs (``"count"``). A "ce"
 case holds whole logits and labels instead of a step: each rank runs
 ``model._ce`` on its vocab columns under the step's plan, whole and in
 chunks, against ``_ce`` on the whole logits (value, count, and the
@@ -162,20 +162,27 @@ class _SsdHeads:
 
 def _counted(fn, *args):
     """fn(*args), and its FLOPs, collective breakdown, moves of cache
-    leaves (``collectives.by_leaf``), layer inputs' shapes
-    (``model.layer_input_meter``: what remat saves) and SSD head counts on
-    this rank."""
+    leaves and the sequence split's and the MoE FFN's collectives by label
+    (``collectives.by_leaf``), layer inputs' shapes
+    (``model.layer_input_meter``: what remat saves), SSD head counts and
+    the shapes the expert leaves were gathered to
+    (``tensor_parallel.gather_meter``) on this rank."""
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import model
 
     flops, rec = FlopCounterMode(display=False), collectives.CollectiveRecorder()
-    with flops, rec, model.layer_input_meter() as saved, _SsdHeads() as ssd:
+    with flops, rec, model.layer_input_meter() as saved, _SsdHeads() as ssd, \
+            tp.gather_meter() as leaves:
         out = fn(*args)
     return out, {"flops": flops.get_total_flops(),
                  "breakdown": collectives.breakdown(rec.records, top=None),
                  "cache_moves": collectives.by_leaf(rec.records, "cache."),
                  "seq_moves": collectives.by_leaf(rec.records, "seq."),
+                 "moe_moves": collectives.by_leaf(rec.records, "moe."),
                  "layer_inputs": sorted(set(saved.shapes)),
-                 "ssd_heads": sorted(ssd.heads)}
+                 "ssd_heads": sorted(ssd.heads),
+                 "experts": {p: sorted(v) for p, v in leaves.shapes.items()
+                             if ".moe." in f".{p}"}}
 
 
 def _storages(tree) -> dict:
@@ -414,14 +421,8 @@ def _worker(rank: int, world: int, port: int, src: str, dst: str) -> None:
     results, bad, meshes = {}, [], {}
     for case in spec["cases"]:
         try:
-            res = _run_case(case, spec["weights"], meshes, bad)
-            if case.get("raises"):
-                bad.append(f"{case['name']}: did not raise")
-            results[case["name"]] = res
-        except ValueError as e:
-            if not case.get("raises") or case["raises"] not in str(e):
-                bad.append(f"{case['name']}: {traceback.format_exc()}")
-            results[case["name"]] = {"raised": str(e)}
+            results[case["name"]] = _run_case(case, spec["weights"], meshes,
+                                              bad)
         except Exception:   # noqa: BLE001 -- reported to the test
             bad.append(f"{case['name']} rank {rank}: "
                        f"{traceback.format_exc()}")

@@ -30,12 +30,15 @@ class Count:
     """Products of one rank's (micro)batch of b rows x s on the plain path,
     forward and backward, layer by layer; ``live``: whether the residual
     stream needs a gradient. ``n``: the ranks along "model" over which the
-    attention, the dense MLP, the head and the Mamba2 mixer's heads are
-    split (the reduced widths divide, the mixer's heads where ``H % n ==
-    0``): a rank computes its output columns of every product of those
-    parts (o, down and out_proj over their gathered inputs), attends over
-    its own heads and scans its own SSD heads; the MoE FFN, the mixer's
-    in_proj and C B^T, and the adapters' x @ A stay whole."""
+    attention, the dense MLP, the head, the Mamba2 mixer's heads and the
+    experts are split (the reduced widths divide, the mixer's heads where
+    ``H % n == 0``, the experts where ``E % n == 0``): a rank computes its
+    output columns of every product of those parts (o, down and out_proj
+    over their gathered inputs), attends over its own heads, scans its own
+    SSD heads and dispatches to, runs and combines its own experts; the
+    router, the mixer's in_proj and C B^T, and the adapters' x @ A stay
+    whole. The MoE groups are those of the rank's b rows (the cells held
+    here hold whole groups)."""
 
     def __init__(self, cfg, mode, b, s, r, n=1):
         self.cfg, self.b, self.s, self.r, self.T = cfg, b, s, r, b * s
@@ -65,14 +68,15 @@ class Count:
                   + dense(T, F, d // n, x or w, w))
         else:
             E, k, F = c.n_experts, c.moe_top_k, c.d_expert
+            El = E // n if E % n == 0 else E    # the rank's experts
             G = c.moe_group if T % c.moe_group == 0 else s
             C = max(k, -(-int(G * k * c.capacity_factor) // E))
             g = x or w                          # router logits, combine
             f += dense(T, d, E, x, w)           # router
-            f += lin(T, E * C, d) * (1 + x)     # dispatch (one-hot, x)
-            f += 2 * dense(T // G * E * C, d, F, x, w)   # experts' gate, up
-            f += dense(T // G * E * C, F, d, x or w, w)  # down
-            f += lin(T, E * C, d) * (1 + g + g)  # combine (weights, y)
+            f += lin(T, El * C, d) * (1 + x)    # dispatch (one-hot, x)
+            f += 2 * dense(T // G * El * C, d, F, x, w)   # experts' gate, up
+            f += dense(T // G * El * C, F, d, x or w, w)  # down
+            f += lin(T, El * C, d) * (1 + g + g)  # combine (weights, y)
         self.flops += f
 
     def ssm_block(self, taps):
