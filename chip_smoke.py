@@ -316,8 +316,14 @@ failure:
    labels, rank-8 qv adapters (B drawn, so every gradient is non-zero):
    (a) ``make_train_step`` in Mode A, a warm-up step and 2 measured steps,
    each step's 8 pushes through an ``Offloader`` (interval 8, AdamW) and
-   its fit (2 cola_fit launches a fit); (b) Mode B the same, without an
-   optimizer; a step's attention launches exactly 8 times one direct
+   its fit (2 cola_fit launches a fit), its warm-up step's products (mm,
+   bmm, addmm) counted; (a, dots) the same at remat "dots" (a fresh
+   ``Offloader``, no direct calls): its warm-up step's loss and every
+   tap's (x, grad_h) equal (a)'s bit for bit, a step's flash launches
+   (a)'s (640 / 320 / 320: the forward is recomputed under both), the
+   products it ran (a)'s less those it kept (``remat.saved_product_meter``)
+   in number and FLOPs, step p50 and peak against (a)'s; (b) Mode B the
+   same as (a), without an optimizer; a step's attention launches exactly 8 times one direct
    ``gl.server_step_a`` / ``train_step_b`` on one microbatch, and its loss
    and data or gradients equal the direct calls on microbatches of 1 x 1024
    bit for bit; (c) ``make_prefill_step`` at 8 x 512 (40 flash forwards),
@@ -341,8 +347,10 @@ failure:
    read once and outputs written once) and which bounds the step, the
    plain path's unfused bytes beside them, and the card's name and power
    limit; a share past 1.05 fails. No kernel launches.
-27. Tensor parallelism over "model" (``[tensor-parallel]``), in a process of
-   its own (``chip_smoke.py --tensor-parallel OUT``): rank 0 of a fake
+27. Tensor parallelism over "model" (``[tensor-parallel]``), in a process it
+   shares with phases 28 and 29, run first (``chip_smoke.py
+   --tensor-parallel OUT --ssm-parallel OUT --expert-parallel OUT``): rank
+   0 of a fake
    process group of 256 ranks (``init_process_group("fake")``: its
    collectives return at once and move no data) on a 16 x 16 mesh of the
    card, mistral-large-123b at full width and depth (88 layers, bf16, remat
@@ -366,10 +374,8 @@ failure:
    and each step's peak within 10 % of the dry-run's count
    (``TP_DRYRUN_PEAK``, from the record ``TP_DRYRUN_RECORD`` names). The
    values are not checked: the fake group moves no data.
-28. The Mamba2 heads over "model" (``[ssm-parallel]``), in a process it
-   shares with phase 29, run before it (``chip_smoke.py --ssm-parallel OUT
-   --expert-parallel OUT``): rank 0 of a fake
-   group of 256 on the 16 x 16 mesh, zamba2-7b at full width and depth (81
+28. The Mamba2 heads over "model" (``[ssm-parallel]``), in phase 27's
+   process after it, on its fake group of 256 and its 16 x 16 mesh: zamba2-7b at full width and depth (81
    Mamba2 layers at d_model 3,584, a shared block every 6: 14 calls; bf16,
    remat "full", ``microbatches=8``), every leaf the rank's block drawn on
    the card: train_4k's rank share in Mode B cut to 1 of its 8
@@ -445,6 +451,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -4342,19 +4349,47 @@ def _dist_adapters(cfg, cc, dev) -> dict:
     return adapters
 
 
+class _ProductCounter(TorchDispatchMode):
+    """Counts the products (mm, bmm, addmm) that run under it (``calls``)
+    and their FLOPs (2 m k n). It sits below a checkpoint's own dispatch
+    modes, so a product that remat "dots" replays from what it kept never
+    reaches it: the count is of the products the card ran."""
+
+    _OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+    def __init__(self):
+        super().__init__()
+        self.calls = self.flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in self._OPS:
+            a = args[1] if func is torch.ops.aten.addmm.default else args[0]
+            self.calls += 1
+            self.flops += 2 * out.numel() * a.shape[-1]
+        return out
+
+
 def _dist_train(tag, cfg, cc, mesh, P, params, adapters, batches, dev,
-                offloader=None) -> tuple[dict, float]:
+                offloader=None, record=None, direct=True
+                ) -> tuple[dict, float]:
     """``make_train_step(cfg, cc, mesh)``: a warm-up step on batches[0],
     then one measured step on each later batch (launches reset just before
     and read just after the step, and again around the fit); Mode A's data
-    pushed to ``offloader`` as M pushes and fitted. Then the last step
-    against the direct per-microbatch calls: launches exactly M times one
-    call's, loss and data or gradients bit for bit (or within 1e-6 of the
-    largest entry). Returns the launch counts of the measured windows and
-    the measured steps' p50 ms."""
+    pushed to ``offloader`` as M pushes and fitted. Then (``direct``) the
+    last step against the direct per-microbatch calls: launches exactly M
+    times one call's, loss and data or gradients bit for bit (or within
+    1e-6 of the largest entry). With ``record`` (a dict, Mode A) the
+    warm-up step runs under a ``_ProductCounter`` and remat's
+    ``saved_product_meter``, and ``record`` gets their numbers, the step's
+    loss and each tap's (x, grad_h) on the host, the launches of one
+    measured step and the peak. Returns the launch counts of the measured
+    windows and the measured steps' p50 ms."""
     from repro_torch.core import gl
     from repro_torch.distributed import sharding as sh
     from repro_torch.distributed import steps
+    from repro_torch.models import remat
     from repro_torch.utils import tree_leaves
 
     m = cfg.microbatches
@@ -4362,16 +4397,29 @@ def _dist_train(tag, cfg, cc, mesh, P, params, adapters, batches, dev,
     mode_a = cc.mode == "faithful_offload"
     total = collections.Counter()
     step_ms, fit_ms, losses = [], [], []
-    torch.cuda.reset_peak_memory_stats(dev)
+    peak = step_peak = 0
     for n, batch in enumerate(batches):
         used = {t: {k: v.clone() for k, v in w.items()} for t, w in
                 (offloader.adapters if offloader else adapters).items()}
         A = sh.distribute(mesh, used, ash)
         out = None   # the last step's data goes before the next is made
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        (loss, out), launches = _counted(lambda: fn(P, A, batch))
+        if n == 0 and record is not None:
+            with (_ProductCounter() as products,
+                  remat.saved_product_meter() as kept):
+                (loss, out), launches = _counted(lambda: fn(P, A, batch))
+            record.update(
+                products=(products.calls, products.flops),
+                kept=(len(kept.shapes), kept.bytes, kept.flops),
+                loss=float(loss),
+                out={t: (x.to_local().cpu(), g.to_local().cpu())
+                     for t, (x, g) in out.items()})
+        else:
+            (loss, out), launches = _counted(lambda: fn(P, A, batch))
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_peak = max(step_peak, torch.cuda.max_memory_allocated(dev))
         losses.append(float(loss))
         if offloader is not None:
             before = [t.clone() for t in tree_leaves(offloader.adapters)]
@@ -4394,8 +4442,26 @@ def _dist_train(tag, cfg, cc, mesh, P, params, adapters, batches, dev,
             launches = collections.Counter(launches) + collections.Counter(fl)
         if n:
             total.update(launches)
-    peak = torch.cuda.max_memory_allocated(dev)
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
     check(all(np.isfinite(losses)), f"{tag} losses {losses}")
+    label = "Mode A" if mode_a else "Mode B"
+    tokens = sum(next(iter(b.values())).numel() for b in batches[1:])
+    measured = step_ms[1:]
+    fits = (f"; fit ms {[round(t, 2) for t in fit_ms[1:]]} (8 pushes, 2 "
+            f"cola_fit a fit)" if fit_ms else "")
+    print(f"{tag} {label} {cfg.name} bf16, {cfg.n_layers} layers, remat "
+          f"{cfg.remat}, {m} microbatches of {DIST_ROWS // m} x {DIST_SEQ}: "
+          f"losses {[round(x, 5) for x in losses]}; step ms "
+          f"{[round(t, 1) for t in step_ms]} (warm-up first; p50 of the "
+          f"measured {statistics.median(measured):.1f}){fits}; "
+          f"{tokens / (sum(measured) / 1e3):.1f} training tokens/s; peak "
+          f"memory {peak / 2**30:.2f} GiB (the steps' own, the fits left "
+          f"out: {step_peak / 2**30:.2f} GiB); {card_line()}", flush=True)
+    if record is not None:
+        record.update(launches={k: launches[k] for k in ATTN_TRAIN},
+                      peak=step_peak, p50=statistics.median(measured))
+    if not direct:
+        return dict(total), statistics.median(measured)
 
     # the last step against the direct calls on its microbatches
     spec = gl.make_spec(cfg, cc)
@@ -4434,18 +4500,6 @@ def _dist_train(tag, cfg, cc, mesh, P, params, adapters, batches, dev,
     check(lw <= 1e-6 and worst <= 1e-6,
           f"{tag} step against the direct calls: loss {lw:.3g}, "
           f"{'data' if mode_a else 'gradients'} {worst:.3g} of the largest")
-    label = "Mode A" if mode_a else "Mode B"
-    tokens = sum(next(iter(b.values())).numel() for b in batches[1:])
-    measured = step_ms[1:]
-    fits = (f"; fit ms {[round(t, 2) for t in fit_ms[1:]]} (8 pushes, 2 "
-            f"cola_fit a fit)" if fit_ms else "")
-    print(f"{tag} {label} {cfg.name} bf16, {cfg.n_layers} layers, {m} "
-          f"microbatches of {DIST_ROWS // m} x {DIST_SEQ}: losses "
-          f"{[round(x, 5) for x in losses]}; step ms "
-          f"{[round(t, 1) for t in step_ms]} (warm-up first; p50 of the "
-          f"measured {statistics.median(measured):.1f}){fits}; "
-          f"{tokens / (sum(measured) / 1e3):.1f} training tokens/s; peak "
-          f"memory {peak / 2**30:.2f} GiB; {card_line()}", flush=True)
     print(f"{tag} {label}: a step launches {last} = {m} x one microbatch's "
           f"{one}; loss and {'data' if mode_a else 'gradients'} against the "
           f"direct calls: "
@@ -4536,6 +4590,62 @@ def _dist_serve(tag, cfg, mesh, P, params, dev) -> tuple[dict, float, float]:
     return dict(total), pre_ms, statistics.median(tick_ms)
 
 
+def _dist_dots(tag, cfg, cc, mesh, P, params, adapters, batches, dev,
+               recs) -> dict:
+    """(a) again at remat "dots" (``recs["full"]``: (a)'s record): a fresh
+    ``Offloader``, a warm-up step and DIST_STEPS measured ones, no direct
+    calls. Checks that its warm-up step's loss and every tap's (x, grad_h)
+    equal (a)'s bit for bit (the same ops on the same inputs: the kept
+    products are replayed, the rest recomputed), that a step launches the
+    flash kernels as (a)'s (the forward recomputed under both), and that
+    the products it ran are (a)'s less the ones it kept, in number and in
+    FLOPs. Returns the launch counts of the measured windows."""
+    from repro_torch.core import gl
+    from repro_torch.core.offload import Offloader
+
+    full, dots = recs["full"], recs["dots"]
+    off = Offloader(gl.make_spec(cfg, cc), adapters, _adamw(),
+                    interval=cfg.microbatches, device=dev)
+    dcfg = cfg.replace(remat="dots")
+    launches, _ = _dist_train(f"{tag} (a, dots)", dcfg, cc, mesh, P,
+                              params, None, batches, dev, offloader=off,
+                              record=dots, direct=False)
+    del off
+    check(dots["loss"] == full["loss"],
+          f"{tag} (a, dots) loss {dots['loss']!r}, not (a)'s {full['loss']!r}")
+    check(set(dots["out"]) == set(full["out"]),
+          f"{tag} (a, dots) taps {sorted(dots['out'])}")
+    for t, (x, g) in full["out"].items():
+        check(torch.equal(dots["out"][t][0], x)
+              and torch.equal(dots["out"][t][1], g),
+              f"{tag} (a, dots) {t}: x or grad_h differ from (a)'s: "
+              f"{_same(dots['out'][t][0], x):.3g} / "
+              f"{_same(dots['out'][t][1], g):.3g} of the largest entry")
+    check(dots["launches"] == full["launches"],
+          f"{tag} (a, dots) a step launched {dots['launches']}, not (a)'s "
+          f"{full['launches']}")
+    (fc, ff), (dc, df) = full["products"], dots["products"]
+    kept_n, kept_bytes, kept_flops = dots["kept"]
+    check(full["kept"][0] == 0 and kept_n > 0 and fc - dc == kept_n
+          and ff - df == kept_flops,
+          f"{tag} (a, dots) ran {dc} products ({df:.4g} FLOPs) against "
+          f"(a)'s {fc} ({ff:.4g}), keeping {kept_n} ({kept_flops:.4g})")
+    print(f"{tag} (a, dots) Mode A at remat dots: step p50 "
+          f"{dots['p50']:.1f} ms against (a)'s {full['p50']:.1f} "
+          f"({dots['p50'] / full['p50'] - 1:+.1%}); a step's peak "
+          f"{dots['peak'] / 2**30:.2f} GiB against {full['peak'] / 2**30:.2f} "
+          f"({(dots['peak'] - full['peak']) / 2**30:+.2f} GiB); a step "
+          f"launches {dots['launches']} as (a); the untimed warm-up step ran "
+          f"{dc} products, {df:.4e} FLOPs, against (a)'s {fc}, {ff:.4e}: "
+          f"{kept_n} kept ({kept_bytes / 2**30:.3f} GiB over the step's "
+          f"{cfg.microbatches} microbatches, "
+          f"{kept_bytes / cfg.microbatches / 2**30:.3f} GiB a microbatch, "
+          f"{kept_flops:.4e} FLOPs), replayed and not rerun; loss and every "
+          f"tap's (x, grad_h) equal to (a)'s bit for bit; {card_line()}",
+          flush=True)
+    return launches
+
+
 def phase_distributed(dev) -> tuple[dict, dict]:
     """mistral-nemo-12b at full width and depth through the step builders on
     a one-card mesh (phase 24; see the module docstring). Returns the
@@ -4582,14 +4692,18 @@ def phase_distributed(dev) -> tuple[dict, dict]:
         cc = ColaConfig(mode="faithful_offload", family="lowrank", taps="qv",
                         rank=8)
         adapters = _dist_adapters(cfg, cc, dev)
+        ms, recs = {}, {"full": {}, "dots": {}}
         off = Offloader(gl.make_spec(cfg, cc), adapters, _adamw(),
                         interval=cfg.microbatches, device=dev)
-        ms = {}
         launches, ms["mode_a"] = _dist_train(
             f"{tag} (a)", cfg, cc, mesh, P, params, None, batches, dev,
-            offloader=off)
+            offloader=off, record=recs["full"])
         total = collections.Counter(launches)
         del off
+        _free()
+        total.update(_dist_dots(tag, cfg, cc, mesh, P, params, adapters,
+                                batches, dev, recs))
+        del recs
         _free()
         launches, ms["mode_b"] = _dist_train(
             f"{tag} (b)", cfg, dataclasses.replace(cc, mode="fused_fit"),
@@ -5241,9 +5355,11 @@ def _rank_shares(*whiches: str) -> dict:
     return {w: json.loads(out.read_text()) for w, out in outs.items()}
 
 
-def phase_tensor_parallel(dev) -> dict:
-    """Phase 27 in its own process (the process group is global): rank 0 of
-    mistral-large-123b's 16 x 16 mesh through the step builders. Checks that
+def phase_tensor_parallel(res: dict) -> dict:
+    """Phase 27 (``res``: its numbers from the process it shares with
+    phases 28 and 29, ``_rank_shares``; the process group is global): rank
+    0 of mistral-large-123b's 16 x 16 mesh through the step builders.
+    Checks that
     each step's flash launches are exactly the rank's (train: M x L x 2
     forwards with the recompute, M x L dq and dk/dv; prefill: L forwards),
     every one at 6 query heads and 1 KV head of 128, and that every serve
@@ -5252,7 +5368,6 @@ def phase_tensor_parallel(dev) -> dict:
     leaf and updates every cache block in place, at a peak below 20 GiB;
     returns the launches of every step."""
     tag = "[tensor-parallel]"
-    res = _rank_shares("--tensor-parallel")["--tensor-parallel"]
     L, total = 88, collections.Counter()
     for label, mode, kind, rows, seq in TP_CELLS:
         r = res[label]
@@ -5736,16 +5851,15 @@ def main() -> int:
     phase_roofline(counts, dist_ms)
     print(f"[roofline] done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    tensor_parallel = phase_tensor_parallel(dev)
-    print(f"[tensor-parallel] done in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    shares = _rank_shares("--ssm-parallel", "--expert-parallel")
+    shares = _rank_shares("--tensor-parallel", "--ssm-parallel",
+                          "--expert-parallel")
     secs = {w: r["seconds"] for w, r in shares.items()}
+    tensor_parallel = phase_tensor_parallel(shares["--tensor-parallel"])
     ssm_parallel = phase_ssm_parallel(shares["--ssm-parallel"])
     expert_parallel = phase_expert_parallel(shares["--expert-parallel"])
-    print(f"[ssm-parallel] [expert-parallel] done in "
-          f"{time.perf_counter() - t0:.1f} s, one process: its phase 28 "
+    print(f"[tensor-parallel] [ssm-parallel] [expert-parallel] done in "
+          f"{time.perf_counter() - t0:.1f} s, one process: its phase 27 "
+          f"{secs['--tensor-parallel']:.1f} s, phase 28 "
           f"{secs['--ssm-parallel']:.1f} s, phase 29 "
           f"{secs['--expert-parallel']:.1f} s", flush=True)
     print(f"[phases] done in {time.perf_counter() - start:.1f} s, the build "

@@ -55,7 +55,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    remat: str = "full"
+    remat: str = "full"            # "none" | "full" | "dots" (models/remat.py)
     loss_chunk: int = 0
     microbatches: int = 1
     shard_policy: str = "2d"

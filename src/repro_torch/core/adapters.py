@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import remat
 
 MERGEABLE = {"lowrank": True, "linear": True, "mlp": False,
              "multi_lowrank": False}
@@ -53,15 +54,22 @@ def init(family: str, gen: torch.Generator, d_in: int, d_out: int, *,
     raise ValueError(f"unknown adapter family: {family!r}")
 
 
-def apply(family: str, w: dict, x: torch.Tensor) -> torch.Tensor:
-    """g_w(x). x: (..., d_in) -> (..., d_out). Computes in x.dtype."""
+def apply(family: str, w: dict, x: torch.Tensor, *, keep: bool = True
+          ) -> torch.Tensor:
+    """g_w(x). x: (..., d_in) -> (..., d_out). Computes in x.dtype. Under
+    remat "dots" (``models.remat``) the last product is kept where
+    ``keep``, lowrank's ``x @ A`` where ``B`` takes a gradient (the
+    backward reads it for dB only) and mlp's ``x @ W1`` always (relu's
+    backward reads it)."""
     if family == "lowrank":
-        return (x @ w["A"].to(x.dtype)) @ w["B"].to(x.dtype)
+        xa = remat.matmul(x, w["A"].to(x.dtype), w["B"].requires_grad)
+        return remat.matmul(xa, w["B"].to(x.dtype), keep)
     if family == "linear":
-        return x @ w["W"].to(x.dtype)
+        return remat.matmul(x, w["W"].to(x.dtype), keep)
     if family == "mlp":
-        h = torch.relu(x @ w["W1"].to(x.dtype) + w["b1"].to(x.dtype))
-        return h @ w["W2"].to(x.dtype)
+        h = torch.relu(remat.matmul(x, w["W1"].to(x.dtype))
+                       + w["b1"].to(x.dtype))
+        return remat.matmul(h, w["W2"].to(x.dtype), keep)
     if family == "multi_lowrank":
         # w: {"A": (U, d_in, r), "B": (U, r, d_out), "idx": (B,)}; x: (B, S, d).
         # int8-stored banks carry {"A_q", "A_scale", "B_q", "B_scale"}

@@ -106,12 +106,15 @@ def zero_delta_vars(spec: ColaSpec, sites: Mapping[str, TapSite],
 
 def apply_tap(spec: ColaSpec | None, name: str, x: torch.Tensor,
               y: torch.Tensor, adapters: Mapping[str, Any] | None = None,
-              deltas: Mapping[str, Any] | None = None, layout=None
+              deltas: Mapping[str, Any] | None = None, layout=None,
+              keep: bool = True
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Apply adapter/injection at a tap; returns (y', collected_aux).
     ``adapters``/``deltas`` hold the per-call (already layer-sliced) vars.
     ``layout``: the tap's ``tensor_parallel.TapLayout`` under a step's plan
-    (the delta and the collected x are then the rank's blocks), or None."""
+    (the delta and the collected x are then the rank's blocks), or None.
+    ``keep``: the adapter's ``apply(keep=)`` (its last product kept under
+    remat "dots")."""
     if spec is None:
         return y, {}
     aux: dict[str, torch.Tensor] = {}
@@ -119,7 +122,7 @@ def apply_tap(spec: ColaSpec | None, name: str, x: torch.Tensor,
         aux[name] = x if layout is None else layout.collected(x)
     fam = spec.family_map.get(name)
     if fam is not None and adapters and name in adapters:
-        g = adapters_lib.apply(fam, adapters[name], x)
+        g = adapters_lib.apply(fam, adapters[name], x, keep=keep)
         # the scale is rounded to y's dtype first, as jnp.asarray(scale, dt)
         s = float(torch.tensor(spec.scale, dtype=y.dtype))
         y = y + s * g.to(y.dtype)

@@ -11,8 +11,8 @@ how each product is laid out (``current``, ``tap_layout``):
 - **The gather.** Every leaf comes as the rank's block under the rules. A
   layer's leaves are all-gathered just before it runs, over every axis that
   splits them but "model" where the product keeps that split, one layer's
-  slice at a time (never the stack), and dropped after it; under
-  ``remat="full"`` the gather runs inside the checkpointed layer, so the
+  slice at a time (never the stack), and dropped after it; under remat
+  "full" or "dots" the gather runs inside the checkpointed layer, so the
   recompute gathers again. The backward of a gather is a reduce-scatter
   over each gathered axis along which the ranks' rows differ (the gradient
   is partial there) and the rank's own block over any other. Axes over

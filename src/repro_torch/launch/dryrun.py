@@ -43,10 +43,17 @@ for 16 x 16, 512 for 2 x 16 x 16), and counts what it runs:
   its experts, "moe.out" the experts' shares summed, "moe.counts" the
   batch ranks' expert counts where a rank's rows do not hold whole
   dispatch groups, or under the sort dispatch).
-- ``layer_input_bytes``: the bytes of every layer's input as
-  ``hidden_states`` passes it (``model.layer_input_meter``): what
-  ``remat="full"`` saves for the recompute, the rank's (b, S / n, d) rows
-  under a sequence split; counted in ``peak`` as they live.
+- ``layer_input_bytes``: the bytes of every checkpointed unit's input
+  (a layer's, or a pair's of the pairs plan) as ``hidden_states`` passes
+  it (``model.layer_input_meter``): what remat "full" saves for the
+  recompute, the rank's (b, S / n, d) rows under a sequence split; counted
+  in ``peak`` as they live.
+- ``saved_product_bytes``: the bytes of the product outputs that remat
+  "dots" keeps beside them (``remat.saved_product_meter``; 0 under "none"
+  and "full"), counted in ``peak`` too. A kept product is replayed, not
+  recomputed, in the backward, and the count's modes sit below the
+  checkpoint's, so ``flops`` under "full" less ``flops`` under "dots" is
+  the kept products' forward FLOPs.
 - ``memory``: the bytes rank 0 holds live, its inputs' local blocks
   included, at the most (``peak_bytes_per_device``), in JAX's keys
   (``roofline.memory_record``); ``gathered_leaf_bytes``: the bytes of the
@@ -110,6 +117,7 @@ from repro_torch.distributed import steps
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import model as model_lib
+from repro_torch.models import remat
 from repro_torch.utils import canonical_dtype
 
 
@@ -282,7 +290,8 @@ def count_step(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
         recorder = collectives.CollectiveRecorder()
         flops = FlopCounterMode(display=False)
         with (flops, recorder, counter, tp.gather_meter() as gathered,
-              model_lib.layer_input_meter() as saved):
+              model_lib.layer_input_meter() as saved,
+              remat.saved_product_meter() as kept):
             out = fn(*inputs)
         outs = _leaves(out)
         output = counter.storage_bytes(outs)
@@ -298,6 +307,7 @@ def count_step(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
             "memory": memory,
             "gathered_leaf_bytes": gathered.bytes,
             "layer_input_bytes": saved.bytes,
+            "saved_product_bytes": kept.bytes,
             "bounded_ops": sorted(counter.bounded_ops),
             "count_s": time.perf_counter() - t0}
 
@@ -324,7 +334,8 @@ def layer_points(cfg) -> tuple[tuple[int, int, int], int]:
 _MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
                 "alias_size_in_bytes")
 _COUNT_KEYS = ("flops", "bytes_accessed", "collective_bytes",
-               "gathered_leaf_bytes", "layer_input_bytes")
+               "gathered_leaf_bytes", "layer_input_bytes",
+               "saved_product_bytes")
 
 
 def _numbers(count: dict) -> dict:
@@ -373,11 +384,12 @@ def count_by_layers(cfg, cc: ColaConfig, kind: str, batch: int, seq: int,
     two depths for the same reason of time.
 
     Returns the flops, bytes_accessed, collective_bytes,
-    gathered_leaf_bytes and layer_input_bytes; ``memory``, the inputs',
+    gathered_leaf_bytes, layer_input_bytes and saved_product_bytes;
+    ``memory``, the inputs',
     outputs' and in-place outputs' bytes in ``memory_record``'s keys;
     ``collectives``, the bytes by op, and ``labelled``, by label and op
     (``collectives.by_leaf``); ``peak``, the peak where the three points'
-    peaks grow linearly (the checkpointed layer inputs, one a layer), else
+    peaks grow linearly (the checkpointed unit inputs, one a unit), else
     None; the ``depths`` counted, their ``bounded_ops`` and ``count_s``.
     ``jobs`` > 1 counts the depths side by side, each in a spawned process
     with a fake group of its own (``mesh``'s shape)."""
@@ -481,6 +493,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "moe_collectives": {k: v for k, v in labelled.items()
                             if k.startswith("moe.")},
         "layer_input_bytes": count["layer_input_bytes"],
+        "saved_product_bytes": count["saved_product_bytes"],
         "collective_records": count["collective_records"],
         "bounded_ops": count["bounded_ops"],
         "devices": world,
@@ -505,6 +518,10 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"unfused={rec['bytes_accessed']:.3e} "
               f"collective={rec['collective_bytes']:.3e} "
               f"{json.dumps(rec['collectives'])}")
+        if rec["saved_product_bytes"]:
+            print(f"  remat {cfg.remat}: products kept "
+                  f"{rec['saved_product_bytes']:.3e} B beside the unit "
+                  f"inputs' {rec['layer_input_bytes']:.3e} B")
         if rec["seq_collectives"]:
             print(f"  sequence split: layer inputs "
                   f"{rec['layer_input_bytes']:.3e} B, collectives "

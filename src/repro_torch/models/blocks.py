@@ -36,11 +36,14 @@ def _attn_kwargs(cfg: ModelConfig, window, tap_prefix, tap_ctx) -> dict:
 
 
 def _ffn_half(cfg: ModelConfig, params: dict, x: torch.Tensor, h, *,
-              tap_prefix: str, tap_ctx):
+              tap_prefix: str, tap_ctx, closes: bool = False):
     """Residual add of the attention output (post-normed under
     ``post_norm``), then the FFN half likewise: the routed experts where
     the config has them (no taps: JAX puts none on the experts), else the
-    gated MLP. Returns (x, the MoE aux loss, or None without experts)."""
+    gated MLP. Returns (x, the MoE aux loss, or None without experts).
+    ``closes``: the block ends a checkpointed unit, so without a post-norm
+    the down product only feeds the closing residual add and remat "dots"
+    does not keep it."""
     if cfg.post_norm:
         h = _norm(cfg, params["post_ln1"], h)
     x = x + h
@@ -58,7 +61,8 @@ def _ffn_half(cfg: ModelConfig, params: dict, x: torch.Tensor, h, *,
         h = tp.moe_out(h)
     else:
         h = L.mlp(params["mlp"], h, act=cfg.act,
-                  tap_prefix=f"{tap_prefix}.mlp", tap_ctx=tap_ctx)
+                  tap_prefix=f"{tap_prefix}.mlp", tap_ctx=tap_ctx,
+                  keep_out=cfg.post_norm or not closes)
     if cfg.post_norm:
         h = _norm(cfg, params["post_ln2"], h)
     return x + h, aux
@@ -66,14 +70,14 @@ def _ffn_half(cfg: ModelConfig, params: dict, x: torch.Tensor, h, *,
 
 def attn_block(cfg: ModelConfig, params: dict, x: torch.Tensor,
                positions: torch.Tensor, *, window: int | None,
-               tap_prefix: str, tap_ctx: tuple | None):
+               tap_prefix: str, tap_ctx: tuple | None, closes: bool = False):
     """Full-sequence block (prefill, training). Returns (x, the layer's MoE
-    aux loss or None, (k, v))."""
+    aux loss or None, (k, v)). ``closes``: as ``_ffn_half``'s."""
     h, k, v = A.attention_prefill(params["attn"], _norm(cfg, params["ln1"], x),
                                   positions, **_attn_kwargs(cfg, window,
                                                             tap_prefix, tap_ctx))
     x, aux = _ffn_half(cfg, params, x, h, tap_prefix=tap_prefix,
-                       tap_ctx=tap_ctx)
+                       tap_ctx=tap_ctx, closes=closes)
     return x, aux, (k, v)
 
 
@@ -121,19 +125,21 @@ def _ssm_kwargs(cfg: ModelConfig, tap_prefix: str, tap_ctx) -> dict:
 
 
 def ssm_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
-              tap_prefix: str, tap_ctx: tuple | None):
+              tap_prefix: str, tap_ctx: tuple | None, closes: bool = False):
     """Full-sequence block (prefill, training). Returns (x, the layer's
     final {"conv", "ssm"} state: under a plan that splits the heads, the
     rank's heads of the SSM state). The scan runs over the whole sequence:
     a mixer split by heads takes it through ``seq_in`` and gives its output
     columns through ``seq_out``; a replicated one gathers it and keeps its
-    rows."""
+    rows. ``closes``: the block ends a checkpointed unit, so remat "dots"
+    does not keep the out projection, which only feeds the residual
+    add."""
     h = _norm(cfg, params["ln"], x)
     plan = tp.ssm()
     y, st = S.ssm_block(params["ssm"],
                         tp.replicated_in(h) if plan is None
                         else plan.seq_in(h),
-                        chunk=cfg.ssd_chunk,
+                        chunk=cfg.ssd_chunk, keep_out=not closes,
                         **_ssm_kwargs(cfg, tap_prefix, tap_ctx))
     return x + (tp.replicated_out(y) if plan is None
                 else plan.seq_out(y)), st

@@ -7,6 +7,8 @@
   is a dict the caller owns.
 - Under a step's tensor-parallel plan (``distributed.tensor_parallel``) the
   tap name also gives the tap's Mode-A blocks over "model".
+- Under remat "dots" a Dense call's products are kept for the backward
+  (``models.remat``) unless ``keep`` is False.
 """
 from __future__ import annotations
 
@@ -15,16 +17,20 @@ import torch.nn.functional as F
 
 from repro_torch.core import taps as taps_lib
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.models import remat
 
 
 def dense(params: dict, x: torch.Tensor, *, tap: str | None = None,
-          tap_ctx: tuple | None = None) -> torch.Tensor:
-    """y = x @ W (+ ColA tap application)."""
-    y = x @ params["w"].to(x.dtype)
+          tap_ctx: tuple | None = None, keep: bool = True) -> torch.Tensor:
+    """y = x @ W (+ ColA tap application). ``keep`` False: y only feeds the
+    residual add that closes a checkpointed unit, so remat "dots" keeps
+    neither this product nor the tap adapter's last one."""
+    y = remat.matmul(x, params["w"].to(x.dtype), keep)
     if tap is not None and tap_ctx is not None:
         spec, adapters, deltas, aux = tap_ctx
         y, collected = taps_lib.apply_tap(spec, tap, x, y, adapters, deltas,
-                                          layout=tp.tap_layout(tap))
+                                          layout=tp.tap_layout(tap),
+                                          keep=keep)
         aux.update(collected)
     return y
 
@@ -76,13 +82,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def mlp(params: dict, x: torch.Tensor, *, act: str = "silu",
-        tap_prefix: str | None = None, tap_ctx: tuple | None = None
-        ) -> torch.Tensor:
+        tap_prefix: str | None = None, tap_ctx: tuple | None = None,
+        keep_out: bool = True) -> torch.Tensor:
     """Gated MLP (SwiGLU / GeGLU); split over "model" under a plan that
     splits it: gate / up by columns, down by output columns over the
     gathered hidden. Under a step's sequence split ``x`` and the output are
     the rank's rows; the products run on the whole sequence (``seq_in`` /
-    ``seq_out``, or gathered and kept where the MLP is replicated)."""
+    ``seq_out``, or gathered and kept where the MLP is replicated).
+    ``keep_out``: the down product's ``dense(keep=)``."""
     t = (lambda s: f"{tap_prefix}.{s}") if tap_prefix else (lambda s: None)
     plan = tp.mlp()
     x = tp.replicated_in(x) if plan is None else plan.seq_in(x)
@@ -96,6 +103,6 @@ def mlp(params: dict, x: torch.Tensor, *, act: str = "silu",
         raise ValueError(act)
     if plan is None:
         return tp.replicated_out(dense(params["down"], h, tap=t("down"),
-                                       tap_ctx=tap_ctx))
+                                       tap_ctx=tap_ctx, keep=keep_out))
     return plan.seq_out(dense(params["down"], plan.gather_cols(h),
-                              tap=t("down"), tap_ctx=tap_ctx))
+                              tap=t("down"), tap_ctx=tap_ctx, keep=keep_out))

@@ -39,11 +39,9 @@ scatter_prefill_cache, tap_sites, delta_shape.
 """
 from __future__ import annotations
 
-from functools import partial
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.taps import ColaSpec, TapSite
@@ -53,6 +51,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import remat
 from repro_torch.models import ssm as S
 from repro_torch.utils import (canonical_dtype, cdiv, resolve_device,
                                tree_leaves)
@@ -100,26 +99,34 @@ def _calls(cfg: ModelConfig, prefix: str) -> int:
     return n if n else len(layer_plan(cfg)[1])
 
 
-def _walk(cfg: ModelConfig):
-    """(stack, index, attention window) in the order the layers run: the
-    uniform plan's layers in turn; the pairs plan's pairs, layer a with
-    ``window=local_window``, then layer b with no window (JAX's
-    ``_scan_pairs``); the hybrid plan's segments, each the shared block
-    (its index the call, JAX's ``_run_hybrid``) and then the segment's
-    Mamba2 layers."""
+def _units(cfg: ModelConfig):
+    """The checkpointed units in the order they run, each a tuple of its
+    layers' (stack, index, attention window): the uniform plan's layers
+    one a unit; the pairs plan's pairs, layer a with
+    ``window=local_window`` and then layer b with no window, as JAX's
+    ``_scan_pairs`` checkpoints its body; the hybrid plan's segments, each
+    the shared block (its index the call, JAX's ``_run_hybrid``) and then
+    the segment's Mamba2 layers, one a unit (JAX runs the shared block
+    outside any checkpoint: ROADMAP C.13)."""
     plan = _require_ported(cfg)
     if plan[0] == "pairs":
         for i in range(plan[1]):
-            yield "layers_a", i, cfg.local_window
-            yield "layers_b", i, None
+            yield (("layers_a", i, cfg.local_window), ("layers_b", i, None))
     elif plan[0] == "hybrid":
         for i, (start, n) in enumerate(plan[1]):
-            yield "shared", i, None
+            yield (("shared", i, None),)
             for j in range(start, start + n):
-                yield "layers", j, None
+                yield (("layers", j, None),)
     else:
         for i in range(cfg.n_layers):
-            yield "layers", i, None
+            yield (("layers", i, None),)
+
+
+def _walk(cfg: ModelConfig):
+    """(stack, index, attention window) in the order the layers run: the
+    units' layers in turn."""
+    for unit in _units(cfg):
+        yield from unit
 
 
 def _layer(tree, i: int):
@@ -145,18 +152,6 @@ def _site_vars(prefix: str, i: int, params: dict, ad: dict, de: dict
                 {t: d[i] for t, d in de["shared"].items()})
     return (_layer(params[prefix], i), _layer(ad[prefix], i),
             _layer(de[prefix], i))
-
-
-def _checkpointed(cfg: ModelConfig, fn, needs_grad: bool):
-    """``cfg.remat`` for one layer: "full" recomputes the layer in the
-    backward (``torch.utils.checkpoint``, non-reentrant), "none" keeps its
-    activations. Without autograd there is nothing to recompute."""
-    if not needs_grad or cfg.remat == "none":
-        return fn
-    if cfg.remat == "full":
-        return partial(checkpoint, fn, use_reentrant=False)
-    raise NotImplementedError(f"remat={cfg.remat!r} is not ported (no config "
-                              "uses it)")
 
 
 # ---------------------------------------------------------------------------
@@ -376,9 +371,10 @@ _INPUT_METERS: list["layer_input_meter"] = []
 
 
 class layer_input_meter:
-    """While active, ``shapes`` and ``bytes`` record every layer input that
-    ``hidden_states`` passes to a layer (the tensor ``remat="full"`` saves
-    for the layer's recompute): its shape, and its bytes summed."""
+    """While active, ``shapes`` and ``bytes`` record every unit input that
+    ``hidden_states`` passes to a checkpointed unit (``_units``: a layer, or
+    a pair of the pairs plan; the tensor ``remat`` "full" and "dots" save
+    for the unit's recompute): its shape, and its bytes summed."""
 
     def __init__(self):
         self.shapes: list[tuple[int, ...]] = []
@@ -398,21 +394,38 @@ class layer_input_meter:
 
 def _block(cfg: ModelConfig, prefix: str, window: int | None, lp: dict,
            x: torch.Tensor, positions: torch.Tensor, spec, ad_l: dict,
-           de_l: dict):
+           de_l: dict, closes: bool):
     """One layer of stack ``prefix``; returns (x, the MoE aux loss or None,
     the layer's cache leaves ({"k", "v"}, or a Mamba2 block's final
     {"conv", "ssm"} state), {tap: hidden input x} collected). Under a step's
     plan the layer's leaves are gathered here, inside the checkpointed
-    function, so a recompute gathers them again and nothing keeps them."""
+    function, so a recompute gathers them again and nothing keeps them.
+    ``closes``: the layer ends its unit (the blocks' ``closes``)."""
     lp, ad_l = tp.take_layer(prefix, lp, ad_l)
     aux: dict = {}
     tap_ctx = (spec, ad_l, de_l, aux)
     if "ssm" in lp:
-        x, st = B.ssm_block(cfg, lp, x, tap_prefix=prefix, tap_ctx=tap_ctx)
+        x, st = B.ssm_block(cfg, lp, x, tap_prefix=prefix, tap_ctx=tap_ctx,
+                            closes=closes)
         return x, None, st, aux
     x, moe_aux, (k, v) = B.attn_block(cfg, lp, x, positions, window=window,
-                                      tap_prefix=prefix, tap_ctx=tap_ctx)
+                                      tap_prefix=prefix, tap_ctx=tap_ctx,
+                                      closes=closes)
     return x, moe_aux, {"k": k, "v": v}, aux
+
+
+def _unit(cfg: ModelConfig, unit: tuple, x: torch.Tensor,
+          positions: torch.Tensor, spec, site_vars: list):
+    """The layers of one unit (``_units``) in turn, ``site_vars`` each one's
+    (parameters, adapters, deltas); returns (x, each layer's ``_block``
+    results but x)."""
+    out = []
+    for n, ((prefix, _, window), (lp, ad_l, de_l)) in enumerate(
+            zip(unit, site_vars)):
+        x, *rest = _block(cfg, prefix, window, lp, x, positions, spec, ad_l,
+                          de_l, closes=n == len(unit) - 1)
+        out.append(rest)
+    return x, out
 
 
 def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
@@ -429,39 +442,43 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: dict,
     plan both, "shared" one K/V a call), written into one tensor as the
     layers run (never a list and a stacked copy at once).
 
-    Under a step's sequence split (``tensor_parallel.Plan.seq``) the
-    residual stream between blocks, each layer's (checkpointed) input and
-    the returned h are the rank's (B, S / n, d) rows; K / V, states and
-    collected inputs are the whole sequence's, as without it."""
+    Each unit (``_units``) runs under ``cfg.remat``
+    (``remat.checkpointed``) when a tensor of ``params`` or ``cola_vars``
+    takes a gradient. Under a step's sequence split
+    (``tensor_parallel.Plan.seq``) the residual stream between blocks, each
+    unit's (checkpointed) input and the returned h are the rank's (B, S /
+    n, d) rows; K / V, states and collected inputs are the whole
+    sequence's, as without it."""
     stacks = _stacks(cfg)
     ad = {p: _subvars((cola_vars or {}).get("adapters", {}), p) for p in stacks}
     de = {p: _subvars((cola_vars or {}).get("deltas", {}), p) for p in stacks}
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves([params, cola_vars or {}]))
-    layer = _checkpointed(cfg, _block, needs_grad)
+    run = remat.checkpointed(cfg.remat, _unit, needs_grad)
     x = embed_tokens(cfg, params, batch)
     positions = torch.arange(_seq_len(batch), dtype=torch.int32,
                              device=x.device)[None, :]
     kv_out: dict[str, dict] = {}
     collected: dict[str, list] = {}
     moe_aux = []
-    for prefix, i, window in _walk(cfg):
-        lp, ad_l, de_l = _site_vars(prefix, i, params, ad, de)
+    for unit in _units(cfg):
+        site_vars = [_site_vars(prefix, i, params, ad, de)
+                     for prefix, i, _ in unit]
         for m in _INPUT_METERS:
             m.saw(x)
-        x, layer_aux, leaves, got = layer(cfg, prefix, window, lp, x,
-                                          positions, spec, ad_l, de_l)
-        for tap, xin in got.items():
-            collected.setdefault(tap, []).append(xin)
-        if layer_aux is not None:
-            moe_aux.append(layer_aux)
-        if collect_kv:
-            if prefix not in kv_out:
-                kv_out[prefix] = {n: t.new_empty((_calls(cfg, prefix),)
-                                                 + t.shape)
-                                  for n, t in leaves.items()}
-            for n, t in leaves.items():
-                kv_out[prefix][n][i] = t
+        x, outs = run(cfg, unit, x, positions, spec, site_vars)
+        for (prefix, i, _), (layer_aux, leaves, got) in zip(unit, outs):
+            for tap, xin in got.items():
+                collected.setdefault(tap, []).append(xin)
+            if layer_aux is not None:
+                moe_aux.append(layer_aux)
+            if collect_kv:
+                if prefix not in kv_out:
+                    kv_out[prefix] = {n: t.new_empty((_calls(cfg, prefix),)
+                                                     + t.shape)
+                                      for n, t in leaves.items()}
+                for n, t in leaves.items():
+                    kv_out[prefix][n][i] = t
     aux: dict[str, Any] = {
         "moe_aux": (torch.stack(moe_aux).mean() if moe_aux else
                     torch.zeros((), dtype=torch.float32, device=x.device)),

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import sharding
+from repro_torch.models import remat
 from repro_torch.utils import cdiv
 
 
@@ -62,7 +63,7 @@ def _route(params: dict, x: torch.Tensor, top_k: int):
     E * sum_e (mean router probability of e) * (share of choices to e) over
     all tokens (the whole batch's, when a distributed step splits its rows
     over ranks)."""
-    logits = x.float() @ params["router"]["w"].float()
+    logits = remat.matmul(x.float(), params["router"]["w"].float())
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, top_k, dim=-1)
     w = w / w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
@@ -321,8 +322,8 @@ def moe_block(params: dict, x: torch.Tensor, *, top_k: int,
                          device=x.device)
         for j in range(top_k):
             hw = hw + w[..., j, None] * (idx[..., j, None] == experts).float()
-        g = torch.einsum("bsd,edf->bsef", x, params["gate"].to(x.dtype))
-        u = torch.einsum("bsd,edf->bsef", x, params["up"].to(x.dtype))
+        g = remat.einsum("bsd,edf->bsef", x, params["gate"].to(x.dtype))
+        u = remat.einsum("bsd,edf->bsef", x, params["up"].to(x.dtype))
         y = torch.einsum("bsef,efd->bsed", F.silu(g) * u,
                          params["down"].to(x.dtype))
         return torch.einsum("bsed,bse->bsd", y, hw.to(x.dtype)), aux

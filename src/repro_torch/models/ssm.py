@@ -153,7 +153,7 @@ def ssm_block(params: dict, u: torch.Tensor, *, d_model: int, expand: int = 2,
               chunk: int = 128, tap_prefix: str = "ssm",
               tap_ctx: tuple | None = None,
               init_state: torch.Tensor | None = None,
-              conv_state: torch.Tensor | None = None):
+              conv_state: torch.Tensor | None = None, keep_out: bool = True):
     """Full-sequence Mamba2 block. u: (B, S, d_model). Returns (out,
     {"conv": (B, W-1, C) raw-input tail in u's dtype, "ssm": (B, H, P, N)
     f32 final state}).
@@ -163,7 +163,8 @@ def ssm_block(params: dict, u: torch.Tensor, *, d_model: int, expand: int = 2,
     keeps this chunk's outputs, so every position sums the same W raw inputs
     in the same order as one full-sequence call (a zero conv_state gives the
     zero-padded start bit for bit), and the SSD scan folds the carried state
-    in through ``init_state``.
+    in through ``init_state``. ``keep_out``: the out projection's
+    ``layers.dense(keep=)``.
     """
     dims = ssm_dims(d_model, expand=expand, headdim=headdim, state=state)
     di, H, P, N = dims["d_inner"], dims["nheads"], headdim, state
@@ -196,7 +197,7 @@ def ssm_block(params: dict, u: torch.Tensor, *, d_model: int, expand: int = 2,
     y = _gated_norm(params, y.reshape(Bsz, S, di), hs.cols(z), norm_eps,
                     plan)
     out = L.dense(params["out_proj"], y, tap=f"{tap_prefix}.out",
-                  tap_ctx=tap_ctx)
+                  tap_ctx=tap_ctx, keep=keep_out)
     return out, {"conv": tail, "ssm": final_state}
 
 

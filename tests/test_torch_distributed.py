@@ -27,7 +27,8 @@ the JAX package's, on the CPU.
   "model"); a nemo with 6 heads on (2, 4) (heads that do not divide over 4
   ranks: its attention is gathered and replicated over "model") and nemo's
   Mode B and full-FT steps under ``remat="full"`` (the recompute gathers
-  again) equal world size 1 too; the vocab-parallel CE on each rank's
+  again) and Mode B under ``remat="dots"`` (the kept products replayed,
+  the rest recomputed) equal world size 1 too; the vocab-parallel CE on each rank's
   vocab columns equals ``_ce`` on the whole logits, whole and in chunks, in
   value, count and gradient.
 - Sequence parallelism between blocks: under "2d" at S 16 on (2, 4) and
@@ -162,8 +163,15 @@ MOE_CASES = (
 # steps of the head-fallback config, at world sizes 1 and 8 (on (2, 4))
 FALLBACK = (("train", "faithful_offload", 2), ("train", "fused_fit", 2),
             ("prefill", None, 1))
-# steps run under remat="full" on (2, 4), against world size 1's without
-REMAT = (("train", "fused_fit", 2), ("train", "ft", 1))
+# steps run under remat "full" or "dots" on (2, 4), against world size 1's
+# without
+REMAT = (("train", "fused_fit", 2, "full"), ("train", "ft", 1, "full"),
+         ("train", "fused_fit", 2, "dots"))
+
+
+def _remat_tag(remat):
+    """A case name's remat suffix: ":remat" for "full", ":remat-dots"."""
+    return ":remat" if remat == "full" else f":remat-{remat}"
 # mamba's steps on (2, 4) and (2, 2, 2) (the SSD heads split over "model"),
 # mamba2h's at world sizes 1 and 8 (on (2, 4): the mixer replicated), and
 # nemo's at S_ODD at world sizes 1 and 8 (on (2, 4))
@@ -436,7 +444,7 @@ def _case(key, step, mode, m, mesh, inputs, policy=None, batch=None,
     named = f"{mode}:s{S_ODD}" if odd else mode
     c = {"name": _case_name(key, step, named, mesh) + (f":{policy}"
                                                        if policy else "")
-         + (":remat" if remat else ""),
+         + (_remat_tag(remat) if remat else ""),
          "config": CONFIGS[key][0], "overrides": kw, "mesh": mesh,
          "weights": key, "step": step}
     src = inputs["odd"] if odd else inputs
@@ -497,7 +505,7 @@ def runs(tmp_path_factory):
         one.append(_case("nemo6", s, mo, m, (1, 1, 1), inputs["nemo6"]))
         eight.append(_case("nemo6", s, mo, m, (2, 4, 1), inputs["nemo6"]))
     eight += [_case("nemo", s, mo, m, (2, 4, 1), inputs["nemo"],
-                    remat="full") for s, mo, m in REMAT]
+                    remat=r) for s, mo, m, r in REMAT]
     eight += [_case("mamba", s, mo, m, mesh, inputs["mamba"])
               for mesh in SSM_MESHES for s, mo, m in SSM_W8]
     for s, mo, m in SSM_FALLBACK:
@@ -728,7 +736,8 @@ def _moe_names(mesh=None):
     for s, mo, _ in _w8_steps(k, mesh)]
     + ["nemo:train:fused_fit@2x4x1:dp"] + _moe_names()
     + [_case_name("nemo6", s, mo, (2, 4, 1)) for s, mo, _ in FALLBACK]
-    + [_case_name("nemo", s, mo, (2, 4, 1)) + ":remat" for s, mo, _ in REMAT]
+    + [_case_name("nemo", s, mo, (2, 4, 1)) + _remat_tag(r)
+       for s, mo, _, r in REMAT]
     + [_case_name("mamba", s, mo, mesh) for mesh in SSM_MESHES
        for s, mo, _ in SSM_W8]
     + [_case_name("mamba2h", s, mo, (2, 4, 1)) for s, mo, _ in SSM_FALLBACK]
@@ -781,6 +790,7 @@ LAYER_INPUTS = {
     "nemo:train:fused_fit@2x4x1": (4, 4, 64),
     "nemo:train:fused_fit@2x4x1:remat": (4, 4, 64),
     "nemo:train:ft@2x4x1:remat": (8, 4, 64),
+    "nemo:train:fused_fit@2x4x1:remat-dots": (4, 4, 64),
     "nemo:prefill:None@2x4x1": (4, 4, 64),
     "nemo:train:fused_fit@2x2x2": (2, 8, 64),
     "qwen:train:fused_fit@2x4x1": (4, 4, 64),

@@ -518,24 +518,23 @@ def test_train_step_b_and_ft_match_jax(setup):
 
 def test_remat_full_gives_the_same_gradients(setup):
     """remat="full" (torch.utils.checkpoint per layer) recomputes the layers
-    in the backward and changes no number."""
+    in the backward, and remat="dots" replays the products it kept; neither
+    changes a number."""
     cfg, tcfg, params, tparams, batches = setup
     cc, ad = _adapters(cfg, "lowrank")
     _, tspec = _specs(cfg, tcfg, cc)
     out = {}
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         c = tcfg.replace(remat=remat)
         out[remat] = tgl.server_step_a(c, tspec, tparams,
                                        convert.adapters_from_numpy(
                                            ad, device="cpu"),
                                        _tb(batches[0]))[:2]
-    assert torch.equal(out["none"][0], out["full"][0])
-    for tap, (x, g) in out["none"][1].items():
-        assert torch.equal(x, out["full"][1][tap][0])
-        assert torch.equal(g, out["full"][1][tap][1])
-    with pytest.raises(NotImplementedError, match="dots"):
-        tgl.server_step_a(tcfg.replace(remat="dots"), tspec, tparams, {},
-                          _tb(batches[0]))
+    for remat in ("full", "dots"):
+        assert torch.equal(out["none"][0], out[remat][0])
+        for tap, (x, g) in out["none"][1].items():
+            assert torch.equal(x, out[remat][1][tap][0])
+            assert torch.equal(g, out[remat][1][tap][1])
 
 
 def test_tap_and_merge_helpers_match_jax(setup):
